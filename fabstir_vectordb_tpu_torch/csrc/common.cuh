@@ -1,6 +1,6 @@
 // Shared pieces of the port's kernels: the C error hook, the shared-memory
-// cap, the (distance, row) order, a warp's row norm and a warp-held sorted
-// top-k list.
+// cap, the (distance, row) order, a warp's row norm and dot products, a
+// block-wide rank of a predicate and a warp-held sorted top-k list.
 //
 // Every exported function returns the cudaError_t of its launches as an int;
 // the Python wrapper raises on anything but 0.
@@ -49,6 +49,91 @@ __device__ __forceinline__ float warp_row_sq(const float* __restrict__ row,
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
   return s;
+}
+
+// max(|q|^2 - 2 q.x + |x|^2, 0), the JAX package's _gather_dists form; a
+// cancellation to -0 comes out as +0, so a distance's bits order it.
+__device__ __forceinline__ float sq_dist(float q_sq, float dot, float x_sq) {
+  const float v = q_sq - 2.f * dot + x_sq;
+  return v > 0.f ? v : 0.f;
+}
+
+// Dot products of one query (D floats in shared memory) with G rows of x,
+// taken by a whole warp; every lane ends with the G sums. A row < 0 is
+// skipped and gives 0. When D is a multiple of 128 (16-byte aligned rows),
+// lane l takes dims 4l..4l+3 of each 128-dim chunk, and every row's loads
+// of three chunks are issued before any FMA, so a 384-dim group costs one
+// memory round trip instead of one a dim step; else lane l sums dims l,
+// l+32, .... Then a shuffle tree.
+template <int G>
+__device__ __forceinline__ void warp_dots(const float* qs,
+                                          const float* __restrict__ x,
+                                          const int (&rows)[G], int D,
+                                          float (&acc)[G]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  if ((D & 127) == 0) {
+    for (int c0 = 0; c0 < D; c0 += 3 * 128) {
+      float4 v[3][G];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int d = c0 + c * 128 + 4 * lane;
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          v[c][g] = rows[g] >= 0 && d < D
+                        ? __ldg(reinterpret_cast<const float4*>(
+                              x + (size_t)rows[g] * D + d))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int d = c0 + c * 128 + 4 * lane;
+        if (d >= D) break;  // uniform: D is a multiple of 128
+        const float4 qv = *reinterpret_cast<const float4*>(qs + d);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          acc[g] = fmaf(qv.x, v[c][g].x, acc[g]);
+          acc[g] = fmaf(qv.y, v[c][g].y, acc[g]);
+          acc[g] = fmaf(qv.z, v[c][g].z, acc[g]);
+          acc[g] = fmaf(qv.w, v[c][g].w, acc[g]);
+        }
+      }
+    }
+  } else {
+    for (int d = lane; d < D; d += 32) {
+      const float qv = qs[d];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (rows[g] >= 0)
+          acc[g] = fmaf(qv, __ldg(x + (size_t)rows[g] * D + d), acc[g]);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      acc[g] += __shfl_xor_sync(FULL, acc[g], off);
+}
+
+// This thread's index among the block's threads whose `pred` holds (in
+// thread order), and their count in *total. Every thread of the block calls
+// it; s_wcnt holds NT / 32 ints of shared memory.
+__device__ __forceinline__ int block_rank(bool pred, int* s_wcnt, int* total) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned bal = __ballot_sync(FULL, pred);
+  __syncthreads();  // s_wcnt is free from its last use
+  if (lane == 0) s_wcnt[w] = __popc(bal);
+  __syncthreads();
+  int off = 0, tot = 0;
+#pragma unroll
+  for (int i = 0; i < NT / 32; ++i) {
+    const int c = s_wcnt[i];
+    off += i < w ? c : 0;
+    tot += c;
+  }
+  *total = tot;
+  return off + __popc(bal & ((1u << lane) - 1u));
 }
 
 // A sorted list of at most k (distance, row) pairs in shared memory, owned

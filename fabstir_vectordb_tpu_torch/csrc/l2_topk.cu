@@ -37,7 +37,17 @@
 //  * Pass 2 merges the S sorted lists of each query in one block: each warp
 //    folds every 8th list into a list of its own (the first one by a plain
 //    copy), then one warp folds the 8 results.
+//
+// k > 256 (a filtered search asks for 3 k, and k reaches 16,384): the lists
+// would not fit shared memory, so pass 1 runs the same tile product but
+// writes each query's masked distances (+inf where the mask is False) to a
+// [B, N] buffer instead of offering them to lists, and topk_select.cuh's
+// radix select picks the k smallest (distance, row) of each buffer row. The
+// buffer costs 4 N bytes written and ~4 passes of 4 N bytes read a query,
+// against the 4 N D / 32 bytes a query of the product itself; the wrapper
+// runs query chunks so it stays within 1 GiB.
 #include "common.cuh"
+#include "topk_select.cuh"
 
 namespace fvdb {
 
@@ -58,11 +68,14 @@ union PassSmem {
 };
 static_assert(sizeof(float) * QT * DPAD <= sizeof(Stage) * 2, "alias");
 
+// DUMP: write the masked distances to dump [B, N] instead of selecting.
+template <bool DUMP>
 __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
     const float* __restrict__ x, const float* __restrict__ x_sq,
     const uint8_t* __restrict__ mask, long long mask_stride,
     const float* __restrict__ q, int B, int N, int D, int k, int split_rows,
-    float* __restrict__ part_d, int* __restrict__ part_r) {
+    float* __restrict__ part_d, int* __restrict__ part_r,
+    float* __restrict__ dump) {
   __shared__ __align__(16) PassSmem s;
   __shared__ float q_sq[QT];
   extern __shared__ unsigned char dyn[];
@@ -151,37 +164,54 @@ __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
     for (int i = 0; i < 4; ++i) {
       const int ql = qg * 4 + i;
       const bool q_ok = ql < qn;
-      const uint8_t* m = mask + (q_ok ? (long long)(q0 + ql) * mask_stride : 0);
+      const uint8_t* m =
+          mask ? mask + (q_ok ? (long long)(q0 + ql) * mask_stride : 0)
+               : nullptr;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int row = r0 + rbase + j;
         float dist = INFINITY;
-        if (q_ok && row < row_hi && m[row])
+        if (q_ok && row < row_hi && (!m || m[row]))
           dist = fmaxf(q_sq[ql] - 2.f * acc[i][j] + x_sq[row], 0.f);
         s.dist[ql][rbase + j] = dist;
       }
     }
     __syncthreads();
+    if constexpr (DUMP) {  // coalesced: lanes write consecutive rows
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ql = w * 4 + i;
+        if (ql >= qn) continue;
+        float* o = dump + (size_t)(q0 + ql) * N + r0;
+        for (int j = 0; j < RT / 32; ++j) {
+          const int rl = lane + 32 * j;
+          if (r0 + rl < row_hi) o[rl] = s.dist[ql][rl];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ql = w * 4 + i;
+        if (ql >= qn) continue;  // uniform across the warp
+        WarpList list{list_d + ql * k, list_r + ql * k, fill[i], k};
+        for (int j = 0; j < RT / 32; ++j) {
+          const int rl = lane + 32 * j;
+          const float dist = s.dist[ql][rl];
+          list.offer(isfinite(dist), dist, r0 + rl);
+        }
+        fill[i] = list.n;
+      }
+    }
+  }
+  if constexpr (!DUMP) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ql = w * 4 + i;
-      if (ql >= qn) continue;  // uniform across the warp
-      WarpList list{list_d + ql * k, list_r + ql * k, fill[i], k};
-      for (int j = 0; j < RT / 32; ++j) {
-        const int rl = lane + 32 * j;
-        const float dist = s.dist[ql][rl];
-        list.offer(isfinite(dist), dist, r0 + rl);
+      if (ql < qn) {
+        const size_t off = ((size_t)blockIdx.y * B + q0 + ql) * k;
+        WarpList{list_d + ql * k, list_r + ql * k, fill[i], k}.store(
+            part_d + off, part_r + off);
       }
-      fill[i] = list.n;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ql = w * 4 + i;
-    if (ql < qn) {
-      const size_t off = ((size_t)blockIdx.y * B + q0 + ql) * k;
-      WarpList{list_d + ql * k, list_r + ql * k, fill[i], k}.store(
-          part_d + off, part_r + off);
     }
   }
 }
@@ -212,8 +242,8 @@ __global__ void __launch_bounds__(NT) l2_topk_merge(
 
 }  // namespace fvdb
 
-// x [N, D], x_sq [N], mask [B or 1, N] (mask_stride N or 0), q [B, D];
-// part_* [S, B, k] scratch; out_* [B, k].
+// x [N, D], x_sq [N], mask [B or 1, N] (mask_stride N or 0; null: every
+// row), q [B, D]; part_* [S, B, k] scratch; out_* [B, k].
 FVDB_EXPORT int fvdb_l2_topk(const float* x, const float* x_sq,
                              const uint8_t* mask, long long mask_stride,
                              const float* q, int B, int N, int D, int k,
@@ -226,16 +256,40 @@ FVDB_EXPORT int fvdb_l2_topk(const float* x, const float* x_sq,
   split_rows = (split_rows + RT - 1) / RT * RT;
   const int smem1 = QT * k * 8;
   static int cap1[64];
-  cudaError_t e = raise_smem_cap(reinterpret_cast<const void*>(l2_topk_partial),
-                                 smem1, cap1);
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(l2_topk_partial<false>), smem1, cap1);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid1((B + QT - 1) / QT, S);
-  l2_topk_partial<<<grid1, NT, smem1, stream>>>(
-      x, x_sq, mask, mask_stride, q, B, N, D, k, split_rows, part_d, part_r);
+  l2_topk_partial<false><<<grid1, NT, smem1, stream>>>(
+      x, x_sq, mask, mask_stride, q, B, N, D, k, split_rows, part_d, part_r,
+      nullptr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int smem2 = (NT / 32) * k * 8;  // <= 16 KB: under the default cap
   l2_topk_merge<<<B, NT, smem2, stream>>>(part_d, part_r, B, k, S, out_d,
                                            out_r);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Any k >= 1: dump [B, N] distance scratch; work: fvdb_select_scratch_bytes
+// (B, k) bytes of selection scratch.
+FVDB_EXPORT int fvdb_l2_topk_large(const float* x, const float* x_sq,
+                                   const uint8_t* mask, long long mask_stride,
+                                   const float* q, int B, int N, int D, int k,
+                                   int S, float* dump, void* work,
+                                   float* out_d, int* out_r,
+                                   cudaStream_t stream) {
+  using namespace fvdb;
+  if (k < 1 || B < 1 || N < 1 || D < 1 || S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int split_rows = (N + S - 1) / S;
+  split_rows = (split_rows + RT - 1) / RT * RT;
+  dim3 grid1((B + QT - 1) / QT, S);
+  l2_topk_partial<true><<<grid1, NT, 0, stream>>>(
+      x, x_sq, mask, mask_stride, q, B, N, D, 0, split_rows, nullptr, nullptr,
+      dump);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
+                                             work, out_d, out_r, stream));
 }

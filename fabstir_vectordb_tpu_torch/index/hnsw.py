@@ -1,32 +1,36 @@
-"""HNSW graph index, insert path: fixed-degree adjacency built by exact
-device candidates and host linking.
+"""HNSW graph index: fixed-degree adjacency, device candidates and search,
+host linking.
 
-The JAX package's ``index/hnsw.py`` as far as the flat-regime slice needs
-it. The host side (level sampling from ``np.random.default_rng(seed)``,
-dense -1 padded adjacency ``nbrs0 [cap, M0]`` / ``nbrs_up``, the vectorised
-linking and the reverse-link prune) is a copy. The device side is:
+The JAX package's ``index/hnsw.py``. The host side (level sampling from
+``np.random.default_rng(seed)``, dense -1 padded adjacency ``nbrs0 [cap,
+M0]`` / ``nbrs_up``, the vectorised linking and the reverse-link prune, the
+dirty-row bookkeeping of the device adjacency) is a copy. The device side:
 
-- link candidates: the exact top-``ef_construction`` members of each new
-  row, from the fused L2 top-k kernel (K1, ``ops.topk.l2_topk``) over the
-  member-occupied prefix of the mirror, with a device member mask updated
-  in place per batch;
+- link candidates, exact while the member-occupied prefix fits the flat
+  threshold: the top-``ef_construction`` members of each new row from the
+  fused L2 top-k kernel (K1, ``ops.topk.l2_topk``), with a device member
+  mask updated in place per batch; above it (or with ``link_mode="layer0"``)
+  a greedy descent (K10) and one layer-0 beam of ef_construction (K11);
 - the neighbour-selection heuristic (K4, :func:`heuristic_kept`);
-- the row-pair distances of the reverse-link prune (K5, :func:`pair_sq_l2`).
+- the row-pair distances of the reverse-link prune (K5, :func:`pair_sq_l2`);
+- search: greedy descent over the upper layers (K10,
+  :func:`greedy_descent`) and a layer-0 beam (K11, :func:`beam_search`).
 
-Graph search (greedy descent + layer-0 beam) comes with the pruned serving
-regime; so does the beam candidate plan used above the flat threshold.
+``link_mode="per_layer"`` (a beam per layer) is not ported and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..ops.topk import l2_topk
+from ..ops.topk import INF, l2_topk
 from ..utils import limits, native
-from ..utils.padding import bucket, grow_rows
+from ..utils.padding import bucket, fit_mask, grow_rows
 from ..utils.transfer import to_device, to_host
 from .store import VectorStore, serving_mirror
 
@@ -41,6 +45,11 @@ class HNSWConfig:
     max_level: int = 16
     seed: int | None = 42
     bootstrap_threshold: int = 1024  # below this, exact candidates (host)
+    # link candidates: "auto" takes exact K1 candidates while the member
+    # prefix fits the flat threshold and the "layer0" plan above it;
+    # "layer0" is greedy descent + one layer-0 beam, every layer linked
+    # from its pool; "per_layer" (a beam per layer) is not ported
+    link_mode: str = "auto"
 
 
 @dataclass
@@ -140,6 +149,301 @@ def pair_sq_l2(x, x_sq, t_ids, c_ids) -> torch.Tensor:
     return out
 
 
+def _gather_dists(x, x_sq, q, q_sq, ids):
+    """Distances from each query to its own ids: q [B, D], ids [B, M] ->
+    [B, M], max(|q|^2 - 2 q.x + |x|^2, 0); a -1 id gathers row 0."""
+    safe = ids.clamp_min(0).long()
+    dots = torch.einsum("bd,bmd->bm", q, x[safe])
+    return (q_sq[:, None] - 2.0 * dots + x_sq[safe]).clamp_min(0.0)
+
+
+def _mark_seen(stats: dict, x, rows) -> None:
+    """Mark ``rows`` in stats["seen"] ([N] bool: the rows scored at least
+    once, whose bytes a bound counts once however often they are read)."""
+    if "seen" not in stats:
+        stats["seen"] = torch.zeros(x.shape[0], dtype=torch.bool,
+                                    device=x.device)
+    stats["seen"][rows.long()] = True
+
+
+def greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
+                         entry_level: int, stop_layer=None,
+                         max_hops: int = 512, stats: dict | None = None):
+    """Plain version of K10 (the reference's while_loop, step for step).
+    ``stats`` (a dict) gets "hops" (hop attempts of active queries),
+    "rows" (unmasked neighbour rows they scored) and "seen" (see
+    _mark_seen): the work the kernel does on these inputs."""
+    b = q.shape[0]
+    dev = q.device
+    if stop_layer is None:
+        stop_layer = torch.zeros(b, dtype=torch.int32, device=dev)
+    q_sq = (q * q).sum(-1)
+    cur = torch.full((b,), entry, dtype=torch.int32, device=dev)
+    e_d = _gather_dists(x, x_sq, q, q_sq, cur[:, None])[:, 0]
+    cur_d = torch.where(mask[cur.clamp_min(0).long()], e_d,
+                        torch.full_like(e_d, INF))
+    layer = torch.full((b,), entry_level, dtype=torch.int32, device=dev)
+    rows_max = nbrs_up.shape[0] - 1
+    hops = 0
+    while hops < max_hops and bool((layer > stop_layer).any()):
+        active = layer > stop_layer
+        row = (up_offset[cur.clamp_min(0).long()] + layer - 1).clamp(
+            0, rows_max)
+        nbr = nbrs_up[row.long()]  # [B, M]
+        d = _gather_dists(x, x_sq, q, q_sq, nbr)
+        valid = (nbr >= 0) & mask[nbr.clamp_min(0).long()]
+        if stats is not None:
+            scored = valid & active[:, None]
+            stats["hops"] = stats.get("hops", 0) + int(active.sum())
+            stats["rows"] = stats.get("rows", 0) + int(scored.sum())
+            _mark_seen(stats, x, nbr[scored])
+        d = torch.where(valid, d, torch.full_like(d, INF))
+        j = torch.argmin(d, dim=1, keepdim=True)  # the first minimum
+        best_d = torch.gather(d, 1, j)[:, 0]
+        best_id = torch.gather(nbr, 1, j)[:, 0]
+        improved = active & (best_d < cur_d)
+        cur = torch.where(improved, best_id, cur)
+        cur_d = torch.where(improved, best_d, cur_d)
+        layer = torch.where(active & ~improved, layer - 1, layer)
+        hops += 1
+    return cur, cur_d
+
+
+def greedy_descent(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
+                   entry_level: int, stop_layer=None, max_hops: int = 512):
+    """K10: batched greedy ef=1 descent from (entry, entry_level) down to
+    stop_layer [B] int32 (None: layer 0). mask [N] bool gates traversal.
+    Returns (cur [B] int32, cur_d [B] f32). The plain version on CPU
+    tensors, csrc/greedy_descent.cu on CUDA tensors (M <= 32)."""
+    if x.device.type == "cpu":
+        return greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q,
+                                    entry, entry_level, stop_layer, max_hops)
+    dev = x.device
+    native.check(x, "x", torch.float32, 2, dev)
+    native.check(x_sq, "x_sq", torch.float32, 1, dev)
+    native.check(mask, "mask", torch.bool, 1, dev)
+    native.check(nbrs_up, "nbrs_up", torch.int32, 2, dev)
+    native.check(up_offset, "up_offset", torch.int32, 1, dev)
+    native.check(q, "q", torch.float32, 2, dev)
+    if stop_layer is not None:
+        native.check(stop_layer, "stop_layer", torch.int32, 1, dev)
+    b, d = q.shape
+    m = nbrs_up.shape[1]
+    if not 1 <= m <= 32 or d != x.shape[1]:
+        raise ValueError(f"greedy_descent takes [R, M<=32] lists and "
+                         f"matching dims, got {tuple(nbrs_up.shape)}, "
+                         f"q {tuple(q.shape)}, x {tuple(x.shape)}")
+    cur = torch.empty(b, dtype=torch.int32, device=dev)
+    cur_d = torch.empty(b, dtype=torch.float32, device=dev)
+    if b == 0:
+        return cur, cur_d
+    P, I = native.P, native.I
+    native.call(
+        "greedy_descent", "fvdb_greedy_descent",
+        [P, P, P, P, P, I, P, P, I, I, I, I, I, I, P, P, P],
+        x.data_ptr(), x_sq.data_ptr(), mask.data_ptr(), nbrs_up.data_ptr(),
+        up_offset.data_ptr(), nbrs_up.shape[0], q.data_ptr(),
+        0 if stop_layer is None else stop_layer.data_ptr(), b, d, m,
+        int(entry), int(entry_level), int(max_hops), cur.data_ptr(),
+        cur_d.data_ptr(), native.stream_of(x))
+    native.launches["greedy_descent"] += 1
+    return cur, cur_d
+
+
+def _sorted_by_dist(d, ids, *rest):
+    """Stable sort of each row by distance, carrying ids (and rest)."""
+    d, order = torch.sort(d, dim=1, stable=True)
+    return (d, torch.gather(ids, 1, order),
+            *(torch.gather(r, 1, order) for r in rest))
+
+
+def _dedup_sorted(d, ids):
+    """Drop repeated ids from a distance-sorted list (keep the first) and
+    sort again (the reference's _dedup_sorted)."""
+    ef = ids.shape[1]
+    tri = torch.tril(torch.ones(ef, ef, dtype=torch.bool, device=ids.device),
+                     -1)
+    dup = ((ids[:, :, None] == ids[:, None, :]) & (ids[:, None, :] >= 0)
+           & tri[None]).any(-1)
+    d = torch.where(dup, torch.full_like(d, INF), d)
+    ids = torch.where(dup, torch.full_like(ids, -1), ids)
+    return _sorted_by_dist(d, ids)
+
+
+def beam_search_plain(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q,
+                      start_ids, active, layer: int, ef: int,
+                      max_iters: int, result_mask=None,
+                      use_nbrs0: bool | None = None, expand: int = 1,
+                      stats: dict | None = None):
+    """Plain version of K11: the reference's _beam_search_jit step for step
+    (stable sorts, the same done / keep logic). ``stats`` (a dict) gets
+    "steps" (steps of running queries), "parents" (lists gathered),
+    "rows" (neighbours that passed the filters and were scored) and "seen"
+    (see _mark_seen): the work the kernel does on these inputs."""
+    if use_nbrs0 is None:
+        use_nbrs0 = int(layer) == 0
+    dev = q.device
+    b, s = start_ids.shape
+    start_ids = start_ids.to(torch.int32)
+    if active is None:
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+    q_sq = (q * q).sum(-1)
+    safe_start = start_ids.clamp_min(0).long()
+    start_valid = (start_ids >= 0) & mask[safe_start]
+    if s > 1:  # drop repeated start ids (keep the first)
+        tri_s = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev), -1)
+        dup0 = ((start_ids[:, :, None] == start_ids[:, None, :])
+                & (start_ids[:, None, :] >= 0) & tri_s[None]).any(-1)
+        start_valid &= ~dup0
+    d0 = _gather_dists(x, x_sq, q, q_sq, start_ids)
+    d0 = torch.where(start_valid, d0, torch.full_like(d0, INF))
+    pad = max(ef - s, 0)
+    pad_d = torch.full((b, pad), INF, device=dev)
+    pad_i = torch.full((b, pad), -1, dtype=torch.int32, device=dev)
+    neg = torch.full_like(start_ids, -1)
+    pool_d, pool_id = _sorted_by_dist(
+        torch.cat([d0, pad_d], 1)[:, :ef],
+        torch.cat([torch.where(start_valid, start_ids, neg), pad_i], 1)[:, :ef])
+    pool_exp = torch.zeros((b, ef), dtype=torch.bool, device=dev)
+    has_res = result_mask is not None
+    if has_res:
+        elig0 = start_valid & result_mask[safe_start]
+        res_d, res_id = _sorted_by_dist(
+            torch.cat([torch.where(elig0, d0, torch.full_like(d0, INF)),
+                       pad_d], 1)[:, :ef],
+            torch.cat([torch.where(elig0, start_ids, neg), pad_i], 1)[:, :ef])
+    else:
+        res_d, res_id = pool_d, pool_id
+    done = ~active
+    rows_max = nbrs_up.shape[0] - 1
+    it = 0
+    while it < max_iters and bool((~done).any()):
+        und = torch.where(pool_exp | (pool_id < 0),
+                          torch.full_like(pool_d, INF), pool_d)
+        seld, bsel = torch.sort(und, dim=1, stable=True)
+        seld, bsel = seld[:, :expand], bsel[:, :expand]  # lax.top_k order
+        bd = seld[:, 0]
+        worst = pool_d[:, -1]
+        pool_full = pool_id[:, -1] >= 0
+        done2 = done | torch.isinf(bd) | (pool_full & (bd > worst))
+        run = ~done2
+        nid = torch.gather(pool_id, 1, bsel)
+        parent_ok = torch.isfinite(seld) & (nid >= 0) & run[:, None]
+        pool_exp2 = pool_exp.scatter(
+            1, bsel, torch.gather(pool_exp, 1, bsel) | parent_ok)
+        nid_safe = nid.clamp_min(0).long()
+        if use_nbrs0:
+            nbr = nbrs0[nid_safe]  # [B, W, M0]
+        else:
+            row = (up_offset[nid_safe] + layer - 1).clamp(0, rows_max)
+            nbr = nbrs_up[row.long()]  # [B, W, M]
+        nbr = torch.where(parent_ok[:, :, None], nbr,
+                          torch.full_like(nbr, -1)).reshape(b, -1)
+        m_w = nbr.shape[1]
+        in_pool = (nbr[:, :, None] == pool_id[:, None, :]).any(-1)
+        tri = torch.tril(torch.ones(m_w, m_w, dtype=torch.bool, device=dev),
+                         -1)
+        step_dup = ((nbr[:, :, None] == nbr[:, None, :]) & tri[None]).any(-1)
+        nbr_safe = nbr.clamp_min(0).long()
+        valid = ((nbr >= 0) & ~in_pool & ~step_dup & mask[nbr_safe]
+                 & run[:, None])
+        if stats is not None:
+            for key, v in (("steps", run), ("parents", parent_ok),
+                           ("rows", valid)):
+                stats[key] = stats.get(key, 0) + int(v.sum())
+            _mark_seen(stats, x, nbr[valid])
+        nd = _gather_dists(x, x_sq, q, q_sq, nbr)
+        nd = torch.where(valid, nd, torch.full_like(nd, INF))
+        new_d, new_id, new_exp = _sorted_by_dist(
+            torch.cat([pool_d, nd], 1),
+            torch.cat([pool_id, torch.where(valid, nbr,
+                                            torch.full_like(nbr, -1))], 1),
+            torch.cat([pool_exp2, torch.zeros_like(valid)], 1))
+        keep = done2[:, None]
+        pool_d = torch.where(keep, pool_d, new_d[:, :ef])
+        pool_id = torch.where(keep, pool_id, new_id[:, :ef])
+        pool_exp = torch.where(keep, pool_exp2, new_exp[:, :ef])
+        if has_res:
+            elig = valid & result_mask[nbr_safe]
+            rall_d, rall_id = _sorted_by_dist(
+                torch.cat([res_d, torch.where(elig, nd,
+                                              torch.full_like(nd, INF))], 1),
+                torch.cat([res_id, torch.where(elig, nbr,
+                                               torch.full_like(nbr, -1))], 1))
+            res_d = torch.where(keep, res_d, rall_d[:, :ef])
+            res_id = torch.where(keep, res_id, rall_id[:, :ef])
+        else:
+            res_d, res_id = pool_d, pool_id
+        done = done2
+        it += 1
+    return _dedup_sorted(res_d, res_id)
+
+
+def beam_search(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start_ids,
+                active, layer: int, ef: int, max_iters: int,
+                result_mask=None, use_nbrs0: bool | None = None,
+                expand: int = 1):
+    """K11: batched beam search at one graph layer.
+
+    q [B, D] f32; start_ids [B, S] int32 (-1 padded); active [B] bool or
+    None (all); mask [N] bool gates traversal; result_mask [N] bool or
+    None gates only which rows may be returned (the filter path). Each step
+    expands the ``expand`` best unexpanded pool entries. Returns (d [B, ef]
+    f32, ids [B, ef] int32) sorted ascending, +inf / -1 padded. The plain
+    version on CPU tensors, csrc/beam_search.cu on CUDA tensors (expand x
+    list width <= 256)."""
+    if use_nbrs0 is None:
+        use_nbrs0 = int(layer) == 0
+    if x.device.type == "cpu":
+        return beam_search_plain(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q,
+                                 start_ids, active, layer, ef, max_iters,
+                                 result_mask, use_nbrs0, expand)
+    dev = x.device
+    native.check(x, "x", torch.float32, 2, dev)
+    native.check(x_sq, "x_sq", torch.float32, 1, dev)
+    native.check(mask, "mask", torch.bool, 1, dev)
+    native.check(q, "q", torch.float32, 2, dev)
+    native.check(start_ids, "start_ids", torch.int32, 2, dev)
+    for t, name in ((active, "active"), (result_mask, "result_mask")):
+        if t is not None:
+            native.check(t, name, torch.bool, 1, dev)
+    adj = nbrs0 if use_nbrs0 else nbrs_up
+    native.check(adj, "adjacency", torch.int32, 2, dev)
+    if not use_nbrs0:
+        native.check(up_offset, "up_offset", torch.int32, 1, dev)
+    b, d = q.shape
+    s = start_ids.shape[1]
+    mw = adj.shape[1]
+    if expand * mw > 256 or s < 1 or ef < 1 or d != x.shape[1] \
+            or start_ids.shape[0] != b:
+        raise ValueError(
+            f"beam_search takes expand x width <= 256, S >= 1, ef >= 1 and "
+            f"matching shapes: expand {expand}, adjacency "
+            f"{tuple(adj.shape)}, start {tuple(start_ids.shape)}, ef {ef}")
+    out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
+    out_id = torch.empty((b, ef), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_id
+    P, I = native.P, native.I
+    per_q = native.query("beam_search", "fvdb_beam_scratch_bytes", [I, I],
+                         d, ef)
+    scratch = (torch.empty(b * per_q, dtype=torch.uint8, device=dev)
+               if per_q else None)
+    native.call(
+        "beam_search", "fvdb_beam_search",
+        [P, P, P, P, I, I, P, I, P, I, I, P, I, P, P, I, I, I, P, P, P, P],
+        x.data_ptr(), x_sq.data_ptr(), mask.data_ptr(), adj.data_ptr(),
+        adj.shape[0], mw, 0 if use_nbrs0 else up_offset.data_ptr(),
+        int(layer), q.data_ptr(), b, d, start_ids.data_ptr(), s,
+        0 if active is None else active.data_ptr(),
+        0 if result_mask is None else result_mask.data_ptr(), int(ef),
+        int(max_iters), int(expand),
+        0 if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
+        out_id.data_ptr(), native.stream_of(x))
+    native.launches["beam_search"] += 1
+    return out_d, out_id
+
+
 def _heuristic_kept_host(vecs, cand_d, valid, m: int) -> np.ndarray:
     """Host twin of heuristic_kept. vecs [B, C, D] candidate vectors
     (rows must be pre-gathered), cand_d [B, C] ascending."""
@@ -171,7 +475,8 @@ _KEPT_DEVICE_MIN = 1_024
 
 
 class HNSWIndex:
-    """HNSW over a shared VectorStore: device candidates, host linking."""
+    """HNSW over a shared VectorStore: device candidates and search, host
+    linking."""
 
     def __init__(self, store: VectorStore, config: HNSWConfig | None = None):
         self.store = store
@@ -187,6 +492,17 @@ class HNSWIndex:
         self.max_level = -1
         self._rng = np.random.default_rng(self.config.seed)
         self._version = 0
+        # device adjacency, updated by dirty-row deltas (a full upload is
+        # ~200 MB at 1M rows; a linked batch dirties ~4 MB of it)
+        self._device: dict | None = None
+        self._device_version = -1
+        self._dirty0: set = set()
+        self._dirty_up: set = set()
+        self._dirty_off: set = set()
+        self._dirty_full = True
+        # serializes device rebuilds against dirty marks: a clear() racing
+        # a writer's update() could drop deltas
+        self._dev_sync = threading.Lock()
 
     # ----------------------------------------------------------- bookkeeping
     def _ensure_capacity(self) -> None:
@@ -204,6 +520,70 @@ class HNSWIndex:
         start = self.up_count
         self.up_count += n
         return start
+
+    def _mark_dirty0(self, rows) -> None:
+        with self._dev_sync:
+            if not self._dirty_full:
+                self._dirty0.update(np.atleast_1d(np.asarray(rows)).tolist())
+
+    def _mark_dirty_up(self, rows) -> None:
+        with self._dev_sync:
+            if not self._dirty_full:
+                self._dirty_up.update(
+                    np.atleast_1d(np.asarray(rows)).tolist())
+
+    def _mark_dirty_off(self, rows) -> None:
+        with self._dev_sync:
+            if not self._dirty_full:
+                self._dirty_off.update(
+                    np.atleast_1d(np.asarray(rows)).tolist())
+
+    def _device_arrays(self) -> dict:
+        """nbrs0, nbrs_up, up_offset on the store's device, current with the
+        host arrays: scattered rows when under 25% of them changed, else a
+        full upload."""
+        with self._dev_sync:
+            if self._device is not None \
+                    and self._device_version == self._version:
+                return self._device
+            dev = self._device
+            shapes_ok = (
+                dev is not None and not self._dirty_full
+                and tuple(dev["nbrs0"].shape) == self.nbrs0.shape
+                and tuple(dev["nbrs_up"].shape) == self.nbrs_up.shape
+                and tuple(dev["up_offset"].shape) == self.up_offset.shape)
+            device = self.store.device
+            if shapes_ok and (len(self._dirty0) + len(self._dirty_up)
+                              < 0.25 * self.nbrs0.shape[0]):
+                for name, host, dirty in (
+                        ("nbrs0", self.nbrs0, self._dirty0),
+                        ("nbrs_up", self.nbrs_up, self._dirty_up),
+                        ("up_offset", self.up_offset, self._dirty_off)):
+                    if dirty:
+                        idx = np.fromiter(dirty, np.int64, len(dirty))
+                        dev[name].index_copy_(0, to_device(idx, device),
+                                              to_device(host[idx], device))
+            else:
+                self._device = None  # free the stale copy first
+                self._device = {
+                    "nbrs0": to_device(self.nbrs0, device),
+                    "nbrs_up": to_device(self.nbrs_up, device),
+                    "up_offset": to_device(self.up_offset, device),
+                }
+            self._dirty0.clear()
+            self._dirty_up.clear()
+            self._dirty_off.clear()
+            self._dirty_full = False
+            self._device_version = self._version
+            return self._device
+
+    def _invalidate_device(self) -> None:
+        """Make the next _device_arrays() a full upload."""
+        with self._dev_sync:
+            self._dirty_full = True
+            self._dirty0.clear()
+            self._dirty_up.clear()
+            self._dirty_off.clear()
 
     def _sample_level(self) -> int:
         u = self._rng.random()
@@ -303,7 +683,7 @@ class HNSWIndex:
             pos += len(batch)
 
             plan = None
-            if n_members > cfg.bootstrap_threshold:
+            if cfg.link_mode == "auto" and n_members > cfg.bootstrap_threshold:
                 plan = self._flat_plan(extra_hi=pending_hi)
             if plan is not None and plan[0]:
                 n_pad = plan[1]
@@ -393,10 +773,13 @@ class HNSWIndex:
     def _install_node(self, row: int, level: int) -> None:
         self.levels[row] = level
         self.nbrs0[row] = -1
+        self._mark_dirty0(row)
         if level > 0:
             off = self._alloc_up_rows(level)
             self.up_offset[row] = off
             self.nbrs_up[off: off + level] = -1
+            self._mark_dirty_off(row)
+            self._mark_dirty_up(np.arange(off, off + level))
 
     def _exact_candidates(self, batch: np.ndarray) -> dict:
         """Bootstrap path: exact top-ef_construction candidates by brute
@@ -430,14 +813,34 @@ class HNSWIndex:
         return kept
 
     def _device_candidates(self, batch: np.ndarray) -> dict:
+        cfg = self.config
+        device = self.store.device
         flat_link_ok, n_pad = self._flat_plan()
-        if flat_link_ok:
-            mask = to_device(self._search_mask(), self.store.device)
+        if cfg.link_mode == "auto" and flat_link_ok:
+            mask = to_device(self._search_mask(), device)
             return self._flat_finalize(
                 self._flat_dispatch(batch, mask, n_pad))
-        raise NotImplementedError(
-            "graph-beam link candidates (a member prefix above the flat "
-            "threshold) are not ported yet")
+        if cfg.link_mode not in ("auto", "layer0"):
+            raise NotImplementedError(
+                f"link_mode={cfg.link_mode!r} (a beam per layer) is not "
+                "ported yet")
+        # greedy all the way down, one ef_construction beam at layer 0;
+        # upper layers link from the same pool, filtered by node level
+        mirror = serving_mirror(self.store)
+        dev = self._device_arrays()
+        mask = to_device(self._search_mask(), device)
+        q = to_device(self.store.data[batch], device)
+        cur, _ = greedy_descent(mirror.x, mirror.x_sq, mask, dev["nbrs_up"],
+                                dev["up_offset"], q, self.entry_point,
+                                self.max_level)
+        pool_d, pool_id = beam_search(
+            mirror.x, mirror.x_sq, mask, dev["nbrs0"], dev["nbrs_up"],
+            dev["up_offset"], q, cur[:, None], None, layer=0,
+            ef=cfg.ef_construction, max_iters=cfg.ef_construction + 32)
+        c_sel = min(cfg.ef_construction, _HEUR_POOL)
+        kept = heuristic_kept(mirror.x, pool_id[:, :c_sel].contiguous(),
+                              pool_d[:, :c_sel].contiguous(), cfg.m0)
+        return self._flat_finalize((pool_d, pool_id, kept, c_sel))
 
     def _link_batch_exact(self, batch: np.ndarray, levels_new: np.ndarray,
                           cands: dict) -> None:
@@ -485,10 +888,12 @@ class HNSWIndex:
             if layer == 0:
                 self.nbrs0[rows] = -1
                 self.nbrs0[rows[:, None], np.arange(w)[None, :]] = chosen
+                self._mark_dirty0(rows)
             else:
                 r = self.up_offset[rows] + layer - 1
                 self.nbrs_up[r] = -1
                 self.nbrs_up[r[:, None], np.arange(w)[None, :]] = chosen
+                self._mark_dirty_up(r)
             self._add_reverse_links_bulk(layer, rows, chosen)
 
     def _add_reverse_links_bulk(self, layer: int, src_rows: np.ndarray,
@@ -593,13 +998,55 @@ class HNSWIndex:
 
         if layer == 0:
             self.nbrs0[uniq] = lists
+            self._mark_dirty0(uniq)
         else:
             self.nbrs_up[up_rows] = lists
+            self._mark_dirty_up(up_rows)
+
+    # ---------------------------------------------------------------- search
+    def search_rows(self, queries: np.ndarray, k: int, ef: int | None = None,
+                    extra_mask: np.ndarray | None = None):
+        """Greedy descent (K10) + one layer-0 beam (K11). Returns
+        (distances [B, k] true euclidean, rows [B, k]); ``extra_mask`` (a
+        filter) gates the results only, not the traversal."""
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        ef = bucket(max(ef or self.config.ef_search, k))
+        self._fix_entry_point()
+        b = queries.shape[0]
+        if self.entry_point < 0:
+            return (np.full((b, k), np.inf, np.float32),
+                    np.full((b, k), -1, np.int32))
+        mirror = serving_mirror(self.store)
+        dev = self._device_arrays()
+        # the mask fits the mirror's row count: a concurrent capacity grow
+        # between the two snapshots must not mix shapes
+        mask = self._search_mask(n=int(mirror.x.shape[0]))
+        device = self.store.device
+        mask_d = to_device(mask, device)
+        res_mask = None
+        if extra_mask is not None:
+            res_mask = to_device(mask & fit_mask(extra_mask, mask.shape[0]),
+                                 device)
+        q = to_device(queries, device)
+        cur, _ = greedy_descent(mirror.x, mirror.x_sq, mask_d,
+                                dev["nbrs_up"], dev["up_offset"], q,
+                                self.entry_point, max(self.max_level, 0))
+        pool_d, pool_id = beam_search(
+            mirror.x, mirror.x_sq, mask_d, dev["nbrs0"], dev["nbrs_up"],
+            dev["up_offset"], q, cur[:, None], None, layer=0, ef=ef,
+            max_iters=ef + 32, result_mask=res_mask,
+            expand=limits.beam_expand())
+        d, rows = to_host(pool_d, pool_id)
+        d, rows = d[:, :k], rows[:, :k]
+        d = np.sqrt(np.maximum(d, 0.0))
+        d[rows < 0] = np.inf
+        return d, rows
 
     # ------------------------------------------------------------ operations
     def remove_rows(self, rows: np.ndarray) -> int:
         """Physically scrub rows from the graph (vacuum/migration path).
         Returns count removed."""
+        self._invalidate_device()
         rows = np.asarray(rows, np.int64)
         rows = rows[self.levels[rows] >= 0] if rows.size else rows
         if rows.size == 0:
@@ -636,6 +1083,7 @@ class HNSWIndex:
 
     def vacuum(self) -> int:
         """Remove soft-deleted members from the graph."""
+        self._invalidate_device()
         m = self.member_mask()[: self.store.count]
         dead = np.nonzero(m & self.store.deleted[: self.store.count])[0]
         return self.remove_rows(dead)

@@ -1,12 +1,12 @@
 """Hybrid index: HNSW for recent vectors + IVF for historical, time-routed.
 
-The JAX package's ``index/hybrid.py`` for the flat serving regime: one
-shared VectorStore with per-engine membership; inserts route by age (all to
-HNSW until IVF is trained); searches with the default per-engine k run the
-fused flat kernel; migration moves aged-out rows from HNSW to IVF; soft
-deletes, vacuum and stats as there. Per-engine ``recent_k`` /
-``historical_k`` need HNSW and IVF search, which are not ported yet, and
-raise ``NotImplementedError``; so does lazy loading (persistence).
+The JAX package's ``index/hybrid.py``: one shared VectorStore with
+per-engine membership; inserts route by age (all to HNSW until IVF is
+trained); searches with the default per-engine k run the fused search (flat
+or pruned regime); per-engine ``recent_k`` / ``historical_k`` search each
+engine on its own and merge on the host; migration moves aged-out rows from
+HNSW to IVF; soft deletes, vacuum and stats as there. Lazy loading
+(persistence) is not ported.
 """
 from __future__ import annotations
 
@@ -132,22 +132,66 @@ class HybridIndex:
         d, rows = self.search_rows(np.atleast_2d(query), k, config, now=now)
         return self._rows_to_results(d[0], rows[0])
 
-    @staticmethod
-    def _per_engine_k(cfg: SearchConfig, k: int) -> None:
-        recent_k = k if cfg.recent_k is None else cfg.recent_k
-        historical_k = k if cfg.historical_k is None else cfg.historical_k
-        if recent_k != k or historical_k != k:
-            raise NotImplementedError(
-                "per-engine recent_k / historical_k need HNSW and IVF "
-                "search, which are not ported yet")
-
     def search_rows(self, queries: np.ndarray, k: int,
                     config: SearchConfig | None = None,
                     extra_mask: np.ndarray | None = None,
                     now: float | None = None):
-        """Batched search. Returns (dists [B, k], rows [B, k])."""
-        return self.search_rows_dispatch(queries, k, config, extra_mask,
-                                         now=now)()
+        """Batched dual-engine search. Returns (dists [B, k], rows [B, k])."""
+        cfg = config or SearchConfig()
+        # `x if x is not None else default`: 0 is a valid value (skip that
+        # engine)
+        recent_k = k if cfg.recent_k is None else cfg.recent_k
+        historical_k = k if cfg.historical_k is None else cfg.historical_k
+        if recent_k == k and historical_k == k:
+            return self.search_rows_dispatch(queries, k, config, extra_mask,
+                                             now=now)()
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        b = queries.shape[0]
+        auto = (self.config.auto_migrate if cfg.auto_migrate is None
+                else cfg.auto_migrate)
+        if auto:
+            self.migrate_old_vectors(now=now)
+        parts_d, parts_r = [], []
+        if recent_k > 0 and self.hnsw.num_nodes > 0:
+            d1, r1 = self.hnsw.search_rows(
+                queries, recent_k, ef=max(cfg.hnsw_ef, recent_k),
+                extra_mask=extra_mask)
+            parts_d.append(d1)
+            parts_r.append(r1)
+        if (historical_k > 0 and self.ivf.trained
+                and self.ivf.member_mask().any()):
+            d2, r2 = self.ivf.search_rows(
+                queries, historical_k, n_probe=cfg.ivf_n_probe,
+                extra_mask=extra_mask)
+            parts_d.append(d2)
+            parts_r.append(r2)
+        if not parts_d:
+            return (np.full((b, k), np.inf, np.float32),
+                    np.full((b, k), -1, np.int32))
+        d = np.concatenate(parts_d, axis=1)
+        r = np.concatenate(parts_r, axis=1)
+        d = np.where(r >= 0, d, np.inf)
+        # a row a migration batch left in both engines keeps its best copy,
+        # never two result slots
+        order_all = np.argsort(d, axis=1, kind="stable")
+        d_sorted = np.take_along_axis(d, order_all, axis=1)
+        r_sorted = np.take_along_axis(r, order_all, axis=1)
+        for i in range(r_sorted.shape[0]):
+            _, first = np.unique(r_sorted[i], return_index=True)
+            dup = np.ones(r_sorted.shape[1], bool)
+            dup[first] = False
+            dup &= r_sorted[i] >= 0
+            d_sorted[i, dup] = np.inf
+            r_sorted[i, dup] = -1
+        order = np.argsort(d_sorted, axis=1, kind="stable")[:, :k]
+        out_d = np.take_along_axis(d_sorted, order, axis=1)
+        out_r = np.take_along_axis(r_sorted, order, axis=1)
+        out_r = np.where(np.isfinite(out_d), out_r, -1)
+        if out_d.shape[1] < k:
+            pad = k - out_d.shape[1]
+            out_d = np.pad(out_d, ((0, 0), (0, pad)), constant_values=np.inf)
+            out_r = np.pad(out_r, ((0, 0), (0, pad)), constant_values=-1)
+        return out_d, out_r
 
     @staticmethod
     def _finalize_fast(vals, rows, k: int):
@@ -167,9 +211,14 @@ class HybridIndex:
                              now: float | None = None):
         """Launch the fused search and return a zero-arg
         ``finalize() -> (dists, rows)``; several batches can be launched
-        before the first is read back."""
+        before the first is read back. Per-engine k (recent_k /
+        historical_k) searches eagerly instead, as the reference does."""
         cfg = config or SearchConfig()
-        self._per_engine_k(cfg, k)
+        recent_k = cfg.recent_k or k
+        historical_k = cfg.historical_k or k
+        if recent_k != k or historical_k != k:
+            d, r = self.search_rows(queries, k, config, extra_mask, now=now)
+            return lambda: (d, r)
         auto = (self.config.auto_migrate if cfg.auto_migrate is None
                 else cfg.auto_migrate)
         if auto:

@@ -1,10 +1,13 @@
-"""IVF (inverted-file) index: k-means coarse quantizer + membership.
+"""IVF (inverted-file) index: k-means coarse quantizer, membership and the
+n-probe search.
 
-The JAX package's ``index/ivf.py`` as far as the flat-regime slice needs
-it: training (k-means, K6), centroid install, assignment of rows to lists,
-removal, membership masks and counters. The probed list scan
-(``ivf_search_kernel``), list tiles and balancing come with the pruned
-serving regime.
+The JAX package's ``index/ivf.py`` as far as the ported slices need it:
+training (k-means, K6), centroid install, assignment of rows to lists,
+removal, membership masks and counters, the padded list tiles, and the
+search: the centroid ranking (K1 over the centroids) and the probed list
+scan with its top-k (K12, :func:`ivf_search`). Euclidean only: cosine and
+dot raise ``NotImplementedError``. Retraining, adding clusters, balancing,
+compaction and the quality evaluation are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,10 +16,153 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.distance import pairwise_sq_l2, squared_norms
 from ..ops.kmeans import assign_clusters, kmeans_train_stepped
-from ..utils.padding import bucket, grow_rows
-from ..utils.transfer import to_device
+from ..ops.topk import INF, l2_topk, masked_topk, merge_topk, select_scratch
+from ..utils import native
+from ..utils.padding import bucket, fit_mask, grow_rows
+from ..utils.transfer import to_device, to_host
 from .store import VectorStore, serving_mirror
+
+# bytes of (distance, row) candidates one K12 launch holds; larger batches
+# run in query chunks
+_CAND_BYTES = 1 << 28
+
+
+@dataclass
+class IVFLists:
+    """The quantizer and the packed lists on the device: what K12 reads of
+    an IVF index besides the mirror and the mask."""
+    centroids: torch.Tensor  # [C, D] f32
+    c_sq: torch.Tensor  # [C] f32
+    tiles: torch.Tensor  # [C, L_pad] int32, each list packed at the front
+    list_len: torch.Tensor  # [C] int32
+    longest: np.ndarray  # [C] int64 (host): running sum, longest list first
+
+    @classmethod
+    def upload(cls, centroids: np.ndarray, tiles: np.ndarray,
+               device: torch.device) -> "IVFLists":
+        lens = (tiles >= 0).sum(1)
+        cents = to_device(np.asarray(centroids, np.float32), device)
+        return cls(cents, squared_norms(cents), to_device(tiles, device),
+                   to_device(lens.astype(np.int32), device),
+                   np.cumsum(np.sort(lens)[::-1]))
+
+    def most_candidates(self, n_probe: int) -> int:
+        """The most list rows any query probing ``n_probe`` lists scans."""
+        return int(self.longest[min(n_probe, self.longest.size) - 1])
+
+
+def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
+                     n_probe: int, extra_mask=None, seed=None):
+    """Plain version of K12: the reference's ivf_search_kernel (euclidean),
+    probe by probe (masked_topk of each list, merge_topk into the running
+    list), over the padded tiles. ``seed`` (vals, rows) [B, >=1] starts the
+    running list with its first k entries instead of +inf, which is
+    merge_topk(seed, ivf result) with the seed first at ties."""
+    b = q.shape[0]
+    tiles = lists.tiles
+    l_pad = tiles.shape[1]
+    if extra_mask is not None:
+        mask = mask & extra_mask
+    dc = pairwise_sq_l2(q, lists.centroids, lists.c_sq)  # [B, C]
+    n_probe = min(n_probe, lists.centroids.shape[0])
+    _, probe = masked_topk(dc, None, n_probe)
+    q_sq = (q * q).sum(-1)
+    k_step = min(k, l_pad)
+    vals = torch.full((b, k), INF, device=q.device)
+    idx = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
+    if seed is not None:
+        vals, idx = merge_topk(vals, idx, seed[0][:, :k], seed[1][:, :k], k)
+    for p in range(n_probe):
+        cand = tiles[probe[:, p].long()]  # [B, L_pad]
+        valid = (cand >= 0) & (cand < x.shape[0])
+        safe = torch.where(valid, cand, torch.zeros_like(cand)).long()
+        dots = torch.einsum("bd,bld->bl", q, x[safe])
+        d = (q_sq[:, None] - 2.0 * dots + x_sq[safe]).clamp_min(0.0)
+        cvals, cpos = masked_topk(d, valid & mask[safe], k_step)
+        crow = torch.where(
+            cpos >= 0,
+            torch.gather(safe, 1, cpos.clamp_min(0).long()).to(torch.int32),
+            torch.full_like(cpos, -1))
+        vals, idx = merge_topk(vals, idx, cvals, crow, k)
+    return vals, idx, probe
+
+
+def ivf_search(x, x_sq, mask, lists: IVFLists, q, k: int, n_probe: int,
+               extra_mask=None, seed=None):
+    """K12: batched n-probe search. x [N, D] f32, mask [N] bool (and
+    ``extra_mask`` [N] bool, ANDed), ``lists`` the quantizer and tiles
+    (row ids packed at the front of each list, -1 padded); q [B, D].
+    ``seed`` (vals, rows) [B, S] joins its first min(k, S) entries to the
+    candidates (rows disjoint from the lists'). Returns (vals [B, k], rows
+    [B, k], probe [B, P]): the k smallest by (distance, row), +inf / -1
+    padded.
+
+    The plain version on CPU tensors; on CUDA tensors K1 ranks the
+    centroids (all of them, k = n_probe: ties go to the lower centroid, as
+    ``lax.top_k`` does) and csrc/ivf_scan.cu scans the probed lists and
+    selects, or it raises. A query's candidates take at most the P longest
+    lists' rows, so the candidate buffer is sized by those and queries go
+    in chunks of at most _CAND_BYTES of it."""
+    if x.device.type == "cpu":
+        return ivf_search_plain(x, x_sq, mask, lists, q, k, n_probe,
+                                extra_mask, seed)
+    dev = x.device
+    native.check(x, "x", torch.float32, 2, dev)
+    native.check(x_sq, "x_sq", torch.float32, 1, dev)
+    native.check(mask, "mask", torch.bool, 1, dev)
+    if extra_mask is not None:
+        native.check(extra_mask, "extra_mask", torch.bool, 1, dev)
+    native.check(lists.centroids, "centroids", torch.float32, 2, dev)
+    native.check(lists.c_sq, "c_sq", torch.float32, 1, dev)
+    native.check(lists.tiles, "tiles", torch.int32, 2, dev)
+    native.check(lists.list_len, "list_len", torch.int32, 1, dev)
+    native.check(q, "q", torch.float32, 2, dev)
+    b, d = q.shape
+    c, l_pad = lists.tiles.shape
+    if lists.centroids.shape != (c, d) or x.shape[1] != d or k < 1:
+        raise ValueError(
+            f"ivf_search: centroids {tuple(lists.centroids.shape)}, tiles "
+            f"{(c, l_pad)}, q {tuple(q.shape)}, x {tuple(x.shape)}, k {k}")
+    n_probe = min(n_probe, c)
+    k_seed, seed_stride = 0, 1
+    seed_d = seed_r = None
+    if seed is not None:
+        seed_d, seed_r = seed
+        native.check(seed_d, "seed vals", torch.float32, 2, dev)
+        native.check(seed_r, "seed rows", torch.int32, 2, dev)
+        seed_stride = seed_d.shape[1]
+        k_seed = min(k, seed_stride)
+    _, probe = l2_topk(lists.centroids, lists.c_sq, None, q, n_probe)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_r, probe
+    stride = max(1, lists.most_candidates(n_probe) + k_seed)
+    qc = max(1, min(b, _CAND_BYTES // (8 * stride)))
+    cand_d = torch.empty((qc, stride), dtype=torch.float32, device=dev)
+    cand_r = torch.empty((qc, stride), dtype=torch.int32, device=dev)
+    n_per = torch.empty(qc, dtype=torch.int32, device=dev)
+    P, I, L = native.P, native.I, native.L
+    for lo in range(0, b, qc):
+        hi = min(b, lo + qc)
+        work = select_scratch("ivf_scan", hi - lo, k, dev)
+        native.call(
+            "ivf_scan", "fvdb_ivf_scan",
+            [P, P, P, P, P, I, P, P, I, P, I, I, I, P, P, I, I, I, L, P, P,
+             P, P, P, P, P],
+            x.data_ptr(), x_sq.data_ptr(), mask.data_ptr(),
+            0 if extra_mask is None else extra_mask.data_ptr(),
+            lists.tiles.data_ptr(), l_pad, lists.list_len.data_ptr(),
+            probe[lo:hi].data_ptr(), n_probe, q[lo:hi].data_ptr(), hi - lo,
+            d, x.shape[0], 0 if seed_d is None else seed_d[lo:hi].data_ptr(),
+            0 if seed_r is None else seed_r[lo:hi].data_ptr(), seed_stride,
+            k_seed, k, stride, cand_d.data_ptr(), cand_r.data_ptr(),
+            n_per.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
+            out_r[lo:hi].data_ptr(), native.stream_of(x))
+        native.launches["ivf_scan"] += 1
+    return out_d, out_r, probe
 
 
 class NotTrainedError(RuntimeError):
@@ -56,7 +202,15 @@ class IVFIndex:
         # row -> cluster id; -1 means "not a member of this index"
         self.assignments = np.full(store.capacity, -1, np.int32)
         self.trained = False
+        self._tiles: np.ndarray | None = None
+        self._tiles_version = -1
         self._version = 0
+        # the device lists (IVFLists) keyed by this index's version, and
+        # the standalone search's member mask keyed by both versions
+        self._dev_lists: IVFLists | None = None
+        self._dev_lists_version = -1
+        self._dev_mask = None
+        self._dev_mask_key = None
 
     # ------------------------------------------------------------- training
     def train(self, vectors: np.ndarray) -> TrainStats:
@@ -168,6 +322,90 @@ class IVFIndex:
         self.assignments[dead] = -1
         self._version += 1
         return removed
+
+    # ---------------------------------------------------------------- tiles
+    def _build_tiles(self) -> np.ndarray:
+        """Pack assignments into padded [C, L_pad] row-id tiles (rows in
+        increasing order within a list; L_pad a power of two >= 128)."""
+        c = (self.config.n_clusters if self.centroids is None
+             else self.centroids.shape[0])
+        assign_arr = self.assignments  # one snapshot, then filter
+        members = np.nonzero(assign_arr >= 0)[0]
+        if members.size == 0:
+            return np.full((c, 128), -1, np.int32)
+        assign = assign_arr[members]
+        ok = (assign >= 0) & (assign < c)
+        members, assign = members[ok], assign[ok]
+        if members.size == 0:
+            return np.full((c, 128), -1, np.int32)
+        counts = np.bincount(assign, minlength=c)
+        l_pad = max(128, bucket(int(counts.max()), minimum=128))
+        tiles = np.full((c, l_pad), -1, np.int32)
+        order = np.argsort(assign, kind="stable")
+        sorted_rows = members[order]
+        sorted_assign = assign[order]
+        starts = np.zeros(c + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        pos = np.arange(sorted_rows.size) - starts[sorted_assign]
+        tiles[sorted_assign, pos] = sorted_rows
+        return tiles
+
+    def tiles(self) -> np.ndarray:
+        if self._tiles is None or self._tiles_version != self._version:
+            # the version is read BEFORE building: a writer bumping it
+            # mid-build must invalidate this build
+            v = self._version
+            t = self._build_tiles()
+            self._tiles, self._tiles_version = t, v
+        return self._tiles
+
+    def device_lists(self) -> IVFLists:
+        """The centroids and tiles on the device, uploaded once a version
+        (the standalone search and the fused searcher share them)."""
+        if not self.trained:
+            raise NotTrainedError("IVF index is not trained")
+        lists = self._dev_lists
+        if lists is None or self._dev_lists_version != self._version:
+            v = self._version  # read before building, as tiles() does
+            lists = IVFLists.upload(self.centroids, self.tiles(),
+                                    self.store.device)
+            self._dev_lists, self._dev_lists_version = lists, v
+        return lists
+
+    # ---------------------------------------------------------------- search
+    def search_rows(self, queries: np.ndarray, k: int,
+                    n_probe: int | None = None,
+                    extra_mask: np.ndarray | None = None,
+                    metric: str = "euclidean"):
+        """Returns (distances [B, k] true euclidean, rows [B, k])."""
+        if not self.trained:
+            raise NotTrainedError("IVF index is not trained")
+        if metric != "euclidean":
+            raise NotImplementedError(
+                f"IVF search with metric={metric!r} is not ported yet")
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        n_probe = n_probe if n_probe is not None else self.config.n_probe
+        mirror = serving_mirror(self.store)
+        # masks fit the mirror's row count
+        n = int(mirror.x.shape[0])
+        device = self.store.device
+        lists = self.device_lists()
+        key = (self._version, self.store._version, n)
+        if extra_mask is not None:  # per-call filter, on a fresh snapshot
+            mask_dev = to_device(
+                self.store.active_mask(n) & self.member_mask(n)
+                & fit_mask(extra_mask, n), device)
+        else:
+            if self._dev_mask is None or self._dev_mask_key != key:
+                self._dev_mask = to_device(
+                    self.store.active_mask(n) & self.member_mask(n), device)
+                self._dev_mask_key = key
+            mask_dev = self._dev_mask
+        vals, rows, _ = ivf_search(
+            mirror.x, mirror.x_sq, mask_dev, lists, to_device(queries, device),
+            bucket(k), n_probe)
+        vals, rows = to_host(vals, rows)
+        return np.sqrt(np.maximum(vals[:, :k], 0.0)), rows[:, :k]
 
     def memory_usage_bytes(self) -> int:
         total = self.assignments.nbytes

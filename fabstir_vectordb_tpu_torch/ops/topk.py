@@ -19,11 +19,14 @@ INF = float("inf")
 def masked_topk(dists: torch.Tensor, mask: torch.Tensor, k: int):
     """Exact top-k smallest distances where mask is True.
 
-    dists [B, N] f32; mask [N] or [B, N] bool. Returns (vals [B, k] f32,
-    idx [B, k] int32), padded with +inf / -1 (also when k > N)."""
-    if mask.dim() == 1:
-        mask = mask[None, :]
-    masked = torch.where(mask, dists, torch.full_like(dists, INF))
+    dists [B, N] f32; mask [N] or [B, N] bool, or None for every entry.
+    Returns (vals [B, k] f32, idx [B, k] int32), padded with +inf / -1
+    (also when k > N)."""
+    masked = dists
+    if mask is not None:
+        if mask.dim() == 1:
+            mask = mask[None, :]
+        masked = torch.where(mask, dists, torch.full_like(dists, INF))
     vals, idx = torch.sort(masked, dim=1, stable=True)
     vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
     if vals.shape[1] < k:
@@ -63,14 +66,34 @@ def _num_sms(device) -> int:
     return _SMS[device]
 
 
+# K1 keeps its lists in shared memory up to this k (csrc/l2_topk.cu)
+_SMALL_K = 256
+# bytes of [B, N] distances the k > _SMALL_K path holds at once
+_DUMP_BYTES = 1 << 30
+# queries a launch takes (a grid's y and z extents)
+_MAX_GRID_Q = 65_535
+
+
+def select_scratch(source: str, b: int, k: int, device) -> torch.Tensor:
+    """The scratch bytes of csrc/topk_select.cuh's radix select for b rows
+    at k, as compiled into ``source``'s library."""
+    n = native.query(source, "fvdb_select_scratch_bytes",
+                     [native.I, native.I], b, k)
+    return torch.empty(n, dtype=torch.uint8, device=device)
+
+
 def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
             q: torch.Tensor, k: int):
     """K1: masked squared-L2 exact top-k of q [B, D] over x [N, D].
 
-    x_sq [N] f32 row norms; mask [N] or [B, N] bool; 1 <= k <= 256 on the
-    card. Returns (vals [B, k] f32, rows [B, k] int32) sorted by (distance,
-    row), padded with +inf / -1. On CPU tensors it runs the plain version;
-    on CUDA tensors it launches the kernel (csrc/l2_topk.cu) or raises."""
+    x_sq [N] f32 row norms; mask [N] or [B, N] bool, or None for every
+    row; any k >= 1. Returns
+    (vals [B, k] f32, rows [B, k] int32) sorted by (distance, row), padded
+    with +inf / -1 (also when fewer than k rows are unmasked). On CPU
+    tensors it runs the plain version; on CUDA tensors it launches
+    csrc/l2_topk.cu (k <= 256: per-query lists in shared memory; larger k:
+    the masked distances of a query chunk to a buffer, then a radix select)
+    or raises."""
     if x.device.type == "cpu":
         return l2_topk_plain(x, x_sq, mask, q, k)
     if x.device.type != "cuda":
@@ -79,41 +102,66 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
     native.check(x, "x", torch.float32, 2, dev)
     native.check(x_sq, "x_sq", torch.float32, 1, dev)
     native.check(q, "q", torch.float32, 2, dev)
-    if mask.dim() not in (1, 2):
-        raise ValueError("mask must be [N] or [B, N]")
-    native.check(mask, "mask", torch.bool, mask.dim(), dev)
     n, d = x.shape
     b = q.shape[0]
-    if q.shape[1] != d or x_sq.shape[0] != n or mask.shape[-1] != n:
+    if q.shape[1] != d or x_sq.shape[0] != n:
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, x_sq {tuple(x_sq.shape)}, "
-            f"mask {tuple(mask.shape)}, q {tuple(q.shape)}")
-    if mask.dim() == 2 and mask.shape[0] != b:
-        raise ValueError("a [B, N] mask needs one row per query")
-    if not 1 <= k <= 256:
-        raise ValueError(f"l2_topk takes 1 <= k <= 256 on the card, got {k}")
+            f"q {tuple(q.shape)}")
+    if mask is not None:
+        if mask.dim() not in (1, 2):
+            raise ValueError("mask must be [N] or [B, N]")
+        native.check(mask, "mask", torch.bool, mask.dim(), dev)
+        if mask.shape[-1] != n or (mask.dim() == 2 and mask.shape[0] != b):
+            raise ValueError(f"mask {tuple(mask.shape)} does not fit B={b}, "
+                             f"N={n}")
+    if k < 1:
+        raise ValueError(f"l2_topk takes k >= 1, got {k}")
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
         return out_d.fill_(INF), out_r.fill_(-1)
-    # split N so the grid is one wave: pass 1 holds 128 registers a thread,
-    # so 2 blocks of 256 fit an SM; a second, partial wave would cost as
-    # much as the first. Slices keep at least two 256-row tiles.
-    q_tiles = math.ceil(b / 32)
-    splits = max(1, min(math.ceil(n / 512),
-                        2 * _num_sms(dev) // q_tiles))
+    P, I, L = native.P, native.I, native.L
+    m_stride = n if mask is not None and mask.dim() == 2 else 0
+    m_ptr = 0 if mask is None else mask.data_ptr()
+    if k > _SMALL_K:
+        qc = max(1, min(b, _DUMP_BYTES // (4 * n), _MAX_GRID_Q))
+        for lo in range(0, b, qc):
+            hi = min(b, lo + qc)
+            dump = torch.empty((hi - lo, n), dtype=torch.float32, device=dev)
+            work = select_scratch("l2_topk", hi - lo, k, dev)
+            native.call(
+                "l2_topk", "fvdb_l2_topk_large",
+                [P, P, P, L, P, I, I, I, I, I, P, P, P, P, P],
+                x.data_ptr(), x_sq.data_ptr(), mask[lo:hi].data_ptr()
+                if m_stride else m_ptr, m_stride,
+                q[lo:hi].data_ptr(), hi - lo, n, d, k,
+                _splits(hi - lo, n, dev), dump.data_ptr(), work.data_ptr(),
+                out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
+                native.stream_of(x))
+            native.launches["l2_topk_large"] += 1
+        return out_d, out_r
+    splits = _splits(b, n, dev)
     part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
     part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
-    P, I = native.P, native.I
     native.call(
         "l2_topk", "fvdb_l2_topk",
-        [P, P, P, native.ctypes.c_longlong, P, I, I, I, I, I, P, P, P, P, P],
-        x.data_ptr(), x_sq.data_ptr(), mask.data_ptr(),
-        n if mask.dim() == 2 else 0, q.data_ptr(), b, n, d, k, splits,
+        [P, P, P, L, P, I, I, I, I, I, P, P, P, P, P],
+        x.data_ptr(), x_sq.data_ptr(), m_ptr, m_stride,
+        q.data_ptr(), b, n, d, k, splits,
         part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
         out_r.data_ptr(), native.stream_of(x))
     native.launches["l2_topk"] += 1
     return out_d, out_r
+
+
+def _splits(b: int, n: int, dev) -> int:
+    """Slices of N for pass 1, so the grid is one wave: pass 1 holds 128
+    registers a thread, so 2 blocks of 256 fit an SM; a second, partial
+    wave would cost as much as the first. Slices keep at least two 256-row
+    tiles."""
+    q_tiles = math.ceil(b / 32)
+    return max(1, min(math.ceil(n / 512), 2 * _num_sms(dev) // q_tiles))
 
 
 class StreamingTopK:

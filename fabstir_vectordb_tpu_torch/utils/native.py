@@ -25,13 +25,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # one shared library per source file
-SOURCES = ("l2_topk", "heuristic_kept", "pair_sq_l2", "lloyd")
+SOURCES = ("l2_topk", "heuristic_kept", "pair_sq_l2", "lloyd",
+           "greedy_descent", "beam_search", "ivf_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: dict[str, int] = {
-    "l2_topk": 0, "heuristic_kept": 0, "pair_sq_l2": 0, "lloyd_block": 0,
-    "assign_clusters": 0,
+    "l2_topk": 0, "l2_topk_large": 0, "heuristic_kept": 0, "pair_sq_l2": 0,
+    "lloyd_block": 0, "assign_clusters": 0, "greedy_descent": 0,
+    "beam_search": 0, "ivf_scan": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -58,7 +60,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for p in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for p in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
@@ -112,16 +114,29 @@ P = ctypes.c_void_p  # device pointers and the stream
 I = ctypes.c_int  # 32-bit ints
 
 
-def call(source: str, symbol: str, argtypes: list, *args) -> None:
-    """Call ``symbol`` of ``source``'s library; raise on a CUDA error."""
+L = ctypes.c_longlong  # 64-bit ints
+
+
+def _fn(source: str, symbol: str, argtypes: list, restype=ctypes.c_int):
     key = (source, symbol)
     fn = _fns.get(key)
     if fn is None:
         fn = getattr(_lib(source), symbol)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = argtypes
         _fns[key] = fn
-    err = fn(*args)
+    return fn
+
+
+def query(source: str, symbol: str, argtypes: list, *args) -> int:
+    """Call a host-side helper of ``source``'s library that returns a
+    64-bit number (no launch)."""
+    return int(_fn(source, symbol, argtypes, ctypes.c_longlong)(*args))
+
+
+def call(source: str, symbol: str, argtypes: list, *args) -> None:
+    """Call ``symbol`` of ``source``'s library; raise on a CUDA error."""
+    err = _fn(source, symbol, argtypes)(*args)
     if err != 0:
         msg = _lib(source).fvdb_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")

@@ -279,8 +279,10 @@ def test_convert_carries_a_jax_index_across():
 
 
 def test_unported_serving_branches_raise(monkeypatch):
-    """bf16 mirrors, approximate flat selection, stores above the flat
-    threshold and per-engine k raise instead of serving some other way."""
+    """bf16 mirrors, approximate flat selection and reduced-rank serving
+    above the flat threshold (FVDB_PCA_SERVE on, the default) raise instead
+    of serving some other way; with FVDB_PCA_SERVE=0 the same store serves
+    the pruned regime, and per-engine k answers."""
     _, ht, _ = _hybrid_pair(n=300, seed=14)
     q = _data(15, 2)
     cfg = SearchConfig(auto_migrate=False)
@@ -294,26 +296,38 @@ def test_unported_serving_branches_raise(monkeypatch):
     monkeypatch.delenv("FVDB_FLAT_SELECT")
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "256")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 256)
+    assert ht.fused.serving_info()["regime"] == "reduced-rank"
     with pytest.raises(NotImplementedError):
         ht.search_rows(q, 5, cfg)
+    monkeypatch.setenv("FVDB_PCA_SERVE", "0")
+    assert ht.fused.serving_info()["regime"] == "pruned"
+    d, r = ht.search_rows(q, 5, cfg)
+    assert r.shape == (2, 5) and (r >= 0).all()
+    monkeypatch.delenv("FVDB_PCA_SERVE")
     monkeypatch.delenv("FVDB_FLAT_THRESHOLD")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 4_194_304)
-    with pytest.raises(NotImplementedError):
-        ht.search_rows(q, 5, SearchConfig(recent_k=3, auto_migrate=False))
+    assert ht.fused.serving_info()["regime"] == "flat-exact"
+    d, r = ht.search_rows(q, 5, SearchConfig(recent_k=3, auto_migrate=False))
+    assert r.shape == (2, 5) and (r >= 0).all()
     assert ht.search_rows(q, 5, cfg)[1].shape == (2, 5)
 
 
 def test_link_candidates_above_flat_threshold_raise(monkeypatch):
-    """A member prefix above the flat threshold needs the graph-beam
-    candidate plan, which is not ported: insert raises."""
+    """A member prefix above the flat threshold links through the layer-0
+    beam plan; the per-layer beam plan is not ported: insert raises."""
     st = VectorStore(D, device=CPU)
     rows = st.add_batch(_ids(60), _data(16, 60))
     g = hnsw_t.HNSWIndex(st, hnsw_t.HNSWConfig(bootstrap_threshold=8))
     g.insert_rows(rows[:40])  # host-exact while the graph is small
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "16")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 16)
+    g.config.link_mode = "per_layer"
     with pytest.raises(NotImplementedError):
         g.insert_rows(rows[40:])
+    g.config.link_mode = "auto"
+    g.insert_rows(rows[40:])
+    assert g.num_nodes == 60
+    assert (g.search_rows(st.data[:60], 1)[1][:, 0] == np.arange(60)).all()
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):

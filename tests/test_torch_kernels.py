@@ -163,3 +163,167 @@ def test_lloyd_kernels_match_plain_on_card():
     at, _ = km_t.assign_clusters(x, init)
     ap, _ = km_t.assign_clusters_plain(x, init)
     assert (at == ap).float().mean().item() > 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [512, 4096, 65_536])
+def test_l2_topk_large_k_matches_plain_on_card(k):
+    """K1's k > 256 path (distance buffer + radix select), with its sort in
+    shared memory (k <= 4,096) and in a global scratch row (65,536)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(1)
+    n = 131_072
+    x = torch.randn(n, 384, device=dev, generator=g)
+    x_sq = (x * x).sum(1)
+    q = torch.randn(3, 384, device=dev, generator=g)
+    # 45% of rows unmasked: 59K, fewer than k = 65,536, so the tail pads
+    mask = torch.rand(n, device=dev, generator=g) < 0.45
+    vt, rt = topk_t.l2_topk(x, x_sq, mask, q, k)
+    vp, rp = topk_t.l2_topk_plain(x, x_sq, mask, q, k)
+    vt, rt, vp, rp = (t.cpu().numpy() for t in (vt, rt, vp, rp))
+    np.testing.assert_array_equal(np.isfinite(vt), np.isfinite(vp))
+    fin = np.isfinite(vp)
+    for i in range(3):  # ascending over the found rows, then the padding
+        assert (np.diff(vt[i][fin[i]]) >= 0).all()
+    np.testing.assert_allclose(vt[fin], vp[fin], rtol=1e-5, atol=1e-2)
+    assert (rt[~fin] == -1).all()
+    for i in range(3):  # rows agree except at a tie with the k-th
+        diff = set(rt[i][rt[i] >= 0]) ^ set(rp[i][rp[i] >= 0])
+        kth = vp[i][fin[i]].max()
+        for r in diff:
+            d = vp[i][rp[i] == r] if r in set(rp[i]) else vt[i][rt[i] == r]
+            assert abs(float(d[0]) - kth) <= 1e-2
+
+
+def _graph_on_card(n=3000, d=64, seed=31):
+    """A port HNSW graph over a clustered corpus, built on the card."""
+    from fabstir_vectordb_tpu_torch.index.store import VectorStore
+
+    dev = _card()
+    x, _ = _mixture(seed, n, 24, d=d, spread=0.5)
+    st = VectorStore(d, device=dev)
+    rows = st.add_batch([f"r{i}" for i in range(n)], x)
+    g = hnsw_t.HNSWIndex(st, hnsw_t.HNSWConfig(bootstrap_threshold=256))
+    g.insert_rows(rows)
+    m = st.device_mirror()
+    mask = torch.from_numpy(g._search_mask()).to(dev)
+    arrs = g._device_arrays()
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy((x[rng.integers(0, n, 64)] + 0.3 * rng.standard_normal(
+        (64, d))).astype(np.float32)).to(dev)
+    return g, m, mask, arrs, q
+
+
+def _overlap(a, b):
+    """Mean share of each row's valid ids of b that a holds too."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    out = []
+    for ra, rb in zip(a, b):
+        sb = set(rb[rb >= 0].tolist())
+        out.append(len(sb & set(ra[ra >= 0].tolist())) / max(len(sb), 1))
+    return float(np.mean(out))
+
+
+@pytest.mark.cuda
+def test_greedy_descent_kernel_matches_plain_on_card():
+    g, m, mask, a, q = _graph_on_card()
+    stop = torch.tensor(np.arange(64) % 2, dtype=torch.int32, device=q.device)
+    for s in (None, stop):
+        ck, dk = hnsw_t.greedy_descent(m.x, m.x_sq, mask, a["nbrs_up"],
+                                       a["up_offset"], q, g.entry_point,
+                                       g.max_level, s)
+        cp, dp = hnsw_t.greedy_descent_plain(m.x, m.x_sq, mask, a["nbrs_up"],
+                                             a["up_offset"], q, g.entry_point,
+                                             g.max_level, s)
+        # a near-tie may send one walk elsewhere: 99% agree exactly
+        assert (ck == cp).float().mean().item() >= 0.99
+        same = ck == cp
+        torch.testing.assert_close(dk[same], dp[same], rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand,filtered,layer,s,ef", [
+    (1, False, 0, 1, 200), (4, False, 0, 1, 64), (4, True, 0, 1, 64),
+    (4, True, 0, 5, 512), (1, False, 1, 3, 32), (4, True, 0, 1, 2048)])
+def test_beam_search_kernel_matches_plain_on_card(expand, filtered, layer, s,
+                                                  ef):
+    """Serve (ef 64, W 4) and link (ef 200, W 1) shapes, a filter, several
+    starts, an upper layer, and ef = 2,048, whose lists live in global
+    scratch. A near-tie may turn a walk: results overlap >= 0.99."""
+    g, m, mask, a, q = _graph_on_card()
+    dev = q.device
+    rng = np.random.default_rng(7)
+    members = np.nonzero(g._search_mask() & (g.levels >= layer))[0]
+    start = torch.from_numpy(rng.choice(members, (64, s)).astype(np.int32)
+                             ).to(dev)
+    res = None
+    if filtered:
+        res = torch.from_numpy(np.arange(m.x.shape[0]) % 3 != 0).to(dev)
+    active = torch.ones(64, dtype=torch.bool, device=dev)
+    active[5] = False
+    args = (m.x, m.x_sq, mask, a["nbrs0"], a["nbrs_up"], a["up_offset"], q,
+            start, active, layer, ef, ef + 32, res, None, expand)
+    dk, ik = hnsw_t.beam_search(*args)
+    dp, ip = hnsw_t.beam_search_plain(*args)
+    assert _overlap(ik, ip) >= 0.99
+    dk_n, ik_n = dk.cpu().numpy(), ik.cpu().numpy()
+    for dr, ir in zip(dk_n, ik_n):  # ascending, then (+inf, -1) padding
+        assert (np.diff(dr[ir >= 0]) >= 0).all()
+        assert np.isinf(dr[ir < 0]).all() and (ir[: (ir >= 0).sum()] >= 0).all()
+    for row in ik_n:  # no id twice
+        v = row[row >= 0]
+        assert len(set(v.tolist())) == v.size
+    if filtered:
+        assert res.cpu().numpy()[ik_n[ik_n >= 0]].all()
+    torch.testing.assert_close(ik[5], ip[5])  # inactive: the starts only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,seeded,chunked", [
+    (16, True, False), (512, False, False), (8192, True, False),
+    (16, True, True)])
+def test_ivf_scan_kernel_matches_plain_on_card(k, seeded, chunked,
+                                               monkeypatch):
+    from fabstir_vectordb_tpu_torch.index import ivf as ivf_mod
+    from fabstir_vectordb_tpu_torch.index.ivf import (IVFIndex, IVFLists,
+                                                      ivf_search,
+                                                      ivf_search_plain)
+    from fabstir_vectordb_tpu_torch.index.store import VectorStore
+
+    dev = _card()
+    if chunked:  # a few queries a launch: the chunks must join up
+        monkeypatch.setattr(ivf_mod, "_CAND_BYTES", 1 << 20)
+    n, d = 20_000, 384
+    x, _ = _mixture(41, n, 64, d=d, spread=0.5)
+    st = VectorStore(d, device=dev)
+    rows = st.add_batch([f"r{i}" for i in range(n)], x)
+    ivf = IVFIndex(st)
+    rng = np.random.default_rng(3)
+    ivf.set_trained(x[rng.choice(n, 32, replace=False)])
+    ivf.insert_rows(rows[: n - 500])
+    m = st.device_mirror()
+    lists = IVFLists.upload(ivf.centroids, ivf.tiles(), dev)
+    mask = torch.from_numpy(st.active_mask() & ivf.member_mask()).to(dev)
+    extra = torch.from_numpy(np.arange(st.capacity) % 4 != 1).to(dev)
+    q = torch.from_numpy(x[:37] + 0.2).to(dev)
+    seed = None
+    if seeded:  # rows outside the lists, as the beam's are
+        sr = torch.arange(n - 500, n - 500 + 40, dtype=torch.int32,
+                          device=dev)[None].repeat(37, 1)
+        sd = torch.linspace(1.0, 400.0, 40, device=dev)[None].repeat(37, 1)
+        seed = (sd.contiguous(), sr.contiguous())
+    vk, rk, pk = ivf_search(m.x, m.x_sq, mask, lists, q, k, 8,
+                            extra_mask=extra, seed=seed)
+    vp, rp, pp = ivf_search_plain(m.x, m.x_sq, mask, lists, q, k, 8,
+                                  extra_mask=extra, seed=seed)
+    assert (pk == pp).all()
+    vk, rk, vp, rp = (t.cpu().numpy() for t in (vk, rk, vp, rp))
+    np.testing.assert_array_equal(np.isfinite(vk), np.isfinite(vp))
+    fin = np.isfinite(vp)
+    np.testing.assert_allclose(vk[fin], vp[fin], rtol=1e-5, atol=1e-2)
+    for i in range(37):  # the same rows but at ties with the k-th
+        diff = set(rk[i][rk[i] >= 0]) ^ set(rp[i][rp[i] >= 0])
+        kth = vp[i][fin[i]].max() if fin[i].any() else np.inf
+        for r in diff:
+            dd = vp[i][rp[i] == r] if r in set(rp[i]) else vk[i][rk[i] == r]
+            assert abs(float(dd[0]) - kth) <= 1e-2
