@@ -7,29 +7,42 @@
    from ``fabstir_vectordb_tpu_torch/csrc`` (one nvcc each, in parallel).
 2. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the main path gives it, with its time, the plain version's
-   time and its bound (the larger of bytes / 3.35 TB/s and f32 flops /
-   67 TFLOP/s, the H100 SXM data-sheet rates).
+   time and its bound (the larger of bytes / 3.35 TB/s and flops / 67
+   TFLOP/s f32, or 989 TFLOP/s for bf16 products, the H100 SXM data-sheet
+   rates).
 3. Main path, flat regime: a session (``device=None``: the card) ingests a
    seeded Gaussian mixture of 100,000 x 384 vectors with metadata in
    batches of 10,000, answers single, batched and filtered searches,
    deletes 1,000 ids and searches again. Every answer is held against an
    exact float64 numpy brute force. The launch counters, set to 0 just
    before, must show every kernel of the path.
-4. Pruned phase: bench.py's 1M tier (1,000,000 x 384, 10% recent rows in
-   HNSW, 90% in a 256-list IVF) built through ``HybridIndex.insert_batch``,
-   then served in the pruned regime (FVDB_PCA_SERVE=0, flat threshold 0, as
-   bench.py forces it): single and batched k=10 searches with recall@10
-   against the flat regime's exact answers, per-engine k, filtered searches
-   at k=10 and 100, k=300, 1,000 deletes (the entry point among them), and
-   2,048 inserts linked through the beam plan. The counters must show K1,
-   K4, K5, K6, K10, K11 and K12. Then K10, K11, K12, K13 and K1 at k =
-   1,024 and 16,384 against their plain versions on the index's own state.
-5. One JSON line with every kernel's numbers, the card's name and power
+4. The 1M index: bench.py's 1M tier (1,000,000 x 384, 10% recent rows in
+   HNSW, 90% in a 256-list IVF) built through ``HybridIndex.insert_batch``;
+   the counters must show K7's kernels in the IVF training, and K7 is held
+   against its plain version at the training shape.
+5. Pruned phase: the index served in the pruned regime (FVDB_PCA_SERVE=0,
+   flat threshold 0, as bench.py forces it): single and batched k=10
+   searches with recall@10 against the flat regime's exact answers,
+   per-engine k, filtered searches at k=10 and 100, k=300, 1,000 deletes
+   (the entry point among them), and 2,048 inserts linked through the beam
+   plan. The counters must show K1, K4, K5, K6, K10, K11 and K12. Then K10,
+   K11, K12, K13 and K1 at k = 1,024 and 16,384 against their plain
+   versions on the index's own state.
+6. Reduced phase: the same index in the reduced-rank regime, the default
+   above the flat threshold, as bench.py's bench_pca serves it (flat
+   threshold 0, FVDB_PCA_RERANK=device, rank and oversample auto): the
+   state build, 100 single and 8 x 128 batched k=10 searches, recall@10
+   against the flat regime's exact answers, filtered searches, no full-dim
+   f32 mirror held; host stage 2, the pinned restart, 1,000 deletes and a
+   fresh insert, the release on FVDB_PCA_SERVE=0. The counters must show
+   K14 (selection, projection), K2, K8 and K1 on bf16 rows; then each
+   against its plain version on the regime's own state.
+7. One JSON line with every kernel's numbers, the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
-stops after step 2, ``--phase pruned`` runs steps 1 and 4 only;
-``--profile``
+stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
+``--phase reduced`` steps 1, 4 and 6; ``--profile``
 writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
 then carry the profiler's overhead); ``--trace`` runs searches under
 ``torch.profiler``, prints the device's busy share and writes the ops by
@@ -51,6 +64,7 @@ CORPUS_ROWS = 100_000  # the repo's headline bench tier, at 384 dimensions
 PRUNED_ROWS = 1_000_000  # bench.py's 1M tier (build_index)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (no TF32)
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
 NOW = 1_700_000_000.0
 DAY = 86_400.0
 
@@ -69,8 +83,10 @@ def card_line() -> str:
         else "nvidia-smi failed"
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
+    """The least time for the work: bytes at the HBM rate or flops at
+    ``rate`` (f32 outside the tensor cores unless given), the larger."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -483,30 +499,158 @@ def recall(got, exact, k: int = 10) -> float:
     return float(np.sum(hits) / max(int((exact >= 0).sum()), 1))
 
 
-def pruned_phase(torch, native, card: str, perf: dict, results: dict,
-                 launch_of: dict, trace=False, out_dir="smoke_out"):
-    """bench.py's 1M index, served in the pruned regime, and its kernels
-    against their plain versions on the index's own device state."""
-    from fabstir_vectordb_tpu_torch.index import fused as fu
-    from fabstir_vectordb_tpu_torch.index import hnsw as hn
-    from fabstir_vectordb_tpu_torch.index import ivf as iv
+def build_1m(torch, native, card: str, perf: dict, launch_of: dict):
+    """bench.py's 1M index (build_index) through HybridIndex.insert_batch:
+    IVF training (K7 seeding, K6 Lloyd) and the HNSW linking of the recent
+    rows. The launch counters start at 0 here; K7's are read at the end."""
     from fabstir_vectordb_tpu_torch.index.hybrid import (
         HybridConfig, HybridIndex, SearchConfig)
     from fabstir_vectordb_tpu_torch.index.ivf import IVFConfig
     from fabstir_vectordb_tpu_torch.ops import kmeans as km
-    from fabstir_vectordb_tpu_torch.ops import topk as tp
-    from fabstir_vectordb_tpu_torch.utils import limits
 
     n, d = PRUNED_ROWS, 384
     n_recent = n // 10
     t0 = time.perf_counter()
     x, centers = bench_corpus(n, d, seed=0)
-    print(f"pruned: corpus {n} x {d} made in "
+    print(f"1M: corpus {n} x {d} made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     h = HybridIndex(d, HybridConfig(
         ivf=IVFConfig(n_clusters=256, n_probe=16, train_size=10_000, seed=0),
         auto_migrate=False), device=None)
-    cfg = SearchConfig(auto_migrate=False)
+    native.reset_launches()
+    # K7 (kmeans|| seeding) is timed inside the training: the whole seeding
+    # and its host part, the weighted k-means++ over the candidates
+    k7 = {"host": 0.0}
+    seeding, host_pp = km.kmeans_scalable_init, km._weighted_kmeanspp_host
+
+    def timed_seeding(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = seeding(*a, **kw)
+        torch.cuda.synchronize()
+        k7["s"] = time.perf_counter() - t
+        return out
+
+    def timed_host(*a, **kw):
+        t = time.perf_counter()
+        out = host_pp(*a, **kw)
+        k7["host"] += time.perf_counter() - t
+        return out
+
+    km.kmeans_scalable_init, km._weighted_kmeanspp_host = (timed_seeding,
+                                                            timed_host)
+    try:
+        t = time.perf_counter()
+        h.initialize(x[:10_000])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+    finally:
+        km.kmeans_scalable_init, km._weighted_kmeanspp_host = (seeding,
+                                                                host_pp)
+    k7_names = ("seed_pick", "seed_min_update", "seed_counts")
+    for name in k7_names:
+        launch_of[name] = native.launches[name]
+        if launch_of[name] <= 0:
+            fail(f"IVF training: K7's {name} was launched no time")
+    ts = np.full(n, NOW - 30 * DAY)
+    ts[:n_recent] = NOW - DAY
+    t = time.perf_counter()
+    h.insert_batch([f"v{i}" for i in range(n)], x, ts, now=NOW)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t
+    if h.hnsw.num_nodes != n_recent or h.ivf.active_count != n - n_recent:
+        fail(f"1M: {h.hnsw.num_nodes} HNSW / {h.ivf.active_count} IVF")
+    lens = np.bincount(h.ivf.assignments[h.ivf.assignments >= 0],
+                       minlength=256)
+    k7_ms, k7_host_ms = k7["s"] * 1e3, k7["host"] * 1e3
+    print(f"1M: IVF trained in {train_s:.3f} s, K7 (kmeans|| seeding) "
+          f"{k7_ms:.3f} ms: device part {k7_ms - k7_host_ms:.3f} ms, host "
+          f"k-means++ {k7_host_ms:.3f} ms; K7 launches "
+          f"{[launch_of[k] for k in k7_names]}"
+          f"; inserted {n} rows ({n_recent} HNSW) in {ingest_s:.3f} s: "
+          f"{n / ingest_s:.1f} vectors/s; lists {lens.min()}-{lens.max()} "
+          f"rows, L_pad {h.ivf.tiles().shape[1]} ({card})", flush=True)
+    perf.update(pruned_ingest_vectors_per_s=n / ingest_s,
+                pruned_train_s=train_s, k7_seeding_ms=k7_ms,
+                k7_host_kmeanspp_ms=k7_host_ms)
+    return {"h": h, "x": x, "centers": centers, "n": n, "d": d,
+            "n_recent": n_recent, "cfg": SearchConfig(auto_migrate=False),
+            "rng": np.random.default_rng(5)}
+
+
+def k7_checks(torch, ctx, results: dict) -> None:
+    """K7's three kernels against their plain versions at the IVF training
+    shape (the first 10,000 rows, l = 409, 2,046 candidates)."""
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+
+    d = ctx["d"]
+    dev = ctx["h"].store.device
+    x = torch.from_numpy(ctx["x"][:10_000]).to(dev)
+    n = x.shape[0]
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    first = km.seed_pick_plain(None, mask, torch.rand(n, device=dev,
+                                                      generator=g), 1, False)
+    d2 = km.seed_min_update_plain(x, mask, torch.full(
+        (n,), float("inf"), device=dev), first)
+    u = torch.rand(n, device=dev, generator=g)
+    l, c_all = 409, 2046
+    rk = km.seed_pick(d2, mask, u, l)
+    rp = km.seed_pick_plain(d2, mask, u, l)
+    if not torch.equal(rk, rp):
+        fail("seed_pick: the picked rows differ from the plain version's")
+    results["seed_pick"] = dict(
+        shape=f"N={n} l={l}", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: km.seed_pick(d2, mask, u, l)),
+        plain_ms=cuda_ms(torch, lambda: km.seed_pick_plain(d2, mask, u, l)),
+        library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n * (4 + 1 + 4) + l * 4, 4.0 * n))))
+    dk = km.seed_min_update(x, mask, d2, rk)
+    dp = km.seed_min_update_plain(x, mask, d2, rk)
+    x_sq_max = float((x * x).sum(1).max())
+    tol = 2e-5 * 2 * x_sq_max
+    err = float((dk - dp).abs().max())
+    if err > tol:
+        fail(f"seed_min_update: max_abs_err {err} > {tol}")
+    results["seed_min_update"] = dict(
+        shape=f"N={n} D={d} l={l}", max_abs_err=err, tol=tol,
+        ms=cuda_ms(torch, lambda: km.seed_min_update(x, mask, d2, rk)),
+        plain_ms=cuda_ms(torch, lambda: km.seed_min_update_plain(
+            x, mask, d2, rk)), library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n * d * 4 + n * 9 + l * 4, 2.0 * l * n * d))))
+    cand = torch.cat([first, rk] + [km.seed_pick_plain(
+        dp, mask, torch.rand(n, device=dev, generator=g), l)
+        for _ in range(4)])[:c_all].contiguous()
+    ck = km.seed_counts(x, mask, cand)
+    cp = km.seed_counts_plain(x, mask, cand)
+    agree = float((ck == cp).float().mean())
+    if int(ck.sum()) != n or agree < 0.99:
+        fail(f"seed_counts: {agree} of counts agree, sum {int(ck.sum())}")
+    results["seed_counts"] = dict(
+        shape=f"N={n} D={d} C={c_all}", max_abs_err=float(
+            (ck - cp).abs().max()), agree=agree,
+        ms=cuda_ms(torch, lambda: km.seed_counts(x, mask, cand)),
+        plain_ms=cuda_ms(torch, lambda: km.seed_counts_plain(x, mask, cand)),
+        library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n * d * 4 + n + c_all * 8, 2.0 * c_all * n * d))))
+
+
+def pruned_phase(torch, native, card: str, perf: dict, results: dict,
+                 launch_of: dict, ctx: dict, trace=False, out_dir="smoke_out"):
+    """The 1M index served in the pruned regime, and its kernels against
+    their plain versions on the index's own device state."""
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import hnsw as hn
+    from fabstir_vectordb_tpu_torch.index import ivf as iv
+    from fabstir_vectordb_tpu_torch.index.hybrid import SearchConfig
+    from fabstir_vectordb_tpu_torch.ops import topk as tp
+    from fabstir_vectordb_tpu_torch.utils import limits
+
+    h, x, centers, cfg = ctx["h"], ctx["x"], ctx["centers"], ctx["cfg"]
+    n, d, n_recent = ctx["n"], ctx["d"], ctx["n_recent"]
     old_thr = limits.FLAT_THRESHOLD
 
     def regime(pruned: bool) -> None:
@@ -522,44 +666,7 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         if h.fused.serving_info()["regime"] != want:
             fail(f"serving_info: {h.fused.serving_info()}, expected {want}")
 
-    native.reset_launches()
-    # K7 (kmeans|| seeding, plain torch) is timed inside the training
-    k7 = {}
-    seeding = km.kmeans_scalable_init
-
-    def timed_seeding(*a, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = seeding(*a, **kw)
-        torch.cuda.synchronize()
-        k7["s"] = time.perf_counter() - t
-        return out
-
-    km.kmeans_scalable_init = timed_seeding
-    try:
-        t = time.perf_counter()
-        h.initialize(x[:10_000])
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t
-    finally:
-        km.kmeans_scalable_init = seeding
-    ts = np.full(n, NOW - 30 * DAY)
-    ts[:n_recent] = NOW - DAY
-    t = time.perf_counter()
-    h.insert_batch([f"v{i}" for i in range(n)], x, ts, now=NOW)
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t
-    if h.hnsw.num_nodes != n_recent or h.ivf.active_count != n - n_recent:
-        fail(f"pruned: {h.hnsw.num_nodes} HNSW / {h.ivf.active_count} IVF")
-    lens = np.bincount(h.ivf.assignments[h.ivf.assignments >= 0],
-                       minlength=256)
-    print(f"pruned: IVF trained in {train_s:.3f} s, K7 (kmeans|| seeding, "
-          f"plain torch) {k7['s'] * 1e3:.3f} ms; inserted {n} rows "
-          f"({n_recent} HNSW) in {ingest_s:.3f} s: {n / ingest_s:.1f} "
-          f"vectors/s; lists {lens.min()}-{lens.max()} rows, L_pad "
-          f"{h.ivf.tiles().shape[1]} ({card})", flush=True)
-
-    rng = np.random.default_rng(5)
+    rng = ctx["rng"]
 
     def noisy(rows):
         return (x[rows] + 0.3 * rng.standard_normal((len(rows), d))) \
@@ -669,9 +776,7 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
             fail(f"pruned path: {name} was launched no time")
     p50 = float(np.percentile(lat, 50))
     qps = 1024 / batch_s
-    perf.update(pruned_ingest_vectors_per_s=n / ingest_s,
-                pruned_train_s=train_s, k7_seeding_ms=k7["s"] * 1e3,
-                pruned_state_build_s=state_s, pruned_search_p50_ms=p50,
+    perf.update(pruned_state_build_s=state_s, pruned_search_p50_ms=p50,
                 pruned_batched_qps=qps, pruned_recall_at_10_single=rec_single,
                 pruned_recall_at_10_batched=rec_batched,
                 pruned_recall_at_300=rec300,
@@ -866,11 +971,403 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
                 x_d, xsq_d, mem, q4, k), iters=2, warmup=1),
             bound_ms=bms, bound_by=by)
         launch_of[f"l2_topk[k={k}]"] = counts["l2_topk_large"]
-    for name in [k for k in results if k in launch_of]:
-        r = results[name]
-        print(f"kernel {name}: agree=True library_ms=None " + " ".join(
-            f"{k}={v}" for k, v in r.items()), flush=True)
+    for name in ("greedy_descent", "beam_search[serve]",
+                 "beam_search[serve-filtered]", "beam_search[link]",
+                 "ivf_scan", "l2_topk[k=1024]", "l2_topk[k=16384]"):
+        print_kernel(name, results[name], launch_of[name])
     regime(False)
+
+
+def print_kernel(name: str, r: dict, launches=None) -> None:
+    print(f"kernel {name}: agree=True launches={launches} library_ms="
+          f"{r.get('library_ms')} " + " ".join(
+              f"{k}={v}" for k, v in r.items() if k != "library_ms"),
+          flush=True)
+
+
+def reduced_phase(torch, native, card: str, perf: dict, results: dict,
+                  launch_of: dict, ctx: dict, trace=False,
+                  out_dir="smoke_out"):
+    """The 1M index served in the reduced-rank regime as bench.py's
+    bench_pca runs it (flat threshold 0, FVDB_PCA_RERANK=device, rank and
+    oversample auto): build, searches, recall@10 against the flat regime's
+    exact answers, filters, deletes and a fresh insert, the memory premise,
+    host mode, the pinned restart, the release on a regime switch; then
+    K14, K2, K8 and K1 on bf16 rows against their plain versions on the
+    regime's own state."""
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.ops import topk as tp
+    from fabstir_vectordb_tpu_torch.utils import limits
+    from fabstir_vectordb_tpu_torch.utils.padding import bucket
+
+    h, x, cfg = ctx["h"], ctx["x"], ctx["cfg"]
+    n, d, n_recent = ctx["n"], ctx["d"], ctx["n_recent"]
+    rng = np.random.default_rng(9)
+    live = h.store.active_mask(h.store.capacity)
+
+    def noisy(rows):
+        return (x[rows] + 0.3 * rng.standard_normal((len(rows), d))) \
+            .astype(np.float32)
+
+    def from_both(m):  # half near HNSW rows, half near IVF rows
+        return np.concatenate([rng.choice(np.nonzero(live[:n_recent])[0],
+                                          m // 2),
+                               rng.choice(np.nonzero(live[n_recent:n])[0]
+                                          + n_recent, m - m // 2)])
+
+    qs, qb = noisy(from_both(256)), noisy(from_both(1024))
+    old_thr = limits.FLAT_THRESHOLD
+    knobs = ("FVDB_PCA_SERVE", "FVDB_FLAT_THRESHOLD", "FVDB_PCA_RERANK",
+             "FVDB_PCA_RANK", "FVDB_PCA_OVERSAMPLE")
+
+    def regime(name: str, **env) -> None:
+        for key in knobs:
+            os.environ.pop(key, None)
+        limits.FLAT_THRESHOLD = old_thr if name == "flat" else 0
+        if name != "flat":
+            os.environ["FVDB_FLAT_THRESHOLD"] = "0"
+        if name == "pruned":
+            os.environ["FVDB_PCA_SERVE"] = "0"
+        os.environ.update(env)
+        want = {"flat": "flat-exact", "reduced": "reduced-rank",
+                "pruned": "pruned"}[name]
+        if h.fused.serving_info()["regime"] != want:
+            fail(f"serving_info: {h.fused.serving_info()}, expected {want}")
+
+    def search(qq, k=10, **kw):
+        return h.search_rows(qq, k, cfg, now=NOW, **kw)[1]
+
+    def batched():
+        return np.concatenate([search(qb[i * 128:(i + 1) * 128])
+                               for i in range(8)])
+
+    def build() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        search(qs[:1])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # exact answers: the flat regime (K1 over every member)
+    regime("flat")
+    ex_single = np.concatenate([search(qs[i:i + 128]) for i in (0, 128)])
+    ex_batched = batched()
+
+    # ---- device stage 2, rank and oversample auto: the main path
+    regime("reduced", FVDB_PCA_RERANK="device")
+    native.reset_launches()
+    build_s = build()
+    info = h.fused.serving_info()
+    proj = h.fused._proj
+    print(f"reduced: state built in {build_s:.3f} s: rank {info['pca_rank']}"
+          f" (doubled: {info['pca_rank_doubled']}), oversample "
+          f"{info['pca_oversample']}, calibrated recall "
+          f"{info['pca_calibrated_recall']}, stage 2 {info['pca_rerank']}, "
+          f"{proj['n_rows']} mirror rows ({card})", flush=True)
+    if info["pca_rerank"] != "device" or proj["rerank_x"] is None:
+        fail(f"reduced: stage 2 is not on the device: {info}")
+    # the memory premise: no full-dim f32 mirror while reduced-rank serves
+    if h.fused._dev is not None or h.store._mirror is not None:
+        fail("reduced: the full-dim f32 mirror is still held")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    own = sum(t.numel() * t.element_size() for t in (
+        proj["xp"], proj["xp_sq"], proj["rerank_x"], h.fused._members_dev))
+    f32_mirror = h.store.count * d * 4
+    if held - own >= f32_mirror:
+        fail(f"reduced: {held - own} bytes held beside the regime's own "
+             f"{own}: as much as a full-dim f32 mirror ({f32_mirror})")
+    lat, single = [], []
+    for q in qs:
+        t = time.perf_counter()
+        single.append(search(q[None])[0])
+        lat.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    bat = batched()
+    batch_s = time.perf_counter() - t
+    single = np.stack(single)
+    rec_s, rec_b = recall(single, ex_single), recall(bat, ex_batched)
+    if min(rec_s, rec_b) < 0.95:
+        fail(f"reduced recall@10 {rec_s} / {rec_b} < 0.95")
+    fmask = np.arange(h.store.capacity) % 10 == 3
+    for k in (10, 100):
+        res = h.search_with_filter(qs[0], k, {"cat": 3}, row_mask=fmask,
+                                   now=NOW)
+        rows = [h.store.row_of(v) for v, _ in res]
+        if len(rows) != k or not fmask[rows].all() or not live[rows].all():
+            fail(f"reduced filtered k={k}: {len(rows)} rows, one outside "
+                 f"the mask or deleted")
+    torch.cuda.synchronize()
+    counts = dict(native.launches)
+    path = ("project_rows", "project_queries", "stage1_select", "rerank_f32",
+            "l2_topk_bf16", "merge_topk")
+    for name in path:
+        if counts[name] <= 0:
+            fail(f"reduced path: {name} was launched no time")
+    p50 = float(np.percentile(lat[:100], 50))
+    qps = 1024 / batch_s
+    print(f"reduced: search p50 {p50:.3f} ms over 100 single k=10 searches,"
+          f" batched {qps:.1f} QPS over 8 x 128; recall@10 {rec_s:.4f} "
+          f"(256 single) {rec_b:.4f} (1,024 batched); filtered k=10/100 "
+          f"exact to the filter; held beside the regime's state "
+          f"{(held - own) / 1e6:.1f} MB of {held / 1e6:.1f} MB, a full-dim "
+          f"f32 mirror would be {f32_mirror / 1e6:.1f} MB ({card})",
+          flush=True)
+    print(f"reduced: launches { {k: counts[k] for k in path} }", flush=True)
+    if trace:
+        for name, fn in (
+                ("reduced_single", lambda: [search(q[None]) for q in qs[:64]]),
+                ("reduced_batched", lambda: [search(qb[i * 128:(i + 1) * 128])
+                                             for i in range(4)])):
+            wall, dev_ms = device_trace(torch, name, fn, out_dir)
+            print(f"trace {name}: wall {wall:.3f} ms, device {dev_ms:.3f} "
+                  f"ms, busy share {dev_ms / wall:.3f} ({card})", flush=True)
+
+    # ---- kernels against their plain versions, on this state
+    xp, xp_sq, rx = proj["xp"], proj["xp_sq"], proj["rerank_x"]
+    mu, pm = proj["mu"], proj["p"]
+    n_rows, r = xp.shape
+    mem = h.fused._members_state(n_rows)
+    n_in = int(mem.sum())
+    dev = xp.device
+    ov_serve = min(bucket(16 * info["pca_oversample"]), n_rows)  # k 10 -> 16
+    m_serve = min(64, ov_serve)
+    q128 = torch.from_numpy(qb[:128]).to(dev)
+    qp128 = fu.project_queries(q128, mu, pm)
+    # the serving pool at B = 1 and 128, and a pool of 1,024 if it is not
+    cases = [("B=1", 1, ov_serve), ("B=128", 128, ov_serve)]
+    if ov_serve != 1024:
+        cases.append(("B=128 ov=1024", 128, min(1024, n_rows)))
+    stage1_keys = [f"stage1_select[{tag}]" for tag, _, _ in cases]
+    for tag, b, ov in cases:
+        qp = qp128[:b].contiguous()
+        vk, rk = fu.stage1_select(xp, xp_sq, mem, qp, ov)
+        vp, rp = fu.stage1_select_plain(xp, xp_sq, mem, qp, ov)
+        tol = 2e-5 * float(xp_sq.max() + (qp * qp).sum(1).max())
+        err, differ = topk_check(f"stage1_select[{tag}]", vk, rk, vp, rp, tol)
+        bms, by = bound(n_rows * (r * 2 + 4 + 1) + b * r * 4 + b * ov * 8,
+                        2.0 * b * n_in * r, BF16_FLOPS)
+        key = f"stage1_select[{tag}]"
+        results[key] = dict(
+            shape=f"B={b} N={n_rows} r={r} ov_k={ov} members={n_in}",
+            max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+            ms=cuda_ms(torch, lambda: fu.stage1_select(xp, xp_sq, mem, qp,
+                                                       ov)),
+            plain_ms=cuda_ms(torch, lambda: fu.stage1_select_plain(
+                xp, xp_sq, mem, qp, ov), iters=2, warmup=1),
+            library_ms=None, bound_ms=bms,
+            bound_by=f"{by} (bf16 tensor-core rate)")
+        launch_of[key] = counts["stage1_select"]
+    # K14 projection: one block of the device-mode build
+    blk_n = min(524_288, n_rows)
+    blk = rx[:blk_n]
+    out_k = torch.empty((blk_n, r), dtype=torch.bfloat16, device=dev)
+    sq_k = torch.empty(blk_n, device=dev)
+    out_p, sq_p = torch.empty_like(out_k), torch.empty_like(sq_k)
+    fu.project_rows(blk, mu, pm, out_k, sq_k, 0)
+    fu.project_rows_plain(blk, mu, pm, out_p, sq_p, 0)
+    yk, yp = out_k.float(), out_p.float()
+    same = yk == yp
+    share = float(same.float().mean())
+    # one bf16 ulp of the larger of the two, or (where the product cancels
+    # to near 0) the f32 sums' own spread, 1e-6 of the block's scale
+    big = torch.maximum(yk.abs(), yp.abs()).clamp_min(1e-30)
+    slack = torch.maximum(torch.exp2(torch.floor(torch.log2(big)) - 7)
+                          * 1.0001, 1e-6 * yp.abs().max())
+    if share < 0.999 or bool(((yk - yp).abs()[~same] > slack[~same]).any()):
+        fail(f"project_rows: {share} of elements equal, or one off by more "
+             f"than a bf16 ulp")
+    rows_eq = same.all(1)
+    sq_err = float(((sq_k - sq_p).abs() / sq_p.clamp_min(1e-30))[rows_eq]
+                   .max())
+    if sq_err > 1e-6:
+        fail(f"project_rows: norms off by {sq_err} relative")
+    if not torch.equal(out_k, xp[:blk_n]):
+        fail("project_rows: the served mirror's first block differs")
+    centered = blk.float() - mu
+    bms, by = bound(blk_n * (d * 2 + r * 2 + 4) + d * r * 4 + d * 4,
+                    2.0 * blk_n * d * r)
+    results["project_rows"] = dict(
+        shape=f"n={blk_n} D={d} r={r}", max_abs_err=float(
+            (yk - yp).abs().max()), equal_share=share, norm_rel_err=sq_err,
+        ms=cuda_ms(torch, lambda: fu.project_rows(blk, mu, pm, out_k, sq_k,
+                                                  0)),
+        plain_ms=cuda_ms(torch, lambda: fu.project_rows_plain(
+            blk, mu, pm, out_p, sq_p, 0), iters=2, warmup=1),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(centered, pm)),
+        bound_ms=bms, bound_by=by)
+    launch_of["project_rows"] = counts["project_rows"]
+    del centered
+    pk, pp = fu.project_queries(q128, mu, pm), \
+        fu.project_queries_plain(q128, mu, pm)
+    err = float((pk - pp).abs().max())
+    tol = 1e-5 * float(pp.abs().max()) * 10
+    if err > tol:
+        fail(f"project_queries: max_abs_err {err} > {tol}")
+    qc = q128 - mu
+    bms, by = bound(128 * d * 4 + d * r * 4 + d * 4 + 128 * r * 4,
+                    2.0 * 128 * d * r)
+    results["project_queries"] = dict(
+        shape=f"B=128 D={d} r={r}", max_abs_err=err, tol=tol,
+        ms=cuda_ms(torch, lambda: fu.project_queries(q128, mu, pm)),
+        plain_ms=cuda_ms(torch, lambda: fu.project_queries_plain(
+            q128, mu, pm)),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(qc, pm)),
+        bound_ms=bms, bound_by=by)
+    launch_of["project_queries"] = counts["project_queries"]
+    # K2 on the serving pool of 128 queries
+    _, pool = fu.stage1_select(xp, xp_sq, mem, qp128, ov_serve)
+    vk, rk = fu.rerank_f32(rx, q128, pool, m_serve)
+    vp, rp = fu.rerank_f32_plain(rx, q128, pool, m_serve)
+    tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
+    err, differ = topk_check("rerank_f32", vk, rk, vp, rp, tol)
+    valid = pool >= 0
+    distinct = int(torch.unique(pool[valid]).numel())
+    bms, by = bound(distinct * d * 2 + pool.numel() * 4 + 128 * d * 4
+                    + 128 * m_serve * 8, 3.0 * int(valid.sum()) * d)
+    results["rerank_f32"] = dict(
+        shape=f"B=128 OV={ov_serve} m={m_serve} D={d} distinct rows "
+              f"{distinct}", max_abs_err=err, tol=tol,
+        rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, lambda: fu.rerank_f32(rx, q128, pool, m_serve)),
+        plain_ms=cuda_ms(torch, lambda: fu.rerank_f32_plain(
+            rx, q128, pool, m_serve), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["rerank_f32"] = counts["rerank_f32"]
+    # K8: the oracle step at 128 probes over the build's first two blocks
+    # (K1 on bf16 rows, then the merge), and each kernel alone
+    width = 11
+    steps = {}
+    for tag, step in (("kernel", fu.oracle_step),
+                      ("plain", fu.oracle_step_plain)):
+        vals = torch.full((128, width), float("inf"), device=dev)
+        rows = torch.full((128, width), -1, dtype=torch.int32, device=dev)
+        for lo in range(0, min(2 * blk_n, n_rows), blk_n):
+            hi = min(lo + blk_n, n_rows)
+            vals, rows = step(rx[lo:hi], mem[lo:hi], q128, lo, vals, rows,
+                              width)
+        steps[tag] = (vals, rows)
+    tol = 2e-5 * float((blk.float() ** 2).sum(1).max()
+                       + (q128 * q128).sum(1).max())
+    err, differ = topk_check("oracle_step", *steps["kernel"],
+                             *steps["plain"], tol)
+    m0 = mem[:blk_n]
+    b_in = int(m0.sum())
+    vk, rk = tp.l2_topk(blk, None, m0, q128, width)
+    vp, rp = tp.l2_topk_plain(blk, None, m0, q128, width)
+    err1, differ1 = topk_check("l2_topk[bf16]", vk, rk, vp, rp, tol)
+    bms, by = bound(blk_n * (d * 2 + 1) + 128 * d * 4 + 128 * width * 8,
+                    2.0 * 128 * b_in * d + 2.0 * blk_n * d)
+    results["l2_topk[bf16]"] = dict(
+        shape=f"B=128 N={blk_n} D={d} k={width} (bf16 rows, norms in the "
+              f"kernel)", max_abs_err=err1, tol=tol,
+        rows_differing_at_ties=differ1, oracle_step_err=err,
+        oracle_step_rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, lambda: tp.l2_topk(blk, None, m0, q128, width)),
+        plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
+            blk, None, m0, q128, width), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["l2_topk[bf16]"] = counts["l2_topk_bf16"]
+    va, ra = steps["plain"]
+    mk = tp.merge_topk(va, ra, vk, rk, width)
+    mp = tp.merge_topk_plain(va, ra, vk, rk, width)
+    if not (torch.equal(mk[0], mp[0]) and torch.equal(mk[1], mp[1])):
+        fail("merge_topk: differs from the plain version")
+    bms, by = bound(3 * 128 * width * 8, 0.0)
+    results["merge_topk"] = dict(
+        shape=f"B=128 k={width} + {width}", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: tp.merge_topk(va, ra, vk, rk, width)),
+        plain_ms=cuda_ms(torch, lambda: tp.merge_topk_plain(
+            va, ra, vk, rk, width)), library_ms=None, bound_ms=bms,
+        bound_by=by)
+    launch_of["merge_topk"] = counts["merge_topk"]
+    for name in (*stage1_keys, "project_rows", "project_queries",
+                 "rerank_f32", "l2_topk[bf16]", "merge_topk"):
+        print_kernel(name, results[name], launch_of[name])
+    del proj, xp, xp_sq, rx, blk, out_k, out_p, sq_k, sq_p, pool
+
+    # ---- host stage 2 on the same index
+    h.fused._release_proj()
+    regime("reduced", FVDB_PCA_RERANK="host")
+    host_build_s = build()
+    if h.fused.serving_info()["pca_rerank"] != "host":
+        fail("reduced: host mode did not take stage 2 to the host")
+    t = time.perf_counter()
+    host_single = np.stack([search(q[None])[0] for q in qs])
+    host_single_s = time.perf_counter() - t
+    host_bat = batched()
+    rec_hs, rec_hb = recall(host_single, ex_single), recall(host_bat,
+                                                            ex_batched)
+    if min(rec_hs, rec_hb) < 0.95:
+        fail(f"reduced host-mode recall@10 {rec_hs} / {rec_hb} < 0.95")
+    shared = overlap(np.concatenate([host_single, host_bat]),
+                     np.concatenate([single, bat]))
+    print(f"reduced host mode: state built in {host_build_s:.3f} s; "
+          f"recall@10 {rec_hs:.4f} (single) {rec_hb:.4f} (batched); "
+          f"{shared:.4f} of rows shared with device mode; 256 single "
+          f"searches in {host_single_s:.3f} s ({card})", flush=True)
+
+    # ---- pinned restart: rank and oversample from this calibration
+    h.fused._release_proj()
+    regime("reduced", FVDB_PCA_RERANK="device",
+           FVDB_PCA_RANK=str(info["pca_rank"]),
+           FVDB_PCA_OVERSAMPLE=str(info["pca_oversample"]))
+    before = (native.launches["l2_topk_bf16"], native.launches["merge_topk"])
+    pinned_build_s = build()
+    pinfo = h.fused.serving_info()
+    if (native.launches["l2_topk_bf16"], native.launches["merge_topk"]) \
+            != before or pinfo["pca_calibrated_recall"] is not None:
+        fail(f"pinned restart ran the probe pass: {pinfo}")
+    pin_bat = batched()
+    if not np.array_equal(pin_bat, bat):
+        fail(f"pinned restart: {float((pin_bat != bat).any(1).mean())} of "
+             f"queries answer otherwise")
+    print(f"reduced pinned restart: state built in {pinned_build_s:.3f} s "
+          f"(auto: {build_s:.3f} s), no oracle launch, the same answers "
+          f"({card})", flush=True)
+
+    # ---- guarantees after 1,000 deletes and an insert
+    top = [int(v) for row in single[:50] for v in row[:5] if v >= 0]
+    pool_rows = np.nonzero(h.store.active_mask(h.store.count))[0]
+    dead = list(dict.fromkeys(top + rng.choice(pool_rows, 1000).tolist()))
+    dead = np.array(dead[:1000])
+    if h.batch_delete([h.store.id_of(int(v)) for v in dead]) != 1000:
+        fail("reduced: batch_delete")
+    fresh = (x[7] + 0.01 * rng.standard_normal(d)).astype(np.float32)
+    fresh_row = h.insert_batch(["fresh-0"], fresh[None],
+                               np.full(1, NOW - 30 * DAY), now=NOW)[0]
+    mut_s = build()
+    after = np.concatenate([search(qs[:128]), search(qb[:128])])
+    if np.isin(after, dead).any():
+        fail("reduced: a deleted row was returned")
+    me = search(fresh[None], 1)
+    if int(me[0, 0]) != int(fresh_row):
+        fail(f"reduced: the fresh insert came back as {me[0, 0]}, not at "
+             f"rank 1")
+
+    # ---- a regime switch releases the projection state
+    regime("pruned")
+    search(qs[:1])
+    if h.fused._proj is not None:
+        fail("reduced: FVDB_PCA_SERVE=0 kept the projection state")
+    regime("flat")
+    print(f"reduced: 1,000 deletes + 1 insert rebuilt in {mut_s:.3f} s, no "
+          f"deleted row returned, the insert found at rank 1; "
+          f"FVDB_PCA_SERVE=0 released the projection state ({card})",
+          flush=True)
+    perf.update(
+        reduced_state_build_s=build_s, reduced_search_p50_ms=p50,
+        reduced_batched_qps=qps, reduced_recall_at_10_single=rec_s,
+        reduced_recall_at_10_batched=rec_b, reduced_rank=info["pca_rank"],
+        reduced_rank_doubled=info["pca_rank_doubled"],
+        reduced_oversample=info["pca_oversample"],
+        reduced_calibrated_recall=info["pca_calibrated_recall"],
+        reduced_held_beside_state_bytes=held - own,
+        reduced_host_state_build_s=host_build_s,
+        reduced_host_recall_at_10_single=rec_hs,
+        reduced_host_recall_at_10_batched=rec_hb,
+        reduced_host_shared_rows=shared,
+        reduced_pinned_state_build_s=pinned_build_s)
 
 
 REPLACES = {  # the JAX function each kernel (entry) takes the place of
@@ -882,6 +1379,15 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "greedy_descent": "fabstir_vectordb_tpu/index/hnsw.py:249",
     "beam_search": "fabstir_vectordb_tpu/index/hnsw.py:312",
     "ivf_scan": "fabstir_vectordb_tpu/index/ivf.py:79",
+    "l2_topk[bf16]": "fabstir_vectordb_tpu/index/fused.py:206",
+    "seed_pick": "fabstir_vectordb_tpu/ops/kmeans.py:150",
+    "seed_min_update": "fabstir_vectordb_tpu/ops/kmeans.py:130",
+    "seed_counts": "fabstir_vectordb_tpu/ops/kmeans.py:140",
+    "stage1_select": "fabstir_vectordb_tpu/index/fused.py:65",
+    "project_rows": "fabstir_vectordb_tpu/index/fused.py:197",
+    "project_queries": "fabstir_vectordb_tpu/index/fused.py:741",
+    "rerank_f32": "fabstir_vectordb_tpu/index/fused.py:83",
+    "merge_topk": "fabstir_vectordb_tpu/ops/topk.py:61",
 }
 SOURCES = {
     "l2_topk": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
@@ -891,13 +1397,21 @@ SOURCES = {
     "greedy_descent": "fabstir_vectordb_tpu_torch/csrc/greedy_descent.cu",
     "beam_search": "fabstir_vectordb_tpu_torch/csrc/beam_search.cu",
     "ivf_scan": "fabstir_vectordb_tpu_torch/csrc/ivf_scan.cu",
+    "seed_pick": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
+    "seed_min_update": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
+    "seed_counts": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
+    "stage1_select": "fabstir_vectordb_tpu_torch/csrc/stage1_select.cu",
+    "project_rows": "fabstir_vectordb_tpu_torch/csrc/project_rows.cu",
+    "project_queries": "fabstir_vectordb_tpu_torch/csrc/project_rows.cu",
+    "rerank_f32": "fabstir_vectordb_tpu_torch/csrc/rerank_f32.cu",
+    "merge_topk": "fabstir_vectordb_tpu_torch/csrc/merge_topk.cu",
 }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "kernels", "pruned"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "pruned",
+                                        "reduced"), default="all")
     ap.add_argument("--profile", action="store_true",
                     help="cProfile the main path into --out (its timings "
                          "then carry the profiler's overhead)")
@@ -958,11 +1472,25 @@ def main() -> None:
                 for key in ("tottime", "cumulative"):
                     pstats.Stats(p, stream=f).sort_stats(key).print_stats(40)
             print(f"profile: {path}", flush=True)
-    if args.phase in ("all", "pruned"):
+    if args.phase in ("all", "pruned", "reduced"):
         t = time.perf_counter()
-        pruned_phase(torch, native, card, perf, results, launch_of,
-                     trace=args.trace, out_dir=args.out)
-        print(f"pruned phase: {time.perf_counter() - t:.1f} s", flush=True)
+        ctx = build_1m(torch, native, card, perf, launch_of)
+        k7_checks(torch, ctx, results)
+        for name in ("seed_pick", "seed_min_update", "seed_counts"):
+            print_kernel(name, results[name], launch_of[name])
+        print(f"1M build: {time.perf_counter() - t:.1f} s", flush=True)
+        if args.phase != "reduced":
+            t = time.perf_counter()
+            pruned_phase(torch, native, card, perf, results, launch_of, ctx,
+                         trace=args.trace, out_dir=args.out)
+            print(f"pruned phase: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+        if args.phase != "pruned":
+            t = time.perf_counter()
+            reduced_phase(torch, native, card, perf, results, launch_of, ctx,
+                          trace=args.trace, out_dir=args.out)
+            print(f"reduced phase: {time.perf_counter() - t:.1f} s",
+                  flush=True)
     kernels = []
     for key, r in results.items():
         base = key.split("[")[0]
@@ -973,7 +1501,7 @@ def main() -> None:
             "launches": int(launches),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         })
     if perf:
         print("main_path " + json.dumps(perf, default=float), flush=True)

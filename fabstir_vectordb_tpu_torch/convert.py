@@ -5,7 +5,9 @@ returns a port :class:`HybridIndex` that holds the same rows, graph and
 quantizer, so it answers searches as the original does. The caller reads the
 arrays off the source object (for a JAX ``HybridIndex`` ``h``: ``h.store.data``,
 ``h.store.row_to_id``, ``h.hnsw.nbrs0``, ``h.ivf.centroids`` and so on); this
-module never touches one.
+module never touches one. :func:`install_projection` carries the
+reduced-rank regime's projection across the same way (the JAX searcher's
+``h.fused._proj["mu"]`` and ``["p"]`` as numpy).
 """
 from __future__ import annotations
 
@@ -64,3 +66,14 @@ def hybrid_from_numpy(state: dict, device=None,
         v.trained = True
     v._version += 1
     return idx
+
+
+def install_projection(idx: HybridIndex, proj: dict) -> None:
+    """Serve ``idx``'s reduced-rank regime with the projection in ``proj``:
+    ``mu`` [D] and ``p`` [D, r] (numpy), used instead of the port's own
+    PCA fit, so both packages project onto one basis (an eigensolver may
+    flip or rotate near-tied columns). The rank is p's width; the port
+    calibrates the oversample on that basis, or a pinned restart pins it
+    with FVDB_PCA_OVERSAMPLE."""
+    idx.fused.install_fit(np.asarray(proj["mu"], np.float32),
+                          np.asarray(proj["p"], np.float32))

@@ -1,23 +1,31 @@
 """Fused search: the whole query path in one short chain of device launches.
 
-The JAX package's ``index/fused.py`` for two regimes, picked by capacity:
+The JAX package's ``index/fused.py`` for three regimes, picked by capacity:
 
 - flat (up to the flat threshold, f32 mirror): one masked exact L2 top-k
   (K1) with the membership / soft-delete / filter mask fused into
   selection;
+- reduced-rank (above it, FVDB_PCA_SERVE=1, the default): the corpus
+  projected on its top principal directions into a bf16 [N, r] mirror
+  (K14's projection), a wide stage-1 pool over that mirror (K14's
+  selection), then an exact f32 re-score of the pool: on the device against
+  a full-dim bf16 mirror (K2) followed by an exact host re-score of the
+  survivors, or on the host alone. The pool width is calibrated at build
+  time against an exact oracle of probe queries (K1 on bf16 blocks + K8's
+  merge), streamed over the same blocks as the projection;
 - pruned (above it, with FVDB_PCA_SERVE=0): K13 :func:`hybrid_search`,
   greedy descent (K10) and a layer-0 beam (K11) over the HNSW members, then
   the IVF n-probe scan (K12) over the IVF members, seeded with the beam's
   top-k so the two results merge inside K12's selection.
 
-A query batch is one upload, the launches, and one [B, k] readback. Engine
-state (mirror, masks, adjacency, tiles) stays on the device between calls,
-keyed by the engines' versions.
+A query batch is one upload, the launches, and one [B, k] readback (plus,
+in the reduced-rank regime, the host re-score). Engine state (mirrors,
+masks, adjacency, tiles) stays on the device between calls, keyed by the
+engines' versions; the regimes release each other's state.
 
 Not ported yet, and raising ``NotImplementedError`` instead of serving some
-other way: bf16 mirrors (FVDB_SERVING_DTYPE=bfloat16), approximate flat
-selection (FVDB_FLAT_SELECT=approx) and the reduced-rank regime above the
-threshold (FVDB_PCA_SERVE=1, the default).
+other way: bf16 mirrors (FVDB_SERVING_DTYPE=bfloat16) and approximate flat
+selection (FVDB_FLAT_SELECT=approx).
 
 Distances returned are squared euclidean (callers take the square root).
 """
@@ -30,10 +38,14 @@ import time
 import numpy as np
 import torch
 
-from ..ops.topk import l2_topk
-from ..utils import limits
-from ..utils.padding import fit_mask
-from ..utils.transfer import to_device, to_host
+from ..ops.distance import pairwise_sq_l2
+from ..ops.projection import pca_basis
+from ..ops.topk import (_DUMP_BYTES, _MAX_GRID_Q, _splits, INF,
+                        l2_topk, masked_topk, merge_topk, merge_topk_plain,
+                        select_scratch)
+from ..utils import limits, native
+from ..utils.padding import bucket, fit_mask, round_up
+from ..utils.transfer import put_bf16_blocks, to_device, to_host
 from .hnsw import (beam_search, beam_search_plain, greedy_descent,
                    greedy_descent_plain)
 from .ivf import IVFLists, ivf_search, ivf_search_plain
@@ -83,6 +95,199 @@ def hybrid_search_plain(*args, **kwargs):
     return hybrid_search(*args, plain=True, **kwargs)
 
 
+# ------------------------------------------------------------- K14, K2, K8
+def stage1_select_plain(xp, xp_sq, mask, qp, ov_k: int):
+    """Plain version of K14's stage 1: max(|qp|^2 - 2 bf16(qp).xp + xp_sq,
+    0), the product of bf16 values taken in f32, then the exact masked
+    top-ov_k by (distance, row)."""
+    qr = qp.to(torch.bfloat16).float()
+    q_sq = (qp * qp).sum(-1)
+    d = (q_sq[:, None] - 2.0 * (qr @ xp.float().T) + xp_sq[None, :])
+    return masked_topk(d.clamp_min(0.0), mask, ov_k)
+
+
+def stage1_select(xp, xp_sq, mask, qp, ov_k: int):
+    """K14's stage 1 (the reference's stage1_select_kernel): the ov_k
+    nearest rows of the projected bf16 mirror xp [N, r] (f32 norms xp_sq
+    [N], mask [N] bool or None) to the projected queries qp [B, r] f32.
+    Returns (vals [B, ov_k], rows [B, ov_k]) sorted by (distance, row),
+    padded with (+inf, -1). The plain version on CPU tensors,
+    csrc/stage1_select.cu on CUDA tensors."""
+    if xp.device.type == "cpu":
+        return stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
+    dev = xp.device
+    native.check(xp, "xp", torch.bfloat16, 2, dev)
+    native.check(xp_sq, "xp_sq", torch.float32, 1, dev)
+    native.check(qp, "qp", torch.float32, 2, dev)
+    if mask is not None:
+        native.check(mask, "mask", torch.bool, 1, dev)
+    n, r = xp.shape
+    b = qp.shape[0]
+    if qp.shape[1] != r or xp_sq.shape[0] != n or ov_k < 1 \
+            or (mask is not None and mask.shape[0] != n):
+        raise ValueError("shape mismatch in stage1_select")
+    out_d = torch.empty((b, ov_k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, ov_k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_r
+    P, I = native.P, native.I
+    m_ptr = 0 if mask is None else mask.data_ptr()
+    # query chunks keep the [chunk, N] distance buffer under _DUMP_BYTES
+    qc = max(1, min(b, _DUMP_BYTES // (4 * n), _MAX_GRID_Q))
+    for lo in range(0, b, qc):
+        hi = min(b, lo + qc)
+        dump = torch.empty((hi - lo, n), dtype=torch.float32, device=dev)
+        work = select_scratch("stage1_select", hi - lo, ov_k, dev)
+        native.call(
+            "stage1_select", "fvdb_stage1_select",
+            [P, P, P, P, I, I, I, I, I, P, P, P, P, P],
+            xp.data_ptr(), xp_sq.data_ptr(), m_ptr, qp[lo:hi].data_ptr(),
+            hi - lo, n, r, ov_k, _splits(hi - lo, n, dev), dump.data_ptr(),
+            work.data_ptr(), out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
+            native.stream_of(xp))
+        native.launches["stage1_select"] += 1
+    return out_d, out_r
+
+
+def project_rows_plain(src, mu, p, out, out_sq, lo: int = 0) -> None:
+    """Plain version of K14's projection: bf16((f32 src - mu) @ p) written
+    into out[lo:lo+n] and the f32 norms of those bf16 rows into
+    out_sq[lo:lo+n]."""
+    y = ((src.float() - mu) @ p).to(torch.bfloat16)
+    out[lo:lo + y.shape[0]] = y
+    yf = y.float()
+    out_sq[lo:lo + y.shape[0]] = (yf * yf).sum(1)
+
+
+def project_rows(src, mu, p, out, out_sq, lo: int = 0) -> None:
+    """K14's projection of a block (the reference's _project_chunk,
+    _xp_write and _bf16_row_norms): src [n, D] bf16 rows, mu [D] and
+    p [D, r] f32; writes rows lo .. lo + n - 1 of the bf16 mirror out
+    [N, r] and of its norms out_sq [N] in place. The plain version on CPU
+    tensors, csrc/project_rows.cu on CUDA tensors."""
+    if src.device.type == "cpu":
+        return project_rows_plain(src, mu, p, out, out_sq, lo)
+    dev = src.device
+    n, d, r = _proj_args(src, torch.bfloat16, mu, p)
+    native.check(out, "out", torch.bfloat16, 2, dev)
+    native.check(out_sq, "out_sq", torch.float32, 1, dev)
+    if out.shape[1] != r or lo < 0 or lo + n > out.shape[0] \
+            or out_sq.shape[0] != out.shape[0]:
+        raise ValueError("project_rows: the block does not fit the mirror")
+    if n == 0:
+        return None
+    P, I, L = native.P, native.I, native.L
+    native.call("project_rows", "fvdb_project_rows",
+                [P, I, I, P, P, I, L, P, P, P], src.data_ptr(), n, d,
+                mu.data_ptr(), p.data_ptr(), r, lo, out.data_ptr(),
+                out_sq.data_ptr(), native.stream_of(src))
+    native.launches["project_rows"] += 1
+    return None
+
+
+def project_queries_plain(q, mu, p):
+    return (q - mu) @ p
+
+
+def project_queries(q, mu, p):
+    """Queries into the reduced-rank space: (q - mu) @ p in f32, [B, r].
+    The plain version on CPU tensors, csrc/project_rows.cu on CUDA
+    tensors."""
+    if q.device.type == "cpu":
+        return project_queries_plain(q, mu, p)
+    b, d, r = _proj_args(q, torch.float32, mu, p)
+    out = torch.empty((b, r), dtype=torch.float32, device=q.device)
+    if b == 0:
+        return out
+    P, I = native.P, native.I
+    native.call("project_rows", "fvdb_project_queries",
+                [P, I, I, P, P, I, P, P], q.data_ptr(), b, d, mu.data_ptr(),
+                p.data_ptr(), r, out.data_ptr(), native.stream_of(q))
+    native.launches["project_queries"] += 1
+    return out
+
+
+def _proj_args(src, dtype, mu, p):
+    dev = src.device
+    native.check(src, "src", dtype, 2, dev)
+    native.check(mu, "mu", torch.float32, 1, dev)
+    native.check(p, "p", torch.float32, 2, dev)
+    n, d = src.shape
+    if mu.shape[0] != d or p.shape[0] != d or p.shape[1] < 1:
+        raise ValueError(f"projection of [n, {d}] rows takes mu [{d}] and "
+                         f"p [{d}, r >= 1], got {tuple(p.shape)}")
+    return n, d, p.shape[1]
+
+
+def rerank_f32_plain(x, q, rows, m: int):
+    """Plain version of K2: difference-form f32 distances of the candidate
+    rows of the bf16 mirror x, then the m first by (distance, row)."""
+    xg = x[rows.clamp_min(0).long()].float()  # [B, OV, D]
+    diff = xg - q[:, None, :]
+    d = (diff * diff).sum(-1)
+    d = torch.where(rows >= 0, d, torch.full_like(d, INF))
+    # the merge with an empty list is the (distance, row) top-m, padded
+    return merge_topk_plain(d, rows, d[:, :0], rows[:, :0], m)
+
+
+def rerank_f32(x, q, rows, m: int):
+    """K2 (the reference's rerank_f32_kernel): re-score each query's
+    candidate rows rows [B, OV] int32 (-1: none; distinct, as stage 1 gives
+    them) of the bf16 mirror x [N, D] against q [B, D] f32 in the
+    difference form, and keep the m first by (distance, row), padded with
+    (+inf, -1). The plain version on CPU tensors, csrc/rerank_f32.cu on
+    CUDA tensors."""
+    if x.device.type == "cpu":
+        return rerank_f32_plain(x, q, rows, m)
+    dev = x.device
+    native.check(x, "x", torch.bfloat16, 2, dev)
+    native.check(q, "q", torch.float32, 2, dev)
+    native.check(rows, "rows", torch.int32, 2, dev)
+    n, d = x.shape
+    b, ov = rows.shape
+    if q.shape != (b, d) or m < 1:
+        raise ValueError("shape mismatch in rerank_f32")
+    out_d = torch.empty((b, m), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, m), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_r
+    P, I = native.P, native.I
+    for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
+        hi = min(b, lo + _MAX_GRID_Q)
+        dist = torch.empty((hi - lo, ov), dtype=torch.float32, device=dev)
+        work = select_scratch("rerank_f32", hi - lo, m, dev)
+        native.call("rerank_f32", "fvdb_rerank_f32",
+                    [P, I, I, P, P, I, I, I, P, P, P, P, P],
+                    x.data_ptr(), n, d, q[lo:hi].data_ptr(),
+                    rows[lo:hi].data_ptr(), hi - lo, ov, m, dist.data_ptr(),
+                    work.data_ptr(), out_d[lo:hi].data_ptr(),
+                    out_r[lo:hi].data_ptr(), native.stream_of(x))
+        native.launches["rerank_f32"] += 1
+    return out_d, out_r
+
+
+def oracle_step_plain(blk, m, q, base: int, vals, rows, k: int):
+    """Plain version of K8's oracle step: the exact top-k of q against the
+    bf16 block blk (upcast, norms from the upcast rows), rows offset by
+    base, merged into the running (vals, rows)."""
+    d = pairwise_sq_l2(q, blk.float())
+    tv, ti = masked_topk(d, m, k)
+    tr = torch.where(ti >= 0, ti + base, ti)
+    return merge_topk_plain(vals, rows, tv, tr, k)
+
+
+def oracle_step(blk, m, q, base: int, vals, rows, k: int):
+    """K8's oracle step (the reference's _oracle_step): the running exact
+    top-k (vals, rows [B, k]) of probe queries q [B, D] over streamed bf16
+    corpus blocks; this block blk [n, D] holds rows base .. base + n - 1,
+    masked by m [n]. K1 on the bf16 block, then K8's merge; the plain
+    version on CPU tensors."""
+    if blk.device.type == "cpu":
+        return oracle_step_plain(blk, m, q, base, vals, rows, k)
+    tv, tr = l2_topk(blk, None, m, q, k, row_base=base)
+    return merge_topk(vals, rows, tv, tr, k)
+
+
 class FusedSearcher:
     """Caches device-resident engine state and launches fused searches."""
 
@@ -95,6 +300,17 @@ class FusedSearcher:
         # queries would otherwise upload a capacity-sized mask every call
         self._mask_digest: bytes | None = None
         self._mask_dev = None
+        # reduced-rank state: PCA fit + projected bf16 mirror (+ the
+        # full-dim bf16 rerank mirror), keyed by (store version, rank, fit)
+        self._proj_key = None
+        self._proj: dict | None = None
+        # the members mask alone, all the reduced-rank regime needs (the
+        # full-dim f32 mirror is never resident there)
+        self._members_key = None
+        self._members_dev = None
+        # a projection installed from outside (convert.install_projection):
+        # (mu [D], p [D, r]), used instead of a fit
+        self._fit = None
 
     def _device_mask(self, extra_mask: np.ndarray) -> torch.Tensor:
         m = np.ascontiguousarray(extra_mask)
@@ -154,6 +370,305 @@ class FusedSearcher:
             has_hnsw=h.hnsw.num_nodes > 0 and h.hnsw.entry_point >= 0)
         return state
 
+    # rows per projection block when the corpus streams from the host; the
+    # mirror's rows are the count rounded up to _PROJ_ROW_PAD, not the
+    # power-of-two capacity
+    _PROJ_CHUNK = 2_097_152
+    _PROJ_ROW_PAD = 1_048_576
+    _PROBES = 128  # calibration probe queries
+    _CAL_K = 10  # recall@k the calibration targets
+
+    def install_fit(self, mu: np.ndarray | None, p: np.ndarray | None) -> None:
+        """Serve the reduced-rank regime with this projection (mu [D],
+        p [D, r]) instead of fitting one; the rank is r, the oversample is
+        calibrated (or pinned by FVDB_PCA_OVERSAMPLE) as for a fit.
+        ``mu=None`` goes back to fitting the corpus."""
+        fit = None
+        if mu is not None:
+            mu = np.ascontiguousarray(mu, np.float32)
+            p = np.ascontiguousarray(p, np.float32)
+            if mu.shape != (self.hybrid.store.dim,) \
+                    or p.shape[0] != mu.shape[0]:
+                raise ValueError(f"a fit of mu {mu.shape}, p {p.shape} does "
+                                 f"not fit dim {self.hybrid.store.dim}")
+            fit = (mu, p)
+        with self._state_lock:
+            self._fit = fit
+            self._release_proj()  # the next search builds on this fit
+
+    def _proj_state(self) -> dict:
+        """Reduced-rank serving state (the reference's _proj_state): PCA fit,
+        projected bf16 mirror with its norms, the calibrated oversample and,
+        in device rerank mode, the full-dim bf16 mirror. Rebuilt when the
+        store version or the rank changes, or a fit is installed."""
+        rank_req = limits.pca_rank()
+        key = (self.hybrid.store._version, rank_req)
+        if self._proj is not None and self._proj_key == key:
+            return self._proj
+        with self._state_lock:
+            return self._proj_state_locked(key, rank_req)
+
+    def _proj_state_locked(self, key, rank_req: int) -> dict:
+        h = self.hybrid
+        if self._proj is not None and self._proj_key == key:
+            return self._proj  # another thread built it while we waited
+        self._proj = None  # release before the new upload
+        # the full-dim mirror and the graph / tile state are dead weight in
+        # this regime: free them before allocating
+        h.store.release_mirror()
+        self._dev = None
+        self._key = None
+        device = h.store.device
+        data = h.store.data
+        count = max(h.store.count, 1)
+        dim = data.shape[1]
+        n_rows = min(data.shape[0], round_up(count, self._PROJ_ROW_PAD))
+        fit = self._fit
+        if fit is None:
+            # PCA of a <= 16K-row sample on the host; the eigenvalues pick
+            # the auto rank
+            stride = max(1, count // 16_384)
+            mu, evals, basis = pca_basis(data[:count:stride])
+            rank = rank_req
+            if rank < 0:  # auto: smallest rank capturing pca_var()
+                ev = np.maximum(evals, 0.0)
+                total = ev.sum()
+                if total <= 0:
+                    rank = 32
+                else:
+                    cum = np.cumsum(ev) / total
+                    rank = int(np.searchsorted(cum, limits.pca_var()) + 1)
+                rank = int(min(max(rank, 32), 192, dim))
+            rank = min(rank, dim)
+        else:
+            mu, basis = fit
+            rank = basis.shape[1]
+        mu_d = to_device(np.asarray(mu, np.float32), device)
+
+        members_np = h.store.active_mask(data.shape[0]) & (
+            h.hnsw.member_mask(data.shape[0])
+            | h.ivf.member_mask(data.shape[0]))
+        member_rows = np.nonzero(members_np[:count])[0]
+        pinned = rank_req >= 0 and limits.pca_oversample() is not None
+        if pinned or not member_rows.size:
+            # restart fast path: rank and oversample pinned, no probe pass
+            probe_rows = np.zeros(0, np.int64)
+        else:
+            sel = np.linspace(0, member_rows.size - 1,
+                              min(self._PROBES, member_rows.size)) \
+                .astype(np.int64)
+            probe_rows = member_rows[sel]
+
+        mode = limits.pca_rerank_mode()
+
+        def want_device_rerank(r: int) -> bool:
+            if mode == "host":
+                return False
+            used = n_rows * r * 2 + n_rows * 4 + n_rows
+            need = n_rows * dim * 2
+            head = max(1 << 30, limits.stage1_transient_bytes())
+            fits = used + need + head <= limits.hbm_budget_bytes()
+            return mode == "device" or (fits and count >= 2_000_000)
+
+        rerank_x = None
+        oracle_rows = None
+        attempt = 0
+        while True:
+            if want_device_rerank(rank):
+                if rerank_x is None:
+                    rerank_x = put_bf16_blocks(data, n_rows, device)
+            else:
+                rerank_x = None  # the auto-rank retry may outgrow the budget
+            p_d = to_device(np.ascontiguousarray(basis[:, :rank], np.float32),
+                            device)
+            xp, xp_sq, oracle_rows = self._build_proj_mirror(
+                data, n_rows, mu_d, p_d, members_np, probe_rows, oracle_rows,
+                src=rerank_x)
+            oversample, achieved = self._calibrate_oversample(
+                xp, xp_sq, members_np[:n_rows], data, probe_rows, mu_d, p_d,
+                oracle_rows)
+            if (achieved >= limits.pca_target() or rank_req >= 0
+                    or fit is not None or attempt >= 1 or rank >= dim):
+                break
+            rank = min(2 * rank, dim)  # auto-rank retry: double and rebuild
+            xp = xp_sq = None
+            attempt += 1
+        if pinned:
+            achieved = None  # not measured: the probe pass was skipped
+
+        self._proj = {
+            "mu": mu_d, "p": p_d, "xp": xp, "xp_sq": xp_sq,
+            "n_rows": n_rows, "oversample": oversample,
+            "achieved_recall": achieved, "rerank_x": rerank_x,
+            "rank_doubled": attempt > 0,
+        }
+        self._proj_key = key
+        return self._proj
+
+    def _build_proj_mirror(self, data, n_rows, mu_d, p_d, members_np,
+                           probe_rows, oracle_rows, src=None):
+        """One pass over the corpus: project every block into the bf16
+        mirror (K14's projection, in place) and, on the first pass, keep the
+        probes' exact top-(_CAL_K + 1) (K8's oracle step). ``src`` (the
+        resident full-dim bf16 rerank mirror) makes the pass read blocks on
+        the device; without it each block is uploaded as bf16."""
+        device = mu_d.device
+        rank = int(p_d.shape[1])
+        want_oracle = oracle_rows is None and probe_rows.size > 0
+        width = self._CAL_K + 1
+        if want_oracle:
+            q_probe = to_device(data[probe_rows], device)
+            ovals = torch.full((len(probe_rows), width), INF, device=device)
+            orows = torch.full((len(probe_rows), width), -1,
+                               dtype=torch.int32, device=device)
+        step = max(262_144, self._PROJ_CHUNK // 4) if src is not None \
+            else self._PROJ_CHUNK
+        xp = torch.empty((n_rows, rank), dtype=torch.bfloat16, device=device)
+        xp_sq = torch.empty(n_rows, dtype=torch.float32, device=device)
+        for lo in range(0, n_rows, step):
+            hi = min(lo + step, n_rows)
+            blk = src[lo:hi] if src is not None \
+                else put_bf16_blocks(data[lo:hi], hi - lo, device)
+            project_rows(blk, mu_d, p_d, xp, xp_sq, lo)
+            if want_oracle:
+                m = to_device(members_np[lo:hi], device)
+                ovals, orows = oracle_step(blk, m, q_probe, lo, ovals, orows,
+                                           width)
+            del blk
+        if want_oracle:
+            # exclude each probe's own row, keep _CAL_K true neighbours
+            orows_np = to_host(orows)[0]
+            out = np.full((len(probe_rows), self._CAL_K), -1, np.int64)
+            for j, pr in enumerate(probe_rows):
+                r = orows_np[j]
+                r = r[(r >= 0) & (r != pr)][: self._CAL_K]
+                out[j, : len(r)] = r
+            oracle_rows = out
+        return xp, xp_sq, oracle_rows
+
+    def _calibrate_oversample(self, xp, xp_sq, members_slice, data,
+                              probe_rows, mu_d, p_d, oracle_rows):
+        """The smallest oversample whose stage-1 pool holds the probes'
+        true neighbours at limits.pca_target(), measured with one wide pool
+        (its prefixes give every width). Returns (oversample, recall)."""
+        explicit = limits.pca_oversample()
+        if probe_rows.size == 0 or oracle_rows is None:
+            return (explicit or 8), 1.0
+        ov_max = int(min(1024, xp.shape[0]))
+        mask_dev = to_device(members_slice, xp.device)
+        pools = []
+        for lo in range(0, len(probe_rows), 16):
+            q = to_device(data[probe_rows[lo: lo + 16]], xp.device)
+            qp = project_queries(q, mu_d, p_d)
+            _, pool_d = stage1_select(xp, xp_sq, mask_dev, qp, ov_max)
+            pools.append(to_host(pool_d)[0])
+        pool = np.concatenate(pools, axis=0)
+        want = [set(int(r) for r in row if r >= 0) for row in oracle_rows]
+        total = sum(len(w) for w in want) or 1
+
+        def recall_at(width: int) -> float:
+            hits = 0
+            for j, w in enumerate(want):
+                got = set(int(r) for r in pool[j, :width] if r >= 0)
+                hits += len(w & got)
+            return hits / total
+
+        if explicit is not None:
+            return explicit, recall_at(min(explicit * self._CAL_K, ov_max))
+        target = limits.pca_target()
+        chosen, achieved = None, 0.0
+        for factor in (4, 6, 8, 12, 16, 24, 32, 48, 64, 96):
+            width = min(factor * self._CAL_K, ov_max)
+            r = recall_at(width)
+            if r >= target or width >= ov_max:
+                chosen, achieved = factor, r
+                break
+        if chosen is None:
+            chosen, achieved = 96, recall_at(ov_max)
+        return chosen, achieved
+
+    def _release_proj(self) -> None:
+        """Free the reduced-rank state when another regime serves: the
+        regimes' device state never coexists."""
+        self._proj = None
+        self._proj_key = None
+        self._members_dev = None
+        self._members_key = None
+
+    def _members_state(self, n_rows: int) -> torch.Tensor:
+        """The device members mask over the mirror's n_rows rows."""
+        h = self.hybrid
+        key = (self._state_key(), n_rows)
+        if self._members_dev is None or self._members_key != key:
+            members = h.store.active_mask(n_rows) & (
+                h.hnsw.member_mask(n_rows) | h.ivf.member_mask(n_rows))
+            self._members_dev = to_device(members, h.store.device)
+            self._members_key = key
+        return self._members_dev
+
+    def _projected_dispatch(self, queries_np: np.ndarray, k: int,
+                            extra_mask: np.ndarray | None):
+        """Stage 1 on the device: the top-(oversample * k) in PCA space.
+        Stage 2: K2 against the full-dim bf16 mirror when it is resident,
+        then (``post``, on the host) an exact f32 re-score of the survivors
+        from the canonical rows; without the mirror, ``post`` re-scores the
+        whole pool."""
+        proj = self._proj_state()
+        n_rows = proj["n_rows"]
+        device = self.hybrid.store.device
+        mask = self._members_state(n_rows)
+        if extra_mask is not None:
+            mask = mask & self._device_mask(fit_mask(extra_mask, n_rows))
+        oversample = limits.pca_oversample() or proj["oversample"]
+        # the pool never narrows below the calibrated width: the probe pass
+        # measured the top-_CAL_K recall of exactly that prefix
+        ov_k = min(bucket(max(k, self._CAL_K) * oversample),
+                   int(proj["xp"].shape[0]))
+        q = to_device(queries_np, device)
+        qp = project_queries(q, proj["mu"], proj["p"])
+        # power-of-two query chunks keep the [B, N] stage-1 transient under
+        # limits.stage1_transient_bytes()
+        b = int(qp.shape[0])
+        b_sub = max(1, min(
+            b, limits.stage1_transient_bytes() // max(n_rows * 4, 1)))
+        b_sub = 1 << (b_sub.bit_length() - 1)
+        if b <= b_sub:
+            vals_p, rows_p = stage1_select(proj["xp"], proj["xp_sq"], mask,
+                                           qp, ov_k)
+        else:
+            parts = [stage1_select(proj["xp"], proj["xp_sq"], mask,
+                                   qp[lo: lo + b_sub].contiguous(), ov_k)
+                     for lo in range(0, b, b_sub)]
+            vals_p = torch.cat([pt[0] for pt in parts])
+            rows_p = torch.cat([pt[1] for pt in parts])
+        if proj["rerank_x"] is not None:
+            m = min(bucket(max(32, 4 * k)), int(rows_p.shape[1]))
+            vals_p, rows_p = rerank_f32(proj["rerank_x"], q, rows_p, m)
+        store = self.hybrid.store
+
+        def rerank(vals_np: np.ndarray, rows_np: np.ndarray):
+            """Stage 2 on the host: exact squared L2 over the candidate
+            rows, selected in the norm-expansion form (cached row norms +
+            one batched matmul), then the k winners re-scored in the
+            difference form and ordered by it."""
+            safe = np.maximum(rows_np, 0)
+            cv = store.data[safe]  # [B, OV, D]
+            dots = np.matmul(cv, queries_np[:, :, None])[..., 0]
+            q_sq = np.einsum("bd,bd->b", queries_np, queries_np)
+            d = store.host_sq()[safe] - 2.0 * dots + q_sq[:, None]
+            d = np.where(rows_np >= 0, d, np.inf)
+            order = np.argsort(d, axis=1, kind="stable")[:, :k]
+            top_rows = np.take_along_axis(rows_np, order, axis=1)
+            diff = store.data[np.maximum(top_rows, 0)] \
+                - queries_np[:, None, :]  # [B, k, D]
+            top_d = np.einsum("bkd,bkd->bk", diff, diff)
+            top_d = np.where(top_rows >= 0, top_d, np.inf)
+            order2 = np.argsort(top_d, axis=1, kind="stable")
+            return (np.take_along_axis(top_d, order2, axis=1),
+                    np.take_along_axis(top_rows, order2, axis=1))
+
+        return vals_p, rows_p, rerank
+
     def serving_info(self) -> dict:
         """Which query plan serves right now; materializes no device
         state."""
@@ -172,28 +687,57 @@ class FusedSearcher:
         }
         if regime == "flat-exact":
             info["flat_select"] = limits.flat_select()
+        if regime == "reduced-rank":
+            proj = self._proj
+            if proj is not None:
+                info["pca_rank"] = int(proj["p"].shape[1])
+                info["pca_oversample"] = (limits.pca_oversample()
+                                          or proj["oversample"])
+                ar = proj["achieved_recall"]
+                # None: rank and oversample were pinned, no probe pass
+                info["pca_calibrated_recall"] = (
+                    None if ar is None else round(float(ar), 4))
+                info["pca_rerank"] = ("device" if proj["rerank_x"] is not None
+                                      else "host")
+                info["pca_rank_doubled"] = proj["rank_doubled"]
+            else:
+                r = limits.pca_rank()
+                info["pca_rank"] = "auto" if r < 0 else r
+                info["pca_oversample"] = limits.pca_oversample() or "auto"
         return info
 
     def prewarm(self, k: int = 10) -> float:
-        """Upload the device state and run the serving kernels once on a
-        dummy query. Returns seconds spent."""
+        """Build the serving regime's device state and run its launches once
+        on a dummy query (and the host post-process, where the regime has
+        one). Returns seconds spent."""
         t0 = time.perf_counter()
         dummy = np.zeros((1, self.hybrid.store.dim), np.float32)
-        to_host(*self.search_dispatch(dummy, k, ef=50, n_probe=16)[:2])
+        vals, rows, post = self.search_dispatch(dummy, k, ef=50, n_probe=16)
+        vals, rows = to_host(vals, rows)
+        if post is not None:
+            post(vals, rows)
         return time.perf_counter() - t0
 
     def search_dispatch(self, queries: np.ndarray, k: int, ef: int,
                         n_probe: int, extra_mask: np.ndarray | None = None):
         """Launch one fused search WITHOUT the readback. Returns
-        ``(sq_dists, rows, post)``: two device tensors and ``post=None``
-        (the ported regimes need no host post-process). CUDA launches are
-        asynchronous, so callers can launch batch i+1 before reading i."""
+        ``(sq_dists, rows, post)``: two device tensors and, in the
+        reduced-rank regime, the host re-score to apply to them after the
+        readback (``post(vals, rows) -> (vals, rows)``; None in the other
+        regimes). CUDA launches are asynchronous, so callers can launch
+        batch i+1 before reading i. The regime is chosen before any state
+        is built: the reduced-rank regime never uploads the full-dim f32
+        mirror."""
+        queries_np = np.atleast_2d(np.asarray(queries, np.float32))
+        flat = self.hybrid.store.capacity <= limits.effective_flat_threshold()
+        if not flat and limits.pca_serve():
+            return self._projected_dispatch(queries_np, k, extra_mask)
         if limits.serving_dtype() != "float32":
             raise NotImplementedError(
                 "FVDB_SERVING_DTYPE=bfloat16 serving (bf16 mirror + f32 "
                 "rerank) is not ported yet")
-        queries_np = np.atleast_2d(np.asarray(queries, np.float32))
-        if self.hybrid.store.capacity <= limits.effective_flat_threshold():
+        self._release_proj()  # the regimes' device state never coexists
+        if flat:
             if limits.flat_select() == "approx":
                 raise NotImplementedError(
                     "FVDB_FLAT_SELECT=approx (approximate pool + rerank) is "
@@ -206,11 +750,6 @@ class FusedSearcher:
             q = to_device(queries_np, self.hybrid.store.device)
             vals, rows = l2_topk(dev["x"], dev["x_sq"], mask, q, k)
             return vals, rows, None
-        if limits.pca_serve():
-            raise NotImplementedError(
-                "reduced-rank serving above the flat threshold "
-                "(FVDB_PCA_SERVE=1, the default) is not ported yet; "
-                "FVDB_PCA_SERVE=0 serves the pruned regime")
         dev = self._device_state(pruned=True)
         extra = (dev["ones"] if extra_mask is None else self._device_mask(
             fit_mask(extra_mask, int(dev["x"].shape[0]))))
@@ -226,6 +765,9 @@ class FusedSearcher:
     def search(self, queries: np.ndarray, k: int, ef: int, n_probe: int,
                extra_mask: np.ndarray | None = None):
         """Returns (sq-dists [B, k], rows [B, k]) as numpy."""
-        vals, rows, _ = self.search_dispatch(queries, k, ef, n_probe,
-                                             extra_mask)
-        return to_host(vals, rows)
+        vals, rows, post = self.search_dispatch(queries, k, ef, n_probe,
+                                                extra_mask)
+        vals, rows = to_host(vals, rows)
+        if post is not None:
+            vals, rows = post(vals, rows)
+        return vals, rows

@@ -2,10 +2,11 @@
 
 The JAX package's ``index/hybrid.py``: one shared VectorStore with
 per-engine membership; inserts route by age (all to HNSW until IVF is
-trained); searches with the default per-engine k run the fused search (flat
-or pruned regime); per-engine ``recent_k`` / ``historical_k`` search each
-engine on its own and merge on the host; migration moves aged-out rows from
-HNSW to IVF; soft deletes, vacuum and stats as there. Lazy loading
+trained); searches with the default per-engine k run the fused search
+(flat, reduced-rank or pruned regime); per-engine ``recent_k`` /
+``historical_k`` search each engine on its own and merge on the host;
+migration moves aged-out rows from HNSW to IVF; soft deletes, vacuum and
+stats as there. Lazy loading
 (persistence) is not ported.
 """
 from __future__ import annotations
@@ -225,12 +226,15 @@ class HybridIndex:
             self.migrate_old_vectors(now=now)
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         k_eff = min(bucket(k), self.store.capacity)
-        vals_d, rows_d, _ = self.fused.search_dispatch(
+        vals_d, rows_d, post = self.fused.search_dispatch(
             queries, k_eff, bucket(max(cfg.hnsw_ef, k)),
             cfg.ivf_n_probe or self.config.ivf.n_probe, extra_mask)
 
         def finalize():
-            return self._finalize_fast(*to_host(vals_d, rows_d), k)
+            vals, rows = to_host(vals_d, rows_d)
+            if post is not None:  # the reduced-rank regime's host re-score
+                vals, rows = post(vals, rows)
+            return self._finalize_fast(vals, rows, k)
 
         return finalize
 

@@ -18,7 +18,8 @@ import torch
 
 from ..ops.distance import pairwise_sq_l2, squared_norms
 from ..ops.kmeans import assign_clusters, kmeans_train_stepped
-from ..ops.topk import INF, l2_topk, masked_topk, merge_topk, select_scratch
+from ..ops.topk import (INF, l2_topk, masked_topk, merge_topk_plain,
+                        select_scratch)
 from ..utils import native
 from ..utils.padding import bucket, fit_mask, grow_rows
 from ..utils.transfer import to_device, to_host
@@ -56,10 +57,10 @@ class IVFLists:
 def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
                      n_probe: int, extra_mask=None, seed=None):
     """Plain version of K12: the reference's ivf_search_kernel (euclidean),
-    probe by probe (masked_topk of each list, merge_topk into the running
-    list), over the padded tiles. ``seed`` (vals, rows) [B, >=1] starts the
-    running list with its first k entries instead of +inf, which is
-    merge_topk(seed, ivf result) with the seed first at ties."""
+    probe by probe (masked_topk of each list, merged into the running list
+    by (distance, row)), over the padded tiles. ``seed`` (vals, rows)
+    [B, >=1] starts the running list with its first k entries instead of
+    +inf, which is merge_topk(seed, ivf result)."""
     b = q.shape[0]
     tiles = lists.tiles
     l_pad = tiles.shape[1]
@@ -73,7 +74,8 @@ def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
     vals = torch.full((b, k), INF, device=q.device)
     idx = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
     if seed is not None:
-        vals, idx = merge_topk(vals, idx, seed[0][:, :k], seed[1][:, :k], k)
+        vals, idx = merge_topk_plain(vals, idx, seed[0][:, :k],
+                                     seed[1][:, :k], k)
     for p in range(n_probe):
         cand = tiles[probe[:, p].long()]  # [B, L_pad]
         valid = (cand >= 0) & (cand < x.shape[0])
@@ -85,7 +87,7 @@ def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
             cpos >= 0,
             torch.gather(safe, 1, cpos.clamp_min(0).long()).to(torch.int32),
             torch.full_like(cpos, -1))
-        vals, idx = merge_topk(vals, idx, cvals, crow, k)
+        vals, idx = merge_topk_plain(vals, idx, cvals, crow, k)
     return vals, idx, probe
 
 

@@ -60,6 +60,7 @@ class VectorStore:
         self.row_to_id: list = []
         self._version = 0
         self._mirror: DeviceMirror | None = None
+        self._host_sq: tuple | None = None
         self._lock = threading.RLock()
 
     # ------------------------------------------------------------ mutation
@@ -191,6 +192,23 @@ class VectorStore:
                 self._mirror = DeviceMirror(
                     x=x, x_sq=(x * x).sum(1), version=self._version)
             return self._mirror
+
+    def release_mirror(self) -> None:
+        """Drop the device mirror (uploaded again on next use): the
+        reduced-rank regime serves without the full-dim f32 mirror."""
+        with self._lock:
+            self._mirror = None
+
+    def host_sq(self) -> np.ndarray:
+        """[capacity] f32 squared norms of the host rows, cached by version
+        (the host rerank of the reduced-rank regime reads them)."""
+        with self._lock:
+            cached = self._host_sq
+            if cached is None or cached[0] != self._version:
+                sq = np.einsum("nd,nd->n", self.data, self.data,
+                               dtype=np.float32)
+                self._host_sq = cached = (self._version, sq)
+            return cached[1]
 
     def memory_usage_bytes(self) -> int:
         return int(self.data.nbytes + self.deleted.nbytes

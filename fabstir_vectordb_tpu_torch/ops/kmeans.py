@@ -1,11 +1,14 @@
-"""k-means for the IVF coarse quantizer: kmeans|| seeding + Lloyd (K6).
+"""k-means for the IVF coarse quantizer: kmeans|| seeding (K7) + Lloyd (K6).
 
 The JAX package's ``ops/kmeans.py`` with PyTorch inside. The Lloyd
 iterations and the nearest-centroid assignment are a hand-written kernel on
-the card (csrc/lloyd.cu) with plain versions here; kmeans|| seeding is plain
-PyTorch (GEMM + topk + bincount) drawing from a ``torch.Generator``, so its
-picks differ from the reference's ``jax.random`` ones. The host stopping
-rule of :func:`kmeans_train_stepped` is the reference's, line for line.
+the card (csrc/lloyd.cu); the kmeans|| seeding's device programs (the
+weighted pick, the min-distance table, the candidates' populations) are
+csrc/kmeans_seed.cu. Each has a plain version here, which the wrappers take
+on CPU tensors. The seeding draws from a ``torch.Generator``, so its picks
+differ from the reference's ``jax.random`` ones; the weighted k-means++ over
+the candidates runs on the host, as there. The host stopping rule of
+:func:`kmeans_train_stepped` is the reference's, line for line.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..utils import native
 from .distance import pairwise_sq_l2, squared_norms
+from .topk import INF, select_scratch
 
 
 class TrainResult(NamedTuple):
@@ -125,9 +129,125 @@ def lloyd_block(x, mask, cents, steps: int):
 
 
 # ------------------------------------------------------------ kmeans||
-def _gumbel(gen: torch.Generator, n: int, device) -> torch.Tensor:
-    u = torch.rand(n, generator=gen, device=device)
-    return -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+def _seed_key(d2, mask, u, weighted: bool):
+    """The pick's key: E / max(d2, 1e-30) (E / 1 unweighted) with E =
+    -log(u), +inf outside the mask or where d2 is 0."""
+    e = -torch.log(u.clamp(1e-20, 1.0 - 1e-7))
+    if not weighted:
+        return torch.where(mask, e, INF)
+    return torch.where(mask & (d2 > 0), e / d2.clamp_min(1e-30), INF)
+
+
+def seed_pick_plain(d2, mask, u, l: int, weighted: bool = True):
+    """Plain version of the kmeans|| pick: the ``l`` rows of least key
+    (ties to the lower row), -1 past the eligible rows. Picking the least
+    E / w is the exponential race, the same draw as the reference's top-l of
+    log w + Gumbel noise."""
+    key = _seed_key(d2, mask, u, weighted)
+    vals, rows = torch.sort(key, stable=True)
+    vals, rows = vals[:l], rows[:l].to(torch.int32)
+    return torch.where(torch.isfinite(vals), rows, torch.full_like(rows, -1))
+
+
+def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None):
+    """K7's pick (``_scalable_first`` / ``_scalable_round``): rows [l]
+    int32, written into ``out`` when given. d2 [N] f32 (unused unweighted),
+    mask [N] bool, u [N] uniform f32 from the caller's generator."""
+    if mask.device.type == "cpu":
+        rows = seed_pick_plain(d2, mask, u, l, weighted)
+        if out is None:
+            return rows
+        out.copy_(rows)
+        return out
+    dev = mask.device
+    native.check(mask, "mask", torch.bool, 1, dev)
+    native.check(u, "u", torch.float32, 1, dev)
+    n = mask.shape[0]
+    if weighted:
+        native.check(d2, "d2", torch.float32, 1, dev)
+    if u.shape[0] != n or (weighted and d2.shape[0] != n) or l < 1:
+        raise ValueError("shape mismatch in seed_pick")
+    if out is None:
+        out = torch.empty(l, dtype=torch.int32, device=dev)
+    native.check(out, "out", torch.int32, 1, dev)
+    key = torch.empty(n, dtype=torch.float32, device=dev)
+    out_d = torch.empty(l, dtype=torch.float32, device=dev)
+    work = select_scratch("kmeans_seed", 1, l, dev)
+    P, I = native.P, native.I
+    native.call("kmeans_seed", "fvdb_seed_pick",
+                [P, P, P, I, I, I, P, P, P, P, P],
+                d2.data_ptr() if weighted else 0, mask.data_ptr(),
+                u.data_ptr(), n, l, int(weighted), key.data_ptr(),
+                work.data_ptr(), out_d.data_ptr(), out.data_ptr(),
+                native.stream_of(mask))
+    native.launches["seed_pick"] += 1
+    return out
+
+
+def seed_min_update_plain(x, mask, d2, cand):
+    """Plain version of the min-distance table update: where mask, min(d2,
+    min_j |c_j - x|^2) over the candidate rows ``cand`` (-1: skipped), else
+    0."""
+    ok = cand >= 0
+    c = x[cand.clamp_min(0).long()]
+    dc = pairwise_sq_l2(c, x, squared_norms(x))  # [C, N]
+    dc = torch.where(ok[:, None], dc, INF)
+    return torch.where(mask, torch.minimum(d2, dc.min(0).values),
+                       torch.zeros_like(d2))
+
+
+def _seed_args(x, mask, cand):
+    dev = x.device
+    native.check(x, "x", torch.float32, 2, dev)
+    native.check(mask, "mask", torch.bool, 1, dev)
+    native.check(cand, "cand", torch.int32, 1, dev)
+    n, d = x.shape
+    if mask.shape[0] != n or cand.shape[0] < 1:
+        raise ValueError("shape mismatch in the kmeans|| seeding")
+    return n, d, cand.shape[0]
+
+
+def seed_min_update(x, mask, d2, cand):
+    """K7's min-distance table update (the second half of
+    ``_scalable_first`` / ``_scalable_round``): a new d2 [N]."""
+    if x.device.type == "cpu":
+        return seed_min_update_plain(x, mask, d2, cand)
+    n, d, c = _seed_args(x, mask, cand)
+    native.check(d2, "d2", torch.float32, 1, x.device)
+    out = torch.empty_like(d2)
+    P, I = native.P, native.I
+    native.call("kmeans_seed", "fvdb_seed_min_update",
+                [P, P, P, I, I, I, P, P, P], x.data_ptr(), mask.data_ptr(),
+                cand.data_ptr(), c, n, d, d2.data_ptr(), out.data_ptr(),
+                native.stream_of(x))
+    native.launches["seed_min_update"] += 1
+    return out
+
+
+def seed_counts_plain(x, mask, cand):
+    """Plain version of ``_scalable_weights``: how many masked rows have
+    each candidate (-1: none) as their nearest (the first of least
+    distance)."""
+    c = x[cand.clamp_min(0).long()]
+    d = pairwise_sq_l2(x, c)  # [N, C]
+    d = torch.where((cand >= 0)[None, :], d, INF)
+    nearest = torch.argmin(d, dim=1)
+    return torch.bincount(nearest[mask], minlength=cand.shape[0]) \
+        .to(torch.int32)
+
+
+def seed_counts(x, mask, cand):
+    """K7's candidate weights (``_scalable_weights``): counts [C] int32."""
+    if x.device.type == "cpu":
+        return seed_counts_plain(x, mask, cand)
+    n, d, c = _seed_args(x, mask, cand)
+    out = torch.empty(c, dtype=torch.int32, device=x.device)
+    P, I = native.P, native.I
+    native.call("kmeans_seed", "fvdb_seed_counts", [P, P, P, I, I, I, P, P],
+                x.data_ptr(), mask.data_ptr(), cand.data_ptr(), c, n, d,
+                out.data_ptr(), native.stream_of(x))
+    native.launches["seed_counts"] += 1
+    return out
 
 
 def _weighted_kmeanspp_host(cand: np.ndarray, w: np.ndarray, k: int,
@@ -152,34 +272,33 @@ def _weighted_kmeanspp_host(cand: np.ndarray, w: np.ndarray, k: int,
 
 def kmeans_scalable_init(gen: torch.Generator, x, mask, n_clusters: int,
                          rounds: int = 5, oversample: int = 8) -> torch.Tensor:
-    """kmeans|| seeding (Bahmani et al., VLDB'12): ``rounds`` Gumbel-top-l
-    samples weighted by d^2, candidates weighted by the population they
-    attract, then weighted k-means++ over the small candidate set on the
-    host."""
+    """kmeans|| seeding (Bahmani et al., VLDB'12): a uniform first pick,
+    ``rounds`` picks of l rows weighted by d^2, each followed by the
+    min-distance table update, the candidates weighted by the population
+    they attract, then weighted k-means++ over the small candidate set on
+    the host. The device steps are K7's kernels on the card."""
     dev = x.device
     n = x.shape[0]
-    neg_inf = torch.full((n,), -float("inf"), device=dev)
     l = max(n_clusters * oversample // rounds, 1)
-    x_sq = squared_norms(x)
-    first = int(torch.argmax(torch.where(mask, 0.0, neg_inf)
-                             + _gumbel(gen, n, dev)))
-    d2 = torch.where(mask, pairwise_sq_l2(x[first][None], x, x_sq)[0], 0.0)
-    cands = [x[first][None]]
-    for _ in range(rounds):
-        logw = torch.where(mask & (d2 > 0), torch.log(d2.clamp_min(1e-30)),
-                           neg_inf)
-        rows = torch.topk(logw + _gumbel(gen, n, dev), l).indices
-        cand = x[rows]
-        dc = pairwise_sq_l2(cand, x, x_sq)  # [l, N]
-        d2 = torch.where(mask, torch.minimum(d2, dc.min(0).values), 0.0)
-        cands.append(cand)
-    cand = torch.cat(cands)
-    nearest = torch.argmin(pairwise_sq_l2(x, cand), dim=1)
-    w = torch.bincount(nearest[mask], minlength=cand.shape[0])
+    cand = torch.empty(1 + rounds * l, dtype=torch.int32, device=dev)
+    seed_pick(None, mask, torch.rand(n, generator=gen, device=dev), 1,
+              weighted=False, out=cand[:1])
+    d2 = seed_min_update(x, mask, torch.full((n,), INF, device=dev),
+                         cand[:1])
+    for r in range(rounds):
+        part = cand[1 + r * l:1 + (r + 1) * l]
+        seed_pick(d2, mask, torch.rand(n, generator=gen, device=dev), l,
+                  out=part)
+        d2 = seed_min_update(x, mask, d2, part)
+    w = seed_counts(x, mask, cand)
+    keep = cand.cpu().numpy() >= 0  # a pick short of eligible rows is -1
+    if not keep.any():
+        raise ValueError("kmeans|| seeding: no row to seed from")
+    picked = x[cand.clamp_min(0).long()].cpu().numpy()[keep]
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=dev))
     out = _weighted_kmeanspp_host(
-        cand.cpu().numpy().astype(np.float32),
-        w.cpu().numpy().astype(np.float64) + 1e-9, n_clusters,
+        picked.astype(np.float32),
+        w.cpu().numpy()[keep].astype(np.float64) + 1e-9, n_clusters,
         np.random.default_rng(seed))
     return torch.from_numpy(out).to(dev)
 

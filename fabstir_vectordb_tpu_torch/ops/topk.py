@@ -38,22 +38,67 @@ def masked_topk(dists: torch.Tensor, mask: torch.Tensor, k: int):
             torch.where(valid, idx, torch.full_like(idx, -1)))
 
 
-def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int):
-    """Merge two top-k result sets (same convention as masked_topk); ties
-    keep the earlier position, as ``lax.top_k`` does."""
+def merge_topk_plain(vals_a, idx_a, vals_b, idx_b, k: int):
+    """Plain version of K8's merge: the k first of both lists' entries by
+    (value, row), ties of both by position (a's first); an entry whose value
+    is not finite comes out as (+inf, -1), and so does the padding when
+    there are fewer than k entries."""
     vals = torch.cat([vals_a, vals_b], dim=-1)
     idx = torch.cat([idx_a, idx_b], dim=-1)
-    out_vals, pos = torch.sort(vals, dim=-1, stable=True)
-    out_vals, pos = out_vals[..., :k], pos[..., :k]
+    vals = torch.where(torch.isfinite(vals), vals, torch.full_like(vals, INF))
+    by_row = torch.sort(idx, dim=-1, stable=True).indices
+    pos = torch.gather(by_row, -1, torch.sort(
+        torch.gather(vals, -1, by_row), dim=-1, stable=True).indices)
+    pos = pos[..., :k]
+    out_vals = torch.gather(vals, -1, pos)
     out_idx = torch.gather(idx, -1, pos)
+    if out_vals.shape[-1] < k:
+        pad = k - out_vals.shape[-1]
+        out_vals = torch.nn.functional.pad(out_vals, (0, pad), value=INF)
+        out_idx = torch.nn.functional.pad(out_idx, (0, pad), value=-1)
     valid = torch.isfinite(out_vals)
     return (torch.where(valid, out_vals, torch.full_like(out_vals, INF)),
             torch.where(valid, out_idx, torch.full_like(out_idx, -1)))
 
 
-def l2_topk_plain(x, x_sq, mask, q, k: int):
-    """Plain version of K1: the [B, N] distance matrix, then masked_topk."""
-    return masked_topk(pairwise_sq_l2(q, x, x_sq), mask, k)
+def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int):
+    """K8's merge (the reference's merge_topk): two top-k lists of each of
+    B queries, (vals [B, ka] f32, rows [B, ka] int32) and [B, kb], into the
+    k first by (value, row), padded with (+inf, -1). The plain version on
+    CPU tensors, csrc/merge_topk.cu on CUDA tensors."""
+    if vals_a.device.type == "cpu":
+        return merge_topk_plain(vals_a, idx_a, vals_b, idx_b, k)
+    dev = vals_a.device
+    native.check(vals_a, "vals_a", torch.float32, 2, dev)
+    native.check(idx_a, "idx_a", torch.int32, 2, dev)
+    native.check(vals_b, "vals_b", torch.float32, 2, dev)
+    native.check(idx_b, "idx_b", torch.int32, 2, dev)
+    b, ka = vals_a.shape
+    kb = vals_b.shape[1]
+    if idx_a.shape != (b, ka) or vals_b.shape[0] != b \
+            or idx_b.shape != (b, kb) or k < 1:
+        raise ValueError("shape mismatch in merge_topk")
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_v, out_r
+    P, I = native.P, native.I
+    native.call("merge_topk", "fvdb_merge_topk", [P, P, I, P, P, I, I, I, P, P,
+                                                  P],
+                vals_a.data_ptr(), idx_a.data_ptr(), ka, vals_b.data_ptr(),
+                idx_b.data_ptr(), kb, b, k, out_v.data_ptr(), out_r.data_ptr(),
+                native.stream_of(vals_a))
+    native.launches["merge_topk"] += 1
+    return out_v, out_r
+
+
+def l2_topk_plain(x, x_sq, mask, q, k: int, row_base: int = 0):
+    """Plain version of K1: the [B, N] distance matrix, then masked_topk.
+    bf16 rows are upcast; x_sq None takes their norms."""
+    vals, rows = masked_topk(pairwise_sq_l2(q, x.float(), x_sq), mask, k)
+    if row_base:
+        rows = torch.where(rows >= 0, rows + row_base, rows)
+    return vals, rows
 
 
 _SMS: dict = {}
@@ -83,7 +128,7 @@ def select_scratch(source: str, b: int, k: int, device) -> torch.Tensor:
 
 
 def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
-            q: torch.Tensor, k: int):
+            q: torch.Tensor, k: int, row_base: int = 0):
     """K1: masked squared-L2 exact top-k of q [B, D] over x [N, D].
 
     x_sq [N] f32 row norms; mask [N] or [B, N] bool, or None for every
@@ -93,28 +138,30 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
     tensors it runs the plain version; on CUDA tensors it launches
     csrc/l2_topk.cu (k <= 256: per-query lists in shared memory; larger k:
     the masked distances of a query chunk to a buffer, then a radix select)
-    or raises."""
+    or raises.
+
+    bf16 rows (the reduced-rank calibration oracle's streamed blocks, k <=
+    256) are upcast exactly; x_sq None takes the norms of the upcast rows,
+    and ``row_base`` is added to every result row."""
     if x.device.type == "cpu":
-        return l2_topk_plain(x, x_sq, mask, q, k)
+        return l2_topk_plain(x, x_sq, mask, q, k, row_base)
     if x.device.type != "cuda":
         raise ValueError(f"l2_topk: unsupported device {x.device}")
+    if x.dtype == torch.bfloat16:
+        return _l2_topk_bf16(x, x_sq, mask, q, k, row_base)
+    if row_base:
+        raise ValueError("row_base is taken with bf16 rows only")
     dev = x.device
     native.check(x, "x", torch.float32, 2, dev)
     native.check(x_sq, "x_sq", torch.float32, 1, dev)
     native.check(q, "q", torch.float32, 2, dev)
     n, d = x.shape
     b = q.shape[0]
+    _check_mask(mask, b, n, dev)
     if q.shape[1] != d or x_sq.shape[0] != n:
         raise ValueError(
             f"shape mismatch: x {tuple(x.shape)}, x_sq {tuple(x_sq.shape)}, "
             f"q {tuple(q.shape)}")
-    if mask is not None:
-        if mask.dim() not in (1, 2):
-            raise ValueError("mask must be [N] or [B, N]")
-        native.check(mask, "mask", torch.bool, mask.dim(), dev)
-        if mask.shape[-1] != n or (mask.dim() == 2 and mask.shape[0] != b):
-            raise ValueError(f"mask {tuple(mask.shape)} does not fit B={b}, "
-                             f"N={n}")
     if k < 1:
         raise ValueError(f"l2_topk takes k >= 1, got {k}")
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -152,6 +199,54 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
         part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
         out_r.data_ptr(), native.stream_of(x))
     native.launches["l2_topk"] += 1
+    return out_d, out_r
+
+
+def _check_mask(mask, b: int, n: int, dev) -> None:
+    if mask is None:
+        return
+    if mask.dim() not in (1, 2):
+        raise ValueError("mask must be [N] or [B, N]")
+    native.check(mask, "mask", torch.bool, mask.dim(), dev)
+    if mask.shape[-1] != n or (mask.dim() == 2 and mask.shape[0] != b):
+        raise ValueError(f"mask {tuple(mask.shape)} does not fit B={b}, "
+                         f"N={n}")
+
+
+def _l2_topk_bf16(x, x_sq, mask, q, k: int, row_base: int):
+    dev = x.device
+    native.check(x, "x", torch.bfloat16, 2, dev)
+    native.check(q, "q", torch.float32, 2, dev)
+    n, d = x.shape
+    b = q.shape[0]
+    if x_sq is not None:
+        native.check(x_sq, "x_sq", torch.float32, 1, dev)
+        if x_sq.shape[0] != n:
+            raise ValueError("x_sq does not fit x")
+    _check_mask(mask, b, n, dev)
+    if q.shape[1] != d or not 1 <= k <= _SMALL_K:
+        raise ValueError(f"l2_topk on bf16 rows takes q [B, {d}] and k <= "
+                         f"{_SMALL_K}, got {tuple(q.shape)} and k={k}")
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return out_d.fill_(INF), out_r.fill_(-1)
+    splits = _splits(b, n, dev)
+    part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
+    part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
+    scratch = torch.empty(n, dtype=torch.float32, device=dev) \
+        if x_sq is None else None
+    P, I, L = native.P, native.I, native.L
+    native.call(
+        "l2_topk", "fvdb_l2_topk_bf16",
+        [P, P, P, L, P, I, I, I, I, I, I, P, P, P, P, P, P],
+        x.data_ptr(), 0 if x_sq is None else x_sq.data_ptr(),
+        0 if mask is None else mask.data_ptr(),
+        n if mask is not None and mask.dim() == 2 else 0, q.data_ptr(), b, n,
+        d, k, splits, row_base, 0 if scratch is None else scratch.data_ptr(),
+        part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
+        out_r.data_ptr(), native.stream_of(x))
+    native.launches["l2_topk_bf16"] += 1
     return out_d, out_r
 
 

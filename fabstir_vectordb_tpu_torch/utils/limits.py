@@ -2,8 +2,8 @@
 
 Same environment variables and defaults as the JAX package's
 ``utils/limits.py``, limited to what the ported slices read: the flat
-threshold, the serving dtype, the flat selection, the reduced-rank switch
-and the beam's expansion width.
+threshold, the serving dtype, the flat selection, the reduced-rank regime's
+knobs and budgets, and the beam's expansion width.
 """
 from __future__ import annotations
 
@@ -27,6 +27,63 @@ def pca_serve() -> bool:
     default on). Off ("0"): the HNSW beam + IVF n-probe pruned path serves
     instead."""
     return os.environ.get("FVDB_PCA_SERVE", "1") != "0"
+
+
+def pca_rank() -> int:
+    """Projected dimensionality of reduced-rank serving (FVDB_PCA_RANK).
+    -1 ("auto", the default): the smallest rank capturing ``pca_var()`` of
+    the sample variance, clamped to [32, 192]."""
+    v = os.environ.get("FVDB_PCA_RANK", "auto")
+    if v == "auto":
+        return -1
+    return max(8, int(v))
+
+
+def pca_var() -> float:
+    """Variance fraction targeted by auto rank (FVDB_PCA_VAR, default 0.9)."""
+    return min(0.999, max(0.5, float(os.environ.get("FVDB_PCA_VAR", 0.9))))
+
+
+def pca_oversample() -> int | None:
+    """Stage-1 candidates per requested k (FVDB_PCA_OVERSAMPLE). None (unset
+    or "auto", the default): the mirror build calibrates it against measured
+    probe recall; an explicit value is used as it is."""
+    v = os.environ.get("FVDB_PCA_OVERSAMPLE")
+    if v is None or v == "auto":
+        return None
+    return max(2, int(v))
+
+
+def pca_rerank_mode() -> str:
+    """Reduced-rank stage-2 placement (FVDB_PCA_RERANK): "auto" (default:
+    on the device against a full-dim bf16 mirror when it fits the HBM budget
+    and the corpus has >= 2M rows, else on the host), "device" or "host"."""
+    v = os.environ.get("FVDB_PCA_RERANK", "auto")
+    if v not in ("auto", "device", "host"):
+        raise ValueError(f"FVDB_PCA_RERANK must be auto|device|host, got {v}")
+    return v
+
+
+def pca_target() -> float:
+    """Recall@k the reduced-rank calibration targets (FVDB_PCA_TARGET,
+    default 0.99)."""
+    return min(1.0, max(0.5, float(os.environ.get("FVDB_PCA_TARGET", 0.99))))
+
+
+def hbm_budget_bytes() -> int:
+    """Serving device-memory budget (FVDB_HBM_BUDGET_GB, default 12 GiB, the
+    JAX package's value for a 16 GiB chip): gates keeping a full-dim bf16
+    mirror beside the reduced-rank mirror."""
+    gb = float(os.environ.get("FVDB_HBM_BUDGET_GB", 12))
+    return int(gb * (1 << 30))
+
+
+def stage1_transient_bytes() -> int:
+    """Cap on the reduced-rank stage-1 [B, N] distance transient
+    (FVDB_STAGE1_TRANSIENT_GB, default 4 GiB): query batches are split into
+    power-of-two sub-batches under it."""
+    gb = float(os.environ.get("FVDB_STAGE1_TRANSIENT_GB", 4))
+    return int(gb * (1 << 30))
 
 
 def beam_expand() -> int:

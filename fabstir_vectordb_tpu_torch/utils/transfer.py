@@ -1,5 +1,6 @@
-"""Host <-> device copies: uploads through pinned memory, and readbacks that
-wait once for several results."""
+"""Host <-> device copies: uploads through pinned memory, bf16 uploads that
+never hold a bf16 host copy, and readbacks that wait once for several
+results."""
 from __future__ import annotations
 
 import numpy as np
@@ -19,6 +20,22 @@ def to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.clone()
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def put_bf16_blocks(src: np.ndarray, n_rows: int, device: torch.device,
+                    block_bytes: int = 256 << 20) -> torch.Tensor:
+    """The first ``n_rows`` rows of ``src`` as an [n_rows, dim] bf16 device
+    tensor, uploaded ~``block_bytes`` of f32 at a time through pinned memory
+    and cast (round to nearest even) into the preallocated tensor in place:
+    neither a bf16 host copy nor a full f32 device copy is ever held."""
+    n_rows, dim = int(n_rows), int(src.shape[1])
+    rows_per = max(int(block_bytes) // (dim * 4), 1)
+    mirror = torch.empty((n_rows, dim), dtype=torch.bfloat16, device=device)
+    for lo in range(0, n_rows, rows_per):
+        hi = min(lo + rows_per, n_rows)
+        mirror[lo:hi].copy_(to_device(np.asarray(src[lo:hi], np.float32),
+                                      device))
+    return mirror
 
 
 def to_host(*tensors: torch.Tensor) -> tuple:

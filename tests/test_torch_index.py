@@ -279,10 +279,10 @@ def test_convert_carries_a_jax_index_across():
 
 
 def test_unported_serving_branches_raise(monkeypatch):
-    """bf16 mirrors, approximate flat selection and reduced-rank serving
-    above the flat threshold (FVDB_PCA_SERVE on, the default) raise instead
-    of serving some other way; with FVDB_PCA_SERVE=0 the same store serves
-    the pruned regime, and per-engine k answers."""
+    """bf16 mirrors and approximate flat selection raise instead of serving
+    some other way; above the flat threshold the reduced-rank regime (the
+    default) answers, and with FVDB_PCA_SERVE=0 the same store serves the
+    pruned regime; per-engine k answers."""
     _, ht, _ = _hybrid_pair(n=300, seed=14)
     q = _data(15, 2)
     cfg = SearchConfig(auto_migrate=False)
@@ -297,8 +297,9 @@ def test_unported_serving_branches_raise(monkeypatch):
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "256")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 256)
     assert ht.fused.serving_info()["regime"] == "reduced-rank"
-    with pytest.raises(NotImplementedError):
-        ht.search_rows(q, 5, cfg)
+    d, r = ht.search_rows(q, 5, cfg)
+    assert r.shape == (2, 5) and (r >= 0).all()
+    assert ht.fused._proj is not None and ht.fused._dev is None
     monkeypatch.setenv("FVDB_PCA_SERVE", "0")
     assert ht.fused.serving_info()["regime"] == "pruned"
     d, r = ht.search_rows(q, 5, cfg)

@@ -327,3 +327,196 @@ def test_ivf_scan_kernel_matches_plain_on_card(k, seeded, chunked,
         for r in diff:
             dd = vp[i][rp[i] == r] if r in set(rp[i]) else vk[i][rk[i] == r]
             assert abs(float(dd[0]) - kth) <= 1e-2
+
+
+def _assert_close_up_to_ties(vt, rt, vp, rp, rtol, atol):
+    """Kernel top-k (vt, rt) against the plain one: the same padding,
+    distances within tolerance position by position, and rows that differ
+    only at a tie with the k-th distance."""
+    vt, rt, vp, rp = (np.asarray(t.cpu()) for t in (vt, rt, vp, rp))
+    np.testing.assert_array_equal(np.isfinite(vt), np.isfinite(vp))
+    fin = np.isfinite(vp)
+    np.testing.assert_allclose(vt[fin], vp[fin], rtol=rtol, atol=atol)
+    assert (rt[~fin] == -1).all()
+    for i in range(vt.shape[0]):
+        diff = set(rt[i][rt[i] >= 0]) ^ set(rp[i][rp[i] >= 0])
+        kth = vp[i][fin[i]].max() if fin[i].any() else np.inf
+        for r in diff:
+            d = vp[i][rp[i] == r] if r in set(rp[i]) else vt[i][rt[i] == r]
+            assert abs(float(d[0]) - kth) <= atol + rtol * abs(kth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ov_k,n,keep,chunk", [
+    (1, 64, 200_003, 0.9, 0), (128, 256, 200_003, 0.9, 48),
+    (128, 1024, 200_003, 0.9, 0), (5, 2048, 200_003, 0.5, 0),
+    (3, 64, 5000, 0.004, 0), (2, 300, 5000, 0.0, 0)])
+def test_stage1_select_kernel_matches_plain_on_card(b, ov_k, n, keep, chunk,
+                                                    monkeypatch):
+    """K14's stage 1 over a bf16 mirror at small and large ov_k, a last
+    partial tile, (keep 0.4%) fewer unmasked rows than ov_k, so the tail
+    pads, every row masked, and (chunk) a batch taken in query chunks whose
+    distance buffers are held one at a time, one launch counted each."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    if chunk:
+        monkeypatch.setattr(fused_t, "_DUMP_BYTES", chunk * n * 4)
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    r = 192
+    xp = torch.randn(n, r, device=dev, generator=g).to(torch.bfloat16)
+    xp_sq = (xp.float() ** 2).sum(1)
+    qp = torch.randn(b, r, device=dev, generator=g)
+    mask = torch.rand(n, device=dev, generator=g) < keep
+    before = native.launches["stage1_select"]
+    vt, rt = fused_t.stage1_select(xp, xp_sq, mask, qp, ov_k)
+    assert native.launches["stage1_select"] - before == -(-b // (chunk or b))
+    vp, rp = fused_t.stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,r", [(384, 20), (384, 192), (384, 300),
+                                 (3072, 600)])
+def test_project_kernels_match_plain_on_card(d, r):
+    """K14's projection of a block into the bf16 mirror at row lo (a last
+    partial block of 37 rows) and of queries, also for wide embeddings and
+    a rank past two column groups."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, lo = 10_037, 4096
+    src = (torch.randn(n, d, device=dev, generator=g) + 0.3) \
+        .to(torch.bfloat16)
+    mu = torch.randn(d, device=dev, generator=g) * 0.1
+    p = torch.linalg.qr(torch.randn(d, r, device=dev, generator=g))[0] \
+        if r <= d else torch.randn(d, r, device=dev, generator=g) * 0.05
+    p = p.contiguous()
+    out_k = torch.zeros((lo + n, r), dtype=torch.bfloat16, device=dev)
+    sq_k = torch.zeros(lo + n, device=dev)
+    out_p, sq_p = out_k.clone(), sq_k.clone()
+    fused_t.project_rows(src, mu, p, out_k, sq_k, lo)
+    fused_t.project_rows_plain(src, mu, p, out_p, sq_p, lo)
+    yk, yp = out_k[lo:].float(), out_p[lo:].float()
+    assert (out_k[:lo].float() == 0).all()
+    same = yk == yp
+    assert same.float().mean().item() >= 0.999
+    # one bf16 ulp of the larger of the two, or (where the product cancels
+    # to near 0) the f32 sums' own spread, 1e-6 of the block's scale
+    big = torch.maximum(yk.abs(), yp.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    slack = torch.maximum(ulp * 1.0001, 1e-6 * yp.abs().max())
+    assert ((yk - yp).abs()[~same] <= slack[~same]).all()
+    rows = same.all(1)
+    torch.testing.assert_close(sq_k[lo:][rows], sq_p[lo:][rows], rtol=1e-6,
+                               atol=0.0)
+    q = torch.randn(77, d, device=dev, generator=g)
+    torch.testing.assert_close(fused_t.project_queries(q, mu, p),
+                               fused_t.project_queries_plain(q, mu, p),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ov,m", [(1024, 64), (100, 128), (8192, 2048)])
+def test_rerank_f32_kernel_matches_plain_on_card(ov, m):
+    """K2 at OV = 1,024, with -1 padding, a query whose pool is all -1,
+    (OV < m) a padded tail, and the wide pool of a filtered k = 100
+    search."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, d, b = 300_000, 384, 128
+    x = torch.randn(n, d, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(b, d, device=dev, generator=g)
+    # distinct rows in each pool, as stage 1 gives them
+    rows = torch.argsort(torch.rand(b, n, device=dev, generator=g), dim=1)[
+        :, :ov].to(torch.int32).contiguous()
+    rows[:, -ov // 8:] = -1
+    rows[3] = -1
+    vt, rt = fused_t.rerank_f32(x, q, rows, m)
+    vp, rp = fused_t.rerank_f32_plain(x, q, rows, m)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-3)
+    assert (rt[3] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka,kb,k", [(11, 11, 11), (5, 3, 16)])
+def test_merge_topk_kernel_matches_plain_on_card(ka, kb, k):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    b = 128
+    va = torch.rand(b, ka, device=dev, generator=g)
+    vb = torch.rand(b, kb, device=dev, generator=g)
+    va[:, 0] = vb[:, 0]  # equal values: the lower row goes first
+    ra = torch.randint(0, 10_000, (b, ka), device=dev, generator=g,
+                       dtype=torch.int32)
+    rb = torch.randint(0, 10_000, (b, kb), device=dev, generator=g,
+                       dtype=torch.int32)
+    va[:8, ka // 2:] = float("inf")
+    ra[:8, ka // 2:] = -1
+    mt = topk_t.merge_topk(va, ra, vb, rb, k)
+    mp = topk_t.merge_topk_plain(va, ra, vb, rb, k)
+    assert torch.equal(mt[1], mp[1]) and torch.equal(mt[0], mp[0])
+
+
+@pytest.mark.cuda
+def test_oracle_step_kernels_match_plain_on_card():
+    """K8's oracle step: K1 on bf16 blocks with a row base (norms taken in
+    the kernel), then the merge, over a last partial block."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    n, d, p, k = 112_345, 384, 128, 11
+    x = torch.randn(n, d, device=dev, generator=g).to(torch.bfloat16)
+    q = torch.randn(p, d, device=dev, generator=g)
+    members = torch.rand(n, device=dev, generator=g) < 0.9
+    state = {}
+    for tag in ("kernel", "plain"):
+        step = fused_t.oracle_step if tag == "kernel" \
+            else fused_t.oracle_step_plain
+        vals = torch.full((p, k), float("inf"), device=dev)
+        rows = torch.full((p, k), -1, dtype=torch.int32, device=dev)
+        for lo in range(0, n, 50_000):
+            hi = min(n, lo + 50_000)
+            vals, rows = step(x[lo:hi], members[lo:hi].contiguous(), q, lo,
+                              vals, rows, k)
+        state[tag] = (vals, rows)
+    _assert_close_up_to_ties(*state["kernel"], *state["plain"], 1e-5, 1e-2)
+
+
+@pytest.mark.cuda
+def test_kmeans_seed_kernels_match_plain_on_card():
+    """K7 at the IVF training shape (10,000 x 384, l = 409, 2,046
+    candidates)."""
+    dev = _card()
+    xs, _ = _mixture(25, 10_000, 256, d=384, spread=0.5)
+    x = torch.from_numpy(xs).to(dev)
+    mask = torch.ones(10_000, dtype=torch.bool, device=dev)
+    mask[-17:] = False
+    g = torch.Generator(device=dev).manual_seed(7)
+    u = torch.rand(10_000, device=dev, generator=g)
+    first_k = km_t.seed_pick(None, mask, u, 1, weighted=False)
+    first_p = km_t.seed_pick_plain(None, mask, u, 1, weighted=False)
+    assert torch.equal(first_k, first_p)
+    d2 = torch.full((10_000,), float("inf"), device=dev)
+    d2 = km_t.seed_min_update_plain(x, mask, d2, first_p)
+    cand = [first_p]
+    for _ in range(5):
+        u = torch.rand(10_000, device=dev, generator=g)
+        rk = km_t.seed_pick(d2, mask, u, 409)
+        rp = km_t.seed_pick_plain(d2, mask, u, 409)
+        assert torch.equal(rk, rp)
+        dk = km_t.seed_min_update(x, mask, d2, rk)
+        dp = km_t.seed_min_update_plain(x, mask, d2, rk)
+        torch.testing.assert_close(dk, dp, rtol=1e-5, atol=5e-3)
+        d2 = dp
+        cand.append(rk)
+    cand = torch.cat(cand)
+    ck = km_t.seed_counts(x, mask, cand)
+    cp = km_t.seed_counts_plain(x, mask, cand)
+    assert int(ck.sum()) == int(cp.sum()) == int(mask.sum())
+    assert (ck == cp).float().mean().item() >= 0.99
