@@ -37,12 +37,28 @@
    fresh insert, the release on FVDB_PCA_SERVE=0. The counters must show
    K14 (selection, projection), K2, K8 and K1 on bf16 rows; then each
    against its plain version on the regime's own state.
-7. One JSON line with every kernel's numbers, the card's name and power
+7. Scale phase: bench.py's 10M tier (bench_10m) after the 1M state is
+   freed: 10,000,000 x 384 rows of the procedural corpus made on the card
+   by K17, registered and filled block by block with each block's IVF
+   assignment (K6), the IVF trained on the first 10,000 rows, the source
+   spot-checked and attached; then the reduced-rank regime at bench.py's
+   operating point with its 8 GB rerank mirror generated by K17: the first
+   search (its stages timed), 100 single and 5 x 128 batched searches,
+   recall@10 >= 0.95 against the exact f32 oracle that TieredFlatSearcher
+   streams from the host (K1 + K8's merge a tile). The counters must show
+   K17, K6, K14, K2 and the tile step's K1 and merge; then those kernels
+   against their plain versions at this tier's shapes, no full-dim f32
+   mirror held, the source-built mirror against a host upload, 1,000
+   deletes (the source stays) and a fill (it goes), and one rebuild with
+   rank and oversample on auto. The host needs ~45 GB (a 25.8 GB store at
+   16,777,216 rows of capacity).
+8. One JSON line with every kernel's numbers, the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
 stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
-``--phase reduced`` steps 1, 4 and 6; ``--profile``
+``--phase reduced`` steps 1, 4 and 6, ``--phase scale`` steps 1 and 7;
+``--profile``
 writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
 then carry the profiler's overhead); ``--trace`` runs searches under
 ``torch.profiler``, prints the device's busy share and writes the ops by
@@ -62,9 +78,13 @@ import numpy as np
 
 CORPUS_ROWS = 100_000  # the repo's headline bench tier, at 384 dimensions
 PRUNED_ROWS = 1_000_000  # bench.py's 1M tier (build_index)
+SCALE_ROWS = 10_000_000  # bench.py's 10M tier (bench_10m)
+SCALE_BLOCK_ROWS = 1 << 20  # its generation blocks (utils/synth.py)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (no TF32)
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+# H100 SXM int32: 64 lanes an SM (Hopper white paper) x 132 SMs x 1.98 GHz
+INT32_OPS = 64 * 132 * 1.98e9
 NOW = 1_700_000_000.0
 DAY = 86_400.0
 
@@ -1370,6 +1390,525 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
         reduced_pinned_state_build_s=pinned_build_s)
 
 
+def memory_line(torch) -> str:
+    import resource
+
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return (f"device peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, "
+            f"host peak RSS {rss / 1e9:.3f} GB")
+
+
+class StageClock:
+    """Seconds spent in named calls: wraps an attribute of an object so
+    each call is timed between two device synchronisations."""
+
+    def __init__(self, torch):
+        self.torch, self.s, self._undo = torch, {}, []
+
+    def wrap(self, obj, attr: str, name: str) -> None:
+        real = getattr(obj, attr)
+        own = attr in vars(obj)  # a module's function, not a method
+
+        def timed(*a, **kw):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(obj, attr, timed)
+        self._undo.append((obj, attr, real if own else None))
+
+    def undo(self) -> None:
+        for obj, attr, real in reversed(self._undo):
+            if real is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, real)
+        self._undo.clear()
+
+
+def bf16_ulps(torch, a, b):
+    """Per-element distance of two bf16 tensors in bf16 ulps."""
+    def order(t):
+        u = t.view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(u >= 0x8000, 0x8000 - (u & 0x7FFF), 0x8000 + u)
+    return (order(a) - order(b)).abs()
+
+
+def scale_phase(torch, native, card: str, perf: dict, results: dict,
+                launch_of: dict, trace=False, out_dir="smoke_out"):
+    """bench.py's 10M tier (bench_10m, bench.py:519-796) through the port:
+    a procedural corpus of SCALE_ROWS x 384 (K17) registered and filled
+    block by block with each block's IVF assignment (K6), the IVF trained
+    on the first 10,000 rows, the source spot-checked and attached, then
+    the default regime above the flat threshold at bench.py's operating
+    point (device stage 2, rank 192, oversample 96) with its mirror made on
+    the card by K17: the first search, 100 single and 5 x 128 batched
+    searches, recall@10 against the exact f32 oracle streamed by
+    TieredFlatSearcher (K1 + K8's merge a tile). Then the regime's
+    guarantees and K17, K6, K14, K2 and the tile step against their plain
+    versions at this tier's shapes."""
+    import gc
+
+    point = {"FVDB_HBM_BUDGET_GB": "14.5", "FVDB_STAGE1_TRANSIENT_GB": "2",
+             "FVDB_PCA_RANK": "192", "FVDB_PCA_OVERSAMPLE": "96"}
+    cleared = ("FVDB_PCA_SERVE", "FVDB_FLAT_THRESHOLD", "FVDB_PCA_RERANK")
+    saved = {key: os.environ.get(key) for key in (*point, *cleared)}
+    for key in cleared:
+        os.environ.pop(key, None)
+    os.environ.update(point)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _scale_run(torch, native, card, perf, results, launch_of, trace,
+                   out_dir)
+    finally:
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _scale_run(torch, native, card, perf, results, launch_of, trace,
+               out_dir):
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import tiered as ti
+    from fabstir_vectordb_tpu_torch.index.hybrid import (
+        HybridConfig, HybridIndex, SearchConfig)
+    from fabstir_vectordb_tpu_torch.index.ivf import IVFConfig
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+    from fabstir_vectordb_tpu_torch.utils import synth
+
+    n, d, k = SCALE_ROWS, 384, 10
+    stage = {}
+    src = synth.SyntheticCorpusSource(seed=0, dim=d, n_centers=4096,
+                                      scale=0.35, block_rows=SCALE_BLOCK_ROWS)
+    h = HybridIndex(d, HybridConfig(
+        ivf=IVFConfig(n_clusters=256, n_probe=16, train_size=10_000, seed=0),
+        auto_migrate=False), device=None)
+    store, dev = h.store, h.store.device
+    cfg = SearchConfig(auto_migrate=False)
+
+    # ---- the main path, counted from 0
+    native.reset_launches()
+    t = time.perf_counter()
+    store.register_rows([f"v{i}" for i in range(n)],
+                        timestamps=NOW - 30 * DAY)
+    stage["register"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cents, pending = None, []
+    for lo in range(0, n, src.block_rows):
+        hi = min(lo + src.block_rows, n)
+        blk = src.device_block(lo // src.block_rows)[: hi - lo]  # K17, f32
+        store.fill_rows(lo, blk.cpu().numpy())  # the host copy, once
+        if cents is None:
+            h.initialize(store.data[:10_000])
+            cents = torch.from_numpy(h.ivf.centroids).to(dev)
+        # K6 on the f32 block (bench.py assigns a bf16 copy against bf16
+        # centroids): it shapes only the IVF lists, which this regime reads
+        # as a member mask
+        pending.append((lo, hi, km.assign_clusters(blk, cents)[0]))
+        del blk
+    h.ivf._ensure_capacity()
+    for lo, hi, a in pending:
+        h.ivf.assignments[lo:hi] = a.cpu().numpy()
+    del pending
+    store.bump_version()
+    h.ivf._version += 1
+    torch.cuda.synchronize()
+    stage["generate_fill_assign"] = time.perf_counter() - t
+    if not (h.ivf.assignments[:n] >= 0).all():
+        fail("scale: a row has no IVF list")
+    t = time.perf_counter()
+    chk = np.random.default_rng(909).integers(0, n, 8)
+    if not src.spot_check(store.data, chk):
+        fail("scale: the spot check refused the source's own rows")
+    store.attach_device_source(src)
+    stage["spot_check"] = time.perf_counter() - t
+    print(f"scale: {n} x {d} registered in {stage['register']:.3f} s, "
+          f"generated (K17) + filled + assigned (K6) in "
+          f"{stage['generate_fill_assign']:.3f} s, spot check of 8 rows "
+          f"{stage['spot_check']:.3f} s; capacity {store.capacity}; "
+          f"{memory_line(torch)} ({card})", flush=True)
+
+    rng10 = np.random.default_rng(707)  # bench.py's query stream
+    seeds = rng10.integers(0, n, 100)
+    queries = store.data[seeds] + 0.1 * rng10.standard_normal(
+        (100, d)).astype(np.float32)
+
+    clock = StageClock(torch)
+    clock.wrap(src, "mirror_bf16", "rerank mirror (K17)")
+    clock.wrap(h.fused, "_build_proj_mirror", "projection pass (K14)")
+    clock.wrap(h.fused, "_calibrate_oversample", "calibration")
+    clock.wrap(fu, "pca_basis", "PCA fit (host)")
+    clock.wrap(store, "host_sq", "host row norms")
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h.search_rows(queries[0], k, config=cfg, now=NOW)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+    finally:
+        clock.undo()
+    build = dict(clock.s)
+    info = h.fused.serving_info()
+    proj = h.fused._proj
+    if info["regime"] != "reduced-rank" or info["pca_rerank"] != "device" \
+            or info["pca_rank"] != 192 or info["pca_oversample"] != 96:
+        fail(f"scale: serving_info {info}")
+    print(f"scale: first search {first_s:.3f} s: " + ", ".join(
+        f"{name} {v:.3f} s" for name, v in build.items())
+        + f"; {proj['n_rows']} mirror rows; {memory_line(torch)} ({card})",
+        flush=True)
+
+    lat = []
+    for q in queries:
+        t = time.perf_counter()
+        h.search_rows(q, k, config=cfg, now=NOW)
+        lat.append((time.perf_counter() - t) * 1e3)
+    p50 = float(np.percentile(lat, 50))
+    bq = np.random.default_rng(0).standard_normal((128, d)).astype(np.float32)
+    h.search_rows(bq, k, config=cfg, now=NOW)
+    t = time.perf_counter()
+    for _ in range(5):
+        h.search_rows(bq, k, config=cfg, now=NOW)
+    qps = 5 * 128 / (time.perf_counter() - t)
+
+    sample = queries[:32]
+    members = store.active_mask()[:n] & (h.hnsw.member_mask()[:n]
+                                         | h.ivf.member_mask()[:n])
+    t = time.perf_counter()
+    oracle = ti.TieredFlatSearcher(store.data[:n], members)
+    _, exact = oracle.search(sample, k)
+    oracle_s = time.perf_counter() - t
+    _, got = h.search_rows(sample, k, config=cfg, now=NOW)
+    rec = recall(got, exact)
+    torch.cuda.synchronize()
+    counts = dict(native.launches)
+    path = {"synth_rows": "K17", "assign_clusters": "K6",
+            "project_rows": "K14 projection",
+            "project_queries": "K14 queries", "stage1_select": "K14 select",
+            "rerank_f32": "K2", "l2_topk": "the tile step's K1",
+            "merge_topk": "the tile step's merge"}
+    for name, what in path.items():
+        if counts[name] <= 0:
+            fail(f"scale path: {what} ({name}) was launched no time")
+    print(f"scale: search p50 {p50:.3f} ms over 100 single k=10 searches, "
+          f"batched {qps:.1f} QPS over 5 x 128; recall@10 {rec:.4f} over 32 "
+          f"queries against the streamed exact oracle ({oracle.n_tiles} tiles "
+          f"of {oracle.tile_rows} rows, {oracle_s:.3f} s); {memory_line(torch)}"
+          f" ({card})", flush=True)
+    print(f"scale: launches { {name: counts[name] for name in path} }",
+          flush=True)
+    if rec < 0.95:
+        fail(f"scale: recall@10 {rec} < 0.95")
+    if store._mirror is not None or h.fused._dev is not None:
+        fail("scale: a full-dim f32 mirror is held")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    own = sum(x.numel() * x.element_size() for x in (
+        proj["xp"], proj["xp_sq"], proj["rerank_x"], h.fused._members_dev))
+    if held - own >= n * d * 4:
+        fail(f"scale: {held - own} bytes held beside the regime's {own}")
+    if trace:
+        for name, fn in (
+                ("scale_single", lambda: [h.search_rows(q, k, config=cfg,
+                                                        now=NOW)
+                                          for q in queries[:32]]),
+                ("scale_batched", lambda: [h.search_rows(bq, k, config=cfg,
+                                                         now=NOW)
+                                           for _ in range(2)])):
+            wall, dev_ms = device_trace(torch, name, fn, out_dir)
+            print(f"trace {name}: wall {wall:.3f} ms, device {dev_ms:.3f} ms, "
+                  f"busy share {dev_ms / wall:.3f} ({card})", flush=True)
+    # ---- kernels against their plain versions at this tier's shapes
+    scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
+                        counts, results, launch_of)
+
+    # ---- the source-built mirror against one uploaded from the host rows
+    mirror_src = proj["rerank_x"]
+    store.attach_device_source(None)
+    h.fused._release_proj()
+    del proj
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, got_up = h.search_rows(sample, k, config=cfg, now=NOW)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t
+    if not np.array_equal(got_up, got):
+        fail("scale: the uploaded mirror answers otherwise than the "
+             "source-built one")
+    mirror_up = h.fused._proj["rerank_x"]
+    # rows past the count: synthetic in one, zeros in the other, masked out
+    mirror_diff = int((mirror_up[:n] != mirror_src[:n]).sum())
+    del mirror_src, mirror_up
+    print(f"scale: the host-uploaded mirror's state built in {upload_s:.3f} s "
+          f"(from the source: {first_s:.3f} s); the same rows for the 32 "
+          f"queries; {mirror_diff} of {n * d} mirror elements differ "
+          f"({card})", flush=True)
+
+    # ---- deletes keep the source, a fill detaches it
+    if not src.spot_check(store.data, chk):
+        fail("scale: the spot check refused the rows")
+    store.attach_device_source(src)
+    rng = np.random.default_rng(21)
+    top = [int(v) for row in got for v in row[:3] if v >= 0]
+    dead = list(dict.fromkeys(
+        top + rng.choice(n, 1000, replace=False).tolist()))[:1000]
+    if h.batch_delete([f"v{r}" for r in dead]) != 1000:
+        fail("scale: batch_delete")
+    if store.device_source is not src:
+        fail("scale: a soft delete detached the source")
+    t = time.perf_counter()
+    _, after = h.search_rows(sample, k, config=cfg, now=NOW)
+    del_s = time.perf_counter() - t
+    if np.isin(after, dead).any():
+        fail("scale: a deleted row was returned")
+    store.fill_rows(0, store.data[:1].copy())
+    if store.device_source is not None:
+        fail("scale: fill_rows kept the source attached")
+    if not src.spot_check(store.data, chk):
+        fail("scale: the spot check refused the rows")
+    store.attach_device_source(src)
+
+    # ---- one rebuild with rank and oversample on auto
+    os.environ.pop("FVDB_PCA_RANK")
+    os.environ.pop("FVDB_PCA_OVERSAMPLE")
+    h.fused._release_proj()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, auto_rows = h.search_rows(sample, k, config=cfg, now=NOW)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t
+    ainfo = h.fused.serving_info()
+    _, exact2 = oracle.search(sample, k, extra_mask=store.active_mask()[:n])
+    auto_rec = recall(auto_rows, exact2)
+    print(f"scale: 1,000 deletes kept the source, rebuilt in {del_s:.3f} s, "
+          f"none returned; fill_rows detached it. Auto rebuild in "
+          f"{auto_s:.3f} s: rank {ainfo['pca_rank']} (doubled: "
+          f"{ainfo['pca_rank_doubled']}), oversample "
+          f"{ainfo['pca_oversample']}, calibrated recall "
+          f"{ainfo['pca_calibrated_recall']}, stage 2 {ainfo['pca_rerank']}; "
+          f"recall@10 {auto_rec:.4f}; {memory_line(torch)} ({card})",
+          flush=True)
+    perf.update(
+        scale_rows=n, scale_register_s=stage["register"],
+        scale_generate_fill_assign_s=stage["generate_fill_assign"],
+        scale_first_search_s=first_s, scale_build_stages_s=build,
+        scale_search_p50_ms=p50, scale_batched_qps=qps,
+        scale_recall_at_10=rec, scale_oracle_s=oracle_s,
+        scale_upload_build_s=upload_s, scale_mirror_elements_differing=mirror_diff,
+        scale_delete_rebuild_s=del_s, scale_auto_build_s=auto_s,
+        scale_auto_rank=ainfo["pca_rank"],
+        scale_auto_oversample=ainfo["pca_oversample"],
+        scale_auto_calibrated_recall=ainfo["pca_calibrated_recall"],
+        scale_auto_recall_at_10=auto_rec,
+        scale_device_peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
+                        counts, results, launch_of):
+    """K17, K6, the tile step, K14 and K2 against their plain versions at
+    the 10M tier's shapes, on its own state."""
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import tiered as ti
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+    from fabstir_vectordb_tpu_torch.utils import synth
+    from fabstir_vectordb_tpu_torch.utils.padding import bucket
+
+    store = h.store
+    n, d, k = SCALE_ROWS, src.dim, 10
+    dev = store.device
+    br = src.block_rows
+    n_el = br * d
+    # K17 over block 0, the plain version in slices of 65,536 rows; then 64
+    # sampled rows of every other block
+    kz, ka = src.block_keys(0)
+    cents = src.centers()
+    f32_k, a_k = src.rows(0, range(0, br))
+    bf_k = src.rows(0, range(0, br), torch.bfloat16)[0]
+    err, ulp_max, ulp_n = 0.0, 0, 0
+    slices = [(lo, min(lo + 65_536, br)) for lo in range(0, br, 65_536)]
+    for lo, hi in slices:
+        idx = torch.arange(lo, hi, device=dev)
+        vp, ap = synth.synth_rows_plain(kz, ka, idx, d, cents, src.scale)
+        if not torch.equal(ap, a_k[lo:hi]):
+            fail("synth_rows: an assignment differs from the plain version")
+        err = max(err, float((vp - f32_k[lo:hi]).abs().max()))
+        u = bf16_ulps(torch, bf_k[lo:hi], vp.to(torch.bfloat16))
+        ulp_max, ulp_n = max(ulp_max, int(u.max())), ulp_n + int((u > 0).sum())
+    rng = np.random.default_rng(31)
+    for b in range(1, -(-n // br)):
+        offs = np.sort(rng.integers(0, min(br, n - b * br), 64))
+        vk, ak = src.rows(b, offs)
+        bk = src.rows(b, offs, torch.bfloat16)[0]
+        kzb, kab = src.block_keys(b)
+        vp, ap = synth.synth_rows_plain(
+            kzb, kab, torch.from_numpy(offs).to(dev), d, cents, src.scale)
+        if not torch.equal(ak, ap):
+            fail(f"synth_rows: block {b}'s sampled assignments differ")
+        err = max(err, float((vk - vp).abs().max()))
+        u = bf16_ulps(torch, bk, vp.to(torch.bfloat16))
+        ulp_max, ulp_n = max(ulp_max, int(u.max())), ulp_n + int((u > 0).sum())
+    tol = 1e-6
+    share = ulp_n / (n_el + 64 * d * (-(-n // br) - 1))
+    if err > tol or ulp_max > 1 or share > 0.005:
+        fail(f"synth_rows: f32 max_abs_err {err} (tol {tol}), bf16 {ulp_max} "
+             f"ulps at most, {share} of elements off")
+    del f32_k, a_k, vp, ap
+    out = torch.empty((br, d), dtype=torch.bfloat16, device=dev)
+    rows0 = range(0, br)
+
+    def plain_block():
+        for lo, hi in slices:
+            synth.synth_rows_plain(kz, ka, torch.arange(lo, hi, device=dev),
+                                   d, cents, src.scale, torch.bfloat16)
+
+    int_ops = 80.0 * n_el + 160.0 * br  # threefry + uniform; 2 draws a row
+    t_b, t_o = (n_el * 2 + br * 4 + 4096 * d * 4) / HBM_BYTES_PER_S, \
+        int_ops / INT32_OPS
+    results["synth_rows[bf16 block]"] = dict(
+        shape=f"rows={br} D={d} centers=4096 -> bf16", max_abs_err=err,
+        tol=tol, bf16_ulps_max=ulp_max, bf16_share_one_ulp=share,
+        ms=cuda_ms(torch, lambda: synth.synth_rows(
+            kz, ka, rows0, d, cents, src.scale, torch.bfloat16, out=out)),
+        plain_ms=cuda_ms(torch, plain_block, iters=1, warmup=1),
+        library_ms=None, bound_ms=max(t_b, t_o) * 1e3,
+        bound_by="bytes" if t_b >= t_o else "operations (int32)")
+    launch_of["synth_rows[bf16 block]"] = counts["synth_rows"]
+    del out, bf_k
+
+    # K6: the assignment of block 0 against the 256 trained centroids
+    blk = src.device_block(0)
+    cents_ivf = torch.from_numpy(h.ivf.centroids).to(dev)
+    ak, dk = km.assign_clusters(blk, cents_ivf)
+    ap, dp = km.assign_clusters_plain(blk, cents_ivf)
+    agree = float((ak == ap).float().mean())
+    if agree < 0.999:
+        fail(f"assign_clusters: {agree} of rows agree with the plain version")
+    c = cents_ivf.shape[0]
+    bms, by = bound(br * d * 4 + c * d * 4 + br * 8, 2.0 * br * c * d)
+    results["assign_clusters[10M tier block]"] = dict(
+        shape=f"N={br} C={c} D={d}", max_abs_err=float(
+            (dk - dp)[ak == ap].abs().max()), agree=agree,
+        ms=cuda_ms(torch, lambda: km.assign_clusters(blk, cents_ivf)),
+        plain_ms=cuda_ms(torch, lambda: km.assign_clusters_plain(
+            blk, cents_ivf), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["assign_clusters[10M tier block]"] = counts["assign_clusters"]
+    del blk, ak, ap, dk, dp
+
+    # the tile step on the oracle's first tile (32 queries, k = 10)
+    tr = oracle.tile_rows
+    xt = torch.from_numpy(store.data[:tr]).to(dev)
+    mt = torch.from_numpy(members[:tr]).to(dev)
+    qt = torch.from_numpy(sample).to(dev)
+    v0 = torch.full((32, k), float("inf"), device=dev)
+    r0 = torch.full((32, k), -1, dtype=torch.int32, device=dev)
+    vk, rk = ti.tile_step(xt, mt, qt, tr, v0, r0, k)
+    vp, rp = ti.tile_step_plain(xt, mt, qt, tr, v0, r0, k)
+    tol = 2e-5 * float((xt[:65_536] ** 2).sum(1).max()
+                       + (qt * qt).sum(1).max())
+    err, differ = topk_check("tile_step", vk, rk, vp, rp, tol)
+    n_in = int(mt.sum())
+    bms, by = bound(tr * (d * 4 + 1) + 32 * d * 4 + 3 * 32 * k * 8,
+                    2.0 * 32 * n_in * d + 2.0 * tr * d)
+    results["tile_step"] = dict(
+        shape=f"B=32 tile={tr} D={d} k={k} (norms in the kernel, row base)",
+        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, lambda: ti.tile_step(xt, mt, qt, tr, v0, r0, k)),
+        plain_ms=cuda_ms(torch, lambda: ti.tile_step_plain(
+            xt, mt, qt, tr, v0, r0, k), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["tile_step"] = min(counts["l2_topk"], counts["merge_topk"])
+    del xt, mt
+
+    # K14 and K2 on the served state (10,485,760 mirror rows)
+    xp, xp_sq, rx = proj["xp"], proj["xp_sq"], proj["rerank_x"]
+    mu, pm = proj["mu"], proj["p"]
+    n_rows, r = xp.shape
+    mem = h.fused._members_state(n_rows)
+    n_in = int(mem.sum())
+    ov = min(bucket(16 * 96), n_rows)
+    q128 = torch.from_numpy(bq).to(dev)
+    qp = fu.project_queries(q128, mu, pm)
+    for tag, b in (("B=1", 1), ("B=32", 32)):
+        qb = qp[:b].contiguous()
+        vk, rk = fu.stage1_select(xp, xp_sq, mem, qb, ov)
+        vp, rp = fu.stage1_select_plain(xp, xp_sq, mem, qb, ov)
+        tol = 2e-5 * float(xp_sq.max() + (qb * qb).sum(1).max())
+        err, differ = topk_check(f"stage1_select[10M {tag}]", vk, rk, vp, rp,
+                                 tol)
+        bms, by = bound(n_rows * (r * 2 + 4 + 1) + b * r * 4 + b * ov * 8,
+                        2.0 * b * n_in * r, BF16_FLOPS)
+        key = f"stage1_select[10M {tag}]"
+        results[key] = dict(
+            shape=f"B={b} N={n_rows} r={r} ov_k={ov}", max_abs_err=err,
+            tol=tol, rows_differing_at_ties=differ,
+            ms=cuda_ms(torch, lambda: fu.stage1_select(xp, xp_sq, mem, qb,
+                                                       ov), iters=3),
+            plain_ms=cuda_ms(torch, lambda: fu.stage1_select_plain(
+                xp, xp_sq, mem, qb, ov), iters=1, warmup=1),
+            library_ms=None, bound_ms=bms,
+            bound_by=f"{by} (bf16 tensor-core rate)")
+        launch_of[key] = counts["stage1_select"]
+    pool = torch.cat([fu.stage1_select(xp, xp_sq, mem,
+                                       qp[i:i + 32].contiguous(), ov)[1]
+                      for i in range(0, 128, 32)])
+    m = min(64, ov)
+    vk, rk = fu.rerank_f32(rx, q128, pool, m)
+    vp, rp = fu.rerank_f32_plain(rx, q128, pool, m)
+    tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
+    err, differ = topk_check("rerank_f32[10M]", vk, rk, vp, rp, tol)
+    valid = pool >= 0
+    distinct = int(torch.unique(pool[valid]).numel())
+    bms, by = bound(distinct * d * 2 + pool.numel() * 4 + 128 * d * 4
+                    + 128 * m * 8, 3.0 * int(valid.sum()) * d)
+    results["rerank_f32[10M]"] = dict(
+        shape=f"B=128 OV={ov} m={m} D={d} distinct rows {distinct}",
+        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, lambda: fu.rerank_f32(rx, q128, pool, m)),
+        plain_ms=cuda_ms(torch, lambda: fu.rerank_f32_plain(
+            rx, q128, pool, m), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["rerank_f32[10M]"] = counts["rerank_f32"]
+    blk_n = min(524_288, n_rows)  # a block of the device-mode projection
+    blk = rx[:blk_n]
+    out_k = torch.empty((blk_n, r), dtype=torch.bfloat16, device=dev)
+    sq_k = torch.empty(blk_n, device=dev)
+    out_p, sq_p = torch.empty_like(out_k), torch.empty_like(sq_k)
+    fu.project_rows(blk, mu, pm, out_k, sq_k, 0)
+    fu.project_rows_plain(blk, mu, pm, out_p, sq_p, 0)
+    yk, yp = out_k.float(), out_p.float()
+    same = float((yk == yp).float().mean())
+    if same < 0.999 or not torch.equal(out_k, xp[:blk_n]):
+        fail(f"project_rows[10M]: {same} of elements equal, or the served "
+             f"mirror's first block differs")
+    centered = blk.float() - mu
+    bms, by = bound(blk_n * (d * 2 + r * 2 + 4) + d * r * 4 + d * 4,
+                    2.0 * blk_n * d * r)
+    results["project_rows[10M]"] = dict(
+        shape=f"n={blk_n} D={d} r={r} (the K17 mirror's rows)",
+        max_abs_err=float((yk - yp).abs().max()), equal_share=same,
+        ms=cuda_ms(torch, lambda: fu.project_rows(blk, mu, pm, out_k, sq_k,
+                                                  0)),
+        plain_ms=cuda_ms(torch, lambda: fu.project_rows_plain(
+            blk, mu, pm, out_p, sq_p, 0), iters=2, warmup=1),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(centered, pm)),
+        bound_ms=bms, bound_by=by)
+    launch_of["project_rows[10M]"] = counts["project_rows"]
+    del centered, out_k, out_p, yk, yp
+    for name in ("synth_rows[bf16 block]", "assign_clusters[10M tier block]",
+                 "tile_step", "stage1_select[10M B=1]",
+                 "stage1_select[10M B=32]", "rerank_f32[10M]",
+                 "project_rows[10M]"):
+        print_kernel(name, results[name], launch_of[name])
+
+
 REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "l2_topk": "fabstir_vectordb_tpu/index/fused.py:51",
     "l2_topk[candidates]": "fabstir_vectordb_tpu/index/hnsw.py:81",
@@ -1388,6 +1927,9 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "project_queries": "fabstir_vectordb_tpu/index/fused.py:741",
     "rerank_f32": "fabstir_vectordb_tpu/index/fused.py:83",
     "merge_topk": "fabstir_vectordb_tpu/ops/topk.py:61",
+    "synth_rows": "fabstir_vectordb_tpu/utils/synth.py:76",
+    "assign_clusters": "fabstir_vectordb_tpu/ops/kmeans.py:70",
+    "tile_step": "fabstir_vectordb_tpu/index/tiered.py:31",
 }
 SOURCES = {
     "l2_topk": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
@@ -1405,13 +1947,16 @@ SOURCES = {
     "project_queries": "fabstir_vectordb_tpu_torch/csrc/project_rows.cu",
     "rerank_f32": "fabstir_vectordb_tpu_torch/csrc/rerank_f32.cu",
     "merge_topk": "fabstir_vectordb_tpu_torch/csrc/merge_topk.cu",
+    "synth_rows": "fabstir_vectordb_tpu_torch/csrc/synth.cu",
+    "assign_clusters": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
+    "tile_step": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
 }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "pruned",
-                                        "reduced"), default="all")
+                                        "reduced", "scale"), default="all")
     ap.add_argument("--profile", action="store_true",
                     help="cProfile the main path into --out (its timings "
                          "then carry the profiler's overhead)")
@@ -1454,7 +1999,7 @@ def main() -> None:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
-    if args.phase != "pruned":
+    if args.phase not in ("pruned", "scale"):
         kernels_phase(torch, tp, hn, km, dev, results)
     counts: dict = {}
     perf: dict = {}
@@ -1491,6 +2036,16 @@ def main() -> None:
                           trace=args.trace, out_dir=args.out)
             print(f"reduced phase: {time.perf_counter() - t:.1f} s",
                   flush=True)
+        del ctx  # the 1M state goes before the 10M tier is built
+    if args.phase in ("all", "scale"):
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        scale_phase(torch, native, card, perf, results, launch_of,
+                    trace=args.trace, out_dir=args.out)
+        print(f"scale phase: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = []
     for key, r in results.items():
         base = key.split("[")[0]

@@ -254,21 +254,34 @@ __global__ void __launch_bounds__(NT) l2_topk_merge(
   }
 }
 
-// Squared norms of bf16 rows in f32, one warp a row.
-__global__ void __launch_bounds__(NT) bf16_row_sq_kernel(
-    const __nv_bfloat16* __restrict__ x, int n, int D,
-    float* __restrict__ out) {
+// Squared norms of f32 or bf16 rows in f32, one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(NT) row_sq_kernel(const T* __restrict__ x,
+                                                    int n, int D,
+                                                    float* __restrict__ out) {
   const int r = blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
   if (r >= n) return;
-  const __nv_bfloat16* row = x + (size_t)r * D;
+  const T* row = x + (size_t)r * D;
   float s = 0.f;
   for (int d = threadIdx.x & 31; d < D; d += 32) {
-    const float v = __bfloat162float(row[d]);
+    const float v = as_f32(row[d]);
     s = fmaf(v, v, s);
   }
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
   if ((threadIdx.x & 31) == 0) out[r] = s;
+}
+
+// x_sq when given; else the rows' norms, written to scratch [N] first.
+template <typename T>
+cudaError_t norms_or_given(const T* x, int N, int D, const float*& x_sq,
+                           float* scratch, cudaStream_t stream) {
+  if (x_sq != nullptr) return cudaSuccess;
+  if (scratch == nullptr || N < 1) return cudaErrorInvalidValue;
+  const int per = NT / 32;
+  row_sq_kernel<T><<<(N + per - 1) / per, NT, 0, stream>>>(x, N, D, scratch);
+  x_sq = scratch;
+  return cudaGetLastError();
 }
 
 // Both passes at k <= 256: part_* [S, B, k] scratch, out_* [B, k].

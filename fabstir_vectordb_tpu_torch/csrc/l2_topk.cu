@@ -11,11 +11,12 @@
 // (distance, row), padded with (+inf, -1). The passes themselves are in
 // l2_tile.cuh.
 //
-// bf16 rows (fvdb_l2_topk_bf16): the reduced-rank calibration oracle
-// (_oracle_step, index/fused.py:206) scores probe queries against streamed
-// bf16 corpus blocks upcast to f32, with the row norms taken from the
-// upcast rows; this entry takes those norms in a first small kernel when
-// none are given, and adds the block's first row to every result row.
+// Streamed blocks: the reduced-rank calibration oracle (_oracle_step,
+// index/fused.py:206) scores probe queries against bf16 corpus blocks
+// upcast to f32 (fvdb_l2_topk_bf16), and the tiered exact search
+// (_tile_step, index/tiered.py:31) against f32 host tiles. Both take the
+// rows' norms in a first small kernel when none are given, and add the
+// block's first row to every result row.
 //
 // What bounds it on the H100: at the search shapes (B = 1..128, N = 131,072,
 // D = 384) the corpus read is 201 MB, 60 us at 3.35 TB/s, while the products
@@ -38,20 +39,24 @@
 #include "l2_tile.cuh"
 #include "topk_select.cuh"
 
-// x [N, D], x_sq [N], mask [B or 1, N] (mask_stride N or 0; null: every
-// row), q [B, D]; part_* [S, B, k] scratch; out_* [B, k].
+// x [N, D]; x_sq [N] or null (then the rows' norms are written to
+// xsq_scratch [N] first); mask [B or 1, N] (mask_stride N or 0; null: every
+// row), q [B, D]; part_* [S, B, k] scratch; out_* [B, k], rows + row_base.
 FVDB_EXPORT int fvdb_l2_topk(const float* x, const float* x_sq,
                              const uint8_t* mask, long long mask_stride,
                              const float* q, int B, int N, int D, int k,
-                             int S, float* part_d, int* part_r, float* out_d,
+                             int S, int row_base, float* xsq_scratch,
+                             float* part_d, int* part_r, float* out_d,
                              int* out_r, cudaStream_t stream) {
-  return static_cast<int>(fvdb::launch_l2_topk<float, false>(
-      x, x_sq, mask, mask_stride, q, B, N, D, k, S, 0, part_d, part_r, out_d,
-      out_r, stream));
+  using namespace fvdb;
+  cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_l2_topk<float, false>(
+      x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base, part_d, part_r,
+      out_d, out_r, stream));
 }
 
-// bf16 rows x [N, D]; x_sq [N] or null (then their f32 norms are written to
-// xsq_scratch [N] first); rows come out + row_base. k <= 256.
+// bf16 rows x [N, D]; x_sq and the rest as fvdb_l2_topk. k <= 256.
 FVDB_EXPORT int fvdb_l2_topk_bf16(const __nv_bfloat16* x, const float* x_sq,
                                   const uint8_t* mask, long long mask_stride,
                                   const float* q, int B, int N, int D, int k,
@@ -59,37 +64,31 @@ FVDB_EXPORT int fvdb_l2_topk_bf16(const __nv_bfloat16* x, const float* x_sq,
                                   float* part_d, int* part_r, float* out_d,
                                   int* out_r, cudaStream_t stream) {
   using namespace fvdb;
-  if (N < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (x_sq == nullptr) {
-    if (xsq_scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int per = NT / 32;
-    bf16_row_sq_kernel<<<(N + per - 1) / per, NT, 0, stream>>>(x, N, D,
-                                                              xsq_scratch);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    x_sq = xsq_scratch;
-  }
+  cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_l2_topk<__nv_bfloat16, false>(
       x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base, part_d, part_r,
       out_d, out_r, stream));
 }
 
 // Any k >= 1: dump [B, N] distance scratch; work: fvdb_select_scratch_bytes
-// (B, k) bytes of selection scratch.
+// (B, k) bytes of selection scratch; x_sq null as in fvdb_l2_topk.
 FVDB_EXPORT int fvdb_l2_topk_large(const float* x, const float* x_sq,
                                    const uint8_t* mask, long long mask_stride,
                                    const float* q, int B, int N, int D, int k,
-                                   int S, float* dump, void* work,
-                                   float* out_d, int* out_r,
+                                   int S, float* xsq_scratch, float* dump,
+                                   void* work, float* out_d, int* out_r,
                                    cudaStream_t stream) {
   using namespace fvdb;
   if (k < 1 || B < 1 || N < 1 || D < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid1((B + QT - 1) / QT, S);
   l2_topk_partial<float, false, true><<<grid1, NT, 0, stream>>>(
       x, x_sq, mask, mask_stride, q, B, N, D, 0, slice_rows(N, S), nullptr,
       nullptr, dump);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
                                              work, out_d, out_r, stream));

@@ -1,8 +1,9 @@
 """Exact brute-force index over a VectorStore: one fused L2 top-k (K1).
 
-The JAX package's ``index/flat.py`` for the euclidean metric: the recall
-oracle for the approximate engines and the small-dataset fast path. Soft
-deletes and filter masks are fused into selection.
+The JAX package's ``index/flat.py`` for the euclidean metric: the
+small-dataset fast path, and (streamed over host tiles) the recall oracle
+for the approximate engines. Soft deletes and filter masks are fused into
+selection.
 """
 from __future__ import annotations
 
@@ -46,8 +47,21 @@ class FlatIndex:
 
 def recall_at_k(oracle: FlatIndex, approx_rows: np.ndarray,
                 queries: np.ndarray, k: int) -> float:
-    """Fraction of the exact top-k rows that an approximate search found."""
-    _, exact = oracle.search_rows(np.atleast_2d(queries), k)
+    """Fraction of the exact top-k rows that an approximate search found.
+
+    The exact f32 answer streams over host tiles (``TieredFlatSearcher``)
+    instead of uploading an f32 mirror: the store holds one mirror, so an
+    oracle upload would evict the serving state, hold a second copy of the
+    corpus on the device beside it (25.8 GB at a 10M store's capacity), and
+    break the reduced-rank regime's promise of no full-dim f32 mirror."""
+    from .tiered import TieredFlatSearcher
+
+    store = oracle.store
+    count = store.count
+    members = store.active_mask(count)
+    _, exact = TieredFlatSearcher(store.data[:count], members,
+                                  device=store.device).search(
+        np.atleast_2d(np.asarray(queries, np.float32)), k)
     hits = 0
     total = 0
     for b in range(exact.shape[0]):
@@ -56,4 +70,3 @@ def recall_at_k(oracle: FlatIndex, approx_rows: np.ndarray,
         hits += len(truth & got)
         total += len(truth)
     return hits / total if total else 1.0
-

@@ -12,7 +12,9 @@ The JAX package's ``index/fused.py`` for three regimes, picked by capacity:
   a full-dim bf16 mirror (K2) followed by an exact host re-score of the
   survivors, or on the host alone. The pool width is calibrated at build
   time against an exact oracle of probe queries (K1 on bf16 blocks + K8's
-  merge), streamed over the same blocks as the projection;
+  merge), streamed over the same blocks as the projection. A store with a
+  procedural source (utils/synth.py) has its full-dim mirror, or in host
+  mode the projection's blocks, generated on the device by K17;
 - pruned (above it, with FVDB_PCA_SERVE=0): K13 :func:`hybrid_search`,
   greedy descent (K10) and a layer-0 beam (K11) over the HNSW members, then
   the IVF n-probe scan (K12) over the IVF members, seeded with the beam's
@@ -475,6 +477,10 @@ class FusedSearcher:
         attempt = 0
         while True:
             if want_device_rerank(rank):
+                if rerank_x is None and h.store.device_source is not None:
+                    # a procedural corpus (utils/synth.py): K17 makes the
+                    # mirror on the device, nothing is uploaded
+                    rerank_x = h.store.device_source.mirror_bf16(n_rows)
                 if rerank_x is None:
                     rerank_x = put_bf16_blocks(data, n_rows, device)
             else:
@@ -511,7 +517,9 @@ class FusedSearcher:
         mirror (K14's projection, in place) and, on the first pass, keep the
         probes' exact top-(_CAL_K + 1) (K8's oracle step). ``src`` (the
         resident full-dim bf16 rerank mirror) makes the pass read blocks on
-        the device; without it each block is uploaded as bf16."""
+        the device; without it, blocks are generated on the device when the
+        store has a procedural source (K17, one generation block a step),
+        else uploaded as bf16."""
         device = mu_d.device
         rank = int(p_d.shape[1])
         want_oracle = oracle_rows is None and probe_rows.size > 0
@@ -521,14 +529,24 @@ class FusedSearcher:
             ovals = torch.full((len(probe_rows), width), INF, device=device)
             orows = torch.full((len(probe_rows), width), -1,
                                dtype=torch.int32, device=device)
-        step = max(262_144, self._PROJ_CHUNK // 4) if src is not None \
-            else self._PROJ_CHUNK
+        gen = None if src is not None else self.hybrid.store.device_source
+        if src is not None:
+            step = max(262_144, self._PROJ_CHUNK // 4)
+        elif gen is not None:
+            step = gen.block_rows  # the draws are tied to its blocks
+        else:
+            step = self._PROJ_CHUNK
         xp = torch.empty((n_rows, rank), dtype=torch.bfloat16, device=device)
         xp_sq = torch.empty(n_rows, dtype=torch.float32, device=device)
         for lo in range(0, n_rows, step):
             hi = min(lo + step, n_rows)
-            blk = src[lo:hi] if src is not None \
-                else put_bf16_blocks(data[lo:hi], hi - lo, device)
+            if src is not None:
+                blk = src[lo:hi]
+            elif gen is not None:
+                blk = gen.rows(lo // step, range(0, hi - lo),
+                               torch.bfloat16)[0]
+            else:
+                blk = put_bf16_blocks(data[lo:hi], hi - lo, device)
             project_rows(blk, mu_d, p_d, xp, xp_sq, lo)
             if want_oracle:
                 m = to_device(members_np[lo:hi], device)

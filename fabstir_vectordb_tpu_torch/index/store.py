@@ -62,6 +62,22 @@ class VectorStore:
         self._mirror: DeviceMirror | None = None
         self._host_sq: tuple | None = None
         self._lock = threading.RLock()
+        # optional procedural corpus (utils/synth.py): the reduced-rank
+        # mirror build generates its rows on the device instead of
+        # uploading the host copy
+        self.device_source = None
+
+    def attach_device_source(self, source) -> None:
+        """Register a source whose ``mirror_bf16(n_rows)`` makes this
+        store's rows on the store's device (``None`` detaches). The caller
+        checks first that it reproduces the host rows
+        (``source.spot_check``): mirror builds trust it. Any later change of
+        row data or row count (add, fill, register, vacuum) detaches it;
+        soft deletes keep it (they live in masks, not in row data)."""
+        if source is not None and source.device != self.device:
+            raise ValueError(f"the source makes rows on {source.device}, "
+                             f"the store serves on {self.device}")
+        self.device_source = source
 
     # ------------------------------------------------------------ mutation
     def _check_new_ids(self, ids: list) -> None:
@@ -112,7 +128,64 @@ class VectorStore:
                 self.row_to_id.append(vid)
             self.count += n
             self._version += 1
+            self.device_source = None
             return rows
+
+    def add_blocks(self, ids: list, blocks: list,
+                   timestamps: np.ndarray | float | None = None) -> np.ndarray:
+        """Append pre-chunked [n_i, dim] blocks, each copied straight into
+        the store (no corpus-sized concatenation first)."""
+        n = sum(int(b.shape[0]) for b in blocks)
+        if len(ids) != n:
+            raise ValueError("ids/blocks length mismatch")
+        for b in blocks:
+            if b.ndim != 2 or b.shape[1] != self.dim:
+                raise DimensionMismatchError(
+                    f"expected [n, {self.dim}] block, got {b.shape}")
+        with self._lock:
+            rows = self.register_rows(ids, timestamps)
+            pos = int(rows[0]) if n else self.count
+            for b in blocks:
+                self.data[pos: pos + b.shape[0]] = np.asarray(b, np.float32)
+                pos += b.shape[0]
+            return rows
+
+    def register_rows(self, ids: list,
+                      timestamps: np.ndarray | float | None = None
+                      ) -> np.ndarray:
+        """Allocate rows and id mappings without writing vector data (they
+        read as zeros until ``fill_rows``)."""
+        with self._lock:
+            self._check_new_ids(ids)
+            n = len(ids)
+            self._grow_to(self.count + n)
+            rows = np.arange(self.count, self.count + n, dtype=np.int32)
+            if timestamps is None:
+                timestamps = time.time()
+            self.timestamps[rows] = timestamps
+            self.deleted[rows] = False
+            self.id_to_row.update(zip(ids, rows.tolist()))
+            self.row_to_id.extend(ids)
+            self.count += n
+            self._version += 1
+            self.device_source = None
+            return rows
+
+    def fill_rows(self, start_row: int, block: np.ndarray,
+                  bump_version: bool = False) -> None:
+        """Write a contiguous [n, dim] block into registered rows. Callers
+        streaming many blocks bump the version once at the end (each bump
+        retires the device state)."""
+        block = np.asarray(block, np.float32)
+        with self._lock:
+            self.data[start_row: start_row + block.shape[0]] = block
+            self.device_source = None
+            if bump_version:
+                self._version += 1
+
+    def bump_version(self) -> None:
+        with self._lock:
+            self._version += 1
 
     def row_of(self, vid: str) -> int:
         try:
@@ -158,6 +231,7 @@ class VectorStore:
                     self.row_to_id[row] = None
                 self.data[row] = 0.0
             self._version += 1
+            self.device_source = None
             return removed
 
     # ------------------------------------------------------------- queries

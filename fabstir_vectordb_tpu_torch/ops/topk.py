@@ -61,13 +61,19 @@ def merge_topk_plain(vals_a, idx_a, vals_b, idx_b, k: int):
             torch.where(valid, out_idx, torch.full_like(out_idx, -1)))
 
 
-def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int):
+def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int, out=None):
     """K8's merge (the reference's merge_topk): two top-k lists of each of
     B queries, (vals [B, ka] f32, rows [B, ka] int32) and [B, kb], into the
-    k first by (value, row), padded with (+inf, -1). The plain version on
-    CPU tensors, csrc/merge_topk.cu on CUDA tensors."""
+    k first by (value, row), padded with (+inf, -1); written to ``out`` (a
+    pair of [B, k] tensors that are not the inputs) when given. The plain
+    version on CPU tensors, csrc/merge_topk.cu on CUDA tensors."""
     if vals_a.device.type == "cpu":
-        return merge_topk_plain(vals_a, idx_a, vals_b, idx_b, k)
+        v, r = merge_topk_plain(vals_a, idx_a, vals_b, idx_b, k)
+        if out is None:
+            return v, r
+        out[0].copy_(v)
+        out[1].copy_(r)
+        return out
     dev = vals_a.device
     native.check(vals_a, "vals_a", torch.float32, 2, dev)
     native.check(idx_a, "idx_a", torch.int32, 2, dev)
@@ -78,8 +84,19 @@ def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int):
     if idx_a.shape != (b, ka) or vals_b.shape[0] != b \
             or idx_b.shape != (b, kb) or k < 1:
         raise ValueError("shape mismatch in merge_topk")
-    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if out is None:
+        out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+        out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    else:
+        out_v, out_r = out
+        native.check(out_v, "out vals", torch.float32, 2, dev)
+        native.check(out_r, "out rows", torch.int32, 2, dev)
+        if out_v.shape != (b, k) or out_r.shape != (b, k) or any(
+                o.data_ptr() in (t.data_ptr() for t in (vals_a, idx_a, vals_b,
+                                                        idx_b))
+                for o in (out_v, out_r)):
+            raise ValueError("merge_topk: out must be two fresh [B, k] "
+                             "tensors")
     if b == 0:
         return out_v, out_r
     P, I = native.P, native.I
@@ -127,12 +144,13 @@ def select_scratch(source: str, b: int, k: int, device) -> torch.Tensor:
     return torch.empty(n, dtype=torch.uint8, device=device)
 
 
-def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
+def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
             q: torch.Tensor, k: int, row_base: int = 0):
     """K1: masked squared-L2 exact top-k of q [B, D] over x [N, D].
 
-    x_sq [N] f32 row norms; mask [N] or [B, N] bool, or None for every
-    row; any k >= 1. Returns
+    x_sq [N] f32 row norms, or None to take them in the kernel; mask [N] or
+    [B, N] bool, or None for every row; any k >= 1 (k <= 256 for bf16
+    rows); ``row_base`` is added to every result row. Returns
     (vals [B, k] f32, rows [B, k] int32) sorted by (distance, row), padded
     with +inf / -1 (also when fewer than k rows are unmasked). On CPU
     tensors it runs the plain version; on CUDA tensors it launches
@@ -140,28 +158,27 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
     the masked distances of a query chunk to a buffer, then a radix select)
     or raises.
 
-    bf16 rows (the reduced-rank calibration oracle's streamed blocks, k <=
-    256) are upcast exactly; x_sq None takes the norms of the upcast rows,
-    and ``row_base`` is added to every result row."""
+    bf16 rows (the reduced-rank calibration oracle's streamed blocks) are
+    upcast exactly, and x_sq None takes the norms of the upcast rows; the
+    tiered exact search streams f32 tiles without norms."""
     if x.device.type == "cpu":
         return l2_topk_plain(x, x_sq, mask, q, k, row_base)
     if x.device.type != "cuda":
         raise ValueError(f"l2_topk: unsupported device {x.device}")
     if x.dtype == torch.bfloat16:
         return _l2_topk_bf16(x, x_sq, mask, q, k, row_base)
-    if row_base:
-        raise ValueError("row_base is taken with bf16 rows only")
     dev = x.device
     native.check(x, "x", torch.float32, 2, dev)
-    native.check(x_sq, "x_sq", torch.float32, 1, dev)
     native.check(q, "q", torch.float32, 2, dev)
     n, d = x.shape
     b = q.shape[0]
     _check_mask(mask, b, n, dev)
-    if q.shape[1] != d or x_sq.shape[0] != n:
+    if x_sq is not None:
+        native.check(x_sq, "x_sq", torch.float32, 1, dev)
+    if q.shape[1] != d or (x_sq is not None and x_sq.shape[0] != n):
         raise ValueError(
-            f"shape mismatch: x {tuple(x.shape)}, x_sq {tuple(x_sq.shape)}, "
-            f"q {tuple(q.shape)}")
+            f"shape mismatch: x {tuple(x.shape)}, q {tuple(q.shape)}, x_sq "
+            f"{None if x_sq is None else tuple(x_sq.shape)}")
     if k < 1:
         raise ValueError(f"l2_topk takes k >= 1, got {k}")
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -171,6 +188,10 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
     P, I, L = native.P, native.I, native.L
     m_stride = n if mask is not None and mask.dim() == 2 else 0
     m_ptr = 0 if mask is None else mask.data_ptr()
+    sq_ptr = 0 if x_sq is None else x_sq.data_ptr()
+    scratch = torch.empty(n, dtype=torch.float32, device=dev) \
+        if x_sq is None else None
+    scratch_ptr = 0 if scratch is None else scratch.data_ptr()
     if k > _SMALL_K:
         qc = max(1, min(b, _DUMP_BYTES // (4 * n), _MAX_GRID_Q))
         for lo in range(0, b, qc):
@@ -179,23 +200,27 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor, mask: torch.Tensor,
             work = select_scratch("l2_topk", hi - lo, k, dev)
             native.call(
                 "l2_topk", "fvdb_l2_topk_large",
-                [P, P, P, L, P, I, I, I, I, I, P, P, P, P, P],
-                x.data_ptr(), x_sq.data_ptr(), mask[lo:hi].data_ptr()
+                [P, P, P, L, P, I, I, I, I, I, P, P, P, P, P, P],
+                x.data_ptr(), sq_ptr, mask[lo:hi].data_ptr()
                 if m_stride else m_ptr, m_stride,
                 q[lo:hi].data_ptr(), hi - lo, n, d, k,
-                _splits(hi - lo, n, dev), dump.data_ptr(), work.data_ptr(),
-                out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
-                native.stream_of(x))
+                _splits(hi - lo, n, dev), scratch_ptr, dump.data_ptr(),
+                work.data_ptr(), out_d[lo:hi].data_ptr(),
+                out_r[lo:hi].data_ptr(), native.stream_of(x))
             native.launches["l2_topk_large"] += 1
+            # the norms of this x are in scratch now: later chunks reuse them
+            sq_ptr = sq_ptr or scratch_ptr
+        if row_base:
+            out_r = torch.where(out_r >= 0, out_r + row_base, out_r)
         return out_d, out_r
     splits = _splits(b, n, dev)
     part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
     part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
     native.call(
         "l2_topk", "fvdb_l2_topk",
-        [P, P, P, L, P, I, I, I, I, I, P, P, P, P, P],
-        x.data_ptr(), x_sq.data_ptr(), m_ptr, m_stride,
-        q.data_ptr(), b, n, d, k, splits,
+        [P, P, P, L, P, I, I, I, I, I, I, P, P, P, P, P, P],
+        x.data_ptr(), sq_ptr, m_ptr, m_stride,
+        q.data_ptr(), b, n, d, k, splits, row_base, scratch_ptr,
         part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
         out_r.data_ptr(), native.stream_of(x))
     native.launches["l2_topk"] += 1

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # one shared library per source file
 SOURCES = ("l2_topk", "heuristic_kept", "pair_sq_l2", "lloyd",
            "greedy_descent", "beam_search", "ivf_scan", "kmeans_seed",
-           "stage1_select", "project_rows", "rerank_f32", "merge_topk")
+           "stage1_select", "project_rows", "rerank_f32", "merge_topk",
+           "synth")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,7 +38,7 @@ launches: dict[str, int] = {
     "greedy_descent": 0, "beam_search": 0, "ivf_scan": 0, "seed_pick": 0,
     "seed_min_update": 0, "seed_counts": 0, "stage1_select": 0,
     "project_rows": 0, "project_queries": 0, "rerank_f32": 0,
-    "merge_topk": 0,
+    "merge_topk": 0, "synth_rows": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -116,9 +117,9 @@ def _lib(name: str) -> ctypes.CDLL:
 
 P = ctypes.c_void_p  # device pointers and the stream
 I = ctypes.c_int  # 32-bit ints
-
-
 L = ctypes.c_longlong  # 64-bit ints
+U = ctypes.c_uint  # 32-bit unsigned ints (PRNG key words)
+F = ctypes.c_float
 
 
 def _fn(source: str, symbol: str, argtypes: list, restype=ctypes.c_int):

@@ -520,3 +520,112 @@ def test_kmeans_seed_kernels_match_plain_on_card():
     cp = km_t.seed_counts_plain(x, mask, cand)
     assert int(ck.sum()) == int(cp.sum()) == int(mask.sum())
     assert (ck == cp).float().mean().item() >= 0.99
+
+
+def _bf16_order(t):
+    """bf16 values as integers in a total order (adjacent values differ by
+    one): negatives reflected below 0x8000, +0 and -0 both at 0x8000."""
+    u = t.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.where(u >= 0x8000, 0x8000 - (u & 0x7FFF), 0x8000 + u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_kind", ["range", "offsets", "centers"])
+def test_synth_kernel_matches_plain_on_card(dtype, rows_kind):
+    """K17 against its plain version at the 10M tier's widths (D = 384,
+    4,096 centers): assignments exactly; f32 values within 1e-6 (log1p and
+    the f64-emulated fused multiply-adds round alike to a few ulps); bf16
+    values at most 0.5% one bf16 ulp apart, none further."""
+    from fabstir_vectordb_tpu_torch.utils import synth
+
+    dev = _card()
+    src = synth.SyntheticCorpusSource(0, 384, n_centers=4096, scale=0.35,
+                                      block_rows=1 << 20, device=dev)
+    kz, ka = src.block_keys(3)
+    if rows_kind == "centers":
+        key = synth.prng_key(0 ^ 0x5EED)
+        got, ga = synth.synth_rows(key, None, range(0, 4096), 384,
+                                   dtype=dtype, device=dev)
+        want, wa = synth.synth_rows_plain(
+            key, None, torch.arange(4096, device=dev), 384, dtype=dtype)
+    else:
+        if rows_kind == "range":
+            rows = range(1_000_000, 1_048_576)
+            idx = torch.arange(rows.start, rows.stop, device=dev)
+        else:
+            idx = torch.randint(0, 1 << 20, (5000,), device=dev,
+                                dtype=torch.int32)
+            rows = idx
+        got, ga = synth.synth_rows(kz, ka, rows, 384, src.centers(), 0.35,
+                                   dtype, device=dev)
+        want, wa = synth.synth_rows_plain(kz, ka, idx, 384, src.centers(),
+                                          0.35, dtype)
+        assert torch.equal(ga, wa)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6
+    else:
+        off = (_bf16_order(got) - _bf16_order(want)).abs()
+        assert int(off.max()) <= 1
+        assert float((off > 0).float().mean()) <= 0.005
+    # the mirror writes straight into its rows of one tensor
+    if rows_kind == "range" and dtype == torch.bfloat16:
+        small = synth.SyntheticCorpusSource(0, 384, n_centers=4096,
+                                            scale=0.35, block_rows=4096,
+                                            device=dev)
+        m = small.mirror_bf16(4096 * 2 + 100)
+        assert torch.equal(m[4096:8192], small.device_block(1,
+                                                            torch.bfloat16))
+        assert torch.equal(m[8192:], small.rows(2, range(0, 100),
+                                                torch.bfloat16)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 300])
+def test_tile_step_matches_plain_on_card(k):
+    """K8's tile step: K1 on an f32 tile with its norms taken in the kernel
+    and a row base, then the merge into the running top-k."""
+    from fabstir_vectordb_tpu_torch.index import tiered as tiered_t
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(100_000, 384, device=dev, generator=g)
+    m = torch.rand(100_000, device=dev, generator=g) < 0.9
+    q = torch.randn(32, 384, device=dev, generator=g)
+    vals = torch.sort(torch.rand(32, k, device=dev, generator=g) * 700,
+                      dim=1).values
+    rows = torch.randint(10**6, 2 * 10**6, (32, k), device=dev, generator=g,
+                         dtype=torch.int32)
+    vt, rt = tiered_t.tile_step(x, m, q, 699_392, vals, rows, k)
+    vp, rp = tiered_t.tile_step_plain(x, m, q, 699_392, vals, rows, k)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+    out = (torch.empty_like(vals), torch.empty_like(rows))
+    vo, ro = tiered_t.tile_step(x, m, q, 699_392, vals, rows, k, out=out)
+    assert vo is out[0] and torch.equal(ro, rt)
+
+
+@pytest.mark.cuda
+def test_tiered_search_streams_exactly_on_card():
+    """The double-buffered stream (pinned buffers, a copy stream, events)
+    over a ragged tail gives the CPU searcher's answers."""
+    from fabstir_vectordb_tpu_torch.index import tiered as tiered_t
+
+    dev = _card()
+    xs, _ = _mixture(26, 50_000, 64, d=384, spread=0.5)
+    rng = np.random.default_rng(27)
+    mask = rng.random(50_000) < 0.95
+    q = xs[rng.integers(0, 50_000, 32)] + 0.05
+    seen = []
+    on_card = tiered_t.TieredFlatSearcher(xs, mask, tile_rows=8192,
+                                          device=dev)
+    vt, rt = on_card.search(q, 10, progress=seen.append)
+    vp, rp = tiered_t.TieredFlatSearcher(xs, mask, tile_rows=8192,
+                                         device="cpu").search(q, 10)
+    assert seen == list(range(7))
+    _assert_close_up_to_ties(torch.from_numpy(vt), torch.from_numpy(rt),
+                             torch.from_numpy(vp), torch.from_numpy(rp),
+                             1e-5, 1e-2)
+    # a second search reuses the buffers
+    vt2, rt2 = on_card.search(q, 10)
+    assert np.array_equal(rt2, rt)
