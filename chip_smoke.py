@@ -37,7 +37,20 @@
    fresh insert, the release on FVDB_PCA_SERVE=0. The counters must show
    K14 (selection, projection), K2, K8 and K1 on bf16 rows; then each
    against its plain version on the regime's own state.
-7. Scale phase: bench.py's 10M tier (bench_10m) after the 1M state is
+7. Flat1m phase: the same index in the flat regime at the default
+   threshold, as bench.py's turbo phase (FVDB_FLAT_SELECT=approx) and the
+   eager half of its cold-start phase (FVDB_SERVING_DTYPE=bfloat16) serve
+   it: turbo single, batched and pipelined searches with recall@10 >= 0.95
+   against the exact f32 oracle streamed by TieredFlatSearcher, a filtered
+   batch and 1,000 deletes (none returned); bf16 serving in four modes
+   (host refine: recall@10 >= 0.95 and scores equal to the f64 distances
+   of their rows; device re-score: recall@10 >= 0.95 against a float64
+   brute force over the bf16-stored rows; raw; approx), the mirror's bytes
+   and the prewarm + first search; 2,048 inserts linked on the bf16 mirror,
+   >= 99% found at rank 1. The counters must show K9, K2 on f32 and bf16
+   rows, K1 on bf16 rows with the query rounded and (K3) not, K4 and K5 on
+   bf16 rows; then those against their plain versions at these shapes.
+8. Scale phase: bench.py's 10M tier (bench_10m) after the 1M state is
    freed: 10,000,000 x 384 rows of the procedural corpus made on the card
    by K17, registered and filled block by block with each block's IVF
    assignment (K6), the IVF trained on the first 10,000 rows, the source
@@ -52,12 +65,13 @@
    deletes (the source stays) and a fill (it goes), and one rebuild with
    rank and oversample on auto. The host needs ~45 GB (a 25.8 GB store at
    16,777,216 rows of capacity).
-8. One JSON line with every kernel's numbers, the card's name and power
+9. One JSON line with every kernel's numbers, the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
 stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
-``--phase reduced`` steps 1, 4 and 6, ``--phase scale`` steps 1 and 7;
+``--phase reduced`` steps 1, 2, 4 and 6, ``--phase flat1m`` steps 1, 4 and
+7, ``--phase scale`` steps 1 and 8;
 ``--profile``
 writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
 then carry the profiler's overhead); ``--trace`` runs searches under
@@ -1390,6 +1404,483 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
         reduced_pinned_state_build_s=pinned_build_s)
 
 
+FLAT1M_KNOBS = ("FVDB_SERVING_DTYPE", "FVDB_FLAT_SELECT", "FVDB_BF16_RERANK",
+                "FVDB_BF16_REFINE", "FVDB_BF16_OVERSAMPLE",
+                "FVDB_FLAT_OVERSAMPLE", "FVDB_FLAT_THRESHOLD",
+                "FVDB_PCA_SERVE", "FVDB_PCA_RERANK", "FVDB_PCA_RANK",
+                "FVDB_PCA_OVERSAMPLE")
+
+
+def pool_check(tag, vk, rk, vp, rp, tol):
+    """K9's pool (vk, rk) against its plain version's: the same padding,
+    ascending distances, a mean overlap >= 0.99 (a near-tied bin minimum
+    may go either way under another summation order), and the shared rows'
+    distances within tol (1e-5 of the norms that the distance's expansion
+    sums: a query near a stored row cancels them to a small distance).
+    Returns (max_abs_err over the shared rows, overlap)."""
+    vk, rk, vp, rp = (t.cpu().numpy() for t in (vk, rk, vp, rp))
+    if not (np.isfinite(vk) == np.isfinite(vp)).all():
+        fail(f"{tag}: padding differs from the plain version")
+    if (np.diff(np.where(np.isfinite(vk), vk, np.inf), axis=1) < 0).any():
+        fail(f"{tag}: the pool is not ascending")
+    share = overlap(rk, rp)
+    if share < 0.99:
+        fail(f"{tag}: pools share {share} of rows < 0.99")
+    err = 0.0
+    for i in range(rk.shape[0]):
+        dk = dict(zip(rk[i].tolist(), vk[i].tolist()))
+        for r, v in zip(rp[i].tolist(), vp[i].tolist()):
+            if r >= 0 and r in dk:
+                e = abs(dk[r] - v)
+                if e > tol:
+                    fail(f"{tag}: query {i} row {r} off by {e} > {tol}")
+                err = max(err, e)
+    return err, share
+
+
+def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
+                 launch_of: dict, ctx: dict, trace=False,
+                 out_dir="smoke_out"):
+    """The 1M index in the flat regime at the default threshold, as
+    bench.py's turbo phase (FVDB_FLAT_SELECT=approx) and the eager half of
+    its cold-start phase (FVDB_SERVING_DTYPE=bfloat16) serve it: turbo
+    single, batched and pipelined searches, recall@10 against the streamed
+    exact oracle, a filtered batch and 1,000 deletes; bf16 serving in four
+    modes (host refine, device re-score, raw, approx) with the mirror's
+    bytes and the prewarm + first search; 2,048 inserts linked on the bf16
+    mirror. The counters must show K9, K2 on f32 and bf16 rows, K1 on bf16
+    rows with and without the rounded query, K4 and K5 on bf16 rows; then
+    each against its plain version at these shapes."""
+    import gc
+
+    from fabstir_vectordb_tpu_torch.index import tiered as ti
+    from fabstir_vectordb_tpu_torch.utils import limits
+    from fabstir_vectordb_tpu_torch.utils.transfer import to_device
+
+    h, cfg, d = ctx["h"], ctx["cfg"], ctx["d"]
+    store = h.store
+    cap, count = store.capacity, store.count
+    saved = {key: os.environ.get(key) for key in FLAT1M_KNOBS}
+    old_thr = limits.FLAT_THRESHOLD
+
+    def mode(**env) -> None:
+        for key in FLAT1M_KNOBS:
+            os.environ.pop(key, None)
+        os.environ.update(env)
+        info = h.fused.serving_info()
+        if info["regime"] != "flat-exact" or info["serving_dtype"] != \
+                env.get("FVDB_SERVING_DTYPE", "float32"):
+            fail(f"flat1m: serving_info {info} for {env}")
+
+    # bench.py's 1M query stream: stored rows + 0.1 noise; its QPS batches
+    # are standard normal
+    rng = np.random.default_rng(1018)
+    live = store.active_mask(count)
+    members = live & (h.hnsw.member_mask(count) | h.ivf.member_mask(count))
+    seeds = rng.choice(np.nonzero(members)[0], 100)
+    queries = (store.data[seeds] + 0.1 * rng.standard_normal((100, d))) \
+        .astype(np.float32)
+    sample = queries[:32]
+    bq = [rng.standard_normal((128, d)).astype(np.float32) for _ in range(8)]
+    pipe = [rng.standard_normal((128, d)).astype(np.float32)
+            for _ in range(20)]
+    fmask = np.arange(cap) % 10 == 3
+    oracle = ti.TieredFlatSearcher(store.data[:count], members,
+                                   device=store.device)
+    t = time.perf_counter()
+    _, exact = oracle.search(sample, 10)
+    _, exact_f = oracle.search(sample, 10, extra_mask=fmask[:count])
+    oracle_s = time.perf_counter() - t
+
+    def search(qq, k=10, **kw):
+        return h.search_rows(qq, k, cfg, now=NOW, **kw)
+
+    def serve(tag: str, pipelined: bool = False) -> dict:
+        """p50 of 100 single searches, QPS of 8 x 128 (and of 20 x 128
+        pipelined at depth 4), and the sample's answers."""
+        search(queries[0])  # builds the state
+        lat = []
+        for q in queries:
+            t = time.perf_counter()
+            search(q)
+            lat.append((time.perf_counter() - t) * 1e3)
+        search(bq[0])
+        t = time.perf_counter()
+        for b in bq:
+            search(b)
+        out = {"p50_ms": float(np.percentile(lat, 50)),
+               "qps": 1024 / (time.perf_counter() - t)}
+        if pipelined:
+            t = time.perf_counter()
+            h.search_rows_pipelined(pipe, 10, cfg, now=NOW, depth=4)
+            out["pipelined_qps"] = 2560 / (time.perf_counter() - t)
+        out["dists"], out["rows"] = search(sample)
+        out["recall"] = recall(out["rows"], exact)
+        print(f"flat1m {tag}: p50 {out['p50_ms']:.3f} ms over 100 single "
+              f"k=10 searches, {out['qps']:.1f} QPS over 8 x 128" + (
+                  f", {out['pipelined_qps']:.1f} QPS over 20 x 128 "
+                  f"pipelined at depth 4" if pipelined else "")
+              + f"; recall@10 {out['recall']:.4f} over bench.py's 32-query "
+              f"sample ({card})", flush=True)
+        return out
+
+    native.reset_launches()
+    try:
+        # ---- turbo on the f32 mirror
+        mode(FVDB_FLAT_SELECT="approx")
+        turbo = serve("turbo", pipelined=True)
+        if turbo["recall"] < 0.95:
+            fail(f"flat1m turbo recall@10 {turbo['recall']} < 0.95")
+        _, rows_f = search(sample, extra_mask=fmask)
+        ok = rows_f >= 0
+        if not (fmask[rows_f[ok]].all() and live[rows_f[ok]].all()):
+            fail("flat1m turbo: a filtered-out or deleted row was returned")
+        rec_f = recall(rows_f, exact_f)
+        top = [int(v) for row in turbo["rows"] for v in row[:3] if v >= 0]
+        pool_rows = np.nonzero(members)[0]
+        dead = list(dict.fromkeys(top + rng.choice(pool_rows, 1200)
+                                  .tolist()))[:1000]
+        if h.batch_delete([store.id_of(r) for r in dead]) != 1000:
+            fail("flat1m: batch_delete")
+        after = np.concatenate([search(sample)[1], search(bq[0])[1],
+                                search(sample, extra_mask=fmask)[1]])
+        if np.isin(after, dead).any():
+            fail("flat1m turbo: a deleted row was returned")
+        live = store.active_mask(count)
+        _, exact = oracle.search(sample, 10, extra_mask=live)
+        turbo_rec2 = recall(search(sample)[1], exact)
+        if turbo_rec2 < 0.95:
+            fail(f"flat1m turbo recall@10 after deletes {turbo_rec2} < 0.95")
+        print(f"flat1m turbo: filtered recall@10 {rec_f:.4f} (every row in "
+              f"the filter); 1,000 deletes, none returned, recall@10 "
+              f"{turbo_rec2:.4f} after them; the exact oracle streamed in "
+              f"{oracle_s:.3f} s ({card})", flush=True)
+        if trace:
+            for name, fn in (
+                    ("turbo_single", lambda: [search(q) for q in queries[:64]]),
+                    ("turbo_batched", lambda: [search(b) for b in bq[:4]])):
+                wall, dev_ms = device_trace(torch, name, fn, out_dir)
+                print(f"trace {name}: wall {wall:.3f} ms, device "
+                      f"{dev_ms:.3f} ms, busy share {dev_ms / wall:.3f} "
+                      f"({card})", flush=True)
+
+        # ---- bf16 serving: the eager cold start, then four modes
+        mode(FVDB_SERVING_DTYPE="bfloat16")
+        store.release_mirror()
+        h.fused._dev = h.fused._key = None
+        store._host_sq = None  # a fresh process has no norms yet
+        gc.collect()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        h.fused.prewarm()
+        search(np.zeros((1, d), np.float32))
+        cold_s = time.perf_counter() - t
+        m = store._mirror
+        mirror_bytes = m.x.numel() * m.x.element_size()
+        if m.x.dtype != torch.bfloat16 or mirror_bytes * 2 != cap * d * 4:
+            fail(f"flat1m: the bf16 mirror holds {mirror_bytes} bytes")
+        bf16 = {}
+        stored_exact = None
+        for tag, env in (("refine", {}), ("rerank", {"FVDB_BF16_REFINE": "0"}),
+                         ("raw", {"FVDB_BF16_RERANK": "0"}),
+                         ("approx", {"FVDB_FLAT_SELECT": "approx"})):
+            mode(FVDB_SERVING_DTYPE="bfloat16", **env)
+            r = bf16[tag] = serve(f"bf16 {tag}", pipelined=tag == "refine")
+            if tag == "refine":
+                if r["recall"] < 0.95:
+                    fail(f"flat1m bf16 refine recall@10 {r['recall']} < 0.95")
+                rows = r["rows"]
+                ref = np.sqrt(((store.data[rows].astype(np.float64)
+                                - sample[:, None, :]) ** 2).sum(-1))
+                err = float((np.abs(r["dists"] - ref) / ref).max())
+                if err > 1e-4:
+                    fail(f"flat1m bf16 refine: scores off the f64 distance "
+                         f"of their rows by {err} relative")
+                r["score_rel_err"] = err
+            if tag == "rerank":
+                # exact for the bf16-stored rows: a float64 brute force of
+                # the sample over the mirror itself
+                x64 = store._mirror.x.double()
+                q64 = torch.from_numpy(sample).to(x64.device).double()
+                d64 = (q64 * q64).sum(1)[:, None] - 2.0 * q64 @ x64.T \
+                    + (x64 * x64).sum(1)[None, :]
+                keep = torch.zeros(cap, dtype=torch.bool, device=x64.device)
+                keep[:count] = to_device(members & live, x64.device)
+                d64[:, ~keep] = float("inf")
+                stored_exact = torch.topk(d64, 10, largest=False).indices \
+                    .cpu().numpy()
+                del x64, d64
+                r["recall_stored"] = recall(r["rows"], stored_exact)
+                if r["recall_stored"] < 0.95:
+                    fail(f"flat1m bf16 rerank: recall@10 against the stored "
+                         f"rows {r['recall_stored']} < 0.95")
+        print(f"flat1m bf16: mirror {mirror_bytes / 1e9:.3f} GB (f32 "
+              f"{cap * d * 4 / 1e9:.3f} GB); prewarm + first search "
+              f"{cold_s:.3f} s; refine scores within "
+              f"{bf16['refine']['score_rel_err']:.2e} of the f64 distances; "
+              f"rerank-only recall@10 against the bf16-stored rows "
+              f"{bf16['rerank']['recall_stored']:.4f} ({card})", flush=True)
+
+        # ---- 2,048 inserts linked on the bf16 mirror
+        mode(FVDB_SERVING_DTYPE="bfloat16")
+        base = rng.choice(np.nonzero(live)[0], 2048)
+        fresh = (store.data[base] + 0.05 * rng.standard_normal((2048, d))) \
+            .astype(np.float32)
+        t = time.perf_counter()
+        new_rows = h.insert_batch([f"bf16-{i}" for i in range(2048)], fresh,
+                                  np.full(2048, NOW - DAY), now=NOW)
+        torch.cuda.synchronize()
+        ins_s = time.perf_counter() - t
+        if store.capacity != cap:
+            fail("flat1m: the inserts grew the store")
+        found = np.concatenate([search(fresh[i:i + 512], 1)[1][:, 0]
+                                for i in range(0, 2048, 512)])
+        rank1 = float((found == new_rows).mean())
+        if rank1 < 0.99:
+            fail(f"flat1m bf16 inserts: {rank1} at rank 1 < 0.99")
+        torch.cuda.synchronize()
+        counts = dict(native.launches)
+        path = {"approx_topk": "K9", "rerank_f32_rows": "K2 on f32 rows",
+                "rerank_f32": "K2 on bf16 rows",
+                "l2_topk_bf16_rq": "K1 on bf16 rows, query rounded",
+                "l2_topk_bf16": "K3 (K1 on bf16 rows, f32 query)",
+                "heuristic_kept_bf16": "K4 on bf16 rows",
+                "pair_sq_l2_bf16": "K5 on bf16 rows"}
+        for name, what in path.items():
+            if counts[name] <= 0:
+                fail(f"flat1m path: {what} ({name}) was launched no time")
+        print(f"flat1m bf16 inserts: 2,048 rows linked in {ins_s:.3f} s "
+              f"({2048 / ins_s:.1f} vectors/s), {rank1:.4f} found at rank "
+              f"1 ({card})", flush=True)
+        print(f"flat1m: launches { {k: counts[k] for k in path} }",
+              flush=True)
+
+        # ---- kernels against their plain versions at these shapes
+        flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
+                             launch_of)
+    finally:
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        limits.FLAT_THRESHOLD = old_thr
+        store.release_mirror()
+        h.fused._dev = h.fused._key = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    perf.update(
+        turbo_search_p50_ms=turbo["p50_ms"], turbo_batched_qps=turbo["qps"],
+        turbo_pipelined_qps=turbo["pipelined_qps"],
+        turbo_recall_at_10=turbo["recall"],
+        turbo_recall_at_10_after_deletes=turbo_rec2,
+        turbo_filtered_recall_at_10=rec_f, flat1m_oracle_s=oracle_s,
+        bf16_mirror_bytes=mirror_bytes, bf16_cold_prewarm_first_search_s=cold_s,
+        bf16_insert_vectors_per_s=2048 / ins_s, bf16_insert_rank1=rank1,
+        **{f"bf16_{tag}_{key}": v for tag, r in bf16.items()
+           for key, v in r.items() if key not in ("rows", "dists")})
+
+
+def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
+                         launch_of):
+    """K9, K1 on bf16 rows (query rounded; and unrounded at the link
+    shape), K2 on f32 rows, the bf16 re-score composition, K4 and K5 on
+    bf16 rows against their plain versions, on the 1M store's mirrors."""
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import hnsw as hn
+    from fabstir_vectordb_tpu_torch.ops import topk as tp
+    from fabstir_vectordb_tpu_torch.utils.transfer import to_device
+
+    store = h.store
+    cap, count = store.capacity, store.count
+    dev = store.device
+    xb, sq_host = store._mirror.x, store._mirror.x_sq  # the bf16 mirror
+    xf = torch.empty((cap, xb.shape[1]), dtype=torch.float32, device=dev)
+    for lo in range(0, cap, 262_144):  # the f32 mirror beside it
+        xf[lo:lo + 262_144] = to_device(store.data[lo:lo + 262_144], dev)
+    sq_f = (xf * xf).sum(1)
+    d = xf.shape[1]
+    mem = torch.zeros(cap, dtype=torch.bool, device=dev)
+    mem[:count] = to_device(store.active_mask(count) & (
+        h.hnsw.member_mask(count) | h.ivf.member_mask(count)), dev)
+    n_in = int(mem.sum())
+    q128 = torch.from_numpy(np.concatenate([queries, bq[0][:28]])).to(dev)
+    ov = 128
+
+    # K9 on f32 and bf16 rows, one query and 128
+    for dt, x, x_sq in (("f32", xf, sq_f), ("bf16", xb, sq_host)):
+        rq = dt == "bf16"
+        elem = x.element_size()
+        for b in (1, 128):
+            q = q128[:b].contiguous()
+            vk, rk = tp.approx_topk(x, x_sq, mem, q, ov, round_query=rq)
+            vp, rp = tp.approx_topk_plain(x, x_sq, mem, q, ov,
+                                          round_query=rq)
+            key = f"approx_topk[{dt} B={b}]"
+            tol = 1e-5 * float(x_sq.max() + (q * q).sum(1).max())
+            err, share = pool_check(key, vk, rk, vp, rp, tol)
+            _, re = tp.l2_topk(x, x_sq, mem, q, ov, round_query=rq)
+            pool_rec = overlap(rk.cpu().numpy(), re.cpu().numpy())
+            rec10 = float(np.mean([
+                len(set(a.tolist()) & set(e[:10].tolist())) / 10
+                for a, e in zip(rk.cpu().numpy(), re.cpu().numpy())]))
+            bms, by = bound(cap * (d * elem + 4 + 1) + b * d * 4 + b * ov * 8,
+                            2.0 * b * n_in * d,
+                            BF16_FLOPS if rq else F32_FLOPS)
+            results[key] = dict(
+                shape=f"B={b} N={cap} D={d} ov_k={ov} bins="
+                      f"{tp.approx_bins(cap, ov)} members={n_in}",
+                max_abs_err=err, tol=tol, pool_overlap_with_plain=share,
+                pool_recall_vs_exact_pool=pool_rec,
+                exact_top10_in_pool=rec10,
+                ms=cuda_ms(torch, lambda: tp.approx_topk(
+                    x, x_sq, mem, q, ov, round_query=rq)),
+                plain_ms=cuda_ms(torch, lambda: tp.approx_topk_plain(
+                    x, x_sq, mem, q, ov, round_query=rq), iters=2, warmup=1),
+                library_ms=None, bound_ms=bms,
+                bound_by=by + (" (bf16 tensor-core rate)" if rq else ""))
+            launch_of[key] = counts["approx_topk"]
+
+    # K1 serving the bf16 mirror, the query rounded, at k 16, 128, 1,024
+    for k in (16, 128, 1024):
+        vk, rk = tp.l2_topk(xb, sq_host, mem, q128, k, round_query=True)
+        vp, rp = tp.l2_topk_plain(xb, sq_host, mem, q128, k, round_query=True)
+        tol = 2e-5 * float(sq_host.max() + (q128 * q128).sum(1).max())
+        key = f"l2_topk[bf16 serve k={k}]"
+        err, differ = topk_check(key, vk, rk, vp, rp, tol)
+        bms, by = bound(cap * (d * 2 + 4 + 1) + 128 * d * 4 + 128 * k * 8,
+                        2.0 * 128 * n_in * d, BF16_FLOPS)
+        results[key] = dict(
+            shape=f"B=128 N={cap} D={d} k={k} (query rounded, f32 host "
+                  f"norms)", max_abs_err=err, tol=tol,
+            rows_differing_at_ties=differ,
+            ms=cuda_ms(torch, lambda: tp.l2_topk(xb, sq_host, mem, q128, k,
+                                                 round_query=True)),
+            plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
+                xb, sq_host, mem, q128, k, round_query=True), iters=2,
+                warmup=1),
+            library_ms=None, bound_ms=bms,
+            bound_by=f"{by} (bf16 tensor-core rate)")
+        launch_of[key] = counts["l2_topk_bf16_rq"]
+
+    # K2 on f32 rows: the turbo pool of 128 re-scored to k_eff = 16
+    _, pool = tp.approx_topk(xf, sq_f, mem, q128, ov)
+    vk, rk = fu.rerank_f32(xf, q128, pool, 16)
+    vp, rp = fu.rerank_f32_plain(xf, q128, pool, 16)
+    tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
+    err, differ = topk_check("rerank_f32[f32 rows]", vk, rk, vp, rp, tol)
+    valid = pool >= 0
+    distinct = int(torch.unique(pool[valid]).numel())
+    bms, by = bound(distinct * d * 4 + pool.numel() * 4 + 128 * d * 4
+                    + 128 * 16 * 8, 3.0 * int(valid.sum()) * d)
+    results["rerank_f32[f32 rows]"] = dict(
+        shape=f"B=128 OV={ov} m=16 D={d} distinct rows {distinct}",
+        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, lambda: fu.rerank_f32(xf, q128, pool, 16)),
+        plain_ms=cuda_ms(torch, lambda: fu.rerank_f32_plain(
+            xf, q128, pool, 16)), library_ms=None, bound_ms=bms,
+        bound_by=by)
+    launch_of["rerank_f32[f32 rows]"] = counts["rerank_f32_rows"]
+
+    # the bf16 re-score composition of the refine mode: K1 (query rounded)
+    # to 128, then K2 to 64
+    vk, rk = fu.flat_search_rerank(xb, sq_host, mem, q128, 64, 128)
+    vp, rp = fu.flat_search_rerank(xb, sq_host, mem, q128, 64, 128,
+                                   plain=True)
+    tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
+    err, differ = topk_check("flat_search_rerank", vk, rk, vp, rp, tol)
+    bms, by = bound(cap * (d * 2 + 4 + 1) + 128 * d * 4 + 128 * 64 * 8,
+                    2.0 * 128 * n_in * d, BF16_FLOPS)
+    results["flat_search_rerank"] = dict(
+        shape=f"B=128 N={cap} D={d} ov_k=128 m=64", max_abs_err=err, tol=tol,
+        rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, lambda: fu.flat_search_rerank(
+            xb, sq_host, mem, q128, 64, 128)),
+        plain_ms=cuda_ms(torch, lambda: fu.flat_search_rerank(
+            xb, sq_host, mem, q128, 64, 128, plain=True), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms,
+        bound_by=f"{by} (bf16 tensor-core rate)")
+    launch_of["flat_search_rerank"] = counts["rerank_f32"]
+
+    # K3: link candidates on the bf16 mirror (f32 query), then K4 on them
+    ql = torch.from_numpy(fresh[:1024]).to(dev)
+    vk, rk = tp.l2_topk(xb, sq_host, mem, ql, 200)
+    vp, rp = tp.l2_topk_plain(xb, sq_host, mem, ql, 200)
+    tol = 2e-5 * float(sq_host.max() + (ql * ql).sum(1).max())
+    err, differ = topk_check("l2_topk[bf16 candidates]", vk, rk, vp, rp, tol)
+    bms, by = bound(cap * (d * 2 + 4 + 1) + 1024 * d * 4 + 1024 * 200 * 8,
+                    2.0 * 1024 * n_in * d)
+    results["l2_topk[bf16 candidates]"] = dict(
+        shape=f"B=1024 N={cap} D={d} k=200 (f32 query, bf16 rows)",
+        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, lambda: tp.l2_topk(xb, sq_host, mem, ql, 200),
+                   iters=2),
+        plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
+            xb, sq_host, mem, ql, 200), iters=1, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["l2_topk[bf16 candidates]"] = counts["l2_topk_bf16"]
+    ids, dd = rk[:, :128].contiguous(), vk[:, :128].contiguous()
+    kk = hn.heuristic_kept(xb, ids, dd, 32)
+    kp = hn.heuristic_kept_plain(xb, ids, dd, 32)
+    torch.cuda.synchronize()
+    flips = (kk != kp).any(1).nonzero().flatten().tolist()
+    for r in flips:  # a flip must sit at a near-tie of the plain scan
+        i = int((kk[r] != kp[r]).nonzero()[0])
+        v = xb[ids[r].clamp_min(0).long()].double()
+        before = kp[r, :i].nonzero().flatten()
+        pd = ((v[i] - v[before]) ** 2).sum(-1)
+        dmin = float(pd.min()) if pd.numel() else float("inf")
+        # both sides sum the Gram expansion in f32: a tie is within 1e-5
+        # of the norms it cancels (the candidates sit near each other in
+        # a cluster far from the origin)
+        tol = 1e-5 * 2.0 * float((v * v).sum(-1).max())
+        if abs(float(dd[r, i]) - dmin) > tol:
+            fail(f"heuristic_kept[bf16 link]: row {r} differs off a tie "
+                 f"({float(dd[r, i])} against {dmin}, tol {tol})")
+    bms, by = bound(int((ids >= 0).sum()) * d * 2 + 1024 * 128 * 9,
+                    1024 * 128 * 129 / 2 * 2.0 * d)
+    results["heuristic_kept[bf16 link]"] = dict(
+        shape=f"B=1024 C=128 D={d} m=32 (bf16 rows)",
+        max_abs_err=float((kk != kp).any().item()),
+        rows_differing_at_ties=len(flips),
+        ms=cuda_ms(torch, lambda: hn.heuristic_kept(xb, ids, dd, 32)),
+        plain_ms=cuda_ms(torch, lambda: hn.heuristic_kept_plain(
+            xb, ids, dd, 32), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["heuristic_kept[bf16 link]"] = counts["heuristic_kept_bf16"]
+
+    # K5: reverse-prune pair distances on bf16 rows with the host norms
+    g = torch.Generator(device=dev).manual_seed(6)
+    p = 65_536
+    t_ids = torch.randint(0, count, (p,), device=dev, generator=g,
+                          dtype=torch.int32)
+    c_ids = torch.randint(0, count, (p,), device=dev, generator=g,
+                          dtype=torch.int32)
+    ok = hn.pair_sq_l2(xb, sq_host, t_ids, c_ids)
+    op = hn.pair_sq_l2_plain(xb, sq_host, t_ids, c_ids)
+    err = float((ok - op).abs().max())
+    tol = 2e-5 * float(2 * sq_host.max())
+    if err > tol:
+        fail(f"pair_sq_l2[bf16]: max_abs_err {err} > {tol}")
+    bms, by = bound(p * (2 * d * 2 + 8 + 8 + 4), p * 2.0 * d)
+    results["pair_sq_l2[bf16]"] = dict(
+        shape=f"P={p} D={d} (bf16 rows, f32 host norms)", max_abs_err=err,
+        tol=tol,
+        ms=cuda_ms(torch, lambda: hn.pair_sq_l2(xb, sq_host, t_ids, c_ids)),
+        plain_ms=cuda_ms(torch, lambda: hn.pair_sq_l2_plain(
+            xb, sq_host, t_ids, c_ids)), library_ms=None, bound_ms=bms,
+        bound_by=by)
+    launch_of["pair_sq_l2[bf16]"] = counts["pair_sq_l2_bf16"]
+    del xf, sq_f
+    for name in ("approx_topk[f32 B=1]", "approx_topk[f32 B=128]",
+                 "approx_topk[bf16 B=1]", "approx_topk[bf16 B=128]",
+                 "l2_topk[bf16 serve k=16]", "l2_topk[bf16 serve k=128]",
+                 "l2_topk[bf16 serve k=1024]", "rerank_f32[f32 rows]",
+                 "flat_search_rerank", "l2_topk[bf16 candidates]",
+                 "heuristic_kept[bf16 link]", "pair_sq_l2[bf16]"):
+        print_kernel(name, results[name], launch_of[name])
+
+
 def memory_line(torch) -> str:
     import resource
 
@@ -1496,9 +1987,13 @@ def _scale_run(torch, native, card, perf, results, launch_of, trace,
     # ---- the main path, counted from 0
     native.reset_launches()
     t = time.perf_counter()
-    store.register_rows([f"v{i}" for i in range(n)],
-                        timestamps=NOW - 30 * DAY)
-    stage["register"] = time.perf_counter() - t
+    ids = [f"v{i}" for i in range(n)]
+    stage["id_strings"] = time.perf_counter() - t
+    t_reg = time.perf_counter()
+    store.register_rows(ids, timestamps=NOW - 30 * DAY)
+    stage["register_rows"] = time.perf_counter() - t_reg
+    stage["register"] = time.perf_counter() - t  # both, as before
+    del ids
     t = time.perf_counter()
     cents, pending = None, []
     for lo in range(0, n, src.block_rows):
@@ -1529,7 +2024,9 @@ def _scale_run(torch, native, card, perf, results, launch_of, trace,
         fail("scale: the spot check refused the source's own rows")
     store.attach_device_source(src)
     stage["spot_check"] = time.perf_counter() - t
-    print(f"scale: {n} x {d} registered in {stage['register']:.3f} s, "
+    print(f"scale: {n} x {d} registered in {stage['register']:.3f} s "
+          f"(id strings {stage['id_strings']:.3f} s, register_rows "
+          f"{stage['register_rows']:.3f} s), "
           f"generated (K17) + filled + assigned (K6) in "
           f"{stage['generate_fill_assign']:.3f} s, spot check of 8 rows "
           f"{stage['spot_check']:.3f} s; capacity {store.capacity}; "
@@ -1697,6 +2194,8 @@ def _scale_run(torch, native, card, perf, results, launch_of, trace,
           flush=True)
     perf.update(
         scale_rows=n, scale_register_s=stage["register"],
+        scale_id_strings_s=stage["id_strings"],
+        scale_register_rows_s=stage["register_rows"],
         scale_generate_fill_assign_s=stage["generate_fill_assign"],
         scale_first_search_s=first_s, scale_build_stages_s=build,
         scale_search_p50_ms=p50, scale_batched_qps=qps,
@@ -1717,7 +2216,7 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
     from fabstir_vectordb_tpu_torch.index import fused as fu
     from fabstir_vectordb_tpu_torch.index import tiered as ti
     from fabstir_vectordb_tpu_torch.ops import kmeans as km
-    from fabstir_vectordb_tpu_torch.utils import synth
+    from fabstir_vectordb_tpu_torch.utils import limits, synth
     from fabstir_vectordb_tpu_torch.utils.padding import bucket
 
     store = h.store
@@ -1836,9 +2335,10 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
     ov = min(bucket(16 * 96), n_rows)
     q128 = torch.from_numpy(bq).to(dev)
     qp = fu.project_queries(q128, mu, pm)
+    budget = limits.stage1_transient_bytes()  # as the dispatch passes it
     for tag, b in (("B=1", 1), ("B=32", 32)):
         qb = qp[:b].contiguous()
-        vk, rk = fu.stage1_select(xp, xp_sq, mem, qb, ov)
+        vk, rk = fu.stage1_select(xp, xp_sq, mem, qb, ov, budget)
         vp, rp = fu.stage1_select_plain(xp, xp_sq, mem, qb, ov)
         tol = 2e-5 * float(xp_sq.max() + (qb * qb).sum(1).max())
         err, differ = topk_check(f"stage1_select[10M {tag}]", vk, rk, vp, rp,
@@ -1850,14 +2350,15 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
             shape=f"B={b} N={n_rows} r={r} ov_k={ov}", max_abs_err=err,
             tol=tol, rows_differing_at_ties=differ,
             ms=cuda_ms(torch, lambda: fu.stage1_select(xp, xp_sq, mem, qb,
-                                                       ov), iters=3),
+                                                       ov, budget), iters=3),
             plain_ms=cuda_ms(torch, lambda: fu.stage1_select_plain(
                 xp, xp_sq, mem, qb, ov), iters=1, warmup=1),
             library_ms=None, bound_ms=bms,
             bound_by=f"{by} (bf16 tensor-core rate)")
         launch_of[key] = counts["stage1_select"]
     pool = torch.cat([fu.stage1_select(xp, xp_sq, mem,
-                                       qp[i:i + 32].contiguous(), ov)[1]
+                                       qp[i:i + 32].contiguous(), ov,
+                                       budget)[1]
                       for i in range(0, 128, 32)])
     m = min(64, ov)
     vk, rk = fu.rerank_f32(rx, q128, pool, m)
@@ -1912,6 +2413,10 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
 REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "l2_topk": "fabstir_vectordb_tpu/index/fused.py:51",
     "l2_topk[candidates]": "fabstir_vectordb_tpu/index/hnsw.py:81",
+    "l2_topk[bf16 candidates]": "fabstir_vectordb_tpu/index/hnsw.py:81",
+    "approx_topk": "fabstir_vectordb_tpu/ops/topk.py:44",
+    "rerank_f32[f32 rows]": "fabstir_vectordb_tpu/index/fused.py:114",
+    "flat_search_rerank": "fabstir_vectordb_tpu/index/fused.py:106",
     "heuristic_kept": "fabstir_vectordb_tpu/index/hnsw.py:160",
     "pair_sq_l2": "fabstir_vectordb_tpu/index/hnsw.py:222",
     "lloyd_block": "fabstir_vectordb_tpu/ops/kmeans.py:112",
@@ -1950,13 +2455,18 @@ SOURCES = {
     "synth_rows": "fabstir_vectordb_tpu_torch/csrc/synth.cu",
     "assign_clusters": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
     "tile_step": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
+    "approx_topk": "fabstir_vectordb_tpu_torch/csrc/approx_topk.cu",
+    # a composition of two kernels (csrc/l2_topk.cu, then
+    # csrc/rerank_f32.cu), in the module that chains them
+    "flat_search_rerank": "fabstir_vectordb_tpu_torch/index/fused.py",
 }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "pruned",
-                                        "reduced", "scale"), default="all")
+                                        "reduced", "flat1m", "scale"),
+                    default="all")
     ap.add_argument("--profile", action="store_true",
                     help="cProfile the main path into --out (its timings "
                          "then carry the profiler's overhead)")
@@ -1999,7 +2509,7 @@ def main() -> None:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
-    if args.phase not in ("pruned", "scale"):
+    if args.phase not in ("pruned", "flat1m", "scale"):
         kernels_phase(torch, tp, hn, km, dev, results)
     counts: dict = {}
     perf: dict = {}
@@ -2017,24 +2527,22 @@ def main() -> None:
                 for key in ("tottime", "cumulative"):
                     pstats.Stats(p, stream=f).sort_stats(key).print_stats(40)
             print(f"profile: {path}", flush=True)
-    if args.phase in ("all", "pruned", "reduced"):
+    if args.phase in ("all", "pruned", "reduced", "flat1m"):
         t = time.perf_counter()
         ctx = build_1m(torch, native, card, perf, launch_of)
         k7_checks(torch, ctx, results)
         for name in ("seed_pick", "seed_min_update", "seed_counts"):
             print_kernel(name, results[name], launch_of[name])
         print(f"1M build: {time.perf_counter() - t:.1f} s", flush=True)
-        if args.phase != "reduced":
+        for name, phase in (("pruned", pruned_phase),
+                            ("reduced", reduced_phase),
+                            ("flat1m", flat1m_phase)):
+            if args.phase not in ("all", name):
+                continue
             t = time.perf_counter()
-            pruned_phase(torch, native, card, perf, results, launch_of, ctx,
-                         trace=args.trace, out_dir=args.out)
-            print(f"pruned phase: {time.perf_counter() - t:.1f} s",
-                  flush=True)
-        if args.phase != "pruned":
-            t = time.perf_counter()
-            reduced_phase(torch, native, card, perf, results, launch_of, ctx,
-                          trace=args.trace, out_dir=args.out)
-            print(f"reduced phase: {time.perf_counter() - t:.1f} s",
+            phase(torch, native, card, perf, results, launch_of, ctx,
+                  trace=args.trace, out_dir=args.out)
+            print(f"{name} phase: {time.perf_counter() - t:.1f} s",
                   flush=True)
         del ctx  # the 1M state goes before the 10M tier is built
     if args.phase in ("all", "scale"):

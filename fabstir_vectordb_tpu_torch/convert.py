@@ -41,7 +41,7 @@ def hybrid_from_numpy(state: dict, device=None,
     s.count = len(ids)
     s.row_to_id = ids
     s.id_to_row = {vid: r for r, vid in enumerate(ids) if vid is not None}
-    s._version += 1
+    s.bump_version()
 
     g = idx.hnsw
     g.levels = np.array(hn["levels"], np.int16)

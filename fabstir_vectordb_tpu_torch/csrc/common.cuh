@@ -1,11 +1,13 @@
 // Shared pieces of the port's kernels: the C error hook, the shared-memory
-// cap, the (distance, row) order, a warp's row norm and dot products, a
-// block-wide rank of a predicate and a warp-held sorted top-k list.
+// cap, reads of f32 or bf16 rows as f32, the (distance, row) order, a warp's
+// row norm and dot products, a block-wide rank of a predicate and a
+// warp-held sorted top-k list.
 //
 // Every exported function returns the cudaError_t of its launches as an int;
 // the Python wrapper raises on anything but 0.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -33,6 +35,12 @@ inline cudaError_t raise_smem_cap(const void* fn, int bytes, int* cap) {
                            bytes);
   if (e == cudaSuccess) cap[dev] = bytes;
   return e;
+}
+
+// A row element as f32: bf16 rows are upcast exactly.
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // Results are ordered by (distance, row): equal distances go to the lower

@@ -2,7 +2,8 @@
 //
 // Replaces the JAX package's heuristic_kept_kernel (index/hnsw.py:160). Per
 // query b: gather its C candidate rows (a -1 id gathers row 0, as the
-// reference does), form their pairwise squared distances in the reference's
+// reference does) of an f32 or a bf16 mirror (bf16 rows upcast exactly, so
+// the norms are those of the upcast rows, as the reference's are), form their pairwise squared distances in the reference's
 // norm-expansion form pd[i][j] = (sq_i - 2 g_ij) + sq_j, then scan the
 // candidates in order (they arrive sorted by distance to the query): keep
 // candidate i when its id is valid, its distance is finite, fewer than m are
@@ -28,8 +29,9 @@ namespace fvdb {
 constexpr int CMAX = 128;  // candidates a query
 constexpr int TK = 32;     // dims a shared-memory chunk
 
+template <typename T>
 __global__ void __launch_bounds__(NT) heuristic_kept_kernel(
-    const float* __restrict__ x, const int* __restrict__ cand_ids,
+    const T* __restrict__ x, const int* __restrict__ cand_ids,
     const float* __restrict__ cand_d, int C, int D, int m,
     uint8_t* __restrict__ kept) {
   __shared__ float chunk[TK][CMAX + 1];
@@ -60,7 +62,7 @@ __global__ void __launch_bounds__(NT) heuristic_kept_kernel(
     for (int idx = t; idx < CMAX * TK; idx += NT) {
       const int r = idx / TK, d = idx % TK;
       chunk[d][r] =
-          (r < C && k0 + d < D) ? x[rows[r] * D + k0 + d] : 0.f;
+          (r < C && k0 + d < D) ? as_f32(x[rows[r] * D + k0 + d]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -108,6 +110,21 @@ __global__ void __launch_bounds__(NT) heuristic_kept_kernel(
   if (t < C) kept[(size_t)b * C + t] = keep[t];
 }
 
+template <typename T>
+cudaError_t heuristic_kept(const T* x, const int* cand_ids,
+                           const float* cand_d, int B, int C, int D, int m,
+                           uint8_t* kept, cudaStream_t stream) {
+  if (B < 1 || C < 1 || C > CMAX || D < 1) return cudaErrorInvalidValue;
+  const int smem = C * C * (int)sizeof(float);
+  static int cap[64];
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(heuristic_kept_kernel<T>), smem, cap);
+  if (e != cudaSuccess) return e;
+  heuristic_kept_kernel<T><<<B, NT, smem, stream>>>(x, cand_ids, cand_d, C, D,
+                                                    m, kept);
+  return cudaGetLastError();
+}
+
 }  // namespace fvdb
 
 // x [N, D]; cand_ids, cand_d [B, C] (C <= 128); kept [B, C] (0/1 bytes).
@@ -115,15 +132,16 @@ FVDB_EXPORT int fvdb_heuristic_kept(const float* x, const int* cand_ids,
                                     const float* cand_d, int B, int C, int D,
                                     int m, uint8_t* kept,
                                     cudaStream_t stream) {
-  using namespace fvdb;
-  if (B < 1 || C < 1 || C > CMAX || D < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = C * C * (int)sizeof(float);
-  static int cap[64];
-  cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(heuristic_kept_kernel), smem, cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  heuristic_kept_kernel<<<B, NT, smem, stream>>>(x, cand_ids, cand_d, C, D, m,
-                                                 kept);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(fvdb::heuristic_kept(x, cand_ids, cand_d, B, C, D,
+                                               m, kept, stream));
+}
+
+// The same over bf16 rows x [N, D].
+FVDB_EXPORT int fvdb_heuristic_kept_bf16(const __nv_bfloat16* x,
+                                         const int* cand_ids,
+                                         const float* cand_d, int B, int C,
+                                         int D, int m, uint8_t* kept,
+                                         cudaStream_t stream) {
+  return static_cast<int>(fvdb::heuristic_kept(x, cand_ids, cand_d, B, C, D,
+                                               m, kept, stream));
 }

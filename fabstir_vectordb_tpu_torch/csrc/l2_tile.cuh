@@ -33,9 +33,16 @@
 // same tile product but writes each query's masked distances (+inf where
 // the mask is False) to a [B, N] buffer, and topk_select.cuh's radix select
 // picks the k smallest (distance, row) of each buffer row.
+//
+// BINS (K9, csrc/approx_topk.cu): row r falls in bin r mod M, and pass 1
+// keeps each bin's (distance, row) minimum instead. A block owns 256
+// consecutive bins (blockIdx.y) and a range of rounds (blockIdx.z): round i
+// is rows i M + j0 .. i M + j0 + 255, consecutive in memory, so the tiles
+// stay contiguous. Each thread keeps the minima of one bin for the 32
+// queries in shared memory across the rounds; at the end one atomicMin a
+// (query, bin) folds them into a [B, M] table of packed 64-bit keys
+// (distance bits << 32 | row), which order as (distance, row).
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -58,10 +65,6 @@ union PassSmem {
 };
 static_assert(sizeof(float) * QT * DPAD <= sizeof(Stage) * 2, "alias");
 
-__device__ __forceinline__ float as_f32(float v) { return v; }
-__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -72,28 +75,50 @@ inline int slice_rows(int N, int S) {
   return (split + RT - 1) / RT * RT;
 }
 
-// DUMP: write the masked distances to dump [B, N] instead of selecting.
-template <typename T, bool ROUND_Q, bool DUMP>
+// What pass 1 does with a tile's distances.
+constexpr int SEL_LISTS = 0;  // offer them to per-query lists (k <= 256)
+constexpr int SEL_DUMP = 1;   // write them to dump [B, N]
+constexpr int SEL_BINS = 2;   // keep each bin's minimum (K9)
+static_assert(NT == RT, "BINS: a thread owns one bin of a tile");
+
+// split_rows: rows a slice (LISTS, DUMP) or rounds a block (BINS); bins: M
+// and bin_keys [B, M] (BINS only).
+template <typename T, bool ROUND_Q, int MODE>
 __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
     const T* __restrict__ x, const float* __restrict__ x_sq,
     const uint8_t* __restrict__ mask, long long mask_stride,
     const float* __restrict__ q, int B, int N, int D, int k, int split_rows,
     float* __restrict__ part_d, int* __restrict__ part_r,
-    float* __restrict__ dump) {
+    float* __restrict__ dump, int bins,
+    unsigned long long* __restrict__ bin_keys) {
   __shared__ __align__(16) PassSmem s;
   __shared__ float q_sq[QT];
-  extern __shared__ unsigned char dyn[];
+  extern __shared__ __align__(16) unsigned char dyn[];
   float* list_d = reinterpret_cast<float*>(dyn);
   int* list_r = reinterpret_cast<int*>(dyn + sizeof(float) * QT * k);
+  unsigned long long* bmin = reinterpret_cast<unsigned long long*>(dyn);
 
   const int t = threadIdx.x, w = t >> 5, lane = t & 31;
   const int qg = lane >> 2, rg = lane & 3;  // product: queries qg*4+i,
   const int rbase = w * 32 + rg * 8;        // rows rbase + j
   const int q0 = blockIdx.x * QT;
-  const int row_lo = blockIdx.y * split_rows;
-  const int row_hi = min(N, row_lo + split_rows);
   const int qn = min(QT, B - q0);
   const float* qb = q + (size_t)q0 * D;
+  // LISTS / DUMP: tiles of a row slice; BINS: rounds of a bin tile
+  int row_lo = 0, row_hi = 0, j0 = 0, bw = 0, i_lo = 0, n_tiles = 0;
+  if constexpr (MODE == SEL_BINS) {
+    j0 = blockIdx.y * RT;
+    bw = min(RT, bins - j0);
+    i_lo = blockIdx.z * split_rows;
+    const int rounds = (N + bins - 1) / bins;
+    n_tiles = max(0, min(rounds, i_lo + split_rows) - i_lo);
+#pragma unroll
+    for (int ql = 0; ql < QT; ++ql) bmin[ql * RT + t] = ~0ull;
+  } else {
+    row_lo = blockIdx.y * split_rows;
+    row_hi = min(N, row_lo + split_rows);
+    n_tiles = row_hi > row_lo ? (row_hi - row_lo + RT - 1) / RT : 0;
+  }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -103,8 +128,16 @@ __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
   }
   int fill[4] = {0, 0, 0, 0};  // list fill of the warp's 4 queries
 
-  for (int r0 = row_lo; r0 < row_hi; r0 += RT) {
-    const int rn = min(RT, row_hi - r0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    int r0, rn;
+    if constexpr (MODE == SEL_BINS) {
+      r0 = (i_lo + tile) * bins + j0;
+      rn = min(bw, N - r0);
+    } else {
+      r0 = row_lo + tile * RT;
+      rn = min(RT, row_hi - r0);
+    }
+    if (rn <= 0) break;  // uniform: only the last round can run short
     const T* xb = x + (size_t)r0 * D;
     float pa[QT * KC / NT], pb[RT * KC / NT];
     // global -> registers: consecutive lanes read consecutive dims of a row
@@ -178,13 +211,13 @@ __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
       for (int j = 0; j < 8; ++j) {
         const int row = r0 + rbase + j;
         float dist = INFINITY;
-        if (q_ok && row < row_hi && (!m || m[row]))
+        if (q_ok && rbase + j < rn && (!m || m[row]))
           dist = fmaxf(q_sq[ql] - 2.f * acc[i][j] + x_sq[row], 0.f);
         s.dist[ql][rbase + j] = dist;
       }
     }
     __syncthreads();
-    if constexpr (DUMP) {  // coalesced: lanes write consecutive rows
+    if constexpr (MODE == SEL_DUMP) {  // coalesced: consecutive rows
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int ql = w * 4 + i;
@@ -192,7 +225,19 @@ __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
         float* o = dump + (size_t)(q0 + ql) * N + r0;
         for (int j = 0; j < RT / 32; ++j) {
           const int rl = lane + 32 * j;
-          if (r0 + rl < row_hi) o[rl] = s.dist[ql][rl];
+          if (rl < rn) o[rl] = s.dist[ql][rl];
+        }
+      }
+    } else if constexpr (MODE == SEL_BINS) {  // thread t: bin j0 + t
+      if (t < rn) {
+        const unsigned row = (unsigned)(r0 + t);
+        for (int ql = 0; ql < qn; ++ql) {
+          const float dist = s.dist[ql][t];
+          if (!isfinite(dist)) continue;
+          const unsigned long long key =
+              ((unsigned long long)(dist == 0.f ? 0u : __float_as_uint(dist))
+               << 32) | row;
+          if (key < bmin[ql * RT + t]) bmin[ql * RT + t] = key;
         }
       }
     } else {
@@ -210,7 +255,15 @@ __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
       }
     }
   }
-  if constexpr (!DUMP) {
+  if constexpr (MODE == SEL_BINS) {
+    if (t < bw) {
+      for (int ql = 0; ql < qn; ++ql) {
+        const unsigned long long key = bmin[ql * RT + t];
+        if (key != ~0ull)
+          atomicMin(bin_keys + (size_t)(q0 + ql) * bins + j0 + t, key);
+      }
+    }
+  } else if constexpr (MODE == SEL_LISTS) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ql = w * 4 + i;
@@ -296,18 +349,32 @@ cudaError_t launch_l2_topk(const T* x, const float* x_sq,
   const int smem1 = QT * k * 8;
   static int cap1[64];
   cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(l2_topk_partial<T, ROUND_Q, false>),
+      reinterpret_cast<const void*>(l2_topk_partial<T, ROUND_Q, SEL_LISTS>),
       smem1, cap1);
   if (e != cudaSuccess) return e;
   dim3 grid1((B + QT - 1) / QT, S);
-  l2_topk_partial<T, ROUND_Q, false><<<grid1, NT, smem1, stream>>>(
+  l2_topk_partial<T, ROUND_Q, SEL_LISTS><<<grid1, NT, smem1, stream>>>(
       x, x_sq, mask, mask_stride, q, B, N, D, k, slice_rows(N, S), part_d,
-      part_r, nullptr);
+      part_r, nullptr, 0, nullptr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int smem2 = (NT / 32) * k * 8;  // <= 16 KB: under the default cap
   l2_topk_merge<<<B, NT, smem2, stream>>>(part_d, part_r, B, k, S, row_base,
                                            out_d, out_r);
+  return cudaGetLastError();
+}
+
+// Pass 1 in DUMP mode: the masked distances of B queries to dump [B, N].
+template <typename T, bool ROUND_Q>
+cudaError_t launch_l2_dump(const T* x, const float* x_sq,
+                           const uint8_t* mask, long long mask_stride,
+                           const float* q, int B, int N, int D, int S,
+                           float* dump, cudaStream_t stream) {
+  if (B < 1 || N < 1 || D < 1 || S < 1) return cudaErrorInvalidValue;
+  dim3 grid1((B + QT - 1) / QT, S);
+  l2_topk_partial<T, ROUND_Q, SEL_DUMP><<<grid1, NT, 0, stream>>>(
+      x, x_sq, mask, mask_stride, q, B, N, D, 0, slice_rows(N, S), nullptr,
+      nullptr, dump, 0, nullptr);
   return cudaGetLastError();
 }
 

@@ -11,12 +11,17 @@
 // (distance, row), padded with (+inf, -1). The passes themselves are in
 // l2_tile.cuh.
 //
-// Streamed blocks: the reduced-rank calibration oracle (_oracle_step,
-// index/fused.py:206) scores probe queries against bf16 corpus blocks
-// upcast to f32 (fvdb_l2_topk_bf16), and the tiered exact search
-// (_tile_step, index/tiered.py:31) against f32 host tiles. Both take the
-// rows' norms in a first small kernel when none are given, and add the
-// block's first row to every result row.
+// bf16 rows (fvdb_l2_topk_bf16, fvdb_l2_topk_large_bf16) are upcast exactly.
+// With round_q the query is rounded to bf16 for the product only (|q|^2
+// from the f32 query, x_sq as given): the bf16 serving mirror's distance,
+// the reference's compute_dtype=bfloat16 (ops/distance.py:30-69), with x_sq
+// the f32 norms of the f32 host rows. Without it the query stays f32: the
+// HNSW link candidates on a bf16 mirror (index/hnsw.py:81, default f32
+// compute) and the reduced-rank calibration oracle (_oracle_step,
+// index/fused.py:206, bf16 corpus blocks). The tiered exact search
+// (_tile_step, index/tiered.py:31) streams f32 host tiles. The streamed
+// blocks take the rows' norms in a first small kernel when none are given,
+// and add the block's first row to every result row.
 //
 // What bounds it on the H100: at the search shapes (B = 1..128, N = 131,072,
 // D = 384) the corpus read is 201 MB, 60 us at 3.35 TB/s, while the products
@@ -56,20 +61,47 @@ FVDB_EXPORT int fvdb_l2_topk(const float* x, const float* x_sq,
       out_d, out_r, stream));
 }
 
-// bf16 rows x [N, D]; x_sq and the rest as fvdb_l2_topk. k <= 256.
+// bf16 rows x [N, D]; x_sq and the rest as fvdb_l2_topk, k <= 256; round_q
+// rounds the query to bf16 in the product.
 FVDB_EXPORT int fvdb_l2_topk_bf16(const __nv_bfloat16* x, const float* x_sq,
                                   const uint8_t* mask, long long mask_stride,
                                   const float* q, int B, int N, int D, int k,
-                                  int S, int row_base, float* xsq_scratch,
-                                  float* part_d, int* part_r, float* out_d,
-                                  int* out_r, cudaStream_t stream) {
+                                  int S, int row_base, int round_q,
+                                  float* xsq_scratch, float* part_d,
+                                  int* part_r, float* out_d, int* out_r,
+                                  cudaStream_t stream) {
   using namespace fvdb;
   cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_l2_topk<__nv_bfloat16, false>(
-      x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base, part_d, part_r,
-      out_d, out_r, stream));
+  e = round_q ? launch_l2_topk<__nv_bfloat16, true>(
+                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base,
+                    part_d, part_r, out_d, out_r, stream)
+              : launch_l2_topk<__nv_bfloat16, false>(
+                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base,
+                    part_d, part_r, out_d, out_r, stream);
+  return static_cast<int>(e);
 }
+
+namespace fvdb {
+
+// Any k: the masked distances to dump [B, N], then the radix select.
+template <typename T, bool ROUND_Q>
+cudaError_t l2_topk_large(const T* x, const float* x_sq, const uint8_t* mask,
+                          long long mask_stride, const float* q, int B, int N,
+                          int D, int k, int S, float* xsq_scratch,
+                          float* dump, void* work, float* out_d, int* out_r,
+                          cudaStream_t stream) {
+  if (k < 1 || B < 1 || N < 1 || D < 1 || S < 1) return cudaErrorInvalidValue;
+  cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  if (e != cudaSuccess) return e;
+  e = launch_l2_dump<T, ROUND_Q>(x, x_sq, mask, mask_stride, q, B, N, D, S,
+                                 dump, stream);
+  if (e != cudaSuccess) return e;
+  return launch_select_topk(dump, nullptr, nullptr, N, B, k, work, out_d,
+                            out_r, stream);
+}
+
+}  // namespace fvdb
 
 // Any k >= 1: dump [B, N] distance scratch; work: fvdb_select_scratch_bytes
 // (B, k) bytes of selection scratch; x_sq null as in fvdb_l2_topk.
@@ -79,17 +111,23 @@ FVDB_EXPORT int fvdb_l2_topk_large(const float* x, const float* x_sq,
                                    int S, float* xsq_scratch, float* dump,
                                    void* work, float* out_d, int* out_r,
                                    cudaStream_t stream) {
+  return static_cast<int>(fvdb::l2_topk_large<float, false>(
+      x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch, dump, work,
+      out_d, out_r, stream));
+}
+
+// bf16 rows at any k; round_q as in fvdb_l2_topk_bf16.
+FVDB_EXPORT int fvdb_l2_topk_large_bf16(
+    const __nv_bfloat16* x, const float* x_sq, const uint8_t* mask,
+    long long mask_stride, const float* q, int B, int N, int D, int k, int S,
+    int round_q, float* xsq_scratch, float* dump, void* work, float* out_d,
+    int* out_r, cudaStream_t stream) {
   using namespace fvdb;
-  if (k < 1 || B < 1 || N < 1 || D < 1 || S < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid1((B + QT - 1) / QT, S);
-  l2_topk_partial<float, false, true><<<grid1, NT, 0, stream>>>(
-      x, x_sq, mask, mask_stride, q, B, N, D, 0, slice_rows(N, S), nullptr,
-      nullptr, dump);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
-                                             work, out_d, out_r, stream));
+  return static_cast<int>(
+      round_q ? l2_topk_large<__nv_bfloat16, true>(
+                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch,
+                    dump, work, out_d, out_r, stream)
+              : l2_topk_large<__nv_bfloat16, false>(
+                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch,
+                    dump, work, out_d, out_r, stream));
 }

@@ -38,11 +38,9 @@ FVDB_EXPORT int fvdb_stage1_select(const __nv_bfloat16* xp,
   using namespace fvdb;
   if (k < 1 || B < 1 || N < 1 || R < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid1((B + QT - 1) / QT, S);
-  l2_topk_partial<__nv_bfloat16, true, true><<<grid1, NT, 0, stream>>>(
-      xp, xp_sq, mask, 0, qp, B, N, R, 0, slice_rows(N, S), nullptr, nullptr,
-      dump);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_l2_dump<__nv_bfloat16, true>(xp, xp_sq, mask, 0, qp,
+                                                       B, N, R, S, dump,
+                                                       stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
                                              work, out_d, out_r, stream));

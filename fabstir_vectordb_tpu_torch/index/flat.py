@@ -3,16 +3,19 @@
 The JAX package's ``index/flat.py`` for the euclidean metric: the
 small-dataset fast path, and (streamed over host tiles) the recall oracle
 for the approximate engines. Soft deletes and filter masks are fused into
-selection.
+selection. On a bf16 mirror the query is rounded to bf16 in the product
+(the reference's bf16 compute), with the f32 norms of the f32 host rows.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops.topk import l2_topk
+from ..utils import limits
 from ..utils.padding import bucket, fit_mask
 from ..utils.transfer import to_device, to_host
-from .store import VectorStore, serving_mirror
+from .store import VectorStore
 
 
 class FlatIndex:
@@ -22,11 +25,14 @@ class FlatIndex:
         self.store = store
 
     def search_rows(self, queries: np.ndarray, k: int,
-                    extra_mask: np.ndarray | None = None):
+                    extra_mask: np.ndarray | None = None,
+                    dtype: str | None = None):
         """Returns (true euclidean distances [B, k], rows [B, k]); rows are
-        -1 beyond the matches."""
+        -1 beyond the matches. ``dtype`` pins the mirror's dtype for this
+        call (default: FVDB_SERVING_DTYPE); the store holds one mirror, so
+        pinning another dtype replaces the serving one."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
-        mirror = serving_mirror(self.store)
+        mirror = self.store.device_mirror(dtype or limits.serving_dtype())
         n = int(mirror.x.shape[0])
         mask = self.store.active_mask(n)
         if extra_mask is not None:
@@ -34,7 +40,8 @@ class FlatIndex:
         k_eff = min(bucket(k), n)
         dev = self.store.device
         d, rows = l2_topk(mirror.x, mirror.x_sq, to_device(mask, dev),
-                          to_device(queries, dev), k_eff)
+                          to_device(queries, dev), k_eff,
+                          round_query=mirror.x.dtype == torch.bfloat16)
         d, rows = to_host(d, rows)
         d, rows = d[:, :k], rows[:, :k]
         d = np.sqrt(np.maximum(d, 0.0))

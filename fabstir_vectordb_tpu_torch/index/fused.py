@@ -2,9 +2,13 @@
 
 The JAX package's ``index/fused.py`` for three regimes, picked by capacity:
 
-- flat (up to the flat threshold, f32 mirror): one masked exact L2 top-k
-  (K1) with the membership / soft-delete / filter mask fused into
-  selection;
+- flat (up to the flat threshold): one masked exact L2 top-k (K1) with
+  the membership / soft-delete / filter mask fused into selection, over the
+  f32 mirror or, with FVDB_SERVING_DTYPE=bfloat16, a bf16 one (twice the
+  threshold): there K1 takes a wider pool with the query rounded to bf16
+  and K2 re-scores it in f32 (:func:`flat_search_rerank`), and by default
+  the host re-scores the survivors from the f32 rows. FVDB_FLAT_SELECT=
+  approx takes the pool from K9's bins instead (:func:`flat_search_approx`);
 - reduced-rank (above it, FVDB_PCA_SERVE=1, the default): the corpus
   projected on its top principal directions into a bf16 [N, r] mirror
   (K14's projection), a wide stage-1 pool over that mirror (K14's
@@ -26,8 +30,7 @@ masks, adjacency, tiles) stays on the device between calls, keyed by the
 engines' versions; the regimes release each other's state.
 
 Not ported yet, and raising ``NotImplementedError`` instead of serving some
-other way: bf16 mirrors (FVDB_SERVING_DTYPE=bfloat16) and approximate flat
-selection (FVDB_FLAT_SELECT=approx).
+other way: the pruned regime on a bf16 mirror (K10-K13 on bf16 rows).
 
 Distances returned are squared euclidean (callers take the square root).
 """
@@ -42,9 +45,9 @@ import torch
 
 from ..ops.distance import pairwise_sq_l2
 from ..ops.projection import pca_basis
-from ..ops.topk import (_DUMP_BYTES, _MAX_GRID_Q, _splits, INF,
-                        l2_topk, masked_topk, merge_topk, merge_topk_plain,
-                        select_scratch)
+from ..ops.topk import (_MAX_GRID_Q, _splits, INF, approx_topk, l2_topk,
+                        l2_topk_plain, masked_topk, merge_topk,
+                        merge_topk_plain, select_scratch)
 from ..utils import limits, native
 from ..utils.padding import bucket, fit_mask, round_up
 from ..utils.transfer import put_bf16_blocks, to_device, to_host
@@ -108,12 +111,15 @@ def stage1_select_plain(xp, xp_sq, mask, qp, ov_k: int):
     return masked_topk(d.clamp_min(0.0), mask, ov_k)
 
 
-def stage1_select(xp, xp_sq, mask, qp, ov_k: int):
+def stage1_select(xp, xp_sq, mask, qp, ov_k: int,
+                  transient_bytes: int | None = None):
     """K14's stage 1 (the reference's stage1_select_kernel): the ov_k
     nearest rows of the projected bf16 mirror xp [N, r] (f32 norms xp_sq
     [N], mask [N] bool or None) to the projected queries qp [B, r] f32.
     Returns (vals [B, ov_k], rows [B, ov_k]) sorted by (distance, row),
-    padded with (+inf, -1). The plain version on CPU tensors,
+    padded with (+inf, -1). A launch takes as many queries as keep its
+    [queries, N] f32 buffer within ``transient_bytes`` (None:
+    limits.stage1_transient_bytes()). The plain version on CPU tensors,
     csrc/stage1_select.cu on CUDA tensors."""
     if xp.device.type == "cpu":
         return stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
@@ -134,8 +140,10 @@ def stage1_select(xp, xp_sq, mask, qp, ov_k: int):
         return out_d, out_r
     P, I = native.P, native.I
     m_ptr = 0 if mask is None else mask.data_ptr()
-    # query chunks keep the [chunk, N] distance buffer under _DUMP_BYTES
-    qc = max(1, min(b, _DUMP_BYTES // (4 * n), _MAX_GRID_Q))
+    # query chunks keep the [chunk, N] distance buffer within the budget
+    if transient_bytes is None:
+        transient_bytes = limits.stage1_transient_bytes()
+    qc = max(1, min(b, int(transient_bytes) // (4 * n), _MAX_GRID_Q))
     for lo in range(0, b, qc):
         hi = min(b, lo + qc)
         dump = torch.empty((hi - lo, n), dtype=torch.float32, device=dev)
@@ -223,7 +231,8 @@ def _proj_args(src, dtype, mu, p):
 
 def rerank_f32_plain(x, q, rows, m: int):
     """Plain version of K2: difference-form f32 distances of the candidate
-    rows of the bf16 mirror x, then the m first by (distance, row)."""
+    rows of the f32 or bf16 mirror x, then the m first by (distance,
+    row)."""
     xg = x[rows.clamp_min(0).long()].float()  # [B, OV, D]
     diff = xg - q[:, None, :]
     d = (diff * diff).sum(-1)
@@ -234,15 +243,16 @@ def rerank_f32_plain(x, q, rows, m: int):
 
 def rerank_f32(x, q, rows, m: int):
     """K2 (the reference's rerank_f32_kernel): re-score each query's
-    candidate rows rows [B, OV] int32 (-1: none; distinct, as stage 1 gives
-    them) of the bf16 mirror x [N, D] against q [B, D] f32 in the
-    difference form, and keep the m first by (distance, row), padded with
-    (+inf, -1). The plain version on CPU tensors, csrc/rerank_f32.cu on
-    CUDA tensors."""
+    candidate rows rows [B, OV] int32 (-1: none; distinct, as stage 1 and
+    K1 / K9 give them) of the mirror x [N, D] (bf16, upcast exactly, or
+    f32) against q [B, D] f32 in the difference form, and keep the m first
+    by (distance, row), padded with (+inf, -1). The plain version on CPU
+    tensors, csrc/rerank_f32.cu on CUDA tensors."""
     if x.device.type == "cpu":
         return rerank_f32_plain(x, q, rows, m)
     dev = x.device
-    native.check(x, "x", torch.bfloat16, 2, dev)
+    bf16 = x.dtype == torch.bfloat16
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(q, "q", torch.float32, 2, dev)
     native.check(rows, "rows", torch.int32, 2, dev)
     n, d = x.shape
@@ -258,14 +268,38 @@ def rerank_f32(x, q, rows, m: int):
         hi = min(b, lo + _MAX_GRID_Q)
         dist = torch.empty((hi - lo, ov), dtype=torch.float32, device=dev)
         work = select_scratch("rerank_f32", hi - lo, m, dev)
-        native.call("rerank_f32", "fvdb_rerank_f32",
+        native.call("rerank_f32",
+                    "fvdb_rerank_f32" if bf16 else "fvdb_rerank_f32_rows",
                     [P, I, I, P, P, I, I, I, P, P, P, P, P],
                     x.data_ptr(), n, d, q[lo:hi].data_ptr(),
                     rows[lo:hi].data_ptr(), hi - lo, ov, m, dist.data_ptr(),
                     work.data_ptr(), out_d[lo:hi].data_ptr(),
                     out_r[lo:hi].data_ptr(), native.stream_of(x))
-        native.launches["rerank_f32"] += 1
+        native.launches["rerank_f32" if bf16 else "rerank_f32_rows"] += 1
     return out_d, out_r
+
+
+def flat_search_rerank(x, x_sq, mask, q, k: int, ov_k: int,
+                       plain: bool = False):
+    """The reference's flat_search_rerank_kernel: K1 over the bf16 serving
+    mirror x [N, D] with the query rounded to bf16 (x_sq the f32 norms of
+    the f32 host rows) for a pool of ov_k, then K2's f32 re-score of the
+    pool to k. ``plain`` runs both plain versions."""
+    topk, rr = (l2_topk_plain, rerank_f32_plain) if plain \
+        else (l2_topk, rerank_f32)
+    _, rows = topk(x, x_sq, mask, q, ov_k, round_query=True)
+    return rr(x, q, rows, k)
+
+
+def flat_search_approx(x, x_sq, mask, q, k: int, ov_k: int):
+    """The reference's flat_search_approx_kernel: K9's binned pool of ov_k
+    over the f32 or bf16 serving mirror x [N, D] (a bf16 mirror rounds the
+    query, as the reference's bf16 compute does), then K2's f32 re-score of
+    the pool to k; masked rows never enter the pool, so they cannot come
+    back through the re-score."""
+    _, rows = approx_topk(x, x_sq, mask, q, ov_k,
+                          round_query=x.dtype == torch.bfloat16)
+    return rerank_f32(x, q, rows, k)
 
 
 def oracle_step_plain(blk, m, q, base: int, vals, rows, k: int):
@@ -650,12 +684,14 @@ class FusedSearcher:
         b_sub = max(1, min(
             b, limits.stage1_transient_bytes() // max(n_rows * 4, 1)))
         b_sub = 1 << (b_sub.bit_length() - 1)
+        budget = limits.stage1_transient_bytes()
         if b <= b_sub:
             vals_p, rows_p = stage1_select(proj["xp"], proj["xp_sq"], mask,
-                                           qp, ov_k)
+                                           qp, ov_k, budget)
         else:
             parts = [stage1_select(proj["xp"], proj["xp_sq"], mask,
-                                   qp[lo: lo + b_sub].contiguous(), ov_k)
+                                   qp[lo: lo + b_sub].contiguous(), ov_k,
+                                   budget)
                      for lo in range(0, b, b_sub)]
             vals_p = torch.cat([pt[0] for pt in parts])
             rows_p = torch.cat([pt[1] for pt in parts])
@@ -705,6 +741,8 @@ class FusedSearcher:
         }
         if regime == "flat-exact":
             info["flat_select"] = limits.flat_select()
+            if info["flat_select"] == "approx":
+                info["flat_oversample"] = limits.flat_oversample()
         if regime == "reduced-rank":
             proj = self._proj
             if proj is not None:
@@ -747,27 +785,18 @@ class FusedSearcher:
         is built: the reduced-rank regime never uploads the full-dim f32
         mirror."""
         queries_np = np.atleast_2d(np.asarray(queries, np.float32))
-        flat = self.hybrid.store.capacity <= limits.effective_flat_threshold()
-        if not flat and limits.pca_serve():
+        if self.hybrid.store.capacity <= limits.effective_flat_threshold():
+            self._release_proj()  # the regimes' device state never coexists
+            return self._flat_dispatch(queries_np, k, extra_mask)
+        if limits.pca_serve():
             return self._projected_dispatch(queries_np, k, extra_mask)
         if limits.serving_dtype() != "float32":
             raise NotImplementedError(
-                "FVDB_SERVING_DTYPE=bfloat16 serving (bf16 mirror + f32 "
-                "rerank) is not ported yet")
-        self._release_proj()  # the regimes' device state never coexists
-        if flat:
-            if limits.flat_select() == "approx":
-                raise NotImplementedError(
-                    "FVDB_FLAT_SELECT=approx (approximate pool + rerank) is "
-                    "not ported yet")
-            dev = self._device_state()
-            mask = dev["members"]
-            if extra_mask is not None:
-                cap = int(dev["x"].shape[0])
-                mask = mask & self._device_mask(fit_mask(extra_mask, cap))
-            q = to_device(queries_np, self.hybrid.store.device)
-            vals, rows = l2_topk(dev["x"], dev["x_sq"], mask, q, k)
-            return vals, rows, None
+                "the pruned regime on a bf16 mirror (FVDB_SERVING_DTYPE="
+                "bfloat16 with FVDB_PCA_SERVE=0) needs K10-K13 on bf16 rows "
+                "(greedy descent, beam search, IVF list scan), which are not "
+                "ported yet")
+        self._release_proj()
         dev = self._device_state(pruned=True)
         extra = (dev["ones"] if extra_mask is None else self._device_mask(
             fit_mask(extra_mask, int(dev["x"].shape[0]))))
@@ -778,6 +807,55 @@ class FusedSearcher:
             dev["entry_level"], dev["ivf"], q, k, ef, n_probe,
             dev["has_hnsw"], has_filter=extra_mask is not None,
             beam_expand=limits.beam_expand())
+        return vals, rows, None
+
+    def _flat_dispatch(self, queries_np: np.ndarray, k: int,
+                       extra_mask: np.ndarray | None):
+        """The flat regime, branch for branch as the reference's: K9 + K2
+        under FVDB_FLAT_SELECT=approx; on a bf16 mirror K1 (query rounded)
+        + K2, then (FVDB_BF16_REFINE, the default) the exact host re-score
+        of the survivors from the f32 rows, returned as ``post``; raw K1
+        on a bf16 mirror with FVDB_BF16_RERANK=0; exact K1 on the f32
+        mirror."""
+        dev = self._device_state()
+        x, x_sq = dev["x"], dev["x_sq"]
+        cap = int(x.shape[0])
+        mask = dev["members"]
+        if extra_mask is not None:
+            mask = mask & self._device_mask(fit_mask(extra_mask, cap))
+        q = to_device(queries_np, self.hybrid.store.device)
+        bf16 = x.dtype == torch.bfloat16
+        if limits.flat_select() == "approx" and cap > k:
+            ov_k = min(bucket(max(limits.flat_oversample(), 4 * k)), cap)
+            vals, rows = flat_search_approx(x, x_sq, mask, q, k, ov_k)
+            return vals, rows, None
+        if bf16 and limits.bf16_rerank() and cap > k:
+            if limits.bf16_host_refine():
+                # the device re-score is exact for the bf16-stored rows; the
+                # host re-scores the survivors from the f32 rows, so the
+                # scores are exact and only pool misses remain
+                ov_k = min(bucket(max(8 * k, limits.bf16_oversample())), cap)
+                m = min(bucket(max(32, 4 * k)), ov_k)
+                vals, rows = flat_search_rerank(x, x_sq, mask, q, m, ov_k)
+                store = self.hybrid.store
+
+                def refine(vals_np: np.ndarray, rows_np: np.ndarray):
+                    """Difference-form f32 distances of the m survivors
+                    from the host rows; the k first, stable in pool
+                    order."""
+                    diff = store.data[np.maximum(rows_np, 0)] \
+                        - queries_np[:, None, :]  # [B, m, D]
+                    d = np.einsum("bmd,bmd->bm", diff, diff)
+                    d = np.where(rows_np >= 0, d, np.inf)
+                    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+                    return (np.take_along_axis(d, order, axis=1),
+                            np.take_along_axis(rows_np, order, axis=1))
+
+                return vals, rows, refine
+            ov_k = min(bucket(max(4 * k, 64)), cap)
+            vals, rows = flat_search_rerank(x, x_sq, mask, q, k, ov_k)
+            return vals, rows, None
+        vals, rows = l2_topk(x, x_sq, mask, q, k, round_query=bf16)
         return vals, rows, None
 
     def search(self, queries: np.ndarray, k: int, ef: int, n_probe: int,

@@ -16,8 +16,13 @@ dirty-row bookkeeping of the device adjacency) is a copy. The device side:
 - search: greedy descent over the upper layers (K10,
   :func:`greedy_descent`) and a layer-0 beam (K11, :func:`beam_search`).
 
-``link_mode="per_layer"`` (a beam per layer) is not ported and raises
-``NotImplementedError``.
+The mirror is the serving one (FVDB_SERVING_DTYPE). On a bf16 mirror K1,
+K4 and K5 read bf16 rows upcast exactly, with the f32 query (K1 does not
+round it here) and, for K1 and K5, the mirror's f32 norms of the f32 host
+rows (K4 takes the norms of the upcast rows). The layer-0 link plan and
+search on a bf16 mirror need K10 / K11 on bf16 rows and raise
+``NotImplementedError``, as does ``link_mode="per_layer"`` (a beam per
+layer).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from ..ops.topk import INF, l2_topk
 from ..utils import limits, native
 from ..utils.padding import bucket, fit_mask, grow_rows
 from ..utils.transfer import to_device, to_host
-from .store import VectorStore, serving_mirror
+from .store import VectorStore, refuse_bf16_search, serving_mirror
 
 
 @dataclass
@@ -90,15 +95,17 @@ def heuristic_kept_plain(x, cand_ids, cand_d, m: int) -> torch.Tensor:
 
 
 def heuristic_kept(x, cand_ids, cand_d, m: int) -> torch.Tensor:
-    """K4: heuristic-selection mask. cand_ids int32 / cand_d f32 [B, C],
-    each row sorted ascending by distance to its query (-1 / +inf padded,
-    C <= 128 on the card). Returns kept [B, C] bool with at most m True a
-    row. A -1 id gathers row 0 but is never kept. The plain version on CPU
-    tensors, csrc/heuristic_kept.cu on CUDA tensors."""
+    """K4: heuristic-selection mask over the rows of x [N, D] (f32, or bf16
+    upcast exactly). cand_ids int32 / cand_d f32 [B, C], each row sorted
+    ascending by distance to its query (-1 / +inf padded, C <= 128 on the
+    card). Returns kept [B, C] bool with at most m True a row. A -1 id
+    gathers row 0 but is never kept. The plain version on CPU tensors,
+    csrc/heuristic_kept.cu on CUDA tensors."""
     if x.device.type == "cpu":
         return heuristic_kept_plain(x, cand_ids, cand_d, m)
     dev = x.device
-    native.check(x, "x", torch.float32, 2, dev)
+    bf16 = x.dtype == torch.bfloat16
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(cand_ids, "cand_ids", torch.int32, 2, dev)
     native.check(cand_d, "cand_d", torch.float32, 2, dev)
     b, c = cand_ids.shape
@@ -110,10 +117,12 @@ def heuristic_kept(x, cand_ids, cand_d, m: int) -> torch.Tensor:
         return kept.bool()
     P, I = native.P, native.I
     native.call(
-        "heuristic_kept", "fvdb_heuristic_kept", [P, P, P, I, I, I, I, P, P],
+        "heuristic_kept",
+        "fvdb_heuristic_kept_bf16" if bf16 else "fvdb_heuristic_kept",
+        [P, P, P, I, I, I, I, P, P],
         x.data_ptr(), cand_ids.data_ptr(), cand_d.data_ptr(), b, c,
         x.shape[1], m, kept.data_ptr(), native.stream_of(x))
-    native.launches["heuristic_kept"] += 1
+    native.launches["heuristic_kept_bf16" if bf16 else "heuristic_kept"] += 1
     return kept.bool()
 
 
@@ -124,13 +133,15 @@ def pair_sq_l2_plain(x, x_sq, t_ids, c_ids) -> torch.Tensor:
 
 
 def pair_sq_l2(x, x_sq, t_ids, c_ids) -> torch.Tensor:
-    """K5: squared L2 between row pairs of the mirror: int32 [P] x 2 ->
-    f32 [P]. The plain version on CPU tensors, csrc/pair_sq_l2.cu on CUDA
-    tensors (ids must be in range there)."""
+    """K5: squared L2 between row pairs of the mirror x [N, D] (f32, or
+    bf16 upcast exactly) with its norms x_sq [N]: int32 [P] x 2 -> f32 [P].
+    The plain version on CPU tensors, csrc/pair_sq_l2.cu on CUDA tensors
+    (ids must be in range there)."""
     if x.device.type == "cpu":
         return pair_sq_l2_plain(x, x_sq, t_ids, c_ids)
     dev = x.device
-    native.check(x, "x", torch.float32, 2, dev)
+    bf16 = x.dtype == torch.bfloat16
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(x_sq, "x_sq", torch.float32, 1, dev)
     native.check(t_ids, "t_ids", torch.int32, 1, dev)
     native.check(c_ids, "c_ids", torch.int32, 1, dev)
@@ -142,10 +153,11 @@ def pair_sq_l2(x, x_sq, t_ids, c_ids) -> torch.Tensor:
         return out
     P, I = native.P, native.I
     native.call(
-        "pair_sq_l2", "fvdb_pair_sq_l2", [P, P, P, P, I, I, P, P],
+        "pair_sq_l2", "fvdb_pair_sq_l2_bf16" if bf16 else "fvdb_pair_sq_l2",
+        [P, P, P, P, I, I, P, P],
         x.data_ptr(), x_sq.data_ptr(), t_ids.data_ptr(), c_ids.data_ptr(), p,
         x.shape[1], out.data_ptr(), native.stream_of(x))
-    native.launches["pair_sq_l2"] += 1
+    native.launches["pair_sq_l2_bf16" if bf16 else "pair_sq_l2"] += 1
     return out
 
 
@@ -824,6 +836,8 @@ class HNSWIndex:
             raise NotImplementedError(
                 f"link_mode={cfg.link_mode!r} (a beam per layer) is not "
                 "ported yet")
+        refuse_bf16_search("the HNSW layer-0 link plan",
+                           "K10 / K11 (greedy descent, beam search)")
         # greedy all the way down, one ef_construction beam at layer 0;
         # upper layers link from the same pool, filtered by node level
         mirror = serving_mirror(self.store)
@@ -1009,6 +1023,8 @@ class HNSWIndex:
         """Greedy descent (K10) + one layer-0 beam (K11). Returns
         (distances [B, k] true euclidean, rows [B, k]); ``extra_mask`` (a
         filter) gates the results only, not the traversal."""
+        refuse_bf16_search("HNSW search",
+                           "K10 / K11 (greedy descent, beam search)")
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         ef = bucket(max(ef or self.config.ef_search, k))
         self._fix_entry_point()

@@ -238,6 +238,27 @@ class HybridIndex:
 
         return finalize
 
+    def search_rows_pipelined(self, query_batches, k: int,
+                              config: SearchConfig | None = None,
+                              extra_mask: np.ndarray | None = None,
+                              now: float | None = None,
+                              depth: int = 4) -> list:
+        """Batched searches with up to ``depth`` launched before the first
+        is read back, so a batch's launches overlap the previous batches'
+        readbacks and host re-scores. Takes [B_i, D] query batches; returns
+        their (dists [B_i, k], rows [B_i, k]) in order, equal to
+        :meth:`search_rows` per batch."""
+        fins: list = []
+        out: list = []
+        for qb in query_batches:
+            fins.append(self.search_rows_dispatch(qb, k, config, extra_mask,
+                                                  now=now))
+            if len(fins) >= depth:
+                out.append(fins.pop(0)())
+        while fins:
+            out.append(fins.pop(0)())
+        return out
+
     def search_with_filter(self, query: np.ndarray, k: int,
                            filter: MetadataFilter | dict | None,
                            oversample: int = 3, now: float | None = None,

@@ -23,7 +23,7 @@ from ..ops.topk import (INF, l2_topk, masked_topk, merge_topk_plain,
 from ..utils import native
 from ..utils.padding import bucket, fit_mask, grow_rows
 from ..utils.transfer import to_device, to_host
-from .store import VectorStore, serving_mirror
+from .store import VectorStore, refuse_bf16_search, serving_mirror
 
 # bytes of (distance, row) candidates one K12 launch holds; larger batches
 # run in query chunks
@@ -282,7 +282,8 @@ class IVFIndex:
         mirror = serving_mirror(self.store)
         for lo in range(0, rows.size, self._ASSIGN_CHUNK):
             sub = rows[lo: lo + self._ASSIGN_CHUNK]
-            vecs = mirror.x[to_device(sub, dev)]
+            # bf16 mirror rows are upcast exactly, then K6's f32 assignment
+            vecs = mirror.x[to_device(sub, dev)].float()
             assign, _ = assign_clusters(vecs, cents)
             self.assignments[sub] = assign.cpu().numpy()
         self._version += 1
@@ -385,6 +386,7 @@ class IVFIndex:
         if metric != "euclidean":
             raise NotImplementedError(
                 f"IVF search with metric={metric!r} is not ported yet")
+        refuse_bf16_search("IVF search", "K12 (the IVF list scan)")
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         n_probe = n_probe if n_probe is not None else self.config.n_probe
         mirror = serving_mirror(self.store)

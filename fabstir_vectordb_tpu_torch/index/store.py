@@ -2,13 +2,17 @@
 
 The JAX package's ``index/store.py`` with a PyTorch device mirror. The host
 arrays (data, deleted flags, timestamps, id maps, version) are the same as
-there; the device mirror (x, x_sq) lives on the store's device and is
-uploaded again only when the version changes.
+there; the device mirror (x, x_sq) lives on the store's device, in f32 or
+bf16, and is uploaded again only when the version or the dtype changes.
+The host row norms are keyed by a second version that only row-data changes
+bump (soft deletes do not), and cover the ``count`` allocated rows only.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -17,7 +21,7 @@ import torch
 from ..utils import limits
 from ..utils.device import resolve_device
 from ..utils.padding import grow_capacity, grow_rows
-from ..utils.transfer import to_device
+from ..utils.transfer import put_bf16_blocks, to_device
 
 
 class DuplicateIdError(ValueError):
@@ -34,9 +38,36 @@ class DimensionMismatchError(ValueError):
 
 @dataclass
 class DeviceMirror:
-    x: torch.Tensor  # [capacity, dim] f32
-    x_sq: torch.Tensor  # [capacity] f32
+    x: torch.Tensor  # [capacity, dim] f32 or bf16
+    x_sq: torch.Tensor  # [capacity] f32 norms of the f32 host rows
     version: int
+    dtype: str = "float32"
+
+
+# rows a thread squares at a time in row_sq_norms
+_NORM_CHUNK = 65_536
+
+
+def row_sq_norms(data: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """out[i] = |data[i]|^2 in f32, np.einsum's arithmetic row by row,
+    chunks of rows spread over host threads (einsum releases the GIL, and
+    a row's sum does not depend on the chunk it is in)."""
+    n = data.shape[0]
+
+    def one(lo: int) -> None:
+        blk = data[lo: lo + _NORM_CHUNK]
+        np.einsum("nd,nd->n", blk, blk, dtype=np.float32,
+                  out=out[lo: lo + blk.shape[0]])
+
+    starts = range(0, n, _NORM_CHUNK)
+    workers = min(8, os.cpu_count() or 1, len(starts))
+    if workers <= 1:
+        for lo in starts:
+            one(lo)
+    else:
+        with ThreadPoolExecutor(workers) as ex:
+            list(ex.map(one, starts))
+    return out
 
 
 class VectorStore:
@@ -59,6 +90,9 @@ class VectorStore:
         self.id_to_row: dict[str, int] = {}
         self.row_to_id: list = []
         self._version = 0
+        # bumped by every change of row data (add, fill, register, vacuum,
+        # bump_version), not by soft deletes: it keys the host row norms
+        self._data_version = 0
         self._mirror: DeviceMirror | None = None
         self._host_sq: tuple | None = None
         self._lock = threading.RLock()
@@ -83,17 +117,23 @@ class VectorStore:
     def _check_new_ids(self, ids: list) -> None:
         """Duplicate-id validation that permits re-inserting a soft-deleted
         id: the tombstoned row releases its mapping (stays deleted forever)
-        and the id maps to the new row."""
-        if len(set(ids)) != len(ids):
+        and the id maps to the new row. Only the ids already mapped are
+        visited (a set intersection finds them); a live one raises before
+        any mapping is released."""
+        uniq = set(ids)
+        if len(uniq) != len(ids):
             raise DuplicateIdError("duplicate ids within batch")
-        for vid in ids:
-            row = self.id_to_row.get(vid)
-            if row is None:
-                continue
-            if not self.deleted[row]:
-                raise DuplicateIdError(f"duplicate vector id: {vid}")
-            self.row_to_id[row] = None
-            del self.id_to_row[vid]
+        if not self.id_to_row:
+            return
+        hits = uniq.intersection(self.id_to_row)
+        if not hits:
+            return
+        live = {vid for vid in hits if not self.deleted[self.id_to_row[vid]]}
+        if live:
+            first = next(vid for vid in ids if vid in live)
+            raise DuplicateIdError(f"duplicate vector id: {first}")
+        for vid in hits:
+            self.row_to_id[self.id_to_row.pop(vid)] = None
 
     def _grow_to(self, needed: int) -> None:
         if needed <= self.capacity:
@@ -128,6 +168,7 @@ class VectorStore:
                 self.row_to_id.append(vid)
             self.count += n
             self._version += 1
+            self._data_version += 1
             self.device_source = None
             return rows
 
@@ -168,6 +209,7 @@ class VectorStore:
             self.row_to_id.extend(ids)
             self.count += n
             self._version += 1
+            self._data_version += 1
             self.device_source = None
             return rows
 
@@ -180,12 +222,16 @@ class VectorStore:
         with self._lock:
             self.data[start_row: start_row + block.shape[0]] = block
             self.device_source = None
+            self._data_version += 1
             if bump_version:
                 self._version += 1
 
     def bump_version(self) -> None:
+        """Retire every cached state of the rows (after writes made straight
+        into ``data``)."""
         with self._lock:
             self._version += 1
+            self._data_version += 1
 
     def row_of(self, vid: str) -> int:
         try:
@@ -231,6 +277,7 @@ class VectorStore:
                     self.row_to_id[row] = None
                 self.data[row] = 0.0
             self._version += 1
+            self._data_version += 1
             self.device_source = None
             return removed
 
@@ -252,19 +299,28 @@ class VectorStore:
 
     def device_mirror(self, dtype: str = "float32") -> DeviceMirror:
         """Device-resident (x, x_sq); uploaded again only when the host
-        data changed. Only the f32 mirror is ported: a bf16 one raises."""
-        if dtype != "float32":
-            raise NotImplementedError(
-                f"a {dtype} device mirror is not ported yet "
-                "(FVDB_SERVING_DTYPE=float32 is)")
+        data or the dtype changed. ``dtype="bfloat16"`` keeps the rows in
+        bf16 (rounded to nearest even from the f32 host rows, half the
+        device memory) with x_sq the f32 norms of the f32 host rows
+        (:meth:`host_sq`). One mirror is held at a time."""
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"mirror dtype must be float32|bfloat16, got "
+                             f"{dtype}")
         with self._lock:
             m = self._mirror
-            if m is None or m.version != self._version:
+            if m is None or m.version != self._version or m.dtype != dtype:
                 # free the stale mirror before allocating the new one
                 self._mirror = m = None
-                x = to_device(self.data, self.device)
-                self._mirror = DeviceMirror(
-                    x=x, x_sq=(x * x).sum(1), version=self._version)
+                if dtype == "bfloat16":
+                    x = put_bf16_blocks(self.data, self.data.shape[0],
+                                        self.device)
+                    x_sq = to_device(self.host_sq(), self.device)
+                else:
+                    x = to_device(self.data, self.device)
+                    x_sq = (x * x).sum(1)
+                self._mirror = DeviceMirror(x=x, x_sq=x_sq,
+                                            version=self._version,
+                                            dtype=dtype)
             return self._mirror
 
     def release_mirror(self) -> None:
@@ -274,14 +330,16 @@ class VectorStore:
             self._mirror = None
 
     def host_sq(self) -> np.ndarray:
-        """[capacity] f32 squared norms of the host rows, cached by version
-        (the host rerank of the reduced-rank regime reads them)."""
+        """[capacity] f32 squared norms of the host rows (0 past ``count``),
+        cached by the row-data version: a soft delete keeps them (the host
+        rerank of the reduced-rank regime and the bf16 mirror read them)."""
         with self._lock:
             cached = self._host_sq
-            if cached is None or cached[0] != self._version:
-                sq = np.einsum("nd,nd->n", self.data, self.data,
-                               dtype=np.float32)
-                self._host_sq = cached = (self._version, sq)
+            if cached is None or cached[0] != self._data_version \
+                    or cached[1].shape[0] != self.data.shape[0]:
+                sq = np.zeros(self.data.shape[0], np.float32)
+                row_sq_norms(self.data[: self.count], sq)
+                self._host_sq = cached = (self._data_version, sq)
             return cached[1]
 
     def memory_usage_bytes(self) -> int:
@@ -292,3 +350,12 @@ class VectorStore:
 def serving_mirror(store: VectorStore) -> DeviceMirror:
     """The mirror in the serving dtype (FVDB_SERVING_DTYPE)."""
     return store.device_mirror(limits.serving_dtype())
+
+
+def refuse_bf16_search(what: str, kernels: str) -> None:
+    """Raise NotImplementedError when a bf16 mirror serves: ``what`` reads
+    the mirror through ``kernels``, which take f32 rows only so far."""
+    if limits.serving_dtype() != "float32":
+        raise NotImplementedError(
+            f"{what} on a bf16 mirror (FVDB_SERVING_DTYPE=bfloat16) needs "
+            f"{kernels} on bf16 rows, which are not ported yet")

@@ -19,13 +19,17 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_sq_l2(q: torch.Tensor, x: torch.Tensor,
-                   x_sq: torch.Tensor | None = None) -> torch.Tensor:
+                   x_sq: torch.Tensor | None = None,
+                   round_query: bool = False) -> torch.Tensor:
     """[B, N] squared euclidean distances via |q|^2 - 2 q.x + |x|^2,
-    clamped at 0."""
+    clamped at 0. bf16 rows are upcast exactly; ``round_query`` rounds q to
+    bf16 in the product only (the reference's compute_dtype=bfloat16:
+    |q|^2 from the f32 q, x_sq as given, f32 accumulation)."""
     if x_sq is None:
         x_sq = squared_norms(x)
     q_sq = squared_norms(q)
-    d = q_sq[:, None] - 2.0 * (q.float() @ x.float().T) + x_sq[None, :]
+    qd = q.to(torch.bfloat16).float() if round_query else q.float()
+    d = q_sq[:, None] - 2.0 * (qd @ x.float().T) + x_sq[None, :]
     return d.clamp_min(0.0)
 
 

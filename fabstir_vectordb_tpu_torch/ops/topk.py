@@ -1,4 +1,5 @@
-"""Masked top-k selection, top-k merges, and the fused L2 top-k kernel (K1).
+"""Masked top-k selection, top-k merges, the fused L2 top-k kernel (K1) and
+the approximate binned pool (K9).
 
 Smaller distance = better everywhere; entries that are masked out or not
 finite surface as (+inf, -1). Ties go to the lower index, in the plain
@@ -109,13 +110,123 @@ def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int, out=None):
     return out_v, out_r
 
 
-def l2_topk_plain(x, x_sq, mask, q, k: int, row_base: int = 0):
+def l2_topk_plain(x, x_sq, mask, q, k: int, row_base: int = 0,
+                  round_query: bool = False):
     """Plain version of K1: the [B, N] distance matrix, then masked_topk.
-    bf16 rows are upcast; x_sq None takes their norms."""
-    vals, rows = masked_topk(pairwise_sq_l2(q, x.float(), x_sq), mask, k)
+    bf16 rows are upcast; x_sq None takes their norms; ``round_query`` as
+    in :func:`l2_topk`."""
+    vals, rows = masked_topk(pairwise_sq_l2(q, x, x_sq, round_query), mask,
+                             k)
     if row_base:
         rows = torch.where(rows >= 0, rows + row_base, rows)
     return vals, rows
+
+
+def approx_bins(n: int, k: int, recall_target: float = 0.95) -> int:
+    """K9's bin count M for a pool of k out of n: a true top-k row is lost
+    only when a better row shares its bin, so the expected recall is
+    ((M - 1) / M)^(k - 1); M = ceil(1 / (1 - r^(1 / (k - 1)))), clamped to
+    [1, n] (M = n is the exact pool)."""
+    if k <= 1 or n <= k:
+        return max(n, 1)
+    m = math.ceil(1.0 / (1.0 - recall_target ** (1.0 / (k - 1))))
+    return max(1, min(m, n))
+
+
+def masked_approx_topk(dists: torch.Tensor, mask, k: int,
+                       recall_target: float = 0.95):
+    """Plain version of K9's selection (the reference's masked_approx_topk
+    over lax.approx_min_k): entry j of each row goes to bin j mod M
+    (:func:`approx_bins`), each bin keeps its smallest (distance, row), and
+    the k smallest minima come out by (distance, row), padded with
+    (+inf, -1). A bin with no unmasked finite entry holds nothing."""
+    b, n = dists.shape
+    masked = dists
+    if mask is not None:
+        if mask.dim() == 1:
+            mask = mask[None, :]
+        masked = torch.where(mask, dists, torch.full_like(dists, INF))
+    masked = torch.where(torch.isfinite(masked), masked,
+                         torch.full_like(masked, INF))
+    m = approx_bins(n, k, recall_target)
+    if m >= n:
+        return masked_topk(masked, None, k)
+    v = torch.nn.functional.pad(masked, (0, (-n) % m), value=INF)
+    v = v.view(b, -1, m)  # [b, i, j] is row i * m + j
+    mins = v.min(dim=1).values
+    first = (v == mins[:, None, :]).to(torch.int32).argmax(dim=1)
+    rows = (first * m + torch.arange(m, device=dists.device)).to(torch.int32)
+    rows = torch.where(torch.isfinite(mins), rows, torch.full_like(rows, -1))
+    return merge_topk_plain(mins, rows, mins[:, :0], rows[:, :0], k)
+
+
+def approx_topk_plain(x, x_sq, mask, q, ov_k: int,
+                      round_query: bool = False):
+    """Plain version of K9: the [B, N] distance matrix, then
+    :func:`masked_approx_topk`."""
+    return masked_approx_topk(pairwise_sq_l2(q, x, x_sq, round_query), mask,
+                              ov_k)
+
+
+def approx_topk(x, x_sq, mask, q, ov_k: int, round_query: bool = False):
+    """K9 (the reference's masked_approx_topk over the flat scan's
+    distances, ``index/fused.py:114``): a pool of ov_k rows of x [N, D] (f32
+    or bf16) for each query of q [B, D] f32, the ov_k smallest of the
+    (distance, row) minima of M bins (row r in bin r mod M; M from
+    :func:`approx_bins` at recall target 0.95). x_sq [N] f32 norms; mask [N]
+    or [B, N] bool, or None for every row; ``round_query`` (bf16 rows only)
+    as in :func:`l2_topk`. Returns (vals [B, ov_k] f32, rows [B, ov_k]
+    int32) by (distance, row), padded with (+inf, -1). The plain version on
+    CPU tensors, csrc/approx_topk.cu on CUDA tensors."""
+    bf16 = x.dtype == torch.bfloat16
+    if round_query and not bf16:
+        raise ValueError("approx_topk: round_query takes bf16 rows")
+    if x.device.type == "cpu":
+        return approx_topk_plain(x, x_sq, mask, q, ov_k, round_query)
+    dev = x.device
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
+    native.check(q, "q", torch.float32, 2, dev)
+    native.check(x_sq, "x_sq", torch.float32, 1, dev)
+    n, d = x.shape
+    b = q.shape[0]
+    _check_mask(mask, b, n, dev)
+    if q.shape[1] != d or x_sq.shape[0] != n or ov_k < 1:
+        raise ValueError(f"approx_topk: x {tuple(x.shape)}, q "
+                         f"{tuple(q.shape)}, x_sq {tuple(x_sq.shape)}, "
+                         f"ov_k={ov_k}")
+    out_d = torch.empty((b, ov_k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, ov_k), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return out_d.fill_(INF), out_r.fill_(-1)
+    m = approx_bins(n, ov_k)
+    rounds = math.ceil(n / m)
+    P, I, L = native.P, native.I, native.L
+    m_stride = n if mask is not None and mask.dim() == 2 else 0
+    for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
+        hi = min(b, lo + _MAX_GRID_Q)
+        bb = hi - lo
+        # round ranges so that the grid fits one wave at 2 blocks an SM: a
+        # few blocks past it would run as a second wave of their own
+        tiles = math.ceil(bb / 32) * math.ceil(m / 256)
+        z = max(1, min(rounds, 2 * _num_sms(dev) // tiles))
+        i_per = math.ceil(rounds / z)
+        z = math.ceil(rounds / i_per)
+        keys = torch.empty((bb, m), dtype=torch.int64, device=dev)
+        cand_d = torch.empty((bb, m), dtype=torch.float32, device=dev)
+        cand_r = torch.empty((bb, m), dtype=torch.int32, device=dev)
+        work = select_scratch("approx_topk", bb, ov_k, dev)
+        m_ptr = 0 if mask is None else (mask[lo:hi].data_ptr() if m_stride
+                                        else mask.data_ptr())
+        native.call(
+            "approx_topk", "fvdb_approx_pool",
+            [P, I, I, P, P, L, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
+            x.data_ptr(), int(bf16), int(round_query), x_sq.data_ptr(),
+            m_ptr, m_stride, q[lo:hi].data_ptr(), bb, n, d, m, ov_k, z,
+            i_per, keys.data_ptr(), cand_d.data_ptr(), cand_r.data_ptr(),
+            work.data_ptr(), out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
+            native.stream_of(x))
+        native.launches["approx_topk"] += 1
+    return out_d, out_r
 
 
 _SMS: dict = {}
@@ -145,30 +256,35 @@ def select_scratch(source: str, b: int, k: int, device) -> torch.Tensor:
 
 
 def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
-            q: torch.Tensor, k: int, row_base: int = 0):
+            q: torch.Tensor, k: int, row_base: int = 0,
+            round_query: bool = False):
     """K1: masked squared-L2 exact top-k of q [B, D] over x [N, D].
 
-    x_sq [N] f32 row norms, or None to take them in the kernel; mask [N] or
-    [B, N] bool, or None for every row; any k >= 1 (k <= 256 for bf16
-    rows); ``row_base`` is added to every result row. Returns
-    (vals [B, k] f32, rows [B, k] int32) sorted by (distance, row), padded
-    with +inf / -1 (also when fewer than k rows are unmasked). On CPU
-    tensors it runs the plain version; on CUDA tensors it launches
-    csrc/l2_topk.cu (k <= 256: per-query lists in shared memory; larger k:
-    the masked distances of a query chunk to a buffer, then a radix select)
-    or raises.
+    x [N, D] f32 or bf16 (upcast exactly); x_sq [N] f32 row norms, or None
+    to take them in the kernel; mask [N] or [B, N] bool, or None for every
+    row; any k >= 1; ``row_base`` is added to every result row;
+    ``round_query`` (bf16 rows only) rounds q to bf16 in the product, with
+    |q|^2 from the f32 q: the bf16 serving mirror's distance, whose x_sq are
+    the f32 norms of the f32 host rows. Returns (vals [B, k] f32, rows
+    [B, k] int32) sorted by (distance, row), padded with +inf / -1 (also
+    when fewer than k rows are unmasked). On CPU tensors it runs the plain
+    version; on CUDA tensors it launches csrc/l2_topk.cu (k <= 256:
+    per-query lists in shared memory; larger k: the masked distances of a
+    query chunk to a buffer, then a radix select) or raises.
 
-    bf16 rows (the reduced-rank calibration oracle's streamed blocks) are
-    upcast exactly, and x_sq None takes the norms of the upcast rows; the
-    tiered exact search streams f32 tiles without norms."""
+    bf16 rows without rounding: the HNSW link candidates on a bf16 mirror
+    and the reduced-rank calibration oracle's streamed blocks (x_sq None
+    takes the norms of the upcast rows); the tiered exact search streams
+    f32 tiles without norms."""
+    bf16 = x.dtype == torch.bfloat16
+    if round_query and not bf16:
+        raise ValueError("l2_topk: round_query takes bf16 rows")
     if x.device.type == "cpu":
-        return l2_topk_plain(x, x_sq, mask, q, k, row_base)
+        return l2_topk_plain(x, x_sq, mask, q, k, row_base, round_query)
     if x.device.type != "cuda":
         raise ValueError(f"l2_topk: unsupported device {x.device}")
-    if x.dtype == torch.bfloat16:
-        return _l2_topk_bf16(x, x_sq, mask, q, k, row_base)
     dev = x.device
-    native.check(x, "x", torch.float32, 2, dev)
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(q, "q", torch.float32, 2, dev)
     n, d = x.shape
     b = q.shape[0]
@@ -192,6 +308,13 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
     scratch = torch.empty(n, dtype=torch.float32, device=dev) \
         if x_sq is None else None
     scratch_ptr = 0 if scratch is None else scratch.data_ptr()
+    # one counter a kernel: f32 rows, bf16 rows, bf16 rows with the query
+    # rounded; the k > 256 path of f32 rows counts apart
+    counter = ("l2_topk_bf16_rq" if round_query else "l2_topk_bf16") \
+        if bf16 else None
+    # bf16 entry points take round_q after their last int
+    rq = [int(round_query)] if bf16 else []
+    rq_t = [I] if bf16 else []
     if k > _SMALL_K:
         qc = max(1, min(b, _DUMP_BYTES // (4 * n), _MAX_GRID_Q))
         for lo in range(0, b, qc):
@@ -199,15 +322,16 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
             dump = torch.empty((hi - lo, n), dtype=torch.float32, device=dev)
             work = select_scratch("l2_topk", hi - lo, k, dev)
             native.call(
-                "l2_topk", "fvdb_l2_topk_large",
-                [P, P, P, L, P, I, I, I, I, I, P, P, P, P, P, P],
+                "l2_topk", "fvdb_l2_topk_large_bf16" if bf16
+                else "fvdb_l2_topk_large",
+                [P, P, P, L, P, I, I, I, I, I, *rq_t, P, P, P, P, P, P],
                 x.data_ptr(), sq_ptr, mask[lo:hi].data_ptr()
                 if m_stride else m_ptr, m_stride,
                 q[lo:hi].data_ptr(), hi - lo, n, d, k,
-                _splits(hi - lo, n, dev), scratch_ptr, dump.data_ptr(),
+                _splits(hi - lo, n, dev), *rq, scratch_ptr, dump.data_ptr(),
                 work.data_ptr(), out_d[lo:hi].data_ptr(),
                 out_r[lo:hi].data_ptr(), native.stream_of(x))
-            native.launches["l2_topk_large"] += 1
+            native.launches[counter or "l2_topk_large"] += 1
             # the norms of this x are in scratch now: later chunks reuse them
             sq_ptr = sq_ptr or scratch_ptr
         if row_base:
@@ -217,13 +341,13 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
     part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
     part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
     native.call(
-        "l2_topk", "fvdb_l2_topk",
-        [P, P, P, L, P, I, I, I, I, I, I, P, P, P, P, P, P],
+        "l2_topk", "fvdb_l2_topk_bf16" if bf16 else "fvdb_l2_topk",
+        [P, P, P, L, P, I, I, I, I, I, I, *rq_t, P, P, P, P, P, P],
         x.data_ptr(), sq_ptr, m_ptr, m_stride,
-        q.data_ptr(), b, n, d, k, splits, row_base, scratch_ptr,
+        q.data_ptr(), b, n, d, k, splits, row_base, *rq, scratch_ptr,
         part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
         out_r.data_ptr(), native.stream_of(x))
-    native.launches["l2_topk"] += 1
+    native.launches[counter or "l2_topk"] += 1
     return out_d, out_r
 
 
@@ -236,43 +360,6 @@ def _check_mask(mask, b: int, n: int, dev) -> None:
     if mask.shape[-1] != n or (mask.dim() == 2 and mask.shape[0] != b):
         raise ValueError(f"mask {tuple(mask.shape)} does not fit B={b}, "
                          f"N={n}")
-
-
-def _l2_topk_bf16(x, x_sq, mask, q, k: int, row_base: int):
-    dev = x.device
-    native.check(x, "x", torch.bfloat16, 2, dev)
-    native.check(q, "q", torch.float32, 2, dev)
-    n, d = x.shape
-    b = q.shape[0]
-    if x_sq is not None:
-        native.check(x_sq, "x_sq", torch.float32, 1, dev)
-        if x_sq.shape[0] != n:
-            raise ValueError("x_sq does not fit x")
-    _check_mask(mask, b, n, dev)
-    if q.shape[1] != d or not 1 <= k <= _SMALL_K:
-        raise ValueError(f"l2_topk on bf16 rows takes q [B, {d}] and k <= "
-                         f"{_SMALL_K}, got {tuple(q.shape)} and k={k}")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
-    if b == 0 or n == 0:
-        return out_d.fill_(INF), out_r.fill_(-1)
-    splits = _splits(b, n, dev)
-    part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
-    part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
-    scratch = torch.empty(n, dtype=torch.float32, device=dev) \
-        if x_sq is None else None
-    P, I, L = native.P, native.I, native.L
-    native.call(
-        "l2_topk", "fvdb_l2_topk_bf16",
-        [P, P, P, L, P, I, I, I, I, I, I, P, P, P, P, P, P],
-        x.data_ptr(), 0 if x_sq is None else x_sq.data_ptr(),
-        0 if mask is None else mask.data_ptr(),
-        n if mask is not None and mask.dim() == 2 else 0, q.data_ptr(), b, n,
-        d, k, splits, row_base, 0 if scratch is None else scratch.data_ptr(),
-        part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
-        out_r.data_ptr(), native.stream_of(x))
-    native.launches["l2_topk_bf16"] += 1
-    return out_d, out_r
 
 
 def _splits(b: int, n: int, dev) -> int:

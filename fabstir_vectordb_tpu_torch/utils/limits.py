@@ -2,8 +2,9 @@
 
 Same environment variables and defaults as the JAX package's
 ``utils/limits.py``, limited to what the ported slices read: the flat
-threshold, the serving dtype, the flat selection, the reduced-rank regime's
-knobs and budgets, and the beam's expansion width.
+threshold, the serving dtype and the bf16 flat regime's re-score knobs, the
+flat selection and its pool width, the reduced-rank regime's knobs and
+budgets, and the beam's expansion width.
 """
 from __future__ import annotations
 
@@ -99,9 +100,39 @@ def serving_dtype() -> str:
     return os.environ.get("FVDB_SERVING_DTYPE", "float32")
 
 
+def bf16_rerank() -> bool:
+    """f32 re-scoring of bf16 flat-scan candidates (FVDB_BF16_RERANK,
+    default on): the bf16 flat regime takes a wider pool from the bf16
+    scan and re-scores it on the device in the f32 difference form, exact
+    with respect to the bf16-stored rows."""
+    return os.environ.get("FVDB_BF16_RERANK", "1") != "0"
+
+
+def bf16_host_refine() -> bool:
+    """Exact host refine of the bf16 flat regime's device-cut survivors
+    (FVDB_BF16_REFINE, default on; only read when bf16_rerank is on): the
+    survivors are re-scored from the f32 host rows, so the scores are
+    exact and only pool misses remain."""
+    return os.environ.get("FVDB_BF16_REFINE", "1") != "0"
+
+
+def bf16_oversample() -> int:
+    """Pool width floor of the bf16 flat refine (FVDB_BF16_OVERSAMPLE,
+    default 128, at least 32): the pool is bucket(max(8 k, this)), capped
+    at the mirror's rows."""
+    return max(32, int(os.environ.get("FVDB_BF16_OVERSAMPLE", 128)))
+
+
 def flat_select() -> str:
-    """Flat-regime selection ("exact" | "approx", FVDB_FLAT_SELECT)."""
+    """Flat-regime selection ("exact" | "approx", FVDB_FLAT_SELECT). approx:
+    a binned approximate pool (K9) re-scored exactly in f32 (K2)."""
     v = os.environ.get("FVDB_FLAT_SELECT", "exact")
     if v not in ("exact", "approx"):
         raise ValueError(f"FVDB_FLAT_SELECT must be exact|approx, got {v}")
     return v
+
+
+def flat_oversample() -> int:
+    """Approximate flat selection's pool width (FVDB_FLAT_OVERSAMPLE,
+    default 128, at least 16); dispatch widens it to at least 4 k."""
+    return max(16, int(os.environ.get("FVDB_FLAT_OVERSAMPLE", 128)))

@@ -28,17 +28,19 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("l2_topk", "heuristic_kept", "pair_sq_l2", "lloyd",
            "greedy_descent", "beam_search", "ivf_scan", "kmeans_seed",
            "stage1_select", "project_rows", "rerank_f32", "merge_topk",
-           "synth")
+           "synth", "approx_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: dict[str, int] = {
-    "l2_topk": 0, "l2_topk_large": 0, "l2_topk_bf16": 0, "heuristic_kept": 0,
-    "pair_sq_l2": 0, "lloyd_block": 0, "assign_clusters": 0,
-    "greedy_descent": 0, "beam_search": 0, "ivf_scan": 0, "seed_pick": 0,
-    "seed_min_update": 0, "seed_counts": 0, "stage1_select": 0,
-    "project_rows": 0, "project_queries": 0, "rerank_f32": 0,
-    "merge_topk": 0, "synth_rows": 0,
+    "l2_topk": 0, "l2_topk_large": 0, "l2_topk_bf16": 0,
+    "l2_topk_bf16_rq": 0, "heuristic_kept": 0, "heuristic_kept_bf16": 0,
+    "pair_sq_l2": 0, "pair_sq_l2_bf16": 0, "lloyd_block": 0,
+    "assign_clusters": 0, "greedy_descent": 0, "beam_search": 0,
+    "ivf_scan": 0, "seed_pick": 0, "seed_min_update": 0, "seed_counts": 0,
+    "stage1_select": 0, "project_rows": 0, "project_queries": 0,
+    "rerank_f32": 0, "rerank_f32_rows": 0, "merge_topk": 0, "synth_rows": 0,
+    "approx_topk": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -279,20 +279,29 @@ def test_convert_carries_a_jax_index_across():
 
 
 def test_unported_serving_branches_raise(monkeypatch):
-    """bf16 mirrors and approximate flat selection raise instead of serving
-    some other way; above the flat threshold the reduced-rank regime (the
-    default) answers, and with FVDB_PCA_SERVE=0 the same store serves the
-    pruned regime; per-engine k answers."""
+    """bf16 mirrors and approximate flat selection serve the flat regime;
+    the pruned regime on a bf16 mirror is not ported and raises instead of
+    serving some other way; above the flat threshold the reduced-rank
+    regime (the default) answers, and with FVDB_PCA_SERVE=0 the same store
+    serves the pruned regime; per-engine k answers."""
     _, ht, _ = _hybrid_pair(n=300, seed=14)
     q = _data(15, 2)
     cfg = SearchConfig(auto_migrate=False)
     monkeypatch.setenv("FVDB_SERVING_DTYPE", "bfloat16")
+    d, r = ht.search_rows(q, 5, cfg)
+    assert r.shape == (2, 5) and (r >= 0).all()
+    monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "256")
+    monkeypatch.setattr(limits, "FLAT_THRESHOLD", 256)
+    monkeypatch.setenv("FVDB_PCA_SERVE", "0")
     with pytest.raises(NotImplementedError):
         ht.search_rows(q, 5, cfg)
+    monkeypatch.delenv("FVDB_PCA_SERVE")
+    monkeypatch.delenv("FVDB_FLAT_THRESHOLD")
+    monkeypatch.setattr(limits, "FLAT_THRESHOLD", 4_194_304)
     monkeypatch.delenv("FVDB_SERVING_DTYPE")
     monkeypatch.setenv("FVDB_FLAT_SELECT", "approx")
-    with pytest.raises(NotImplementedError):
-        ht.search_rows(q, 5, cfg)
+    d, r = ht.search_rows(q, 5, cfg)
+    assert r.shape == (2, 5) and (r >= 0).all()
     monkeypatch.delenv("FVDB_FLAT_SELECT")
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "256")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 256)

@@ -360,8 +360,6 @@ def test_stage1_select_kernel_matches_plain_on_card(b, ov_k, n, keep, chunk,
     from fabstir_vectordb_tpu_torch.index import fused as fused_t
     from fabstir_vectordb_tpu_torch.utils import native
 
-    if chunk:
-        monkeypatch.setattr(fused_t, "_DUMP_BYTES", chunk * n * 4)
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
     r = 192
@@ -370,7 +368,8 @@ def test_stage1_select_kernel_matches_plain_on_card(b, ov_k, n, keep, chunk,
     qp = torch.randn(b, r, device=dev, generator=g)
     mask = torch.rand(n, device=dev, generator=g) < keep
     before = native.launches["stage1_select"]
-    vt, rt = fused_t.stage1_select(xp, xp_sq, mask, qp, ov_k)
+    budget = {"transient_bytes": chunk * n * 4} if chunk else {}
+    vt, rt = fused_t.stage1_select(xp, xp_sq, mask, qp, ov_k, **budget)
     assert native.launches["stage1_select"] - before == -(-b // (chunk or b))
     vp, rp = fused_t.stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
     _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
@@ -629,3 +628,144 @@ def test_tiered_search_streams_exactly_on_card():
     # a second search reuses the buffers
     vt2, rt2 = on_card.search(q, 10)
     assert np.array_equal(rt2, rt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget_gib,launches", [(2, 1), (1, 2)])
+def test_stage1_launches_follow_the_transient_budget(budget_gib, launches):
+    """A 32-query sub-batch over 10,485,760 rows: under 1 GiB a launch
+    holds 25 queries (two launches, two passes over the mirror); under the
+    2 GiB that the reduced-rank dispatch passes at bench.py's operating
+    point it is one launch, and the answers are the same."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(12)
+    n, r, b = 10_485_760, 16, 32
+    assert (1 << 30) // (4 * n) == 25
+    xp = torch.randn(n, r, device=dev, generator=g).to(torch.bfloat16)
+    xp_sq = (xp.float() ** 2).sum(1)
+    qp = torch.randn(b, r, device=dev, generator=g)
+    before = native.launches["stage1_select"]
+    vt, rt = fused_t.stage1_select(xp, xp_sq, None, qp, 64,
+                                   budget_gib << 30)
+    assert native.launches["stage1_select"] - before == launches
+    vr, rr = fused_t.stage1_select(xp, xp_sq, None, qp, 64, 4 << 30)
+    assert torch.equal(vt, vr) and torch.equal(rt, rr)
+
+
+def _pool_overlap(rt, rp):
+    """Mean share of each query's plain pool rows that the kernel's holds."""
+    rt, rp = rt.cpu().numpy(), rp.cpu().numpy()
+    return float(np.mean([
+        len(set(a[a >= 0].tolist()) & set(b[b >= 0].tolist()))
+        / max(int((b >= 0).sum()), 1) for a, b in zip(rt, rp)]))
+
+
+def _assert_shared_rows_close(vt, rt, vp, rp, rtol):
+    """Rows in both pools carry the same distance within rtol."""
+    vt, rt, vp, rp = (t.cpu().numpy() for t in (vt, rt, vp, rp))
+    for i in range(rt.shape[0]):
+        dt = dict(zip(rt[i].tolist(), vt[i].tolist()))
+        for r, v in zip(rp[i].tolist(), vp[i].tolist()):
+            if r >= 0 and r in dt:
+                assert abs(dt[r] - v) <= rtol * max(abs(v), 1.0), (i, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,n,ov_k,keep", [
+    ("float32", 128, 262_144, 128, 0.9), ("bfloat16", 128, 262_144, 128, 0.9),
+    ("float32", 1, 1_000_003, 128, 1.0), ("bfloat16", 3, 100_000, 16, 0.5),
+    ("float32", 5, 2000, 128, 0.9), ("bfloat16", 4, 5000, 64, 0.002)])
+def test_approx_topk_kernel_matches_plain_on_card(dtype, b, n, ov_k, keep):
+    """K9 against its plain version on f32 and bf16 rows (the query rounded
+    on bf16 rows): the pools share >= 0.99 of their rows on average and the
+    shared rows' distances agree within 1e-5 relative (near-tied bin
+    minima may go either way under another summation order). Also M = N
+    (an exact pool), a last partial round, and (keep 0.2%) fewer unmasked
+    rows than ov_k, so the pool pads with (+inf, -1)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(n, 384, device=dev, generator=g)
+    bf16 = dtype == "bfloat16"
+    x_sq = (x * x).sum(1)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    q = torch.randn(b, 384, device=dev, generator=g)
+    mask = torch.rand(n, device=dev, generator=g) < keep
+    vt, rt = topk_t.approx_topk(x, x_sq, mask, q, ov_k, round_query=bf16)
+    vp, rp = topk_t.approx_topk_plain(x, x_sq, mask, q, ov_k,
+                                      round_query=bf16)
+    assert _pool_overlap(rt, rp) >= 0.99
+    _assert_shared_rows_close(vt, rt, vp, rp, 1e-5)
+    fin = torch.isfinite(vt)
+    assert torch.equal(fin, torch.isfinite(vp)) and (rt[~fin] == -1).all()
+    assert mask[rt[fin].long()].all()
+    assert (vt[:, 1:] >= vt[:, :-1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(128, 16), (128, 128), (37, 256),
+                                 (128, 1024), (5, 5000)])
+def test_l2_topk_rounded_query_on_bf16_rows_matches_plain_on_card(b, k):
+    """K1 on a bf16 serving mirror: the query rounded to bf16 in the
+    product, |q|^2 from the f32 query, x_sq the f32 norms of the f32 rows,
+    at k <= 256 (lists) and k > 256 (buffer + radix select)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(14)
+    n = 131_072
+    xf = torch.randn(n, 384, device=dev, generator=g)
+    x_sq = (xf * xf).sum(1)
+    x = xf.to(torch.bfloat16)
+    q = torch.randn(b, 384, device=dev, generator=g)
+    mask = torch.rand(n, device=dev, generator=g) < 0.9
+    vt, rt = topk_t.l2_topk(x, x_sq, mask, q, k, round_query=True)
+    vp, rp = topk_t.l2_topk_plain(x, x_sq, mask, q, k, round_query=True)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+    # rounding changes the distances: the unrounded kernel differs
+    vu, _ = topk_t.l2_topk(x, x_sq, mask, q, k)
+    assert not torch.equal(vu, vt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ov,m", [(128, 16), (1024, 64), (8192, 2048)])
+def test_rerank_f32_kernel_on_f32_rows_matches_plain_on_card(ov, m):
+    """K2 over an f32 mirror (the approximate flat pool's re-score), with
+    -1 padding and a query whose pool is all -1."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(15)
+    n, d, b = 300_000, 384, 128
+    x = torch.randn(n, d, device=dev, generator=g)
+    q = torch.randn(b, d, device=dev, generator=g)
+    rows = torch.argsort(torch.rand(b, n, device=dev, generator=g), dim=1)[
+        :, :ov].to(torch.int32).contiguous()
+    rows[:, -ov // 8:] = -1
+    rows[3] = -1
+    vt, rt = fused_t.rerank_f32(x, q, rows, m)
+    vp, rp = fused_t.rerank_f32_plain(x, q, rows, m)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-3)
+    assert (rt[3] == -1).all()
+
+
+@pytest.mark.cuda
+def test_heuristic_kept_and_pair_kernels_on_bf16_rows_match_plain_on_card():
+    """K4 and K5 over a bf16 mirror: rows upcast exactly, K4's norms from
+    the upcast rows, K5's from the mirror's f32 norms of the f32 rows."""
+    dev = _card()
+    x, ids, d = _candidate_pools(25, 256, 128, n=20_000)
+    xf = torch.from_numpy(x).to(dev)
+    xb = xf.to(torch.bfloat16)
+    idt, dt = torch.from_numpy(ids).to(dev), torch.from_numpy(d).to(dev)
+    kt = hnsw_t.heuristic_kept(xb, idt, dt, 32).cpu().numpy()
+    kp = hnsw_t.heuristic_kept_plain(xb, idt, dt, 32).cpu().numpy()
+    _assert_kept_equal_up_to_near_ties(kp, kt, ids, d,
+                                       xb.float().cpu().numpy())
+    t = torch.randint(0, 20_000, (65_536,), device=dev, dtype=torch.int32)
+    c = torch.randint(0, 20_000, (65_536,), device=dev, dtype=torch.int32)
+    x_sq = (xf * xf).sum(1)
+    torch.testing.assert_close(hnsw_t.pair_sq_l2(xb, x_sq, t, c),
+                               hnsw_t.pair_sq_l2_plain(xb, x_sq, t, c),
+                               rtol=1e-5, atol=1e-4)

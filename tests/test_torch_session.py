@@ -157,7 +157,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'fabstir_vectordb_tpu_torch.utils.transfer',\n"
         "       'fabstir_vectordb_tpu_torch.convert',\n"
         "       'fabstir_vectordb_tpu_torch.utils.synth',\n"
-        "       'fabstir_vectordb_tpu_torch.index.tiered']\n"
+        "       'fabstir_vectordb_tpu_torch.index.tiered',\n"
+        "       'fabstir_vectordb_tpu_torch.index.flat',\n"
+        "       'fabstir_vectordb_tpu_torch.index.hybrid',\n"
+        "       'fabstir_vectordb_tpu_torch.ops.topk',\n"
+        "       'fabstir_vectordb_tpu_torch.utils.limits']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('fabstir_vectordb_tpu_torch.')]))\n")
