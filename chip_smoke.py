@@ -50,7 +50,22 @@
    >= 99% found at rank 1. The counters must show K9, K2 on f32 and bf16
    rows, K1 on bf16 rows with the query rounded and (K3) not, K4 and K5 on
    bf16 rows; then those against their plain versions at these shapes.
-8. Scale phase: bench.py's 10M tier (bench_10m) after the 1M state is
+8. Engines phase: the same index, the graph and list engines at every row
+   type and metric. The pruned regime on a bf16 mirror
+   (FVDB_SERVING_DTYPE=bfloat16, FVDB_PCA_SERVE=0, flat threshold 0): 256
+   single and 8 x 128 batched k=10 searches, recall@10 >= 0.85 against the
+   exact f32 answers streamed by TieredFlatSearcher and >= 0.95 against a
+   float64 brute force over the bf16-stored rows, a filtered batch, 1,000
+   deletes (none returned), standalone HNSW and IVF search, 2,048 inserts
+   through the layer-0 plan; 2,048 inserts through the per-layer plan on
+   each mirror (>= 99% at rank 1, K11 above layer 0); FlatIndex and
+   IVFIndex by metric (cosine, dot) on each mirror against float64 brute
+   forces, the IVF at every probe against the flat index over its members,
+   at 16 probes its recall. The counters must show K10, K11 (layer 0 and
+   above), K12 and K1 on bf16 rows and by metric; then K10, K11, K12, K13
+   and K1 (by metric, k 16 and 1,024) against their plain versions on this
+   state, and chunked_topk over negative distances.
+9. Scale phase: bench.py's 10M tier (bench_10m) after the 1M state is
    freed: 10,000,000 x 384 rows of the procedural corpus made on the card
    by K17, registered and filled block by block with each block's IVF
    assignment (K6), the IVF trained on the first 10,000 rows, the source
@@ -65,13 +80,13 @@
    deletes (the source stays) and a fill (it goes), and one rebuild with
    rank and oversample on auto. The host needs ~45 GB (a 25.8 GB store at
    16,777,216 rows of capacity).
-9. One JSON line with every kernel's numbers, the card's name and power
+10. One JSON line with every kernel's numbers, the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
 stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
 ``--phase reduced`` steps 1, 2, 4 and 6, ``--phase flat1m`` steps 1, 4 and
-7, ``--phase scale`` steps 1 and 8;
+7, ``--phase engines`` steps 1, 4 and 8, ``--phase scale`` steps 1 and 9;
 ``--profile``
 writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
 then carry the profiler's overhead); ``--trace`` runs searches under
@@ -936,18 +951,11 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         fail("ivf_search: the probed lists differ from the plain version's")
     tol = 2e-5 * float(xsq_d.max() + (qd * qd).sum(1).max())
     err, differ = topk_check("ivf_scan", vk, rk_, vp, rp_, tol)
-    # the rows of each list that pass the mask: every (query, probed list)
-    # scores them (the flops), but a bound reads each probed list once
+    nbytes, flops, pairs, rows_once = ivf_work(
+        lists, st["ivf_mask"], pk, 128, k_srv, d, 4)
+    work["ivf_scan"] = (nbytes, flops)
     tl = lists.tiles
-    live = ((tl >= 0) & st["ivf_mask"][tl.clamp_min(0).long()]).sum(1)
-    pairs = int(live[pk.long()].sum())
-    union = torch.unique(pk.long())
-    rows_once = int(live[union].sum())
-    entries_once = int(lists.list_len[union].sum())
     n_c = int(lists.centroids.shape[0])
-    work["ivf_scan"] = (rows_once * (d * 4 + 4) + entries_once * (4 + 1)
-                        + n_c * d * 4 + q_bytes + 128 * k_srv * 8,
-                        2.0 * d * (pairs + 128 * n_c))
     bms, by = bound(*work["ivf_scan"])
     results["ivf_scan"] = dict(
         shape=f"B=128 C={n_c} n_probe=16 k={k_srv} L_pad={tl.shape[1]} "
@@ -1426,6 +1434,12 @@ def pool_check(tag, vk, rk, vp, rp, tol):
     share = overlap(rk, rp)
     if share < 0.99:
         fail(f"{tag}: pools share {share} of rows < 0.99")
+    return shared_err(tag, vk, rk, vp, rp, tol), share
+
+
+def shared_err(tag, vk, rk, vp, rp, tol) -> float:
+    """The largest distance difference over the rows that a query's two
+    answers share (numpy arrays); fails past tol."""
     err = 0.0
     for i in range(rk.shape[0]):
         dk = dict(zip(rk[i].tolist(), vk[i].tolist()))
@@ -1435,7 +1449,7 @@ def pool_check(tag, vk, rk, vp, rp, tol):
                 if e > tol:
                     fail(f"{tag}: query {i} row {r} off by {e} > {tol}")
                 err = max(err, e)
-    return err, share
+    return err
 
 
 def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
@@ -1878,6 +1892,637 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                  "l2_topk[bf16 serve k=1024]", "rerank_f32[f32 rows]",
                  "flat_search_rerank", "l2_topk[bf16 candidates]",
                  "heuristic_kept[bf16 link]", "pair_sq_l2[bf16]"):
+        print_kernel(name, results[name], launch_of[name])
+
+
+ENGINES_KNOBS = ("FVDB_SERVING_DTYPE", "FVDB_PCA_SERVE", "FVDB_FLAT_THRESHOLD")
+
+
+def metric_exact64(torch, x, x_sq, mask, q, metric: str, k: int,
+                   round_query: bool = False):
+    """A float64 brute force by metric over the device rows x (upcast),
+    with the norms x_sq (the mixed formula of a bf16 mirror: its f32 host
+    norms) and the query (rounded to bf16 in the product with
+    ``round_query``); 128 queries at a time. Returns (dists, rows) numpy."""
+    out_d, out_r = [], []
+    x64 = x.double()
+    sq64 = x_sq.double()
+    for lo in range(0, q.shape[0], 128):
+        qq = q[lo:lo + 128]
+        qp = (qq.to(torch.bfloat16) if round_query else qq).double()
+        dots = qp @ x64.T
+        q_sq = (qq.double() ** 2).sum(1)
+        if metric == "euclidean":
+            dd = q_sq[:, None] - 2.0 * dots + sq64[None, :]
+        elif metric == "cosine":
+            dd = 1.0 - dots / (q_sq[:, None] * sq64[None, :]).clamp_min(
+                1e-30).sqrt()
+        else:
+            dd = -dots
+        dd[:, ~mask] = float("inf")
+        v, r = torch.topk(dd, k, largest=False)
+        out_d.append(v.cpu().numpy())
+        out_r.append(r.cpu().numpy())
+        del dots, dd
+    del x64
+    return np.concatenate(out_d), np.concatenate(out_r)
+
+
+def engines_phase(torch, native, card: str, perf: dict, results: dict,
+                  launch_of: dict, ctx: dict, trace=False,
+                  out_dir="smoke_out"):
+    """The graph and list engines at every row type and metric on the 1M
+    index: the pruned regime on a bf16 mirror (FVDB_SERVING_DTYPE=bfloat16,
+    FVDB_PCA_SERVE=0, flat threshold 0) with its recall against the exact
+    f32 answers and against a float64 brute force over the bf16-stored
+    rows, a filtered batch, 1,000 deletes, the standalone engines, 2,048
+    inserts through the layer-0 plan; 2,048 inserts through the per-layer
+    plan on each mirror; FlatIndex and IVFIndex by metric (cosine, dot)
+    on each mirror. The counters must show K10, K11 at layer 0 and above,
+    K12 and K1 on bf16 rows and by metric; then those against their plain
+    versions on this state."""
+    import gc
+
+    from fabstir_vectordb_tpu_torch.index import tiered as ti
+    from fabstir_vectordb_tpu_torch.index.flat import FlatIndex
+    from fabstir_vectordb_tpu_torch.utils import limits
+    from fabstir_vectordb_tpu_torch.utils.transfer import to_device
+
+    h, centers, cfg, d = ctx["h"], ctx["centers"], ctx["cfg"], ctx["d"]
+    store = h.store
+    cap = store.capacity
+    saved = {key: os.environ.get(key) for key in ENGINES_KNOBS}
+    old_thr = limits.FLAT_THRESHOLD
+    rng = np.random.default_rng(2207)
+
+    def mode(dtype: str) -> None:  # the pruned regime on this mirror
+        os.environ.update(FVDB_SERVING_DTYPE=dtype, FVDB_PCA_SERVE="0",
+                          FVDB_FLAT_THRESHOLD="0")
+        limits.FLAT_THRESHOLD = 0
+        info = h.fused.serving_info()
+        if info["regime"] != "pruned" or info["serving_dtype"] != dtype:
+            fail(f"engines: serving_info {info} for {dtype}")
+
+    def members_now():
+        count = store.count
+        live = store.active_mask(count)
+        hm = live & h.hnsw.member_mask(count)
+        return hm, live & h.ivf.member_mask(count) & ~hm
+
+    hm0, im0 = members_now()
+    hnsw_rows, ivf_rows = np.nonzero(hm0)[0], np.nonzero(im0)[0]
+
+    def noisy(rows):
+        return (store.data[rows] + 0.3 * rng.standard_normal(
+            (len(rows), d))).astype(np.float32)
+
+    def from_both(m):  # half near HNSW rows, half near IVF rows
+        return np.concatenate([rng.choice(hnsw_rows, m // 2),
+                               rng.choice(ivf_rows, m - m // 2)])
+
+    def fresh(m):  # new recent rows around the corpus's centers
+        return (centers[rng.integers(0, len(centers), m)]
+                + 0.35 * rng.standard_normal((m, d))).astype(np.float32)
+
+    def search(qq, k=10, **kw):
+        return h.search_rows(qq, k, cfg, now=NOW, **kw)
+
+    qs, qb = noisy(from_both(256)), noisy(from_both(1024))
+    fmask = np.arange(cap) % 10 == 3
+    out = {}
+    native.reset_launches()
+    try:
+        # ---- 1. the pruned regime on a bf16 mirror
+        mode("bfloat16")
+        t = time.perf_counter()
+        search(qs[:1])
+        state_s = time.perf_counter() - t
+        m = store._mirror
+        mirror_bytes = m.x.numel() * m.x.element_size()
+        if m.x.dtype != torch.bfloat16 or mirror_bytes * 2 != cap * d * 4:
+            fail(f"engines: the serving mirror is {m.x.dtype}, "
+                 f"{mirror_bytes} bytes")
+        lat, single = [], []
+        for q in qs:
+            t = time.perf_counter()
+            single.append(search(q[None])[1][0])
+            lat.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        batched = [search(qb[i * 128:(i + 1) * 128])[1] for i in range(8)]
+        batch_s = time.perf_counter() - t
+        single, batched = np.stack(single), np.concatenate(batched)
+        members = hm0 | im0
+        oracle = ti.TieredFlatSearcher(store.data[:store.count], members,
+                                       device=store.device)
+        t = time.perf_counter()
+        _, ex = oracle.search(np.concatenate([qs, qb]), 10)
+        oracle_s = time.perf_counter() - t
+        rec_f32 = (recall(single, ex[:256]), recall(batched, ex[256:]))
+        if min(rec_f32) < 0.85:
+            fail(f"engines bf16 pruned recall@10 against the exact f32 "
+                 f"answers {rec_f32} < 0.85")
+        mem = torch.zeros(cap, dtype=torch.bool, device=m.x.device)
+        mem[:store.count] = to_device(members, m.x.device)
+        qall = torch.from_numpy(np.concatenate([qs, qb])).to(m.x.device)
+        xs = m.x.float()
+        _, stored = metric_exact64(torch, m.x, (xs * xs).sum(1), mem, qall,
+                                   "euclidean", 10)
+        del xs
+        rec_stored = (recall(single, stored[:256]),
+                      recall(batched, stored[256:]))
+        if min(rec_stored) < 0.95:
+            fail(f"engines bf16 pruned recall@10 against the bf16-stored "
+                 f"rows {rec_stored} < 0.95")
+        _, rf = search(qb[:128], extra_mask=fmask)
+        if (rf < 0).any() or not fmask[rf].all():
+            fail("engines bf16 pruned: a filtered-out row was returned")
+        top = [int(r) for row in single[:50] for r in row[:5] if r >= 0]
+        dead = list(dict.fromkeys([h.hnsw.entry_point] + top + rng.choice(
+            np.nonzero(members)[0], 1200).tolist()))[:1000]
+        if h.batch_delete([store.id_of(r) for r in dead]) != 1000:
+            fail("engines: batch_delete")
+        after = np.concatenate([search(qs[:128])[1], search(qb[:128])[1],
+                                search(qb[:128], extra_mask=fmask)[1]])
+        if np.isin(after, dead).any():
+            fail("engines bf16 pruned: a deleted row was returned")
+        hm1, im1 = members_now()
+        _, rh = h.hnsw.search_rows(qs[:128], 10)
+        _, ri = h.ivf.search_rows(qs[:128], 10)
+        for tag, r, mm in (("hnsw", rh, hm1), ("ivf", ri, im1)):
+            if (r < 0).any() or not mm[r].all():
+                fail(f"engines bf16 standalone {tag}: a row outside its "
+                     f"engine's live members")
+        if store._mirror.x.dtype != torch.bfloat16:
+            fail("engines: the standalone engines left the bf16 mirror")
+        before = {k: native.launches[k] for k in (
+            "greedy_descent_bf16", "beam_search_bf16", "l2_topk_bf16")}
+        new = fresh(2048)
+        t = time.perf_counter()
+        new_rows = h.insert_batch([f"e0-{i}" for i in range(2048)], new,
+                                  np.full(2048, NOW - DAY), now=NOW)
+        torch.cuda.synchronize()
+        link0_s = time.perf_counter() - t
+        if native.launches["greedy_descent_bf16"] == before[
+                "greedy_descent_bf16"] or native.launches[
+                "beam_search_bf16"] == before["beam_search_bf16"] \
+                or native.launches["l2_topk_bf16"] != before["l2_topk_bf16"]:
+            fail("engines: the 2,048 bf16 inserts did not link through the "
+                 "layer-0 plan")
+        rank1_0 = float((search(new, 1)[1][:, 0] == new_rows).mean())
+        if rank1_0 < 0.99:
+            fail(f"engines: layer-0 plan inserts on bf16 at rank 1: "
+                 f"{rank1_0} < 0.99")
+        p50 = float(np.percentile(lat, 50))
+        out.update(
+            bf16_pruned_state_build_s=state_s, bf16_pruned_search_p50_ms=p50,
+            bf16_pruned_batched_qps=1024 / batch_s,
+            bf16_pruned_recall_at_10_f32=rec_f32,
+            bf16_pruned_recall_at_10_stored=rec_stored,
+            bf16_mirror_bytes=mirror_bytes, engines_oracle_s=oracle_s,
+            bf16_layer0_link_s=link0_s, bf16_layer0_rank1=rank1_0)
+        print(f"engines bf16 pruned: p50 {p50:.3f} ms over 256 single k=10 "
+              f"searches, {1024 / batch_s:.1f} QPS over 8 x 128; recall@10 "
+              f"against the exact f32 answers {rec_f32[0]:.4f} / "
+              f"{rec_f32[1]:.4f} (single / batched), against the "
+              f"bf16-stored rows {rec_stored[0]:.4f} / {rec_stored[1]:.4f}; "
+              f"mirror {mirror_bytes / 1e9:.3f} GB; state {state_s:.3f} s; "
+              f"filtered, 1,000 deletes and the standalone engines clean; "
+              f"2,048 layer-0 inserts in {link0_s:.3f} s, {rank1_0:.4f} at "
+              f"rank 1 ({card})", flush=True)
+        if trace:
+            for name, fn in (
+                    ("bf16_pruned_single", lambda: [search(q[None])
+                                                    for q in qs[:64]]),
+                    ("bf16_pruned_batched", lambda: [search(
+                        qb[i * 128:(i + 1) * 128]) for i in range(4)])):
+                wall, dev_ms = device_trace(torch, name, fn, out_dir)
+                print(f"trace {name}: wall {wall:.3f} ms, device "
+                      f"{dev_ms:.3f} ms, busy share {dev_ms / wall:.3f} "
+                      f"({card})", flush=True)
+
+        # ---- 2. the per-layer link plan on each mirror
+        h.hnsw.config.link_mode = "per_layer"
+        for dtype in ("bfloat16", "float32"):
+            mode(dtype)
+            up = native.counter("beam_search", dtype == "bfloat16", up=True)
+            b_up = native.launches[up]
+            new = fresh(2048)
+            t = time.perf_counter()
+            new_rows = h.insert_batch(
+                [f"pl-{dtype}-{i}" for i in range(2048)], new,
+                np.full(2048, NOW - DAY), now=NOW)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t
+            if native.launches[up] == b_up:
+                fail(f"engines per-layer ({dtype}): K11 never ran above "
+                     f"layer 0")
+            r1 = float((search(new, 1)[1][:, 0] == new_rows).mean())
+            if r1 < 0.99:
+                fail(f"engines per-layer inserts ({dtype}) at rank 1: "
+                     f"{r1} < 0.99")
+            out[f"per_layer_{dtype}_link_s"] = s
+            out[f"per_layer_{dtype}_rank1"] = r1
+            print(f"engines per-layer ({dtype}): 2,048 inserts linked in "
+                  f"{s:.3f} s ({2048 / s:.1f} vectors/s), {r1:.4f} at rank "
+                  f"1, K11 above layer 0 {native.launches[up] - b_up} "
+                  f"launches ({card})", flush=True)
+        h.hnsw.config.link_mode = "auto"
+
+        # ---- 3. FlatIndex and IVFIndex by metric, on each mirror
+        qm = qb[:128]
+        for dtype in ("float32", "bfloat16"):
+            mode(dtype)
+            _, im2 = members_now()
+            live = store.active_mask(store.count)
+            bf = dtype == "bfloat16"
+            for metric in ("cosine", "dot"):
+                tag = f"engines {metric} ({dtype})"
+                fi = FlatIndex(store, metric=metric)
+                dk, rk = fi.search_rows(qm, 10)
+                fi.search_rows(qm[:4], 300)  # the k > 256 path
+                mm = store._mirror
+                dv, n_rows = mm.x.device, mm.x.shape[0]
+                mem = torch.zeros(n_rows, dtype=torch.bool, device=dv)
+                mem[:store.count] = to_device(live, dv)
+                ivm = torch.zeros(n_rows, dtype=torch.bool, device=dv)
+                ivm[:store.count] = to_device(im2, dv)
+                qd = torch.from_numpy(qm).to(dv)
+                scale = 1.0 if metric == "cosine" else float(
+                    np.linalg.norm(qm, axis=1).max()
+                    * np.sqrt(float(mm.x_sq.max())))
+                # the flat index: the float64 brute force of its formula
+                # (on a bf16 mirror: the rounded query and bf16 rows in the
+                # product, the f32 host norms)
+                d64, r64 = metric_exact64(torch, mm.x, mm.x_sq, mem, qd,
+                                          metric, 10, round_query=bf)
+                if bf:
+                    ov = overlap(rk, r64)
+                    if ov < 0.99:
+                        fail(f"{tag} flat: overlap {ov} with the float64 "
+                             f"mixed formula < 0.99")
+                else:
+                    topk_check(f"{tag} flat", torch.from_numpy(dk),
+                               torch.from_numpy(rk), torch.from_numpy(
+                                   d64.astype(np.float32)),
+                               torch.from_numpy(r64.astype(np.int32)),
+                               1e-5 * scale)
+                    ov = overlap(rk, r64)
+                # the IVF at every probe: the flat index over its members
+                # (on a bf16 mirror the IVF keeps the f32 query, so its
+                # reference is the float64 brute force of that formula)
+                du, ru = h.ivf.search_rows(qm, 10, n_probe=256,
+                                           metric=metric)
+                if bf:
+                    _, ref = metric_exact64(torch, mm.x, mm.x_sq, ivm, qd,
+                                            metric, 10)
+                    ov_ivf = overlap(ru, ref)
+                    if ov_ivf < 0.99:
+                        fail(f"{tag} IVF at 256 probes: overlap {ov_ivf} "
+                             f"with the float64 brute force < 0.99")
+                else:
+                    ivf_mem = np.zeros(n_rows, bool)
+                    ivf_mem[:store.count] = im2
+                    dfl, ref = fi.search_rows(qm, 10, extra_mask=ivf_mem)
+                    topk_check(f"{tag} IVF at 256 probes", torch.from_numpy(
+                        du), torch.from_numpy(ru), torch.from_numpy(dfl),
+                        torch.from_numpy(ref), 1e-5 * scale)
+                    ov_ivf = overlap(ru, ref)
+                _, r16 = h.ivf.search_rows(qm, 10, n_probe=16, metric=metric)
+                rec16 = recall(r16, ref)
+                out.update({f"{metric}_{dtype}_flat_overlap_f64": ov,
+                            f"{metric}_{dtype}_ivf_all_probes_overlap": ov_ivf,
+                            f"{metric}_{dtype}_ivf_recall_at_10_nprobe16":
+                                rec16})
+                print(f"{tag}: flat answers against the float64 brute force "
+                      f"{'overlap' if bf else 'equal up to ties, overlap'} "
+                      f"{ov:.4f}; IVF at 256 probes overlap {ov_ivf:.4f} "
+                      f"with the exact answer over its members; IVF at 16 "
+                      f"probes recall@10 {rec16:.4f} ({card})", flush=True)
+        torch.cuda.synchronize()
+        counts = dict(native.launches)
+        path = {"greedy_descent_bf16": "K10 on bf16 rows",
+                "beam_search_bf16": "K11 on bf16 rows",
+                "beam_search_bf16_up": "K11 above layer 0, bf16 rows",
+                "beam_search_up": "K11 above layer 0, f32 rows",
+                "ivf_scan_bf16": "K12 on bf16 rows",
+                "l2_topk_cosine": "K1 cosine", "l2_topk_dot": "K1 dot",
+                "l2_topk_large_cosine": "K1 cosine at k > 256",
+                "l2_topk_large_dot": "K1 dot at k > 256",
+                "l2_topk_bf16_rq_cosine": "K1 cosine on bf16 rows",
+                "l2_topk_bf16_rq_dot": "K1 dot on bf16 rows",
+                "ivf_scan_cosine": "K12 cosine", "ivf_scan_dot": "K12 dot",
+                "ivf_scan_bf16_cosine": "K12 cosine on bf16 rows",
+                "ivf_scan_bf16_dot": "K12 dot on bf16 rows",
+                "heuristic_kept_bf16": "K4 on bf16 rows"}
+        for name, what in path.items():
+            if counts[name] <= 0:
+                fail(f"engines path: {what} ({name}) was launched no time")
+        print(f"engines: launches { {k: counts[k] for k in path} }",
+              flush=True)
+
+        # ---- 4. kernels against their plain versions on this state
+        mode("bfloat16")
+        search(qs[:1])  # the bf16 state after the f32 inserts
+        engines_kernel_checks(torch, h, qb, fresh(1024), counts, results,
+                              launch_of)
+    finally:
+        h.hnsw.config.link_mode = "auto"
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        limits.FLAT_THRESHOLD = old_thr
+        store.release_mirror()
+        h.fused._dev = h.fused._key = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    perf.update(out)
+
+
+def ivf_work(lists, mask, probe, b: int, k: int, d: int, elem: int):
+    """(bytes, flops, pairs, distinct rows) of a K12 call: every (query,
+    probed list) scores the list's rows that pass the mask (the flops),
+    but a bound reads each probed list once."""
+    tl = lists.tiles
+    live = ((tl >= 0) & mask[tl.clamp_min(0).long()]).sum(1)
+    pairs = int(live[probe.long()].sum())
+    union = probe.long().unique()
+    rows_once = int(live[union].sum())
+    entries_once = int(lists.list_len[union].sum())
+    n_c = int(lists.centroids.shape[0])
+    nbytes = (rows_once * (d * elem + 4) + entries_once * (4 + 1)
+              + n_c * d * 4 + b * d * 4 + b * k * 8)
+    return nbytes, 2.0 * d * (pairs + b * n_c), pairs, rows_once
+
+
+def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
+    """K10, K11 (serve, link, above layer 0) and K13 on bf16 rows, K12 on
+    bf16 rows and by metric, K1 by metric on f32 and bf16 rows, and
+    chunked_topk with negative distances, against their plain versions on
+    the 1M index's state."""
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import hnsw as hn
+    from fabstir_vectordb_tpu_torch.index import ivf as iv
+    from fabstir_vectordb_tpu_torch.ops import topk as tp
+    from fabstir_vectordb_tpu_torch.utils import limits, native
+    from fabstir_vectordb_tpu_torch.utils.transfer import to_device
+
+    store = h.store
+    st = h.fused._device_state(pruned=True)
+    xb, sq = st["x"], st["x_sq"]  # the bf16 mirror, the f32 host norms
+    if xb.dtype != torch.bfloat16:
+        fail("engines checks: the state is not on the bf16 mirror")
+    dev = xb.device
+    cap, d = xb.shape
+    xf = torch.empty((cap, d), dtype=torch.float32, device=dev)
+    for lo in range(0, cap, 262_144):  # the f32 mirror beside it
+        xf[lo:lo + 262_144] = to_device(store.data[lo:lo + 262_144], dev)
+    sq_f = (xf * xf).sum(1)
+    qd = torch.from_numpy(qb[:128]).to(dev)
+    ql = torch.from_numpy(ql_np).to(dev)
+    q_bytes = 128 * d * 4
+    hm, im, mem = st["hnsw_mask"], st["ivf_mask"], st["members"]
+    nbrs0, nbrs_up, up_off = st["nbrs0"], st["nbrs_up"], st["up_offset"]
+    entry, level = st["entry"], st["entry_level"]
+    m_up = int(nbrs_up.shape[1])
+    work = {}
+    names = []
+
+    # K10 on bf16 rows
+    gargs = (xb, sq, hm, nbrs_up, up_off, qd, entry, level)
+    ck, dk = hn.greedy_descent(*gargs)
+    gst = {}
+    cp, dp = hn.greedy_descent_plain(*gargs, stats=gst)
+    same = ck == cp
+    agree = float(same.float().mean())
+    if agree < 0.99:
+        fail(f"greedy_descent[bf16]: {agree} of queries agree with plain")
+    seen = int(gst["seen"].sum())
+    work["greedy_descent[bf16]"] = (seen * (d * 2 + 4) + gst["hops"] * m_up
+                                    * 4 + q_bytes, gst["rows"] * 2.0 * d)
+    bms, by = bound(*work["greedy_descent[bf16]"])
+    results["greedy_descent[bf16]"] = dict(
+        shape=f"B=128 M={m_up} D={d} levels={level} (bf16 rows)",
+        max_abs_err=float((dk - dp)[same].abs().max()), agree=agree,
+        hops=gst["hops"], rows=gst["rows"], distinct_rows=seen,
+        ms=cuda_ms(torch, lambda: hn.greedy_descent(*gargs)),
+        plain_ms=cuda_ms(torch, lambda: hn.greedy_descent_plain(*gargs),
+                         iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    launch_of["greedy_descent[bf16]"] = counts["greedy_descent_bf16"]
+    names.append("greedy_descent[bf16]")
+
+    # K11: serve, layer-0 link, and one layer of the per-layer plan (the
+    # queries below it inactive), on bf16 rows; that layer on f32 rows too
+    ex_h = tp.l2_topk(xb, sq, hm, qd, 10)[1].cpu().numpy()
+    cl, _ = hn.greedy_descent(xb, sq, hm, nbrs_up, up_off, ql, entry, level)
+    layer = min(2, level)
+    stop_np = np.minimum(np.random.default_rng(3).integers(0, 4, ql.shape[0]),
+                         level).astype(np.int32)
+    stop = torch.from_numpy(stop_np).to(dev)
+    act = torch.from_numpy(stop_np >= layer).to(dev)
+    cu_b, _ = hn.greedy_descent(xb, sq, hm, nbrs_up, up_off, ql, entry,
+                                level, stop)
+    cu_f, _ = hn.greedy_descent(xf, sq_f, hm, nbrs_up, up_off, ql, entry,
+                                level, stop)
+    for tag, x, x_sq, qq, start, active, lay, ef, w, exact in (
+            ("bf16 serve", xb, sq, qd, ck, None, 0, 64, limits.beam_expand(),
+             ex_h),
+            ("bf16 link", xb, sq, ql, cl, None, 0, 200, 1, None),
+            ("bf16 upper layer", xb, sq, ql, cu_b, act, layer, 200, 1, None),
+            ("upper layer", xf, sq_f, ql, cu_f, act, layer, 200, 1, None)):
+        key = f"beam_search[{tag}]"
+        args = (x, x_sq, hm, nbrs0, nbrs_up, up_off, qq,
+                start[:, None].contiguous(), active, lay, ef, ef + 32, None,
+                None, w)
+        bk, ik = hn.beam_search(*args)
+        bst = {}
+        bp, ip = hn.beam_search_plain(*args, stats=bst)
+        on = torch.ones(qq.shape[0], dtype=torch.bool, device=dev) \
+            if active is None else active
+        if not torch.equal(ik[~on], ip[~on]):
+            fail(f"{key}: an inactive query's starts differ")
+        ik_n, ip_n = ik[on].cpu().numpy(), ip[on].cpu().numpy()
+        ov = overlap(ik_n, ip_n)
+        if ov < 0.99:
+            fail(f"{key}: overlap {ov} with plain < 0.99")
+        rk = rp = None
+        if exact is not None:
+            rk, rp = recall(ik_n, exact), recall(ip_n, exact)
+            if abs(rk - rp) > 0.005:
+                fail(f"{key}: recall@10 {rk} vs plain {rp}")
+        both = (ik == ip) & (ik >= 0)
+        b = qq.shape[0]
+        seen = int(bst["seen"].sum())
+        elem = x.element_size()
+        work[key] = (seen * (d * elem + 4 + 1) + bst["parents"] * 32 * 4
+                     + b * d * 4 + b * ef * 8, bst["rows"] * 2.0 * d)
+        bms, by = bound(*work[key])
+        results[key] = dict(
+            shape=f"B={b} ef={ef} W={w} layer={lay} active="
+                  f"{int(on.sum())} D={d} ({'bf16' if elem == 2 else 'f32'}"
+                  f" rows)",
+            max_abs_err=float((bk - bp)[both].abs().max()) if both.any()
+            else 0.0, overlap=ov, recall_at_10=rk, plain_recall_at_10=rp,
+            steps=bst["steps"], rows=bst["rows"], distinct_rows=seen,
+            ms=cuda_ms(torch, lambda: hn.beam_search(*args)),
+            plain_ms=cuda_ms(torch, lambda: hn.beam_search_plain(*args),
+                             iters=2, warmup=1),
+            library_ms=None, bound_ms=bms, bound_by=by)
+        launch_of[key] = counts[native.counter(
+            "beam_search", elem == 2, up=lay > 0)]
+        names.append(key)
+
+    # K12 on bf16 rows and by metric; its probes are K1 of the metric
+    lists = st["ivf"]
+    q_sq_max = float((qd * qd).sum(1).max())
+    for tag, x, x_sq, metric in (("bf16", xb, sq, "euclidean"),
+                                 ("cosine", xf, sq_f, "cosine"),
+                                 ("dot", xf, sq_f, "dot"),
+                                 ("bf16 cosine", xb, sq, "cosine"),
+                                 ("bf16 dot", xb, sq, "dot")):
+        key = f"ivf_scan[{tag}]"
+        iargs = (x, x_sq, im, lists, qd, 16, 16)
+        vk, rk, pk = iv.ivf_search(*iargs, metric=metric)
+        vp, rp, pp = iv.ivf_search_plain(*iargs, metric=metric)
+        probes = float((pk == pp).float().mean())
+        if probes < 0.99:
+            fail(f"{key}: {probes} of the probed lists agree with plain")
+        tol = 1e-5 * {"euclidean": float(x_sq.max()) + q_sq_max,
+                      "cosine": 1.0,
+                      "dot": (float(x_sq.max()) * q_sq_max) ** 0.5}[metric]
+        err, share = pool_check(key, vk, rk, vp, rp, tol)
+        elem = x.element_size()
+        nbytes, flops, pairs, rows_once = ivf_work(lists, im, pk, 128, 16, d,
+                                                   elem)
+        bms, by = bound(nbytes, flops)
+        results[key] = dict(
+            shape=f"B=128 C={lists.centroids.shape[0]} n_probe=16 k=16 "
+                  f"{metric} ({'bf16' if elem == 2 else 'f32'} rows) "
+                  f"(query, row) pairs={pairs} distinct rows={rows_once}",
+            max_abs_err=err, tol=tol, overlap=share, probes_agree=probes,
+            ms=cuda_ms(torch, lambda: iv.ivf_search(*iargs, metric=metric)),
+            plain_ms=cuda_ms(torch, lambda: iv.ivf_search_plain(
+                *iargs, metric=metric), iters=2, warmup=1),
+            library_ms=None, bound_ms=bms, bound_by=by)
+        launch_of[key] = counts[native.counter("ivf_scan", elem == 2,
+                                               metric)]
+        names.append(key)
+        if tag == "bf16":
+            work["ivf_scan[bf16]"] = (nbytes, flops)
+
+    # K13 on bf16 rows: K10 -> K11 -> K12
+    hy_args = (xb, sq, hm, im, st["ones"], nbrs0, nbrs_up, up_off, entry,
+               level, lists, qd, 16, 64, 16, st["has_hnsw"])
+    hy_kw = dict(beam_expand=limits.beam_expand())
+    hv, hk = fu.hybrid_search(*hy_args, **hy_kw)
+    hvp, hp = fu.hybrid_search_plain(*hy_args, **hy_kw)
+    ex_all = tp.l2_topk(xb, sq, mem, qd, 10)[1].cpu().numpy()
+    hk_n, hp_n = hk.cpu().numpy()[:, :10], hp.cpu().numpy()[:, :10]
+    ov = overlap(hk_n, hp_n)
+    rk, rp = recall(hk_n, ex_all), recall(hp_n, ex_all)
+    if ov < 0.99 or abs(rk - rp) > 0.005:
+        fail(f"hybrid_search[bf16]: overlap {ov}, recall@10 {rk} vs plain "
+             f"{rp}")
+    # squared L2: 1e-5 of the norms the expansion cancels, as K12's
+    hy_tol = 1e-5 * (float(sq.max()) + q_sq_max)
+    hy_err = shared_err("hybrid_search[bf16]", hv.cpu().numpy(),
+                        hk.cpu().numpy(), hvp.cpu().numpy(),
+                        hp.cpu().numpy(), hy_tol)
+    parts = ("greedy_descent[bf16]", "beam_search[bf16 serve]",
+             "ivf_scan[bf16]")
+    bms, by = bound(sum(work[p][0] for p in parts),
+                    sum(work[p][1] for p in parts))
+    results["hybrid_search[bf16]"] = dict(
+        shape="B=128 k=16 ef=64 n_probe=16 (bf16 rows; a composition: "
+              "K10 + K11 + K12)", max_abs_err=hy_err, tol=hy_tol,
+        overlap=ov,
+        recall_at_10=rk, plain_recall_at_10=rp,
+        ms=cuda_ms(torch, lambda: fu.hybrid_search(*hy_args, **hy_kw)),
+        plain_ms=cuda_ms(torch, lambda: fu.hybrid_search_plain(
+            *hy_args, **hy_kw), iters=2, warmup=1),
+        library_ms=None, bound_ms=bms,
+        bound_by=f"{by}: K10 + K11[bf16 serve] + K12[bf16] work")
+    launch_of["hybrid_search[bf16]"] = counts["ivf_scan_bf16"]
+    names.append("hybrid_search[bf16]")
+
+    # K1 by metric on f32 rows and on bf16 rows (the query rounded)
+    n_in = int(mem.sum())
+    x_sq_max = float(sq.max())
+    for bf in (False, True):
+        x, x_sq = (xb, sq) if bf else (xf, sq_f)
+        for metric in ("cosine", "dot"):
+            for k in (16, 1024):
+                key = f"l2_topk[{'bf16 ' if bf else ''}{metric} k={k}]"
+                vk, rk = tp.l2_topk(x, x_sq, mem, qd, k, round_query=bf,
+                                    metric=metric)
+                vp, rp = tp.l2_topk_plain(x, x_sq, mem, qd, k,
+                                          round_query=bf, metric=metric)
+                tol = 1e-5 * (1.0 if metric == "cosine"
+                              else (x_sq_max * q_sq_max) ** 0.5)
+                err, share = pool_check(key, vk, rk, vp, rp, tol)
+                elem = x.element_size()
+                bms, by = bound(cap * (d * elem + 4 + 1) + q_bytes
+                                + 128 * k * 8, 2.0 * 128 * n_in * d,
+                                BF16_FLOPS if bf else F32_FLOPS)
+                results[key] = dict(
+                    shape=f"B=128 N={cap} D={d} k={k} {metric} "
+                          f"({'bf16 rows, query rounded' if bf else 'f32'})",
+                    max_abs_err=err, tol=tol, overlap=share,
+                    ms=cuda_ms(torch, lambda: tp.l2_topk(
+                        x, x_sq, mem, qd, k, round_query=bf, metric=metric)),
+                    plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
+                        x, x_sq, mem, qd, k, round_query=bf, metric=metric),
+                        iters=2, warmup=1),
+                    library_ms=None, bound_ms=bms,
+                    bound_by=by + (" (bf16 tensor-core rate)" if bf else ""))
+                launch_of[key] = counts[native.counter(
+                    "l2_topk" if bf or k <= 256 else "l2_topk_large", bf,
+                    metric, rq=bf)]
+                names.append(key)
+
+    # chunked_topk over negative (dot) distances of 32 queries, 8 chunks
+    b, k, n = 32, 10, cap
+    chunk = n // 8
+    dall = torch.stack([-(qd[:b] @ xf[lo:lo + chunk].T)
+                        for lo in range(0, n, chunk)])  # [8, B, chunk]
+    keep = mem.view(8, chunk)
+
+    def dist_fn(start):
+        i = start // chunk
+        return dall[i], keep[i]
+
+    def plain_run():
+        vals = torch.full((b, k), float("inf"), device=dev)
+        rows = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+        for i in range(8):
+            vals, rows = tp.chunk_step_plain(dall[i], keep[i], i * chunk,
+                                             vals, rows, k)
+        return vals, rows
+
+    run = tp.chunked_topk(dist_fn, n, chunk, k, b, device=dev)
+    vk, rk = run()
+    vp, rp = plain_run()
+    if not (vk[:, 0] < 0).all():
+        fail("chunked_topk: the dot distances are not negative")
+    tol = 1e-5 * (x_sq_max * q_sq_max) ** 0.5
+    err, differ = topk_check("chunked_topk", vk, rk, vp, rp, tol)
+    flat_d = torch.where(keep[:, None, :], dall,
+                         torch.full_like(dall, float("inf"))
+                         ).permute(1, 0, 2).reshape(b, n).contiguous()
+    bms, by = bound(b * n * 4 + n + b * k * 8, 0.0)
+    results["chunked_topk"] = dict(
+        shape=f"B={b} N={n} chunk={chunk} k={k} (dot distances, masked)",
+        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain_run),
+        library_ms=cuda_ms(torch, lambda: torch.topk(flat_d, k,
+                                                     largest=False)),
+        bound_ms=bms, bound_by=by)
+    launch_of["chunked_topk"] = counts["chunk_step"]
+    names.append("chunked_topk")
+    del xf, sq_f, dall, flat_d
+    for name in names:
         print_kernel(name, results[name], launch_of[name])
 
 
@@ -2435,6 +3080,16 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "synth_rows": "fabstir_vectordb_tpu/utils/synth.py:76",
     "assign_clusters": "fabstir_vectordb_tpu/ops/kmeans.py:70",
     "tile_step": "fabstir_vectordb_tpu/index/tiered.py:31",
+    "l2_topk[cosine k=16]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "l2_topk[cosine k=1024]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "l2_topk[dot k=16]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "l2_topk[dot k=1024]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "l2_topk[bf16 cosine k=16]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "l2_topk[bf16 cosine k=1024]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "l2_topk[bf16 dot k=16]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "l2_topk[bf16 dot k=1024]": "fabstir_vectordb_tpu/index/flat.py:30",
+    "hybrid_search": "fabstir_vectordb_tpu/index/fused.py:145",
+    "chunked_topk": "fabstir_vectordb_tpu/ops/topk.py:73",
 }
 SOURCES = {
     "l2_topk": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
@@ -2456,16 +3111,20 @@ SOURCES = {
     "assign_clusters": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
     "tile_step": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
     "approx_topk": "fabstir_vectordb_tpu_torch/csrc/approx_topk.cu",
-    # a composition of two kernels (csrc/l2_topk.cu, then
-    # csrc/rerank_f32.cu), in the module that chains them
+    # compositions of kernels, in the module that chains them: K1 then
+    # K2; K10, K11 then K12
     "flat_search_rerank": "fabstir_vectordb_tpu_torch/index/fused.py",
+    "hybrid_search": "fabstir_vectordb_tpu_torch/index/fused.py",
+    # a chunk's mask pass, radix select and K8's merge
+    "chunked_topk": "fabstir_vectordb_tpu_torch/csrc/merge_topk.cu",
 }
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "pruned",
-                                        "reduced", "flat1m", "scale"),
+                                        "reduced", "flat1m", "engines",
+                                        "scale"),
                     default="all")
     ap.add_argument("--profile", action="store_true",
                     help="cProfile the main path into --out (its timings "
@@ -2509,7 +3168,7 @@ def main() -> None:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
-    if args.phase not in ("pruned", "flat1m", "scale"):
+    if args.phase not in ("pruned", "flat1m", "engines", "scale"):
         kernels_phase(torch, tp, hn, km, dev, results)
     counts: dict = {}
     perf: dict = {}
@@ -2527,7 +3186,7 @@ def main() -> None:
                 for key in ("tottime", "cumulative"):
                     pstats.Stats(p, stream=f).sort_stats(key).print_stats(40)
             print(f"profile: {path}", flush=True)
-    if args.phase in ("all", "pruned", "reduced", "flat1m"):
+    if args.phase in ("all", "pruned", "reduced", "flat1m", "engines"):
         t = time.perf_counter()
         ctx = build_1m(torch, native, card, perf, launch_of)
         k7_checks(torch, ctx, results)
@@ -2536,7 +3195,8 @@ def main() -> None:
         print(f"1M build: {time.perf_counter() - t:.1f} s", flush=True)
         for name, phase in (("pruned", pruned_phase),
                             ("reduced", reduced_phase),
-                            ("flat1m", flat1m_phase)):
+                            ("flat1m", flat1m_phase),
+                            ("engines", engines_phase)):
             if args.phase not in ("all", name):
                 continue
             t = time.perf_counter()

@@ -27,8 +27,8 @@
 // Design: pass 1 is K1's tile product (l2_tile.cuh) in its BINS mode. A
 // block takes 32 queries, 256 consecutive bins and a range of rounds (rows
 // i M + j0 .. i M + j0 + 255 for the rounds i it owns, each a contiguous
-// tile), keeps the 32 x 256 running minima as packed (distance bits << 32 |
-// row) keys in shared memory, and folds them into a [B, M] table with one
+// tile), keeps the 32 x 256 running minima as packed (distance key << 32 |
+// row) keys (common.cuh's dist_key) in shared memory, and folds them into a [B, M] table with one
 // atomicMin a (query, bin) at the end. A second kernel unpacks the table into
 // distances and rows, and topk_select.cuh's radix select takes the ov_k
 // smallest (distance, row) of each query's M minima.
@@ -45,7 +45,7 @@ __global__ void __launch_bounds__(NT) unpack_bins_kernel(
   if (i >= n) return;
   const unsigned long long key = keys[i];
   const bool empty = key == ~0ull;
-  cand_d[i] = empty ? INFINITY : __uint_as_float((unsigned)(key >> 32));
+  cand_d[i] = empty ? INFINITY : key_dist((unsigned)(key >> 32));
   cand_r[i] = empty ? -1 : (int)(unsigned)(key & 0xffffffffull);
 }
 

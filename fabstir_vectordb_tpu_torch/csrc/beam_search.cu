@@ -16,8 +16,15 @@
 // merge the same way into a separate result list, whose repeated ids are
 // dropped at the end (keep the first). At most max_iters steps.
 //
+// Rows are f32 or bf16 (a bf16 serving mirror), upcast exactly, with the
+// f32 query and the mirror's f32 x_sq: the reference's _gather_dists
+// (index/hnsw.py:239) on a bf16 mirror. At a layer above 0 (up_offset
+// given) a node's list is nbrs_up[up_offset[id] + layer - 1]; queries whose
+// active flag is 0 keep their start set (the per-layer link plan's queries
+// below the layer).
+//
 // What bounds it on the H100: each step gathers up to W x M0 = 128 rows of
-// 384 floats (196 KB) and depends on the step before, so at B = 1 it is
+// 384 floats (196 KB; half that on bf16 rows) and depends on the step before, so at B = 1 it is
 // latency-bound (one dependent chain of global reads a step, ~ef / W + 32
 // steps); at B = 128 it moves ~25 MB a step wave, tens of microseconds of
 // bandwidth, and the per-step bookkeeping (membership test, sort, merge)
@@ -26,7 +33,8 @@
 // Design: one block a query; the query, the pool and the result list in
 // shared memory while they fit (LIST_SMEM bytes; ef <= 1,024 with a result
 // list), else in a global scratch row of the same layout, reached through
-// the same generic pointers. A step: warp 0 picks the first W unexpanded
+// the same generic pointers. The stage holds the f32 query and the lists,
+// never rows, so its size is the same for both row types. A step: warp 0 picks the first W unexpanded
 // positions with ballots; one thread a candidate tests membership against
 // the pool and the earlier candidates; the valid ones are compacted in
 // order, their distances taken four rows a warp with all loads in flight;
@@ -130,8 +138,9 @@ __device__ void merge_in(float* ld, int* lid, uint8_t* lexp, int* n_sh,
   __syncthreads();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NT) beam_search_kernel(
-    const float* __restrict__ x, const float* __restrict__ x_sq,
+    const T* __restrict__ x, const float* __restrict__ x_sq,
     const uint8_t* __restrict__ mask, const int* __restrict__ adj,
     int adj_rows, int Mw, const int* __restrict__ up_offset, int layer,
     const float* __restrict__ q, int D, const int* __restrict__ start, int S,
@@ -320,33 +329,59 @@ FVDB_EXPORT long long fvdb_beam_scratch_bytes(int D, int ef) {
              : (long long)list_bytes(ef);
 }
 
-// x [N, D], x_sq [N], mask [N] (uint8); adj [adj_rows, Mw]: nbrs0 (with
-// up_offset == null) or nbrs_up read at up_offset[id] + layer - 1; q [B, D],
-// start [B, S] int32 (-1 padded), active [B] uint8 or null, result_mask [N]
-// uint8 or null; scratch [B, fvdb_beam_scratch_bytes] or null when that is
-// 0; out_d / out_id [B, ef]. W x Mw <= 256.
+namespace fvdb {
+
+template <typename T>
+cudaError_t beam_search(const T* x, const float* x_sq, const uint8_t* mask,
+                        const int* adj, int adj_rows, int Mw,
+                        const int* up_offset, int layer, const float* q,
+                        int B, int D, const int* start, int S,
+                        const uint8_t* active, const uint8_t* result_mask,
+                        int ef, int max_iters, int W, unsigned char* scratch,
+                        float* out_d, int* out_id, cudaStream_t stream) {
+  const bool in_smem = fvdb_beam_scratch_bytes(D, ef) == 0;
+  if (!in_smem && scratch == nullptr) return cudaErrorInvalidValue;
+  const size_t q_bytes = round16((size_t)D * 4);  // the f32 query
+  const int smem = (int)(in_smem ? q_bytes + list_bytes(ef) : q_bytes);
+  static int cap[64];
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(beam_search_kernel<T>), smem, cap);
+  if (e != cudaSuccess) return e;
+  beam_search_kernel<T><<<B, NT, smem, stream>>>(
+      x, x_sq, mask, adj, adj_rows, Mw, up_offset, layer, q, D, start, S,
+      active, result_mask, ef, max_iters, W, in_smem ? nullptr : scratch,
+      out_d, out_id);
+  return cudaGetLastError();
+}
+
+}  // namespace fvdb
+
+// x [N, D] (x_bf16: bf16, else f32), x_sq [N], mask [N] (uint8); adj
+// [adj_rows, Mw]: nbrs0 (with up_offset == null) or nbrs_up read at
+// up_offset[id] + layer - 1; q [B, D], start [B, S] int32 (-1 padded),
+// active [B] uint8 or null, result_mask [N] uint8 or null; scratch [B,
+// fvdb_beam_scratch_bytes] or null when that is 0; out_d / out_id [B, ef].
+// W x Mw <= 256.
 FVDB_EXPORT int fvdb_beam_search(
-    const float* x, const float* x_sq, const uint8_t* mask, const int* adj,
-    int adj_rows, int Mw, const int* up_offset, int layer, const float* q,
-    int B, int D, const int* start, int S, const uint8_t* active,
-    const uint8_t* result_mask, int ef, int max_iters, int W,
-    unsigned char* scratch, float* out_d, int* out_id, cudaStream_t stream) {
+    const void* x, int x_bf16, const float* x_sq, const uint8_t* mask,
+    const int* adj, int adj_rows, int Mw, const int* up_offset, int layer,
+    const float* q, int B, int D, const int* start, int S,
+    const uint8_t* active, const uint8_t* result_mask, int ef, int max_iters,
+    int W, unsigned char* scratch, float* out_d, int* out_id,
+    cudaStream_t stream) {
   using namespace fvdb;
   if (B < 1 || D < 1 || ef < 1 || S < 1 || W < 1 || Mw < 1 || adj_rows < 1 ||
       W * Mw > CAP)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool in_smem = fvdb_beam_scratch_bytes(D, ef) == 0;
-  if (!in_smem && scratch == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t q_bytes = round16((size_t)D * 4);
-  const int smem = (int)(in_smem ? q_bytes + list_bytes(ef) : q_bytes);
-  static int cap[64];
-  cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(beam_search_kernel), smem, cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  beam_search_kernel<<<B, NT, smem, stream>>>(
-      x, x_sq, mask, adj, adj_rows, Mw, up_offset, layer, q, D, start, S,
-      active, result_mask, ef, max_iters, W, in_smem ? nullptr : scratch,
-      out_d, out_id);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      x_bf16 ? beam_search<__nv_bfloat16>(
+                   static_cast<const __nv_bfloat16*>(x), x_sq, mask, adj,
+                   adj_rows, Mw, up_offset, layer, q, B, D, start, S, active,
+                   result_mask, ef, max_iters, W, scratch, out_d, out_id,
+                   stream)
+             : beam_search<float>(
+                   static_cast<const float*>(x), x_sq, mask, adj, adj_rows,
+                   Mw, up_offset, layer, q, B, D, start, S, active,
+                   result_mask, ef, max_iters, W, scratch, out_d, out_id,
+                   stream));
 }

@@ -1,7 +1,8 @@
 // Shared pieces of the port's kernels: the C error hook, the shared-memory
-// cap, reads of f32 or bf16 rows as f32, the (distance, row) order, a warp's
-// row norm and dot products, a block-wide rank of a predicate and a
-// warp-held sorted top-k list.
+// cap, reads of f32 or bf16 rows as f32, the (distance, row) order and its
+// unsigned keys, the distance of each metric, a warp's row norm and dot
+// products, a block-wide rank of a predicate and a warp-held sorted top-k
+// list.
 //
 // Every exported function returns the cudaError_t of its launches as an int;
 // the Python wrapper raises on anything but 0.
@@ -43,11 +44,69 @@ __device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// Raw 16 bits of a bf16 as the f32 of the same value (exact).
+__device__ __forceinline__ float bf16_bits_f32(unsigned short u) {
+  return __uint_as_float((unsigned)u << 16);
+}
+
+// One row element as f32, read through the read-only cache.
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return bf16_bits_f32(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// Four consecutive row elements as f32: one 16-byte load of f32 rows, one
+// 8-byte load of bf16 rows (p aligned to the load).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 // Results are ordered by (distance, row): equal distances go to the lower
 // row, so the kernels and their plain versions agree on ties.
 __device__ __forceinline__ bool lex_less(float da, int ra, float db, int rb) {
   return da < db || (da == db && ra < rb);
 }
+
+// The order key of a distance: unsigned keys order as the floats do, signs
+// included. A negative float has every bit flipped, a non-negative one its
+// sign bit set; -0 maps as +0. Every selection that packs distances into
+// integers (the radix select, K9's bin minima) orders by these keys, so
+// negative distances (dot, cosine, a caller's dist_fn) rank before positive
+// ones. Non-negative distances keep their relative order, so euclidean
+// results are the same as with raw bits.
+__host__ __device__ constexpr unsigned key_of_bits(unsigned u) {
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+constexpr unsigned INF_KEY = key_of_bits(0x7f800000u);      // +inf
+constexpr unsigned NEG_INF_KEY = key_of_bits(0xff800000u);  // -inf
+
+__device__ __forceinline__ unsigned dist_key(float d) {
+  return key_of_bits(d == 0.f ? 0u : __float_as_uint(d));
+}
+
+// A finite distance's key: strictly between -inf's and +inf's (NaNs fall
+// outside: positive ones above +inf, negative ones below -inf).
+__device__ __forceinline__ bool finite_key(unsigned key) {
+  return key > NEG_INF_KEY && key < INF_KEY;
+}
+
+// The distance whose key this is.
+__device__ __forceinline__ float key_dist(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// Metrics (the reference's ops/distance.py): squared euclidean, cosine
+// distance 1 - cos, negative inner product. Smaller is better in all three.
+constexpr int EUCLID = 0;
+constexpr int COSINE = 1;
+constexpr int DOT = 2;
 
 // Squared norm of one row of D floats, taken by a whole warp.
 __device__ __forceinline__ float warp_row_sq(const float* __restrict__ row,
@@ -60,22 +119,55 @@ __device__ __forceinline__ float warp_row_sq(const float* __restrict__ row,
 }
 
 // max(|q|^2 - 2 q.x + |x|^2, 0), the JAX package's _gather_dists form; a
-// cancellation to -0 comes out as +0, so a distance's bits order it.
+// cancellation to -0 comes out as +0.
 __device__ __forceinline__ float sq_dist(float q_sq, float dot, float x_sq) {
   const float v = q_sq - 2.f * dot + x_sq;
   return v > 0.f ? v : 0.f;
 }
 
-// Dot products of one query (D floats in shared memory) with G rows of x,
-// taken by a whole warp; every lane ends with the G sums. A row < 0 is
-// skipped and gives 0. When D is a multiple of 128 (16-byte aligned rows),
-// lane l takes dims 4l..4l+3 of each 128-dim chunk, and every row's loads
-// of three chunks are issued before any FMA, so a 384-dim group costs one
-// memory round trip instead of one a dim step; else lane l sums dims l,
-// l+32, .... Then a shuffle tree.
-template <int G>
+// The distance of METRIC from a dot product and the two squared norms:
+// euclidean as sq_dist; cosine 1 - q.x / sqrt(max(|q|^2 |x|^2, 1e-30)),
+// not clamped (a zero-norm row is at 1); dot -q.x.
+template <int METRIC>
+__device__ __forceinline__ float metric_dist(float q_sq, float dot,
+                                             float x_sq) {
+  if constexpr (METRIC == COSINE) {
+    return 1.f - dot / sqrtf(fmaxf(q_sq * x_sq, 1e-30f));
+  } else if constexpr (METRIC == DOT) {
+    return -dot;
+  } else {
+    return sq_dist(q_sq, dot, x_sq);
+  }
+}
+
+// Run f with METRIC as a compile-time constant: f(std::integral_constant
+// <int, METRIC>-like tag); an unknown metric is an invalid value.
+template <int M>
+struct MetricTag {
+  static constexpr int value = M;
+};
+template <typename F>
+inline cudaError_t with_metric(int metric, F&& f) {
+  switch (metric) {
+    case EUCLID: return f(MetricTag<EUCLID>{});
+    case COSINE: return f(MetricTag<COSINE>{});
+    case DOT: return f(MetricTag<DOT>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Dot products of one query (D floats in shared memory) with G rows of x
+// (f32, or bf16 upcast exactly), taken by a whole warp; every lane ends
+// with the G sums. A row < 0 is skipped and gives 0. When D is a multiple
+// of 128 (aligned rows), lane l takes dims 4l..4l+3 of each 128-dim chunk
+// (one 16-byte load of f32 rows, one 8-byte load of bf16 rows), and every
+// row's loads of three chunks are issued before any FMA, so a 384-dim
+// group costs one memory round trip instead of one a dim step; else lane l
+// sums dims l, l+32, .... Then a shuffle tree. The sums are the same for
+// both row types: the same products in the same order.
+template <int G, typename T>
 __device__ __forceinline__ void warp_dots(const float* qs,
-                                          const float* __restrict__ x,
+                                          const T* __restrict__ x,
                                           const int (&rows)[G], int D,
                                           float (&acc)[G]) {
   const int lane = threadIdx.x & 31;
@@ -90,8 +182,7 @@ __device__ __forceinline__ void warp_dots(const float* qs,
 #pragma unroll
         for (int g = 0; g < G; ++g)
           v[c][g] = rows[g] >= 0 && d < D
-                        ? __ldg(reinterpret_cast<const float4*>(
-                              x + (size_t)rows[g] * D + d))
+                        ? ld4(x + (size_t)rows[g] * D + d)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -114,7 +205,7 @@ __device__ __forceinline__ void warp_dots(const float* qs,
 #pragma unroll
       for (int g = 0; g < G; ++g)
         if (rows[g] >= 0)
-          acc[g] = fmaf(qv, __ldg(x + (size_t)rows[g] * D + d), acc[g]);
+          acc[g] = fmaf(qv, ld1(x + (size_t)rows[g] * D + d), acc[g]);
     }
   }
 #pragma unroll

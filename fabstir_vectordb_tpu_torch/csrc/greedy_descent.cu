@@ -5,16 +5,19 @@
 // its current node on its current layer (argmin, the first of equal
 // distances) while that improves on the current distance, and steps down a
 // layer when it does not, until it is at or below stop_layer[b] or has made
-// max_hops attempts. Distances are max(|q|^2 - 2 q.x + |x|^2, 0).
+// max_hops attempts. Distances are max(|q|^2 - 2 q.x + |x|^2, 0), the
+// reference's _gather_dists (index/hnsw.py:239): an f32 query, rows f32 or
+// bf16 (a bf16 serving mirror, upcast exactly, as the reference's einsum of
+// an f32 query with bf16 rows computes in f32), and the mirror's f32 x_sq.
 //
 // What bounds it on the H100: a hop reads one adjacency row and up to M = 16
-// neighbour rows (16 x 384 x 4 = 24 KB); hops depend on each other, so at
+// neighbour rows (16 x 384 x 4 = 24 KB; half that on bf16 rows); hops depend on each other, so at
 // B = 1 it is latency-bound (a few dependent global reads a hop) and at
 // B = 128 it moves ~3 MB a hop level, far under a microsecond of bandwidth.
 //
 // Design: one warp a query, eight a block, the query in shared memory. A hop
-// scores the M neighbours eight rows at a time, each group's 16-byte loads
-// all in flight before its FMAs (common.cuh's warp_dots), and the argmin is
+// scores the M neighbours eight rows at a time, each group's loads (16
+// bytes a lane of f32 rows, 8 of bf16) all in flight before its FMAs (common.cuh's warp_dots), and the argmin is
 // a shuffle reduction over (distance, lane).
 #include "common.cuh"
 
@@ -23,8 +26,9 @@ namespace fvdb {
 constexpr int MAXM = 32;   // widest upper-layer list a warp takes
 constexpr int GROUP = 8;   // neighbour rows whose loads go out together
 
+template <typename T>
 __global__ void __launch_bounds__(NT) greedy_descent_kernel(
-    const float* __restrict__ x, const float* __restrict__ x_sq,
+    const T* __restrict__ x, const float* __restrict__ x_sq,
     const uint8_t* __restrict__ mask, const int* __restrict__ nbrs_up,
     const int* __restrict__ up_offset, int R, const float* __restrict__ q,
     const int* __restrict__ stop_layer, int B, int D, int M, int entry,
@@ -96,30 +100,49 @@ __global__ void __launch_bounds__(NT) greedy_descent_kernel(
   }
 }
 
+template <typename T>
+cudaError_t greedy_descent(const T* x, const float* x_sq, const uint8_t* mask,
+                           const int* nbrs_up, const int* up_offset, int R,
+                           const float* q, const int* stop_layer, int B,
+                           int D, int M, int entry, int entry_level,
+                           int max_hops, int* out_cur, float* out_d,
+                           cudaStream_t stream) {
+  const int smem = (NT / 32) * D * 4;  // the f32 queries, whatever the rows
+  static int cap[64];
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(greedy_descent_kernel<T>), smem, cap);
+  if (e != cudaSuccess) return e;
+  const int per_block = NT / 32;
+  greedy_descent_kernel<T><<<(B + per_block - 1) / per_block, NT, smem,
+                             stream>>>(
+      x, x_sq, mask, nbrs_up, up_offset, R, q, stop_layer, B, D, M, entry,
+      entry_level, max_hops, out_cur, out_d);
+  return cudaGetLastError();
+}
+
 }  // namespace fvdb
 
-// x [N, D], x_sq [N], mask [N] (uint8), nbrs_up [R, M], up_offset [N],
-// q [B, D], stop_layer [B] (null: layer 0); out_cur [B] int32, out_d [B]
-// f32. M <= 32.
-FVDB_EXPORT int fvdb_greedy_descent(const float* x, const float* x_sq,
-                                    const uint8_t* mask, const int* nbrs_up,
-                                    const int* up_offset, int R,
-                                    const float* q, const int* stop_layer,
-                                    int B, int D, int M,
-                                    int entry, int entry_level, int max_hops,
-                                    int* out_cur, float* out_d,
+// x [N, D] (x_bf16: bf16, else f32), x_sq [N], mask [N] (uint8), nbrs_up
+// [R, M], up_offset [N], q [B, D], stop_layer [B] (null: layer 0); out_cur
+// [B] int32, out_d [B] f32. M <= 32.
+FVDB_EXPORT int fvdb_greedy_descent(const void* x, int x_bf16,
+                                    const float* x_sq, const uint8_t* mask,
+                                    const int* nbrs_up, const int* up_offset,
+                                    int R, const float* q,
+                                    const int* stop_layer, int B, int D,
+                                    int M, int entry, int entry_level,
+                                    int max_hops, int* out_cur, float* out_d,
                                     cudaStream_t stream) {
   using namespace fvdb;
   if (B < 1 || D < 1 || M < 1 || M > MAXM || R < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = (NT / 32) * D * 4;
-  static int cap[64];
-  cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(greedy_descent_kernel), smem, cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int per_block = NT / 32;
-  greedy_descent_kernel<<<(B + per_block - 1) / per_block, NT, smem, stream>>>(
-      x, x_sq, mask, nbrs_up, up_offset, R, q, stop_layer, B, D, M, entry,
-      entry_level, max_hops, out_cur, out_d);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      x_bf16 ? greedy_descent<__nv_bfloat16>(
+                   static_cast<const __nv_bfloat16*>(x), x_sq, mask, nbrs_up,
+                   up_offset, R, q, stop_layer, B, D, M, entry, entry_level,
+                   max_hops, out_cur, out_d, stream)
+             : greedy_descent<float>(
+                   static_cast<const float*>(x), x_sq, mask, nbrs_up,
+                   up_offset, R, q, stop_layer, B, D, M, entry, entry_level,
+                   max_hops, out_cur, out_d, stream));
 }

@@ -1,10 +1,18 @@
-// K12: the probed-list scan of the IVF search, and its top-k.
+// K12: the probed-list scan of the IVF search, and its top-k, by row type
+// and metric.
 //
 // Replaces the list scan of the JAX package's ivf_search_kernel
-// (index/ivf.py:79): for each query, the rows of its n_probe lists (ranked
-// by K1 over the centroids) are scored max(|q|^2 - 2 q.x + |x|^2, 0), rows
+// (index/ivf.py:79, ivf_search_kernel(metric) at :104-120): for each query,
+// the rows of its n_probe lists (ranked by K1 over the centroids, by the
+// same metric) are scored max(|q|^2 - 2 q.x + |x|^2, 0), or by metric
+// 1 - q.x / sqrt(max(|q|^2 |x|^2, 1e-30)) (cosine) or -q.x (dot), rows
 // that are padding, past the mirror (>= N) or masked out never enter, and
 // the k smallest (distance, row) come out sorted, padded with (+inf, -1).
+// The rows are f32 or bf16 (a bf16 serving mirror), upcast exactly; the
+// query stays f32 and x_sq are the mirror's f32 norms (on a bf16 mirror,
+// the f32 host rows'), as the reference's einsum of an f32 query with
+// gathered bf16 rows computes in f32. Cosine and dot distances can be
+// negative; the radix select's keys (common.cuh) order them.
 // A seed list (the HNSW beam's top-k in the pruned regime) may join the
 // candidates, which folds the regime's two merge_topk calls into this
 // selection: the beam's and the IVF's rows are disjoint.
@@ -34,8 +42,9 @@ namespace fvdb {
 
 constexpr int CH = 256;  // list entries a block
 
+template <typename T, int METRIC>
 __global__ void __launch_bounds__(NT) ivf_scan_kernel(
-    const float* __restrict__ x, const float* __restrict__ x_sq,
+    const T* __restrict__ x, const float* __restrict__ x_sq,
     const uint8_t* __restrict__ mask, const uint8_t* __restrict__ mask2,
     const int* __restrict__ tiles, int L_pad,
     const int* __restrict__ list_len, const int* __restrict__ probe, int P,
@@ -100,44 +109,71 @@ __global__ void __launch_bounds__(NT) ivf_scan_kernel(
     for (int g = 0; g < 4; ++g) {
       if (g == lane && i0 + g < hi) {
         cd[off + i0 + g] =
-            rows[g] >= 0 ? sq_dist(q_sq, dots[g], x_sq[rows[g]]) : INFINITY;
+            rows[g] >= 0 ? metric_dist<METRIC>(q_sq, dots[g], x_sq[rows[g]])
+                         : INFINITY;
         cr[off + i0 + g] = raw[g];
       }
     }
   }
 }
 
+template <typename T, int METRIC>
+cudaError_t ivf_scan(const T* x, const float* x_sq, const uint8_t* mask,
+                     const uint8_t* mask2, const int* tiles, int L_pad,
+                     const int* list_len, const int* probe, int P,
+                     const float* q, int B, int D, int N,
+                     const float* seed_d, const int* seed_r, int seed_stride,
+                     int k_seed, int k, long long stride, float* cand_d,
+                     int* cand_r, int* n_per, void* work, float* out_d,
+                     int* out_r, cudaStream_t stream) {
+  const int smem = D * 4;
+  static int cap[64];
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(ivf_scan_kernel<T, METRIC>), smem, cap);
+  if (e != cudaSuccess) return e;
+  dim3 grid((L_pad + CH - 1) / CH, P, B);
+  ivf_scan_kernel<T, METRIC><<<grid, NT, smem, stream>>>(
+      x, x_sq, mask, mask2, tiles, L_pad, list_len, probe, P, q, D, N, seed_d,
+      seed_r, seed_stride, k_seed, stride, cand_d, cand_r, n_per);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_select_topk(cand_d, cand_r, n_per, stride, B, k, work, out_d,
+                            out_r, stream);
+}
+
 }  // namespace fvdb
 
-// x [N, D], x_sq [N], mask / mask2 [N] uint8 (mask2 may be null), tiles
-// [C, L_pad] int32 (each list packed at the front), list_len [C], probe
-// [B, P] (from K1 over the centroids), q [B, D]; seed_* [B, seed_stride]
+// x [N, D] (x_bf16: bf16, else f32), x_sq [N], mask / mask2 [N] uint8
+// (mask2 may be null), tiles [C, L_pad] int32 (each list packed at the
+// front), list_len [C], probe [B, P] (from K1 over the centroids), q
+// [B, D]; metric 0 euclidean, 1 cosine, 2 dot; seed_* [B, seed_stride]
 // with its first k_seed entries joining (k_seed may be 0); cand_* [B,
 // stride] scratch with stride >= the lengths of the P longest lists +
 // k_seed (the most candidates any query can have), n_per [B] scratch;
 // work: fvdb_select_scratch_bytes(B, k) bytes; out_* [B, k].
 FVDB_EXPORT int fvdb_ivf_scan(
-    const float* x, const float* x_sq, const uint8_t* mask,
-    const uint8_t* mask2, const int* tiles, int L_pad, const int* list_len,
-    const int* probe, int P, const float* q, int B, int D, int N,
-    const float* seed_d, const int* seed_r, int seed_stride, int k_seed,
-    int k, long long stride, float* cand_d, int* cand_r, int* n_per,
-    void* work, float* out_d, int* out_r, cudaStream_t stream) {
+    const void* x, int x_bf16, int metric, const float* x_sq,
+    const uint8_t* mask, const uint8_t* mask2, const int* tiles, int L_pad,
+    const int* list_len, const int* probe, int P, const float* q, int B,
+    int D, int N, const float* seed_d, const int* seed_r, int seed_stride,
+    int k_seed, int k, long long stride, float* cand_d, int* cand_r,
+    int* n_per, void* work, float* out_d, int* out_r, cudaStream_t stream) {
   using namespace fvdb;
   if (B < 1 || D < 1 || P < 1 || L_pad < 1 || k < 1 || k_seed < 0 ||
       stride < (long long)k_seed + 1 || B > 65535 || P > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = D * 4;
-  static int cap[64];
-  cudaError_t e =
-      raise_smem_cap(reinterpret_cast<const void*>(ivf_scan_kernel), smem, cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((L_pad + CH - 1) / CH, P, B);
-  ivf_scan_kernel<<<grid, NT, smem, stream>>>(
-      x, x_sq, mask, mask2, tiles, L_pad, list_len, probe, P, q, D, N, seed_d,
-      seed_r, seed_stride, k_seed, stride, cand_d, cand_r, n_per);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_select_topk(cand_d, cand_r, n_per, stride, B,
-                                             k, work, out_d, out_r, stream));
+  return static_cast<int>(with_metric(metric, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return x_bf16
+               ? ivf_scan<__nv_bfloat16, M>(
+                     static_cast<const __nv_bfloat16*>(x), x_sq, mask, mask2,
+                     tiles, L_pad, list_len, probe, P, q, B, D, N, seed_d,
+                     seed_r, seed_stride, k_seed, k, stride, cand_d, cand_r,
+                     n_per, work, out_d, out_r, stream)
+               : ivf_scan<float, M>(
+                     static_cast<const float*>(x), x_sq, mask, mask2, tiles,
+                     L_pad, list_len, probe, P, q, B, D, N, seed_d, seed_r,
+                     seed_stride, k_seed, k, stride, cand_d, cand_r, n_per,
+                     work, out_d, out_r, stream);
+  }));
 }

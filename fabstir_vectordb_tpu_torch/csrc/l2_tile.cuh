@@ -5,8 +5,10 @@
 // d(q, x) = max(|q|^2 - 2 q'.x + |x|^2, 0) in f32 with FMA (no TF32), where
 // x is read as f32 or bf16 (upcast exactly), q' is q or, with ROUND_Q, q
 // rounded to bf16 (round to nearest even) for the product only: |q|^2 always
-// comes from the f32 q. Rows where the mask is False never enter the result;
-// result rows are sorted by (distance, row), padded with (+inf, -1).
+// comes from the f32 q. METRIC (common.cuh) swaps the epilogue for cosine,
+// 1 - q'.x / sqrt(max(|q|^2 |x|^2, 1e-30)), or dot, -q'.x; the product is
+// the same. Rows where the mask is False never enter the result; result
+// rows are sorted by (distance, row), padded with (+inf, -1).
 //
 // Design:
 //  * Pass 1 splits N into S slices so that (B / 32) * S blocks make one wave
@@ -41,7 +43,7 @@
 // stay contiguous. Each thread keeps the minima of one bin for the 32
 // queries in shared memory across the rounds; at the end one atomicMin a
 // (query, bin) folds them into a [B, M] table of packed 64-bit keys
-// (distance bits << 32 | row), which order as (distance, row).
+// (common.cuh's dist_key << 32 | row), which order as (distance, row).
 #pragma once
 
 #include "common.cuh"
@@ -83,7 +85,7 @@ static_assert(NT == RT, "BINS: a thread owns one bin of a tile");
 
 // split_rows: rows a slice (LISTS, DUMP) or rounds a block (BINS); bins: M
 // and bin_keys [B, M] (BINS only).
-template <typename T, bool ROUND_Q, int MODE>
+template <typename T, bool ROUND_Q, int MODE, int METRIC = EUCLID>
 __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
     const T* __restrict__ x, const float* __restrict__ x_sq,
     const uint8_t* __restrict__ mask, long long mask_stride,
@@ -211,8 +213,12 @@ __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
       for (int j = 0; j < 8; ++j) {
         const int row = r0 + rbase + j;
         float dist = INFINITY;
-        if (q_ok && rbase + j < rn && (!m || m[row]))
-          dist = fmaxf(q_sq[ql] - 2.f * acc[i][j] + x_sq[row], 0.f);
+        if (q_ok && rbase + j < rn && (!m || m[row])) {
+          if constexpr (METRIC == EUCLID)
+            dist = fmaxf(q_sq[ql] - 2.f * acc[i][j] + x_sq[row], 0.f);
+          else
+            dist = metric_dist<METRIC>(q_sq[ql], acc[i][j], x_sq[row]);
+        }
         s.dist[ql][rbase + j] = dist;
       }
     }
@@ -235,8 +241,7 @@ __global__ void __launch_bounds__(NT, 2) l2_topk_partial(
           const float dist = s.dist[ql][t];
           if (!isfinite(dist)) continue;
           const unsigned long long key =
-              ((unsigned long long)(dist == 0.f ? 0u : __float_as_uint(dist))
-               << 32) | row;
+              ((unsigned long long)dist_key(dist) << 32) | row;
           if (key < bmin[ql * RT + t]) bmin[ql * RT + t] = key;
         }
       }
@@ -338,7 +343,7 @@ cudaError_t norms_or_given(const T* x, int N, int D, const float*& x_sq,
 }
 
 // Both passes at k <= 256: part_* [S, B, k] scratch, out_* [B, k].
-template <typename T, bool ROUND_Q>
+template <typename T, bool ROUND_Q, int METRIC = EUCLID>
 cudaError_t launch_l2_topk(const T* x, const float* x_sq,
                            const uint8_t* mask, long long mask_stride,
                            const float* q, int B, int N, int D, int k, int S,
@@ -349,11 +354,13 @@ cudaError_t launch_l2_topk(const T* x, const float* x_sq,
   const int smem1 = QT * k * 8;
   static int cap1[64];
   cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(l2_topk_partial<T, ROUND_Q, SEL_LISTS>),
+      reinterpret_cast<const void*>(
+          l2_topk_partial<T, ROUND_Q, SEL_LISTS, METRIC>),
       smem1, cap1);
   if (e != cudaSuccess) return e;
   dim3 grid1((B + QT - 1) / QT, S);
-  l2_topk_partial<T, ROUND_Q, SEL_LISTS><<<grid1, NT, smem1, stream>>>(
+  l2_topk_partial<T, ROUND_Q, SEL_LISTS, METRIC><<<grid1, NT, smem1,
+                                                   stream>>>(
       x, x_sq, mask, mask_stride, q, B, N, D, k, slice_rows(N, S), part_d,
       part_r, nullptr, 0, nullptr);
   e = cudaGetLastError();
@@ -365,14 +372,14 @@ cudaError_t launch_l2_topk(const T* x, const float* x_sq,
 }
 
 // Pass 1 in DUMP mode: the masked distances of B queries to dump [B, N].
-template <typename T, bool ROUND_Q>
+template <typename T, bool ROUND_Q, int METRIC = EUCLID>
 cudaError_t launch_l2_dump(const T* x, const float* x_sq,
                            const uint8_t* mask, long long mask_stride,
                            const float* q, int B, int N, int D, int S,
                            float* dump, cudaStream_t stream) {
   if (B < 1 || N < 1 || D < 1 || S < 1) return cudaErrorInvalidValue;
   dim3 grid1((B + QT - 1) / QT, S);
-  l2_topk_partial<T, ROUND_Q, SEL_DUMP><<<grid1, NT, 0, stream>>>(
+  l2_topk_partial<T, ROUND_Q, SEL_DUMP, METRIC><<<grid1, NT, 0, stream>>>(
       x, x_sq, mask, mask_stride, q, B, N, D, 0, slice_rows(N, S), nullptr,
       nullptr, dump, 0, nullptr);
   return cudaGetLastError();

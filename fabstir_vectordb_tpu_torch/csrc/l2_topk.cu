@@ -1,15 +1,22 @@
-// K1: fused masked squared L2 + exact top-k.
+// K1: fused masked distance + exact top-k, by metric.
 //
 // Replaces the JAX package's flat_search_kernel (index/fused.py:51 and
-// index/flat.py:30: pairwise_distance + ops/topk.py masked_topk) and the
-// HNSW link-candidate scans _flat_candidates_kernel / _flat_candidates_chunked
-// (index/hnsw.py:81,108). Those materialise the [B, N] distance matrix and
-// select from it; this kernel never writes [B, N].
+// index/flat.py:29 flat_search_kernel(metric): pairwise_distance +
+// ops/topk.py masked_topk) and the HNSW link-candidate scans
+// _flat_candidates_kernel / _flat_candidates_chunked (index/hnsw.py:81,108).
+// Those materialise the [B, N] distance matrix and select from it; this
+// kernel never writes [B, N] (below k = 257).
 //
-// d(q, x) = max(|q|^2 - 2 q.x + |x|^2, 0) in f32 with FMA (no TF32); rows
-// where the mask is False never enter the result; result rows are sorted by
-// (distance, row), padded with (+inf, -1). The passes themselves are in
-// l2_tile.cuh.
+// d(q, x) = max(|q|^2 - 2 q.x + |x|^2, 0) in f32 with FMA (no TF32), or by
+// metric (ops/distance.py:72,87): cosine 1 - q.x / sqrt(max(|q|^2 |x|^2,
+// 1e-30)), dot -q.x; rows where the mask is False never enter the result;
+// result rows are sorted by (distance, row), padded with (+inf, -1). The
+// passes themselves are in l2_tile.cuh. Cosine and dot distances can be
+// negative: the k <= 256 lists compare floats, and the radix select orders
+// common.cuh's signed keys. They run on f32 rows and on bf16 rows with the
+// query rounded (the bf16 mirror's serving distance); bf16 rows with an
+// f32 query take the euclidean metric only (the link candidates, the
+// calibration oracle).
 //
 // bf16 rows (fvdb_l2_topk_bf16, fvdb_l2_topk_large_bf16) are upcast exactly.
 // With round_q the query is rounded to bf16 for the product only (|q|^2
@@ -46,46 +53,54 @@
 
 // x [N, D]; x_sq [N] or null (then the rows' norms are written to
 // xsq_scratch [N] first); mask [B or 1, N] (mask_stride N or 0; null: every
-// row), q [B, D]; part_* [S, B, k] scratch; out_* [B, k], rows + row_base.
+// row), q [B, D]; metric 0 euclidean, 1 cosine, 2 dot; part_* [S, B, k]
+// scratch; out_* [B, k], rows + row_base.
 FVDB_EXPORT int fvdb_l2_topk(const float* x, const float* x_sq,
                              const uint8_t* mask, long long mask_stride,
                              const float* q, int B, int N, int D, int k,
-                             int S, int row_base, float* xsq_scratch,
-                             float* part_d, int* part_r, float* out_d,
-                             int* out_r, cudaStream_t stream) {
+                             int S, int row_base, int metric,
+                             float* xsq_scratch, float* part_d, int* part_r,
+                             float* out_d, int* out_r, cudaStream_t stream) {
   using namespace fvdb;
   cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_l2_topk<float, false>(
-      x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base, part_d, part_r,
-      out_d, out_r, stream));
+  return static_cast<int>(with_metric(metric, [&](auto m) {
+    return launch_l2_topk<float, false, decltype(m)::value>(
+        x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base, part_d,
+        part_r, out_d, out_r, stream);
+  }));
 }
 
 // bf16 rows x [N, D]; x_sq and the rest as fvdb_l2_topk, k <= 256; round_q
-// rounds the query to bf16 in the product.
+// rounds the query to bf16 in the product; a metric other than euclidean
+// takes round_q.
 FVDB_EXPORT int fvdb_l2_topk_bf16(const __nv_bfloat16* x, const float* x_sq,
                                   const uint8_t* mask, long long mask_stride,
                                   const float* q, int B, int N, int D, int k,
                                   int S, int row_base, int round_q,
-                                  float* xsq_scratch, float* part_d,
-                                  int* part_r, float* out_d, int* out_r,
-                                  cudaStream_t stream) {
+                                  int metric, float* xsq_scratch,
+                                  float* part_d, int* part_r, float* out_d,
+                                  int* out_r, cudaStream_t stream) {
   using namespace fvdb;
+  if (!round_q && metric != EUCLID)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = round_q ? launch_l2_topk<__nv_bfloat16, true>(
-                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base,
-                    part_d, part_r, out_d, out_r, stream)
-              : launch_l2_topk<__nv_bfloat16, false>(
-                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base,
-                    part_d, part_r, out_d, out_r, stream);
-  return static_cast<int>(e);
+  if (!round_q)
+    return static_cast<int>(launch_l2_topk<__nv_bfloat16, false>(
+        x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base, part_d,
+        part_r, out_d, out_r, stream));
+  return static_cast<int>(with_metric(metric, [&](auto m) {
+    return launch_l2_topk<__nv_bfloat16, true, decltype(m)::value>(
+        x, x_sq, mask, mask_stride, q, B, N, D, k, S, row_base, part_d,
+        part_r, out_d, out_r, stream);
+  }));
 }
 
 namespace fvdb {
 
 // Any k: the masked distances to dump [B, N], then the radix select.
-template <typename T, bool ROUND_Q>
+template <typename T, bool ROUND_Q, int METRIC>
 cudaError_t l2_topk_large(const T* x, const float* x_sq, const uint8_t* mask,
                           long long mask_stride, const float* q, int B, int N,
                           int D, int k, int S, float* xsq_scratch,
@@ -94,8 +109,8 @@ cudaError_t l2_topk_large(const T* x, const float* x_sq, const uint8_t* mask,
   if (k < 1 || B < 1 || N < 1 || D < 1 || S < 1) return cudaErrorInvalidValue;
   cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
   if (e != cudaSuccess) return e;
-  e = launch_l2_dump<T, ROUND_Q>(x, x_sq, mask, mask_stride, q, B, N, D, S,
-                                 dump, stream);
+  e = launch_l2_dump<T, ROUND_Q, METRIC>(x, x_sq, mask, mask_stride, q, B, N,
+                                         D, S, dump, stream);
   if (e != cudaSuccess) return e;
   return launch_select_topk(dump, nullptr, nullptr, N, B, k, work, out_d,
                             out_r, stream);
@@ -104,30 +119,38 @@ cudaError_t l2_topk_large(const T* x, const float* x_sq, const uint8_t* mask,
 }  // namespace fvdb
 
 // Any k >= 1: dump [B, N] distance scratch; work: fvdb_select_scratch_bytes
-// (B, k) bytes of selection scratch; x_sq null as in fvdb_l2_topk.
+// (B, k) bytes of selection scratch; x_sq null and metric as in
+// fvdb_l2_topk.
 FVDB_EXPORT int fvdb_l2_topk_large(const float* x, const float* x_sq,
                                    const uint8_t* mask, long long mask_stride,
                                    const float* q, int B, int N, int D, int k,
-                                   int S, float* xsq_scratch, float* dump,
-                                   void* work, float* out_d, int* out_r,
-                                   cudaStream_t stream) {
-  return static_cast<int>(fvdb::l2_topk_large<float, false>(
-      x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch, dump, work,
-      out_d, out_r, stream));
+                                   int S, int metric, float* xsq_scratch,
+                                   float* dump, void* work, float* out_d,
+                                   int* out_r, cudaStream_t stream) {
+  using namespace fvdb;
+  return static_cast<int>(with_metric(metric, [&](auto m) {
+    return l2_topk_large<float, false, decltype(m)::value>(
+        x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch, dump,
+        work, out_d, out_r, stream);
+  }));
 }
 
-// bf16 rows at any k; round_q as in fvdb_l2_topk_bf16.
+// bf16 rows at any k; round_q and metric as in fvdb_l2_topk_bf16.
 FVDB_EXPORT int fvdb_l2_topk_large_bf16(
     const __nv_bfloat16* x, const float* x_sq, const uint8_t* mask,
     long long mask_stride, const float* q, int B, int N, int D, int k, int S,
-    int round_q, float* xsq_scratch, float* dump, void* work, float* out_d,
-    int* out_r, cudaStream_t stream) {
+    int round_q, int metric, float* xsq_scratch, float* dump, void* work,
+    float* out_d, int* out_r, cudaStream_t stream) {
   using namespace fvdb;
-  return static_cast<int>(
-      round_q ? l2_topk_large<__nv_bfloat16, true>(
-                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch,
-                    dump, work, out_d, out_r, stream)
-              : l2_topk_large<__nv_bfloat16, false>(
-                    x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch,
-                    dump, work, out_d, out_r, stream));
+  if (!round_q && metric != EUCLID)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!round_q)
+    return static_cast<int>(l2_topk_large<__nv_bfloat16, false, EUCLID>(
+        x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch, dump,
+        work, out_d, out_r, stream));
+  return static_cast<int>(with_metric(metric, [&](auto m) {
+    return l2_topk_large<__nv_bfloat16, true, decltype(m)::value>(
+        x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch, dump,
+        work, out_d, out_r, stream);
+  }));
 }

@@ -8,11 +8,12 @@
 // distance bits. The sort of the k survivors is k log^2 k compare-exchanges
 // inside one block.
 //
-// Design: a candidate's order is the 64-bit number (distance bits << 32 |
-// row): non-negative floats order as their bits, and the row breaks ties
-// toward the lower row, as the plain versions' stable sorts do. A radix
-// select resolves that number 8 bits a pass until the bin that holds the
-// k-th candidate is taken whole; +inf never enters. A pass is one launch
+// Design: a candidate's order is the 64-bit number (distance key << 32 |
+// row), with common.cuh's dist_key, whose unsigned order is the float
+// order, negative distances included; the row breaks ties toward the lower
+// row, as the plain versions' stable sorts do. A radix select resolves that
+// number 8 bits a pass until the bin that holds the k-th candidate is taken
+// whole; +inf (and any distance that is not finite) never enters. A pass is one launch
 // over a grid of (slices, queries), so a few queries still fill the card,
 // and a block's slice is its share of its own query's candidates, so short
 // rows in a long buffer leave no block idle: each block histograms its
@@ -30,7 +31,6 @@
 
 namespace fvdb {
 
-constexpr unsigned INF_KEY = 0x7f800000u;  // the bits of +inf
 constexpr int SORT_SMEM = 4096;            // entries sorted in shared memory
 constexpr int SEL_PASSES = 8;              // 8-bit digits of 64 bits
 constexpr int SEL_BLOCKS = 528;            // blocks a pass aims for: 4 an SM
@@ -85,11 +85,6 @@ inline SelScratch carve_select(void* base, int B, int k) {
   return s;
 }
 
-// A distance's bits as an order key (+0 for a -0).
-__device__ __forceinline__ unsigned dist_key(float d) {
-  return d == 0.f ? 0u : __float_as_uint(d);
-}
-
 // The candidates of query b that block x of gridDim.x takes: its share of
 // the query's own count, so a short row still spreads over every block.
 __device__ __forceinline__ void slice_of(const int* n_per, long long stride,
@@ -126,7 +121,7 @@ __global__ void __launch_bounds__(NT) select_pass_kernel(
     unsigned bin = 0;
     if (i < hi) {
       const unsigned key = dist_key(d[i]);
-      if (key != INF_KEY) {
+      if (finite_key(key)) {
         const int row = s < 32 ? (r ? r[i] : i) : 0;  // rows once needed
         const unsigned long long c =
             ((unsigned long long)key << 32) | (unsigned)row;
@@ -195,7 +190,7 @@ __global__ void __launch_bounds__(NT) select_compact_kernel(
     unsigned long long c = 0ull;
     if (i < hi) {
       const unsigned key = dist_key(d[i]);
-      if (key != INF_KEY) {
+      if (finite_key(key)) {
         c = ((unsigned long long)key << 32) | (unsigned)(r ? r[i] : i);
         take = (c >> shift) <= top;
       }
@@ -244,7 +239,7 @@ __global__ void __launch_bounds__(NT) select_sort_kernel(
   for (int j = t; j < k; j += NT) {
     if (j < kk) {
       const unsigned long long c = buf[j];
-      od[j] = __uint_as_float((unsigned)(c >> 32));
+      od[j] = key_dist((unsigned)(c >> 32));
       orow[j] = (int)(unsigned)(c & 0xffffffffull);
     } else {
       od[j] = INFINITY;

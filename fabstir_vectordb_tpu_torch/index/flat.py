@@ -1,16 +1,20 @@
-"""Exact brute-force index over a VectorStore: one fused L2 top-k (K1).
+"""Exact brute-force index over a VectorStore: one fused masked top-k
+(K1) by metric.
 
-The JAX package's ``index/flat.py`` for the euclidean metric: the
-small-dataset fast path, and (streamed over host tiles) the recall oracle
-for the approximate engines. Soft deletes and filter masks are fused into
-selection. On a bf16 mirror the query is rounded to bf16 in the product
-(the reference's bf16 compute), with the f32 norms of the f32 host rows.
+The JAX package's ``index/flat.py``: the small-dataset fast path, and
+(streamed over host tiles) the recall oracle for the approximate engines.
+Metrics as in ``ops.distance``: squared euclidean inside, returned as the
+true distance; cosine (1 - cos) and negative dot returned as they are.
+Soft deletes and filter masks are fused into selection. On a bf16 mirror
+the query is rounded to bf16 in the product (the reference's bf16
+compute), with the f32 norms of the f32 host rows.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops.distance import check_metric, finalize_distance
 from ..ops.topk import l2_topk
 from ..utils import limits
 from ..utils.padding import bucket, fit_mask
@@ -19,18 +23,20 @@ from .store import VectorStore
 
 
 class FlatIndex:
-    """Brute-force exact index over a VectorStore (euclidean)."""
+    """Brute-force exact index over a VectorStore."""
 
-    def __init__(self, store: VectorStore):
+    def __init__(self, store: VectorStore, metric: str = "euclidean"):
         self.store = store
+        self.metric = check_metric(metric)
 
     def search_rows(self, queries: np.ndarray, k: int,
                     extra_mask: np.ndarray | None = None,
                     dtype: str | None = None):
-        """Returns (true euclidean distances [B, k], rows [B, k]); rows are
-        -1 beyond the matches. ``dtype`` pins the mirror's dtype for this
-        call (default: FVDB_SERVING_DTYPE); the store holds one mirror, so
-        pinning another dtype replaces the serving one."""
+        """Returns (distances [B, k], rows [B, k]); rows are -1 beyond the
+        matches. Euclidean distances are true (not squared) distances.
+        ``dtype`` pins the mirror's dtype for this call (default:
+        FVDB_SERVING_DTYPE); the store holds one mirror, so pinning another
+        dtype replaces the serving one."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         mirror = self.store.device_mirror(dtype or limits.serving_dtype())
         n = int(mirror.x.shape[0])
@@ -41,15 +47,28 @@ class FlatIndex:
         dev = self.store.device
         d, rows = l2_topk(mirror.x, mirror.x_sq, to_device(mask, dev),
                           to_device(queries, dev), k_eff,
-                          round_query=mirror.x.dtype == torch.bfloat16)
+                          round_query=mirror.x.dtype == torch.bfloat16,
+                          metric=self.metric)
         d, rows = to_host(d, rows)
-        d, rows = d[:, :k], rows[:, :k]
-        d = np.sqrt(np.maximum(d, 0.0))
+        d = finalize_distance(d[:, :k], self.metric)
+        rows = rows[:, :k]
         if d.shape[1] < k:  # pad to requested k
             pad = k - d.shape[1]
             d = np.pad(d, ((0, 0), (0, pad)), constant_values=np.inf)
             rows = np.pad(rows, ((0, 0), (0, pad)), constant_values=-1)
         return d, rows
+
+    def search(self, query: np.ndarray, k: int, extra_mask=None):
+        """Single-query search -> list of (id, distance)."""
+        d, rows = self.search_rows(np.asarray(query)[None, :], k, extra_mask)
+        out = []
+        for dist, row in zip(d[0], rows[0]):
+            if row < 0:
+                break
+            vid = self.store.id_of(int(row))
+            if vid is not None:
+                out.append((vid, float(dist)))
+        return out
 
 
 def recall_at_k(oracle: FlatIndex, approx_rows: np.ndarray,

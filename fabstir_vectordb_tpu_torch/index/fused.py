@@ -22,15 +22,14 @@ The JAX package's ``index/fused.py`` for three regimes, picked by capacity:
 - pruned (above it, with FVDB_PCA_SERVE=0): K13 :func:`hybrid_search`,
   greedy descent (K10) and a layer-0 beam (K11) over the HNSW members, then
   the IVF n-probe scan (K12) over the IVF members, seeded with the beam's
-  top-k so the two results merge inside K12's selection.
+  top-k so the two results merge inside K12's selection; on the f32 mirror
+  or, with FVDB_SERVING_DTYPE=bfloat16, on the bf16 one (rows upcast, the
+  f32 query, the f32 host rows' norms).
 
 A query batch is one upload, the launches, and one [B, k] readback (plus,
 in the reduced-rank regime, the host re-score). Engine state (mirrors,
 masks, adjacency, tiles) stays on the device between calls, keyed by the
 engines' versions; the regimes release each other's state.
-
-Not ported yet, and raising ``NotImplementedError`` instead of serving some
-other way: the pruned regime on a bf16 mirror (K10-K13 on bf16 rows).
 
 Distances returned are squared euclidean (callers take the square root).
 """
@@ -790,12 +789,6 @@ class FusedSearcher:
             return self._flat_dispatch(queries_np, k, extra_mask)
         if limits.pca_serve():
             return self._projected_dispatch(queries_np, k, extra_mask)
-        if limits.serving_dtype() != "float32":
-            raise NotImplementedError(
-                "the pruned regime on a bf16 mirror (FVDB_SERVING_DTYPE="
-                "bfloat16 with FVDB_PCA_SERVE=0) needs K10-K13 on bf16 rows "
-                "(greedy descent, beam search, IVF list scan), which are not "
-                "ported yet")
         self._release_proj()
         dev = self._device_state(pruned=True)
         extra = (dev["ones"] if extra_mask is None else self._device_mask(

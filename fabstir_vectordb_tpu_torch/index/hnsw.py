@@ -11,18 +11,19 @@ dirty-row bookkeeping of the device adjacency) is a copy. The device side:
   fused L2 top-k kernel (K1, ``ops.topk.l2_topk``), with a device member
   mask updated in place per batch; above it (or with ``link_mode="layer0"``)
   a greedy descent (K10) and one layer-0 beam of ef_construction (K11);
+  with ``link_mode="per_layer"`` a descent to each new row's level and one
+  K11 beam a layer from there down to 0, each layer linked from its own
+  pool, one row at a time (the reference's ``_link_batch``);
 - the neighbour-selection heuristic (K4, :func:`heuristic_kept`);
 - the row-pair distances of the reverse-link prune (K5, :func:`pair_sq_l2`);
 - search: greedy descent over the upper layers (K10,
   :func:`greedy_descent`) and a layer-0 beam (K11, :func:`beam_search`).
 
-The mirror is the serving one (FVDB_SERVING_DTYPE). On a bf16 mirror K1,
-K4 and K5 read bf16 rows upcast exactly, with the f32 query (K1 does not
-round it here) and, for K1 and K5, the mirror's f32 norms of the f32 host
-rows (K4 takes the norms of the upcast rows). The layer-0 link plan and
-search on a bf16 mirror need K10 / K11 on bf16 rows and raise
-``NotImplementedError``, as does ``link_mode="per_layer"`` (a beam per
-layer).
+The mirror is the serving one (FVDB_SERVING_DTYPE). On a bf16 mirror every
+kernel here reads bf16 rows upcast exactly, with the f32 query (K1 does not
+round it here) and, for K1, K5, K10 and K11, the mirror's f32 norms of the
+f32 host rows (K4 takes the norms of the upcast rows), as the reference's
+f32-compute gathers do.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from ..ops.topk import INF, l2_topk
 from ..utils import limits, native
 from ..utils.padding import bucket, fit_mask, grow_rows
 from ..utils.transfer import to_device, to_host
-from .store import VectorStore, refuse_bf16_search, serving_mirror
+from .store import VectorStore, serving_mirror
 
 
 @dataclass
@@ -53,7 +54,8 @@ class HNSWConfig:
     # link candidates: "auto" takes exact K1 candidates while the member
     # prefix fits the flat threshold and the "layer0" plan above it;
     # "layer0" is greedy descent + one layer-0 beam, every layer linked
-    # from its pool; "per_layer" (a beam per layer) is not ported
+    # from its pool; "per_layer" is a beam per layer from each new row's
+    # level down, each layer linked from its own pool
     link_mode: str = "auto"
 
 
@@ -122,7 +124,7 @@ def heuristic_kept(x, cand_ids, cand_d, m: int) -> torch.Tensor:
         [P, P, P, I, I, I, I, P, P],
         x.data_ptr(), cand_ids.data_ptr(), cand_d.data_ptr(), b, c,
         x.shape[1], m, kept.data_ptr(), native.stream_of(x))
-    native.launches["heuristic_kept_bf16" if bf16 else "heuristic_kept"] += 1
+    native.launches[native.counter("heuristic_kept", bf16)] += 1
     return kept.bool()
 
 
@@ -157,15 +159,16 @@ def pair_sq_l2(x, x_sq, t_ids, c_ids) -> torch.Tensor:
         [P, P, P, P, I, I, P, P],
         x.data_ptr(), x_sq.data_ptr(), t_ids.data_ptr(), c_ids.data_ptr(), p,
         x.shape[1], out.data_ptr(), native.stream_of(x))
-    native.launches["pair_sq_l2_bf16" if bf16 else "pair_sq_l2"] += 1
+    native.launches[native.counter("pair_sq_l2", bf16)] += 1
     return out
 
 
 def _gather_dists(x, x_sq, q, q_sq, ids):
     """Distances from each query to its own ids: q [B, D], ids [B, M] ->
-    [B, M], max(|q|^2 - 2 q.x + |x|^2, 0); a -1 id gathers row 0."""
+    [B, M], max(|q|^2 - 2 q.x + |x|^2, 0) with bf16 rows upcast (the f32
+    query stays f32); a -1 id gathers row 0."""
     safe = ids.clamp_min(0).long()
-    dots = torch.einsum("bd,bmd->bm", q, x[safe])
+    dots = torch.einsum("bd,bmd->bm", q, x[safe].float())
     return (q_sq[:, None] - 2.0 * dots + x_sq[safe]).clamp_min(0.0)
 
 
@@ -224,14 +227,17 @@ def greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
 def greedy_descent(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
                    entry_level: int, stop_layer=None, max_hops: int = 512):
     """K10: batched greedy ef=1 descent from (entry, entry_level) down to
-    stop_layer [B] int32 (None: layer 0). mask [N] bool gates traversal.
-    Returns (cur [B] int32, cur_d [B] f32). The plain version on CPU
-    tensors, csrc/greedy_descent.cu on CUDA tensors (M <= 32)."""
+    stop_layer [B] int32 (None: layer 0). x [N, D] f32 or bf16 (upcast
+    exactly; q [B, D] stays f32), x_sq [N] the mirror's f32 norms; mask [N]
+    bool gates traversal. Returns (cur [B] int32, cur_d [B] f32). The plain
+    version on CPU tensors, csrc/greedy_descent.cu on CUDA tensors
+    (M <= 32)."""
     if x.device.type == "cpu":
         return greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q,
                                     entry, entry_level, stop_layer, max_hops)
     dev = x.device
-    native.check(x, "x", torch.float32, 2, dev)
+    bf16 = x.dtype == torch.bfloat16
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(x_sq, "x_sq", torch.float32, 1, dev)
     native.check(mask, "mask", torch.bool, 1, dev)
     native.check(nbrs_up, "nbrs_up", torch.int32, 2, dev)
@@ -252,13 +258,13 @@ def greedy_descent(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
     P, I = native.P, native.I
     native.call(
         "greedy_descent", "fvdb_greedy_descent",
-        [P, P, P, P, P, I, P, P, I, I, I, I, I, I, P, P, P],
-        x.data_ptr(), x_sq.data_ptr(), mask.data_ptr(), nbrs_up.data_ptr(),
-        up_offset.data_ptr(), nbrs_up.shape[0], q.data_ptr(),
+        [P, I, P, P, P, P, I, P, P, I, I, I, I, I, I, P, P, P],
+        x.data_ptr(), int(bf16), x_sq.data_ptr(), mask.data_ptr(),
+        nbrs_up.data_ptr(), up_offset.data_ptr(), nbrs_up.shape[0], q.data_ptr(),
         0 if stop_layer is None else stop_layer.data_ptr(), b, d, m,
         int(entry), int(entry_level), int(max_hops), cur.data_ptr(),
         cur_d.data_ptr(), native.stream_of(x))
-    native.launches["greedy_descent"] += 1
+    native.launches[native.counter("greedy_descent", bf16)] += 1
     return cur, cur_d
 
 
@@ -397,9 +403,12 @@ def beam_search(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start_ids,
                 expand: int = 1):
     """K11: batched beam search at one graph layer.
 
-    q [B, D] f32; start_ids [B, S] int32 (-1 padded); active [B] bool or
-    None (all); mask [N] bool gates traversal; result_mask [N] bool or
-    None gates only which rows may be returned (the filter path). Each step
+    x [N, D] f32 or bf16 (upcast exactly) with x_sq [N] the mirror's f32
+    norms; q [B, D] f32; start_ids [B, S] int32 (-1 padded); active [B]
+    bool or None (all; an inactive query returns its start set); layer > 0
+    reads nbrs_up through up_offset; mask [N] bool gates traversal;
+    result_mask [N] bool or None gates only which rows may be returned
+    (the filter path). Each step
     expands the ``expand`` best unexpanded pool entries. Returns (d [B, ef]
     f32, ids [B, ef] int32) sorted ascending, +inf / -1 padded. The plain
     version on CPU tensors, csrc/beam_search.cu on CUDA tensors (expand x
@@ -411,7 +420,8 @@ def beam_search(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start_ids,
                                  start_ids, active, layer, ef, max_iters,
                                  result_mask, use_nbrs0, expand)
     dev = x.device
-    native.check(x, "x", torch.float32, 2, dev)
+    bf16 = x.dtype == torch.bfloat16
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(x_sq, "x_sq", torch.float32, 1, dev)
     native.check(mask, "mask", torch.bool, 1, dev)
     native.check(q, "q", torch.float32, 2, dev)
@@ -443,16 +453,18 @@ def beam_search(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start_ids,
                if per_q else None)
     native.call(
         "beam_search", "fvdb_beam_search",
-        [P, P, P, P, I, I, P, I, P, I, I, P, I, P, P, I, I, I, P, P, P, P],
-        x.data_ptr(), x_sq.data_ptr(), mask.data_ptr(), adj.data_ptr(),
-        adj.shape[0], mw, 0 if use_nbrs0 else up_offset.data_ptr(),
+        [P, I, P, P, P, I, I, P, I, P, I, I, P, I, P, P, I, I, I, P, P, P,
+         P],
+        x.data_ptr(), int(bf16), x_sq.data_ptr(), mask.data_ptr(),
+        adj.data_ptr(), adj.shape[0], mw, 0 if use_nbrs0 else up_offset.data_ptr(),
         int(layer), q.data_ptr(), b, d, start_ids.data_ptr(), s,
         0 if active is None else active.data_ptr(),
         0 if result_mask is None else result_mask.data_ptr(), int(ef),
         int(max_iters), int(expand),
         0 if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
         out_id.data_ptr(), native.stream_of(x))
-    native.launches["beam_search"] += 1
+    native.launches[native.counter("beam_search", bf16,
+                                   up=not use_nbrs0)] += 1
     return out_d, out_id
 
 
@@ -472,6 +484,20 @@ def _heuristic_kept_host(vecs, cand_d, valid, m: int) -> np.ndarray:
         kept[:, i] = keep_i
         cnt += keep_i
     return kept
+
+
+def _heuristic_prune_one(data, target_vec, ids: np.ndarray,
+                         width: int) -> np.ndarray:
+    """Reverse-link prune of one overfull list (the reference's): the
+    heuristic selection up to width, then the closest pruned ones fill the
+    rest, so spread links survive and near links still fill the list."""
+    vecs = data[ids]
+    d = ((vecs - target_vec) ** 2).sum(-1)
+    order = np.argsort(d, kind="stable")
+    ids, vecs, d = ids[order], vecs[order], d[order]
+    kept = _heuristic_kept_host(vecs[None], d[None],
+                                np.ones((1, len(ids)), bool), width)[0]
+    return np.concatenate([ids[kept], ids[~kept]])[:width]
 
 
 # flat-pair counts / table rows above which the reverse-link prune computes
@@ -777,9 +803,9 @@ class HNSWIndex:
         if n_members <= cfg.bootstrap_threshold:
             cands = self._exact_candidates(batch)
         else:
-            cands = self._device_candidates(batch)
+            cands = self._device_candidates(batch, levels_new)
 
-        self._link_batch_exact(batch, levels_new, cands)
+        self._link_batch(batch, levels_new, cands)
         self._version += 1
 
     def _install_node(self, row: int, level: int) -> None:
@@ -824,7 +850,10 @@ class HNSWIndex:
             vecs, dists[:, :c_sel], sl_ids >= 0, m)
         return kept
 
-    def _device_candidates(self, batch: np.ndarray) -> dict:
+    def _device_candidates(self, batch: np.ndarray,
+                           levels_new: np.ndarray) -> dict:
+        """Candidate pools of a batch of new rows (their sampled levels in
+        ``levels_new``, read by the per-layer plan)."""
         cfg = self.config
         device = self.store.device
         flat_link_ok, n_pad = self._flat_plan()
@@ -832,29 +861,121 @@ class HNSWIndex:
             mask = to_device(self._search_mask(), device)
             return self._flat_finalize(
                 self._flat_dispatch(batch, mask, n_pad))
-        if cfg.link_mode not in ("auto", "layer0"):
-            raise NotImplementedError(
-                f"link_mode={cfg.link_mode!r} (a beam per layer) is not "
-                "ported yet")
-        refuse_bf16_search("the HNSW layer-0 link plan",
-                           "K10 / K11 (greedy descent, beam search)")
-        # greedy all the way down, one ef_construction beam at layer 0;
-        # upper layers link from the same pool, filtered by node level
+        if cfg.link_mode not in ("auto", "layer0", "per_layer"):
+            raise ValueError(f"unknown link_mode {cfg.link_mode!r}")
         mirror = serving_mirror(self.store)
         dev = self._device_arrays()
         mask = to_device(self._search_mask(), device)
         q = to_device(self.store.data[batch], device)
+        c_sel = min(cfg.ef_construction, _HEUR_POOL)
+        if cfg.link_mode != "per_layer":
+            # greedy all the way down, one ef_construction beam at layer 0;
+            # upper layers link from the same pool, filtered by node level
+            cur, _ = greedy_descent(mirror.x, mirror.x_sq, mask,
+                                    dev["nbrs_up"], dev["up_offset"], q,
+                                    self.entry_point, self.max_level)
+            pool_d, pool_id = beam_search(
+                mirror.x, mirror.x_sq, mask, dev["nbrs0"], dev["nbrs_up"],
+                dev["up_offset"], q, cur[:, None], None, layer=0,
+                ef=cfg.ef_construction, max_iters=cfg.ef_construction + 32)
+            kept = heuristic_kept(mirror.x, pool_id[:, :c_sel].contiguous(),
+                                  pool_d[:, :c_sel].contiguous(), cfg.m0)
+            return self._flat_finalize((pool_d, pool_id, kept, c_sel))
+
+        # per layer: descend to each row's level, then one beam a layer from
+        # the highest such level down to 0, each seeded with the layer
+        # above's pool (queries not yet at a layer keep their entries)
+        stop = np.minimum(levels_new, self.max_level).astype(np.int32)
         cur, _ = greedy_descent(mirror.x, mirror.x_sq, mask, dev["nbrs_up"],
                                 dev["up_offset"], q, self.entry_point,
-                                self.max_level)
-        pool_d, pool_id = beam_search(
-            mirror.x, mirror.x_sq, mask, dev["nbrs0"], dev["nbrs_up"],
-            dev["up_offset"], q, cur[:, None], None, layer=0,
-            ef=cfg.ef_construction, max_iters=cfg.ef_construction + 32)
-        c_sel = min(cfg.ef_construction, _HEUR_POOL)
-        kept = heuristic_kept(mirror.x, pool_id[:, :c_sel].contiguous(),
-                              pool_d[:, :c_sel].contiguous(), cfg.m0)
-        return self._flat_finalize((pool_d, pool_id, kept, c_sel))
+                                self.max_level, to_device(stop, device))
+        entries = to_host(cur)[0][:, None]  # [B, 1]
+        per_layer = {}
+        top_beam = int(min(self.max_level, int(stop.max())))
+        for layer in range(top_beam, -1, -1):
+            active = stop >= layer
+            pool_d, pool_id = beam_search(
+                mirror.x, mirror.x_sq, mask, dev["nbrs0"], dev["nbrs_up"],
+                dev["up_offset"], q, to_device(entries.astype(np.int32),
+                                               device),
+                to_device(active, device), layer=layer,
+                ef=cfg.ef_construction, max_iters=cfg.ef_construction + 32)
+            kept = heuristic_kept(mirror.x, pool_id[:, :c_sel].contiguous(),
+                                  pool_d[:, :c_sel].contiguous(),
+                                  cfg.m0 if layer == 0 else cfg.m)
+            pool_d, pool_id, kept_sl = to_host(pool_d, pool_id, kept)
+            kept_all = np.zeros(pool_id.shape, bool)
+            kept_all[:, :c_sel] = kept_sl
+            per_layer[layer] = (pool_id, pool_d, kept_all)
+            nxt = pool_id.copy()
+            if not active.all():
+                keep = ~active
+                pad = np.full((entries.shape[0], nxt.shape[1]), -1, np.int32)
+                pad[:, : entries.shape[1]] = entries
+                nxt[keep] = pad[keep]
+            entries = nxt
+        return {"mode": "beam", "per_layer": per_layer}
+
+    def _link_batch(self, batch: np.ndarray, levels_new: np.ndarray,
+                    cands: dict) -> None:
+        """Link a batch from its candidates: exact pools (one pool for
+        every layer) through the vectorised _link_batch_exact; per-layer
+        pools one row at a time, as the reference does: each row installs,
+        takes its heuristic-kept candidates first and the closest unkept
+        after, and adds reverse links that prune a full list."""
+        if cands["mode"] == "exact":
+            return self._link_batch_exact(batch, levels_new, cands)
+        cfg = self.config
+        max_searched = max(cands["per_layer"].keys())
+        for qi, row in enumerate(batch):
+            row = int(row)
+            level = int(levels_new[qi])
+            self._install_node(row, level)
+            # cap at the layers searched: an earlier row of this batch may
+            # have raised max_level past the search's snapshot
+            for layer in range(min(level, max_searched), -1, -1):
+                ids, _, kept = (a[qi] for a in cands["per_layer"][layer])
+                keep = (ids >= 0) & (ids != row)
+                m_l = cfg.m0 if layer == 0 else cfg.m
+                chosen = np.concatenate([ids[keep & kept],
+                                         ids[keep & ~kept]])[:m_l]
+                self._set_links(row, layer, chosen)
+                for c in chosen:
+                    self._add_reverse_link(int(c), layer, row)
+            if level > self.max_level:
+                self.entry_point = row
+                self.max_level = level
+
+    def _layer_list(self, row: int, layer: int) -> np.ndarray:
+        if layer == 0:
+            return self.nbrs0[row]
+        return self.nbrs_up[self.up_offset[row] + layer - 1]
+
+    def _set_links(self, row: int, layer: int, ids: np.ndarray) -> None:
+        lst = self._layer_list(row, layer)
+        lst[:] = -1
+        lst[: len(ids)] = ids
+        if layer == 0:
+            self._mark_dirty0(row)
+        else:
+            self._mark_dirty_up(self.up_offset[row] + layer - 1)
+
+    def _add_reverse_link(self, target: int, layer: int, new_row: int):
+        if layer == 0:
+            self._mark_dirty0(target)
+        else:
+            self._mark_dirty_up(self.up_offset[target] + layer - 1)
+        lst = self._layer_list(target, layer)
+        free = np.nonzero(lst < 0)[0]
+        if free.size:
+            lst[free[0]] = new_row
+            return
+        # full: heuristic prune (keep spread links, fill closest)
+        ids = np.concatenate([lst, [new_row]])
+        best = _heuristic_prune_one(self.store.data, self.store.data[target],
+                                    ids, lst.shape[0])
+        lst[:] = -1
+        lst[: len(best)] = best
 
     def _link_batch_exact(self, batch: np.ndarray, levels_new: np.ndarray,
                           cands: dict) -> None:
@@ -1020,11 +1141,10 @@ class HNSWIndex:
     # ---------------------------------------------------------------- search
     def search_rows(self, queries: np.ndarray, k: int, ef: int | None = None,
                     extra_mask: np.ndarray | None = None):
-        """Greedy descent (K10) + one layer-0 beam (K11). Returns
-        (distances [B, k] true euclidean, rows [B, k]); ``extra_mask`` (a
-        filter) gates the results only, not the traversal."""
-        refuse_bf16_search("HNSW search",
-                           "K10 / K11 (greedy descent, beam search)")
+        """Greedy descent (K10) + one layer-0 beam (K11) over the serving
+        mirror (f32 or bf16). Returns (distances [B, k] true euclidean, rows
+        [B, k]); ``extra_mask`` (a filter) gates the results only, not the
+        traversal."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         ef = bucket(max(ef or self.config.ef_search, k))
         self._fix_entry_point()

@@ -4,10 +4,11 @@ n-probe search.
 The JAX package's ``index/ivf.py`` as far as the ported slices need it:
 training (k-means, K6), centroid install, assignment of rows to lists,
 removal, membership masks and counters, the padded list tiles, and the
-search: the centroid ranking (K1 over the centroids) and the probed list
-scan with its top-k (K12, :func:`ivf_search`). Euclidean only: cosine and
-dot raise ``NotImplementedError``. Retraining, adding clusters, balancing,
-compaction and the quality evaluation are not ported yet.
+search by metric (euclidean, cosine, dot) on an f32 or bf16 mirror: the
+centroid ranking (K1 over the centroids, by the same metric) and the
+probed list scan with its top-k (K12, :func:`ivf_search`). Retraining,
+adding clusters, balancing, compaction and the quality evaluation are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -16,14 +17,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.distance import pairwise_sq_l2, squared_norms
+from ..ops.distance import (METRIC_CODE, check_metric, finalize_distance,
+                            pairwise_distance, squared_norms)
 from ..ops.kmeans import assign_clusters, kmeans_train_stepped
 from ..ops.topk import (INF, l2_topk, masked_topk, merge_topk_plain,
                         select_scratch)
 from ..utils import native
 from ..utils.padding import bucket, fit_mask, grow_rows
 from ..utils.transfer import to_device, to_host
-from .store import VectorStore, refuse_bf16_search, serving_mirror
+from .store import VectorStore, serving_mirror
 
 # bytes of (distance, row) candidates one K12 launch holds; larger batches
 # run in query chunks
@@ -55,18 +57,20 @@ class IVFLists:
 
 
 def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
-                     n_probe: int, extra_mask=None, seed=None):
-    """Plain version of K12: the reference's ivf_search_kernel (euclidean),
+                     n_probe: int, extra_mask=None, seed=None,
+                     metric: str = "euclidean"):
+    """Plain version of K12: the reference's ivf_search_kernel(metric),
     probe by probe (masked_topk of each list, merged into the running list
-    by (distance, row)), over the padded tiles. ``seed`` (vals, rows)
-    [B, >=1] starts the running list with its first k entries instead of
-    +inf, which is merge_topk(seed, ivf result)."""
+    by (distance, row)), over the padded tiles. bf16 rows are upcast with
+    the f32 query, as the reference's einsum computes. ``seed`` (vals,
+    rows) [B, >=1] starts the running list with its first k entries instead
+    of +inf, which is merge_topk(seed, ivf result)."""
     b = q.shape[0]
     tiles = lists.tiles
     l_pad = tiles.shape[1]
     if extra_mask is not None:
         mask = mask & extra_mask
-    dc = pairwise_sq_l2(q, lists.centroids, lists.c_sq)  # [B, C]
+    dc = pairwise_distance(q, lists.centroids, metric, lists.c_sq)  # [B, C]
     n_probe = min(n_probe, lists.centroids.shape[0])
     _, probe = masked_topk(dc, None, n_probe)
     q_sq = (q * q).sum(-1)
@@ -80,8 +84,14 @@ def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
         cand = tiles[probe[:, p].long()]  # [B, L_pad]
         valid = (cand >= 0) & (cand < x.shape[0])
         safe = torch.where(valid, cand, torch.zeros_like(cand)).long()
-        dots = torch.einsum("bd,bld->bl", q, x[safe])
-        d = (q_sq[:, None] - 2.0 * dots + x_sq[safe]).clamp_min(0.0)
+        dots = torch.einsum("bd,bld->bl", q, x[safe].float())
+        if metric == "euclidean":
+            d = (q_sq[:, None] - 2.0 * dots + x_sq[safe]).clamp_min(0.0)
+        elif metric == "cosine":
+            denom = (q_sq[:, None] * x_sq[safe]).clamp_min(1e-30).sqrt()
+            d = 1.0 - dots / denom
+        else:  # dot
+            d = -dots
         cvals, cpos = masked_topk(d, valid & mask[safe], k_step)
         crow = torch.where(
             cpos >= 0,
@@ -92,26 +102,30 @@ def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
 
 
 def ivf_search(x, x_sq, mask, lists: IVFLists, q, k: int, n_probe: int,
-               extra_mask=None, seed=None):
-    """K12: batched n-probe search. x [N, D] f32, mask [N] bool (and
-    ``extra_mask`` [N] bool, ANDed), ``lists`` the quantizer and tiles
-    (row ids packed at the front of each list, -1 padded); q [B, D].
-    ``seed`` (vals, rows) [B, S] joins its first min(k, S) entries to the
-    candidates (rows disjoint from the lists'). Returns (vals [B, k], rows
-    [B, k], probe [B, P]): the k smallest by (distance, row), +inf / -1
+               extra_mask=None, seed=None, metric: str = "euclidean"):
+    """K12: batched n-probe search by ``metric`` (euclidean: squared L2;
+    cosine: 1 - cos; dot: -q.x). x [N, D] f32 or bf16 (a bf16 mirror, upcast
+    exactly; the query stays f32), x_sq [N] f32 (the mirror's norms), mask
+    [N] bool (and ``extra_mask`` [N] bool, ANDed), ``lists`` the quantizer
+    and tiles (row ids packed at the front of each list, -1 padded); q
+    [B, D]. ``seed`` (vals, rows) [B, S] joins its first min(k, S) entries
+    to the candidates (rows disjoint from the lists'). Returns (vals [B, k],
+    rows [B, k], probe [B, P]): the k smallest by (distance, row), +inf / -1
     padded.
 
     The plain version on CPU tensors; on CUDA tensors K1 ranks the
-    centroids (all of them, k = n_probe: ties go to the lower centroid, as
-    ``lax.top_k`` does) and csrc/ivf_scan.cu scans the probed lists and
-    selects, or it raises. A query's candidates take at most the P longest
-    lists' rows, so the candidate buffer is sized by those and queries go
-    in chunks of at most _CAND_BYTES of it."""
+    centroids by the metric (all of them, k = n_probe: ties go to the lower
+    centroid, as ``lax.top_k`` does) and csrc/ivf_scan.cu scans the probed
+    lists and selects, or it raises. A query's candidates take at most the
+    P longest lists' rows, so the candidate buffer is sized by those and
+    queries go in chunks of at most _CAND_BYTES of it."""
+    check_metric(metric)
     if x.device.type == "cpu":
         return ivf_search_plain(x, x_sq, mask, lists, q, k, n_probe,
-                                extra_mask, seed)
+                                extra_mask, seed, metric)
     dev = x.device
-    native.check(x, "x", torch.float32, 2, dev)
+    bf16 = x.dtype == torch.bfloat16
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(x_sq, "x_sq", torch.float32, 1, dev)
     native.check(mask, "mask", torch.bool, 1, dev)
     if extra_mask is not None:
@@ -136,7 +150,8 @@ def ivf_search(x, x_sq, mask, lists: IVFLists, q, k: int, n_probe: int,
         native.check(seed_r, "seed rows", torch.int32, 2, dev)
         seed_stride = seed_d.shape[1]
         k_seed = min(k, seed_stride)
-    _, probe = l2_topk(lists.centroids, lists.c_sq, None, q, n_probe)
+    _, probe = l2_topk(lists.centroids, lists.c_sq, None, q, n_probe,
+                       metric=metric)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
@@ -152,9 +167,10 @@ def ivf_search(x, x_sq, mask, lists: IVFLists, q, k: int, n_probe: int,
         work = select_scratch("ivf_scan", hi - lo, k, dev)
         native.call(
             "ivf_scan", "fvdb_ivf_scan",
-            [P, P, P, P, P, I, P, P, I, P, I, I, I, P, P, I, I, I, L, P, P,
-             P, P, P, P, P],
-            x.data_ptr(), x_sq.data_ptr(), mask.data_ptr(),
+            [P, I, I, P, P, P, P, I, P, P, I, P, I, I, I, P, P, I, I, I, L,
+             P, P, P, P, P, P, P],
+            x.data_ptr(), int(bf16), METRIC_CODE[metric], x_sq.data_ptr(),
+            mask.data_ptr(),
             0 if extra_mask is None else extra_mask.data_ptr(),
             lists.tiles.data_ptr(), l_pad, lists.list_len.data_ptr(),
             probe[lo:hi].data_ptr(), n_probe, q[lo:hi].data_ptr(), hi - lo,
@@ -163,7 +179,7 @@ def ivf_search(x, x_sq, mask, lists: IVFLists, q, k: int, n_probe: int,
             k_seed, k, stride, cand_d.data_ptr(), cand_r.data_ptr(),
             n_per.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
             out_r[lo:hi].data_ptr(), native.stream_of(x))
-        native.launches["ivf_scan"] += 1
+        native.launches[native.counter("ivf_scan", bf16, metric)] += 1
     return out_d, out_r, probe
 
 
@@ -380,13 +396,12 @@ class IVFIndex:
                     n_probe: int | None = None,
                     extra_mask: np.ndarray | None = None,
                     metric: str = "euclidean"):
-        """Returns (distances [B, k] true euclidean, rows [B, k])."""
+        """Returns (distances [B, k], rows [B, k]): true euclidean
+        distances, or cosine / negative-dot distances as they are
+        (``finalize_distance``)."""
         if not self.trained:
             raise NotTrainedError("IVF index is not trained")
-        if metric != "euclidean":
-            raise NotImplementedError(
-                f"IVF search with metric={metric!r} is not ported yet")
-        refuse_bf16_search("IVF search", "K12 (the IVF list scan)")
+        check_metric(metric)
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         n_probe = n_probe if n_probe is not None else self.config.n_probe
         mirror = serving_mirror(self.store)
@@ -407,9 +422,9 @@ class IVFIndex:
             mask_dev = self._dev_mask
         vals, rows, _ = ivf_search(
             mirror.x, mirror.x_sq, mask_dev, lists, to_device(queries, device),
-            bucket(k), n_probe)
+            bucket(k), n_probe, metric=metric)
         vals, rows = to_host(vals, rows)
-        return np.sqrt(np.maximum(vals[:, :k], 0.0)), rows[:, :k]
+        return finalize_distance(vals[:, :k], metric), rows[:, :k]
 
     def memory_usage_bytes(self) -> int:
         total = self.assignments.nbytes

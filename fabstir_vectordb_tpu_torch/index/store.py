@@ -351,11 +351,3 @@ def serving_mirror(store: VectorStore) -> DeviceMirror:
     """The mirror in the serving dtype (FVDB_SERVING_DTYPE)."""
     return store.device_mirror(limits.serving_dtype())
 
-
-def refuse_bf16_search(what: str, kernels: str) -> None:
-    """Raise NotImplementedError when a bf16 mirror serves: ``what`` reads
-    the mirror through ``kernels``, which take f32 rows only so far."""
-    if limits.serving_dtype() != "float32":
-        raise NotImplementedError(
-            f"{what} on a bf16 mirror (FVDB_SERVING_DTYPE=bfloat16) needs "
-            f"{kernels} on bf16 rows, which are not ported yet")

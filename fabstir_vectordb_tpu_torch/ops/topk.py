@@ -1,9 +1,11 @@
-"""Masked top-k selection, top-k merges, the fused L2 top-k kernel (K1) and
-the approximate binned pool (K9).
+"""Masked top-k selection, top-k merges, the fused distance top-k kernel
+(K1, by metric), the approximate binned pool (K9) and the streaming top-k
+over row chunks (``chunked_topk``, K8's last program).
 
-Smaller distance = better everywhere; entries that are masked out or not
+Smaller distance = better everywhere, negative distances included (dot and
+cosine, or a caller's ``dist_fn``); entries that are masked out or not
 finite surface as (+inf, -1). Ties go to the lower index, in the plain
-versions (stable sorts) and in the kernel alike.
+versions (stable sorts) and in the kernels alike.
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ import math
 import torch
 
 from ..utils import native
-from .distance import pairwise_sq_l2
+from ..utils.device import resolve_device
+from .distance import (METRIC_CODE, check_metric, pairwise_distance,
+                       pairwise_sq_l2)
 
 INF = float("inf")
 
@@ -110,13 +114,87 @@ def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int, out=None):
     return out_v, out_r
 
 
+def chunk_step_plain(d, mask, start: int, vals, idx, k: int):
+    """Plain version of chunked_topk's step: the masked top-min(k, C) of a
+    chunk's distances d [B, C] (rows offset by ``start``) merged into the
+    running (vals, idx) [B, k]."""
+    cvals, cidx = masked_topk(d, mask, min(k, d.shape[1]))
+    cidx = torch.where(cidx >= 0, cidx + start, cidx)
+    return merge_topk_plain(vals, idx, cvals, cidx, k)
+
+
+def chunk_step(d, mask, start: int, vals, idx, k: int):
+    """chunked_topk's step: d [B, C] f32 distances of rows start .. start
+    + C - 1, mask [C] or [B, C] bool or None; the chunk's masked top-min(k,
+    C) by (distance, row), rows offset by ``start``, merged into the running
+    (vals [B, k], idx [B, k] int32). Returns the new running pair. The plain
+    version on CPU tensors; on CUDA tensors csrc/merge_topk.cu's chunk step
+    (the mask pass, the radix select of topk_select.cuh, K8's merge) or it
+    raises."""
+    if d.device.type == "cpu":
+        return chunk_step_plain(d, mask, start, vals, idx, k)
+    dev = d.device
+    native.check(d, "d", torch.float32, 2, dev)
+    native.check(vals, "vals", torch.float32, 2, dev)
+    native.check(idx, "idx", torch.int32, 2, dev)
+    b, c = d.shape
+    _check_mask(mask, b, c, dev)
+    if vals.shape != (b, k) or idx.shape != (b, k) or c < 1 or k < 1:
+        raise ValueError(f"chunk_step: d {tuple(d.shape)}, running "
+                         f"{tuple(vals.shape)}, k={k}")
+    kc = min(k, c)
+    masked = torch.empty_like(d) if mask is not None else None
+    cand_v = torch.empty((b, kc), dtype=torch.float32, device=dev)
+    cand_r = torch.empty((b, kc), dtype=torch.int32, device=dev)
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    work = select_scratch("merge_topk", b, kc, dev)
+    m_stride = c if mask is not None and mask.dim() == 2 else 0
+    P, I, L = native.P, native.I, native.L
+    native.call(
+        "merge_topk", "fvdb_chunk_step",
+        [P, P, L, I, I, I, I, P, P, P, P, P, P, I, P, P, P],
+        d.data_ptr(), 0 if mask is None else mask.data_ptr(), m_stride, b, c,
+        kc, int(start), 0 if masked is None else masked.data_ptr(),
+        work.data_ptr(), cand_v.data_ptr(), cand_r.data_ptr(),
+        vals.data_ptr(), idx.data_ptr(), k, out_v.data_ptr(),
+        out_r.data_ptr(), native.stream_of(d))
+    native.launches["chunk_step"] += 1
+    return out_v, out_r
+
+
+def chunked_topk(dist_fn, n_total: int, chunk: int, k: int, batch: int,
+                 device=None):
+    """The reference's chunked_topk (ops/topk.py:73): returns a callable
+    that scans rows [0, n_total) in chunks, ``dist_fn(start)`` giving
+    ([B, chunk] distances, [B, chunk] or [chunk] mask or None) for rows
+    [start, start + chunk), and keeps a running [B, k] top-k (vals f32,
+    rows int32, (+inf, -1) padded) through :func:`chunk_step`: the
+    device-side analog of a streaming min-heap. The running list lives on
+    ``device`` (None: the card); dist_fn's tensors must be there too.
+    Distances may be negative."""
+    n_chunks = (n_total + chunk - 1) // chunk
+
+    def run():
+        dev = resolve_device(device)
+        vals = torch.full((batch, k), INF, device=dev)
+        idx = torch.full((batch, k), -1, dtype=torch.int32, device=dev)
+        for i in range(n_chunks):
+            start = i * chunk
+            d, m = dist_fn(start)
+            vals, idx = chunk_step(d, m, start, vals, idx, k)
+        return vals, idx
+
+    return run
+
+
 def l2_topk_plain(x, x_sq, mask, q, k: int, row_base: int = 0,
-                  round_query: bool = False):
-    """Plain version of K1: the [B, N] distance matrix, then masked_topk.
-    bf16 rows are upcast; x_sq None takes their norms; ``round_query`` as
-    in :func:`l2_topk`."""
-    vals, rows = masked_topk(pairwise_sq_l2(q, x, x_sq, round_query), mask,
-                             k)
+                  round_query: bool = False, metric: str = "euclidean"):
+    """Plain version of K1: the [B, N] distance matrix of ``metric``, then
+    masked_topk. bf16 rows are upcast; x_sq None takes their norms;
+    ``round_query`` as in :func:`l2_topk`."""
+    vals, rows = masked_topk(pairwise_distance(q, x, metric, x_sq,
+                                               round_query), mask, k)
     if row_base:
         rows = torch.where(rows >= 0, rows + row_base, rows)
     return vals, rows
@@ -257,8 +335,10 @@ def select_scratch(source: str, b: int, k: int, device) -> torch.Tensor:
 
 def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
             q: torch.Tensor, k: int, row_base: int = 0,
-            round_query: bool = False):
-    """K1: masked squared-L2 exact top-k of q [B, D] over x [N, D].
+            round_query: bool = False, metric: str = "euclidean"):
+    """K1: masked exact top-k of q [B, D] over x [N, D] by ``metric``:
+    squared L2 (the default), cosine distance or negative dot
+    (``ops.distance``), whose values may be negative.
 
     x [N, D] f32 or bf16 (upcast exactly); x_sq [N] f32 row norms, or None
     to take them in the kernel; mask [N] or [B, N] bool, or None for every
@@ -272,15 +352,21 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
     per-query lists in shared memory; larger k: the masked distances of a
     query chunk to a buffer, then a radix select) or raises.
 
-    bf16 rows without rounding: the HNSW link candidates on a bf16 mirror
-    and the reduced-rank calibration oracle's streamed blocks (x_sq None
-    takes the norms of the upcast rows); the tiered exact search streams
-    f32 tiles without norms."""
+    bf16 rows without rounding (euclidean only): the HNSW link candidates
+    on a bf16 mirror and the reduced-rank calibration oracle's streamed
+    blocks (x_sq None takes the norms of the upcast rows); the tiered exact
+    search streams f32 tiles without norms. Cosine and dot run on f32 rows
+    and on bf16 rows with the query rounded (a bf16 serving mirror)."""
     bf16 = x.dtype == torch.bfloat16
+    check_metric(metric)
     if round_query and not bf16:
         raise ValueError("l2_topk: round_query takes bf16 rows")
+    if bf16 and not round_query and metric != "euclidean":
+        raise ValueError("l2_topk: cosine and dot on bf16 rows take "
+                         "round_query")
     if x.device.type == "cpu":
-        return l2_topk_plain(x, x_sq, mask, q, k, row_base, round_query)
+        return l2_topk_plain(x, x_sq, mask, q, k, row_base, round_query,
+                             metric)
     if x.device.type != "cuda":
         raise ValueError(f"l2_topk: unsupported device {x.device}")
     dev = x.device
@@ -309,12 +395,14 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
         if x_sq is None else None
     scratch_ptr = 0 if scratch is None else scratch.data_ptr()
     # one counter a kernel: f32 rows, bf16 rows, bf16 rows with the query
-    # rounded; the k > 256 path of f32 rows counts apart
-    counter = ("l2_topk_bf16_rq" if round_query else "l2_topk_bf16") \
-        if bf16 else None
-    # bf16 entry points take round_q after their last int
-    rq = [int(round_query)] if bf16 else []
-    rq_t = [I] if bf16 else []
+    # rounded; the k > 256 path of f32 rows counts apart; cosine and dot
+    # add their name
+    counter = native.counter(
+        "l2_topk_large" if k > _SMALL_K and not bf16 else "l2_topk", bf16,
+        metric, rq=round_query)
+    # bf16 entry points take round_q after their last int, then the metric
+    rq = ([int(round_query)] if bf16 else []) + [METRIC_CODE[metric]]
+    rq_t = ([I] if bf16 else []) + [I]
     if k > _SMALL_K:
         qc = max(1, min(b, _DUMP_BYTES // (4 * n), _MAX_GRID_Q))
         for lo in range(0, b, qc):
@@ -331,7 +419,7 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
                 _splits(hi - lo, n, dev), *rq, scratch_ptr, dump.data_ptr(),
                 work.data_ptr(), out_d[lo:hi].data_ptr(),
                 out_r[lo:hi].data_ptr(), native.stream_of(x))
-            native.launches[counter or "l2_topk_large"] += 1
+            native.launches[counter] += 1
             # the norms of this x are in scratch now: later chunks reuse them
             sq_ptr = sq_ptr or scratch_ptr
         if row_base:
@@ -347,7 +435,7 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
         q.data_ptr(), b, n, d, k, splits, row_base, *rq, scratch_ptr,
         part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
         out_r.data_ptr(), native.stream_of(x))
-    native.launches[counter or "l2_topk"] += 1
+    native.launches[counter] += 1
     return out_d, out_r
 
 

@@ -36,12 +36,30 @@ launches: dict[str, int] = {
     "l2_topk": 0, "l2_topk_large": 0, "l2_topk_bf16": 0,
     "l2_topk_bf16_rq": 0, "heuristic_kept": 0, "heuristic_kept_bf16": 0,
     "pair_sq_l2": 0, "pair_sq_l2_bf16": 0, "lloyd_block": 0,
-    "assign_clusters": 0, "greedy_descent": 0, "beam_search": 0,
-    "ivf_scan": 0, "seed_pick": 0, "seed_min_update": 0, "seed_counts": 0,
+    "assign_clusters": 0, "greedy_descent": 0, "greedy_descent_bf16": 0,
+    "beam_search": 0, "beam_search_bf16": 0, "beam_search_up": 0,
+    "beam_search_bf16_up": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
+    "seed_pick": 0, "seed_min_update": 0, "seed_counts": 0,
     "stage1_select": 0, "project_rows": 0, "project_queries": 0,
     "rerank_f32": 0, "rerank_f32_rows": 0, "merge_topk": 0, "synth_rows": 0,
-    "approx_topk": 0,
+    "approx_topk": 0, "chunk_step": 0,
 }
+# K1 and K12 by metric: "<counter>_cosine", "<counter>_dot"
+for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq", "ivf_scan",
+              "ivf_scan_bf16"):
+    for _metric in ("cosine", "dot"):
+        launches[f"{_base}_{_metric}"] = 0
+
+
+def counter(base: str, bf16: bool = False, metric: str = "euclidean",
+            up: bool = False, rq: bool = False) -> str:
+    """The launch counter of a kernel's variant: ``base``, then "_bf16"
+    for bf16 rows, "_rq" for the query rounded to bf16, "_up" for a layer
+    above 0, "_<metric>" for cosine or dot."""
+    name = (base + ("_bf16" if bf16 else "") + ("_rq" if rq else "")
+            + ("_up" if up else ""))
+    return name if metric == "euclidean" else f"{name}_{metric}"
+
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple, object] = {}

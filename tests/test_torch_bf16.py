@@ -367,29 +367,39 @@ def test_flat_index_dtype_pins_the_mirror():
 
 
 def test_pruned_regime_on_bf16_raises(monkeypatch):
-    """The pruned regime, HNSW search and IVF search on a bf16 mirror need
-    K10-K13 on bf16 rows: they raise NotImplementedError naming them, and
-    only once that regime is chosen; the flat and reduced-rank regimes
-    serve."""
-    hj, ht = _pair(_data(32, 500))
-    ht.insert_batch(_ids(200, "r"), _data(33, 200), np.full(200, NOW),
-                    now=NOW)
+    """The pruned regime, HNSW search and IVF search serve a bf16 mirror
+    (K10-K13 on bf16 rows, upcast, with the f32 query and the host rows'
+    norms) once that regime is chosen, with the rows the JAX package
+    returns; the flat and reduced-rank regimes serve as before. What still
+    raises is a metric that does not exist."""
+    x = _data(32, 500)
+    hj, ht = _pair(x)
+    for h in (hj, ht):
+        h.insert_batch(_ids(200, "r"), _data(33, 200), np.full(200, NOW),
+                       now=NOW)
     q = _data(34, 3)
     cfg = SearchConfig(auto_migrate=False)
     monkeypatch.setenv("FVDB_SERVING_DTYPE", "bfloat16")
     assert ht.search_rows(q, 5, cfg, now=NOW)[1].shape == (3, 5)
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "256")
-    monkeypatch.setattr(limits, "FLAT_THRESHOLD", 256)
+    for lim in (limits, limits_j):
+        monkeypatch.setattr(lim, "FLAT_THRESHOLD", 256)
     assert ht.fused.serving_info()["regime"] == "reduced-rank"
     assert (ht.search_rows(q, 5, cfg, now=NOW)[1] >= 0).all()
     monkeypatch.setenv("FVDB_PCA_SERVE", "0")
     assert ht.fused.serving_info()["regime"] == "pruned"
-    with pytest.raises(NotImplementedError, match="K10-K13"):
-        ht.search_rows(q, 5, cfg, now=NOW)
-    with pytest.raises(NotImplementedError, match="K10"):
-        ht.hnsw.search_rows(q, 5)
-    with pytest.raises(NotImplementedError, match="K12"):
-        ht.ivf.search_rows(q, 5)
+    dj, rj, dt, rt = _search(hj, ht, q, 5)
+    assert ht.store._mirror.x.dtype == torch.bfloat16
+    np.testing.assert_array_equal(rt, rj)
+    np.testing.assert_allclose(dt, dj, rtol=1e-5, atol=2e-4)
+    for engine in ("hnsw", "ivf"):
+        dj, rj = getattr(hj, engine).search_rows(q, 5)
+        dt, rt = getattr(ht, engine).search_rows(q, 5)
+        assert (rt >= 0).all()
+        np.testing.assert_array_equal(rt, np.asarray(rj))
+        np.testing.assert_allclose(dt, np.asarray(dj), rtol=1e-5, atol=2e-4)
+    with pytest.raises(ValueError, match="metric"):
+        ht.ivf.search_rows(q, 5, metric="hamming")
 
 
 def test_host_norms_cover_count_and_survive_deletes(monkeypatch):

@@ -280,11 +280,12 @@ def test_convert_carries_a_jax_index_across():
 
 def test_unported_serving_branches_raise(monkeypatch):
     """bf16 mirrors and approximate flat selection serve the flat regime;
-    the pruned regime on a bf16 mirror is not ported and raises instead of
-    serving some other way; above the flat threshold the reduced-rank
-    regime (the default) answers, and with FVDB_PCA_SERVE=0 the same store
-    serves the pruned regime; per-engine k answers."""
-    _, ht, _ = _hybrid_pair(n=300, seed=14)
+    the pruned regime serves a bf16 mirror too, and finds what it finds on
+    the f32 one; an unknown metric still raises; above the flat threshold
+    the reduced-rank regime (the default) answers, and with
+    FVDB_PCA_SERVE=0 the same store serves the pruned regime; per-engine k
+    answers."""
+    _, ht, x = _hybrid_pair(n=300, seed=14)
     q = _data(15, 2)
     cfg = SearchConfig(auto_migrate=False)
     monkeypatch.setenv("FVDB_SERVING_DTYPE", "bfloat16")
@@ -293,8 +294,19 @@ def test_unported_serving_branches_raise(monkeypatch):
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "256")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 256)
     monkeypatch.setenv("FVDB_PCA_SERVE", "0")
-    with pytest.raises(NotImplementedError):
-        ht.search_rows(q, 5, cfg)
+    info = ht.fused.serving_info()
+    assert (info["regime"], info["serving_dtype"]) == ("pruned", "bfloat16")
+    near = x[:8] + 0.01 * _data(16, 8)
+    d, r = ht.search_rows(near, 5, cfg)
+    assert ht.store._mirror.x.dtype == torch.bfloat16
+    assert r.shape == (8, 5) and (r >= 0).all()
+    assert (r[:, 0] == np.arange(8)).all()
+    monkeypatch.setenv("FVDB_SERVING_DTYPE", "float32")
+    np.testing.assert_array_equal(ht.search_rows(near, 5, cfg)[1][:, 0],
+                                  r[:, 0])
+    monkeypatch.setenv("FVDB_SERVING_DTYPE", "bfloat16")
+    with pytest.raises(ValueError, match="metric"):
+        FlatIndex(ht.store, metric="manhattan")
     monkeypatch.delenv("FVDB_PCA_SERVE")
     monkeypatch.delenv("FVDB_FLAT_THRESHOLD")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 4_194_304)
@@ -324,18 +336,23 @@ def test_unported_serving_branches_raise(monkeypatch):
 
 def test_link_candidates_above_flat_threshold_raise(monkeypatch):
     """A member prefix above the flat threshold links through the layer-0
-    beam plan; the per-layer beam plan is not ported: insert raises."""
+    beam plan; the per-layer beam plan links too; an unknown link mode
+    raises."""
     st = VectorStore(D, device=CPU)
     rows = st.add_batch(_ids(60), _data(16, 60))
     g = hnsw_t.HNSWIndex(st, hnsw_t.HNSWConfig(bootstrap_threshold=8))
     g.insert_rows(rows[:40])  # host-exact while the graph is small
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "16")
     monkeypatch.setattr(limits, "FLAT_THRESHOLD", 16)
+    g.config.link_mode = "bogus"
+    with pytest.raises(ValueError, match="link_mode"):
+        g.insert_rows(rows[40:50])
+    assert g.num_nodes == 40
     g.config.link_mode = "per_layer"
-    with pytest.raises(NotImplementedError):
-        g.insert_rows(rows[40:])
+    g.insert_rows(rows[40:50])
+    assert g.num_nodes == 50
     g.config.link_mode = "auto"
-    g.insert_rows(rows[40:])
+    g.insert_rows(rows[50:])
     assert g.num_nodes == 60
     assert (g.search_rows(st.data[:60], 1)[1][:, 0] == np.arange(60)).all()
 

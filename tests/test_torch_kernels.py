@@ -769,3 +769,220 @@ def test_heuristic_kept_and_pair_kernels_on_bf16_rows_match_plain_on_card():
     torch.testing.assert_close(hnsw_t.pair_sq_l2(xb, x_sq, t, c),
                                hnsw_t.pair_sq_l2_plain(xb, x_sq, t, c),
                                rtol=1e-5, atol=1e-4)
+
+
+def _cpu_topk(d, k):
+    """The plain selection on the CPU (a comparison sort: -0 equals +0,
+    ties go to the lower row) of distances d [B, N]."""
+    return topk_t.masked_topk(d.cpu(), None, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,k", [("k1", 64), ("k1", 512),
+                                    ("select", 64), ("select", 700)])
+def test_selection_orders_signed_distances_on_card(path, k):
+    """Negative distances rank before positive ones and -0 ties +0 (the
+    lower row first), in K1's list path (k <= 256) and in the radix select
+    (K1 at k > 256, and a chunk's selection at either k): the rows the
+    plain version picks. Raw float bits as keys put every negative distance
+    after the positives and -0 after +inf."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(21)
+    n, b = 5000, 8
+    rows = torch.arange(n, device=dev)
+    if path == "k1":  # dot distances -q.x over a masked subset; zero rows
+        x = torch.randn(n, 384, device=dev, generator=g)
+        zero = rows % 97 == 0
+        x[zero] = 0.0  # q.x = +0, so the distance is -0
+        q = torch.randn(b, 384, device=dev, generator=g)
+        mask = zero | (rows % (n // (k + k // 2)) == 1)
+        vt, rt = topk_t.l2_topk(x, None, mask, q, k, metric="dot")
+        d = torch.where(mask.cpu(), -(q.cpu() @ x.cpu().T),
+                        torch.tensor(float("inf")))
+    else:  # a buffer of positives, a few negatives, -0, +0 and +inf
+        d = torch.rand(b, n, device=dev, generator=g) + 0.1
+        d[:, rows % 157 == 2] *= -1.0
+        d[:, rows % 97 == 0] = 0.0
+        d[:, rows % 89 == 0] = -0.0
+        d[:, rows % 50 == 3] = float("inf")
+        run_v = torch.full((b, k), float("inf"), device=dev)
+        run_r = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+        vt, rt = topk_t.chunk_step(d, None, 0, run_v, run_r, k)
+    vp, rp = _cpu_topk(d, k)
+    zeros = (vp == 0) & (rp >= 0)
+    assert (vp[:, 0] < 0).all() and zeros.any(1).all()
+    if path == "k1":  # f32 sums in another order than the CPU's
+        _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-3)
+        assert torch.equal(rt.cpu()[zeros], rp[zeros])
+    else:
+        np.testing.assert_array_equal(rt.cpu().numpy(), rp.numpy())
+        assert torch.equal(vt.cpu(), vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,k,bf16", [
+    ("dot", 16, False), ("cosine", 16, False), ("dot", 1024, False),
+    ("cosine", 1024, True), ("dot", 128, True), ("cosine", 300, False)])
+def test_l2_topk_by_metric_matches_plain_on_card(metric, k, bf16):
+    """K1 by metric on f32 rows and on bf16 rows with the query rounded, at
+    k <= 256 (lists) and k > 256 (buffer + radix select); dot distances are
+    negative. A zero row sits at cosine distance 1."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(22)
+    n, b = 131_072, 37
+    xf = torch.randn(n, 384, device=dev, generator=g) + 0.5
+    xf[5] = 0.0
+    x_sq = (xf * xf).sum(1)
+    x = xf.to(torch.bfloat16) if bf16 else xf
+    q = torch.randn(b, 384, device=dev, generator=g) + 0.5
+    mask = torch.rand(n, device=dev, generator=g) < 0.9
+    mask[5] = True
+    vt, rt = topk_t.l2_topk(x, x_sq, mask, q, k, round_query=bf16,
+                            metric=metric)
+    vp, rp = topk_t.l2_topk_plain(x, x_sq, mask, q, k, round_query=bf16,
+                                  metric=metric)
+    # dot: |q.x| ~ 100 here, f32 sums in another order; cosine within 1e-5
+    atol = 1e-2 if metric == "dot" else 1e-5
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, atol)
+    if metric == "dot":
+        assert (vt[:, 0] < 0).all()
+    else:
+        full = topk_t.l2_topk(x, x_sq, mask, q[:1], n, round_query=bf16,
+                              metric=metric)
+        assert float(full[0][0][full[1][0] == 5][0]) == 1.0
+
+
+def _bf16_mirror(m):
+    """The f32 mirror's rows in bf16 with the f32 rows' norms, as a bf16
+    serving mirror holds them."""
+    return m.x.to(torch.bfloat16), m.x_sq
+
+
+@pytest.mark.cuda
+def test_greedy_descent_kernel_on_bf16_rows_matches_plain_on_card():
+    g, m, mask, a, q = _graph_on_card()
+    xb, x_sq = _bf16_mirror(m)
+    stop = torch.tensor(np.arange(64) % 3, dtype=torch.int32, device=q.device)
+    for s in (None, stop):
+        ck, dk = hnsw_t.greedy_descent(xb, x_sq, mask, a["nbrs_up"],
+                                       a["up_offset"], q, g.entry_point,
+                                       g.max_level, s)
+        cp, dp = hnsw_t.greedy_descent_plain(xb, x_sq, mask, a["nbrs_up"],
+                                             a["up_offset"], q, g.entry_point,
+                                             g.max_level, s)
+        assert (ck == cp).float().mean().item() >= 0.99
+        same = ck == cp
+        torch.testing.assert_close(dk[same], dp[same], rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand,filtered,layer,s,ef", [
+    (1, False, 0, 1, 200), (4, True, 0, 1, 64), (1, False, 1, 3, 64),
+    (1, False, 2, 1, 200)])
+def test_beam_search_kernel_on_bf16_rows_matches_plain_on_card(
+        expand, filtered, layer, s, ef):
+    """K11 on bf16 rows at the serve and link shapes and above layer 0
+    (the per-layer link plan's beams), with inactive queries there: an
+    inactive query returns its start set. Results overlap >= 0.99."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    g, m, mask, a, q = _graph_on_card()
+    xb, x_sq = _bf16_mirror(m)
+    dev = q.device
+    rng = np.random.default_rng(8)
+    members = np.nonzero(g._search_mask() & (g.levels >= layer))[0]
+    assert members.size > 0
+    start = torch.from_numpy(rng.choice(members, (64, s)).astype(np.int32)
+                             ).to(dev)
+    res = None
+    if filtered:
+        res = torch.from_numpy(np.arange(m.x.shape[0]) % 3 != 0).to(dev)
+    active = torch.from_numpy(np.arange(64) % 4 != 1).to(dev)
+    args = (xb, x_sq, mask, a["nbrs0"], a["nbrs_up"], a["up_offset"], q,
+            start, active, layer, ef, ef + 32, res, None, expand)
+    name = native.counter("beam_search", True, up=layer > 0)
+    before = native.launches[name]
+    dk, ik = hnsw_t.beam_search(*args)
+    assert native.launches[name] == before + 1
+    dp, ip = hnsw_t.beam_search_plain(*args)
+    # inactive queries: their (eligible) starts only, which may be none
+    assert torch.equal(ik[~active], ip[~active])
+    assert _overlap(ik[active], ip[active]) >= 0.99
+    both = (ik == ip) & (ik >= 0)
+    torch.testing.assert_close(dk[both], dp[both], rtol=1e-5, atol=1e-3)
+    if filtered:
+        got = ik.cpu().numpy()
+        assert res.cpu().numpy()[got[got >= 0]].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,bf16,k,seeded", [
+    ("euclidean", True, 16, True), ("cosine", False, 16, False),
+    ("dot", False, 512, False), ("cosine", True, 16, False),
+    ("dot", True, 16, False)])
+def test_ivf_scan_kernel_by_metric_and_row_type_matches_plain_on_card(
+        metric, bf16, k, seeded):
+    """K12 on bf16 rows (upcast, f32 query, the f32 rows' norms) and by
+    metric (probes ranked by K1 of the same metric; dot distances are
+    negative), with a seed list joining."""
+    from fabstir_vectordb_tpu_torch.index.ivf import (IVFIndex, IVFLists,
+                                                      ivf_search,
+                                                      ivf_search_plain)
+    from fabstir_vectordb_tpu_torch.index.store import VectorStore
+
+    dev = _card()
+    n, d = 20_000, 384
+    x, _ = _mixture(42, n, 64, d=d, spread=0.5)
+    st = VectorStore(d, device=dev)
+    rows = st.add_batch([f"r{i}" for i in range(n)], x)
+    ivf = IVFIndex(st)
+    rng = np.random.default_rng(4)
+    ivf.set_trained(x[rng.choice(n, 32, replace=False)])
+    ivf.insert_rows(rows[: n - 500])
+    m = st.device_mirror("bfloat16" if bf16 else "float32")
+    lists = IVFLists.upload(ivf.centroids, ivf.tiles(), dev)
+    mask = torch.from_numpy(st.active_mask() & ivf.member_mask()).to(dev)
+    q = torch.from_numpy(x[:37] + 0.2).to(dev)
+    seed = None
+    if seeded:
+        sr = torch.arange(n - 500, n - 460, dtype=torch.int32,
+                          device=dev)[None].repeat(37, 1)
+        sd = torch.linspace(1.0, 400.0, 40, device=dev)[None].repeat(37, 1)
+        seed = (sd.contiguous(), sr.contiguous())
+    vk, rk, pk = ivf_search(m.x, m.x_sq, mask, lists, q, k, 8, seed=seed,
+                            metric=metric)
+    vp, rp, pp = ivf_search_plain(m.x, m.x_sq, mask, lists, q, k, 8,
+                                  seed=seed, metric=metric)
+    assert (pk == pp).all()
+    atol = 1e-5 if metric == "cosine" else 1e-2
+    _assert_close_up_to_ties(vk, rk, vp, rp, 1e-5, atol)
+    if metric == "dot":
+        assert (vk[:, 0] < 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,k,masked", [(4096, 10, False),
+                                            (1000, 300, True)])
+def test_chunked_topk_matches_plain_on_card(chunk, k, masked):
+    """chunked_topk with a dist_fn of negative dot distances (and a mask):
+    the composition of the chunk's radix select and K8's merge gives the
+    plain version's rows, whose chunks are offset by their start."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(23)
+    n, b = 20_000, 16
+    x = torch.randn(n, 384, device=dev, generator=g)
+    q = torch.randn(b, 384, device=dev, generator=g)
+    keep = torch.rand(n, device=dev, generator=g) < 0.7
+
+    def dist_fn(start, on=dev):
+        xs = x[start: start + chunk].to(on)
+        m = keep[start: start + chunk].to(on) if masked else None
+        return -(q.to(on) @ xs.T), m
+
+    vt, rt = topk_t.chunked_topk(dist_fn, n, chunk, k, b, device=dev)()
+    vp, rp = topk_t.chunked_topk(lambda s: dist_fn(s, "cpu"), n, chunk, k,
+                                 b, device="cpu")()
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+    assert (vt[:, 0] < 0).all()
+    if masked:
+        assert keep[rt[rt >= 0].long()].all()

@@ -308,8 +308,13 @@ def test_per_engine_k_matches_reference(pair):
     d1, r1 = ht.ivf.search_rows(q, 6, n_probe=3)
     d2, r2 = hj.ivf.search_rows(q, 6, n_probe=3)
     _assert_same(d2, r2, d1, r1)
-    with pytest.raises(NotImplementedError):
-        ht.ivf.search_rows(q, 6, metric="cosine")
+    # cosine distances (1 - cos) as they are, probes ranked by cosine
+    d1, r1 = ht.ivf.search_rows(q, 6, n_probe=3, metric="cosine")
+    d2, r2 = hj.ivf.search_rows(q, 6, n_probe=3, metric="cosine")
+    _assert_same(d2, r2, d1, r1)
+    assert (np.asarray(d1) < 1.0).all()
+    with pytest.raises(ValueError, match="metric"):
+        ht.ivf.search_rows(q, 6, metric="manhattan")
 
 
 def test_layer0_beam_link_plan_matches_reference(pair, pruned):
@@ -339,7 +344,7 @@ def test_layer0_beam_link_plan_matches_reference(pair, pruned):
     gt._version += 1
     batch = rows[300:]
     cj = gj._device_candidates(batch, np.zeros(batch.size, np.int32))
-    ct = gt._device_candidates(batch)
+    ct = gt._device_candidates(batch, np.zeros(batch.size, np.int32))
     np.testing.assert_array_equal(ct["ids"], np.asarray(cj["ids"])[:batch.size])
     np.testing.assert_array_equal(ct["kept"],
                                   np.asarray(cj["kept"])[:batch.size])
@@ -362,7 +367,8 @@ def test_layer0_beam_link_plan_matches_reference(pair, pruned):
 
 def test_layer0_link_mode_and_per_layer(monkeypatch):
     """link_mode="layer0" takes the beam plan even under the threshold;
-    "per_layer" is not ported and raises."""
+    "per_layer" takes a beam at every layer from the new rows' levels down
+    (K11 above layer 0 among them) and links as well."""
     x = _mixture(11, 400)
     st = VectorStore(D, device=CPU)
     rows = st.add_batch([f"r{i}" for i in range(400)], x)
@@ -380,5 +386,10 @@ def test_layer0_link_mode_and_per_layer(monkeypatch):
     g2 = hnsw_t.HNSWIndex(st, hnsw_t.HNSWConfig(bootstrap_threshold=64,
                                                 link_mode="per_layer"))
     g2.insert_rows(rows[:100])
-    with pytest.raises(NotImplementedError):
-        g2.insert_rows(rows[100:])
+    layers = []
+    monkeypatch.setattr(hnsw_t, "beam_search", lambda *a, **k: layers.append(
+        k["layer"]) or real(*a, **k))
+    g2.insert_rows(rows[100:])
+    assert g2.num_nodes == 400 and 0 in layers and max(layers) >= 1
+    d, r = g2.search_rows(x[:20], 1)
+    assert (r[:, 0] == np.arange(20)).mean() >= 0.95

@@ -161,7 +161,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'fabstir_vectordb_tpu_torch.index.flat',\n"
         "       'fabstir_vectordb_tpu_torch.index.hybrid',\n"
         "       'fabstir_vectordb_tpu_torch.ops.topk',\n"
-        "       'fabstir_vectordb_tpu_torch.utils.limits']\n"
+        "       'fabstir_vectordb_tpu_torch.utils.limits',\n"
+        "       'fabstir_vectordb_tpu_torch.ops.distance',\n"
+        "       'fabstir_vectordb_tpu_torch.index.ivf',\n"
+        "       'fabstir_vectordb_tpu_torch.index.hnsw']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('fabstir_vectordb_tpu_torch.')]))\n")
