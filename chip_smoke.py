@@ -80,13 +80,28 @@
    deletes (the source stays) and a fill (it goes), and one rebuild with
    rank and oversample on auto. The host needs ~45 GB (a 25.8 GB store at
    16,777,216 rows of capacity).
-10. One JSON line with every kernel's numbers, the card's name and power
+10. Quant phase: k-means and quantization (K7's k-means++ and training
+   loop, K16) on bench.py's 1M tier rows, before the scale phase and after
+   the engines phase: kmeans_train on the first 65,536 rows (C = 256,
+   reported beside kmeans_train_stepped's kmeans|| error); at M = 8 and 48
+   subspaces (K = 256) a PQ codebook trained on those rows, every row
+   encoded, tables for 128 queries drawn as bench.py draws them, the ADC
+   scan [128, 1M] and its top-10 by chunked_topk (recall@10 against K1's
+   exact top-10 reported); every row u8-quantized and decoded. Hard: the
+   ADC distances equal the exact distances to the decoded rows (4,096-row
+   sample, 1e-4 relative), re-encoded decoded rows keep their codes, each
+   u8 element within half a step. The counters must show K7's pick and
+   min-update, K6 and every K16 kernel; then each against its plain
+   version at these shapes (k-means++'s picks equal to a key tie, the
+   trained errors within 1%).
+11. One JSON line with every kernel's numbers, the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
 stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
 ``--phase reduced`` steps 1, 2, 4 and 6, ``--phase flat1m`` steps 1, 4 and
-7, ``--phase engines`` steps 1, 4 and 8, ``--phase scale`` steps 1 and 9;
+7, ``--phase engines`` steps 1, 4 and 8, ``--phase quant`` steps 1 and 10
+(the 1M rows made, no index), ``--phase scale`` steps 1 and 9;
 ``--profile``
 writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
 then carry the profiler's overhead); ``--trace`` runs searches under
@@ -109,6 +124,10 @@ CORPUS_ROWS = 100_000  # the repo's headline bench tier, at 384 dimensions
 PRUNED_ROWS = 1_000_000  # bench.py's 1M tier (build_index)
 SCALE_ROWS = 10_000_000  # bench.py's 10M tier (bench_10m)
 SCALE_BLOCK_ROWS = 1 << 20  # its generation blocks (utils/synth.py)
+QUANT_TRAIN_ROWS = 65_536  # K6's IVF training shape; 256 x K for PQ
+QUANT_QUERIES = 128
+QUANT_SAMPLE = 4_096  # rows of the ADC-against-decoded check
+ADC_CHUNK = 131_072  # chunked_topk's chunk over the ADC distances
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (no TF32)
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
@@ -3055,6 +3074,452 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
         print_kernel(name, results[name], launch_of[name])
 
 
+def pp_divergence(torch, km, state, x, mask, rk, rp):
+    """The first k-means++ pick where the kernel's rows rk and the plain
+    version's rp differ, and the gap between the two rows' keys E / d2
+    there ((None, 0.0) if none). The keys must tie within 1e-6 relative,
+    under the plain version's d2 and the draw the generator state
+    replays."""
+    diff = torch.nonzero(rk != rp)
+    if diff.numel() == 0:
+        return None, 0.0
+    i = int(diff[0, 0])
+    if i == 0:
+        fail("kmeans_pp_init: the first (uniform) pick differs")
+    n = x.shape[0]
+    g = torch.Generator(device=x.device)
+    g.set_state(state)
+    for _ in range(i + 1):
+        u = torch.rand(n, generator=g, device=x.device)
+    d2 = km.seed_min_update_plain(
+        x, mask, torch.full((n,), float("inf"), device=x.device), rp[:i])
+    e = -torch.log(u.clamp(1e-20, 1.0 - 1e-7))
+    ka, kb = (float(e[r] / d2[r]) for r in (int(rk[i]), int(rp[i])))
+    if abs(ka - kb) > 1e-6 * max(ka, kb):
+        fail(f"kmeans_pp_init: pick {i} differs off a tie (keys {ka}, {kb})")
+    return i, abs(ka - kb)
+
+
+def codes_check(torch, tag, x, cents, got, want, rel=1e-6):
+    """PQ codes equal, or the two codes' distances to the row's subvector
+    tie within rel of the norm expansion's terms. Returns the count of
+    codes that differ and the largest gap between two such distances."""
+    ds = cents.shape[2]
+    n_idx, m_idx = torch.nonzero(got != want, as_tuple=True)
+    if n_idx.numel() > 1000:
+        fail(f"{tag}: {n_idx.numel()} codes differ")
+    gap = 0.0
+    for n, j in zip(n_idx.tolist(), m_idx.tolist()):
+        v = x[n, j * ds:(j + 1) * ds].double()
+        a = cents[j, int(got[n, j])].double()
+        b = cents[j, int(want[n, j])].double()
+        da, db = ((v - a) ** 2).sum(), ((v - b) ** 2).sum()
+        scale = (v * v).sum() + max((a * a).sum(), (b * b).sum())
+        if abs(float(da - db)) > rel * float(scale):
+            fail(f"{tag}: row {n} subspace {j}: code {int(got[n, j])} "
+                 f"against {int(want[n, j])} off a tie")
+        gap = max(gap, abs(float(da - db)))
+    return int(n_idx.numel()), gap
+
+
+def pq_train_from_state(torch, km, gen, x, m: int, k: int, plain: bool):
+    """pq_train's steps from ``gen``'s state, through the kernels or their
+    plain versions: (centroids [M, K, Ds], each subspace's Lloyd
+    iterations)."""
+    n, d = x.shape
+    ds = d // m
+    mask = torch.ones(n, dtype=torch.bool, device=x.device)
+    block = km.lloyd_block_plain if plain else km.lloyd_block
+    subs = [x[:, j * ds:(j + 1) * ds].contiguous() for j in range(m)]
+    init = [s[km._pp_rows(gen, s, mask, k, plain=plain).long()] for s in subs]
+    res = [km._lloyd_until(s, mask, c, 25, 1e-4, block)
+           for s, c in zip(subs, init)]
+    return (torch.stack([r.centroids for r in res]),
+            [r.iterations for r in res])
+
+
+def pq_distortion(torch, qz, cents, x):
+    """Mean squared error of x's PQ reconstruction (the plain versions)."""
+    dec = qz.pq_decode_plain(cents, qz.pq_encode_plain(cents, x))
+    return float(((dec - x) ** 2).sum(1).mean())
+
+
+def pp_work(n: int, d: int, c: int):
+    """k-means++ over n x d rows, as (bytes, f32 ops): c picks (keys and a
+    select over n) and the c - 1 min-updates that follow all but the last
+    (the rows read once, 2 n d ops each)."""
+    return c * n * 13 + (c - 1) * n * d * 4, 2.0 * (c - 1) * n * d
+
+
+def lloyd_work(n: int, d: int, c: int, iterations: int):
+    """Lloyd iterations over n x d rows and c centroids, as (bytes, f32
+    ops): the rows and centroids read and 2 n c d ops each."""
+    return (iterations * (n * d * 4 + 2 * c * d * 4),
+            iterations * 2.0 * n * c * d)
+
+
+def launch_delta(native, before: dict) -> dict:
+    """The launches since ``before`` (a copy of the counters)."""
+    return {k: v - before.get(k, 0) for k, v in native.launches.items()
+            if v != before.get(k, 0)}
+
+
+def quant_phase(torch, native, card: str, perf: dict, results: dict,
+                launch_of: dict, x_np=None):
+    """k-means and quantization (K7 rest, K16) on bench.py's 1M tier rows
+    (1,000,000 x 384, 1,024 centers, 0.35 noise; ``x_np``, else made
+    here), as a user of the ops entry points runs them: kmeans_train on
+    the first 65,536 rows (C = 256); at M = 8 and M = 48 (K = 256) a PQ
+    codebook trained on those rows, all 1M rows encoded, tables for 128
+    queries drawn as bench.py draws them, the ADC scan [128, 1M] and its
+    top-10 by chunked_topk; u8 codes of all 1M rows and their decode. The
+    counters must show every kernel of the path; then the hard checks,
+    the recall against K1's exact top-10 (a report), and each kernel
+    against its plain version at these shapes."""
+    import gc
+
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+    from fabstir_vectordb_tpu_torch.ops import quantization as qz
+    from fabstir_vectordb_tpu_torch.ops import topk as tp
+    from fabstir_vectordb_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(None)
+    if x_np is None:
+        t = time.perf_counter()
+        x_np, _ = bench_corpus(PRUNED_ROWS, 384, seed=0)
+        print(f"quant: corpus {x_np.shape[0]} x {x_np.shape[1]} made in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+    n, d = x_np.shape
+    nt, b, kc = QUANT_TRAIN_ROWS, QUANT_QUERIES, 256
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.from_numpy(x_np).to(dev)
+    train = x[:nt]
+    tmask = torch.ones(nt, dtype=torch.bool, device=dev)
+    rng = np.random.default_rng(11)  # bench.py's draw: rows + 0.1 noise
+    seeds = rng.integers(0, n, b)
+    q = torch.from_numpy(x_np[seeds] + 0.1 * rng.standard_normal(
+        (b, d)).astype(np.float32)).to(dev)
+    sample = torch.from_numpy(np.random.default_rng(12).choice(
+        n, QUANT_SAMPLE, replace=False)).to(dev)
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def step(fn):
+        """fn() timed, and the launches it made."""
+        before = dict(native.launches)
+        out, sec = timed(fn)
+        return out, sec, launch_delta(native, before)
+
+    # the path, counters from 0
+    native.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    train_state = gen.get_state()
+    res, km_s, km_l = step(lambda: km.kmeans_train(gen, train, tmask, kc))
+    pq = {}
+    for m in (8, 48):
+        st = gen.get_state()
+        cb, train_s, train_l = step(lambda: qz.pq_train(gen, train, m, kc,
+                                                        25))
+        codes, enc_s, enc_l = step(lambda: qz.pq_encode(cb.centroids, x))
+        table, tab_s, tab_l = step(lambda: qz.pq_adc_table(cb.centroids, q))
+        dist, scan_s, scan_l = step(lambda: qz.pq_adc_distances(table, codes))
+        (_, rows), sel_s, _ = step(tp.chunked_topk(
+            lambda s: (dist[:, s:s + ADC_CHUNK].contiguous(), None), n,
+            ADC_CHUNK, 10, b, device=dev))
+        dec, dec_s, dec_l = step(lambda: qz.pq_decode(cb.centroids, codes))
+        re = qz.pq_encode(cb.centroids, dec)  # the decoded rows' codes
+        re_differ, _ = codes_check(torch, f"pq M={m} re-encode", dec,
+                                   cb.centroids, re, codes)
+        pq[m] = dict(cb=cb, codes=codes, table=table, rows=rows, state=st,
+                     train_s=train_s, enc_s=enc_s, tab_s=tab_s,
+                     scan_s=scan_s, sel_s=sel_s, dec_s=dec_s,
+                     re_differ=re_differ, train_l=train_l, enc_l=enc_l,
+                     tab_l=tab_l, scan_l=scan_l, dec_l=dec_l,
+                     dec_sample=dec[sample].contiguous(),
+                     adc_sample=dist[:, sample].contiguous())
+        del dist, dec, re
+    (u8c, u8m, u8s), u8q_s, u8q_l = step(lambda: qz.quantize_u8(x))
+    y, u8d_s, u8d_l = step(lambda: qz.dequantize_u8(u8c, u8m, u8s))
+    counts = dict(native.launches)
+    path = ("seed_pick", "seed_min_update", "lloyd_block", "quantize_u8",
+            "dequantize_u8", "pq_encode", "pq_decode", "pq_adc_table",
+            "pq_adc_distances", "chunk_step")
+    for name in path:
+        if counts[name] <= 0:
+            fail(f"quant: {name} was launched no time on the path")
+    quant_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # hard checks and the reports
+    if not np.isfinite(res.final_error) or res.centroids.shape != (kc, d):
+        fail(f"kmeans_train: error {res.final_error}, centroids "
+             f"{tuple(res.centroids.shape)}")
+    par = km.kmeans_train_stepped(0, train, tmask, kc)
+    _, exact = tp.l2_topk(x, None, None, q, 10)
+    q64 = q.double()
+    for m, r in pq.items():
+        dec_s = r["dec_sample"].double()
+        ex = ((q64 * q64).sum(1)[:, None] - 2.0 * q64 @ dec_s.T
+              + (dec_s * dec_s).sum(1)[None, :])
+        rel = float(((r["adc_sample"].double() - ex).abs()
+                     / ex.clamp_min(1.0)).max())
+        if rel > 1e-4:
+            fail(f"pq M={m}: ADC off the decoded rows' distances by {rel}")
+        r["recall"] = recall(r["rows"].cpu().numpy(), exact.cpu().numpy())
+        r["adc_rel"] = rel
+    # half a step, plus f32 rounding of the decode (code * scale + min),
+    # which scales with the row's min as well as with the element
+    err_u8 = (y - x).abs() - (u8s[:, None] / 2
+                              + 1e-6 * (x.abs() + u8m.abs()[:, None]))
+    if float(err_u8.max()) > 0:
+        fail(f"u8: an element off its row's value by more than half a step "
+             f"({float(err_u8.max())} over)")
+    del y, err_u8
+    print(f"quant: kmeans_train N={nt} C={kc}: {km_s:.3f} s, "
+          f"{res.iterations} iterations, converged {res.converged}, error "
+          f"{res.final_error:.4f}; kmeans|| (kmeans_train_stepped) "
+          f"{par.iterations} iterations, error {par.final_error:.4f} "
+          f"({card})", flush=True)
+    for m, r in pq.items():
+        print(f"quant: PQ M={m} K={kc} (first calls): train "
+              f"{r['train_s']:.3f} s, encode {n} rows {r['enc_s']:.4f} s, "
+              f"tables {r['tab_s'] * 1e3:.3f} "
+              f"ms, ADC scan [{b}, {n}] {r['scan_s'] * 1e3:.3f} ms, top-10 "
+              f"{r['sel_s'] * 1e3:.3f} ms, decode {r['dec_s'] * 1e3:.3f} ms; "
+              f"recall@10 against K1's exact top-10 {r['recall']:.4f}; ADC "
+              f"against the decoded rows {r['adc_rel']:.2e} relative; "
+              f"re-encoded codes differing at ties {r['re_differ']} "
+              f"({card})", flush=True)
+    print(f"quant: u8 quantize {u8q_s * 1e3:.3f} ms, dequantize "
+          f"{u8d_s * 1e3:.3f} ms over {n} x {d}; every element within half "
+          f"a step; launches {[counts[k] for k in path]}; phase device "
+          f"peak {quant_peak:.3f} GB above the {base / 1e9:.3f} GB held "
+          f"({card})", flush=True)
+    perf.update(kmeans_train_s=km_s, kmeans_train_error=res.final_error,
+                kmeans_train_iterations=res.iterations,
+                kmeans_par_error=par.final_error,
+                u8_quantize_s=u8q_s, u8_dequantize_s=u8d_s,
+                quant_device_peak_gb=quant_peak)
+    for m, r in pq.items():
+        perf.update({f"pq_recall_at_10_m{m}": r["recall"],
+                     f"pq_train_s_m{m}": r["train_s"]})
+
+    # each kernel against its plain version at these shapes
+    names = []
+
+    def entry(name, launches, **r):
+        results[name] = r
+        launch_of[name] = launches
+        names.append(name)
+
+    def own(launches: dict, *kernels) -> int:
+        """An entry's launches on the path: those of its kernels in its
+        own call (at least one)."""
+        got = sum(launches.get(k, 0) for k in kernels)
+        if got < 1:
+            fail(f"quant: {kernels} launched no time in their call")
+        return got
+
+    # k-means++ and kmeans_train (K7's pick and min-update, K6)
+    ppk, pp_s = {}, {}
+    for plain in (False, True):
+        g = torch.Generator(device=dev)
+        g.set_state(train_state)
+        ppk[plain], pp_s[plain] = timed(lambda: km._pp_rows(
+            g, train, tmask, kc, plain=plain))
+    tie_at, key_gap = pp_divergence(torch, km, train_state, train, tmask,
+                                    ppk[False], ppk[True])
+    bms, by = bound(*pp_work(nt, d, kc))
+    entry("kmeans_pp_init", own(km_l, "seed_pick", "seed_min_update"),
+          shape=f"N={nt} D={d} C={kc}", max_abs_err=key_gap,
+          first_tie_pick=tie_at,
+          ms=cuda_ms(torch, lambda: km.kmeans_pp_init(gen, train, tmask, kc),
+                     iters=3, warmup=1),
+          plain_ms=pp_s[True] * 1e3, library_ms=None, bound_ms=bms,
+          bound_by=by)
+    # Lloyd from the same seeds through K6 and its plain version: the same
+    # stop, the same error within 1%, the same centroids
+    init = train[ppk[False].long()]
+    rk = km._lloyd_until(train, tmask, init, 25, 1e-4, km.lloyd_block)
+    rs = km._lloyd_until(train, tmask, init, 25, 1e-4, km.lloyd_block_plain)
+    cerr = float((rk.centroids - rs.centroids).abs().max())
+    ctol = 1e-5 * float(train.abs().max())
+    print(f"quant: kmeans_train from one init: K6 {rk.iterations} "
+          f"iterations, converged {rk.converged}, error {rk.final_error}; "
+          f"plain {rs.iterations}, {rs.converged}, {rs.final_error}; "
+          f"centroids apart by {cerr} (tol {ctol})", flush=True)
+    if (rk.iterations != rs.iterations or rk.converged != rs.converged
+            or abs(rk.final_error - rs.final_error) > 0.01 * rs.final_error
+            or cerr > ctol):
+        fail("kmeans_train: K6's run differs from the plain run's")
+    # the whole kmeans_train, warm, from the path's seed: its time and the
+    # work its iterations did; the plain one from the same seed
+    g = torch.Generator(device=dev)
+    g.set_state(train_state)
+    rw, kw_s = timed(lambda: km.kmeans_train(g, train, tmask, kc))
+    g.set_state(train_state)
+    _, plain_s = timed(lambda: km._lloyd_until(
+        train, tmask, train[km._pp_rows(g, train, tmask, kc,
+                                        plain=True).long()],
+        25, 1e-4, km.lloyd_block_plain))
+    pb, po = pp_work(nt, d, kc)
+    lb, lo = lloyd_work(nt, d, kc, rw.iterations)
+    bms, by = bound(pb + lb, po + lo)
+    entry("kmeans_train", own(km_l, "seed_pick", "seed_min_update",
+                              "lloyd_block"),
+          shape=f"N={nt} D={d} C={kc}, {rw.iterations} iterations",
+          max_abs_err=cerr, tol=ctol, error=rw.final_error,
+          plain_error=rs.final_error, ms=kw_s * 1e3, plain_ms=plain_s * 1e3,
+          library_ms=None, bound_ms=bms, bound_by=by)
+    del rk, rs, rw
+    # K6 at PQ's training shape (M = 8: 48 dims), separated clusters with
+    # one starting centroid each (near-tie rows would split otherwise)
+    ds = d // 8
+    crng = np.random.default_rng(13)
+    centers = crng.standard_normal((kc, ds)).astype(np.float32) * 4
+    xs = torch.from_numpy(centers[crng.integers(0, kc, nt)] + crng.
+                          standard_normal((nt, ds)).astype(np.float32)).to(dev)
+    init = torch.from_numpy(centers).to(dev)
+    ck, ek = km.lloyd_block(xs, tmask, init, 5)
+    cp, ep = km.lloyd_block_plain(xs, tmask, init, 5)
+    err = float((ck - cp).abs().max())
+    tol = 1e-5 * float(xs.abs().max())
+    if err > tol or not torch.allclose(ek, ep, rtol=1e-4, atol=1e-3):
+        fail(f"lloyd_block[pq M=8]: centroids off by {err} (tol {tol})")
+    bms, by = bound(*lloyd_work(nt, ds, kc, 5))
+    entry("lloyd_block[pq M=8]", own(pq[8]["train_l"], "lloyd_block"),
+          shape=f"N={nt} C={kc} D={ds} steps=5", max_abs_err=err, tol=tol,
+          ms=cuda_ms(torch, lambda: km.lloyd_block(xs, tmask, init, 5)),
+          plain_ms=cuda_ms(torch, lambda: km.lloyd_block_plain(
+              xs, tmask, init, 5)), library_ms=None, bound_ms=bms,
+          bound_by=by)
+    del xs, init, ck, cp
+
+    # u8
+    ck, mk, sk = qz.quantize_u8(x)
+    cp, mp, sp = qz.quantize_u8_plain(x)
+    err = max(float((ck.int() - cp.int()).abs().max()),
+              float((mk - mp).abs().max()), float((sk - sp).abs().max()))
+    if err != 0.0:
+        fail(f"quantize_u8: codes, mins or scales off the plain version's "
+             f"by {err}")
+    del cp, mp, sp
+    bms, by = bound(n * d * 4 + n * d + 8 * n, 4.0 * n * d)
+    entry("quantize_u8", own(u8q_l, "quantize_u8"), shape=f"N={n} D={d}",
+          max_abs_err=err, ms=cuda_ms(torch, lambda: qz.quantize_u8(x)),
+          plain_ms=cuda_ms(torch, lambda: qz.quantize_u8_plain(x)),
+          library_ms=None, bound_ms=bms, bound_by=by)
+    yk = qz.dequantize_u8(ck, mk, sk)
+    yp = qz.dequantize_u8_plain(ck, mk, sk)
+    err = float((yk - yp).abs().max())
+    if err != 0.0:
+        fail(f"dequantize_u8: off the plain version by {err}")
+    del yk, yp
+    cf = ck.float()
+    bms, by = bound(n * d + 8 * n + n * d * 4, 2.0 * n * d)
+    entry("dequantize_u8", own(u8d_l, "dequantize_u8"), shape=f"N={n} D={d}",
+          max_abs_err=err,
+          ms=cuda_ms(torch, lambda: qz.dequantize_u8(ck, mk, sk)),
+          plain_ms=cuda_ms(torch, lambda: qz.dequantize_u8_plain(ck, mk, sk)),
+          library_ms=cuda_ms(torch, lambda: torch.addcmul(
+              mk[:, None], cf, sk[:, None])), bound_ms=bms, bound_by=by)
+    del ck, mk, sk, cf, u8c, u8m, u8s
+
+    # PQ at both widths
+    for m, r in pq.items():
+        cents, codes, table = r["cb"].centroids, r["codes"], r["table"]
+        ds = d // m
+        # pq_train again from the path's seed, warm: its time and the work
+        # its iterations did; the plain one from the same seed
+        g = torch.Generator(device=dev)
+        g.set_state(r["state"])
+        (_, its), tk_s = timed(lambda: pq_train_from_state(
+            torch, km, g, train, m, kc, False))
+        g.set_state(r["state"])
+        (cb_p, _), plain_s = timed(lambda: pq_train_from_state(
+            torch, km, g, train, m, kc, True))
+        dk = pq_distortion(torch, qz, cents, train)
+        dp = pq_distortion(torch, qz, cb_p, train)
+        if abs(dk - dp) > 0.01 * dp:
+            fail(f"pq_train M={m}: distortion {dk} against the plain "
+                 f"run's {dp}")
+        work = [pp_work(nt, ds, kc) for _ in range(m)] + [
+            lloyd_work(nt, ds, kc, i) for i in its]
+        bms, by = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        entry(f"pq_train[M={m}]", own(r["train_l"], "seed_pick",
+                                      "seed_min_update", "lloyd_block"),
+              shape=f"N={nt} D={d} M={m} K={kc}, {sum(its)} iterations",
+              max_abs_err=abs(dk - dp), distortion=dk, plain_distortion=dp,
+              ms=tk_s * 1e3, plain_ms=plain_s * 1e3, library_ms=None,
+              bound_ms=bms, bound_by=by)
+        cp = qz.pq_encode_plain(cents, x)
+        differ, gap = codes_check(torch, f"pq_encode[M={m}]", x, cents,
+                                  codes, cp)
+        del cp
+        bms, by = bound(n * d * 4 + n * m + m * kc * ds * 4,
+                        2.0 * n * kc * d)
+        entry(f"pq_encode[M={m}]", own(r["enc_l"], "pq_encode"),
+              shape=f"N={n} D={d} M={m} K={kc}", max_abs_err=gap,
+              codes_differing_at_ties=differ,
+              ms=cuda_ms(torch, lambda: qz.pq_encode(cents, x)),
+              plain_ms=cuda_ms(torch, lambda: qz.pq_encode_plain(cents, x),
+                               iters=2, warmup=1),
+              library_ms=None, bound_ms=bms, bound_by=by)
+        err = float((qz.pq_decode(cents, codes)
+                     - qz.pq_decode_plain(cents, codes)).abs().max())
+        if err != 0.0:
+            fail(f"pq_decode[M={m}]: rows off the plain version's by {err}")
+        bms, by = bound(n * m + m * kc * ds * 4 + n * d * 4, 0.0)
+        entry(f"pq_decode[M={m}]", own(r["dec_l"], "pq_decode"),
+              shape=f"N={n} D={d} M={m}", max_abs_err=err,
+              ms=cuda_ms(torch, lambda: qz.pq_decode(cents, codes)),
+              plain_ms=cuda_ms(torch, lambda: qz.pq_decode_plain(
+                  cents, codes)), library_ms=None, bound_ms=bms, bound_by=by)
+        tp_ = qz.pq_adc_table_plain(cents, q)
+        err = float((table - tp_).abs().max())
+        tol = 1e-5 * float(tp_.abs().max())
+        if err > tol:
+            fail(f"pq_adc_table[M={m}]: off by {err} (tol {tol})")
+        bms, by = bound(b * d * 4 + m * kc * ds * 4 + b * m * kc * 4,
+                        2.0 * b * kc * d)
+        entry(f"pq_adc_table[M={m}]", own(r["tab_l"], "pq_adc_table"),
+              shape=f"B={b} M={m} K={kc} Ds={ds}", max_abs_err=err, tol=tol,
+              ms=cuda_ms(torch, lambda: qz.pq_adc_table(cents, q)),
+              plain_ms=cuda_ms(torch, lambda: qz.pq_adc_table_plain(
+                  cents, q)), library_ms=None, bound_ms=bms, bound_by=by)
+        ak = qz.pq_adc_distances(table, codes)
+        ap = qz.pq_adc_distances_plain(table, codes)
+        err = float((ak - ap).abs().max())
+        tol = 1e-5 * float(ap.abs().max())
+        if err > tol:
+            fail(f"pq_adc_distances[M={m}]: off by {err} (tol {tol})")
+        del ak, ap
+        bms, by = bound(b * n * 4 + n * m + b * m * kc * 4, 1.0 * b * n * m)
+        entry(f"pq_adc_distances[M={m}]",
+              own(r["scan_l"], "pq_adc_distances"),
+              shape=f"B={b} N={n} M={m} K={kc}", max_abs_err=err, tol=tol,
+              ms=cuda_ms(torch, lambda: qz.pq_adc_distances(table, codes)),
+              plain_ms=cuda_ms(torch, lambda: qz.pq_adc_distances_plain(
+                  table, codes)), library_ms=None, bound_ms=bms, bound_by=by)
+    for m in pq:  # warm kernel times (the path's lines: first calls)
+        perf.update({
+            f"pq_encode_ms_m{m}": results[f"pq_encode[M={m}]"]["ms"],
+            f"pq_adc_scan_ms_m{m}": results[f"pq_adc_distances[M={m}]"]["ms"]})
+    for name in names:
+        print_kernel(name, results[name], launch_of[name])
+    del x, train, q, pq, exact
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "l2_topk": "fabstir_vectordb_tpu/index/fused.py:51",
     "l2_topk[candidates]": "fabstir_vectordb_tpu/index/hnsw.py:81",
@@ -3090,6 +3555,15 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "l2_topk[bf16 dot k=1024]": "fabstir_vectordb_tpu/index/flat.py:30",
     "hybrid_search": "fabstir_vectordb_tpu/index/fused.py:145",
     "chunked_topk": "fabstir_vectordb_tpu/ops/topk.py:73",
+    "kmeans_pp_init": "fabstir_vectordb_tpu/ops/kmeans.py:33",
+    "kmeans_train": "fabstir_vectordb_tpu/ops/kmeans.py:279",
+    "quantize_u8": "fabstir_vectordb_tpu/ops/quantization.py:27",
+    "dequantize_u8": "fabstir_vectordb_tpu/ops/quantization.py:39",
+    "pq_train": "fabstir_vectordb_tpu/ops/quantization.py:59",
+    "pq_encode": "fabstir_vectordb_tpu/ops/quantization.py:87",
+    "pq_decode": "fabstir_vectordb_tpu/ops/quantization.py:106",
+    "pq_adc_table": "fabstir_vectordb_tpu/ops/quantization.py:114",
+    "pq_adc_distances": "fabstir_vectordb_tpu/ops/quantization.py:131",
 }
 SOURCES = {
     "l2_topk": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
@@ -3117,14 +3591,32 @@ SOURCES = {
     "hybrid_search": "fabstir_vectordb_tpu_torch/index/fused.py",
     # a chunk's mask pass, radix select and K8's merge
     "chunked_topk": "fabstir_vectordb_tpu_torch/csrc/merge_topk.cu",
+    # K7's pick and min-update, one pair a centroid
+    "kmeans_pp_init": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
+    # k-means++ then K6's blocks; pq_train maps it over the subspaces
+    "kmeans_train": "fabstir_vectordb_tpu_torch/ops/kmeans.py",
+    "pq_train": "fabstir_vectordb_tpu_torch/ops/quantization.py",
+    "quantize_u8": "fabstir_vectordb_tpu_torch/csrc/quantize.cu",
+    "dequantize_u8": "fabstir_vectordb_tpu_torch/csrc/quantize.cu",
+    "pq_encode": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
+    "pq_decode": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
+    "pq_adc_table": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
+    "pq_adc_distances": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
 }
+
+
+# what an entry held to its plain version up to ties reports beside its
+# max_abs_err: the first k-means++ pick at a key tie, the rows or codes
+# that differ at ties
+TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
+            "codes_differing_at_ties")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "pruned",
                                         "reduced", "flat1m", "engines",
-                                        "scale"),
+                                        "quant", "scale"),
                     default="all")
     ap.add_argument("--profile", action="store_true",
                     help="cProfile the main path into --out (its timings "
@@ -3168,7 +3660,7 @@ def main() -> None:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
-    if args.phase not in ("pruned", "flat1m", "engines", "scale"):
+    if args.phase not in ("pruned", "flat1m", "engines", "quant", "scale"):
         kernels_phase(torch, tp, hn, km, dev, results)
     counts: dict = {}
     perf: dict = {}
@@ -3204,7 +3696,17 @@ def main() -> None:
                   trace=args.trace, out_dir=args.out)
             print(f"{name} phase: {time.perf_counter() - t:.1f} s",
                   flush=True)
+        if args.phase == "all":  # on the same rows, with the index held
+            t = time.perf_counter()
+            quant_phase(torch, native, card, perf, results, launch_of,
+                        ctx["x"])
+            print(f"quant phase: {time.perf_counter() - t:.1f} s",
+                  flush=True)
         del ctx  # the 1M state goes before the 10M tier is built
+    if args.phase == "quant":
+        t = time.perf_counter()
+        quant_phase(torch, native, card, perf, results, launch_of)
+        print(f"quant phase: {time.perf_counter() - t:.1f} s", flush=True)
     if args.phase in ("all", "scale"):
         import gc
 
@@ -3225,6 +3727,7 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            **{k: r[k] for k in TIE_KEYS if k in r},
         })
     if perf:
         print("main_path " + json.dumps(perf, default=float), flush=True)

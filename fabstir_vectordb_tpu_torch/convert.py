@@ -7,13 +7,18 @@ arrays off the source object (for a JAX ``HybridIndex`` ``h``: ``h.store.data``,
 ``h.store.row_to_id``, ``h.hnsw.nbrs0``, ``h.ivf.centroids`` and so on); this
 module never touches one. :func:`install_projection` carries the
 reduced-rank regime's projection across the same way (the JAX searcher's
-``h.fused._proj["mu"]`` and ``["p"]`` as numpy).
+``h.fused._proj["mu"]`` and ``["p"]`` as numpy), and
+:func:`pq_codebook_from_numpy` a PQ codebook (a JAX ``PQCodebook``'s
+``centroids`` and ``dim``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .index.hybrid import HybridConfig, HybridIndex
+from .ops.quantization import PQCodebook
+from .utils.device import resolve_device
 
 
 def hybrid_from_numpy(state: dict, device=None,
@@ -77,3 +82,14 @@ def install_projection(idx: HybridIndex, proj: dict) -> None:
     with FVDB_PCA_OVERSAMPLE."""
     idx.fused.install_fit(np.asarray(proj["mu"], np.float32),
                           np.asarray(proj["p"], np.float32))
+
+
+def pq_codebook_from_numpy(centroids, dim: int, device=None) -> PQCodebook:
+    """A port :class:`PQCodebook` holding ``centroids`` [M, K, Ds] (numpy,
+    as f32) on ``device`` (None: the card), so both packages encode and
+    scan with one codebook."""
+    cents = np.asarray(centroids, np.float32)
+    if cents.ndim != 3 or cents.shape[0] * cents.shape[2] != dim:
+        raise ValueError(f"centroids {cents.shape} do not cover dim {dim}")
+    return PQCodebook(torch.from_numpy(cents.copy()).to(
+        resolve_device(device)), int(dim))

@@ -13,7 +13,13 @@
 //    outside the mask or with d2 = 0 never enter. This is the exponential
 //    race, the same draw as the reference's top-l of log w + Gumbel noise
 //    (-log E is a Gumbel variable). The keys go through topk_select.cuh's
-//    radix select; fewer eligible rows than l leave -1 at the end.
+//    radix select; fewer eligible rows than l leave -1 at the end. With
+//    unweighted_if_empty (k-means++, ops/kmeans.py:33), a weighted pick
+//    that finds no row with mask and d2 > 0 takes the unweighted key E_n
+//    over the mask instead (the reference's any_pos fallback, :54-56): the
+//    key kernel raises a device flag where a row is eligible, and a second
+//    pass rewrites the keys only where the flag stayed 0, so the host never
+//    reads it. Without the flag the launches are those of kmeans||.
 //  * min-update: d2_n = mask_n ? min(d2_n, min_j |c_j - x_n|^2) : 0 over the
 //    candidate rows c_j = x[rows_j] (a row < 0 is skipped), the distance as
 //    the reference computes it: max(|c|^2 - 2 c.x + |x|^2, 0).
@@ -22,7 +28,10 @@
 //
 // What bounds it on the H100: a round at 256 lists is l = 409 candidates x
 // 10,000 rows x 768 flops (3.1 GFLOP, 47 us at 67 TFLOP/s) over 15 MB of
-// rows; the counts are 2,046 candidates (0.23 ms): f32 arithmetic.
+// rows; the counts are 2,046 candidates (0.23 ms): f32 arithmetic. A
+// k-means++ step is one pick and a min-update with one candidate: the N x D
+// rows read once (30 us at N = 65,536, D = 384), so bytes bound it; the
+// min-update's 32 x 128 tile then does 128 times the products it needs.
 //
 // Design: both distance kernels are a 32 x 128 tile product (4 x 4 results
 // a thread, the candidate side gathered through its row indices into
@@ -48,18 +57,38 @@ struct SeedSmem {
   int b_row[SC];
 };
 
+// E = -log(u), u clamped as above.
+__device__ __forceinline__ float seed_exp(float u) {
+  return -logf(fminf(fmaxf(u, 1e-20f), 1.f - 1e-7f));
+}
+
+// any (when not null) becomes 1 where a row is eligible.
 __global__ void __launch_bounds__(NT) seed_key_kernel(
     const float* __restrict__ d2, const uint8_t* __restrict__ mask,
     const float* __restrict__ u, int N, int weighted,
-    float* __restrict__ key) {
+    float* __restrict__ key, int* __restrict__ any) {
   const int i = blockIdx.x * NT + threadIdx.x;
-  if (i >= N) return;
-  float k = INFINITY;
-  if (mask[i] && (!weighted || d2[i] > 0.f)) {
-    const float e = -logf(fminf(fmaxf(u[i], 1e-20f), 1.f - 1e-7f));
-    k = weighted ? e / fmaxf(d2[i], 1e-30f) : e;
+  bool ok = false;
+  if (i < N) {
+    float k = INFINITY;
+    ok = mask[i] && (!weighted || d2[i] > 0.f);
+    if (ok) {
+      const float e = seed_exp(u[i]);
+      k = weighted ? e / fmaxf(d2[i], 1e-30f) : e;
+    }
+    key[i] = k;
   }
-  key[i] = k;
+  if (any != nullptr && __any_sync(FULL, ok) && (threadIdx.x & 31) == 0)
+    *any = 1;
+}
+
+// The unweighted keys over the mask, unless *any says a row was eligible.
+__global__ void __launch_bounds__(NT) seed_fallback_kernel(
+    const uint8_t* __restrict__ mask, const float* __restrict__ u, int N,
+    const int* __restrict__ any, float* __restrict__ key) {
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i >= N || *any) return;
+  key[i] = mask[i] ? seed_exp(u[i]) : INFINITY;
 }
 
 // acc[i][j] = x[n0 + ty*4 + i] . x[s.b_row[tx + 32 j]]; s.b_row holds the
@@ -193,17 +222,31 @@ inline int seed_blocks(int N) { return (N + SQ - 1) / SQ; }
 
 // The l rows of least key (see above) -> out_r [l] (-1 past the eligible
 // rows). d2 [N] (ignored unless weighted), mask [N], u [N]; key [N] and
-// out_d [l] scratch; work: fvdb_select_scratch_bytes(1, l) bytes.
+// out_d [l] scratch; work: fvdb_select_scratch_bytes(1, l) bytes. With
+// unweighted_if_empty (weighted picks only), any is one int of scratch.
 FVDB_EXPORT int fvdb_seed_pick(const float* d2, const uint8_t* mask,
                                const float* u, int N, int l, int weighted,
-                               float* key, void* work, float* out_d,
-                               int* out_r, cudaStream_t stream) {
+                               int unweighted_if_empty, int* any, float* key,
+                               void* work, float* out_d, int* out_r,
+                               cudaStream_t stream) {
   using namespace fvdb;
   if (N < 1 || l < 1) return static_cast<int>(cudaErrorInvalidValue);
-  seed_key_kernel<<<(N + NT - 1) / NT, NT, 0, stream>>>(d2, mask, u, N,
-                                                        weighted, key);
-  cudaError_t e = cudaGetLastError();
+  const bool fallback = weighted && unweighted_if_empty;
+  if (fallback && any == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (N + NT - 1) / NT;
+  cudaError_t e = cudaSuccess;
+  if (fallback) e = cudaMemsetAsync(any, 0, sizeof(int), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
+  seed_key_kernel<<<blocks, NT, 0, stream>>>(d2, mask, u, N, weighted, key,
+                                             fallback ? any : nullptr);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (fallback) {
+    seed_fallback_kernel<<<blocks, NT, 0, stream>>>(mask, u, N, any, key);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return static_cast<int>(launch_select_topk(key, nullptr, nullptr, N, 1, l,
                                              work, out_d, out_r, stream));
 }

@@ -1,14 +1,15 @@
-"""k-means for the IVF coarse quantizer: kmeans|| seeding (K7) + Lloyd (K6).
+"""k-means: k-means++ and kmeans|| seeding (K7) + Lloyd (K6).
 
 The JAX package's ``ops/kmeans.py`` with PyTorch inside. The Lloyd
 iterations and the nearest-centroid assignment are a hand-written kernel on
-the card (csrc/lloyd.cu); the kmeans|| seeding's device programs (the
-weighted pick, the min-distance table, the candidates' populations) are
-csrc/kmeans_seed.cu. Each has a plain version here, which the wrappers take
-on CPU tensors. The seeding draws from a ``torch.Generator``, so its picks
-differ from the reference's ``jax.random`` ones; the weighted k-means++ over
-the candidates runs on the host, as there. The host stopping rule of
-:func:`kmeans_train_stepped` is the reference's, line for line.
+the card (csrc/lloyd.cu); the seeding's device programs (the weighted pick,
+the min-distance table, the candidates' populations) are
+csrc/kmeans_seed.cu, and k-means++ is one pick and one min-update a
+centroid. Each has a plain version here, which the wrappers take on CPU
+tensors. The seeding draws from a ``torch.Generator``, so its picks differ
+from the reference's ``jax.random`` ones; kmeans||'s weighted k-means++
+over the candidates runs on the host, as there. Lloyd stops by the
+reference's rule, decided on the host after each block of iterations.
 """
 from __future__ import annotations
 
@@ -138,23 +139,33 @@ def _seed_key(d2, mask, u, weighted: bool):
     return torch.where(mask & (d2 > 0), e / d2.clamp_min(1e-30), INF)
 
 
-def seed_pick_plain(d2, mask, u, l: int, weighted: bool = True):
+def seed_pick_plain(d2, mask, u, l: int, weighted: bool = True,
+                    unweighted_if_empty: bool = False):
     """Plain version of the kmeans|| pick: the ``l`` rows of least key
     (ties to the lower row), -1 past the eligible rows. Picking the least
     E / w is the exponential race, the same draw as the reference's top-l of
-    log w + Gumbel noise."""
+    log w + Gumbel noise. ``unweighted_if_empty``: where no row is eligible
+    for a weighted pick, the unweighted keys over the mask (k-means++'s
+    fallback)."""
     key = _seed_key(d2, mask, u, weighted)
+    if weighted and unweighted_if_empty:
+        key = torch.where(torch.isfinite(key).any(), key,
+                          _seed_key(d2, mask, u, False))
     vals, rows = torch.sort(key, stable=True)
     vals, rows = vals[:l], rows[:l].to(torch.int32)
     return torch.where(torch.isfinite(vals), rows, torch.full_like(rows, -1))
 
 
-def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None):
+def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None,
+              unweighted_if_empty: bool = False):
     """K7's pick (``_scalable_first`` / ``_scalable_round``): rows [l]
     int32, written into ``out`` when given. d2 [N] f32 (unused unweighted),
-    mask [N] bool, u [N] uniform f32 from the caller's generator."""
+    mask [N] bool, u [N] uniform f32 from the caller's generator.
+    ``unweighted_if_empty`` (k-means++): a weighted pick with no row of
+    mask and d2 > 0 draws uniformly over the mask instead, decided on the
+    card."""
     if mask.device.type == "cpu":
-        rows = seed_pick_plain(d2, mask, u, l, weighted)
+        rows = seed_pick_plain(d2, mask, u, l, weighted, unweighted_if_empty)
         if out is None:
             return rows
         out.copy_(rows)
@@ -170,16 +181,18 @@ def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None):
     if out is None:
         out = torch.empty(l, dtype=torch.int32, device=dev)
     native.check(out, "out", torch.int32, 1, dev)
-    key = torch.empty(n, dtype=torch.float32, device=dev)
-    out_d = torch.empty(l, dtype=torch.float32, device=dev)
+    fallback = weighted and unweighted_if_empty
+    # key [N] | out_d [l] | the fallback's flag
+    scratch = torch.empty(n + l + 1, dtype=torch.float32, device=dev)
     work = select_scratch("kmeans_seed", 1, l, dev)
     P, I = native.P, native.I
     native.call("kmeans_seed", "fvdb_seed_pick",
-                [P, P, P, I, I, I, P, P, P, P, P],
+                [P, P, P, I, I, I, I, P, P, P, P, P, P],
                 d2.data_ptr() if weighted else 0, mask.data_ptr(),
-                u.data_ptr(), n, l, int(weighted), key.data_ptr(),
-                work.data_ptr(), out_d.data_ptr(), out.data_ptr(),
-                native.stream_of(mask))
+                u.data_ptr(), n, l, int(weighted), int(fallback),
+                scratch[n + l:].data_ptr() if fallback else 0,
+                scratch.data_ptr(), work.data_ptr(), scratch[n:].data_ptr(),
+                out.data_ptr(), native.stream_of(mask))
     native.launches["seed_pick"] += 1
     return out
 
@@ -303,23 +316,60 @@ def kmeans_scalable_init(gen: torch.Generator, x, mask, n_clusters: int,
     return torch.from_numpy(out).to(dev)
 
 
-def kmeans_train_stepped(seed: int, x, mask, n_clusters: int,
-                         max_iterations: int = 25,
-                         tol: float = 1e-4) -> TrainResult:
-    """kmeans|| seeding, then Lloyd in blocks of 5 iterations a launch; the
-    host stops at exactly the iteration a one-step loop would (relative
-    error change < tol), with the same centroids and count."""
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(seed)
-    block = 5
-    cents = kmeans_scalable_init(gen, x, mask, n_clusters)
-    last_err = float("inf")
+def _pp_rows(gen: torch.Generator, x, mask, n_clusters: int,
+             plain: bool = False) -> torch.Tensor:
+    """The rows [C] int32 that k-means++ picks: the first uniform over the
+    mask, each next one with probability proportional to d2 (uniform over
+    the mask where every d2 is 0), d2 then lowered by the new centroid.
+    One uniform draw of N a pick from ``gen`` (on x's device). ``plain``:
+    the plain versions of the pick and the update, on any device."""
+    if n_clusters < 1:
+        raise ValueError(f"n_clusters must be >= 1, got {n_clusters}")
+    if not bool(mask.any()):
+        raise ValueError("k-means++: no row in the mask")
+    pick = seed_pick_plain if plain else seed_pick
+    update = seed_min_update_plain if plain else seed_min_update
+    dev = x.device
+    n = x.shape[0]
+    rows = torch.empty(n_clusters, dtype=torch.int32, device=dev)
+    first = pick(None, mask, torch.rand(n, generator=gen, device=dev), 1,
+                 False)
+    rows[:1] = first
+    d2 = update(x, mask, torch.full((n,), INF, device=dev), rows[:1])
+    for i in range(1, n_clusters):
+        rows[i:i + 1] = pick(d2, mask, torch.rand(n, generator=gen,
+                                                  device=dev), 1, True,
+                             unweighted_if_empty=True)
+        if i + 1 < n_clusters:
+            d2 = update(x, mask, d2, rows[i:i + 1])
+    return rows
+
+
+def kmeans_pp_init(gen: torch.Generator, x, mask, n_clusters: int):
+    """k-means++ seeding over the rows of x [N, D] f32 in mask [N] bool:
+    centroids [C, D], each a row of x. With more clusters than rows that
+    can be told apart, the uniform fallback repeats rows. K7's pick and
+    min-update kernels on the card, one pair a centroid, with no host
+    read between them."""
+    return x[_pp_rows(gen, x, mask, n_clusters).long()]
+
+
+def _lloyd_until(x, mask, init, max_iterations: int = 25,
+                 tol: float = 1e-4, block=lloyd_block) -> TrainResult:
+    """Lloyd from ``init`` until ``max_iterations`` or, past the first
+    iteration, a relative error change below ``tol`` (the first previous
+    error is f32's max), as the reference's while loop; ``block`` runs 5
+    iterations a launch and the host stops at exactly the iteration a
+    one-step loop would, with its centroids and count."""
+    step = 5
+    cents = init
+    last_err = float(np.finfo(np.float32).max)
     i = 0
     converged = False
     err = 0.0
     while i < max_iterations and not converged:
-        steps = min(block, max_iterations - i)
-        all_c, errs = lloyd_block(x, mask, cents, steps)
+        steps = min(step, max_iterations - i)
+        all_c, errs = block(x, mask, cents, steps)
         errs_h = errs.cpu().numpy().astype(np.float64)
         stop = None
         for j in range(steps):
@@ -335,3 +385,23 @@ def kmeans_train_stepped(seed: int, x, mask, n_clusters: int,
         err = float(errs_h[j])
         i += j + 1
     return TrainResult(cents, i, converged, err)
+
+
+def kmeans_train(gen: torch.Generator, x, mask, n_clusters: int,
+                 max_iterations: int = 25, tol: float = 1e-4) -> TrainResult:
+    """k-means++ seeding, then Lloyd until the relative error change is
+    below ``tol`` or ``max_iterations`` (the reference's kmeans_train)."""
+    init = kmeans_pp_init(gen, x, mask, n_clusters)
+    return _lloyd_until(x, mask, init, max_iterations, tol)
+
+
+def kmeans_train_stepped(seed: int, x, mask, n_clusters: int,
+                         max_iterations: int = 25,
+                         tol: float = 1e-4) -> TrainResult:
+    """kmeans|| seeding, then Lloyd in blocks of 5 iterations a launch; the
+    host stops at exactly the iteration a one-step loop would (relative
+    error change < tol), with the same centroids and count."""
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    cents = kmeans_scalable_init(gen, x, mask, n_clusters)
+    return _lloyd_until(x, mask, cents, max_iterations, tol)

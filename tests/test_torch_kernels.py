@@ -14,6 +14,7 @@ import torch
 
 from fabstir_vectordb_tpu_torch.index import hnsw as hnsw_t
 from fabstir_vectordb_tpu_torch.ops import kmeans as km_t
+from fabstir_vectordb_tpu_torch.ops import quantization as qz_t
 from fabstir_vectordb_tpu_torch.ops import topk as topk_t
 
 D = 32
@@ -986,3 +987,152 @@ def test_chunked_topk_matches_plain_on_card(chunk, k, masked):
     assert (vt[:, 0] < 0).all()
     if masked:
         assert keep[rt[rt >= 0].long()].all()
+
+
+@pytest.mark.cuda
+def test_seed_pick_fallback_flag_leaves_kmeans_par_bit_identical_on_card():
+    """The k-means++ fallback flag changes nothing where a row is eligible
+    (kmeans||'s picks, l = 1 and 409), and where none is it draws as the
+    unweighted pick over the mask."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(31)
+    n = 10_000
+    mask = torch.rand(n, device=dev, generator=g) < 0.9
+    d2 = torch.rand(n, device=dev, generator=g)
+    d2[::3] = 0.0
+    for l in (1, 409):
+        u = torch.rand(n, device=dev, generator=g)
+        a = km_t.seed_pick(d2, mask, u, l)
+        b = km_t.seed_pick(d2, mask, u, l, unweighted_if_empty=True)
+        assert torch.equal(a, b)
+        assert torch.equal(a, km_t.seed_pick_plain(d2, mask, u, l))
+    zero = torch.zeros(n, device=dev)
+    u = torch.rand(n, device=dev, generator=g)
+    assert int(km_t.seed_pick(zero, mask, u, 1)[0]) == -1
+    got = km_t.seed_pick(zero, mask, u, 1, unweighted_if_empty=True)
+    assert torch.equal(got, km_t.seed_pick(None, mask, u, 1, weighted=False))
+    assert torch.equal(got, km_t.seed_pick_plain(zero, mask, u, 1, True,
+                                                 unweighted_if_empty=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,c", [(4_097, 48, 256), (1_000, 8, 16),
+                                   (2_000, 384, 64)])
+def test_kmeans_pp_and_train_match_plain_on_card(n, d, c):
+    """k-means++ on K7's kernels picks the plain version's rows from the
+    same generator state (a key tie between two rows, ~1e-6 a pick here,
+    is the only way apart), never a row outside the mask; Lloyd from it
+    converges within 1% of the plain run's error."""
+    dev = _card()
+    xs, _ = _mixture(32, n, 40, d=d, spread=0.5)
+    x = torch.from_numpy(xs).to(dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[-13:] = False
+    x[-13:] = 1e4  # poisoned and masked out
+    state = torch.Generator(device=dev).manual_seed(5).get_state()
+    picks = {}
+    for plain in (False, True):
+        g = torch.Generator(device=dev)
+        g.set_state(state)
+        picks[plain] = km_t._pp_rows(g, x, mask, c, plain=plain)
+    assert torch.equal(picks[False], picks[True])
+    rows = picks[False].cpu().numpy()
+    assert ((rows >= 0) & (rows < n - 13)).all()
+    assert len(set(rows.tolist())) == c
+    init = x[picks[False].long()]
+    kern = km_t._lloyd_until(x, mask, init, 25, 1e-4, km_t.lloyd_block)
+    plain = km_t._lloyd_until(x, mask, init, 25, 1e-4,
+                              km_t.lloyd_block_plain)
+    assert kern.iterations == plain.iterations
+    assert kern.converged == plain.converged
+    assert abs(kern.final_error - plain.final_error) <= \
+        0.01 * plain.final_error
+    assert kern.centroids.shape == (c, d)
+    tol = 1e-5 * float(x[:-13].abs().max())
+    assert float((kern.centroids - plain.centroids).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_kmeans_pp_init_past_the_rows_on_card():
+    """More clusters than rows in the mask, and all-duplicate rows: the
+    fallback keeps every pick a real row of the mask."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(300, 384, device=dev, generator=g)
+    mask = torch.arange(300, device=dev) < 287
+    rows = km_t._pp_rows(g, x, mask, 300).cpu().numpy()
+    assert rows.shape == (300,) and ((rows >= 0) & (rows < 287)).all()
+    assert len(set(rows.tolist())) >= 280
+    dup = x[:1].repeat(500, 1)
+    c = km_t.kmeans_pp_init(g, dup, torch.ones(500, dtype=torch.bool,
+                                                device=dev), 8)
+    assert torch.equal(c, dup[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1_000, 384), (37, 33), (5_000, 8)])
+def test_quantize_kernels_match_plain_on_card(n, d):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(33)
+    x = torch.randn(n, d, device=dev, generator=g) * 3.0
+    x[1] = 0.5  # a constant row
+    ck, mk, sk = qz_t.quantize_u8(x)
+    cp, mp, sp = qz_t.quantize_u8_plain(x)
+    assert torch.equal(ck, cp) and torch.equal(mk, mp) and torch.equal(sk, sp)
+    assert float(sk[1]) == 1.0 and int(ck[1].max()) == 0
+    yk = qz_t.dequantize_u8(ck, mk, sk)
+    assert torch.equal(yk, qz_t.dequantize_u8_plain(ck, mk, sk))
+    assert ((yk - x).abs() <= sk[:, None] / 2
+            + 1e-6 * (x.abs() + mk.abs()[:, None])).all()
+
+
+def _codes_equal_up_to_ties(x, cents, got, want, rel=1e-6):
+    """PQ codes equal, or the two codes' distances to the row's subvector
+    tie within rel of the norm expansion's terms (f32 sums in another order
+    may pick either). Returns the count of codes that differ."""
+    ds = cents.shape[2]
+    n_idx, m_idx = torch.nonzero(got != want, as_tuple=True)
+    for n, j in zip(n_idx.tolist(), m_idx.tolist()):
+        v = x[n, j * ds:(j + 1) * ds].double()
+        a = cents[j, int(got[n, j])].double()
+        b = cents[j, int(want[n, j])].double()
+        da, db = ((v - a) ** 2).sum(), ((v - b) ** 2).sum()
+        scale = (v * v).sum() + max((a * a).sum(), (b * b).sum())
+        assert abs(float(da - db)) <= rel * float(scale), (n, j)
+    return int(n_idx.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,ds", [(1, 16, 48), (8, 256, 48), (48, 256, 4),
+                                    (8, 16, 4), (48, 16, 48), (48, 256, 8),
+                                    (1, 256, 384), (3, 256, 128),
+                                    (2, 200, 130), (384, 16, 1),
+                                    (250, 16, 2)])
+def test_pq_kernels_match_plain_on_card(m, k, ds):
+    """encode / decode / tables / the ADC scan at odd shapes: N not a
+    multiple of a block's rows, every code-load width of the scan (M = 1:
+    bytes, 8: 8-byte, 48: 16-byte loads), B not a multiple of its query
+    group; codebooks too wide for shared memory (Ds = 384, 128, 130: the
+    sliced encode) and more subspaces than one launch of the scan holds
+    (M = 384, 250: launches of 96)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(34)
+    n, b = 3_001, 37
+    cents = torch.randn(m, k, ds, device=dev, generator=g)
+    x = torch.randn(n, m * ds, device=dev, generator=g)
+    q = torch.randn(b, m * ds, device=dev, generator=g)
+    ck = qz_t.pq_encode(cents, x)
+    cp = qz_t.pq_encode_plain(cents, x)
+    assert ck.dtype == torch.uint8 and ck.shape == (n, m)
+    assert _codes_equal_up_to_ties(x, cents, ck, cp) <= n * m // 1000
+    dk = qz_t.pq_decode(cents, ck)
+    assert torch.equal(dk, qz_t.pq_decode_plain(cents, ck))
+    tk = qz_t.pq_adc_table(cents, q)
+    tp = qz_t.pq_adc_table_plain(cents, q)
+    torch.testing.assert_close(tk, tp, rtol=1e-5, atol=1e-5)
+    for bb in (1, b):
+        ak = qz_t.pq_adc_distances(tk[:bb].contiguous(), ck)
+        ap = qz_t.pq_adc_distances_plain(tk[:bb].contiguous(), ck)
+        assert torch.equal(ak, ap)  # the same adds in the same order
+    exact = ((q[:, None, :].double() - dk[None].double()) ** 2).sum(-1)
+    torch.testing.assert_close(ak.double(), exact, rtol=1e-5, atol=1e-4)

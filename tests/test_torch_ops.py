@@ -25,6 +25,7 @@ from fabstir_vectordb_tpu.ops import topk as topk_j  # noqa: E402
 from fabstir_vectordb_tpu_torch.index import hnsw as hnsw_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.ops import distance as dist_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.ops import kmeans as km_t  # noqa: E402
+from fabstir_vectordb_tpu_torch.ops import quantization as qz_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.ops import topk as topk_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.utils import native  # noqa: E402
 
@@ -233,6 +234,19 @@ def test_wrappers_refuse_other_devices():
         topk_t.l2_topk(x, torch.zeros(4, device="meta"),
                        torch.ones(4, dtype=torch.bool, device="meta"),
                        torch.zeros((1, D), device="meta"), 2)
+    codes = torch.zeros((4, D), dtype=torch.uint8, device="meta")
+    row = torch.zeros(4, device="meta")
+    cents = torch.zeros((4, 16, D // 4), device="meta")
+    pq_codes = torch.zeros((4, 4), dtype=torch.uint8, device="meta")
+    for call in (lambda: qz_t.quantize_u8(x),
+                 lambda: qz_t.dequantize_u8(codes, row, row),
+                 lambda: qz_t.pq_encode(cents, x),
+                 lambda: qz_t.pq_decode(cents, pq_codes),
+                 lambda: qz_t.pq_adc_table(cents, x),
+                 lambda: qz_t.pq_adc_distances(
+                     torch.zeros((1, 4, 16), device="meta"), pq_codes)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_launch_counters_stay_at_zero_on_the_cpu():
@@ -242,4 +256,13 @@ def test_launch_counters_stay_at_zero_on_the_cpu():
     x = torch.from_numpy(_data(22, 64))
     topk_t.l2_topk(x, (x * x).sum(1), torch.ones(64, dtype=torch.bool),
                    x[:2].clone(), 4)
+    mask = torch.ones(64, dtype=torch.bool)
+    km_t.kmeans_train(torch.Generator().manual_seed(0), x, mask, 4)
+    codes, mins, scales = qz_t.quantize_u8(x)
+    qz_t.dequantize_u8(codes, mins, scales)
+    cb = qz_t.pq_train(torch.Generator().manual_seed(0), x, 4, 16)
+    pq_codes = qz_t.pq_encode(cb.centroids, x)
+    qz_t.pq_decode(cb.centroids, pq_codes)
+    qz_t.pq_adc_distances(qz_t.pq_adc_table(cb.centroids, x[:2].clone()),
+                          pq_codes)
     assert all(v == 0 for v in native.launches.values())
