@@ -94,14 +94,36 @@
    min-update, K6 and every K16 kernel; then each against its plain
    version at these shapes (k-means++'s picks equal to a key tie, the
    trained errors within 1%).
-11. One JSON line with every kernel's numbers, the card's name and power
+11. Parallel phase: the multi-shard layer (K15, ``parallel/``) on the same
+   1M index, after the quant phase: shard meshes of 4, 1 and 2 x 2 shards
+   on the card and a NCCL process group of one rank. Flat exact search (k
+   = 10 and 200) equal to one K1 call over the mirror up to ties, 1,000
+   masked rows never returned; the approx select at recall@10 >= 0.95; the
+   projected stage 1 (ov_k = 2,048) holding single-device stage 1's top-10
+   at overlap >= 0.99; the IVF search from the index's own centroids and
+   tiles equal to one K12 call, its packed shard state's bytes beside the
+   padded layout's; the 2 x 2 mesh equal to the 1D one; Lloyd to the stop
+   rule from the index's centroids against single-device Lloyd (the same
+   iterations, error within 1%, centroids within 1e-5 max|x|);
+   sharded_kmeans_train; sharded_assign_clusters equal to one assignment
+   call (also from a host array one row short of a multiple of 4); the
+   query-sharded HNSW equal to one K10 + K11 call; the hybrid at
+   recall@10 >= 0.95; ShardedBuilder: a 20,000-row graph identical at 1
+   and 4 shards, 2,048 inserts into the 1M graph >= 99% at rank 1;
+   persistence saved at 4 shards and loaded at 2, search bit-identical
+   (flat 1M; IVF on 16 lists). The counters must show every kernel of the
+   path; then the shard merge (S in 1, 4, 8; k_s in 10, 200, 2,048),
+   set-rows, K6's partial and finish, K12 with a list range and each
+   composition against their plain versions.
+12. One JSON line with every kernel's numbers, the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
 stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
 ``--phase reduced`` steps 1, 2, 4 and 6, ``--phase flat1m`` steps 1, 4 and
 7, ``--phase engines`` steps 1, 4 and 8, ``--phase quant`` steps 1 and 10
-(the 1M rows made, no index), ``--phase scale`` steps 1 and 9;
+(the 1M rows made, no index), ``--phase parallel`` steps 1, 4 and 11,
+``--phase scale`` steps 1 and 9;
 ``--profile``
 writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
 then carry the profiler's overhead); ``--trace`` runs searches under
@@ -3520,6 +3542,707 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
     torch.cuda.empty_cache()
 
 
+PAR_BUILD_ROWS = 20_000  # the fresh HNSW built at S = 1 and at S = 4
+PAR_INSERTS = 2_048  # ShardedBuilder inserts into the 1M graph at S = 4
+PAR_SUBSET_LISTS = 16  # the IVF persistence check's lists
+PAR_PLAIN_B = 32  # queries of K12's (range) check against its plain version
+
+
+@contextlib.contextmanager
+def plain_kernels(shd, ing):
+    """parallel/'s kernel wrappers swapped for their plain versions, so a
+    composition runs its plain version on the card."""
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import hnsw as hn
+    from fabstir_vectordb_tpu_torch.index import ivf as iv
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+    from fabstir_vectordb_tpu_torch.ops import topk as tp
+
+    swaps = [(shd, "l2_topk", tp.l2_topk_plain),
+             (shd, "approx_topk", tp.approx_topk_plain),
+             (shd, "rerank_f32", fu.rerank_f32_plain),
+             (shd, "project_queries", fu.project_queries_plain),
+             (shd, "ivf_scan", iv.ivf_scan_plain),
+             (shd, "shard_merge", tp.shard_merge_plain),
+             (shd, "lloyd_partial", km.lloyd_partial_plain),
+             (shd, "lloyd_finish", km.lloyd_finish_plain),
+             (shd, "greedy_descent", hn.greedy_descent_plain),
+             (shd, "beam_search", hn.beam_search_plain),
+             (ing, "assign_clusters", km.assign_clusters_plain),
+             (ing, "_set_rows_true", ing._set_rows_true_plain)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    try:
+        for m, name, fn in swaps:
+            setattr(m, name, fn)
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def merge_lists(torch, g, dev, s, b, ks):
+    """s shards' sorted partial top-ks lists of b queries: signed
+    distances, ties, a (+inf, -1) padded tail on every other query."""
+    vals = torch.randn(s, b, ks, device=dev, generator=g) * 10
+    vals[:, :, ::7] = vals[:, :, :1]
+    vals, _ = torch.sort(vals, dim=-1)
+    rows = torch.randint(0, 1 << 20, (s, b, ks), device=dev, generator=g,
+                         dtype=torch.int32)
+    pad = max(1, ks // 5)
+    vals[:, 1::2, -pad:] = float("inf")
+    rows[:, 1::2, -pad:] = -1
+    return vals.contiguous(), rows.contiguous()
+
+
+def parallel_phase(torch, native, card: str, perf: dict, results: dict,
+                   launch_of: dict, ctx: dict):
+    """The multi-shard layer (K15, parallel/) on bench.py's 1M tier, one
+    card: shard meshes of 4 (and 1, and 2 x 2) shards on it, and a NCCL
+    process group of one rank. The path, counters from 0: the flat exact
+    search (k = 10, 200; S = 4, 1, 2 x 2), the approx select, the projected
+    stage 1 (ov_k = 2,048 on a rank-192 PCA mirror), the IVF search from the
+    index's centroids and tiles (S = 4, 2 x 2), the Lloyd step (S = 4, 1),
+    Lloyd to its stop rule, sharded_kmeans_train (C = 256, 1M rows),
+    sharded_assign_clusters (1M rows, and one short of it from the host),
+    the query-sharded HNSW (ef 64), the hybrid. Then: ShardedBuilder (a
+    fresh 20,000-row HNSW at S = 1 and S = 4, 2,048 inserts into the 1M
+    graph at S = 4), reshardable persistence, the NCCL mesh, the hard
+    checks, and each new kernel and composition against its plain
+    version."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fabstir_vectordb_tpu_torch import parallel as pl
+    from fabstir_vectordb_tpu_torch.core.object_store import MemoryObjectStore
+    from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import hnsw as hn
+    from fabstir_vectordb_tpu_torch.index import ivf as iv
+    from fabstir_vectordb_tpu_torch.index.store import VectorStore
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+    from fabstir_vectordb_tpu_torch.ops import topk as tp
+    from fabstir_vectordb_tpu_torch.ops.projection import fit_pca
+    from fabstir_vectordb_tpu_torch.parallel import ingest as ing
+    from fabstir_vectordb_tpu_torch.parallel import sharded as shd
+    from fabstir_vectordb_tpu_torch.parallel.mesh import DistMesh, LocalMesh
+    from fabstir_vectordb_tpu_torch.utils import limits
+    from fabstir_vectordb_tpu_torch.utils.padding import bucket
+    from fabstir_vectordb_tpu_torch.utils.transfer import to_device
+
+    h, x_np, n, d = ctx["h"], ctx["x"], ctx["n"], ctx["d"]
+    dev = h.store.device
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mirror = h.store.device_mirror("float32")
+    X, XSQ = mirror.x, mirror.x_sq
+    cap = int(X.shape[0])
+    rng = np.random.default_rng(21)
+    act = h.store.active_mask(cap)
+    dels = rng.choice(n, 1_000, replace=False)  # deleted / filtered rows
+    mask_np = act.copy()
+    mask_np[dels] = False
+    M = to_device(mask_np, dev)
+    ACT = to_device(act, dev)
+    b = 128
+    q_np = (x_np[rng.integers(0, n, b)] + 0.1 * rng.standard_normal(
+        (b, d))).astype(np.float32)  # bench.py's draw: rows + 0.1 noise
+    Q = to_device(q_np, dev)
+    m1, m4 = LocalMesh(1), LocalMesh(4)
+    m22 = LocalMesh((2, 2), ("data", "query"))
+    cents_np = h.ivf.centroids
+    tiles_np = h.ivf.tiles()
+    c0 = to_device(cents_np, dev)
+
+    # the reduced-rank state the projected search reads: a rank-192 PCA of
+    # 65,536 rows, every row projected by K14 into a bf16 mirror
+    rank = 192
+    mu, p = fit_pca(x_np[:65_536], rank)
+    mu_d, p_d = to_device(mu, dev), to_device(p, dev)
+    XP = torch.empty((cap, rank), dtype=torch.bfloat16, device=dev)
+    XP_SQ = torch.empty(cap, dtype=torch.float32, device=dev)
+    for lo in range(0, cap, 1 << 18):
+        hi = min(cap, lo + (1 << 18))
+        fu.project_rows(X[lo:hi].to(torch.bfloat16), mu_d, p_d, XP, XP_SQ, lo)
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def step(fn):
+        before = dict(native.launches)
+        out, sec = timed(fn)
+        return out, sec, launch_delta(native, before)
+
+    # ---- the path, counters from 0
+    native.reset_launches()
+    flat4, flat1 = pl.sharded_flat_search(m4), pl.sharded_flat_search(m1)
+    r, sec, lau = {}, {}, {}
+    for key, fn in (
+            ("flat4", lambda: flat4(X, XSQ, M, Q, 10)),
+            ("flat4_k200", lambda: flat4(X, XSQ, M, Q, 200)),
+            ("flat1", lambda: flat1(X, XSQ, M, Q, 10)),
+            ("flat22", lambda: pl.sharded_flat_search(
+                m22, query_axis="query")(X, XSQ, M, Q, 10)),
+            ("approx4", lambda: pl.sharded_flat_search(
+                m4, select="approx")(X, XSQ, M, Q, 10)),
+            ("proj4", lambda: pl.sharded_projected_search(m4)(
+                XP, XP_SQ, M, mu_d, p_d, Q, 2048)),
+            ("istate4", lambda: pl.shard_ivf_state(
+                m4, cents_np, tiles_np, h.store.data, act)),
+            ("istate22", lambda: pl.shard_ivf_state(
+                m22, cents_np, tiles_np, h.store.data, act))):
+        r[key], sec[key], lau[key] = step(fn)
+    for key, fn in (
+            ("ivf4", lambda: pl.sharded_ivf_search(m4)(r["istate4"], Q, 10,
+                                                       16)),
+            ("ivf22", lambda: pl.sharded_ivf_search(m22, query_axis="query")(
+                r["istate22"], Q, 10, 16)),
+            ("lloyd4", lambda: pl.sharded_lloyd_step(m4)(X[:n], M[:n], c0)),
+            ("lloyd1", lambda: pl.sharded_lloyd_step(m1)(X[:n], M[:n], c0)),
+            ("until4", lambda: shd.sharded_lloyd_until(m4, X[:n], M[:n], c0)),
+            ("train4", lambda: pl.sharded_kmeans_train(m4, X[:n], M[:n], 256,
+                                                       seed=0)),
+            ("assign4", lambda: pl.sharded_assign_clusters(m4)(X[:n], c0)),
+            ("assign4_host", lambda: pl.sharded_assign_clusters(m4)(
+                x_np[:n - 1], c0)),
+            ("hstate4", lambda: pl.shard_hnsw_state(m4, h.hnsw))):
+        r[key], sec[key], lau[key] = step(fn)
+    for key, fn in (
+            ("hnsw4", lambda: pl.sharded_hnsw_search(m4)(r["hstate4"], Q, 10,
+                                                         64)),
+            ("hybrid4", lambda: pl.sharded_hybrid_search(m4)(
+                r["hstate4"], r["istate4"], Q, 10, 64, 16))):
+        r[key], sec[key], lau[key] = step(fn)
+    counts = dict(native.launches)
+    path = ("l2_topk", "l2_topk_bf16_rq", "approx_topk",
+            "rerank_f32_rows", "project_queries", "ivf_scan", "lloyd_partial",
+            "lloyd_finish", "assign_clusters", "greedy_descent",
+            "beam_search", "shard_merge")
+    for name in path:
+        if counts[name] <= 0:
+            fail(f"parallel: {name} was launched no time on the path")
+    print(f"parallel: path launches {dict((k, counts[k]) for k in path)}; "
+          f"IVF state built in {sec['istate4']:.3f} s ({card})", flush=True)
+
+    # ---- hard checks on the path's answers
+    def same_rows(tag, va, ra, vb, rb, rel=1e-6, atol=0.0):
+        """Equal (distance, row) lists up to ties: rows equal after sorting
+        each query's pairs, distances within rel (and atol)."""
+        va, ra, vb, rb = (t.cpu().numpy() for t in (va, ra, vb, rb))
+        fin = np.isfinite(vb)
+        if not (np.isfinite(va) == fin).all():
+            fail(f"{tag}: padding differs")
+        err = np.abs(np.where(fin, va - vb, 0.0))
+        tol = rel * np.maximum(np.abs(np.where(fin, vb, 0.0)), 1.0) + atol
+        if (err > tol).any():
+            fail(f"{tag}: distances off by {float(err.max())}")
+        oa, ob = np.lexsort((ra, va)), np.lexsort((rb, vb))
+        ra_s = np.take_along_axis(ra, oa, 1)
+        rb_s = np.take_along_axis(rb, ob, 1)
+        differ = 0
+        for i in np.nonzero((ra_s != rb_s).any(1))[0]:
+            differ += 1
+            kth = vb[i][fin[i]].max()
+            for row in set(ra[i].tolist()) ^ set(rb[i].tolist()):
+                dd = va[i][ra[i] == row] if row in set(ra[i].tolist()) \
+                    else vb[i][rb[i] == row]
+                if abs(float(dd[0]) - kth) > rel * max(abs(kth), 1.0) + atol:
+                    fail(f"{tag}: query {i} row {row} differs off a tie")
+        return float(err.max()), differ
+
+    checks = {}
+    for k, key in ((10, "flat4"), (200, "flat4_k200")):
+        ref = tp.l2_topk(X, XSQ, M, Q, k)  # one K1 call over the mirror
+        checks[key] = same_rows(f"flat S=4 k={k}", *r[key], *ref)
+        if np.isin(r[key][1].cpu().numpy(), dels).any():
+            fail(f"flat S=4 k={k}: a deleted row came back")
+    ref10 = tp.l2_topk(X, XSQ, M, Q, 10)
+    checks["flat1"] = same_rows("flat S=1", *r["flat1"], *ref10)
+    checks["flat22"] = same_rows("flat 2x2", *r["flat22"], *r["flat4"])
+    exact10 = ref10[1].cpu().numpy()
+    rec_approx = recall(r["approx4"][1].cpu().numpy(), exact10)
+    if rec_approx < 0.95 or np.isin(r["approx4"][1].cpu().numpy(),
+                                    dels).any():
+        fail(f"flat approx S=4: recall@10 {rec_approx} or a deleted row")
+    # projected: the ov_k candidates hold single-device stage 1's top-10
+    qp = fu.project_queries(Q, mu_d, p_d)
+    _, s1 = fu.stage1_select(XP, XP_SQ, M, qp, 10)
+    ov_proj = overlap(r["proj4"][1].cpu().numpy(), s1.cpu().numpy())
+    if ov_proj < 0.99:
+        fail(f"projected S=4: overlap {ov_proj} with stage 1's top-10")
+    # IVF against one K12 over the index's lists
+    lists = h.ivf.device_lists()
+    imask = to_device(act & h.ivf.member_mask(cap), dev)
+    iv_ref = iv.ivf_search(X, XSQ, imask, lists, Q, 10, 16)
+    checks["ivf4"] = same_rows("IVF S=4", *r["ivf4"], *iv_ref[:2])
+    checks["ivf22"] = same_rows("IVF 2x2", *r["ivf22"], *r["ivf4"])
+    ist = r["istate4"]
+    l_pad = int(tiles_np.shape[1])
+    padded_gb = (256 * l_pad * (d * 4 + 4 + 1) + 256 * d * 4) / 1e9
+    print(f"parallel: IVF shard state {ist.nbytes / 1e9:.3f} GB on the card "
+          f"(packed lists) against {padded_gb:.3f} GB for the padded "
+          f"[256, {l_pad}, {d}] layout ({card})", flush=True)
+    # Lloyd: one step at S = 1 and 4 against one K6 step; to the stop rule
+    # against single-device _lloyd_until from the same centroids
+    cb, eb = km.lloyd_block(X[:n], M[:n], c0, 1)
+    scale = float(X[:n].abs().max())
+    # centroids within 1e-5 of the data scale. The error is a sum of 1M
+    # f32 atomic adds: one accumulator (K6's block, S = 1) drifts from the
+    # float64 sum by ~1e-4 relative, four (S = 4) by less, so each step's
+    # error is held to the float64 sum: within 1e-4 of it, or no farther
+    # than the block step's
+    _, d2 = km.assign_clusters(X[:n], c0, M[:n])
+    err64 = float(d2.double().sum()) / float(M[:n].sum())
+    off_b = abs(float(eb[0]) - err64)
+    for key in ("lloyd4", "lloyd1"):
+        c_err = float((r[key][0] - cb[0]).abs().max())
+        off = abs(float(r[key][1]) - err64)
+        print(f"parallel: {key}: centroids {c_err} from one lloyd_block "
+              f"step; error {float(r[key][1])} (block {float(eb[0])}, "
+              f"float64 {err64})", flush=True)
+        if c_err > 1e-5 * scale or off > max(1e-4 * err64, 1.01 * off_b):
+            fail(f"{key}: off one lloyd_block step by {c_err} (centroids) "
+                 f"or off the float64 error by {off / err64} relative")
+    single, single_s = timed(lambda: km._lloyd_until(X[:n], M[:n], c0))
+    c_sh, info = r["until4"]
+    c_err = float((c_sh - single.centroids).abs().max())
+    print(f"parallel: Lloyd to the stop rule S=4 {info['iterations']} "
+          f"iterations, converged {info['converged']}, error "
+          f"{info['final_error']} in {sec['until4']:.3f} s; single device "
+          f"{single.iterations}, {single.converged}, {single.final_error} "
+          f"in {single_s:.3f} s; centroids apart by {c_err} "
+          f"(tol {1e-5 * scale})", flush=True)
+    if (info["iterations"] != single.iterations
+            or info["converged"] != single.converged
+            or abs(info["final_error"] - single.final_error)
+            > 0.01 * single.final_error or c_err > 1e-5 * scale):
+        fail("sharded Lloyd differs from single-device _lloyd_until")
+    t_c, t_info = r["train4"]
+    if t_c.shape != (256, d) or not np.isfinite(t_info["final_error"]):
+        fail(f"sharded_kmeans_train: {t_c.shape}, {t_info}")
+    a_ref, _ = km.assign_clusters(X[:n], c0)
+    if not torch.equal(r["assign4"], a_ref) \
+            or not torch.equal(r["assign4_host"], a_ref[:n - 1]):
+        fail("sharded_assign_clusters differs from one assignment call")
+    # HNSW: the same rows as one K10 + K11 on the batch
+    hs = r["hstate4"]
+    cur, _ = hn.greedy_descent(hs.x, hs.x_sq, hs.mask, hs.nbrs_up,
+                               hs.up_offset, Q, hs.entry, hs.entry_level,
+                               torch.zeros(b, dtype=torch.int32, device=dev))
+    _, h_rows = hn.beam_search(hs.x, hs.x_sq, hs.mask, hs.nbrs0, hs.nbrs_up,
+                             hs.up_offset, Q, cur[:, None].contiguous(),
+                             torch.ones(b, dtype=torch.bool, device=dev), 0,
+                             64, 96, expand=limits.beam_expand())
+    if not torch.equal(r["hnsw4"][1], h_rows[:, :10]):
+        fail("sharded HNSW: rows differ from one K10 + K11 on the batch")
+    exact_act = tp.l2_topk(X, XSQ, ACT, Q, 10)[1].cpu().numpy()
+    rec_hybrid = recall(r["hybrid4"][1], exact_act)
+    if rec_hybrid < 0.95:
+        fail(f"sharded hybrid: recall@10 {rec_hybrid} < 0.95")
+    print(f"parallel: checks passed: flat S=4 k=10 / 200 (max err, queries "
+          f"differing at ties) {checks['flat4']} / {checks['flat4_k200']}, "
+          f"S=1 {checks['flat1']}, 2x2 {checks['flat22']}; approx recall@10 "
+          f"{rec_approx:.4f}; projected overlap {ov_proj:.4f}; IVF S=4 "
+          f"{checks['ivf4']}, 2x2 {checks['ivf22']}; hybrid recall@10 "
+          f"{rec_hybrid:.4f} ({card})", flush=True)
+
+    # ---- speed (report only)
+    def p50(fn, reps=100):
+        ts = []
+        for i in range(reps):
+            qi = Q[i % b: i % b + 1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(qi)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)) * 1e3
+
+    def qps(fn, calls=8):
+        fn(Q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(Q)
+        torch.cuda.synchronize()
+        return calls * b / (time.perf_counter() - t0)
+
+    ivf_fn = pl.sharded_ivf_search(m4)
+    for s, fl in ((1, flat1), (4, flat4)):
+        perf[f"sharded_flat_search_p50_ms_s{s}"] = p50(
+            lambda qi: fl(X, XSQ, M, qi, 10))
+        perf[f"sharded_flat_batched_qps_s{s}"] = qps(
+            lambda qq: fl(X, XSQ, M, qq, 10))
+    perf["sharded_ivf_batched_qps_s4"] = qps(
+        lambda qq: ivf_fn(r["istate4"], qq, 10, 16))
+    perf["sharded_hybrid_recall_at_10"] = rec_hybrid
+    perf["sharded_kmeans_train_s"] = sec["train4"]
+    perf["sharded_kmeans_train_iterations"] = t_info["iterations"]
+
+    # ---- ShardedBuilder: a fresh graph at S = 1 and S = 4, then inserts
+    # into the 1M graph at S = 4
+    graphs = {}
+    for s in (1, 4):
+        st = VectorStore(d, device=dev)
+        rows = st.add_batch([f"b{i}" for i in range(PAR_BUILD_ROWS)],
+                            x_np[:PAR_BUILD_ROWS])
+        g = hn.HNSWIndex(st, hn.HNSWConfig(seed=5))
+        _, secs = timed(lambda: pl.ShardedBuilder(g, LocalMesh(s))
+                        .insert_rows(rows))
+        perf[f"sharded_build_20k_s_s{s}"] = secs
+        graphs[s] = g
+    g1, g4 = graphs[1], graphs[4]
+    if (g1.entry_point != g4.entry_point or g1.max_level != g4.max_level
+            or not np.array_equal(g1.levels, g4.levels)
+            or not np.array_equal(g1.nbrs0, g4.nbrs0)
+            or not np.array_equal(g1.nbrs_up, g4.nbrs_up)):
+        rows_same = float((g1.nbrs0 == g4.nbrs0).all(1).mean())
+        fail(f"ShardedBuilder: S=1 and S=4 adjacency differ ({rows_same} "
+             f"of nbrs0 rows equal)")
+    del graphs, g1, g4
+    centers = ctx["centers"]
+    ins = (centers[rng.integers(0, len(centers), PAR_INSERTS)]
+           + 0.35 * rng.standard_normal((PAR_INSERTS, d))).astype(np.float32)
+    new_rows = h.store.add_batch([f"par{i}" for i in range(PAR_INSERTS)],
+                                 ins)
+    builder = pl.ShardedBuilder(h.hnsw, m4)
+    before = dict(native.launches)
+    _, ins_s = timed(lambda: builder.insert_rows(new_rows))
+    ins_l = launch_delta(native, before)
+    _, found = h.hnsw.search_rows(ins, 1, ef=64)
+    at1 = float((found[:, 0] == new_rows).mean())
+    if at1 < 0.99 or ins_l.get("set_rows", 0) < 1:
+        fail(f"ShardedBuilder: {at1} of {PAR_INSERTS} inserts at rank 1, "
+             f"set_rows launches {ins_l.get('set_rows', 0)}")
+    perf["sharded_insert_2048_s"] = ins_s
+    print(f"parallel: ShardedBuilder {PAR_BUILD_ROWS} rows S=1 "
+          f"{perf['sharded_build_20k_s_s1']:.3f} s, S=4 "
+          f"{perf['sharded_build_20k_s_s4']:.3f} s, identical adjacency; "
+          f"{PAR_INSERTS} inserts into the 1M graph at S=4 {ins_s:.3f} s, "
+          f"{at1:.4f} at rank 1; launches {ins_l} ({card})", flush=True)
+    del builder
+    mirror = h.store.device_mirror("float32")  # the store grew: new rows
+    X, XSQ = mirror.x[:cap], mirror.x_sq[:cap]
+
+    # ---- persistence: flat saved at 4 shards, loaded at 2; IVF on a
+    # 16-list subset
+    m2 = LocalMesh(2)
+    obj = MemoryObjectStore()
+    _, save_s = timed(lambda: pl.save_sharded_flat(obj, "p/flat", X, XSQ, M,
+                                                   m4))
+    (x2, sq2, mk2), load_s = timed(lambda: pl.load_sharded_flat(
+        obj, "p/flat", m2))
+    v2, r2 = pl.sharded_flat_search(m2)(x2, sq2, mk2, Q, 10)
+    vo, ro = pl.sharded_flat_search(m2)(X, XSQ, M, Q, 10)
+    if not (torch.equal(v2, vo) and torch.equal(r2, ro)
+            and torch.equal(r2, r["flat4"][1])):
+        fail("flat persistence: the 2-shard load searches differently")
+    del x2, sq2, mk2, obj
+    live = (tiles_np[:PAR_SUBSET_LISTS] >= 0).sum(1)
+    l16 = max(128, bucket(int(live.max()), minimum=128))
+    t16 = np.ascontiguousarray(tiles_np[:PAR_SUBSET_LISTS, :l16])
+    st16 = pl.shard_ivf_state(m4, cents_np[:PAR_SUBSET_LISTS], t16,
+                              h.store.data, act)
+    v16, r16 = pl.sharded_ivf_search(m4)(st16, Q, 10, 4)
+    obj = MemoryObjectStore()
+    pl.save_sharded_ivf(obj, "p/ivf", st16)
+    st16b = pl.load_sharded_ivf(obj, "p/ivf", m2)
+    v16b, r16b = pl.sharded_ivf_search(m2)(st16b, Q, 10, 4)
+    if not (torch.equal(v16, v16b) and torch.equal(r16, r16b)):
+        fail("IVF persistence: the 2-shard load searches differently")
+    print(f"parallel: persistence: flat {cap} x {d} saved at 4 shards in "
+          f"{save_s:.3f} s, loaded at 2 in {load_s:.3f} s, search "
+          f"bit-identical; IVF {PAR_SUBSET_LISTS} lists (L_pad {l16}) saved "
+          f"at 4, loaded at 2, search bit-identical", flush=True)
+    del obj, st16, st16b
+
+    # ---- a NCCL process group of one rank
+    tmp = tempfile.mkdtemp(prefix="fvdb_nccl_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:  # the group and its store go whatever happens
+        dm = pl.make_mesh(1)
+        if not isinstance(dm, DistMesh):
+            fail(f"make_mesh inside a process group gave {dm}")
+        flat_d = pl.sharded_flat_search(dm)
+        nv, nr = flat_d(X, XSQ, M, Q, 10)
+        checks["nccl_flat"] = same_rows("NCCL flat", nv, nr, *r["flat1"])
+        dstate = pl.shard_ivf_state(dm, cents_np, tiles_np, h.store.data,
+                                    act)
+        checks["nccl_ivf"] = same_rows("NCCL IVF", *pl.sharded_ivf_search(dm)(
+            dstate, Q, 10, 16), *r["ivf4"])
+        cn, en = pl.sharded_lloyd_step(dm)(X[:n], M[:n], c0)
+        if float((cn - r["lloyd1"][0]).abs().max()) > 1e-5 * scale:
+            fail("NCCL Lloyd step differs from LocalMesh(1)'s")
+        del dstate
+        perf["sharded_flat_nccl_w1_ms"] = cuda_ms(
+            torch, lambda: flat_d(X, XSQ, M, Q, 10))
+        perf["sharded_flat_local_s1_ms"] = cuda_ms(
+            torch, lambda: flat1(X, XSQ, M, Q, 10))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"parallel: NCCL world 1: flat, IVF and a Lloyd step equal the "
+          f"local mesh's; flat B=128 {perf['sharded_flat_nccl_w1_ms']:.3f} "
+          f"ms against LocalMesh(1) {perf['sharded_flat_local_s1_ms']:.3f} "
+          f"ms ({card})", flush=True)
+
+    # ---- each new kernel and composition against its plain version
+    names = []
+
+    def entry(name, launches, **rr):
+        if launches < 1:
+            fail(f"parallel: {name} launched no time on the path")
+        results[name] = rr
+        launch_of[name] = launches
+        names.append(name)
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    worst = 0.0
+    for s in (1, 4, 8):
+        for ks in (10, 200, 2048):
+            vals, rows = merge_lists(torch, g, dev, s, b, ks)
+            base = torch.arange(s, dtype=torch.int32, device=dev) << 21
+            for k in (10, ks):
+                vk, rk = tp.shard_merge(vals, rows, k, base=base)
+                vp, rp = tp.shard_merge_plain(vals, rows, k, base=base)
+                if not torch.equal(rk, rp):
+                    fail(f"shard_merge S={s} k_s={ks} k={k}: rows differ")
+                fin = torch.isfinite(vp)
+                if not torch.equal(fin, torch.isfinite(vk)):
+                    fail(f"shard_merge S={s} k_s={ks}: padding differs")
+                worst = max(worst, float((vk - vp)[fin].abs().max())
+                            if fin.any() else 0.0)
+    if worst != 0.0:
+        fail(f"shard_merge: distances off the plain version's by {worst}")
+
+    def merge_entry(tag, parts, k, base, row_map, launches):
+        vals = torch.stack([t[0] for t in parts]).contiguous()
+        rows = torch.stack([t[1] for t in parts]).contiguous()
+        s, bb, ks = vals.shape
+        vk, rk = tp.shard_merge(vals, rows, k, base=base, row_map=row_map)
+        vp, rp = tp.shard_merge_plain(vals, rows, k, base=base,
+                                      row_map=row_map)
+        if not torch.equal(rk, rp):
+            fail(f"shard_merge[{tag}]: rows differ from the plain version")
+        fin = torch.isfinite(vp)
+        err = float((vk - vp)[fin].abs().max()) if fin.any() else 0.0
+        flat_v = vals.permute(1, 0, 2).reshape(bb, s * ks).contiguous()
+        nbytes = s * bb * ks * 8 + bb * k * 8 + s * 4 + (
+            s * bb * ks * 4 if row_map is not None else 0)
+        bms, by = bound(nbytes, float(s * bb * ks), INT32_OPS)
+        entry(f"shard_merge[{tag}]", launches,
+              shape=f"S={s} B={bb} k_s={ks} k={k}"
+              + (" row map" if row_map is not None else ""),
+              max_abs_err=max(err, worst), synthetic_cases=18,
+              ms=cuda_ms(torch, lambda: tp.shard_merge(
+                  vals, rows, k, base=base, row_map=row_map)),
+              plain_ms=cuda_ms(torch, lambda: tp.shard_merge_plain(
+                  vals, rows, k, base=base, row_map=row_map)),
+              library_ms=cuda_ms(torch, lambda: torch.topk(
+                  flat_v, k, dim=1, largest=False)),
+              bound_ms=bms, bound_by=by)
+
+    sl4 = m4.shard_slices(cap, "data")
+    bases4 = torch.arange(4, dtype=torch.int32, device=dev) * (cap // 4)
+    merge_entry("search", [tp.l2_topk(X[s], XSQ[s], M[s], Q, 10)
+                           for s in sl4], 10, bases4, None,
+                lau["flat4"].get("shard_merge", 0))
+    qb = X[:1024].contiguous()  # the builder's batch shape
+    merge_entry("build", [tp.l2_topk(X[s], XSQ[s], M[s], qb, 200)
+                          for s in sl4], 200, bases4, None,
+                ins_l.get("shard_merge", 0))
+    qr = fu.project_queries(Q, mu_d, p_d).to(torch.bfloat16).float()
+    merge_entry("projected", [tp.l2_topk(XP[s], XP_SQ[s], M[s], qr, 2048,
+                                         round_query=True) for s in sl4],
+                2048, bases4, None, lau["proj4"].get("shard_merge", 0))
+    probe = tp.l2_topk(ist.centroids, ist.c_sq, None, Q, 16)[1]
+    merge_entry("ivf", [iv.ivf_scan(sh.x, sh.x_sq, sh.valid, sh.lists, probe,
+                                    Q, 10, c_lo=sh.c_lo)
+                        for _, sh in sorted(ist.shards.items())], 10,
+                ist.map_base, ist.row_map, lau["ivf4"].get("shard_merge", 0))
+
+    # set-rows
+    mk = (torch.rand(cap, device=dev, generator=g) < 0.5)
+    srows = torch.randint(0, cap, (1024,), device=dev, generator=g,
+                          dtype=torch.int32)
+    want = ing._set_rows_true_plain(mk.clone(), srows)
+    got = ing._set_rows_true(mk.clone(), srows)
+    if not torch.equal(got, want):
+        fail("set_rows: differs from the plain version")
+    true_t = torch.ones(1024, dtype=torch.bool, device=dev)
+    bms, by = bound(1024 * 4 + 1024, 1024.0, INT32_OPS)
+    entry("set_rows", ins_l.get("set_rows", 0), shape=f"N={cap} rows=1024",
+          max_abs_err=float((got.int() - want.int()).abs().max()),
+          ms=cuda_ms(torch, lambda: ing._set_rows_true(mk, srows)),
+          plain_ms=cuda_ms(torch, lambda: ing._set_rows_true_plain(mk, srows)),
+          library_ms=cuda_ms(torch, lambda: mk.index_put_(
+              (srows.long(),), true_t)), bound_ms=bms, bound_by=by)
+
+    # K6 split: partial + finish at S = 1 against one lloyd_block step
+    xs, ms_ = X[:n], M[:n]
+    sums, cnts, stats = km.lloyd_partial(xs, ms_, c0)
+    ck, ek = km.lloyd_finish(sums, cnts, stats, c0)
+    sp, cp_, stp = km.lloyd_partial_plain(xs, ms_, c0)
+    cpl, epl = km.lloyd_finish_plain(sp, cp_, stp, c0)
+    err_p = float((ck - cb[0]).abs().max())
+    if err_p > 1e-5 * scale or float((ck - cpl).abs().max()) > 1e-5 * scale:
+        fail(f"lloyd_partial + finish: off one step by {err_p}")
+    bms, by = bound(*lloyd_work(n, d, 256, 1))
+    entry("lloyd_partial", lau["lloyd4"].get("lloyd_partial", 0),
+          shape=f"N={n} C=256 D={d} (one shard: S=1)", max_abs_err=err_p,
+          tol=1e-5 * scale,
+          ms=cuda_ms(torch, lambda: km.lloyd_partial(xs, ms_, c0)),
+          plain_ms=cuda_ms(torch, lambda: km.lloyd_partial_plain(
+              xs, ms_, c0), iters=2, warmup=1),
+          library_ms=None, bound_ms=bms, bound_by=by)
+    bms, by = bound(256 * d * 4 * 3 + 256 * 4 + 8, 256.0 * d)
+    entry("lloyd_finish", lau["lloyd4"].get("lloyd_finish", 0),
+          shape=f"C=256 D={d}",
+          max_abs_err=float((ck - cpl).abs().max()),
+          ms=cuda_ms(torch, lambda: km.lloyd_finish(sums, cnts, stats, c0)),
+          plain_ms=cuda_ms(torch, lambda: km.lloyd_finish_plain(
+              sums, cnts, stats, c0)),
+          library_ms=None, bound_ms=bms, bound_by=by)
+
+    # K12 with a list range on each shard
+    qs = Q[:PAR_PLAIN_B].contiguous()
+    pr = probe[:PAR_PLAIN_B].contiguous()
+    worst_r, differ_r = 0.0, 0
+    for s, sh in sorted(ist.shards.items()):
+        vk, rk = iv.ivf_scan(sh.x, sh.x_sq, sh.valid, sh.lists, pr, qs, 10,
+                             c_lo=sh.c_lo)
+        vp, rp = iv.ivf_scan_plain(sh.x, sh.x_sq, sh.valid, sh.lists, pr, qs,
+                                   10, c_lo=sh.c_lo)
+        tol = 2e-5 * float(sh.x_sq.max() + (qs * qs).sum(1).max())
+        e, df = topk_check(f"ivf_scan[shard {s}]", vk, rk, vp, rp, tol)
+        worst_r, differ_r = max(worst_r, e), differ_r + df
+    # shard 0's work on the path's probes: each probed list it owns read
+    # once, each (query, live row) pair scored
+    sh0 = ist.shards[0]
+    tl = sh0.lists.tiles
+    live = ((tl >= 0) & sh0.valid[tl.clamp_min(0).long()]).sum(1)
+    loc = probe.long() - sh0.c_lo
+    own = (loc >= 0) & (loc < sh0.c_local)
+    pairs = int(live[loc.clamp(0, sh0.c_local - 1)][own].sum())
+    union = loc[own].unique()
+    bms, by = bound(int(live[union].sum()) * (d * 4 + 4)
+                    + int(sh0.lists.list_len[union].sum()) * 5
+                    + b * (d * 4 + 16 * 4 + 80), 2.0 * d * pairs)
+    entry("ivf_scan[shard range]", lau["ivf4"].get("ivf_scan", 0),
+          shape=f"B={b} n_probe=16 k=10, shard 0 of 4 ({sh0.x.shape[0]} "
+          f"rows, lists {sh0.c_lo}-{sh0.c_lo + sh0.c_local - 1})",
+          max_abs_err=worst_r, rows_differing_at_ties=differ_r,
+          ms=cuda_ms(torch, lambda: iv.ivf_scan(
+              sh0.x, sh0.x_sq, sh0.valid, sh0.lists, probe, Q, 10,
+              c_lo=sh0.c_lo)),
+          plain_ms=cuda_ms(torch, lambda: iv.ivf_scan_plain(
+              sh0.x, sh0.x_sq, sh0.valid, sh0.lists, probe, Q, 10,
+              c_lo=sh0.c_lo), iters=1, warmup=1),
+          library_ms=None, bound_ms=bms, bound_by=by)
+
+    # the compositions: the path's calls, then the same with every kernel
+    # swapped for its plain version
+    n_in = int(M.sum())
+    # check: "rows" (equal up to ties), "overlap" (mean overlap >= 0.99:
+    # K9's pool and the walks meet near-ties, and the plain query
+    # projection may round an element to the next bf16), "cents", "assign"
+    comps = [
+        ("sharded_flat_search[S=4 k=10]", "flat4", "rows",
+         lambda: flat4(X, XSQ, M, Q, 10),
+         bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80, 2.0 * b * n_in * d)),
+        ("sharded_flat_search[S=1 k=10]", "flat1", "rows",
+         lambda: flat1(X, XSQ, M, Q, 10),
+         bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80, 2.0 * b * n_in * d)),
+        ("sharded_flat_search[approx S=4 k=10]", "approx4", "overlap",
+         lambda: pl.sharded_flat_search(m4, select="approx")(X, XSQ, M, Q,
+                                                              10),
+         bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80, 2.0 * b * n_in * d)),
+        ("sharded_projected_search[S=4 ov_k=2048]", "proj4", "overlap",
+         lambda: pl.sharded_projected_search(m4)(XP, XP_SQ, M, mu_d, p_d, Q,
+                                                 2048),
+         bound(cap * rank * 2 + cap * 5 + b * d * 4 + d * rank * 4
+               + b * 2048 * 8, 2.0 * b * n_in * rank, BF16_FLOPS)),
+        ("sharded_ivf_search[S=4]", "ivf4", "rows",
+         lambda: ivf_fn(r["istate4"], Q, 10, 16),
+         bound(*ivf_work(lists, imask, iv_ref[2], b, 10, d, 4)[:2])),
+        ("sharded_lloyd_step[S=4]", "lloyd4", "cents",
+         lambda: pl.sharded_lloyd_step(m4)(X[:n], M[:n], c0),
+         bound(*lloyd_work(n, d, 256, 1))),
+        ("sharded_assign_clusters[S=4]", "assign4", "assign",
+         lambda: pl.sharded_assign_clusters(m4)(X[:n], c0),
+         bound(n * d * 4 + 256 * d * 4 + n * 4, 2.0 * n * 256 * d)),
+        ("sharded_hnsw_search[S=4]", "hnsw4", "overlap",
+         lambda: pl.sharded_hnsw_search(m4)(r["hstate4"], Q, 10, 64), None),
+    ]
+    gst, bst = {}, {}
+    gd = hn.greedy_descent_plain(hs.x, hs.x_sq, hs.mask, hs.nbrs_up,
+                                 hs.up_offset, Q, hs.entry, hs.entry_level,
+                                 stats=gst)[0]
+    hn.beam_search_plain(hs.x, hs.x_sq, hs.mask, hs.nbrs0, hs.nbrs_up,
+                         hs.up_offset, Q, gd[:, None], None, 0, 64, 96,
+                         expand=limits.beam_expand(), stats=bst)
+    seen = int((gst["seen"] | bst["seen"]).sum())
+    hnsw_bound = bound(seen * (d * 4 + 4 + 1) + bst["parents"] * 32 * 4
+                       + b * d * 4 + b * 80,
+                       (gst["rows"] + bst["rows"]) * 2.0 * d)
+    # kernel against plain: f32 sums in another order, so distances within
+    # 2e-5 of the norms they cancel (the kernels phase's K1 tolerance)
+    atol_rows = 2e-5 * float(XSQ.max() + (Q * Q).sum(1).max())
+    for name, key, mode, fn, bnd in comps:
+        bms, by = bnd if bnd is not None else hnsw_bound
+        ms = cuda_ms(torch, fn, iters=3, warmup=1)
+        with plain_kernels(shd, ing):
+            pout = fn()
+            pms = cuda_ms(torch, fn, iters=1, warmup=0)
+        kout = fn()
+        extra = {}
+        if mode == "rows":
+            err, extra["rows_differing_at_ties"] = same_rows(
+                name, kout[0], kout[1], pout[0], pout[1], rel=1e-5,
+                atol=atol_rows)
+        elif mode == "overlap":
+            ka, pa = kout[1].cpu().numpy(), pout[1].cpu().numpy()
+            extra["overlap"] = overlap(ka, pa)
+            if extra["overlap"] < 0.99:
+                fail(f"{name}: overlap {extra['overlap']} with plain")
+            both = (kout[1] == pout[1]) & (kout[1] >= 0)
+            err = float((kout[0] - pout[0])[both].abs().max()) \
+                if bool(both.any()) else 0.0
+        elif mode == "cents":
+            err = float((kout[0] - pout[0]).abs().max())
+            if err > 1e-5 * scale:
+                fail(f"{name}: off its plain version by {err}")
+        else:
+            err = float((kout != pout).sum())
+            if err:
+                fail(f"{name}: {err} assignments differ from plain")
+        entry(name, sum(lau[key].values()), shape=f"B={b}, N={cap}" if key
+              not in ("lloyd4", "assign4") else f"N={n} C=256",
+              max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+              bound_ms=bms, bound_by=by, **extra)
+        del pout, kout
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    perf["parallel_device_peak_gb"] = peak
+    mine = {k: v for k, v in perf.items() if k.startswith("sharded_")}
+    print(f"parallel: metrics {json.dumps(mine, default=float)}; phase "
+          f"device peak {peak:.3f} GB above the {base_mem / 1e9:.3f} GB "
+          f"held ({card})", flush=True)
+    for name in names:
+        print_kernel(name, results[name], launch_of[name])
+    del r, ist, hs, mirror, X, XSQ  # the store keeps its own mirror
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "l2_topk": "fabstir_vectordb_tpu/index/fused.py:51",
     "l2_topk[candidates]": "fabstir_vectordb_tpu/index/hnsw.py:81",
@@ -3564,6 +4287,18 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "pq_decode": "fabstir_vectordb_tpu/ops/quantization.py:106",
     "pq_adc_table": "fabstir_vectordb_tpu/ops/quantization.py:114",
     "pq_adc_distances": "fabstir_vectordb_tpu/ops/quantization.py:131",
+    "shard_merge": "fabstir_vectordb_tpu/parallel/sharded.py:89",
+    "shard_merge[ivf]": "fabstir_vectordb_tpu/parallel/sharded.py:252",
+    "set_rows": "fabstir_vectordb_tpu/parallel/ingest.py:44",
+    "lloyd_partial": "fabstir_vectordb_tpu/parallel/sharded.py:287",
+    "lloyd_finish": "fabstir_vectordb_tpu/parallel/sharded.py:305",
+    "ivf_scan[shard range]": "fabstir_vectordb_tpu/parallel/sharded.py:226",
+    "sharded_flat_search": "fabstir_vectordb_tpu/parallel/sharded.py:40",
+    "sharded_projected_search": "fabstir_vectordb_tpu/parallel/sharded.py:114",
+    "sharded_ivf_search": "fabstir_vectordb_tpu/parallel/sharded.py:206",
+    "sharded_lloyd_step": "fabstir_vectordb_tpu/parallel/sharded.py:280",
+    "sharded_assign_clusters": "fabstir_vectordb_tpu/parallel/ingest.py:50",
+    "sharded_hnsw_search": "fabstir_vectordb_tpu/parallel/sharded.py:423",
 }
 SOURCES = {
     "l2_topk": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
@@ -3602,6 +4337,18 @@ SOURCES = {
     "pq_decode": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_adc_table": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_adc_distances": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
+    "shard_merge": "fabstir_vectordb_tpu_torch/csrc/shard_merge.cu",
+    "set_rows": "fabstir_vectordb_tpu_torch/csrc/shard_merge.cu",
+    "lloyd_partial": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
+    "lloyd_finish": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
+    # K15's compositions, in the module that chains their kernels
+    "sharded_flat_search": "fabstir_vectordb_tpu_torch/parallel/sharded.py",
+    "sharded_projected_search":
+        "fabstir_vectordb_tpu_torch/parallel/sharded.py",
+    "sharded_ivf_search": "fabstir_vectordb_tpu_torch/parallel/sharded.py",
+    "sharded_lloyd_step": "fabstir_vectordb_tpu_torch/parallel/sharded.py",
+    "sharded_assign_clusters": "fabstir_vectordb_tpu_torch/parallel/ingest.py",
+    "sharded_hnsw_search": "fabstir_vectordb_tpu_torch/parallel/sharded.py",
 }
 
 
@@ -3609,14 +4356,14 @@ SOURCES = {
 # max_abs_err: the first k-means++ pick at a key tie, the rows or codes
 # that differ at ties
 TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
-            "codes_differing_at_ties")
+            "codes_differing_at_ties", "overlap")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "pruned",
                                         "reduced", "flat1m", "engines",
-                                        "quant", "scale"),
+                                        "quant", "parallel", "scale"),
                     default="all")
     ap.add_argument("--profile", action="store_true",
                     help="cProfile the main path into --out (its timings "
@@ -3660,7 +4407,8 @@ def main() -> None:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     results: dict = {}
-    if args.phase not in ("pruned", "flat1m", "engines", "quant", "scale"):
+    if args.phase not in ("pruned", "flat1m", "engines", "quant", "parallel",
+                          "scale"):
         kernels_phase(torch, tp, hn, km, dev, results)
     counts: dict = {}
     perf: dict = {}
@@ -3678,7 +4426,8 @@ def main() -> None:
                 for key in ("tottime", "cumulative"):
                     pstats.Stats(p, stream=f).sort_stats(key).print_stats(40)
             print(f"profile: {path}", flush=True)
-    if args.phase in ("all", "pruned", "reduced", "flat1m", "engines"):
+    if args.phase in ("all", "pruned", "reduced", "flat1m", "engines",
+                      "parallel"):
         t = time.perf_counter()
         ctx = build_1m(torch, native, card, perf, launch_of)
         k7_checks(torch, ctx, results)
@@ -3701,6 +4450,11 @@ def main() -> None:
             quant_phase(torch, native, card, perf, results, launch_of,
                         ctx["x"])
             print(f"quant phase: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+        if args.phase in ("all", "parallel"):  # the last on the 1M state
+            t = time.perf_counter()
+            parallel_phase(torch, native, card, perf, results, launch_of, ctx)
+            print(f"parallel phase: {time.perf_counter() - t:.1f} s",
                   flush=True)
         del ctx  # the 1M state goes before the 10M tier is built
     if args.phase == "quant":

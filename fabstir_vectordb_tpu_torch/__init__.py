@@ -5,8 +5,12 @@ with PyTorch on an NVIDIA GPU, with hand-written CUDA kernels (``csrc/``)
 where the reference ran fused device programs:
   index/      VectorStore, HNSW insert path, IVF, flat + fused search, hybrid
   ops/        distances, top-k (+ the fused L2 top-k kernel), k-means
-  core/       types, metadata filters, columnar masks, schema (copies)
+  core/       types, metadata filters, columnar masks, schema, object
+              stores (copies)
+  cbor/       the CBOR codec (a copy)
   api/        VectorDBSession
+  parallel/   sharded search, training, build and persistence over a
+              shard mesh (one device, or torch.distributed)
   convert.py  carries a JAX-built index's state across as numpy arrays
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -16,6 +16,10 @@
 // A seed list (the HNSW beam's top-k in the pruned regime) may join the
 // candidates, which folds the regime's two merge_topk calls into this
 // selection: the beam's and the IVF's rows are disjoint.
+// K15's sharded IVF search (parallel/sharded.py:206, its scan at :228-252)
+// runs the same scan on each shard's lists: the probes are global list ids,
+// the shard holds the lists [c_lo, c_lo + c_local) (tiles row probe - c_lo),
+// and a probe outside them scans nothing, as a list another shard owns.
 //
 // What bounds it on the H100: the arithmetic, 2 D flops for each (query,
 // probed row), and the probed rows, 4 D bytes each read once. At the 1M
@@ -42,13 +46,20 @@ namespace fvdb {
 
 constexpr int CH = 256;  // list entries a block
 
+// The row of tiles that holds global list pr, or -1: a probe of -1 (no
+// finite centroid distance) or a list outside [c_lo, c_lo + c_local).
+__device__ __forceinline__ int owned_list(int pr, int c_lo, int c_local) {
+  const int l = pr - c_lo;
+  return pr >= 0 && l >= 0 && l < c_local ? l : -1;
+}
+
 template <typename T, int METRIC>
 __global__ void __launch_bounds__(NT) ivf_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ x_sq,
     const uint8_t* __restrict__ mask, const uint8_t* __restrict__ mask2,
     const int* __restrict__ tiles, int L_pad,
     const int* __restrict__ list_len, const int* __restrict__ probe, int P,
-    const float* __restrict__ q, int D, int N,
+    int c_lo, int c_local, const float* __restrict__ q, int D, int N,
     const float* __restrict__ seed_d, const int* __restrict__ seed_r,
     int seed_stride, int k_seed, long long stride,
     float* __restrict__ cand_d, int* __restrict__ cand_r,
@@ -59,17 +70,18 @@ __global__ void __launch_bounds__(NT) ivf_scan_kernel(
   const int chunk = blockIdx.x, p = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, w = t >> 5, lane = t & 31;
   const int* pr = probe + (size_t)b * P;
-  if (t == 0) {  // a probe of -1 (no finite centroid distance) is empty
+  if (t == 0) {  // a probe of no list held here is empty
     int off = 0, tot = 0;
     for (int i = 0; i < P; ++i) {
-      const int len = pr[i] >= 0 ? list_len[pr[i]] : 0;
+      const int li = owned_list(pr[i], c_lo, c_local);
+      const int len = li >= 0 ? list_len[li] : 0;
       off += i < p ? len : 0;
       tot += len;
     }
     s_off = off;
     s_tot = tot;
-    s_cl = pr[p];
-    s_len = pr[p] >= 0 ? list_len[pr[p]] : 0;
+    s_cl = owned_list(pr[p], c_lo, c_local);
+    s_len = s_cl >= 0 ? list_len[s_cl] : 0;
   }
   __syncthreads();
   float* cd = cand_d + (size_t)b * stride;
@@ -121,7 +133,8 @@ template <typename T, int METRIC>
 cudaError_t ivf_scan(const T* x, const float* x_sq, const uint8_t* mask,
                      const uint8_t* mask2, const int* tiles, int L_pad,
                      const int* list_len, const int* probe, int P,
-                     const float* q, int B, int D, int N,
+                     int c_lo, int c_local, const float* q, int B, int D,
+                     int N,
                      const float* seed_d, const int* seed_r, int seed_stride,
                      int k_seed, int k, long long stride, float* cand_d,
                      int* cand_r, int* n_per, void* work, float* out_d,
@@ -133,8 +146,8 @@ cudaError_t ivf_scan(const T* x, const float* x_sq, const uint8_t* mask,
   if (e != cudaSuccess) return e;
   dim3 grid((L_pad + CH - 1) / CH, P, B);
   ivf_scan_kernel<T, METRIC><<<grid, NT, smem, stream>>>(
-      x, x_sq, mask, mask2, tiles, L_pad, list_len, probe, P, q, D, N, seed_d,
-      seed_r, seed_stride, k_seed, stride, cand_d, cand_r, n_per);
+      x, x_sq, mask, mask2, tiles, L_pad, list_len, probe, P, c_lo, c_local, q,
+      D, N, seed_d, seed_r, seed_stride, k_seed, stride, cand_d, cand_r, n_per);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return launch_select_topk(cand_d, cand_r, n_per, stride, B, k, work, out_d,
@@ -145,21 +158,22 @@ cudaError_t ivf_scan(const T* x, const float* x_sq, const uint8_t* mask,
 
 // x [N, D] (x_bf16: bf16, else f32), x_sq [N], mask / mask2 [N] uint8
 // (mask2 may be null), tiles [C, L_pad] int32 (each list packed at the
-// front), list_len [C], probe [B, P] (from K1 over the centroids), q
-// [B, D]; metric 0 euclidean, 1 cosine, 2 dot; seed_* [B, seed_stride]
-// with its first k_seed entries joining (k_seed may be 0); cand_* [B,
+// front), list_len [C], probe [B, P] (from K1 over the centroids: global
+// list ids; tiles row i holds list c_lo + i, for i < C, and any other probe
+// scans nothing), q [B, D]; metric 0 euclidean, 1 cosine, 2 dot; seed_*
+// [B, seed_stride] with its first k_seed entries joining (k_seed may be 0); cand_* [B,
 // stride] scratch with stride >= the lengths of the P longest lists +
 // k_seed (the most candidates any query can have), n_per [B] scratch;
 // work: fvdb_select_scratch_bytes(B, k) bytes; out_* [B, k].
 FVDB_EXPORT int fvdb_ivf_scan(
     const void* x, int x_bf16, int metric, const float* x_sq,
     const uint8_t* mask, const uint8_t* mask2, const int* tiles, int L_pad,
-    const int* list_len, const int* probe, int P, const float* q, int B,
-    int D, int N, const float* seed_d, const int* seed_r, int seed_stride,
-    int k_seed, int k, long long stride, float* cand_d, int* cand_r,
+    const int* list_len, const int* probe, int P, int c_lo, int C,
+    const float* q, int B, int D, int N, const float* seed_d,
+    const int* seed_r, int seed_stride, int k_seed, int k, long long stride, float* cand_d, int* cand_r,
     int* n_per, void* work, float* out_d, int* out_r, cudaStream_t stream) {
   using namespace fvdb;
-  if (B < 1 || D < 1 || P < 1 || L_pad < 1 || k < 1 || k_seed < 0 ||
+  if (B < 1 || D < 1 || P < 1 || L_pad < 1 || k < 1 || k_seed < 0 || C < 0 ||
       stride < (long long)k_seed + 1 || B > 65535 || P > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_metric(metric, [&](auto m) {
@@ -167,13 +181,13 @@ FVDB_EXPORT int fvdb_ivf_scan(
     return x_bf16
                ? ivf_scan<__nv_bfloat16, M>(
                      static_cast<const __nv_bfloat16*>(x), x_sq, mask, mask2,
-                     tiles, L_pad, list_len, probe, P, q, B, D, N, seed_d,
-                     seed_r, seed_stride, k_seed, k, stride, cand_d, cand_r,
-                     n_per, work, out_d, out_r, stream)
+                     tiles, L_pad, list_len, probe, P, c_lo, C, q, B, D, N,
+                     seed_d, seed_r, seed_stride, k_seed, k, stride, cand_d,
+                     cand_r, n_per, work, out_d, out_r, stream)
                : ivf_scan<float, M>(
                      static_cast<const float*>(x), x_sq, mask, mask2, tiles,
-                     L_pad, list_len, probe, P, q, B, D, N, seed_d, seed_r,
-                     seed_stride, k_seed, k, stride, cand_d, cand_r, n_per,
-                     work, out_d, out_r, stream);
+                     L_pad, list_len, probe, P, c_lo, C, q, B, D, N, seed_d,
+                     seed_r, seed_stride, k_seed, k, stride, cand_d, cand_r,
+                     n_per, work, out_d, out_r, stream);
   }));
 }

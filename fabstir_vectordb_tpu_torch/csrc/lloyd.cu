@@ -1,7 +1,10 @@
 // K6: Lloyd iterations of k-means, and the nearest-centroid assignment.
 //
 // Replaces the JAX package's _lloyd_block (ops/kmeans.py:112), which stacks
-// `steps` iterations of lloyd_step (:84), and assign_clusters (:70). One
+// `steps` iterations of lloyd_step (:84), and assign_clusters (:70). K15's
+// sharded Lloyd step (parallel/sharded.py:280) runs an iteration in two
+// halves, fvdb_lloyd_partial on each shard's rows and fvdb_lloyd_finish on
+// the sums, counts and stats summed across the shards. One
 // iteration: d[n][c] = max(|x_n|^2 - 2 x_n.c + |c|^2, 0); assign n to the
 // first c of least d; sums and counts of the rows of each cluster; a cluster
 // with rows moves to their mean and an empty one keeps its centroid; the
@@ -167,10 +170,40 @@ __global__ void update_kernel(const float* __restrict__ sums,
 
 inline int blocks_for(long long n, int per) { return (int)((n + per - 1) / per); }
 
+// One iteration's partial over the rows of x (x_sq already taken): zero the
+// sums, counts and stats, take the centroids' norms, and add each masked-in
+// row into its cluster's sums and count, its distance into stats[0] and 1
+// into stats[1].
+inline void lloyd_partial_step(const float* x, const float* x_sq,
+                               const uint8_t* mask, const float* cents, int N,
+                               int C, int D, float* c_sq, float* sums,
+                               float* counts, float* stats,
+                               cudaStream_t stream) {
+  cudaMemsetAsync(sums, 0, sizeof(float) * (size_t)C * D, stream);
+  cudaMemsetAsync(counts, 0, sizeof(float) * C, stream);
+  cudaMemsetAsync(stats, 0, sizeof(float) * 2, stream);
+  if (N < 1) return;  // a shard without rows adds nothing
+  row_sq_kernel<<<blocks_for(C, NT / 32), NT, 0, stream>>>(cents, C, D, c_sq);
+  assign_kernel<<<blocks_for(N, TQ), NT, 0, stream>>>(
+      x, x_sq, mask, cents, c_sq, N, C, D, 1, nullptr, nullptr, sums, counts,
+      stats);
+}
+
+// The iteration's end from the (all-reduced) sums, counts and stats.
+inline void lloyd_finish_step(const float* sums, const float* counts,
+                              const float* stats, const float* old_c,
+                              float* new_c, int C, int D, float* err,
+                              cudaStream_t stream) {
+  update_kernel<<<blocks_for((long long)C * D, 256), 256, 0, stream>>>(
+      sums, counts, stats, old_c, new_c, C, D, err);
+}
+
 }  // namespace fvdb
 
 // x [N, D], mask [N] (0/1), cents [C, D] -> all_c [steps, C, D], errs
 // [steps]. Scratch: x_sq [N], c_sq [C], sums [C, D], counts [C], stats [2].
+// Each step is a partial and a finish, as fvdb_lloyd_partial and
+// fvdb_lloyd_finish run them one at a time.
 FVDB_EXPORT int fvdb_lloyd_block(const float* x, const uint8_t* mask,
                                  const float* cents, int N, int C, int D,
                                  int steps, float* x_sq, float* c_sq,
@@ -180,22 +213,48 @@ FVDB_EXPORT int fvdb_lloyd_block(const float* x, const uint8_t* mask,
   using namespace fvdb;
   if (N < 1 || C < 1 || D < 1 || steps < 1 || mask == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per = NT / 32;
-  row_sq_kernel<<<blocks_for(N, rows_per), NT, 0, stream>>>(x, N, D, x_sq);
+  row_sq_kernel<<<blocks_for(N, NT / 32), NT, 0, stream>>>(x, N, D, x_sq);
   const float* prev = cents;
   for (int st = 0; st < steps; ++st) {
-    cudaMemsetAsync(sums, 0, sizeof(float) * (size_t)C * D, stream);
-    cudaMemsetAsync(counts, 0, sizeof(float) * C, stream);
-    cudaMemsetAsync(stats, 0, sizeof(float) * 2, stream);
-    row_sq_kernel<<<blocks_for(C, rows_per), NT, 0, stream>>>(prev, C, D, c_sq);
-    assign_kernel<<<blocks_for(N, TQ), NT, 0, stream>>>(
-        x, x_sq, mask, prev, c_sq, N, C, D, 1, nullptr, nullptr, sums, counts,
-        stats);
+    lloyd_partial_step(x, x_sq, mask, prev, N, C, D, c_sq, sums, counts,
+                       stats, stream);
     float* out = all_c + (size_t)st * C * D;
-    update_kernel<<<blocks_for((long long)C * D, 256), 256, 0, stream>>>(
-        sums, counts, stats, prev, out, C, D, errs + st);
+    lloyd_finish_step(sums, counts, stats, prev, out, C, D, errs + st,
+                      stream);
     prev = out;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K15's sharded Lloyd step, first half (JAX parallel/sharded.py:286-304):
+// a shard's x [N, D] (N may be 0), mask [N], the replicated cents [C, D] ->
+// sums [C, D], counts [C], stats [2] = (sum of d2, rows in the mask), to be
+// summed across the shards. Scratch: x_sq [N], c_sq [C].
+FVDB_EXPORT int fvdb_lloyd_partial(const float* x, const uint8_t* mask,
+                                   const float* cents, int N, int C, int D,
+                                   float* x_sq, float* c_sq, float* sums,
+                                   float* counts, float* stats,
+                                   cudaStream_t stream) {
+  using namespace fvdb;
+  if (N < 0 || C < 1 || D < 1 || (N > 0 && mask == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N > 0)
+    row_sq_kernel<<<blocks_for(N, NT / 32), NT, 0, stream>>>(x, N, D, x_sq);
+  lloyd_partial_step(x, x_sq, mask, cents, N, C, D, c_sq, sums, counts, stats,
+                     stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The second half (:305-310): from the summed sums, counts and stats, the
+// new centroids [C, D] (an empty cluster keeps old_c's) and the error
+// sum(d2) / max(rows, 1) into err [1].
+FVDB_EXPORT int fvdb_lloyd_finish(const float* sums, const float* counts,
+                                  const float* stats, const float* old_c,
+                                  int C, int D, float* new_c, float* err,
+                                  cudaStream_t stream) {
+  using namespace fvdb;
+  if (C < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  lloyd_finish_step(sums, counts, stats, old_c, new_c, C, D, err, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -207,9 +266,8 @@ FVDB_EXPORT int fvdb_assign(const float* x, const uint8_t* mask,
                             cudaStream_t stream) {
   using namespace fvdb;
   if (N < 1 || C < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per = NT / 32;
-  row_sq_kernel<<<blocks_for(N, rows_per), NT, 0, stream>>>(x, N, D, x_sq);
-  row_sq_kernel<<<blocks_for(C, rows_per), NT, 0, stream>>>(cents, C, D, c_sq);
+  row_sq_kernel<<<blocks_for(N, NT / 32), NT, 0, stream>>>(x, N, D, x_sq);
+  row_sq_kernel<<<blocks_for(C, NT / 32), NT, 0, stream>>>(cents, C, D, c_sq);
   assign_kernel<<<blocks_for(N, TQ), NT, 0, stream>>>(
       x, x_sq, mask, cents, c_sq, N, C, D, 0, assign, d2, nullptr, nullptr,
       nullptr);

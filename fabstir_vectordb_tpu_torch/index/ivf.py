@@ -56,23 +56,17 @@ class IVFLists:
         return int(self.longest[min(n_probe, self.longest.size) - 1])
 
 
-def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
-                     n_probe: int, extra_mask=None, seed=None,
-                     metric: str = "euclidean"):
-    """Plain version of K12: the reference's ivf_search_kernel(metric),
-    probe by probe (masked_topk of each list, merged into the running list
-    by (distance, row)), over the padded tiles. bf16 rows are upcast with
-    the f32 query, as the reference's einsum computes. ``seed`` (vals,
-    rows) [B, >=1] starts the running list with its first k entries instead
-    of +inf, which is merge_topk(seed, ivf result)."""
+def ivf_scan_plain(x, x_sq, mask, lists: IVFLists, probe, q, k: int,
+                   extra_mask=None, seed=None, metric: str = "euclidean",
+                   c_lo: int = 0):
+    """Plain version of K12's list scan from given probes (see
+    :func:`ivf_scan`): probe by probe, masked_topk of each list merged
+    into the running list by (distance, row), over the padded tiles."""
     b = q.shape[0]
     tiles = lists.tiles
-    l_pad = tiles.shape[1]
+    c_local, l_pad = tiles.shape
     if extra_mask is not None:
         mask = mask & extra_mask
-    dc = pairwise_distance(q, lists.centroids, metric, lists.c_sq)  # [B, C]
-    n_probe = min(n_probe, lists.centroids.shape[0])
-    _, probe = masked_topk(dc, None, n_probe)
     q_sq = (q * q).sum(-1)
     k_step = min(k, l_pad)
     vals = torch.full((b, k), INF, device=q.device)
@@ -80,9 +74,13 @@ def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
     if seed is not None:
         vals, idx = merge_topk_plain(vals, idx, seed[0][:, :k],
                                      seed[1][:, :k], k)
-    for p in range(n_probe):
-        cand = tiles[probe[:, p].long()]  # [B, L_pad]
-        valid = (cand >= 0) & (cand < x.shape[0])
+    if x.shape[0] == 0:  # no rows to gather: every list is empty
+        return vals, idx
+    for p in range(probe.shape[1]):
+        local = probe[:, p].long() - c_lo
+        owned = (probe[:, p] >= 0) & (local >= 0) & (local < c_local)
+        cand = tiles[local.clamp(0, max(c_local - 1, 0))]  # [B, L_pad]
+        valid = (cand >= 0) & (cand < x.shape[0]) & owned[:, None]
         safe = torch.where(valid, cand, torch.zeros_like(cand)).long()
         dots = torch.einsum("bd,bld->bl", q, x[safe].float())
         if metric == "euclidean":
@@ -98,6 +96,103 @@ def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
             torch.gather(safe, 1, cpos.clamp_min(0).long()).to(torch.int32),
             torch.full_like(cpos, -1))
         vals, idx = merge_topk_plain(vals, idx, cvals, crow, k)
+    return vals, idx
+
+
+def ivf_scan(x, x_sq, mask, lists: IVFLists, probe, q, k: int,
+             extra_mask=None, seed=None, metric: str = "euclidean",
+             c_lo: int = 0):
+    """K12's list scan and top-k from given probes: probe [B, P] int32
+    global list ids (-1: none), of which ``lists.tiles`` [C_local, L_pad]
+    holds the lists c_lo .. c_lo + C_local - 1 (each packed at the front
+    with rows of x, -1 padded); a probe outside that range scans nothing.
+    x, x_sq, mask, extra_mask, seed and metric as in :func:`ivf_search`
+    (``lists.centroids`` is not read). Returns (vals [B, k], rows [B, k])
+    by (distance, row), +inf / -1 padded. K15's sharded IVF search runs it
+    on each shard's lists (rows there are positions in the shard's packed
+    rows). The plain version on CPU tensors, csrc/ivf_scan.cu on CUDA
+    tensors; a query's candidates take at most the P longest lists' rows,
+    so the candidate buffer is sized by those and queries go in chunks of
+    at most _CAND_BYTES of it."""
+    check_metric(metric)
+    if x.device.type == "cpu":
+        return ivf_scan_plain(x, x_sq, mask, lists, probe, q, k, extra_mask,
+                              seed, metric, c_lo)
+    if x.device.type != "cuda":
+        raise ValueError(f"ivf_scan: unsupported device {x.device}")
+    dev = x.device
+    bf16 = x.dtype == torch.bfloat16
+    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
+    native.check(x_sq, "x_sq", torch.float32, 1, dev)
+    native.check(mask, "mask", torch.bool, 1, dev)
+    if extra_mask is not None:
+        native.check(extra_mask, "extra_mask", torch.bool, 1, dev)
+    native.check(lists.tiles, "tiles", torch.int32, 2, dev)
+    native.check(lists.list_len, "list_len", torch.int32, 1, dev)
+    native.check(probe, "probe", torch.int32, 2, dev)
+    native.check(q, "q", torch.float32, 2, dev)
+    b, d = q.shape
+    c_local, l_pad = lists.tiles.shape
+    n_probe = probe.shape[1]
+    if x.shape[1] != d or k < 1 or probe.shape[0] != b or n_probe < 1:
+        raise ValueError(
+            f"ivf_scan: tiles {(c_local, l_pad)}, probe "
+            f"{tuple(probe.shape)}, q {tuple(q.shape)}, x {tuple(x.shape)}, "
+            f"k {k}")
+    k_seed, seed_stride = 0, 1
+    seed_d = seed_r = None
+    if seed is not None:
+        seed_d, seed_r = seed
+        native.check(seed_d, "seed vals", torch.float32, 2, dev)
+        native.check(seed_r, "seed rows", torch.int32, 2, dev)
+        seed_stride = seed_d.shape[1]
+        k_seed = min(k, seed_stride)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_r
+    stride = max(1, lists.most_candidates(n_probe) + k_seed)
+    qc = max(1, min(b, _CAND_BYTES // (8 * stride)))
+    cand_d = torch.empty((qc, stride), dtype=torch.float32, device=dev)
+    cand_r = torch.empty((qc, stride), dtype=torch.int32, device=dev)
+    n_per = torch.empty(qc, dtype=torch.int32, device=dev)
+    P, I, L = native.P, native.I, native.L
+    for lo in range(0, b, qc):
+        hi = min(b, lo + qc)
+        work = select_scratch("ivf_scan", hi - lo, k, dev)
+        native.call(
+            "ivf_scan", "fvdb_ivf_scan",
+            [P, I, I, P, P, P, P, I, P, P, I, I, I, P, I, I, I, P, P, I, I, I,
+             L, P, P, P, P, P, P, P],
+            x.data_ptr(), int(bf16), METRIC_CODE[metric], x_sq.data_ptr(),
+            mask.data_ptr(),
+            0 if extra_mask is None else extra_mask.data_ptr(),
+            lists.tiles.data_ptr(), l_pad, lists.list_len.data_ptr(),
+            probe[lo:hi].data_ptr(), n_probe, int(c_lo), c_local,
+            q[lo:hi].data_ptr(), hi - lo, d, x.shape[0],
+            0 if seed_d is None else seed_d[lo:hi].data_ptr(),
+            0 if seed_r is None else seed_r[lo:hi].data_ptr(), seed_stride,
+            k_seed, k, stride, cand_d.data_ptr(), cand_r.data_ptr(),
+            n_per.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
+            out_r[lo:hi].data_ptr(), native.stream_of(x))
+        native.launches[native.counter("ivf_scan", bf16, metric)] += 1
+    return out_d, out_r
+
+
+def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
+                     n_probe: int, extra_mask=None, seed=None,
+                     metric: str = "euclidean"):
+    """Plain version of K12: the reference's ivf_search_kernel(metric),
+    probe by probe (masked_topk of each list, merged into the running list
+    by (distance, row)), over the padded tiles. bf16 rows are upcast with
+    the f32 query, as the reference's einsum computes. ``seed`` (vals,
+    rows) [B, >=1] starts the running list with its first k entries instead
+    of +inf, which is merge_topk(seed, ivf result)."""
+    dc = pairwise_distance(q, lists.centroids, metric, lists.c_sq)  # [B, C]
+    n_probe = min(n_probe, lists.centroids.shape[0])
+    _, probe = masked_topk(dc, None, n_probe)
+    vals, idx = ivf_scan_plain(x, x_sq, mask, lists, probe, q, k, extra_mask,
+                               seed, metric)
     return vals, idx, probe
 
 
@@ -115,72 +210,25 @@ def ivf_search(x, x_sq, mask, lists: IVFLists, q, k: int, n_probe: int,
 
     The plain version on CPU tensors; on CUDA tensors K1 ranks the
     centroids by the metric (all of them, k = n_probe: ties go to the lower
-    centroid, as ``lax.top_k`` does) and csrc/ivf_scan.cu scans the probed
-    lists and selects, or it raises. A query's candidates take at most the
-    P longest lists' rows, so the candidate buffer is sized by those and
-    queries go in chunks of at most _CAND_BYTES of it."""
+    centroid, as ``lax.top_k`` does) and :func:`ivf_scan` (csrc/ivf_scan.cu)
+    scans the probed lists and selects, or it raises."""
     check_metric(metric)
     if x.device.type == "cpu":
         return ivf_search_plain(x, x_sq, mask, lists, q, k, n_probe,
                                 extra_mask, seed, metric)
     dev = x.device
-    bf16 = x.dtype == torch.bfloat16
-    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
-    native.check(x_sq, "x_sq", torch.float32, 1, dev)
-    native.check(mask, "mask", torch.bool, 1, dev)
-    if extra_mask is not None:
-        native.check(extra_mask, "extra_mask", torch.bool, 1, dev)
     native.check(lists.centroids, "centroids", torch.float32, 2, dev)
     native.check(lists.c_sq, "c_sq", torch.float32, 1, dev)
-    native.check(lists.tiles, "tiles", torch.int32, 2, dev)
-    native.check(lists.list_len, "list_len", torch.int32, 1, dev)
-    native.check(q, "q", torch.float32, 2, dev)
-    b, d = q.shape
-    c, l_pad = lists.tiles.shape
-    if lists.centroids.shape != (c, d) or x.shape[1] != d or k < 1:
+    c = lists.tiles.shape[0]
+    if lists.centroids.shape != (c, q.shape[1]):
         raise ValueError(
             f"ivf_search: centroids {tuple(lists.centroids.shape)}, tiles "
-            f"{(c, l_pad)}, q {tuple(q.shape)}, x {tuple(x.shape)}, k {k}")
-    n_probe = min(n_probe, c)
-    k_seed, seed_stride = 0, 1
-    seed_d = seed_r = None
-    if seed is not None:
-        seed_d, seed_r = seed
-        native.check(seed_d, "seed vals", torch.float32, 2, dev)
-        native.check(seed_r, "seed rows", torch.int32, 2, dev)
-        seed_stride = seed_d.shape[1]
-        k_seed = min(k, seed_stride)
-    _, probe = l2_topk(lists.centroids, lists.c_sq, None, q, n_probe,
+            f"{tuple(lists.tiles.shape)}, q {tuple(q.shape)}")
+    _, probe = l2_topk(lists.centroids, lists.c_sq, None, q, min(n_probe, c),
                        metric=metric)
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
-    if b == 0:
-        return out_d, out_r, probe
-    stride = max(1, lists.most_candidates(n_probe) + k_seed)
-    qc = max(1, min(b, _CAND_BYTES // (8 * stride)))
-    cand_d = torch.empty((qc, stride), dtype=torch.float32, device=dev)
-    cand_r = torch.empty((qc, stride), dtype=torch.int32, device=dev)
-    n_per = torch.empty(qc, dtype=torch.int32, device=dev)
-    P, I, L = native.P, native.I, native.L
-    for lo in range(0, b, qc):
-        hi = min(b, lo + qc)
-        work = select_scratch("ivf_scan", hi - lo, k, dev)
-        native.call(
-            "ivf_scan", "fvdb_ivf_scan",
-            [P, I, I, P, P, P, P, I, P, P, I, P, I, I, I, P, P, I, I, I, L,
-             P, P, P, P, P, P, P],
-            x.data_ptr(), int(bf16), METRIC_CODE[metric], x_sq.data_ptr(),
-            mask.data_ptr(),
-            0 if extra_mask is None else extra_mask.data_ptr(),
-            lists.tiles.data_ptr(), l_pad, lists.list_len.data_ptr(),
-            probe[lo:hi].data_ptr(), n_probe, q[lo:hi].data_ptr(), hi - lo,
-            d, x.shape[0], 0 if seed_d is None else seed_d[lo:hi].data_ptr(),
-            0 if seed_r is None else seed_r[lo:hi].data_ptr(), seed_stride,
-            k_seed, k, stride, cand_d.data_ptr(), cand_r.data_ptr(),
-            n_per.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
-            out_r[lo:hi].data_ptr(), native.stream_of(x))
-        native.launches[native.counter("ivf_scan", bf16, metric)] += 1
-    return out_d, out_r, probe
+    vals, rows = ivf_scan(x, x_sq, mask, lists, probe, q, k, extra_mask, seed,
+                          metric)
+    return vals, rows, probe
 
 
 class NotTrainedError(RuntimeError):

@@ -2,8 +2,10 @@
 
 The JAX package's ``ops/kmeans.py`` with PyTorch inside. The Lloyd
 iterations and the nearest-centroid assignment are a hand-written kernel on
-the card (csrc/lloyd.cu); the seeding's device programs (the weighted pick,
-the min-distance table, the candidates' populations) are
+the card (csrc/lloyd.cu), which also runs an iteration in two halves for
+the sharded Lloyd step (``lloyd_partial`` on each shard, ``lloyd_finish``
+on the sums summed across the shards); the seeding's device programs (the
+weighted pick, the min-distance table, the candidates' populations) are
 csrc/kmeans_seed.cu, and k-means++ is one pick and one min-update a
 centroid. Each has a plain version here, which the wrappers take on CPU
 tensors. The seeding draws from a ``torch.Generator``, so its picks differ
@@ -127,6 +129,88 @@ def lloyd_block(x, mask, cents, steps: int):
         *ptr, all_c.data_ptr(), errs.data_ptr(), native.stream_of(x))
     native.launches["lloyd_block"] += 1
     return all_c, errs
+
+
+def lloyd_partial_plain(x, mask, cents):
+    """Plain version of K6's partial: (sums [C, D], counts [C], stats [2] =
+    (sum of d2, rows in the mask)) of one shard's rows."""
+    c = cents.shape[0]
+    assign, d2 = assign_clusters_plain(x, cents, mask)
+    ok = assign >= 0
+    a = assign[ok].long()
+    counts = torch.bincount(a, minlength=c).to(torch.float32)
+    sums = torch.zeros_like(cents).index_add_(0, a, x[ok].float())
+    stats = torch.stack([d2.sum(), mask.to(torch.float32).sum()])
+    return sums, counts, stats
+
+
+def lloyd_partial(x, mask, cents):
+    """K6's first half, K15's per-shard Lloyd work (the reference's
+    sharded_lloyd_step body before its psums): assign each row of x [N, D]
+    f32 in mask [N] bool to the nearest of cents [C, D] and return (sums
+    [C, D], counts [C], stats [2] = (sum of d2, rows in the mask)), to be
+    summed across the shards and handed to :func:`lloyd_finish`. N may be
+    0. The plain version on CPU tensors, csrc/lloyd.cu's fvdb_lloyd_partial
+    on CUDA tensors."""
+    if x.device.type == "cpu":
+        return lloyd_partial_plain(x, mask, cents)
+    if x.device.type != "cuda":
+        raise ValueError(f"lloyd_partial: unsupported device {x.device}")
+    dev = x.device
+    native.check(x, "x", torch.float32, 2, dev)
+    native.check(mask, "mask", torch.bool, 1, dev)
+    native.check(cents, "cents", torch.float32, 2, dev)
+    n, d = x.shape
+    c = cents.shape[0]
+    if cents.shape[1] != d or mask.shape[0] != n or c < 1:
+        raise ValueError("shape mismatch in lloyd_partial")
+    sums = torch.empty((c, d), dtype=torch.float32, device=dev)
+    counts = torch.empty(c, dtype=torch.float32, device=dev)
+    stats = torch.empty(2, dtype=torch.float32, device=dev)
+    scratch = torch.empty(n + c, dtype=torch.float32, device=dev)
+    P, I = native.P, native.I
+    native.call(
+        "lloyd", "fvdb_lloyd_partial", [P, P, P, I, I, I, P, P, P, P, P, P],
+        x.data_ptr(), mask.data_ptr(), cents.data_ptr(), n, c, d,
+        scratch.data_ptr(), scratch[n:].data_ptr(), sums.data_ptr(),
+        counts.data_ptr(), stats.data_ptr(), native.stream_of(x))
+    native.launches["lloyd_partial"] += 1
+    return sums, counts, stats
+
+
+def lloyd_finish_plain(sums, counts, stats, cents):
+    new = torch.where(counts[:, None] > 0,
+                      sums / counts.clamp_min(1.0)[:, None], cents)
+    return new, stats[0] / stats[1].clamp_min(1.0)
+
+
+def lloyd_finish(sums, counts, stats, cents):
+    """K6's second half: from the summed (sums [C, D], counts [C], stats
+    [2]) of :func:`lloyd_partial`, the new centroids (a cluster with rows
+    moves to their mean, an empty one keeps its row of cents [C, D]) and
+    the error sum(d2) / max(rows, 1), a 0-dim tensor. The plain version on
+    CPU tensors, csrc/lloyd.cu's fvdb_lloyd_finish on CUDA tensors."""
+    if cents.device.type == "cpu":
+        return lloyd_finish_plain(sums, counts, stats, cents)
+    if cents.device.type != "cuda":
+        raise ValueError(f"lloyd_finish: unsupported device {cents.device}")
+    dev = cents.device
+    native.check(sums, "sums", torch.float32, 2, dev)
+    native.check(counts, "counts", torch.float32, 1, dev)
+    native.check(stats, "stats", torch.float32, 1, dev)
+    native.check(cents, "cents", torch.float32, 2, dev)
+    c, d = cents.shape
+    if sums.shape != (c, d) or counts.shape[0] != c or stats.shape[0] != 2:
+        raise ValueError("shape mismatch in lloyd_finish")
+    new = torch.empty_like(cents)
+    err = torch.empty(1, dtype=torch.float32, device=dev)
+    P, I = native.P, native.I
+    native.call("lloyd", "fvdb_lloyd_finish", [P, P, P, P, I, I, P, P, P],
+                sums.data_ptr(), counts.data_ptr(), stats.data_ptr(),
+                cents.data_ptr(), c, d, new.data_ptr(), err.data_ptr(),
+                native.stream_of(cents))
+    native.launches["lloyd_finish"] += 1
+    return new, err[0]
 
 
 # ------------------------------------------------------------ kmeans||

@@ -1,6 +1,7 @@
 """Masked top-k selection, top-k merges, the fused distance top-k kernel
-(K1, by metric), the approximate binned pool (K9) and the streaming top-k
-over row chunks (``chunked_topk``, K8's last program).
+(K1, by metric), the approximate binned pool (K9), the streaming top-k
+over row chunks (``chunked_topk``, K8's last program) and the merge of
+shards' partial top-k lists (``shard_merge``, K15's).
 
 Smaller distance = better everywhere, negative distances included (dot and
 cosine, or a caller's ``dist_fn``); entries that are masked out or not
@@ -112,6 +113,83 @@ def merge_topk(vals_a, idx_a, vals_b, idx_b, k: int, out=None):
                 native.stream_of(vals_a))
     native.launches["merge_topk"] += 1
     return out_v, out_r
+
+
+def shard_merge_plain(vals, rows, k: int, base=None, row_map=None):
+    """Plain version of K15's shard merge (see :func:`shard_merge`)."""
+    s, b, ks = vals.shape
+    if base is None:
+        base = torch.zeros(s, dtype=torch.int32, device=vals.device)
+    g = rows.long() + base.long()[:, None, None]
+    ok = (rows >= 0) & torch.isfinite(vals)
+    if row_map is not None:
+        g = row_map[torch.where(ok, g, torch.zeros_like(g))].long()
+        ok &= g >= 0
+    v = torch.where(ok, vals, torch.full_like(vals, INF))
+    g = torch.where(ok, g, torch.full_like(g, -1)).to(torch.int32)
+    v = v.permute(1, 0, 2).reshape(b, s * ks)
+    g = g.permute(1, 0, 2).reshape(b, s * ks)
+    return merge_topk_plain(v, g, v[:, :0], g[:, :0], k)
+
+
+# candidates a query the shard merge sorts in shared memory
+# (csrc/shard_merge.cu's MERGE_SMEM)
+_MERGE_SMEM = 2048
+
+
+def shard_merge(vals, rows, k: int, base=None, row_map=None):
+    """K15's shard merge (the all_gather + top_k that ends each of the
+    reference's sharded searches): vals [S, B, k_s] f32 and rows [S, B, k_s]
+    int32, each shard's partial top-k with shard-local rows (-1: none).
+    Shard s maps a row r >= 0 to base[s] + r (base [S] int32, None: zeros)
+    or, with row_map (int32), to row_map[base[s] + r]. Returns the k
+    smallest (vals [B, k], rows [B, k] global) by (distance, row), padded
+    with (+inf, -1); rows < 0 and distances that are not finite never
+    enter. The plain version on CPU tensors; on CUDA tensors
+    csrc/shard_merge.cu (a bitonic sort in shared memory up to S * k_s =
+    2,048, past it a buffer and topk_select.cuh's radix select), or it
+    raises."""
+    if vals.device.type == "cpu":
+        return shard_merge_plain(vals, rows, k, base, row_map)
+    if vals.device.type != "cuda":
+        raise ValueError(f"shard_merge: unsupported device {vals.device}")
+    dev = vals.device
+    native.check(vals, "vals", torch.float32, 3, dev)
+    native.check(rows, "rows", torch.int32, 3, dev)
+    s, b, ks = vals.shape
+    if base is None:
+        base = torch.zeros(s, dtype=torch.int32, device=dev)
+    native.check(base, "base", torch.int32, 1, dev)
+    if row_map is not None:
+        native.check(row_map, "row_map", torch.int32, 1, dev)
+    if rows.shape != vals.shape or base.shape[0] != s or k < 1 or ks < 1:
+        raise ValueError(f"shard_merge: vals {tuple(vals.shape)}, rows "
+                         f"{tuple(rows.shape)}, base {tuple(base.shape)}, "
+                         f"k={k}")
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_r
+    cand_d = cand_r = work = None
+    if s * ks > _MERGE_SMEM:
+        if b > _MAX_GRID_Q:
+            raise ValueError(f"shard_merge takes at most {_MAX_GRID_Q} "
+                             f"queries past {_MERGE_SMEM} candidates")
+        cand_d = torch.empty((b, s * ks), dtype=torch.float32, device=dev)
+        cand_r = torch.empty((b, s * ks), dtype=torch.int32, device=dev)
+        work = select_scratch("shard_merge", b, k, dev)
+    P, I = native.P, native.I
+    native.call(
+        "shard_merge", "fvdb_shard_merge",
+        [P, P, P, P, I, I, I, I, P, P, P, P, P, P],
+        vals.data_ptr(), rows.data_ptr(), base.data_ptr(),
+        0 if row_map is None else row_map.data_ptr(), s, b, ks, k,
+        0 if cand_d is None else cand_d.data_ptr(),
+        0 if cand_r is None else cand_r.data_ptr(),
+        0 if work is None else work.data_ptr(), out_d.data_ptr(),
+        out_r.data_ptr(), native.stream_of(vals))
+    native.launches["shard_merge"] += 1
+    return out_d, out_r
 
 
 def chunk_step_plain(d, mask, start: int, vals, idx, k: int):

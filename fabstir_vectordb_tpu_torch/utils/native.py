@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("l2_topk", "heuristic_kept", "pair_sq_l2", "lloyd",
            "greedy_descent", "beam_search", "ivf_scan", "kmeans_seed",
            "stage1_select", "project_rows", "rerank_f32", "merge_topk",
-           "synth", "approx_topk", "quantize", "pq")
+           "synth", "approx_topk", "quantize", "pq", "shard_merge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +44,8 @@ launches: dict[str, int] = {
     "rerank_f32": 0, "rerank_f32_rows": 0, "merge_topk": 0, "synth_rows": 0,
     "approx_topk": 0, "chunk_step": 0, "quantize_u8": 0,
     "dequantize_u8": 0, "pq_encode": 0, "pq_decode": 0, "pq_adc_table": 0,
-    "pq_adc_distances": 0,
+    "pq_adc_distances": 0, "lloyd_partial": 0, "lloyd_finish": 0,
+    "shard_merge": 0, "set_rows": 0,
 }
 # K1 and K12 by metric: "<counter>_cosine", "<counter>_dot"
 for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq", "ivf_scan",

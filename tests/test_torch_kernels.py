@@ -16,6 +16,7 @@ from fabstir_vectordb_tpu_torch.index import hnsw as hnsw_t
 from fabstir_vectordb_tpu_torch.ops import kmeans as km_t
 from fabstir_vectordb_tpu_torch.ops import quantization as qz_t
 from fabstir_vectordb_tpu_torch.ops import topk as topk_t
+from fabstir_vectordb_tpu_torch.parallel import ingest as ingest_t
 
 D = 32
 # squared distances: f32 products summed in different orders
@@ -1136,3 +1137,135 @@ def test_pq_kernels_match_plain_on_card(m, k, ds):
         assert torch.equal(ak, ap)  # the same adds in the same order
     exact = ((q[:, None, :].double() - dk[None].double()) ** 2).sum(-1)
     torch.testing.assert_close(ak.double(), exact, rtol=1e-5, atol=1e-4)
+
+
+def _shard_lists(g, dev, s, b, ks, signed=True):
+    """Each of s shards' partial top-ks lists of b queries, sorted, with
+    signed distances, a few ties and a (+inf, -1) padded tail."""
+    vals = torch.randn(s, b, ks, device=dev, generator=g) * 10
+    if not signed:
+        vals = vals.abs()
+    vals[:, :, ::7] = vals[:, :, :1]  # ties inside a list and across shards
+    vals, _ = torch.sort(vals, dim=-1)
+    rows = torch.randint(0, 1_000, (s, b, ks), device=dev, generator=g,
+                         dtype=torch.int32)
+    rows = rows + torch.arange(ks, device=dev, dtype=torch.int32) * 1_000
+    pad = max(1, ks // 5)
+    vals[:, 1::2, -pad:] = float("inf")
+    rows[:, 1::2, -pad:] = -1
+    rows[-1, 0, 0] = -1  # a lone -1 with a finite distance never enters
+    return vals.contiguous(), rows.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 4, 8])
+@pytest.mark.parametrize("ks", [10, 200, 2048])
+@pytest.mark.parametrize("mapped", [False, True])
+def test_shard_merge_matches_plain_on_card(s, ks, mapped):
+    """K15's shard merge: the bitonic path (S * k_s <= 2,048) and the radix
+    select past it, signed distances, padding, row bases and a row map;
+    exactly the plain version's (distance, row) list."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(s * 10_000 + ks)
+    b = 37
+    vals, rows = _shard_lists(g, dev, s, b, ks)
+    per = int(rows.max()) + 1
+    base = torch.arange(s, dtype=torch.int32, device=dev) * per
+    row_map = None
+    if mapped:  # shard s's local row r is global row_map[s * per + r]
+        row_map = torch.randperm(s * per, device=dev, generator=g).to(
+            torch.int32)
+    for k in sorted({1, 10, min(ks, 200), ks, s * ks + 3}):
+        vk, rk = topk_t.shard_merge(vals, rows, k, base=base, row_map=row_map)
+        vp, rp = topk_t.shard_merge_plain(vals, rows, k, base=base,
+                                          row_map=row_map)
+        assert torch.equal(rk, rp) and torch.equal(vk, vp), (k,)
+    assert (rk[:, -3:] == -1).all() and torch.isinf(vk[:, -3:]).all()
+
+
+@pytest.mark.cuda
+def test_set_rows_matches_plain_on_card():
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(35)
+    mask = torch.rand(100_003, device=dev, generator=g) < 0.3
+    rows = torch.randint(-5, 100_010, (4_097,), device=dev, generator=g,
+                         dtype=torch.int32)
+    rows[-64:] = rows[0]  # the builder's idempotent bucket padding
+    want = ingest_t._set_rows_true_plain(mask.clone(), rows)
+    got = ingest_t._set_rows_true(mask, rows)
+    assert got is mask and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,shards", [(65_536, 256, 1), (65_536, 256, 4),
+                                        (1_001, 16, 8)])
+def test_lloyd_partial_finish_equal_a_lloyd_block_step_on_card(n, c, shards):
+    """K6 split: the shards' partials summed then the finish equal one
+    lloyd_block step (and the plain halves) up to K6's atomic order."""
+    dev = _card()
+    x_np, _ = _mixture(36, n, c, d=64, spread=1.0)
+    x = torch.from_numpy(x_np).to(dev)
+    mask = torch.rand(n, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(37)) < 0.9
+    rng = np.random.default_rng(38)
+    init = x[torch.from_numpy(rng.choice(n, c, replace=False)).to(dev)]
+    sl = [slice(i * n // shards, (i + 1) * n // shards) for i in range(shards)]
+    parts = [km_t.lloyd_partial(x[s], mask[s], init) for s in sl]
+    sums, counts, stats = (sum(p[i] for p in parts) for i in range(3))
+    ck, ek = km_t.lloyd_finish(sums, counts, stats, init)
+    cb, eb = km_t.lloyd_block(x, mask, init, 1)
+    pp = [km_t.lloyd_partial_plain(x[s], mask[s], init) for s in sl]
+    cp, ep = km_t.lloyd_finish_plain(*(sum(p[i] for p in pp)
+                                       for i in range(3)), init)
+    tol = 1e-5 * float(x.abs().max())
+    assert float((ck - cb[0]).abs().max()) <= tol
+    assert float((ck - cp).abs().max()) <= tol
+    assert abs(float(ek) - float(eb[0])) <= 1e-5 * float(eb[0])
+    assert abs(float(ek) - float(ep)) <= 1e-5 * float(ep)
+    assert torch.equal(counts, sum(p[1] for p in pp))
+
+
+@pytest.mark.cuda
+def test_ivf_scan_with_a_list_range_matches_plain_on_card():
+    """K12 on each of 4 shards' lists (probes global, lists outside the
+    shard's range scan nothing), against the plain version, and the 4
+    shards merged equal to one scan of every list."""
+    from fabstir_vectordb_tpu_torch.index.ivf import (IVFIndex, IVFLists,
+                                                      ivf_scan,
+                                                      ivf_scan_plain)
+    from fabstir_vectordb_tpu_torch.index.store import VectorStore
+    from fabstir_vectordb_tpu_torch.parallel import sharded as sharded_t
+    from fabstir_vectordb_tpu_torch.parallel.mesh import LocalMesh
+
+    dev = _card()
+    n, d, c = 20_000, 384, 64
+    x, _ = _mixture(39, n, 64, d=d, spread=0.5)
+    st = VectorStore(d, device=dev)
+    rows = st.add_batch([f"r{i}" for i in range(n)], x)
+    ivf = IVFIndex(st)
+    rng = np.random.default_rng(40)
+    ivf.set_trained(x[rng.choice(n, c, replace=False)])
+    ivf.insert_rows(rows)
+    active = st.active_mask()
+    active[rng.choice(n, 500, replace=False)] = False
+    mesh = LocalMesh(4, device=dev)
+    state = sharded_t.shard_ivf_state(mesh, ivf.centroids, ivf.tiles(), x,
+                                      active)
+    q = torch.from_numpy(x[:37] + 0.2).to(dev)
+    _, probe = topk_t.l2_topk(state.centroids, state.c_sq, None, q, 16)
+    parts = []
+    for s, sh in state.shards.items():
+        vk, rk = ivf_scan(sh.x, sh.x_sq, sh.valid, sh.lists, probe, q, 16,
+                          c_lo=sh.c_lo)
+        vp, rp = ivf_scan_plain(sh.x, sh.x_sq, sh.valid, sh.lists, probe, q,
+                                16, c_lo=sh.c_lo)
+        _assert_close_up_to_ties(vk, rk, vp, rp, 1e-5, 1e-2)
+        parts.append((vk, rk))
+    vm, rm = topk_t.shard_merge(torch.stack([p[0] for p in parts]),
+                                torch.stack([p[1] for p in parts]), 16,
+                                base=state.map_base, row_map=state.row_map)
+    lists = IVFLists.upload(ivf.centroids, ivf.tiles(), dev)
+    mask = torch.from_numpy(active & ivf.member_mask()).to(dev)
+    xd = torch.from_numpy(x).to(dev)
+    vw, rw = ivf_scan(xd, (xd * xd).sum(1), mask, lists, probe, q, 16)
+    _assert_close_up_to_ties(vm, rm, vw, rw, 1e-5, 1e-2)

@@ -22,11 +22,14 @@ from fabstir_vectordb_tpu.index import hnsw as hnsw_j  # noqa: E402
 from fabstir_vectordb_tpu.ops import distance as dist_j  # noqa: E402
 from fabstir_vectordb_tpu.ops import kmeans as km_j  # noqa: E402
 from fabstir_vectordb_tpu.ops import topk as topk_j  # noqa: E402
+from fabstir_vectordb_tpu_torch import parallel as pt  # noqa: E402
 from fabstir_vectordb_tpu_torch.index import hnsw as hnsw_t  # noqa: E402
+from fabstir_vectordb_tpu_torch.index import ivf as ivf_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.ops import distance as dist_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.ops import kmeans as km_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.ops import quantization as qz_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.ops import topk as topk_t  # noqa: E402
+from fabstir_vectordb_tpu_torch.parallel import ingest as ingest_t  # noqa: E402
 from fabstir_vectordb_tpu_torch.utils import native  # noqa: E402
 
 from .test_torch_kernels import (  # noqa: E402
@@ -238,13 +241,28 @@ def test_wrappers_refuse_other_devices():
     row = torch.zeros(4, device="meta")
     cents = torch.zeros((4, 16, D // 4), device="meta")
     pq_codes = torch.zeros((4, 4), dtype=torch.uint8, device="meta")
+    shard_v = torch.zeros((2, 1, 3), device="meta")
+    shard_r = torch.zeros((2, 1, 3), dtype=torch.int32, device="meta")
+    mask = torch.ones(4, dtype=torch.bool, device="meta")
+    c2 = torch.zeros((2, D), device="meta")
+    lists = ivf_t.IVFLists(None, None, torch.zeros((2, 4), dtype=torch.int32,
+                                                   device="meta"),
+                           torch.zeros(2, dtype=torch.int32, device="meta"),
+                           np.zeros(2, np.int64))
+    probe = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     for call in (lambda: qz_t.quantize_u8(x),
                  lambda: qz_t.dequantize_u8(codes, row, row),
                  lambda: qz_t.pq_encode(cents, x),
                  lambda: qz_t.pq_decode(cents, pq_codes),
                  lambda: qz_t.pq_adc_table(cents, x),
                  lambda: qz_t.pq_adc_distances(
-                     torch.zeros((1, 4, 16), device="meta"), pq_codes)):
+                     torch.zeros((1, 4, 16), device="meta"), pq_codes),
+                 lambda: topk_t.shard_merge(shard_v, shard_r, 2),
+                 lambda: km_t.lloyd_partial(x, mask, c2),
+                 lambda: km_t.lloyd_finish(c2, row[:2], row[:2], c2),
+                 lambda: ivf_t.ivf_scan(x, row, mask, lists, probe, x[:1], 2),
+                 lambda: ingest_t._set_rows_true(
+                     mask, torch.zeros(2, dtype=torch.int32, device="meta"))):
         with pytest.raises(ValueError):
             call()
 
@@ -265,4 +283,8 @@ def test_launch_counters_stay_at_zero_on_the_cpu():
     qz_t.pq_decode(cb.centroids, pq_codes)
     qz_t.pq_adc_distances(qz_t.pq_adc_table(cb.centroids, x[:2].clone()),
                           pq_codes)
+    mesh = pt.cpu_mesh(2)
+    pt.sharded_flat_search(mesh)(x, (x * x).sum(1), mask, x[:2].clone(), 4)
+    pt.sharded_lloyd_step(mesh)(x, mask, x[:4].clone())
+    pt.sharded_assign_clusters(mesh)(x, x[:4].clone())
     assert all(v == 0 for v in native.launches.values())

@@ -166,7 +166,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'fabstir_vectordb_tpu_torch.index.ivf',\n"
         "       'fabstir_vectordb_tpu_torch.index.hnsw',\n"
         "       'fabstir_vectordb_tpu_torch.ops.kmeans',\n"
-        "       'fabstir_vectordb_tpu_torch.ops.quantization']\n"
+        "       'fabstir_vectordb_tpu_torch.ops.quantization',\n"
+        "       'fabstir_vectordb_tpu_torch.parallel.mesh',\n"
+        "       'fabstir_vectordb_tpu_torch.parallel.sharded',\n"
+        "       'fabstir_vectordb_tpu_torch.parallel.ingest',\n"
+        "       'fabstir_vectordb_tpu_torch.parallel.persistence',\n"
+        "       'fabstir_vectordb_tpu_torch.cbor.codec',\n"
+        "       'fabstir_vectordb_tpu_torch.core.object_store']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('fabstir_vectordb_tpu_torch.')]))\n")
