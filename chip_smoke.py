@@ -9,7 +9,10 @@
    the shapes the main path gives it, with its time, the plain version's
    time and its bound (the larger of bytes / 3.35 TB/s and flops / 67
    TFLOP/s f32, or 989 TFLOP/s for bf16 products, the H100 SXM data-sheet
-   rates).
+   rates). Among them B1-B4: the pipelined build's member scatter, one
+   Lloyd step, the exact and binned masked top-k of a [128, 1M] distance
+   matrix (k = 16, 1,024 and past N; k = 128), each against its plain
+   version and, where one PyTorch call computes the same, timed beside it.
 3. Main path, flat regime: a session (``device=None``: the card) ingests a
    seeded Gaussian mixture of 100,000 x 384 vectors with metadata in
    batches of 10,000, answers single, batched and filtered searches,
@@ -115,7 +118,22 @@
    path; then the shard merge (S in 1, 4, 8; k_s in 10, 200, 2,048),
    set-rows, K6's partial and finish, K12 with a list range and each
    composition against their plain versions.
-12. One JSON line with every kernel's numbers, the card's name and power
+12. Cold phase: bench.py's cold-start tier (bench_cold_serve) on the same
+   1M index, after the parallel phase: the chunked save to a
+   MemoryObjectStore; a lazy load (its serve-ready time: the sidecars), the
+   first search answered by on-demand chunk fetches while the
+   ``fvdb-materialize`` thread fills the rows and stages their uploads on a
+   side stream; with it parked, 32 cold answers against a float64 brute
+   force over each one's plan and 8 that probe every list against the warm
+   index; the time to full materialization and the staged mirror
+   installed; 2,048 inserts into the loaded index through the pipelined
+   build, >= 99% found at rank 1; the ops entry points over the loaded rows
+   (masked_topk against float64, masked_approx_topk's recall@10, a Lloyd
+   step); IVFPersister.migrate_index of a 65,536-row IVF index from 64 to
+   128 lists, retrained on the card; an eager load onto a bf16 mirror, its
+   prewarm + first search, its answers against a float64 brute force. The
+   counters, from 0, must show B1-B4.
+13. One JSON line with every kernel's numbers, the card's name and power
    limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
@@ -123,9 +141,8 @@ stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
 ``--phase reduced`` steps 1, 2, 4 and 6, ``--phase flat1m`` steps 1, 4 and
 7, ``--phase engines`` steps 1, 4 and 8, ``--phase quant`` steps 1 and 10
 (the 1M rows made, no index), ``--phase parallel`` steps 1, 4 and 11,
-``--phase scale`` steps 1 and 9;
-``--profile``
-writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
+``--phase cold`` steps 1, 2, 4 and 12, ``--phase scale`` steps 1 and 9;
+``--profile`` writes cProfiles of step 3's ingest and searches to ``--out`` (the timings
 then carry the profiler's overhead); ``--trace`` runs searches under
 ``torch.profiler``, prints the device's busy share and writes the ops by
 device time there too.
@@ -347,9 +364,120 @@ def kernels_phase(torch, tp, hn, km, dev, results):
             plain_ms=cuda_ms(torch,
                              lambda: km.lloyd_block_plain(xt, mk, init, 5)),
             bound_ms=bms, bound_by=by)
+    b1_b4_checks(torch, tp, hn, km, dev, results)
     for name, r in results.items():
-        print(f"kernel {name}: agree=True library_ms=None " + " ".join(
-            f"{k}={v}" for k, v in r.items()), flush=True)
+        print(f"kernel {name}: agree=True library_ms={r.get('library_ms')} "
+              + " ".join(f"{k}={v}" for k, v in r.items()
+                         if k != "library_ms"), flush=True)
+
+
+def b1_b4_checks(torch, tp, hn, km, dev, results):
+    """B1-B4 against their plain versions at the shapes of their paths: the
+    pipelined build's member scatter (a 1M mask, 1,024 rows), one Lloyd
+    step at K6's IVF training shape, the exact and binned top-k of a
+    [128, 1M] distance matrix."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 1_048_576
+    # B1: set_member_rows, library index_put_
+    mask = torch.rand(n, device=dev, generator=g) < 0.1
+    rows = torch.randint(0, n, (1_024,), device=dev, generator=g,
+                         dtype=torch.int32)
+    want = hn.set_member_rows_plain(mask.clone(), rows)
+    got = hn.set_member_rows(mask.clone(), rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("set_member_rows: differs from its plain version")
+    rows_l = rows.long()
+    bms, by = bound(1_024 * 4 + 1_024, 0.0)
+    results["set_member_rows"] = dict(
+        shape=f"N={n} rows=1024", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: hn.set_member_rows(mask, rows), iters=20),
+        plain_ms=cuda_ms(torch, lambda: hn.set_member_rows_plain(mask, rows),
+                         iters=20),
+        library_ms=cuda_ms(torch, lambda: mask.index_put_(
+            (rows_l,), torch.tensor(True, device=dev)), iters=20),
+        bound_ms=bms, bound_by=by)
+
+    # B2: lloyd_step at K6's IVF training shape; error within 1% either
+    # way, centroids within 1e-5 max|x| (K6's atomic order)
+    rng = np.random.default_rng(4)
+    nn, cc, d = 65_536, 256, 384
+    centers = rng.standard_normal((cc, d)).astype(np.float32) * 4
+    lab = rng.integers(0, cc, nn)
+    xs = centers[lab] + rng.standard_normal((nn, d)).astype(np.float32)
+    xt = torch.from_numpy(xs).to(dev)
+    mk = torch.rand(nn, device=dev, generator=g) < 0.95
+    # one starting centroid a cluster: two in one tight cluster make its
+    # bisector rows near-ties that f32 sums in another order split
+    # differently (ROADMAP C, "Atomics")
+    first = np.array([np.flatnonzero(lab == c)[0] for c in range(cc)])
+    init = xt[torch.from_numpy(first).to(dev)].contiguous()
+    ck, ek = km.lloyd_step(xt, mk, init)
+    cp, ep = km.lloyd_step_plain(xt, mk, init)
+    torch.cuda.synchronize()
+    err = float((ck - cp).abs().max())
+    tol = 1e-5 * float(xt.abs().max())
+    if err > tol or abs(float(ek) - float(ep)) > 0.01 * float(ep):
+        fail(f"lloyd_step: centroids off by {err} (tol {tol}), error "
+             f"{float(ek)} vs {float(ep)}")
+    valid = int(mk.sum())
+    bms, by = bound(nn * d * 4 + nn + 2 * cc * d * 4,
+                    2.0 * valid * cc * d)
+    results["lloyd_step"] = dict(
+        shape=f"N={nn} (valid {valid}) C={cc} D={d}", max_abs_err=err,
+        tol=tol, error_rel_diff=abs(float(ek) - float(ep)) / float(ep),
+        ms=cuda_ms(torch, lambda: km.lloyd_step(xt, mk, init)),
+        plain_ms=cuda_ms(torch, lambda: km.lloyd_step_plain(xt, mk, init)),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    del xt, mk, init, ck, cp
+
+    # B3 / B4 over a [128, 1M] matrix of distances (a query batch against
+    # the 1M tier's row count), 90% of the rows masked in
+    b = 128
+    dm = torch.rand(b, n, device=dev, generator=g) * 100.0
+    rmask = torch.rand(n, device=dev, generator=g) < 0.9
+    masked = torch.where(rmask, dm, torch.full_like(dm, float("inf")))
+    for tag, dd, mm, k in (("k=16", dm, rmask, 16), ("k=1024", dm, rmask,
+                                                       1_024),
+                           ("k>N", dm[:, :1_000].contiguous(), None, 1_500)):
+        vk, rk = tp.masked_topk(dd, mm, k)
+        vp, rp = tp.masked_topk_plain(dd, mm, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(rk, rp) and torch.equal(vk, vp)):
+            fail(f"masked_topk[{tag}]: differs from its plain version")
+        src = masked if mm is not None else dd
+        kl = min(k, dd.shape[1])
+        bms, by = bound(dd.numel() * 4 + (n if mm is not None else 0)
+                        + b * k * 8, 0.0)
+        results[f"masked_topk[{tag}]"] = dict(
+            shape=f"B={b} N={dd.shape[1]} k={k}"
+                  + (" mask=0.9" if mm is not None else ""),
+            max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: tp.masked_topk(dd, mm, k)),
+            plain_ms=cuda_ms(torch, lambda: tp.masked_topk_plain(dd, mm, k),
+                             iters=3),
+            library_ms=cuda_ms(torch, lambda: torch.topk(
+                src, kl, dim=1, largest=False, sorted=True)),
+            bound_ms=bms, bound_by=by)
+    k = 128
+    vk, rk = tp.masked_approx_topk(dm, rmask, k)
+    vp, rp = tp.masked_approx_topk_plain(dm, rmask, k)
+    torch.cuda.synchronize()
+    ov = overlap(rk.cpu().numpy(), rp.cpu().numpy())
+    if ov < 0.99:
+        fail(f"masked_approx_topk: overlap {ov} with its plain version")
+    both = (rk == rp) & (rk >= 0)
+    err = float((vk - vp)[both].abs().max())
+    bms, by = bound(dm.numel() * 4 + n + b * k * 8, 0.0)
+    results["masked_approx_topk"] = dict(
+        shape=f"B={b} N={n} k={k} bins={tp.approx_bins(n, k)} mask=0.9",
+        max_abs_err=err, overlap=ov,
+        ms=cuda_ms(torch, lambda: tp.masked_approx_topk(dm, rmask, k)),
+        plain_ms=cuda_ms(torch,
+                         lambda: tp.masked_approx_topk_plain(dm, rmask, k),
+                         iters=3),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    del dm, masked, vk, rk, vp, rp
 
 
 def make_corpus(n: int, d: int, seed: int):
@@ -4243,6 +4371,325 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
     torch.cuda.empty_cache()
 
 
+COLD_CHUNK = 10_000  # rows a chunk of the save (the persister's default)
+COLD_QUERIES = 32  # near-row queries held to the exact answers
+COLD_FULL_PROBE = 8  # queries that probe every list: the warm answers
+COLD_INSERTS = 2_048  # rows inserted after the load (the pipelined build)
+COLD_IVF_ROWS = 65_536  # the IVF index migrate_index retrains
+COLD_OPS_QUERIES = 128  # the ops entry points' distance matrix [B, N]
+
+
+def exact_top(torch, x, live, q, k: int, chunk: int = 262_144):
+    """Exact float64 top-k of q [B, D] over the rows x [N, D] where live
+    ([N] or [B, N] bool), on the card: (distances [B, k], rows [B, k]) as
+    numpy."""
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    qd = torch.from_numpy(np.ascontiguousarray(q)).to(dev).double()
+    q_sq = (qd * qd).sum(1)
+    best_d = torch.full((q.shape[0], k), float("inf"), dtype=torch.float64,
+                        device=dev)
+    best_r = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=dev)
+    for lo in range(0, x.shape[0], chunk):
+        xb = torch.from_numpy(np.ascontiguousarray(x[lo:lo + chunk])).to(
+            dev).double()
+        d = (xb * xb).sum(1)[None, :] - 2.0 * (qd @ xb.T) + q_sq[:, None]
+        m = torch.from_numpy(np.ascontiguousarray(
+            live[..., lo:lo + chunk])).to(dev)
+        d = torch.where(m if m.dim() == 2 else m[None, :], d.clamp_min(0.0),
+                        torch.full_like(d, float("inf")))
+        v, r = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False)
+        cd, cr = torch.cat([best_d, v], 1), torch.cat([best_r, r + lo], 1)
+        order = torch.argsort(cd, dim=1, stable=True)[:, :k]
+        best_d, best_r = cd.gather(1, order), cr.gather(1, order)
+    best_r = torch.where(torch.isfinite(best_d), best_r,
+                         torch.full_like(best_r, -1))
+    return best_d.sqrt().cpu().numpy(), best_r.cpu().numpy()
+
+
+def as_ids(store, rows):
+    return np.array([[store.id_of(int(r)) if r >= 0 else "" for r in row]
+                     for row in rows])
+
+
+def same_by_id(tag, d_got, ids_got, d_want, ids_want, tol):
+    """Two top-k lists of ids equal up to ties: each query's distances
+    agree within tol position by position, and an id in one list only
+    ties the k-th distance within tol."""
+    for i in range(d_got.shape[0]):
+        if not np.allclose(d_got[i], d_want[i], rtol=0, atol=tol,
+                           equal_nan=True):
+            fail(f"{tag}: query {i} distances {d_got[i]} vs {d_want[i]}")
+        a, b = set(ids_got[i]) - {""}, set(ids_want[i]) - {""}
+        kth = float(np.nanmax(np.where(np.isfinite(d_want[i]), d_want[i],
+                                       np.nan)))
+        for vid in a ^ b:
+            src_d, src_i = (d_got, ids_got) if vid in a else (d_want,
+                                                             ids_want)
+            dv = float(src_d[i][list(src_i[i]).index(vid)])
+            if abs(dv - kth) > tol:
+                fail(f"{tag}: query {i} id {vid} differs off a tie")
+
+
+def cold_phase(torch, native, card: str, perf: dict, results: dict,
+               launch_of: dict, ctx: dict):
+    """Persistence and lazy cold loading (bench.py's bench_cold_serve,
+    bench.py:415-516) on the 1M index: the chunked save to a
+    MemoryObjectStore; a lazy load (sidecars only), the first search
+    answered by on-demand fetches while the rows materialize behind it
+    (their uploads staged on a side stream), the cold answers against the
+    exact ones over their plan and, probing every list, against the warm
+    index; 2,048 inserts into the loaded index through the pipelined
+    build (B1); an eager bf16 load, prewarm and first search against a
+    float64 brute force; the ops entry points (B2-B4) over the loaded
+    rows; IVFPersister.migrate_index of a 65,536-row IVF index to twice
+    its lists. The counters, from 0, must show B1-B4."""
+    import gc
+
+    from fabstir_vectordb_tpu_torch import ops
+    from fabstir_vectordb_tpu_torch.core.object_store import MemoryObjectStore
+    from fabstir_vectordb_tpu_torch.index.hybrid import SearchConfig
+    from fabstir_vectordb_tpu_torch.index.ivf import IVFConfig, IVFIndex
+    from fabstir_vectordb_tpu_torch.index.store import VectorStore
+    from fabstir_vectordb_tpu_torch.ops.topk import masked_approx_topk
+    from fabstir_vectordb_tpu_torch.storage.persistence import (
+        HybridPersister, IVFPersister)
+
+    h, x, d = ctx["h"], ctx["x"], ctx["d"]
+    cfg = SearchConfig(auto_migrate=False)
+    for key in ("FVDB_SERVING_DTYPE", "FVDB_FLAT_SELECT", "FVDB_PCA_SERVE",
+                "FVDB_FLAT_THRESHOLD"):
+        os.environ.pop(key, None)
+    if h.fused.serving_info()["regime"] != "flat-exact":
+        fail(f"cold: the 1M index serves {h.fused.serving_info()}")
+    # the warm index keeps its host rows only: its device state goes first
+    h.store.release_mirror()
+    h.fused._dev = None
+    h.fused._key = None
+    h.fused._release_proj()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hs = h.store
+    n_live = hs.active_count
+    rng = np.random.default_rng(21)
+    native.reset_launches()
+
+    mem = MemoryObjectStore()
+    t = time.perf_counter()
+    manifest = HybridPersister(mem).save_index_chunked(h, "cold",
+                                                       chunk_size=COLD_CHUNK)
+    save_s = time.perf_counter() - t
+    saved_bytes = sum(len(mem.get(k)) for k in mem.list_keys("cold/"))
+
+    # ---- lazy: sidecars, then the first search through cold serving
+    t0 = time.perf_counter()
+    lz, _ = HybridPersister(mem).load_index_chunked("cold", lazy=True)
+    sidecar_s = time.perf_counter() - t0
+    if lz.ready or lz._cold is None:
+        fail("cold: the lazy load came back resident")
+    probe = int(0.6 * x.shape[0])
+    t = time.perf_counter()
+    dd, rr = lz.search_rows(x[probe], 10, config=cfg, now=NOW)
+    first_s = time.perf_counter() - t
+    first_stats = lz._cold.stats() if lz._cold is not None else {}
+    if lz.store.id_of(int(rr[0, 0])) != f"v{probe}" or dd[0, 0] > 1e-2:
+        fail(f"cold: the first search missed its own row ({dd[0, :3]})")
+    # the checks run with the materializer parked, so they go through
+    # cold serving; their time is kept out of the materialization's
+    cold = lz._cold
+    t_hold = time.perf_counter()
+    held = cold is not None and not lz.ready
+    if held:
+        cold.hold_materializer()
+    try:
+        if lz.ready:
+            fail("cold: materialized before the checks could run cold")
+        qi = rng.choice(x.shape[0], COLD_QUERIES, replace=False)
+        q = (x[qi] + 0.05 * rng.standard_normal((COLD_QUERIES, d))
+             ).astype(np.float32)
+        dc, rc = lz.search_rows(q, 10, config=cfg, now=NOW)
+        # exact over each query's plan: the HNSW span and its probed lists
+        spans = cold._merged_spans(cold._probe_spans(q, h.config.ivf.n_probe))
+        cand = np.concatenate([np.arange(a, b) for a, b in spans])
+        ids = [lz.store.id_of(int(p)) for p in cand]
+        hrows = np.array([hs.row_of(v) for v in ids])
+        inside = np.zeros((COLD_QUERIES, cand.size), bool)
+        for i in range(COLD_QUERIES):
+            for a, b in cold._merged_spans(cold._probe_spans(
+                    q[i:i + 1], h.config.ivf.n_probe)):
+                inside[i] |= (cand >= a) & (cand < b)
+        de, re = exact_top(torch, hs.data[hrows],
+                           inside & ~hs.deleted[hrows][None, :], q, 10)
+        same_by_id("cold queries (their plans)", dc, as_ids(lz.store, rc), de,
+                   np.array([[ids[j] if j >= 0 else "" for j in row]
+                             for row in re]), 1e-3)
+        # probing every list the plan is every row: the warm index's
+        qf = q[:COLD_FULL_PROBE]
+        dfc, rfc = lz.search_rows(qf, 10, config=SearchConfig(
+            auto_migrate=False, ivf_n_probe=h.ivf.centroids.shape[0]),
+            now=NOW)
+        if lz.ready:
+            fail("cold: the full-probe check did not run cold")
+        dw, rw = h.search_rows(qf, 10, config=cfg, now=NOW)
+        same_by_id("cold (every list) against the warm index", dfc,
+                   as_ids(lz.store, rfc), dw, as_ids(hs, rw), 1e-3)
+        cold_stats = cold.stats()
+    finally:
+        if held:
+            cold.release_materializer()
+    held_s = time.perf_counter() - t_hold
+    lz.wait_ready(timeout=600)
+    materialize_s = time.perf_counter() - t0 - held_s
+    m = lz.store._mirror
+    if m is None or m.version != lz.store._version \
+            or (m.x.is_cuda and m.ready is None):
+        fail("cold: the materializer did not install its staged mirror")
+    dl, rl = lz.search_rows(qf, 10, config=cfg, now=NOW)
+    same_by_id("loaded (resident) against the warm index", dl,
+               as_ids(lz.store, rl), dw, as_ids(hs, rw), 1e-3)
+    print(f"cold: save {save_s:.3f} s ({manifest.num_chunks} chunks, "
+          f"{saved_bytes / 1e9:.3f} GB); lazy serve-ready {sidecar_s:.3f} "
+          f"s, first search {first_s:.3f} s {first_stats}; materialized "
+          f"{materialize_s:.3f} s (checks held {held_s:.3f} s); cold checks "
+          f"{cold_stats} ({card})", flush=True)
+
+    # ---- inserts after the load: the pipelined build (B1)
+    base = rng.choice(x.shape[0], COLD_INSERTS, replace=False)
+    xn = (x[base] + 0.05 * rng.standard_normal((COLD_INSERTS, d))
+          ).astype(np.float32)
+    new_ids = [f"cold-new-{i}" for i in range(COLD_INSERTS)]
+    t = time.perf_counter()
+    lz.insert_batch(new_ids, xn, np.full(COLD_INSERTS, NOW), now=NOW)
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t
+    _, rn = lz.search_rows(xn, 1, config=cfg, now=NOW)
+    found = float(np.mean([lz.store.id_of(int(r)) == v
+                           for r, v in zip(rn[:, 0], new_ids)]))
+    if found < 0.99:
+        fail(f"cold: {found:.4f} of the inserts found at rank 1")
+
+    # ---- the ops entry points over the loaded rows (B2-B4)
+    mirror = lz.store.device_mirror("float32")
+    n_rows = lz.store.count
+    live_rows = torch.from_numpy(lz.store.active_mask(n_rows)).to(
+        mirror.x.device)
+    qo = x[rng.choice(x.shape[0], COLD_OPS_QUERIES, replace=False)] \
+        + 0.05 * rng.standard_normal((COLD_OPS_QUERIES, d)).astype(np.float32)
+    qd = torch.from_numpy(qo.astype(np.float32)).to(mirror.x.device)
+    dmat = ops.pairwise_sq_l2(qd, mirror.x[:n_rows], mirror.x_sq[:n_rows])
+    vt, rt = ops.masked_topk(dmat, live_rows, 10)
+    va, ra = masked_approx_topk(dmat, live_rows, 128)
+    torch.cuda.synchronize()
+    de, re = exact_top(torch, lz.store.data[:n_rows],
+                       lz.store.active_mask(n_rows), qo, 10)
+    same_by_id("ops.masked_topk against float64", np.sqrt(np.maximum(
+        vt.cpu().numpy(), 0.0)), rt.cpu().numpy().astype(str), de,
+        re.astype(str), 1e-3)
+    pool = ra.cpu().numpy()
+    approx_recall = float(np.mean([len(set(re[i]) & set(pool[i])) / 10
+                                   for i in range(len(re))]))
+    if approx_recall < 0.95:
+        fail(f"ops.masked_approx_topk: pool recall@10 {approx_recall}")
+    del dmat, vt, rt, va, ra
+
+    # ---- IVFPersister.migrate_index: 64 -> 128 lists, retrained on the card
+    st = VectorStore(d)
+    ivf_rows = st.add_batch([f"r{i}" for i in range(COLD_IVF_ROWS)],
+                            x[:COLD_IVF_ROWS])
+    ivf = IVFIndex(st, IVFConfig(n_clusters=64, n_probe=8,
+                                 train_size=COLD_IVF_ROWS, seed=0))
+    ivf.train(x[:COLD_IVF_ROWS])
+    ivf.insert_rows(ivf_rows)
+    for i in range(0, COLD_IVF_ROWS, 97):
+        st.mark_deleted(f"r{i}")
+    ip = IVFPersister(mem)
+    ip.save_index(ivf, "ivf64")
+    t = time.perf_counter()
+    ip.migrate_index("ivf64", IVFConfig(n_clusters=128, n_probe=8,
+                                        train_size=COLD_IVF_ROWS, seed=0),
+                     "ivf128")
+    torch.cuda.synchronize()
+    migrate_s = time.perf_counter() - t
+    st2, ivf2 = ip.load_index("ivf128")
+    if ivf2.centroids.shape != (128, d) \
+            or ivf2.member_rows().size != st2.active_count:
+        fail(f"migrate_index: {ivf2.centroids.shape}, "
+             f"{ivf2.member_rows().size} members of {st2.active_count}")
+    xs_t = torch.from_numpy(st2.data[: st2.count]).to(mirror.x.device)
+    live2 = torch.from_numpy(st2.active_mask(st2.count)).to(xs_t.device)
+    errs = {}
+    for tag, cents in (("64", ivf.centroids), ("128", ivf2.centroids)):
+        ct = torch.from_numpy(cents).to(xs_t.device)
+        _, e = ops.lloyd_step(xs_t, live2, ct)
+        errs[tag] = float(e)
+    if not errs["128"] < errs["64"]:
+        fail(f"migrate_index: error {errs} did not fall at 128 lists")
+    _, rself = ivf2.search_rows(st2.data[:64], 1, n_probe=8)
+    lives = st2.active_mask(64)
+    if np.mean(rself[lives, 0] == np.arange(64)[lives]) < 0.99:
+        fail("migrate_index: the migrated lists miss their own rows")
+    torch.cuda.synchronize()
+
+    # ---- eager bf16: prewarm + first search (bench.py's path B)
+    del lz, mirror, live_rows, qd, xs_t, live2
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["FVDB_SERVING_DTYPE"] = "bfloat16"
+    try:
+        t = time.perf_counter()
+        eg, _ = HybridPersister(mem).load_index_chunked("cold", lazy=False)
+        eager_s = time.perf_counter() - t
+        t = time.perf_counter()
+        eg.fused.prewarm()
+        eg.search_rows(np.zeros((1, d), np.float32), 10, config=cfg, now=NOW)
+        serve_s = time.perf_counter() - t
+        if eg.store._mirror is None or eg.store._mirror.dtype != "bfloat16":
+            fail("cold: the eager load holds no bf16 mirror")
+        de_b, re_b = eg.search_rows(q, 10, config=cfg, now=NOW)
+        live_h = hs.active_mask(hs.count)
+        dx, rx = exact_top(torch, hs.data[: hs.count], live_h, q, 10)
+        same_by_id("eager bf16 load against float64", de_b,
+                   as_ids(eg.store, re_b), dx, as_ids(hs, rx), 1e-3)
+    finally:
+        os.environ.pop("FVDB_SERVING_DTYPE", None)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in native.launches.items() if v}
+    for name in ("set_member_rows", "masked_topk", "masked_approx_topk",
+                 "lloyd_step", "l2_topk", "lloyd_block"):
+        if native.launches[name] <= 0:
+            fail(f"cold phase: {name} was launched no time")
+    launch_of["set_member_rows"] = native.launches["set_member_rows"]
+    launch_of["lloyd_step"] = native.launches["lloyd_step"]
+    launch_of["masked_approx_topk"] = native.launches["masked_approx_topk"]
+    for tag in ("k=16", "k=1024", "k>N"):
+        launch_of[f"masked_topk[{tag}]"] = native.launches["masked_topk"]
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    perf.update(cold_save_s=save_s, cold_saved_gb=saved_bytes / 1e9,
+                cold_lazy_serve_ready_s=sidecar_s,
+                cold_first_search_s=first_s,
+                cold_first_search_rows_fetched=first_stats.get(
+                    "rows_fetched_on_demand"),
+                cold_materialize_s=materialize_s,
+                cold_insert_2048_s=insert_s, cold_inserts_found=found,
+                cold_ops_approx_recall_at_10=approx_recall,
+                cold_migrate_s=migrate_s, cold_migrate_errors=errs,
+                cold_eager_load_s=eager_s,
+                cold_eager_prewarm_first_search_s=serve_s,
+                cold_device_peak_gb=peak)
+    print(f"cold: 2,048 inserts after the load {insert_s:.3f} s, "
+          f"{found:.4f} at rank 1; ops over {n_rows} rows: masked_topk "
+          f"exact, masked_approx_topk recall@10 {approx_recall:.4f}; "
+          f"migrate_index 64 -> 128 lists {migrate_s:.3f} s, errors {errs}; "
+          f"eager bf16 load {eager_s:.3f} s, prewarm + first search "
+          f"{serve_s:.3f} s; live rows {n_live}; launches {counts}; device "
+          f"peak {peak:.3f} GB above {base_mem / 1e9:.3f} GB ({card})",
+          flush=True)
+    del eg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "l2_topk": "fabstir_vectordb_tpu/index/fused.py:51",
     "l2_topk[candidates]": "fabstir_vectordb_tpu/index/hnsw.py:81",
@@ -4299,6 +4746,10 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "sharded_lloyd_step": "fabstir_vectordb_tpu/parallel/sharded.py:280",
     "sharded_assign_clusters": "fabstir_vectordb_tpu/parallel/ingest.py:50",
     "sharded_hnsw_search": "fabstir_vectordb_tpu/parallel/sharded.py:423",
+    "set_member_rows": "fabstir_vectordb_tpu/index/hnsw.py:137",
+    "lloyd_step": "fabstir_vectordb_tpu/ops/kmeans.py:84",
+    "masked_topk": "fabstir_vectordb_tpu/ops/topk.py:20",
+    "masked_approx_topk": "fabstir_vectordb_tpu/ops/topk.py:44",
 }
 SOURCES = {
     "l2_topk": "fabstir_vectordb_tpu_torch/csrc/l2_topk.cu",
@@ -4349,6 +4800,12 @@ SOURCES = {
     "sharded_lloyd_step": "fabstir_vectordb_tpu_torch/parallel/sharded.py",
     "sharded_assign_clusters": "fabstir_vectordb_tpu_torch/parallel/ingest.py",
     "sharded_hnsw_search": "fabstir_vectordb_tpu_torch/parallel/sharded.py",
+    # the set-rows kernel K15's sharded build runs, as the pipelined
+    # build's member scatter
+    "set_member_rows": "fabstir_vectordb_tpu_torch/csrc/shard_merge.cu",
+    "lloyd_step": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
+    "masked_topk": "fabstir_vectordb_tpu_torch/csrc/merge_topk.cu",
+    "masked_approx_topk": "fabstir_vectordb_tpu_torch/csrc/approx_topk.cu",
 }
 
 
@@ -4363,7 +4820,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "kernels", "pruned",
                                         "reduced", "flat1m", "engines",
-                                        "quant", "parallel", "scale"),
+                                        "quant", "parallel", "cold",
+                                        "scale"),
                     default="all")
     ap.add_argument("--profile", action="store_true",
                     help="cProfile the main path into --out (its timings "
@@ -4408,7 +4866,7 @@ def main() -> None:
 
     results: dict = {}
     if args.phase not in ("pruned", "flat1m", "engines", "quant", "parallel",
-                          "scale"):
+                          "scale"):  # "cold" checks B1-B4 here first
         kernels_phase(torch, tp, hn, km, dev, results)
     counts: dict = {}
     perf: dict = {}
@@ -4427,7 +4885,7 @@ def main() -> None:
                     pstats.Stats(p, stream=f).sort_stats(key).print_stats(40)
             print(f"profile: {path}", flush=True)
     if args.phase in ("all", "pruned", "reduced", "flat1m", "engines",
-                      "parallel"):
+                      "parallel", "cold"):
         t = time.perf_counter()
         ctx = build_1m(torch, native, card, perf, launch_of)
         k7_checks(torch, ctx, results)
@@ -4456,6 +4914,10 @@ def main() -> None:
             parallel_phase(torch, native, card, perf, results, launch_of, ctx)
             print(f"parallel phase: {time.perf_counter() - t:.1f} s",
                   flush=True)
+        if args.phase in ("all", "cold"):  # the 1M index saved and loaded
+            t = time.perf_counter()
+            cold_phase(torch, native, card, perf, results, launch_of, ctx)
+            print(f"cold phase: {time.perf_counter() - t:.1f} s", flush=True)
         del ctx  # the 1M state goes before the 10M tier is built
     if args.phase == "quant":
         t = time.perf_counter()

@@ -4,9 +4,12 @@ The JAX package stays the reference; this package computes the same things
 with PyTorch on an NVIDIA GPU, with hand-written CUDA kernels (``csrc/``)
 where the reference ran fused device programs:
   index/      VectorStore, HNSW insert path, IVF, flat + fused search, hybrid
-  ops/        distances, top-k (+ the fused L2 top-k kernel), k-means
-  core/       types, metadata filters, columnar masks, schema, object
-              stores (copies)
+  ops/        distances, top-k (+ the fused L2 top-k kernel), k-means,
+              quantization
+  core/       types, metadata filters, columnar masks, schema, chunks,
+              caches, object stores (copies)
+  storage/    chunked persistence (eager and lazy loads), chunk loader,
+              S5 drivers, encryption
   cbor/       the CBOR codec (a copy)
   api/        VectorDBSession
   parallel/   sharded search, training, build and persistence over a
@@ -15,13 +18,22 @@ where the reference ran fused device programs:
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 from .api.session import VectorDBConfig, VectorDBError, VectorDBSession
-from .index.hnsw import HNSWConfig, HNSWIndex
-from .index.hybrid import HybridConfig, HybridIndex, SearchConfig
-from .index.ivf import IVFConfig, IVFIndex
-from .index.store import VectorStore
+from .index import (
+    FlatIndex,
+    HNSWConfig,
+    HNSWIndex,
+    HybridConfig,
+    HybridIndex,
+    IVFConfig,
+    IVFIndex,
+    SearchConfig,
+    VectorStore,
+)
+
+__version__ = "0.5.0"
 
 __all__ = [
     "VectorDBSession", "VectorDBConfig", "VectorDBError", "HybridIndex",
-    "HybridConfig", "SearchConfig", "IVFIndex", "IVFConfig", "HNSWIndex",
-    "HNSWConfig", "VectorStore",
+    "HybridConfig", "SearchConfig", "FlatIndex", "IVFIndex", "IVFConfig",
+    "HNSWIndex", "HNSWConfig", "VectorStore", "__version__",
 ]

@@ -3,10 +3,13 @@
 
 Same validation, error codes, id hashing, metadata wrapping, filters
 (columnar bitmask pushdown or oversampled post-filter), scores
-(1 / (1 + distance)), deletes, schema, stats and vacuum. ``create`` takes
+(1 / (1 + distance)), deletes, schema, stats, vacuum and persistence
+(``save_to_s5`` / ``load_user_vectors``: the chunked save, eager or lazy
+loads, the sharded metadata map, the schema). ``create`` takes the object
+store as there (None: the storage factory's, from the environment) and
 ``device=None``, which means the card; without one it raises, and a caller
-that wants the CPU passes ``device="cpu"``. Persistence (``save_to_s5``,
-``load_user_vectors``) and the REST server are not ported yet.
+that wants the CPU passes ``device="cpu"``. The REST server is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -17,12 +20,16 @@ from typing import Any
 
 import numpy as np
 
+from .. import cbor
 from ..core.columnar import ColumnarMetadata
 from ..core.metadata_filter import FilterError, MetadataFilter
+from ..core.object_store import NotFoundError, ObjectStore
 from ..core.schema import MetadataSchema, SchemaError
 from ..core.types import VectorId, distance_to_score
 from ..index.hybrid import HybridConfig, HybridIndex
 from ..index.store import DuplicateIdError
+from ..storage.factory import StorageFactory, validate_seed_phrase
+from ..storage.persistence import HybridPersister
 from ..utils.device import resolve_device
 from ..utils.padding import fit_mask
 from ..utils.tracing import PerfMonitor
@@ -82,6 +89,12 @@ class SearchOptions:
 
 
 @dataclass
+class LoadOptions:
+    lazy_load: bool = True
+    memory_budget_mb: int | None = None
+
+
+@dataclass
 class SessionStats:
     vector_count: int
     memory_usage_mb: float
@@ -132,17 +145,22 @@ IVF_TRAINING_BATCH = 10  # first N vectors train IVF (session.rs:365-378)
 
 
 class VectorDBSession:
-    """In-process session over a HybridIndex on one device."""
+    """In-process session over a HybridIndex on one device and an
+    ObjectStore."""
 
-    def __init__(self, config: VectorDBConfig, device=None):
+    def __init__(self, config: VectorDBConfig,
+                 store: ObjectStore | None = None, device=None):
         self.config = config
         self.device = resolve_device(device)
+        self.object_store = store
         self.index: HybridIndex | None = None
         self.dim: int | None = None
         self.metadata_map: dict[str, Any] = {}  # internal id -> metadata
         self.schema: MetadataSchema | None = None
         self.destroyed = False
         self.monitor = PerfMonitor()
+        self._persister = HybridPersister(store, device=self.device) \
+            if store is not None else None
         # columnar projection of metadata for vectorized filter bitmasks
         # (row-aligned with index.store), plus a per-(filter, epoch) cache
         self.columnar = ColumnarMetadata()
@@ -151,8 +169,10 @@ class VectorDBSession:
     # --------------------------------------------------------------- create
     @classmethod
     def create(cls, config: VectorDBConfig | dict,
+               store: ObjectStore | None = None,
                device=None) -> "VectorDBSession":
-        """Validate the config and open a session on ``device`` (None: the
+        """Validate the config and open a session over ``store`` (None: the
+        storage factory's for the configured mode) on ``device`` (None: the
         card; raises when there is none)."""
         if isinstance(config, dict):
             config = VectorDBConfig.from_json(config)
@@ -162,7 +182,27 @@ class VectorDBSession:
             raise VectorDBError("chunkSize must be positive", INVALID_CONFIG)
         if config.cache_size_mb <= 0:
             raise VectorDBError("cacheSizeMb must be positive", INVALID_CONFIG)
-        return cls(config, device)
+        mode = config.storage_mode or StorageFactory.config_from_env().mode
+        if mode == "real":
+            if not config.s5_portal:
+                raise VectorDBError("s5Portal is required", INVALID_CONFIG)
+            if not config.user_seed_phrase:
+                raise VectorDBError("userSeedPhrase is required",
+                                    INVALID_CONFIG)
+            try:
+                validate_seed_phrase(config.user_seed_phrase)
+            except Exception as e:
+                raise VectorDBError(str(e), INVALID_CONFIG) from e
+        if store is None:
+            scfg = StorageFactory.config_from_env()
+            scfg.mode = mode
+            scfg.portal_url = config.s5_portal or scfg.portal_url
+            scfg.encrypt_at_rest = config.encrypt_at_rest
+            scfg.seed_phrase = config.user_seed_phrase or scfg.seed_phrase
+            if config.fs_root:
+                scfg.fs_root = config.fs_root
+            store = StorageFactory.create(scfg)
+        return cls(config, store, device)
 
     def _check_alive(self) -> None:
         if self.destroyed:
@@ -583,6 +623,135 @@ class VectorDBSession:
             self.index.store.row_of(iid),
             self._filterable_view(self.metadata_map[iid]),
         )
+
+    def _rebuild_columnar(self) -> None:
+        """Re-project every row's metadata (load / bulk-replace paths)."""
+        self.columnar = ColumnarMetadata(capacity=self.index.store.capacity)
+        self._mask_cache.clear()
+        s = self.index.store
+        for r in range(s.count):
+            iid = s.row_to_id[r]
+            if iid is not None:
+                self.columnar.set_row(
+                    r, self._filterable_view(self.metadata_map.get(iid)))
+
+    # ----------------------------------------------------------- persistence
+    def _require_store(self) -> None:
+        if self._persister is None:
+            raise VectorDBError("the session has no object store",
+                                SESSION_ERROR)
+
+    def save_to_s5(self) -> str:
+        """The chunked save, the sharded metadata map and the schema under
+        the session id, which is returned as the "CID" (parity:
+        session.rs:636-695)."""
+        self._check_alive()
+        self._require_store()
+        if self.index is None:
+            raise VectorDBError("nothing to save", SESSION_ERROR)
+        sid = self.config.session_id
+        try:
+            self._persister.save_index_chunked(
+                self.index, sid, chunk_size=self.config.chunk_size,
+                schema=self.schema)
+            self._save_metadata_map(sid)
+            if self.schema is not None:
+                self.object_store.put(
+                    f"{sid}/schema.json",
+                    json.dumps(self.schema.to_json()).encode())
+            else:
+                # a cleared schema must not come back from the schema.json
+                # of an earlier save
+                try:
+                    self.object_store.delete(f"{sid}/schema.json")
+                except Exception:  # noqa: BLE001 - absent is fine
+                    pass
+        except VectorDBError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            raise VectorDBError(f"save failed: {e}", STORAGE_ERROR) from e
+        return sid
+
+    def load_user_vectors(self, cid: str,
+                          options: LoadOptions | dict | None = None) -> None:
+        """Load a saved session onto this session's device: eagerly, or
+        lazily (``lazyLoad``, the default: the sidecars now, the rows in the
+        background, searches answered meanwhile from on-demand fetches)."""
+        self._check_alive()
+        self._require_store()
+        if isinstance(options, dict):
+            options = LoadOptions(
+                lazy_load=bool(options.get("lazyLoad",
+                                           options.get("lazy_load", True))),
+                memory_budget_mb=options.get("memoryBudgetMb"))
+        opts = options or LoadOptions()
+        try:
+            index, manifest = self._persister.load_index_chunked(
+                cid, lazy=opts.lazy_load)
+        except Exception as e:  # noqa: BLE001
+            raise VectorDBError(f"load failed: {e}", STORAGE_ERROR) from e
+        self.index = index
+        self.dim = index.store.dim
+        self.metadata_map = self._load_metadata_map(cid)
+        self.schema = manifest.schema
+        if self.schema is None:
+            try:
+                self.schema = MetadataSchema.from_json(
+                    json.loads(self.object_store.get(f"{cid}/schema.json")))
+            except Exception:  # noqa: BLE001 - a save without a schema
+                self.schema = None
+        self._rebuild_columnar()
+
+    def _save_metadata_map(self, sid: str) -> None:
+        """metadata_map sharded into chunk_size-entry CBOR files, as the
+        vector chunks are."""
+        items = list(self.metadata_map.items())
+        shard_size = max(self.config.chunk_size, 1)
+        n_shards = (len(items) + shard_size - 1) // shard_size
+        prev = 0
+        try:
+            prev = int(json.loads(self.object_store.get(
+                f"{sid}/metadata/meta-manifest.json")).get("n_shards", 0))
+        except Exception:  # noqa: BLE001 - no earlier save
+            pass
+        for si in range(n_shards):
+            shard = dict(items[si * shard_size: (si + 1) * shard_size])
+            self.object_store.put(f"{sid}/metadata/meta-{si}.cbor",
+                                  cbor.dumps(shard))
+        self.object_store.put(
+            f"{sid}/metadata/meta-manifest.json",
+            json.dumps({"n_shards": n_shards, "total": len(items)}).encode())
+        for si in range(n_shards, prev):  # shrunken saves drop stale shards
+            try:
+                self.object_store.delete(f"{sid}/metadata/meta-{si}.cbor")
+            except Exception:  # noqa: BLE001 - already gone
+                pass
+
+    def _load_metadata_map(self, cid: str) -> dict:
+        try:
+            manifest = json.loads(self.object_store.get(
+                f"{cid}/metadata/meta-manifest.json"))
+        except NotFoundError:
+            manifest = None  # a save before the shards: the single blob
+        if manifest is not None:
+            # a present manifest promises its shards: a failed GET raises
+            # rather than serving (and later saving) an empty map
+            out: dict = {}
+            for si in range(int(manifest.get("n_shards", 0))):
+                try:
+                    out.update(cbor.loads(self.object_store.get(
+                        f"{cid}/metadata/meta-{si}.cbor")))
+                except Exception as e:  # noqa: BLE001
+                    raise VectorDBError(
+                        f"metadata shard {si} of "
+                        f"{manifest.get('n_shards')} failed to load: {e}",
+                        STORAGE_ERROR) from e
+            return out
+        try:
+            return cbor.loads(self.object_store.get(
+                f"{cid}/metadata_map.cbor"))
+        except NotFoundError:
+            return {}  # a save without metadata
 
     # ----------------------------------------------------------------- misc
     def prewarm(self) -> float:

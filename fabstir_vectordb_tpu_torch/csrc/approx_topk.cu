@@ -32,6 +32,13 @@
 // atomicMin a (query, bin) at the end. A second kernel unpacks the table into
 // distances and rows, and topk_select.cuh's radix select takes the ov_k
 // smallest (distance, row) of each query's M minima.
+//
+// masked_approx_topk over a given [B, N] distance matrix (ops/topk.py:44 as
+// an ops entry point) bins the same way without the tile pass: one thread a
+// (query, bin) walks rows j, j + M, ... (consecutive threads read
+// consecutive rows) and keeps the smallest (distance key << 32 | row),
+// skipping masked and non-finite entries; the radix select then takes the
+// ov_k smallest minima. It reads the matrix once: B N 4 bytes.
 #include "l2_tile.cuh"
 #include "topk_select.cuh"
 
@@ -47,6 +54,30 @@ __global__ void __launch_bounds__(NT) unpack_bins_kernel(
   const bool empty = key == ~0ull;
   cand_d[i] = empty ? INFINITY : key_dist((unsigned)(key >> 32));
   cand_r[i] = empty ? -1 : (int)(unsigned)(key & 0xffffffffull);
+}
+
+// d [B, N] -> each (query, bin)'s minimum as (distance, row), an empty bin
+// as (+inf, -1).
+__global__ void __launch_bounds__(NT) bin_min_kernel(
+    const float* __restrict__ d, const uint8_t* __restrict__ mask,
+    long long mask_stride, int B, int N, int M, float* __restrict__ cand_d,
+    int* __restrict__ cand_r) {
+  const long long cell = (long long)blockIdx.x * NT + threadIdx.x;
+  if (cell >= (long long)B * M) return;
+  const int b = (int)(cell / M), j = (int)(cell % M);
+  const float* db = d + (size_t)b * N;
+  const uint8_t* mb = mask ? mask + b * mask_stride : nullptr;
+  unsigned long long best = ~0ull;
+  for (int r = j; r < N; r += M) {
+    if (mb != nullptr && !mb[r]) continue;
+    const unsigned key = dist_key(db[r]);
+    if (!finite_key(key)) continue;
+    const unsigned long long c = ((unsigned long long)key << 32) | (unsigned)r;
+    if (c < best) best = c;
+  }
+  const bool empty = best == ~0ull;
+  cand_d[cell] = empty ? INFINITY : key_dist((unsigned)(best >> 32));
+  cand_r[cell] = empty ? -1 : (int)(unsigned)(best & 0xffffffffull);
 }
 
 template <typename T, bool ROUND_Q>
@@ -116,4 +147,25 @@ FVDB_EXPORT int fvdb_approx_pool(const void* x, int x_bf16, int round_q,
                       stream);
   }
   return static_cast<int>(e);
+}
+
+// masked_approx_topk over a given matrix: d [B, N] f32, mask [B or 1, N]
+// (mask_stride N or 0; null: every entry), M bins (< N); cand_d / cand_r
+// [B, M] scratch; work: fvdb_select_scratch_bytes(B, k) bytes; out_*
+// [B, k].
+FVDB_EXPORT int fvdb_approx_select(const float* d, const uint8_t* mask,
+                                   long long mask_stride, int B, int N, int M,
+                                   int k, float* cand_d, int* cand_r,
+                                   void* work, float* out_d, int* out_r,
+                                   cudaStream_t stream) {
+  using namespace fvdb;
+  if (B < 1 || N < 1 || M < 1 || M > N || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long cells = (long long)B * M;
+  bin_min_kernel<<<(unsigned)((cells + NT - 1) / NT), NT, 0, stream>>>(
+      d, mask, mask_stride, B, N, M, cand_d, cand_r);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_select_topk(cand_d, cand_r, nullptr, M, B, k,
+                                             work, out_d, out_r, stream));
 }

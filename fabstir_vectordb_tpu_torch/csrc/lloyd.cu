@@ -4,7 +4,8 @@
 // `steps` iterations of lloyd_step (:84), and assign_clusters (:70). K15's
 // sharded Lloyd step (parallel/sharded.py:280) runs an iteration in two
 // halves, fvdb_lloyd_partial on each shard's rows and fvdb_lloyd_finish on
-// the sums, counts and stats summed across the shards. One
+// the sums, counts and stats summed across the shards; fvdb_lloyd_step is
+// the two back to back, the ops entry point lloyd_step. One
 // iteration: d[n][c] = max(|x_n|^2 - 2 x_n.c + |c|^2, 0); assign n to the
 // first c of least d; sums and counts of the rows of each cluster; a cluster
 // with rows moves to their mean and an empty one keeps its centroid; the
@@ -271,5 +272,24 @@ FVDB_EXPORT int fvdb_assign(const float* x, const uint8_t* mask,
   assign_kernel<<<blocks_for(N, TQ), NT, 0, stream>>>(
       x, x_sq, mask, cents, c_sq, N, C, D, 0, assign, d2, nullptr, nullptr,
       nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lloyd_step (:84), one Lloyd iteration, as K6's partial and finish back to
+// back: x [N, D], mask [N] or null (every row), cents [C, D] -> new_c
+// [C, D] (an empty cluster keeps its centroid) and err [1] = sum(d2) /
+// max(rows in the mask, 1). Scratch: x_sq [N], c_sq [C], sums [C, D],
+// counts [C], stats [2].
+FVDB_EXPORT int fvdb_lloyd_step(const float* x, const uint8_t* mask,
+                                const float* cents, int N, int C, int D,
+                                float* x_sq, float* c_sq, float* sums,
+                                float* counts, float* stats, float* new_c,
+                                float* err, cudaStream_t stream) {
+  using namespace fvdb;
+  if (N < 1 || C < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  row_sq_kernel<<<blocks_for(N, NT / 32), NT, 0, stream>>>(x, N, D, x_sq);
+  lloyd_partial_step(x, x_sq, mask, cents, N, C, D, c_sq, sums, counts, stats,
+                     stream);
+  lloyd_finish_step(sums, counts, stats, cents, new_c, C, D, err, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,6 +18,12 @@
 // (whose keys order negative distances, so any dist_fn may be given) and
 // the merge above with b_base = start.
 //
+// masked_topk (ops/topk.py:20) over a given [B, N] distance matrix is the
+// chunk step's first two parts on one chunk of N rows, with no running
+// list: the mask pass, then the radix select straight into the [B, k]
+// output, which pads with (+inf, -1) where fewer than k entries are valid
+// (k > N included). A distance that is not finite never enters.
+//
 // What bounds it: at the oracle's shape (128 probes, two lists of 11) the
 // merge moves 128 * 44 * 8 bytes, a few microseconds of launch; the work is
 // (ka + kb)^2 comparisons a query. A chunk step reads the chunk's distances
@@ -130,4 +136,26 @@ FVDB_EXPORT int fvdb_chunk_step(const float* d, const uint8_t* mask,
   merge_topk_kernel<<<B, NT, 0, stream>>>(run_v, run_r, k, cand_v, cand_r,
                                           kc, start, k, out_v, out_r);
   return static_cast<int>(cudaGetLastError());
+}
+
+// masked_topk: d [B, N], mask [B or 1, N] (mask_stride N or 0; null: every
+// entry); masked [B, N] scratch (unused without a mask); work:
+// fvdb_select_scratch_bytes(B, k) bytes; out_d / out_r [B, k], any k >= 1.
+FVDB_EXPORT int fvdb_masked_topk(const float* d, const uint8_t* mask,
+                                 long long mask_stride, int B, int N, int k,
+                                 float* masked, void* work, float* out_d,
+                                 int* out_r, cudaStream_t stream) {
+  using namespace fvdb;
+  if (B < 1 || N < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const float* src = d;
+  if (mask != nullptr) {
+    const long long n = (long long)B * N;
+    mask_chunk_kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
+        d, mask, mask_stride, B, N, masked);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    src = masked;
+  }
+  return static_cast<int>(launch_select_topk(src, nullptr, nullptr, N, B, k,
+                                             work, out_d, out_r, stream));
 }

@@ -16,6 +16,9 @@
 // set_rows is the sharded builder's _set_rows_true (parallel/ingest.py:44):
 // mask[rows[i]] = 1 for i < n, rows outside [0, N) ignored. It is
 // idempotent, so the builder's bucket padding (a repeated row) is harmless.
+// The single-device pipelined HNSW build runs the same function as
+// _set_member_rows (JAX index/hnsw.py:137), marking a link batch's rows as
+// members of the device mask before the next batch's candidate scan.
 //
 // What bounds it on the H100: the merge reads S * k_s * 8 bytes a query and
 // writes k * 8 (128 queries x 4 shards x 200: 0.8 MB, ~0.25 us at 3.35

@@ -45,7 +45,7 @@ import torch
 from ..ops.distance import pairwise_sq_l2
 from ..ops.projection import pca_basis
 from ..ops.topk import (_MAX_GRID_Q, _splits, INF, approx_topk, l2_topk,
-                        l2_topk_plain, masked_topk, merge_topk,
+                        l2_topk_plain, masked_topk_plain, merge_topk,
                         merge_topk_plain, select_scratch)
 from ..utils import limits, native
 from ..utils.padding import bucket, fit_mask, round_up
@@ -107,7 +107,7 @@ def stage1_select_plain(xp, xp_sq, mask, qp, ov_k: int):
     qr = qp.to(torch.bfloat16).float()
     q_sq = (qp * qp).sum(-1)
     d = (q_sq[:, None] - 2.0 * (qr @ xp.float().T) + xp_sq[None, :])
-    return masked_topk(d.clamp_min(0.0), mask, ov_k)
+    return masked_topk_plain(d.clamp_min(0.0), mask, ov_k)
 
 
 def stage1_select(xp, xp_sq, mask, qp, ov_k: int,
@@ -306,7 +306,7 @@ def oracle_step_plain(blk, m, q, base: int, vals, rows, k: int):
     bf16 block blk (upcast, norms from the upcast rows), rows offset by
     base, merged into the running (vals, rows)."""
     d = pairwise_sq_l2(q, blk.float())
-    tv, ti = masked_topk(d, m, k)
+    tv, ti = masked_topk_plain(d, m, k)
     tr = torch.where(ti >= 0, ti + base, ti)
     return merge_topk_plain(vals, rows, tv, tr, k)
 

@@ -16,6 +16,8 @@ dirty-row bookkeeping of the device adjacency) is a copy. The device side:
   pool, one row at a time (the reference's ``_link_batch``);
 - the neighbour-selection heuristic (K4, :func:`heuristic_kept`);
 - the row-pair distances of the reverse-link prune (K5, :func:`pair_sq_l2`);
+- the pipelined build's device member mask, a link batch's rows set in
+  place (:func:`set_member_rows`);
 - search: greedy descent over the upper layers (K10,
   :func:`greedy_descent`) and a layer-0 beam (K11, :func:`beam_search`).
 
@@ -70,6 +72,38 @@ class GraphStats:
 # ---------------------------------------------------------------------------
 # Device kernels and their plain versions
 # ---------------------------------------------------------------------------
+
+def set_member_rows_plain(mask: torch.Tensor, rows: torch.Tensor):
+    """Plain version of :func:`set_member_rows`."""
+    rows = rows.long()
+    mask[rows[(rows >= 0) & (rows < mask.shape[0])]] = True
+    return mask
+
+
+def set_member_rows(mask: torch.Tensor, rows: torch.Tensor,
+                    counter: str = "set_member_rows"):
+    """The reference's _set_member_rows (``index/hnsw.py:137``): mask[rows]
+    = True in place on the device member mask [N] bool; rows [n] int32
+    outside [0, N) are ignored. Returns mask. The plain version on CPU
+    tensors; on CUDA tensors csrc/shard_merge.cu's fvdb_set_rows or it
+    raises. A launch adds one to ``counter`` (K15's sharded build counts
+    its own under "set_rows")."""
+    if mask.device.type == "cpu":
+        return set_member_rows_plain(mask, rows)
+    if mask.device.type != "cuda":
+        raise ValueError(f"set_member_rows: unsupported device {mask.device}")
+    dev = mask.device
+    native.check(mask, "mask", torch.bool, 1, dev)
+    native.check(rows, "rows", torch.int32, 1, dev)
+    if rows.shape[0] == 0:
+        return mask
+    native.call("shard_merge", "fvdb_set_rows",
+                [native.P, native.L, native.P, native.I, native.P],
+                mask.data_ptr(), mask.shape[0], rows.data_ptr(), rows.shape[0],
+                native.stream_of(mask))
+    native.launches[counter] += 1
+    return mask
+
 
 # Heuristic neighbour selection (Malkov & Yashunin; hnswlib
 # getNeighborsByHeuristic2): keep candidate c only if dist(c, q) < dist(c,
@@ -745,11 +779,12 @@ class HNSWIndex:
         _flush()
 
     def _scatter_members(self, mask_dev: torch.Tensor, batch: np.ndarray):
-        """Set ``batch`` rows of the device mask, in place. Safe next to
-        the candidate kernels already launched on the mask: they were
-        enqueued first on the same stream, so they read it before this
-        write runs."""
-        mask_dev[to_device(batch.astype(np.int64), mask_dev.device)] = True
+        """Set ``batch`` rows of the device mask, in place
+        (:func:`set_member_rows`). Safe next to the candidate kernels
+        already launched on the mask: they were enqueued first on the same
+        stream, so they read it before this write runs."""
+        set_member_rows(mask_dev, to_device(batch.astype(np.int32),
+                                            mask_dev.device))
 
     def _flat_plan(self, extra_hi: int = 0):
         """(flat_ok, n_pad) for the exact candidate plan. ``extra_hi``
@@ -1223,6 +1258,73 @@ class HNSWIndex:
         m = self.member_mask()[: self.store.count]
         dead = np.nonzero(m & self.store.deleted[: self.store.count])[0]
         return self.remove_rows(dead)
+
+    # ---------------------------------------------------------- persistence
+    def export_graph(self, order: np.ndarray) -> dict:
+        """The graph of the rows in ``order`` (store rows, all members),
+        adjacency remapped to positions within ``order`` so it loads into a
+        store of another row layout (the reference's export_graph)."""
+        order = np.asarray(order, np.int64)
+        pos = np.full(self.levels.shape[0], -1, np.int64)
+        pos[order] = np.arange(order.size)
+
+        def remap(a):
+            return np.where(a >= 0, pos[np.maximum(a, 0)], -1).astype(np.int32)
+
+        levels = self.levels[order].astype(np.int16)
+        nbrs0 = remap(self.nbrs0[order])
+        ups = []
+        up_pos = np.full(order.size, -1, np.int64)
+        cnt = 0
+        for i, r in enumerate(order):
+            lvl = int(levels[i])
+            if lvl > 0:
+                off = self.up_offset[r]
+                ups.append(remap(self.nbrs_up[off: off + lvl]))
+                up_pos[i] = cnt
+                cnt += lvl
+        nbrs_up = (
+            np.vstack(ups) if ups else np.zeros((0, self.config.m), np.int32)
+        )
+        entry_pos = int(pos[self.entry_point]) if self.entry_point >= 0 else -1
+        return {
+            "m": self.config.m,
+            "m0": self.config.m0,
+            "levels": levels,
+            "nbrs0": nbrs0,
+            "nbrs_up": nbrs_up,
+            "up_offset_pos": up_pos.astype(np.int64),
+            "entry_pos": entry_pos,
+            "max_level": int(self.max_level),
+        }
+
+    def install_graph(self, rows: np.ndarray, g: dict) -> None:
+        """Inverse of export_graph: rows[i] is the store row of position i.
+        The device adjacency is uploaded whole on its next use."""
+        self._invalidate_device()
+        rows = np.asarray(rows, np.int64)
+        self._ensure_capacity()
+
+        def remap(a):
+            a = np.asarray(a, np.int64)
+            return np.where(a >= 0, rows[np.maximum(a, 0)], -1).astype(np.int32)
+
+        levels = np.asarray(g["levels"], np.int16)
+        self.levels[rows] = levels
+        self.nbrs0[rows] = remap(g["nbrs0"])
+        nbrs_up = np.asarray(g["nbrs_up"], np.int64)
+        up_pos = np.asarray(g["up_offset_pos"], np.int64)
+        for i, r in enumerate(rows):
+            lvl = int(levels[i])
+            if lvl > 0:
+                off = self._alloc_up_rows(lvl)
+                self.up_offset[r] = off
+                self.nbrs_up[off: off + lvl] = remap(
+                    nbrs_up[up_pos[i]: up_pos[i] + lvl])
+        entry_pos = int(g["entry_pos"])
+        self.entry_point = int(rows[entry_pos]) if entry_pos >= 0 else -1
+        self.max_level = int(g["max_level"])
+        self._version += 1
 
     def graph_stats(self) -> GraphStats:
         members = self.member_rows()

@@ -6,8 +6,10 @@ trained); searches with the default per-engine k run the fused search
 (flat, reduced-rank or pruned regime); per-engine ``recent_k`` /
 ``historical_k`` search each engine on its own and merge on the host;
 migration moves aged-out rows from HNSW to IVF; soft deletes, vacuum and
-stats as there. Lazy loading
-(persistence) is not ported.
+stats as there. A lazily loaded index (``storage/persistence.py``) answers
+searches from on-demand chunk fetches (``index/cold.py``) until its rows
+are resident, and every other data-plane call waits for them
+(:meth:`HybridIndex.wait_ready`).
 """
 from __future__ import annotations
 
@@ -77,12 +79,56 @@ class HybridIndex:
         from .fused import FusedSearcher
 
         self.fused = FusedSearcher(self)
+        self.initialized = False
+        self._materialize_event = None  # set during lazy loads
+        self._load_error: Exception | None = None
+        self._cold = None  # ColdServing during lazy loads
         # serializes mutations (insert/delete/vacuum/migrate); readers
         # snapshot versioned device state
         self._write_lock = threading.RLock()
         # earliest `now` at which any HNSW member could age out; None =
         # unknown (scan on the next call)
         self._migration_due: float | None = None
+
+    # ------------------------------------------------------------ lifecycle
+    def begin_materialize(self, event) -> None:
+        """Mark the index as lazily loading: data-plane calls wait in
+        wait_ready() until the background materializer sets ``event``."""
+        self._materialize_event = event
+
+    def attach_cold(self, cold) -> None:
+        """Install a ColdServing context: searches during the lazy load are
+        answered from on-demand chunk fetches instead of waiting."""
+        self._cold = cold
+
+    def _cold_active(self, cfg) -> bool:
+        from ..utils import limits
+
+        return (not self.ready and self._cold is not None
+                and limits.cold_serve()
+                and cfg.recent_k is None and cfg.historical_k is None)
+
+    def wait_ready(self, timeout: float | None = None) -> None:
+        """Block until lazily loaded rows are resident (a no-op after an
+        eager load); raises the materializer's error if the load failed."""
+        ev = self._materialize_event
+        if ev is None:
+            return
+        if not ev.wait(timeout):
+            raise TimeoutError("lazy load still materializing")
+        if self._load_error is not None:
+            raise self._load_error
+        self._materialize_event = None
+        self._cold = None  # fully resident: cold serving retires
+
+    @property
+    def ready(self) -> bool:
+        ev = self._materialize_event
+        return ev is None or ev.is_set()
+
+    @property
+    def ivf_trained(self) -> bool:
+        return self.ivf.trained
 
     def initialize(self, training_data: np.ndarray | None = None) -> None:
         """Train IVF if enough data, else HNSW-only mode."""
@@ -92,11 +138,13 @@ class HybridIndex:
         if n >= max(self.config.min_ivf_training_size,
                     self.config.ivf.n_clusters):
             self.ivf.train(training_data)
+        self.initialized = True
 
     # -------------------------------------------------------------- inserts
     def insert_batch(self, ids: list, vectors: np.ndarray, timestamps=None,
                      now: float | None = None) -> np.ndarray:
         """Insert vectors, routing each by age. Returns store rows."""
+        self.wait_ready()
         with self._write_lock:
             now = time.time() if now is None else now
             vectors = np.asarray(vectors, np.float32)
@@ -139,6 +187,15 @@ class HybridIndex:
                     now: float | None = None):
         """Batched dual-engine search. Returns (dists [B, k], rows [B, k])."""
         cfg = config or SearchConfig()
+        if self._cold_active(cfg):
+            cold = self._cold
+            if cold is not None:  # the materializer may retire it meanwhile
+                return cold.search_rows(
+                    queries, k,
+                    n_probe=(self.config.ivf.n_probe
+                             if cfg.ivf_n_probe is None else cfg.ivf_n_probe),
+                    extra_mask=extra_mask)
+        self.wait_ready()
         # `x if x is not None else default`: 0 is a valid value (skip that
         # engine)
         recent_k = k if cfg.recent_k is None else cfg.recent_k
@@ -217,9 +274,10 @@ class HybridIndex:
         cfg = config or SearchConfig()
         recent_k = cfg.recent_k or k
         historical_k = cfg.historical_k or k
-        if recent_k != k or historical_k != k:
+        if recent_k != k or historical_k != k or self._cold_active(cfg):
             d, r = self.search_rows(queries, k, config, extra_mask, now=now)
             return lambda: (d, r)
+        self.wait_ready()
         auto = (self.config.auto_migrate if cfg.auto_migrate is None
                 else cfg.auto_migrate)
         if auto:
@@ -305,6 +363,7 @@ class HybridIndex:
         """Move aged-out HNSW rows to IVF. Returns number migrated."""
         if not self.ivf.trained:
             return 0
+        self.wait_ready()
         now_eff = time.time() if now is None else now
         due = self._migration_due
         if due is not None and now_eff < due:
@@ -349,6 +408,7 @@ class HybridIndex:
 
     def vacuum(self) -> dict:
         """Physically remove soft-deleted vectors from both engines."""
+        self.wait_ready()
         with self._write_lock:
             hnsw_removed = self.hnsw.vacuum()
             ivf_removed = self.ivf.vacuum()
@@ -371,6 +431,7 @@ class HybridIndex:
         return self.store.contains(vid)
 
     def get_vector(self, vid: str) -> np.ndarray:
+        self.wait_ready()
         return self.store.get_vector(vid)
 
     # ---------------------------------------------------------------- stats
@@ -400,3 +461,30 @@ class HybridIndex:
         return (self.store.memory_usage_bytes()
                 + self.hnsw.memory_usage_bytes()
                 + self.ivf.memory_usage_bytes())
+
+    # ----------------------------------------------------------- persistence
+    @classmethod
+    def from_parts(cls, dim: int, config: HybridConfig, ids: list,
+                   vectors: np.ndarray, timestamps: np.ndarray,
+                   hnsw_member: np.ndarray, centroids: np.ndarray | None,
+                   deleted_ids: list | None = None,
+                   device=None) -> "HybridIndex":
+        """Rebuild from persisted state (reference: hybrid/core.rs:857-901):
+        ``hnsw_member`` per input row; the other rows go to IVF, which needs
+        centroids. The graph is built again through insert_rows."""
+        idx = cls(dim, config, device=device)
+        rows = idx.store.add_batch(ids, vectors, timestamps)
+        if centroids is not None and len(centroids):
+            idx.ivf.set_trained(centroids)
+        hnsw_member = np.asarray(hnsw_member, bool)
+        if (~hnsw_member).any() and not idx.ivf.trained:
+            raise ValueError("historical rows present but no centroids")
+        if hnsw_member.any():
+            idx.hnsw.insert_rows(rows[hnsw_member])
+        if (~hnsw_member).any():
+            idx.ivf.insert_rows(rows[~hnsw_member])
+        for vid in deleted_ids or []:
+            if idx.store.contains(vid):
+                idx.store.mark_deleted(vid)
+        idx.initialized = True
+        return idx

@@ -20,7 +20,7 @@ import torch
 from ..ops.distance import (METRIC_CODE, check_metric, finalize_distance,
                             pairwise_distance, squared_norms)
 from ..ops.kmeans import assign_clusters, kmeans_train_stepped
-from ..ops.topk import (INF, l2_topk, masked_topk, merge_topk_plain,
+from ..ops.topk import (INF, l2_topk, masked_topk_plain, merge_topk_plain,
                         select_scratch)
 from ..utils import native
 from ..utils.padding import bucket, fit_mask, grow_rows
@@ -90,7 +90,7 @@ def ivf_scan_plain(x, x_sq, mask, lists: IVFLists, probe, q, k: int,
             d = 1.0 - dots / denom
         else:  # dot
             d = -dots
-        cvals, cpos = masked_topk(d, valid & mask[safe], k_step)
+        cvals, cpos = masked_topk_plain(d, valid & mask[safe], k_step)
         crow = torch.where(
             cpos >= 0,
             torch.gather(safe, 1, cpos.clamp_min(0).long()).to(torch.int32),
@@ -190,7 +190,7 @@ def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
     of +inf, which is merge_topk(seed, ivf result)."""
     dc = pairwise_distance(q, lists.centroids, metric, lists.c_sq)  # [B, C]
     n_probe = min(n_probe, lists.centroids.shape[0])
-    _, probe = masked_topk(dc, None, n_probe)
+    _, probe = masked_topk_plain(dc, None, n_probe)
     vals, idx = ivf_scan_plain(x, x_sq, mask, lists, probe, q, k, extra_mask,
                                seed, metric)
     return vals, idx, probe
@@ -357,6 +357,9 @@ class IVFIndex:
         self.assignments[np.asarray(rows, np.int64)] = -1
         self._version += 1
 
+    def member_rows(self) -> np.ndarray:
+        return np.nonzero(self.member_mask())[0]
+
     def member_mask(self, n: int | None = None) -> np.ndarray:
         """[n or store.capacity] bool membership (non-mutating)."""
         assign = self.assignments  # local ref: growth replaces the object
@@ -389,6 +392,31 @@ class IVFIndex:
         self.assignments[dead] = -1
         self._version += 1
         return removed
+
+    def retrain(self, new_config: IVFConfig | None = None) -> TrainStats:
+        """Collect the active members, train under the (new) config on the
+        store's device and assign them again (the reference's retrain,
+        src/ivf/operations.rs:148-193). The config is installed only once
+        the members are known to be enough."""
+        members = self.member_rows()
+        act = self.store.active_mask()
+        members = members[act[members]]
+        cfg = new_config if new_config is not None else self.config
+        if members.size < cfg.n_clusters:
+            raise TrainingError("not enough active members to retrain")
+        self.config = cfg
+        stats = self.train(self.store.data[members])
+        self.assignments[:] = -1
+        self.insert_rows(members)
+        return stats
+
+    def export_centroids(self) -> np.ndarray:
+        if not self.trained:
+            raise NotTrainedError("IVF index is not trained")
+        return self.centroids.copy()
+
+    def import_centroids(self, centroids: np.ndarray) -> None:
+        self.set_trained(centroids)
 
     # ---------------------------------------------------------------- tiles
     def _build_tiles(self) -> np.ndarray:

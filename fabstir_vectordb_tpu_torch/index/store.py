@@ -9,6 +9,7 @@ bump (soft deletes do not), and cover the ``count`` allocated rows only.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -42,6 +43,93 @@ class DeviceMirror:
     x_sq: torch.Tensor  # [capacity] f32 norms of the f32 host rows
     version: int
     dtype: str = "float32"
+    # recorded on the stream that wrote x and x_sq when that is not the
+    # serving stream (a staged mirror): a reader's stream waits on it
+    ready: torch.cuda.Event | None = None
+
+
+class MirrorStager:
+    """Uploads a loaded corpus's row blocks as they arrive, then installs
+    them as the store's device mirror (the JAX package's MirrorStager,
+    ``index/store.py:47-115``).
+
+    On the card each ``add`` copies its block through pinned memory with
+    ``non_blocking=True`` on a side stream (a bf16 mirror's block through
+    ``put_bf16_blocks``), so the upload overlaps the rest of the load.
+    ``install`` assembles the blocks in row order into the [capacity, dim]
+    mirror on that stream, takes the norms there and records an event; the
+    mirror is published with it, and every reader's stream waits on it
+    (``VectorStore.device_mirror``) before its first kernel reads the
+    mirror, so a search never sees a half-copied one. Blocks may arrive in
+    any order; ``index`` is their position in row order. The mirror is
+    bit-identical to the one ``device_mirror`` would upload (same dtype
+    cast, same norms, zero tail)."""
+
+    def __init__(self, dtype: str = "float32", device=None):
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"mirror dtype must be float32|bfloat16, got "
+                             f"{dtype}")
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._slots: dict[int, torch.Tensor] = {}
+        self.rows = 0
+
+    def _on_side(self):
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def add(self, index: int, block: np.ndarray) -> None:
+        b = np.ascontiguousarray(block, np.float32)
+        if b.size == 0:
+            return
+        with self._on_side():
+            if self.dtype == "bfloat16":
+                t = put_bf16_blocks(b, b.shape[0], self.device)
+            else:
+                t = to_device(b, self.device)
+        self._slots[index] = t
+        self.rows += b.shape[0]
+
+    def install(self, store: "VectorStore") -> None:
+        """Publish the staged mirror for ``store``, keyed to its current
+        version: call it after every load-time mutation. Rows must have been
+        staged in ``index`` order matching store rows [0, n)."""
+        dt = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        with store._lock:
+            if store.device != self.device:
+                raise ValueError(f"staged on {self.device}, the store serves "
+                                 f"on {store.device}")
+            x_sq_host = (store.host_sq() if self.dtype == "bfloat16"
+                         else None)
+            with self._on_side():
+                x = torch.zeros((store.capacity, store.dim), dtype=dt,
+                                device=self.device)
+                pos = 0
+                for i in sorted(self._slots):
+                    blk = self._slots[i]
+                    x[pos: pos + blk.shape[0]].copy_(blk)
+                    pos += blk.shape[0]
+                # the same expressions as device_mirror: bf16 mirrors carry
+                # the f32 norms of the f32 host rows
+                x_sq = (to_device(x_sq_host, self.device)
+                        if x_sq_host is not None else (x * x).sum(1))
+                ready = None
+                if self._stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record(self._stream)
+                    # readers run on the serving stream: the allocator must
+                    # not hand these blocks to the side stream until that
+                    # stream's reads are done
+                    serving = torch.cuda.default_stream(self.device)
+                    x.record_stream(serving)
+                    x_sq.record_stream(serving)
+            self._slots.clear()
+            store._mirror = DeviceMirror(x=x, x_sq=x_sq,
+                                         version=store._version,
+                                         dtype=self.dtype, ready=ready)
 
 
 # rows a thread squares at a time in row_sq_norms
@@ -321,6 +409,9 @@ class VectorStore:
                 self._mirror = DeviceMirror(x=x, x_sq=x_sq,
                                             version=self._version,
                                             dtype=dtype)
+            elif m.ready is not None:
+                # a staged mirror: this thread's stream waits for its copies
+                torch.cuda.current_stream(self.device).wait_event(m.ready)
             return self._mirror
 
     def release_mirror(self) -> None:

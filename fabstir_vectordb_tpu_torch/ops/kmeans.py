@@ -73,10 +73,8 @@ def assign_clusters(x, centroids, mask=None):
     return assign, d2
 
 
-def lloyd_step(x, mask, centroids):
-    """One Lloyd iteration (plain): assign, then each cluster with rows
-    moves to their mean; an empty cluster keeps its centroid. Returns
-    (new_centroids, mean squared error over the masked-in rows)."""
+def lloyd_step_plain(x, mask, centroids):
+    """Plain version of :func:`lloyd_step`."""
     c = centroids.shape[0]
     assign, d2 = assign_clusters_plain(x, centroids, mask)
     ok = assign >= 0
@@ -85,14 +83,55 @@ def lloyd_step(x, mask, centroids):
     sums = torch.zeros_like(centroids).index_add_(0, a, x[ok].float())
     new = torch.where(counts[:, None] > 0,
                       sums / counts.clamp_min(1.0)[:, None], centroids)
-    n_valid = mask.to(torch.float32).sum().clamp_min(1.0)
+    n_valid = (x.new_tensor(float(x.shape[0])) if mask is None
+               else mask.to(torch.float32).sum()).clamp_min(1.0)
     return new, d2.sum() / n_valid
+
+
+def lloyd_step(x, mask, centroids):
+    """One Lloyd iteration (the reference's lloyd_step, ``ops/kmeans.py:84``):
+    assign each row of x [N, D] f32 in mask [N] bool (None: every row) to
+    the nearest of centroids [C, D] f32; a cluster with rows moves to their
+    mean, an empty one keeps its centroid. Returns (new centroids [C, D],
+    the error sum(d2) / max(rows in the mask, 1) as a 0-dim tensor). The
+    plain version on CPU tensors; on CUDA tensors csrc/lloyd.cu's
+    fvdb_lloyd_step (K6's partial and finish, one iteration of a K6 block)
+    or it raises."""
+    if x.device.type == "cpu":
+        return lloyd_step_plain(x, mask, centroids)
+    if x.device.type != "cuda":
+        raise ValueError(f"lloyd_step: unsupported device {x.device}")
+    dev = x.device
+    native.check(x, "x", torch.float32, 2, dev)
+    native.check(centroids, "centroids", torch.float32, 2, dev)
+    if mask is not None:
+        native.check(mask, "mask", torch.bool, 1, dev)
+    n, d = x.shape
+    c = centroids.shape[0]
+    if centroids.shape[1] != d or c < 1 or n < 1 \
+            or (mask is not None and mask.shape[0] != n):
+        raise ValueError("shape mismatch in lloyd_step")
+    new = torch.empty_like(centroids)
+    err = torch.empty(1, dtype=torch.float32, device=dev)
+    # x_sq [N] | c_sq [C] | sums [C, D] | counts [C] | stats [2]
+    scratch = torch.empty(n + c + c * d + c + 2, dtype=torch.float32,
+                          device=dev)
+    offs = np.cumsum([0, n, c, c * d, c])
+    ptr = [scratch[int(o):].data_ptr() for o in offs]
+    P, I = native.P, native.I
+    native.call(
+        "lloyd", "fvdb_lloyd_step", [P, P, P, I, I, I, P, P, P, P, P, P, P, P],
+        x.data_ptr(), 0 if mask is None else mask.data_ptr(),
+        centroids.data_ptr(), n, c, d, *ptr, new.data_ptr(), err.data_ptr(),
+        native.stream_of(x))
+    native.launches["lloyd_step"] += 1
+    return new, err[0]
 
 
 def lloyd_block_plain(x, mask, cents, steps: int):
     all_c, errs = [], []
     for _ in range(steps):
-        cents, err = lloyd_step(x, mask, cents)
+        cents, err = lloyd_step_plain(x, mask, cents)
         all_c.append(cents)
         errs.append(err)
     return torch.stack(all_c), torch.stack(errs)

@@ -1,4 +1,5 @@
-"""Masked top-k selection, top-k merges, the fused distance top-k kernel
+"""Masked top-k selection (exact and binned, over a given distance
+matrix), top-k merges, the fused distance top-k kernel
 (K1, by metric), the approximate binned pool (K9), the streaming top-k
 over row chunks (``chunked_topk``, K8's last program) and the merge of
 shards' partial top-k lists (``shard_merge``, K15's).
@@ -22,17 +23,15 @@ from .distance import (METRIC_CODE, check_metric, pairwise_distance,
 INF = float("inf")
 
 
-def masked_topk(dists: torch.Tensor, mask: torch.Tensor, k: int):
-    """Exact top-k smallest distances where mask is True.
-
-    dists [B, N] f32; mask [N] or [B, N] bool, or None for every entry.
-    Returns (vals [B, k] f32, idx [B, k] int32), padded with +inf / -1
-    (also when k > N)."""
-    masked = dists
+def masked_topk_plain(dists: torch.Tensor, mask, k: int):
+    """Plain version of :func:`masked_topk`: a stable sort of each row with
+    masked-out and non-finite entries at +inf."""
+    masked = torch.where(torch.isfinite(dists), dists,
+                         torch.full_like(dists, INF))
     if mask is not None:
         if mask.dim() == 1:
             mask = mask[None, :]
-        masked = torch.where(mask, dists, torch.full_like(dists, INF))
+        masked = torch.where(mask, masked, torch.full_like(masked, INF))
     vals, idx = torch.sort(masked, dim=1, stable=True)
     vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
     if vals.shape[1] < k:
@@ -42,6 +41,49 @@ def masked_topk(dists: torch.Tensor, mask: torch.Tensor, k: int):
     valid = torch.isfinite(vals)
     return (torch.where(valid, vals, torch.full_like(vals, INF)),
             torch.where(valid, idx, torch.full_like(idx, -1)))
+
+
+def masked_topk(dists: torch.Tensor, mask, k: int):
+    """Exact top-k smallest distances where mask is True (the reference's
+    masked_topk, ``ops/topk.py:20``).
+
+    dists [B, N] f32; mask [N] or [B, N] bool, or None for every entry; any
+    k >= 1. Returns (vals [B, k] f32, idx [B, k] int32) by (distance,
+    index), padded with +inf / -1 (also when k > N); a non-finite distance
+    is never selected. The plain version on CPU tensors; on CUDA tensors
+    csrc/merge_topk.cu's fvdb_masked_topk (a mask pass, then
+    topk_select.cuh's radix select) or it raises."""
+    if dists.device.type == "cpu":
+        return masked_topk_plain(dists, mask, k)
+    if dists.device.type != "cuda":
+        raise ValueError(f"masked_topk: unsupported device {dists.device}")
+    dev = dists.device
+    native.check(dists, "dists", torch.float32, 2, dev)
+    b, n = dists.shape
+    _check_mask(mask, b, n, dev)
+    if k < 1:
+        raise ValueError(f"masked_topk takes k >= 1, got {k}")
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0 or n == 0:
+        return out_d.fill_(INF), out_r.fill_(-1)
+    m_stride = n if mask is not None and mask.dim() == 2 else 0
+    P, I, L = native.P, native.I, native.L
+    for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
+        hi = min(b, lo + _MAX_GRID_Q)
+        masked = torch.empty((hi - lo, n), dtype=torch.float32, device=dev) \
+            if mask is not None else None
+        work = select_scratch("merge_topk", hi - lo, k, dev)
+        m_ptr = 0 if mask is None else (mask[lo:hi].data_ptr() if m_stride
+                                        else mask.data_ptr())
+        native.call(
+            "merge_topk", "fvdb_masked_topk", [P, P, L, I, I, I, P, P, P, P, P],
+            dists[lo:hi].data_ptr(), m_ptr, m_stride, hi - lo, n, k,
+            0 if masked is None else masked.data_ptr(), work.data_ptr(),
+            out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
+            native.stream_of(dists))
+        native.launches["masked_topk"] += 1
+    return out_d, out_r
 
 
 def merge_topk_plain(vals_a, idx_a, vals_b, idx_b, k: int):
@@ -196,7 +238,7 @@ def chunk_step_plain(d, mask, start: int, vals, idx, k: int):
     """Plain version of chunked_topk's step: the masked top-min(k, C) of a
     chunk's distances d [B, C] (rows offset by ``start``) merged into the
     running (vals, idx) [B, k]."""
-    cvals, cidx = masked_topk(d, mask, min(k, d.shape[1]))
+    cvals, cidx = masked_topk_plain(d, mask, min(k, d.shape[1]))
     cidx = torch.where(cidx >= 0, cidx + start, cidx)
     return merge_topk_plain(vals, idx, cvals, cidx, k)
 
@@ -271,7 +313,7 @@ def l2_topk_plain(x, x_sq, mask, q, k: int, row_base: int = 0,
     """Plain version of K1: the [B, N] distance matrix of ``metric``, then
     masked_topk. bf16 rows are upcast; x_sq None takes their norms;
     ``round_query`` as in :func:`l2_topk`."""
-    vals, rows = masked_topk(pairwise_distance(q, x, metric, x_sq,
+    vals, rows = masked_topk_plain(pairwise_distance(q, x, metric, x_sq,
                                                round_query), mask, k)
     if row_base:
         rows = torch.where(rows >= 0, rows + row_base, rows)
@@ -289,13 +331,13 @@ def approx_bins(n: int, k: int, recall_target: float = 0.95) -> int:
     return max(1, min(m, n))
 
 
-def masked_approx_topk(dists: torch.Tensor, mask, k: int,
-                       recall_target: float = 0.95):
-    """Plain version of K9's selection (the reference's masked_approx_topk
-    over lax.approx_min_k): entry j of each row goes to bin j mod M
-    (:func:`approx_bins`), each bin keeps its smallest (distance, row), and
-    the k smallest minima come out by (distance, row), padded with
-    (+inf, -1). A bin with no unmasked finite entry holds nothing."""
+def masked_approx_topk_plain(dists: torch.Tensor, mask, k: int,
+                             recall_target: float = 0.95):
+    """Plain version of :func:`masked_approx_topk` and of K9's selection:
+    entry j of each row goes to bin j mod M (:func:`approx_bins`), each bin
+    keeps its smallest (distance, row), and the k smallest minima come out
+    by (distance, row), padded with (+inf, -1). A bin with no unmasked
+    finite entry holds nothing."""
     b, n = dists.shape
     masked = dists
     if mask is not None:
@@ -306,7 +348,7 @@ def masked_approx_topk(dists: torch.Tensor, mask, k: int,
                          torch.full_like(masked, INF))
     m = approx_bins(n, k, recall_target)
     if m >= n:
-        return masked_topk(masked, None, k)
+        return masked_topk_plain(masked, None, k)
     v = torch.nn.functional.pad(masked, (0, (-n) % m), value=INF)
     v = v.view(b, -1, m)  # [b, i, j] is row i * m + j
     mins = v.min(dim=1).values
@@ -316,11 +358,60 @@ def masked_approx_topk(dists: torch.Tensor, mask, k: int,
     return merge_topk_plain(mins, rows, mins[:, :0], rows[:, :0], k)
 
 
+def masked_approx_topk(dists: torch.Tensor, mask, k: int,
+                       recall_target: float = 0.95):
+    """The reference's masked_approx_topk (``ops/topk.py:44``, over
+    lax.approx_min_k) as K9 bins it: dists [B, N] f32, mask [N] or [B, N]
+    bool or None; entry j goes to bin j mod M (M from :func:`approx_bins`
+    at ``recall_target``), each bin keeps its smallest (distance, row) among
+    its unmasked finite entries, and the k smallest minima come out by
+    (distance, row), padded with (+inf, -1). Where M >= N that is the
+    exact :func:`masked_topk`. The plain version on CPU tensors; on CUDA
+    tensors csrc/approx_topk.cu's fvdb_approx_select (the bin minima, then
+    topk_select.cuh's radix select) or it raises."""
+    if dists.device.type == "cpu":
+        return masked_approx_topk_plain(dists, mask, k, recall_target)
+    if dists.device.type != "cuda":
+        raise ValueError(f"masked_approx_topk: unsupported device "
+                         f"{dists.device}")
+    dev = dists.device
+    native.check(dists, "dists", torch.float32, 2, dev)
+    b, n = dists.shape
+    _check_mask(mask, b, n, dev)
+    if k < 1:
+        raise ValueError(f"masked_approx_topk takes k >= 1, got {k}")
+    m = approx_bins(n, k, recall_target)
+    if m >= n:
+        return masked_topk(dists, mask, k)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_r
+    m_stride = n if mask is not None and mask.dim() == 2 else 0
+    P, I, L = native.P, native.I, native.L
+    for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
+        hi = min(b, lo + _MAX_GRID_Q)
+        cand_d = torch.empty((hi - lo, m), dtype=torch.float32, device=dev)
+        cand_r = torch.empty((hi - lo, m), dtype=torch.int32, device=dev)
+        work = select_scratch("approx_topk", hi - lo, k, dev)
+        m_ptr = 0 if mask is None else (mask[lo:hi].data_ptr() if m_stride
+                                        else mask.data_ptr())
+        native.call(
+            "approx_topk", "fvdb_approx_select",
+            [P, P, L, I, I, I, I, P, P, P, P, P, P],
+            dists[lo:hi].data_ptr(), m_ptr, m_stride, hi - lo, n, m, k,
+            cand_d.data_ptr(), cand_r.data_ptr(), work.data_ptr(),
+            out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
+            native.stream_of(dists))
+        native.launches["masked_approx_topk"] += 1
+    return out_d, out_r
+
+
 def approx_topk_plain(x, x_sq, mask, q, ov_k: int,
                       round_query: bool = False):
     """Plain version of K9: the [B, N] distance matrix, then
-    :func:`masked_approx_topk`."""
-    return masked_approx_topk(pairwise_sq_l2(q, x, x_sq, round_query), mask,
+    :func:`masked_approx_topk_plain`."""
+    return masked_approx_topk_plain(pairwise_sq_l2(q, x, x_sq, round_query), mask,
                               ov_k)
 
 

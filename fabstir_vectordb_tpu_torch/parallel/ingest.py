@@ -19,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..index.hnsw import set_member_rows, set_member_rows_plain
 from ..ops.kmeans import assign_clusters
-from ..utils import native
 from ..utils.padding import bucket, round_up
 from ..utils.transfer import to_device, to_host
 from .sharded import _on, sharded_flat_search
@@ -28,30 +28,15 @@ from .sharded import _on, sharded_flat_search
 __all__ = ["ShardedBuilder", "sharded_assign_clusters"]
 
 
-def _set_rows_true_plain(mask, rows):
-    rows = rows.long()
-    mask[rows[(rows >= 0) & (rows < mask.shape[0])]] = True
-    return mask
+# the sharded build's member mask takes the pipelined build's scatter,
+# counted apart as K15's set-rows
+_set_rows_true_plain = set_member_rows_plain
 
 
 def _set_rows_true(mask, rows):
     """mask[rows] = True in place, on the (sharded) member mask [N] bool;
-    rows [n] int32 outside [0, N) are ignored. Returns mask. The plain
-    version on CPU tensors, csrc/shard_merge.cu's fvdb_set_rows on CUDA
-    tensors."""
-    if mask.device.type == "cpu":
-        return _set_rows_true_plain(mask, rows)
-    if mask.device.type != "cuda":
-        raise ValueError(f"set_rows: unsupported device {mask.device}")
-    dev = mask.device
-    native.check(mask, "mask", torch.bool, 1, dev)
-    native.check(rows, "rows", torch.int32, 1, dev)
-    native.call("shard_merge", "fvdb_set_rows",
-                [native.P, native.L, native.P, native.I, native.P],
-                mask.data_ptr(), mask.shape[0], rows.data_ptr(), rows.shape[0],
-                native.stream_of(mask))
-    native.launches["set_rows"] += 1
-    return mask
+    rows [n] int32 outside [0, N) are ignored. Returns mask."""
+    return set_member_rows(mask, rows, counter="set_rows")
 
 
 def sharded_assign_clusters(mesh, axis: str = "data"):

@@ -4,7 +4,7 @@ Same environment variables and defaults as the JAX package's
 ``utils/limits.py``, limited to what the ported slices read: the flat
 threshold, the serving dtype and the bf16 flat regime's re-score knobs, the
 flat selection and its pool width, the reduced-rank regime's knobs and
-budgets, and the beam's expansion width.
+budgets, the beam's expansion width and cold serving during lazy loads.
 """
 from __future__ import annotations
 
@@ -92,6 +92,13 @@ def beam_expand() -> int:
     4): the layer-0 beam's step loop is the pruned path's only sequential
     depth, and W candidates a step cut it ~W x for a few wasted gathers."""
     return max(1, int(os.environ.get("FVDB_BEAM_EXPAND", 4)))
+
+
+def cold_serve() -> bool:
+    """Answer searches during a lazy load through on-demand chunk fetches
+    (FVDB_COLD_SERVE, default on). Off: searches block on wait_ready()
+    until the background materializer is done."""
+    return os.environ.get("FVDB_COLD_SERVE", "1") != "0"
 
 
 def serving_dtype() -> str:

@@ -45,7 +45,8 @@ launches: dict[str, int] = {
     "approx_topk": 0, "chunk_step": 0, "quantize_u8": 0,
     "dequantize_u8": 0, "pq_encode": 0, "pq_decode": 0, "pq_adc_table": 0,
     "pq_adc_distances": 0, "lloyd_partial": 0, "lloyd_finish": 0,
-    "shard_merge": 0, "set_rows": 0,
+    "shard_merge": 0, "set_rows": 0, "set_member_rows": 0, "masked_topk": 0,
+    "masked_approx_topk": 0, "lloyd_step": 0,
 }
 # K1 and K12 by metric: "<counter>_cosine", "<counter>_dot"
 for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq", "ivf_scan",

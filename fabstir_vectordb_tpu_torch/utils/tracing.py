@@ -1,12 +1,29 @@
-"""Search performance monitoring (copied from the JAX package's
-``utils/tracing.py``): the reference's ``SearchPerformanceMonitor``
-(src/hybrid/search_integration.rs:491-552) as a latency-percentile recorder.
+"""Logging and search performance monitoring (copied from the JAX
+package's ``utils/tracing.py``): ``get_logger`` with the reference's
+env-filtered level (src/bin/server.rs:13-18) and its
+``SearchPerformanceMonitor`` (src/hybrid/search_integration.rs:491-552) as
+a latency-percentile recorder.
 """
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 from dataclasses import dataclass, field
+
+
+def get_logger(name: str = "fabstir_vectordb_tpu_torch") -> logging.Logger:
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        level = os.environ.get("VECTOR_DB_LOG", "INFO").upper()
+        handler = logging.StreamHandler()
+        handler.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s")
+        )
+        logger.addHandler(handler)
+        logger.setLevel(getattr(logging, level, logging.INFO))
+    return logger
 
 
 @dataclass

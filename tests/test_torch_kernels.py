@@ -1269,3 +1269,141 @@ def test_ivf_scan_with_a_list_range_matches_plain_on_card():
     xd = torch.from_numpy(x).to(dev)
     vw, rw = ivf_scan(xd, (xd * xd).sum(1), mask, lists, probe, q, 16)
     _assert_close_up_to_ties(vm, rm, vw, rw, 1e-5, 1e-2)
+
+
+@pytest.mark.cuda
+def test_set_member_rows_matches_plain_on_card():
+    """B1: the pipelined build's member scatter, through the set-rows
+    kernel, with its own counter."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(47)
+    mask = torch.rand(1_048_576, device=dev, generator=g) < 0.1
+    rows = torch.randint(0, 1_048_576, (1_024,), device=dev, generator=g,
+                         dtype=torch.int32)
+    want = hnsw_t.set_member_rows_plain(mask.clone(), rows)
+    before = native.launches["set_member_rows"]
+    got = hnsw_t.set_member_rows(mask, rows)
+    assert native.launches["set_member_rows"] == before + 1
+    assert got is mask and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+def test_lloyd_step_matches_plain_on_card(masked):
+    """B2: one Lloyd iteration (K6's partial and finish) against the plain
+    step, centroids within 1e-5 of the data scale (K6's atomic order), the
+    error within 1e-5 relative."""
+    dev = _card()
+    n, c = 65_536, 256
+    x_np, lab = _mixture(48, n, c, d=384, spread=1.0)
+    x = torch.from_numpy(x_np).to(dev)
+    mask = (torch.rand(n, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(49)) < 0.9) if masked else None
+    # one starting centroid a cluster, so no bisector rows tie
+    first = np.array([np.flatnonzero(lab == i)[0] for i in range(c)])
+    init = x[torch.from_numpy(first).to(dev)]
+    ck, ek = km_t.lloyd_step(x, mask, init)
+    cp, ep = km_t.lloyd_step_plain(x, mask, init)
+    assert float((ck - cp).abs().max()) <= 1e-5 * float(x.abs().max())
+    assert abs(float(ek) - float(ep)) <= 1e-5 * float(ep)
+    cb, eb = km_t.lloyd_block(x, mask if masked else torch.ones(
+        n, dtype=torch.bool, device=dev), init, 1)
+    assert float((ck - cb[0]).abs().max()) <= 1e-5 * float(x.abs().max())
+
+
+def _signed_matrix(g, dev, b, n):
+    """Signed distances with ties, +-inf and NaNs."""
+    d = torch.randn(b, n, device=dev, generator=g)
+    d[:, 1::7] = d[:, ::7][:, : d[:, 1::7].shape[1]]  # exact ties
+    d[:, 3::101] = float("nan")
+    d[:, 5::211] = float("inf")
+    d[:, 9::307] = -float("inf")
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,mask_kind", [
+    (128, 1_048_576, 16, "rows"), (128, 1_048_576, 1_024, "rows"),
+    (37, 4096, 64, "per_query"), (5, 300, 700, "none"),
+    (3, 1000, 256, "sparse")])
+def test_masked_topk_matches_plain_on_card(b, n, k, mask_kind):
+    """B3: the entry point's radix select against the plain sort, exactly
+    (the same (distance, row) list), k > N and NaN / +-inf entries
+    included (never selected)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(51 + k)
+    d = _signed_matrix(g, dev, b, n)
+    mask = {"rows": lambda: torch.rand(n, device=dev, generator=g) < 0.9,
+            "per_query": lambda: torch.rand(b, n, device=dev,
+                                            generator=g) < 0.5,
+            "sparse": lambda: torch.rand(n, device=dev, generator=g) < 0.05,
+            "none": lambda: None}[mask_kind]()
+    vk, rk = topk_t.masked_topk(d, mask, k)
+    vp, rp = topk_t.masked_topk_plain(d, mask, k)
+    assert torch.equal(rk, rp) and torch.equal(vk, vp)
+    if k > n:
+        assert (rk[:, n:] == -1).all() and torch.isinf(vk[:, n:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,mask_kind", [
+    (128, 1_048_576, 128, "rows"), (37, 100_000, 16, "per_query"),
+    (4, 4096, 1_000, "none"), (3, 50_000, 64, "sparse")])
+def test_masked_approx_topk_matches_plain_on_card(b, n, k, mask_kind):
+    """B4: the bin minima of a given matrix and their radix select against
+    the plain binning, exactly; M >= N (k = 1,000 of 4,096) takes B3."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(61 + k)
+    d = _signed_matrix(g, dev, b, n)
+    mask = {"rows": lambda: torch.rand(n, device=dev, generator=g) < 0.9,
+            "per_query": lambda: torch.rand(b, n, device=dev,
+                                            generator=g) < 0.5,
+            "sparse": lambda: torch.rand(n, device=dev, generator=g) < 0.01,
+            "none": lambda: None}[mask_kind]()
+    vk, rk = topk_t.masked_approx_topk(d, mask, k)
+    vp, rp = topk_t.masked_approx_topk_plain(d, mask, k)
+    assert torch.equal(rk, rp) and torch.equal(vk, vp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_staged_mirror_on_card_equals_an_upload(dtype, monkeypatch):
+    """A lazy load's materializer stages the rows' uploads on a side stream
+    and installs the mirror with an event: after it, the mirror is
+    bit-identical to a fresh upload, and a search straight after the
+    install (its stream waits on the event) answers as one after a fresh
+    upload."""
+    from fabstir_vectordb_tpu_torch.core.object_store import \
+        MemoryObjectStore
+    from fabstir_vectordb_tpu_torch.index.hybrid import (HybridConfig,
+                                                         HybridIndex,
+                                                         SearchConfig)
+    from fabstir_vectordb_tpu_torch.storage.persistence import \
+        HybridPersister
+
+    dev = _card()
+    monkeypatch.setenv("FVDB_SERVING_DTYPE", dtype)
+    x = _data(52, 50_000, d=384)
+    h = HybridIndex(384, HybridConfig(auto_migrate=False), device=dev)
+    h.insert_batch([f"v{i}" for i in range(50_000)], x,
+                   np.full(50_000, 1.0e9), now=1.0e9)
+    mem = MemoryObjectStore()
+    HybridPersister(mem).save_index_chunked(h, "s", chunk_size=4_096)
+    for lazy in (True, False):
+        loaded, _ = HybridPersister(mem).load_index_chunked("s", lazy=lazy)
+        loaded.wait_ready(timeout=600)
+        m = loaded.store._mirror
+        assert m is not None and m.ready is not None and m.dtype == dtype
+        q = x[:64] + 0.1
+        cfg = SearchConfig(auto_migrate=False)
+        d, rows = loaded.search_rows(q, 10, config=cfg, now=1.0e9)
+        staged_x, staged_sq = m.x.clone(), m.x_sq.clone()
+        loaded.store.release_mirror()
+        fresh = loaded.store.device_mirror(dtype)
+        assert torch.equal(staged_x, fresh.x)
+        assert torch.equal(staged_sq, fresh.x_sq)
+        # the search on the staged mirror answers as on a fresh upload
+        dw, want = loaded.search_rows(q, 10, config=cfg, now=1.0e9)
+        assert np.array_equal(rows, want) and np.array_equal(d, dw)

@@ -288,3 +288,110 @@ def test_launch_counters_stay_at_zero_on_the_cpu():
     pt.sharded_lloyd_step(mesh)(x, mask, x[:4].clone())
     pt.sharded_assign_clusters(mesh)(x, x[:4].clone())
     assert all(v == 0 for v in native.launches.values())
+
+
+# ---------------------------------------------------------------- B1-B4
+@pytest.mark.parametrize("mask_kind", ["rows", "per_query", "none"])
+@pytest.mark.parametrize("k", [1, 16, 700])
+def test_masked_topk_entry_point_matches_reference(mask_kind, k):
+    """B3: the ops entry point over a given matrix, k past N included
+    (padded with +inf / -1), equal to the reference's masked_topk."""
+    rng = np.random.default_rng(41)
+    d = rng.standard_normal((7, 500)).astype(np.float32)
+    mask = {"rows": rng.random(500) < 0.6,
+            "per_query": rng.random((7, 500)) < 0.6,
+            "none": None}[mask_kind]
+    jm = np.ones(500, bool) if mask is None else mask
+    vj, ij = topk_j.masked_topk(jnp.asarray(d), jnp.asarray(jm), min(k, 500))
+    vt, it = topk_t.masked_topk(
+        torch.from_numpy(d), None if mask is None else torch.from_numpy(mask),
+        k)
+    assert tuple(vt.shape) == (7, k) and it.dtype == torch.int32
+    kj = min(k, 500)
+    _assert_topk_equal(vj, ij, vt.numpy()[:, :kj], it.numpy()[:, :kj])
+    assert (it.numpy()[:, kj:] == -1).all()
+    assert np.isinf(vt.numpy()[:, kj:]).all()
+
+
+def test_masked_topk_never_selects_a_nan():
+    d = torch.tensor([[float("nan"), 3.0, 1.0, float("nan"), 2.0]])
+    v, r = topk_t.masked_topk(d, None, 4)
+    assert r.tolist() == [[2, 4, 1, -1]]
+    assert v[0, :3].tolist() == [1.0, 2.0, 3.0] and torch.isinf(v[0, 3])
+
+
+@pytest.mark.parametrize("n,k", [(60, 16), (4096, 16), (4096, 128)])
+def test_masked_approx_topk_entry_point_matches_reference(n, k):
+    """B4: equal to the reference's masked_approx_topk where the bins cover
+    every row (M >= N; its CPU approx_min_k is exact), else the binned
+    pool's recall against the exact top-k meets K9's CPU bound (>= 0.90)."""
+    rng = np.random.default_rng(42)
+    d = rng.random((9, n)).astype(np.float32)
+    mask = rng.random(n) < 0.8
+    vj, ij = topk_j.masked_approx_topk(jnp.asarray(d), jnp.asarray(mask), k)
+    vt, it = topk_t.masked_approx_topk(torch.from_numpy(d),
+                                       torch.from_numpy(mask), k)
+    if topk_t.approx_bins(n, k) >= n:
+        _assert_topk_equal(vj, ij, vt.numpy(), it.numpy())
+        return
+    it = it.numpy()
+    assert mask[it[it >= 0]].all()
+    hits = [len(set(a.tolist()) & set(b.tolist())) for a, b in
+            zip(it, np.asarray(ij))]
+    assert np.mean(hits) / k >= 0.90
+    np.testing.assert_allclose(
+        vt.numpy(), np.take_along_axis(d, np.maximum(it, 0), 1), rtol=0,
+        atol=0)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_lloyd_step_entry_point_matches_reference(masked):
+    """B2: one Lloyd iteration from the same centroids, equal to the
+    reference's lloyd_step (mask None: every row, as an all-True mask)."""
+    x = _clustered(43, 1024, 16, spread=0.5)
+    mask = np.arange(1024) < (1000 if masked else 1024)
+    init = x[np.random.default_rng(44).choice(1000, 16, replace=False)]
+    cj, ej = km_j._lloyd_step_jit(jnp.asarray(x), jnp.asarray(mask),
+                                  jnp.asarray(init))
+    ct, et = km_t.lloyd_step(torch.from_numpy(x),
+                             torch.from_numpy(mask) if masked else None,
+                             torch.from_numpy(init))
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-5,
+                               atol=1e-5)
+    assert abs(float(et) - float(ej)) <= 1e-5 * float(ej) + 1e-4
+
+
+def test_set_member_rows_matches_reference():
+    """B1: the pipelined build's member scatter."""
+    rng = np.random.default_rng(45)
+    mask = rng.random(3000) < 0.2
+    rows = rng.integers(0, 3000, 1024).astype(np.int32)
+    want = np.asarray(hnsw_j._set_member_rows(jnp.asarray(mask),
+                                              jnp.asarray(rows)))
+    m = torch.from_numpy(mask.copy())
+    got = hnsw_t.set_member_rows(m, torch.from_numpy(rows))
+    assert got is m
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_b1_to_b4_refuse_other_devices_and_count_nothing_on_the_cpu():
+    """On a device that is neither the CPU nor CUDA each entry point
+    raises; on CPU tensors it takes its plain version and launches
+    nothing."""
+    meta = torch.zeros((2, 8), device="meta")
+    mrows = torch.zeros(2, dtype=torch.int32, device="meta")
+    for call in (lambda: topk_t.masked_topk(meta, None, 2),
+                 lambda: topk_t.masked_approx_topk(meta, None, 2),
+                 lambda: km_t.lloyd_step(meta, None, meta[:1]),
+                 lambda: hnsw_t.set_member_rows(
+                     torch.zeros(8, dtype=torch.bool, device="meta"), mrows)):
+        with pytest.raises(ValueError):
+            call()
+    native.reset_launches()
+    d = torch.from_numpy(_data(46, 40))
+    topk_t.masked_topk(d, None, 3)
+    topk_t.masked_approx_topk(torch.rand(3, 4096), None, 16)
+    km_t.lloyd_step(d, None, d[:4].clone())
+    hnsw_t.set_member_rows(torch.zeros(40, dtype=torch.bool),
+                           torch.arange(5, dtype=torch.int32))
+    assert all(v == 0 for v in native.launches.values())

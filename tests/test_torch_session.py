@@ -172,7 +172,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'fabstir_vectordb_tpu_torch.parallel.ingest',\n"
         "       'fabstir_vectordb_tpu_torch.parallel.persistence',\n"
         "       'fabstir_vectordb_tpu_torch.cbor.codec',\n"
-        "       'fabstir_vectordb_tpu_torch.core.object_store']\n"
+        "       'fabstir_vectordb_tpu_torch.core.object_store',\n"
+        "       'fabstir_vectordb_tpu_torch.core.chunk',\n"
+        "       'fabstir_vectordb_tpu_torch.core.chunk_cache',\n"
+        "       'fabstir_vectordb_tpu_torch.core.types',\n"
+        "       'fabstir_vectordb_tpu_torch.index.cold',\n"
+        "       'fabstir_vectordb_tpu_torch.storage.persistence',\n"
+        "       'fabstir_vectordb_tpu_torch.storage.chunk_loader',\n"
+        "       'fabstir_vectordb_tpu_torch.storage.encryption',\n"
+        "       'fabstir_vectordb_tpu_torch.storage.s5',\n"
+        "       'fabstir_vectordb_tpu_torch.storage.s5_service',\n"
+        "       'fabstir_vectordb_tpu_torch.storage.factory',\n"
+        "       'fabstir_vectordb_tpu_torch.utils.progress',\n"
+        "       'fabstir_vectordb_tpu_torch.utils.tracing']\n"
         "assert all(n in sys.modules for n in new), new\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('fabstir_vectordb_tpu_torch.')]))\n")
@@ -181,3 +193,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20  # every module was imported
+
+
+@pytest.mark.parametrize("sub", ["", "ops", "index", "core", "storage"])
+def test_port_exports_the_reference_import_surface(sub):
+    """C1: each package's ``__all__`` equals the JAX package's, read from
+    the JAX source (parsed, not imported), and every name resolves."""
+    import ast
+    import importlib
+
+    path = os.path.join(REPO, "fabstir_vectordb_tpu", sub, "__init__.py")
+    tree = ast.parse(open(path).read())
+    want = next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets))
+    mod = importlib.import_module(
+        "fabstir_vectordb_tpu_torch" + (f".{sub}" if sub else ""))
+    assert list(mod.__all__) == list(want)
+    for name in want:
+        assert getattr(mod, name) is not None
