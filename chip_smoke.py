@@ -211,6 +211,46 @@ def cuda_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (its launches
+    queued, the card not waited for), over ``calls`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def project_bound(n: int, d: int, r: int):
+    """K14's projection bound: n rows of d bf16 in, r bf16 and a norm out,
+    against its three bf16 products (P's exact split) at the tensor cores'
+    rate."""
+    return bound(n * (d * 2 + r * 2 + 4) + d * r * 4 + d * 4,
+                 3 * 2.0 * n * d * r, BF16_FLOPS)
+
+
+def off_center_share(torch, fu, blk, pm):
+    """Equal share of K14's projection against its plain version on ``blk``
+    moved off the origin by three times its rows' spread along a seeded
+    direction, mu its mean: the case where x . P and mu . P cancel."""
+    g = torch.Generator(device=blk.device).manual_seed(13)
+    x = blk.float()
+    spread = float((x - x.mean(0)).norm(dim=1).mean())
+    v = torch.randn(x.shape[1], device=blk.device, generator=g)
+    x = (x + 3.0 * spread * v / v.norm()).to(torch.bfloat16)
+    mu = x.float().mean(0)
+    n, r = x.shape[0], pm.shape[1]
+    out_k = torch.empty((n, r), dtype=torch.bfloat16, device=blk.device)
+    out_p, sq_k = torch.empty_like(out_k), torch.empty(n, device=blk.device)
+    sq_p = torch.empty_like(sq_k)
+    fu.project_rows(x, mu, pm, out_k, sq_k, 0)
+    fu.project_rows_plain(x, mu, pm, out_p, sq_p, 0)
+    return float((out_k.float() == out_p.float()).float().mean())
+
+
 def topk_check(tag, vk, rk, vp, rp, tol):
     """Kernel top-k (vk, rk) against the plain one (vp, rp). The kernel's
     list comes out ascending. After sorting both by (distance, row), the
@@ -1396,17 +1436,18 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
     if not torch.equal(out_k, xp[:blk_n]):
         fail("project_rows: the served mirror's first block differs")
     centered = blk.float() - mu
-    bms, by = bound(blk_n * (d * 2 + r * 2 + 4) + d * r * 4 + d * 4,
-                    2.0 * blk_n * d * r)
+    bms, by = project_bound(blk_n, d, r)
     results["project_rows"] = dict(
         shape=f"n={blk_n} D={d} r={r}", max_abs_err=float(
-            (yk - yp).abs().max()), equal_share=share, norm_rel_err=sq_err,
+            (yk - yp).abs().max()), equal_share=share,
+        equal_share_off_center=off_center_share(torch, fu, blk[:131_072], pm),
+        norm_rel_err=sq_err,
         ms=cuda_ms(torch, lambda: fu.project_rows(blk, mu, pm, out_k, sq_k,
                                                   0)),
         plain_ms=cuda_ms(torch, lambda: fu.project_rows_plain(
             blk, mu, pm, out_p, sq_p, 0), iters=2, warmup=1),
         library_ms=cuda_ms(torch, lambda: torch.matmul(centered, pm)),
-        bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=f"{by} (3 bf16 products, tensor-core rate)")
     launch_of["project_rows"] = counts["project_rows"]
     del centered
     pk, pp = fu.project_queries(q128, mu, pm), \
@@ -1420,10 +1461,13 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
                     2.0 * 128 * d * r)
     results["project_queries"] = dict(
         shape=f"B=128 D={d} r={r}", max_abs_err=err, tol=tol,
-        ms=cuda_ms(torch, lambda: fu.project_queries(q128, mu, pm)),
+        ms=cuda_ms(torch, lambda: fu.project_queries(q128, mu, pm),
+                   iters=200),
         plain_ms=cuda_ms(torch, lambda: fu.project_queries_plain(
-            q128, mu, pm)),
-        library_ms=cuda_ms(torch, lambda: torch.matmul(qc, pm)),
+            q128, mu, pm), iters=200),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(qc, pm), iters=200),
+        host_us=host_us(torch, lambda: fu.project_queries(q128, mu, pm)),
+        library_host_us=host_us(torch, lambda: torch.matmul(qc, pm)),
         bound_ms=bms, bound_by=by)
     launch_of["project_queries"] = counts["project_queries"]
     # K2 on the serving pool of 128 queries
@@ -2428,8 +2472,9 @@ def ivf_work(lists, mask, probe, b: int, k: int, d: int, elem: int):
 def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
     """K10, K11 (serve, link, above layer 0) and K13 on bf16 rows, K12 on
     bf16 rows and by metric, K1 by metric on f32 and bf16 rows, and
-    chunked_topk with negative distances, against their plain versions on
-    the 1M index's state."""
+    chunked_topk with negative distances at k 10 (the fused chunk step)
+    and 1,024 (mask pass, radix select, merge), against their plain
+    versions on the 1M index's state."""
     from fabstir_vectordb_tpu_torch.index import fused as fu
     from fabstir_vectordb_tpu_torch.index import hnsw as hn
     from fabstir_vectordb_tpu_torch.index import ivf as iv
@@ -2651,45 +2696,59 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
                     metric, rq=bf)]
                 names.append(key)
 
-    # chunked_topk over negative (dot) distances of 32 queries, 8 chunks
-    b, k, n = 32, 10, cap
+    # chunked_topk over negative (dot) distances of 32 queries, 8 chunks: at
+    # k = 10 the fused step (one launch a chunk), at k = 1,024 the mask
+    # pass, radix select and merge
+    b, n = 32, cap
     chunk = n // 8
     dall = torch.stack([-(qd[:b] @ xf[lo:lo + chunk].T)
                         for lo in range(0, n, chunk)])  # [8, B, chunk]
     keep = mem.view(8, chunk)
+    flat_d = torch.where(keep[:, None, :], dall,
+                         torch.full_like(dall, float("inf"))
+                         ).permute(1, 0, 2).reshape(b, n).contiguous()
 
     def dist_fn(start):
         i = start // chunk
         return dall[i], keep[i]
 
-    def plain_run():
-        vals = torch.full((b, k), float("inf"), device=dev)
-        rows = torch.full((b, k), -1, dtype=torch.int32, device=dev)
-        for i in range(8):
-            vals, rows = tp.chunk_step_plain(dall[i], keep[i], i * chunk,
-                                             vals, rows, k)
-        return vals, rows
+    for k in (10, 1024):
+        def plain_run():
+            vals = torch.full((b, k), float("inf"), device=dev)
+            rows = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+            for i in range(8):
+                vals, rows = tp.chunk_step_plain(dall[i], keep[i], i * chunk,
+                                                 vals, rows, k)
+            return vals, rows
 
-    run = tp.chunked_topk(dist_fn, n, chunk, k, b, device=dev)
-    vk, rk = run()
-    vp, rp = plain_run()
-    if not (vk[:, 0] < 0).all():
-        fail("chunked_topk: the dot distances are not negative")
-    tol = 1e-5 * (x_sq_max * q_sq_max) ** 0.5
-    err, differ = topk_check("chunked_topk", vk, rk, vp, rp, tol)
-    flat_d = torch.where(keep[:, None, :], dall,
-                         torch.full_like(dall, float("inf"))
-                         ).permute(1, 0, 2).reshape(b, n).contiguous()
-    bms, by = bound(b * n * 4 + n + b * k * 8, 0.0)
-    results["chunked_topk"] = dict(
-        shape=f"B={b} N={n} chunk={chunk} k={k} (dot distances, masked)",
-        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
-        ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain_run),
-        library_ms=cuda_ms(torch, lambda: torch.topk(flat_d, k,
-                                                     largest=False)),
-        bound_ms=bms, bound_by=by)
-    launch_of["chunked_topk"] = counts["chunk_step"]
-    names.append("chunked_topk")
+        key = "chunked_topk" if k == 10 else f"chunked_topk[k={k}]"
+        before = native.launches["chunk_step"]
+        run = tp.chunked_topk(dist_fn, n, chunk, k, b, device=dev)
+        vk, rk = run()
+        if native.launches["chunk_step"] - before != 8:
+            fail(f"{key}: not one chunk_step call a chunk")
+        vp, rp = plain_run()
+        if not (vk[:, 0] < 0).all():
+            fail(f"{key}: the dot distances are not negative")
+        tol = 1e-5 * (x_sq_max * q_sq_max) ** 0.5
+        err, differ = topk_check(key, vk, rk, vp, rp, tol)
+        run_v = torch.full((b, k), float("inf"), device=dev)
+        run_r = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+        outs = (torch.empty_like(run_v), torch.empty_like(run_r))
+        work = tp.chunk_scratch(b, chunk, k, dev) if k <= 256 else None
+        bms, by = bound(b * n * 4 + n + b * k * 8, 0.0)
+        results[key] = dict(
+            shape=f"B={b} N={n} chunk={chunk} k={k} (dot distances, masked)",
+            max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+            ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain_run),
+            library_ms=cuda_ms(torch, lambda: torch.topk(flat_d, k,
+                                                         largest=False)),
+            step_host_us=host_us(torch, lambda: tp.chunk_step(
+                dall[0], keep[0], 0, run_v, run_r, k, outs, work)),
+            run_host_us=host_us(torch, run, calls=20),
+            bound_ms=bms, bound_by=by)
+        launch_of[key] = counts["chunk_step"]
+        names.append(key)
     del xf, sq_f, dall, flat_d
     for name in names:
         print_kernel(name, results[name], launch_of[name])
@@ -3204,8 +3263,7 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
         fail(f"project_rows[10M]: {same} of elements equal, or the served "
              f"mirror's first block differs")
     centered = blk.float() - mu
-    bms, by = bound(blk_n * (d * 2 + r * 2 + 4) + d * r * 4 + d * 4,
-                    2.0 * blk_n * d * r)
+    bms, by = project_bound(blk_n, d, r)
     results["project_rows[10M]"] = dict(
         shape=f"n={blk_n} D={d} r={r} (the K17 mirror's rows)",
         max_abs_err=float((yk - yp).abs().max()), equal_share=same,
@@ -3214,7 +3272,7 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
         plain_ms=cuda_ms(torch, lambda: fu.project_rows_plain(
             blk, mu, pm, out_p, sq_p, 0), iters=2, warmup=1),
         library_ms=cuda_ms(torch, lambda: torch.matmul(centered, pm)),
-        bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=f"{by} (3 bf16 products, tensor-core rate)")
     launch_of["project_rows[10M]"] = counts["project_rows"]
     del centered, out_k, out_p, yk, yp
     for name in ("synth_rows[bf16 block]", "assign_clusters[10M tier block]",

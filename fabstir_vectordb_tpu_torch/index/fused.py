@@ -168,12 +168,40 @@ def project_rows_plain(src, mu, p, out, out_sq, lo: int = 0) -> None:
     out_sq[lo:lo + y.shape[0]] = (yf * yf).sum(1)
 
 
+def split_bf16x3(p):
+    """P [D, r] f32 as three bf16 matrices (hi, mid, lo) whose sum is P:
+    each the round to nearest of what the ones before leave. The plain
+    statement of csrc/project_rows.cu's split."""
+    hi = p.to(torch.bfloat16)
+    r1 = p - hi.float()  # exact
+    mid = r1.to(torch.bfloat16)
+    return hi, mid, (r1 - mid.float()).to(torch.bfloat16)
+
+
+def project_rows_split_plain(src, mu, p, block: int = 64):
+    """The arithmetic of K14's tensor-core kernel in plain PyTorch, f32
+    [n, r] before rounding: bf16 rows times each part of P's exact split
+    (products exact in f32, sums in f32), each ``block`` dims (the
+    kernel's window) summed apart and then added to the running sums less
+    that block's share of mu . P."""
+    x = src.float()
+    parts = [t.float() for t in split_bf16x3(p)]
+    acc = torch.zeros((x.shape[0], p.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for d0 in range(0, x.shape[1], block):
+        xs = x[:, d0:d0 + block]
+        step = sum(xs @ t[d0:d0 + block] for t in parts)
+        acc = acc + (step - mu[d0:d0 + block] @ p[d0:d0 + block])
+    return acc
+
+
 def project_rows(src, mu, p, out, out_sq, lo: int = 0) -> None:
     """K14's projection of a block (the reference's _project_chunk,
     _xp_write and _bf16_row_norms): src [n, D] bf16 rows, mu [D] and
     p [D, r] f32; writes rows lo .. lo + n - 1 of the bf16 mirror out
     [N, r] and of its norms out_sq [N] in place. The plain version on CPU
-    tensors, csrc/project_rows.cu on CUDA tensors."""
+    tensors; on CUDA tensors csrc/project_rows.cu (P's exact bf16 split,
+    then the products on the tensor cores) or it raises."""
     if src.device.type == "cpu":
         return project_rows_plain(src, mu, p, out, out_sq, lo)
     dev = src.device
@@ -186,10 +214,16 @@ def project_rows(src, mu, p, out, out_sq, lo: int = 0) -> None:
     if n == 0:
         return None
     P, I, L = native.P, native.I, native.L
+    if d % 8 or src.data_ptr() % 16:  # TMA reads 16-byte aligned rows
+        src = torch.nn.functional.pad(src, (0, -d % 8))
+    work = torch.empty(native.query("project_rows",
+                                    "fvdb_project_scratch_bytes", [I, I], d,
+                                    r), dtype=torch.uint8, device=dev)
     native.call("project_rows", "fvdb_project_rows",
-                [P, I, I, P, P, I, L, P, P, P], src.data_ptr(), n, d,
-                mu.data_ptr(), p.data_ptr(), r, lo, out.data_ptr(),
-                out_sq.data_ptr(), native.stream_of(src))
+                [P, I, I, I, P, P, I, L, P, P, P, P], src.data_ptr(), n, d,
+                src.shape[1], mu.data_ptr(), p.data_ptr(), r, lo,
+                out.data_ptr(), out_sq.data_ptr(), work.data_ptr(),
+                native.stream_of(src))
     native.launches["project_rows"] += 1
     return None
 

@@ -243,33 +243,50 @@ def chunk_step_plain(d, mask, start: int, vals, idx, k: int):
     return merge_topk_plain(vals, idx, cvals, cidx, k)
 
 
-def chunk_step(d, mask, start: int, vals, idx, k: int):
+def chunk_step(d, mask, start: int, vals, idx, k: int, out=None,
+               work=None):
     """chunked_topk's step: d [B, C] f32 distances of rows start .. start
     + C - 1, mask [C] or [B, C] bool or None; the chunk's masked top-min(k,
     C) by (distance, row), rows offset by ``start``, merged into the running
-    (vals [B, k], idx [B, k] int32). Returns the new running pair. The plain
-    version on CPU tensors; on CUDA tensors csrc/merge_topk.cu's chunk step
-    (the mask pass, the radix select of topk_select.cuh, K8's merge) or it
-    raises."""
+    (vals [B, k], idx [B, k] int32). Returns the new running pair, written
+    to ``out`` (a pair of [B, k] tensors that are not the running ones)
+    when given. The plain version on CPU tensors; on CUDA tensors
+    csrc/merge_topk.cu's chunk step or it raises: at min(k, C) <= 256 and k
+    <= 2,048 one launch, whose scratch ``work`` (:func:`chunk_scratch`,
+    reused from step to step) is allocated when not given; above, the mask
+    pass, the radix select of topk_select.cuh and K8's merge."""
     if d.device.type == "cpu":
         return chunk_step_plain(d, mask, start, vals, idx, k)
     dev = d.device
-    native.check(d, "d", torch.float32, 2, dev)
     native.check(vals, "vals", torch.float32, 2, dev)
     native.check(idx, "idx", torch.int32, 2, dev)
     b, c = d.shape
-    _check_mask(mask, b, c, dev)
     if vals.shape != (b, k) or idx.shape != (b, k) or c < 1 or k < 1:
         raise ValueError(f"chunk_step: d {tuple(d.shape)}, running "
                          f"{tuple(vals.shape)}, k={k}")
+    if out is None:
+        out = (torch.empty((b, k), dtype=torch.float32, device=dev),
+               torch.empty((b, k), dtype=torch.int32, device=dev))
+    else:
+        native.check(out[0], "out vals", torch.float32, 2, dev)
+        native.check(out[1], "out rows", torch.int32, 2, dev)
+        if out[0].shape != (b, k) or out[1].shape != (b, k) \
+                or out[0].data_ptr() == vals.data_ptr() \
+                or out[1].data_ptr() == idx.data_ptr():
+            raise ValueError("chunk_step: out must be a new [B, k] pair")
     kc = min(k, c)
+    if kc <= _FUSED_KC and k <= _FUSED_K:
+        if work is None:
+            work = chunk_scratch(b, c, kc, dev)
+        return _fused_step(_fused_fn(), native.stream_of(d), d, mask, start,
+                           vals, idx, k, out, work)
+    native.check(d, "d", torch.float32, 2, dev)
+    _check_mask(mask, b, c, dev)
+    m_stride = c if mask is not None and mask.dim() == 2 else 0
     masked = torch.empty_like(d) if mask is not None else None
     cand_v = torch.empty((b, kc), dtype=torch.float32, device=dev)
     cand_r = torch.empty((b, kc), dtype=torch.int32, device=dev)
-    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     work = select_scratch("merge_topk", b, kc, dev)
-    m_stride = c if mask is not None and mask.dim() == 2 else 0
     P, I, L = native.P, native.I, native.L
     native.call(
         "merge_topk", "fvdb_chunk_step",
@@ -277,10 +294,41 @@ def chunk_step(d, mask, start: int, vals, idx, k: int):
         d.data_ptr(), 0 if mask is None else mask.data_ptr(), m_stride, b, c,
         kc, int(start), 0 if masked is None else masked.data_ptr(),
         work.data_ptr(), cand_v.data_ptr(), cand_r.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), k, out_v.data_ptr(),
-        out_r.data_ptr(), native.stream_of(d))
+        vals.data_ptr(), idx.data_ptr(), k, out[0].data_ptr(),
+        out[1].data_ptr(), native.stream_of(d))
     native.launches["chunk_step"] += 1
-    return out_v, out_r
+    return out
+
+
+def _fused_fn():
+    P, I, L = native.P, native.I, native.L
+    return native.fn("merge_topk", "fvdb_chunk_step_fused",
+                     [P, P, L, I, I, I, I, P, P, I, P, L, P, P, P])
+
+
+def _fused_step(fn, stream: int, d, mask, start: int, vals, idx, k: int,
+                out, work):
+    """The fused chunk step's launch, its running and output pairs and
+    scratch checked by the caller: d and the mask are checked here."""
+    b, c = d.shape
+    native.check(d, "d", torch.float32, 2, vals.device)
+    _check_mask(mask, b, c, vals.device)
+    err = fn(d.data_ptr(), 0 if mask is None else mask.data_ptr(),
+             c if mask is not None and mask.dim() == 2 else 0, b, c,
+             min(k, c), int(start), vals.data_ptr(), idx.data_ptr(), k,
+             work.data_ptr(), work.numel(), out[0].data_ptr(),
+             out[1].data_ptr(), stream)
+    native.raise_on(err, "merge_topk", "fvdb_chunk_step_fused")
+    native.launches["chunk_step"] += 1
+    return out
+
+
+def chunk_scratch(b: int, c: int, kc: int, device) -> torch.Tensor:
+    """The fused chunk step's scratch for b queries of c distances at kc,
+    zeroed (its arrival counts start at 0, and each step leaves them so)."""
+    n = native.query("merge_topk", "fvdb_chunk_scratch_bytes",
+                     [native.I, native.I, native.I], b, c, kc)
+    return torch.zeros(n, dtype=torch.uint8, device=device)
 
 
 def chunked_topk(dist_fn, n_total: int, chunk: int, k: int, batch: int,
@@ -292,17 +340,39 @@ def chunked_topk(dist_fn, n_total: int, chunk: int, k: int, batch: int,
     rows int32, (+inf, -1) padded) through :func:`chunk_step`: the
     device-side analog of a streaming min-heap. The running list lives on
     ``device`` (None: the card); dist_fn's tensors must be there too.
-    Distances may be negative."""
+    Distances may be negative. On the card a run allocates two running
+    pairs, which the steps write in turn; at min(k, chunk) <= 256 the
+    fused step's scratch is allocated at a stream's first run and kept
+    (each step leaves it as it found it), and a chunk costs one C call with
+    only the chunk's own tensors checked."""
     n_chunks = (n_total + chunk - 1) // chunk
+    kc = min(k, chunk)
+    scratch = {}
 
     def run():
         dev = resolve_device(device)
         vals = torch.full((batch, k), INF, device=dev)
         idx = torch.full((batch, k), -1, dtype=torch.int32, device=dev)
+        if dev.type != "cuda":
+            for i in range(n_chunks):
+                d, m = dist_fn(i * chunk)
+                vals, idx = chunk_step(d, m, i * chunk, vals, idx, k)
+            return vals, idx
+        bufs = ((vals, idx), (torch.empty_like(vals), torch.empty_like(idx)))
+        if kc > _FUSED_KC or k > _FUSED_K:
+            for i in range(n_chunks):
+                d, m = dist_fn(i * chunk)
+                vals, idx = chunk_step(d, m, i * chunk, vals, idx, k,
+                                       bufs[(i + 1) % 2])
+            return vals, idx
+        stream = native.stream_of(vals)
+        if (dev, stream) not in scratch:  # runs on one stream take turns
+            scratch[dev, stream] = chunk_scratch(batch, chunk, kc, dev)
+        work, fn = scratch[dev, stream], _fused_fn()
         for i in range(n_chunks):
-            start = i * chunk
-            d, m = dist_fn(start)
-            vals, idx = chunk_step(d, m, start, vals, idx, k)
+            d, m = dist_fn(i * chunk)
+            vals, idx = _fused_step(fn, stream, d, m, i * chunk, vals, idx,
+                                    k, bufs[(i + 1) % 2], work)
         return vals, idx
 
     return run
@@ -488,6 +558,9 @@ def _num_sms(device) -> int:
 
 # K1 keeps its lists in shared memory up to this k (csrc/l2_topk.cu)
 _SMALL_K = 256
+# the fused chunk step's reach (csrc/merge_topk.cu): min(k, C) and k
+_FUSED_KC = 256
+_FUSED_K = 2048
 # bytes of [B, N] distances the k > _SMALL_K path holds at once
 _DUMP_BYTES = 1 << 30
 # queries a launch takes (a grid's y and z extents)

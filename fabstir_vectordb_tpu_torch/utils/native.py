@@ -165,7 +165,19 @@ def query(source: str, symbol: str, argtypes: list, *args) -> int:
 
 def call(source: str, symbol: str, argtypes: list, *args) -> None:
     """Call ``symbol`` of ``source``'s library; raise on a CUDA error."""
-    err = _fn(source, symbol, argtypes)(*args)
+    raise_on(_fn(source, symbol, argtypes)(*args), source, symbol)
+
+
+def fn(source: str, symbol: str, argtypes: list):
+    """``symbol`` of ``source``'s library with its argument types set, for
+    a caller that launches it many times: it returns the cudaError_t as an
+    int, for :func:`raise_on`."""
+    return _fn(source, symbol, argtypes)
+
+
+def raise_on(err: int, source: str, symbol: str) -> None:
+    """Raise if ``err``, returned by ``symbol`` of ``source``, is a CUDA
+    error."""
     if err != 0:
         msg = _lib(source).fvdb_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA error {err} ({msg})")
@@ -185,7 +197,12 @@ def check(t, name: str, dtype, dims: int, device) -> None:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of tensor ``t``'s device, as an int."""
+    """The current CUDA stream of tensor ``t``'s device, as an int (the raw
+    handle, read without building a ``torch.cuda.Stream``: a few
+    microseconds less a call, which small launches feel)."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream

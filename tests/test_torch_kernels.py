@@ -378,20 +378,28 @@ def test_stage1_select_kernel_matches_plain_on_card(b, ov_k, n, keep, chunk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,r", [(384, 20), (384, 192), (384, 300),
-                                 (3072, 600)])
-def test_project_kernels_match_plain_on_card(d, r):
+@pytest.mark.parametrize("d,r,off", [(384, 20, 0.0), (384, 192, 0.0),
+                                     (384, 300, 0.0), (3072, 600, 0.0),
+                                     (100, 130, 0.0), (384, 600, 0.0),
+                                     (384, 192, 3.0)])
+def test_project_kernels_match_plain_on_card(d, r, off):
     """K14's projection of a block into the bf16 mirror at row lo (a last
-    partial block of 37 rows) and of queries, also for wide embeddings and
-    a rank past two column groups."""
+    partial block of 37 rows) and of queries, also for wide embeddings, a
+    rank past one and two tensor-core column tiles, D and r that are not
+    multiples of 16 or 64, and an off-center block (every row shifted by a
+    common vector ``off`` times the rows' spread, mu its mean)."""
     from fabstir_vectordb_tpu_torch.index import fused as fused_t
 
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(3)
     n, lo = 10_037, 4096
-    src = (torch.randn(n, d, device=dev, generator=g) + 0.3) \
-        .to(torch.bfloat16)
+    src = torch.randn(n, d, device=dev, generator=g) + 0.3
     mu = torch.randn(d, device=dev, generator=g) * 0.1
+    if off:
+        src = src + off * torch.randn(d, device=dev, generator=g)
+    src = src.to(torch.bfloat16)
+    if off:
+        mu = src.float().mean(0)
     p = torch.linalg.qr(torch.randn(d, r, device=dev, generator=g))[0] \
         if r <= d else torch.randn(d, r, device=dev, generator=g) * 0.05
     p = p.contiguous()
@@ -413,7 +421,11 @@ def test_project_kernels_match_plain_on_card(d, r):
     rows = same.all(1)
     torch.testing.assert_close(sq_k[lo:][rows], sq_p[lo:][rows], rtol=1e-6,
                                atol=0.0)
-    q = torch.randn(77, d, device=dev, generator=g)
+    # the same block again: the norms are the same bit for bit
+    sq_2 = torch.zeros_like(sq_k)
+    fused_t.project_rows(src, mu, p, out_k, sq_2, lo)
+    assert torch.equal(sq_2, sq_k)
+    q = torch.randn(77, d, device=dev, generator=g) + src[:77].float()
     torch.testing.assert_close(fused_t.project_queries(q, mu, p),
                                fused_t.project_queries_plain(q, mu, p),
                                rtol=1e-5, atol=1e-5)
@@ -784,9 +796,9 @@ def _cpu_topk(d, k):
                                     ("select", 64), ("select", 700)])
 def test_selection_orders_signed_distances_on_card(path, k):
     """Negative distances rank before positive ones and -0 ties +0 (the
-    lower row first), in K1's list path (k <= 256) and in the radix select
-    (K1 at k > 256, and a chunk's selection at either k): the rows the
-    plain version picks. Raw float bits as keys put every negative distance
+    lower row first), in K1's list path (k <= 256), the radix select (K1 at
+    k > 256, and a chunk's step at k 700) and the fused chunk step (k 64):
+    the rows the plain version picks. Raw float bits as keys put every negative distance
     after the positives and -0 after +inf."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(21)
@@ -988,6 +1000,50 @@ def test_chunked_topk_matches_plain_on_card(chunk, k, masked):
     assert (vt[:, 0] < 0).all()
     if masked:
         assert keep[rt[rt >= 0].long()].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,mask_kind", [(10, "rows"), (256, "queries"),
+                                         (256, None), (257, "rows")])
+def test_chunk_step_pruning_bar_on_card(k, mask_kind):
+    """A chunk step after a first one: entries that tie the running k-th
+    distance exactly (at higher rows, so the running entries keep their
+    places), entries just below it, slices whose every entry is masked out
+    (the whole second half of the chunk, and for a [B, C] mask one query's
+    whole chunk), negative distances; the fused step at kc 10 and 256, the
+    radix select and merge at 257. The plain version's rows and values
+    exactly."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(29)
+    b, c = 8, 40_000
+    d0 = torch.randn(b, c, device=dev, generator=g)
+    run_v = torch.full((b, k), float("inf"), device=dev)
+    run_r = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+    v1, r1 = topk_t.chunk_step(d0, None, 0, run_v, run_r, k)
+    d = torch.randn(b, c, device=dev, generator=g) + 0.5
+    kth = v1[:, -1:]
+    cols = torch.arange(c, device=dev)
+    d = torch.where(cols % 37 == 5, kth, d)  # exact ties with the k-th
+    d = torch.where(cols % 53 == 7, torch.nextafter(kth, kth - 1), d)
+    if mask_kind == "rows":
+        mask = cols < c // 2
+    elif mask_kind == "queries":
+        mask = (cols < c // 2)[None, :].expand(b, c).clone()
+        mask[3] = False
+    else:
+        mask = None
+    before = topk_t.native.launches["chunk_step"]
+    vt, rt = topk_t.chunk_step(d, mask, c, v1, r1, k)
+    assert topk_t.native.launches["chunk_step"] == before + 1
+    vp, rp = topk_t.chunk_step_plain(
+        d.cpu(), None if mask is None else mask.cpu(), c, v1.cpu(),
+        r1.cpu(), k)
+    np.testing.assert_array_equal(rt.cpu().numpy(), rp.numpy())
+    assert torch.equal(vt.cpu(), vp)
+    tied = (d == kth) & (mask if mask is not None else True)
+    assert tied.any()
+    # no tied entry enters: the running k-th keeps its place
+    assert not torch.isin(rt.cpu(), (cols[tied.any(0)] + c).cpu()).any()
 
 
 @pytest.mark.cuda
