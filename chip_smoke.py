@@ -211,6 +211,22 @@ def cuda_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_us_each(torch, fns) -> list:
+    """Device microseconds of each call of ``fns`` in turn, read by CUDA
+    events while the card runs a sleep long enough for the host to queue
+    every call, so no host gap falls between two events."""
+    fns[0]()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+    torch.cuda._sleep(20_000_000)
+    ev[0].record()
+    for fn, e in zip(fns, ev[1:]):
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) * 1e3 for i in range(len(fns))]
+
+
 def host_us(torch, fn, calls: int = 200) -> float:
     """Host microseconds a call of ``fn`` takes to return (its launches
     queued, the card not waited for), over ``calls`` back-to-back calls."""
@@ -476,29 +492,36 @@ def b1_b4_checks(torch, tp, hn, km, dev, results):
     b = 128
     dm = torch.rand(b, n, device=dev, generator=g) * 100.0
     rmask = torch.rand(n, device=dev, generator=g) < 0.9
-    masked = torch.where(rmask, dm, torch.full_like(dm, float("inf")))
+    qmask = torch.rand(b, n, device=dev, generator=g) < 0.9
     for tag, dd, mm, k in (("k=16", dm, rmask, 16), ("k=1024", dm, rmask,
                                                        1_024),
+                           ("k=1024 BxN mask", dm, qmask, 1_024),
                            ("k>N", dm[:, :1_000].contiguous(), None, 1_500)):
         vk, rk = tp.masked_topk(dd, mm, k)
         vp, rp = tp.masked_topk_plain(dd, mm, k)
         torch.cuda.synchronize()
         if not (torch.equal(rk, rp) and torch.equal(vk, vp)):
             fail(f"masked_topk[{tag}]: differs from its plain version")
-        src = masked if mm is not None else dd
+        src = torch.where(mm, dd, torch.full_like(dd, float("inf"))) \
+            if mm is not None else dd
         kl = min(k, dd.shape[1])
-        bms, by = bound(dd.numel() * 4 + (n if mm is not None else 0)
-                        + b * k * 8, 0.0)
+        bms, by = bound(dd.numel() * 4 + (mm.numel() if mm is not None
+                                          else 0) + b * k * 8, 0.0)
         results[f"masked_topk[{tag}]"] = dict(
             shape=f"B={b} N={dd.shape[1]} k={k}"
-                  + (" mask=0.9" if mm is not None else ""),
+                  + (f" mask=0.9 {list(mm.shape)}" if mm is not None
+                     else ""),
             max_abs_err=0.0,
-            ms=cuda_ms(torch, lambda: tp.masked_topk(dd, mm, k)),
+            ms=cuda_ms(torch, lambda: tp.masked_topk(dd, mm, k), iters=20),
             plain_ms=cuda_ms(torch, lambda: tp.masked_topk_plain(dd, mm, k),
                              iters=3),
             library_ms=cuda_ms(torch, lambda: torch.topk(
-                src, kl, dim=1, largest=False, sorted=True)),
+                src, kl, dim=1, largest=False, sorted=True), iters=20),
+            device_us=min(device_us_each(
+                torch, [lambda: tp.masked_topk(dd, mm, k)] * 10)),
             bound_ms=bms, bound_by=by)
+        del src
+    del qmask
     k = 128
     vk, rk = tp.masked_approx_topk(dm, rmask, k)
     vp, rp = tp.masked_approx_topk_plain(dm, rmask, k)
@@ -517,7 +540,7 @@ def b1_b4_checks(torch, tp, hn, km, dev, results):
                          lambda: tp.masked_approx_topk_plain(dm, rmask, k),
                          iters=3),
         library_ms=None, bound_ms=bms, bound_by=by)
-    del dm, masked, vk, rk, vp, rp
+    del dm, vk, rk, vp, rp
 
 
 def make_corpus(n: int, d: int, seed: int):
@@ -2472,9 +2495,10 @@ def ivf_work(lists, mask, probe, b: int, k: int, d: int, elem: int):
 def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
     """K10, K11 (serve, link, above layer 0) and K13 on bf16 rows, K12 on
     bf16 rows and by metric, K1 by metric on f32 and bf16 rows, and
-    chunked_topk with negative distances at k 10 (the fused chunk step)
-    and 1,024 (mask pass, radix select, merge), against their plain
-    versions on the 1M index's state."""
+    chunked_topk with negative distances at k 10 (the fused chunk step),
+    300 and 1,024 (the filtered select: a bar, survivors, a sort and a
+    merge by binary search), against their plain versions on the 1M
+    index's state."""
     from fabstir_vectordb_tpu_torch.index import fused as fu
     from fabstir_vectordb_tpu_torch.index import hnsw as hn
     from fabstir_vectordb_tpu_torch.index import ivf as iv
@@ -2697,8 +2721,9 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
                 names.append(key)
 
     # chunked_topk over negative (dot) distances of 32 queries, 8 chunks: at
-    # k = 10 the fused step (one launch a chunk), at k = 1,024 the mask
-    # pass, radix select and merge
+    # k = 10 the fused step (one launch a chunk), at k = 300 (just past the
+    # fused kernel's reach) and 1,024 the filtered select; each held to the
+    # plain steps over the same distances exactly
     b, n = 32, cap
     chunk = n // 8
     dall = torch.stack([-(qd[:b] @ xf[lo:lo + chunk].T)
@@ -2712,7 +2737,8 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
         i = start // chunk
         return dall[i], keep[i]
 
-    for k in (10, 1024):
+    card = card_line()
+    for k in (10, 300, 1024):
         def plain_run():
             vals = torch.full((b, k), float("inf"), device=dev)
             rows = torch.full((b, k), -1, dtype=torch.int32, device=dev)
@@ -2730,23 +2756,38 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
         vp, rp = plain_run()
         if not (vk[:, 0] < 0).all():
             fail(f"{key}: the dot distances are not negative")
-        tol = 1e-5 * (x_sq_max * q_sq_max) ** 0.5
-        err, differ = topk_check(key, vk, rk, vp, rp, tol)
+        if not (torch.equal(rk, rp) and torch.equal(vk, vp)):
+            fail(f"{key}: differs from its plain version")
+        # each step's device time (the card kept busy while the host queues
+        # them) and the host time of a step
+        work = tp.chunk_scratch(b, chunk, min(k, chunk), dev, k)
+        sv = [(torch.full((b, k), float("inf"), device=dev),
+               torch.full((b, k), -1, dtype=torch.int32, device=dev))]
+        sv.append((torch.empty_like(sv[0][0]), torch.empty_like(sv[0][1])))
+        steps = [lambda i=i: tp.chunk_step(dall[i], keep[i], i * chunk,
+                                           *sv[i % 2], k, sv[(i + 1) % 2],
+                                           work) for i in range(8)]
+        step_us = device_us_each(torch, steps)
         run_v = torch.full((b, k), float("inf"), device=dev)
         run_r = torch.full((b, k), -1, dtype=torch.int32, device=dev)
         outs = (torch.empty_like(run_v), torch.empty_like(run_r))
-        work = tp.chunk_scratch(b, chunk, k, dev) if k <= 256 else None
         bms, by = bound(b * n * 4 + n + b * k * 8, 0.0)
         results[key] = dict(
             shape=f"B={b} N={n} chunk={chunk} k={k} (dot distances, masked)",
-            max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+            max_abs_err=0.0,
             ms=cuda_ms(torch, run), plain_ms=cuda_ms(torch, plain_run),
             library_ms=cuda_ms(torch, lambda: torch.topk(flat_d, k,
                                                          largest=False)),
+            first_step_us=step_us[0],
+            later_step_us=sum(step_us[1:]) / 7,
             step_host_us=host_us(torch, lambda: tp.chunk_step(
                 dall[0], keep[0], 0, run_v, run_r, k, outs, work)),
             run_host_us=host_us(torch, run, calls=20),
             bound_ms=bms, bound_by=by)
+        print(f"{key} step device us: first {step_us[0]:.1f}, then "
+              + " ".join(f"{u:.1f}" for u in step_us[1:]) + "; host us a "
+              f"step {results[key]['step_host_us']:.1f} ({card})",
+              flush=True)
         launch_of[key] = counts["chunk_step"]
         names.append(key)
     del xf, sq_f, dall, flat_d
@@ -4720,7 +4761,7 @@ def cold_phase(torch, native, card: str, perf: dict, results: dict,
     launch_of["set_member_rows"] = native.launches["set_member_rows"]
     launch_of["lloyd_step"] = native.launches["lloyd_step"]
     launch_of["masked_approx_topk"] = native.launches["masked_approx_topk"]
-    for tag in ("k=16", "k=1024", "k>N"):
+    for tag in ("k=16", "k=1024", "k=1024 BxN mask", "k>N"):
         launch_of[f"masked_topk[{tag}]"] = native.launches["masked_topk"]
     peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
     perf.update(cold_save_s=save_s, cold_saved_gb=saved_bytes / 1e9,
@@ -4833,7 +4874,7 @@ SOURCES = {
     # K2; K10, K11 then K12
     "flat_search_rerank": "fabstir_vectordb_tpu_torch/index/fused.py",
     "hybrid_search": "fabstir_vectordb_tpu_torch/index/fused.py",
-    # a chunk's mask pass, radix select and K8's merge
+    # the fused chunk step, or past k = 256 the filtered select
     "chunked_topk": "fabstir_vectordb_tpu_torch/csrc/merge_topk.cu",
     # K7's pick and min-update, one pair a centroid
     "kmeans_pp_init": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",

@@ -1,5 +1,5 @@
-// K8's merge: two top-k lists of each query into one; and chunked_topk's
-// step, a chunk's masked top-k merged into a running list.
+// K8's merge: two top-k lists of each query into one; chunked_topk's step,
+// a chunk's masked top-k merged into a running list; and masked_topk.
 //
 // Replaces the JAX package's merge_topk (ops/topk.py:61), which the
 // reduced-rank calibration oracle (_oracle_step, index/fused.py:206) calls
@@ -13,23 +13,18 @@
 // chunked_topk (ops/topk.py:73) is the reference's fori_loop over row
 // chunks: dist_fn(start) gives a chunk's [B, chunk] distances and mask, its
 // masked top-k (rows offset by start) merges into the running [B, k]. At
-// kc = min(k, chunk) <= 256 its step is one launch, chunk_topk_kernel below.
-// Above, it is a composition of ported kernels: a pass that writes +inf
-// where the mask is False, topk_select.cuh's radix select over the chunk
-// (whose keys order negative distances, so any dist_fn may be given) and
-// the merge above with b_base = start.
-//
-// masked_topk (ops/topk.py:20) over a given [B, N] distance matrix is the
-// chunk step's first two parts on one chunk of N rows, with no running
-// list: the mask pass, then the radix select straight into the [B, k]
-// output, which pads with (+inf, -1) where fewer than k entries are valid
-// (k > N included). A distance that is not finite never enters.
+// kc = min(k, chunk) <= 256 and k <= 2,048 its step is one launch,
+// chunk_topk_kernel below; above, the filtered select below. masked_topk
+// (ops/topk.py:20) over a given [B, N] distance matrix is a step with no
+// running list: a row of at most SORT_SMEM entries is sorted whole by one
+// block, k <= 256 takes chunk_topk_kernel, larger k the filtered select. A
+// distance that is not finite never enters.
 //
 // What bounds it: at the oracle's shape (128 probes, two lists of 11) the
 // merge moves 128 * 44 * 8 bytes, a few microseconds of launch; the work is
-// (ka + kb)^2 comparisons a query. A chunk step has to read the chunk's
-// distances and mask once (16 MB at B = 32, chunk = 131,072: ~5 us of HBM),
-// so at that size launches and host time set its pace.
+// (ka + kb)^2 comparisons a query. A step or masked_topk has to read the
+// distances and mask once (16 MB at B = 32, chunk = 131,072: ~5 us of HBM;
+// 512 MB at [128, 1M]: 0.16 ms).
 //
 // Design of the merge: one block a query. Each thread ranks its entries by
 // counting the entries that order before them (reading both lists through
@@ -53,6 +48,28 @@
 // list's entries the same way and writes the k first, padded with (+inf,
 // -1). With no running list (a null run_v) the kernel is masked_topk at k
 // <= 256.
+//
+// Design of the filtered select (past the fused kernel's reach): three
+// launches, no host sync, nothing allocated a step. The bar is read on the
+// card: the running list's k-th key (the list is sorted, as every step
+// leaves it), or, while the list is padded or there is none, the upper edge
+// of the bin that holds the chunk's kc-th entry in a histogram of the keys'
+// top 12 bits (a pass over the chunk whose blocks return at once where the
+// running list gives a bar; the last block of a query picks the bin and
+// zeroes the counts). The filter pass, a grid of (slices, B), reads the
+// distances once more, the mask in place, and appends every entry that
+// orders strictly before the bar to the query's survivor buffer
+// (warp-aggregated atomics on a count): about k / i entries of chunk i once
+// the running list is full, at most kc plus one bin's entries on a first
+// chunk. The finishing launch has one block a query: it sorts a query's
+// survivors whole in shared memory where they are at most SORT_SMEM, and
+// otherwise first takes their kc smallest by topk_select.cuh's radix
+// select run inside the block over the buffer (the route is the block's
+// own, from the count on the card). It merges the sorted list with the
+// sorted running list by binary search: an entry's rank is its position
+// plus the other list's entries that order before it (running entries
+// first at equal keys), O(k log k) a query; it writes the k first, padded,
+// and zeroes the survivor count for the next step.
 #include "common.cuh"
 #include "topk_select.cuh"
 
@@ -99,16 +116,6 @@ __global__ void __launch_bounds__(NT) merge_topk_kernel(
       out_r[rank] = ok ? r : -1;
     }
   }
-}
-
-// out[b, j] = d[b, j] where mask[b * mask_stride + j], else +inf.
-__global__ void __launch_bounds__(NT) mask_chunk_kernel(
-    const float* __restrict__ d, const uint8_t* __restrict__ mask,
-    long long mask_stride, int B, int C, float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * NT + threadIdx.x;
-  if (i >= (long long)B * C) return;
-  const long long b = i / C, j = i % C;
-  out[i] = mask[b * mask_stride + j] ? d[i] : INFINITY;
 }
 
 constexpr int CK_MAX = 256;        // kc the fused chunk step takes
@@ -338,16 +345,589 @@ inline size_t chunk_head_bytes(int B) {
   return chunk_arrive_bytes(B) + (size_t)B * 8;
 }
 
+constexpr int HIST_BITS = 12;              // a key's top bits histogrammed
+constexpr int HIST_BINS = 1 << HIST_BITS;  // 4,096 counts: 16 KB
+constexpr int SCAN_BLOCKS = 1056;          // hist / filter blocks: 8 an SM
+constexpr int SCAN_MIN_SLICE = 2048;       // distances a block at least
+
+// The fused kernel takes the step at kc <= 256 and k <= 2,048.
+inline bool fused_route(int kc, int k) {
+  return kc <= CK_MAX && k <= CK_MAX_RUN;
+}
+
+// Slices of a query the hist and filter passes take.
+inline int scan_slices(int B, int C) {
+  int s = (SCAN_BLOCKS + B - 1) / B;
+  const int cap = (C + SCAN_MIN_SLICE - 1) / SCAN_MIN_SLICE;
+  s = cap < s ? cap : s;
+  return s > 1 ? s : 1;
+}
+
+// The filtered select's scratch: histograms [B][HIST_BINS] | arrival counts
+// [B] | survivor counts [B] (the head: zero before the first step, and left
+// so) | histogram bars [B] | survivors [B][C] keys | at kc > SORT_SMEM the
+// chunk lists [B][pow2(kc)] keys.
+struct FilterScratch {
+  int* hist;
+  int* arrive;
+  int* cnt;
+  unsigned long long* hbar;
+  unsigned long long* surv;
+  unsigned long long* lists;
+};
+
+// Byte offsets of FilterScratch's parts and its end (the head is [0,
+// hbar)).
+struct FilterLayout {
+  size_t arrive, cnt, hbar, surv, lists, total;
+};
+
+inline FilterLayout filter_layout(int B, int C, int kc) {
+  const size_t ints = round_up16(B * 4ull);
+  FilterLayout l;
+  l.arrive = (size_t)B * HIST_BINS * 4;
+  l.cnt = l.arrive + ints;
+  l.hbar = l.cnt + ints;
+  l.surv = l.hbar + round_up16(B * 8ull);
+  l.lists = l.surv + round_up16((size_t)B * C * 8);
+  l.total = l.lists +
+            (kc > SORT_SMEM ? (size_t)B * pow2_at_least(kc) * 8 : 0);
+  return l;
+}
+
+inline FilterScratch carve_filter(void* base, const FilterLayout& l) {
+  unsigned char* p = static_cast<unsigned char*>(base);
+  FilterScratch f;
+  f.hist = reinterpret_cast<int*>(p);
+  f.arrive = reinterpret_cast<int*>(p + l.arrive);
+  f.cnt = reinterpret_cast<int*>(p + l.cnt);
+  f.hbar = reinterpret_cast<unsigned long long*>(p + l.hbar);
+  f.surv = reinterpret_cast<unsigned long long*>(p + l.surv);
+  f.lists = reinterpret_cast<unsigned long long*>(p + l.lists);
+  return f;
+}
+
+// The running list's k-th key (NO_KEY while it is padded, or with none).
+__device__ __forceinline__ unsigned long long run_bar(const float* run_v,
+                                                      const int* run_r, int k,
+                                                      int b) {
+  if (run_v == nullptr) return NO_KEY;
+  const size_t i = (size_t)b * k + k - 1;
+  return entry_key(run_v[i], run_r[i]);
+}
+
+// Entries of the sorted running list (v, r)[0 .. n) whose key orders before
+// `key` (or at most `key`).
+__device__ __forceinline__ int count_run(const float* v, const int* r, int n,
+                                         unsigned long long key,
+                                         bool or_equal) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const unsigned long long e = entry_key(v[mid], r[mid]);
+    if (or_equal ? e <= key : e < key) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Bitonic sort of a[0 .. sz) ascending by the whole block (sz a power of
+// two; a in shared or global memory), one compare-exchange a pair.
+__device__ void block_sort(unsigned long long* a, int sz) {
+  for (int len = 2; len <= sz; len <<= 1) {
+    for (int j = len >> 1; j > 0; j >>= 1) {
+      for (int q = threadIdx.x; q < (sz >> 1); q += blockDim.x) {
+        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1)), p = i + j;
+        const unsigned long long x = a[i], y = a[p];
+        if ((x > y) == ((i & len) == 0)) {
+          a[i] = y;
+          a[p] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The radix select of topk_select.cuh inside one block: the m = min(k, n)
+// smallest of the n distinct keys a[0 .. n), written unsorted to out[0 ..
+// m); returns m. A pass histograms one 8-bit digit (from the top) of the
+// keys that share the digits resolved so far (one shared atomic per
+// distinct digit of a warp), warp 0 picks the digit that holds the m-th
+// key, and the passes stop once that digit's keys are taken whole; then
+// every key at or below the prefix is written out. h [256], s_state [2]
+// and s_cnt are shared.
+__device__ int block_select_keys(const unsigned long long* __restrict__ a,
+                                 int n, int k, unsigned long long* out,
+                                 int* h, unsigned long long* s_state,
+                                 int* s_cnt) {
+  constexpr int U = 4;  // keys a thread loads at once
+  const int t = threadIdx.x, T = blockDim.x, m = min(k, n);
+  unsigned long long prefix = 0ull;
+  int krem = m, shift = 0;
+  for (int pass = 0; pass < SEL_PASSES; ++pass) {
+    const int s = 56 - 8 * pass;
+    for (int i = t; i < 256; i += T) h[i] = 0;
+    __syncthreads();
+    for (int i0 = 0; i0 < n; i0 += T * U) {  // the same trip count in a block
+      unsigned long long c[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = i0 + u * T + t;
+        c[u] = j < n ? a[j] : 0ull;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool take = i0 + u * T + t < n &&
+                          (pass == 0 || (c[u] >> (s + 8)) == (prefix >> (s + 8)));
+        const unsigned bin = (unsigned)(c[u] >> s) & 255u;
+        const unsigned mk = __ballot_sync(FULL, take);
+        if (take) {
+          const unsigned peers = __match_any_sync(mk, bin);
+          if ((__ffs(peers) - 1) == (t & 31)) atomicAdd(&h[bin], __popc(peers));
+        }
+      }
+    }
+    __syncthreads();
+    if (t < 32) {  // warp 0: lane l holds digits 8l .. 8l + 7
+      int sum = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) sum += h[t * 8 + q];
+      int x = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, x, off);
+        if (t >= off) x += y;
+      }
+      if (x - sum < krem && x >= krem) {
+        int cum = x - sum, dig = t * 8;
+        while (cum + h[dig] < krem) cum += h[dig++];
+        s_state[0] = prefix | ((unsigned long long)dig << s);
+        s_state[1] = (unsigned long long)(unsigned)(krem - cum) |
+                     ((unsigned long long)(h[dig] == krem - cum) << 32);
+      }
+    }
+    __syncthreads();
+    prefix = s_state[0];
+    krem = (int)(unsigned)(s_state[1] & 0xffffffffull);
+    const bool done = (s_state[1] >> 32) != 0ull;
+    shift = s;
+    __syncthreads();  // h and s_state are written again by the next pass
+    if (done) break;
+  }
+  if (t == 0) *s_cnt = 0;
+  __syncthreads();
+  const unsigned long long top = prefix >> shift;
+  for (int i = t; i < n; i += T) {
+    const unsigned long long c = a[i];
+    if ((c >> shift) <= top) {
+      const int pos = atomicAdd(s_cnt, 1);
+      if (pos < m) out[pos] = c;
+    }
+  }
+  __syncthreads();
+  return m;
+}
+
+// The block's exclusive prefix sum of v, and its total.
+__device__ __forceinline__ int block_excl_sum(int v, int* s_warp,
+                                             int* total) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) s_warp[w] = x;
+  __syncthreads();
+  int base = 0, tot = 0;
+#pragma unroll
+  for (int i = 0; i < NT / 32; ++i) {
+    base += i < w ? s_warp[i] : 0;
+    tot += s_warp[i];
+  }
+  *total = tot;
+  return base + x - v;
+}
+
+// A thread's tile of a slice of a query's distances, from i0 on: with VEC
+// (C a multiple of 4, rows and mask 16- and 4-byte aligned) four 16-byte
+// loads of distances and four 4-byte loads of mask bytes, 16 entries; else
+// CK_UNROLL single loads. Element e's column, and its distance and ok
+// (false where masked out or past hi).
+template <bool VEC>
+struct Tile {
+  static constexpr int E = VEC ? 16 : CK_UNROLL;
+  static constexpr int STEP = NT * E;  // columns a block's tile covers
+
+  __device__ __forceinline__ static int col(int i0, int e) {
+    return VEC ? i0 + ((e >> 2) * NT + (int)threadIdx.x) * 4 + (e & 3)
+               : i0 + e * NT + (int)threadIdx.x;
+  }
+
+  __device__ __forceinline__ static void load(const float* dd,
+                                              const uint8_t* mm, int i0,
+                                              int hi, float* v, bool* ok) {
+    if constexpr (VEC) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = col(i0, 4 * u);
+        float4 x = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+        unsigned m = 0u;
+        if (j < hi) {  // hi is a multiple of 4
+          x = *reinterpret_cast<const float4*>(dd + j);
+          m = mm ? *reinterpret_cast<const unsigned*>(mm + j) : ~0u;
+        }
+        v[4 * u] = x.x;
+        v[4 * u + 1] = x.y;
+        v[4 * u + 2] = x.z;
+        v[4 * u + 3] = x.w;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ok[4 * u + q] = (m >> (8 * q)) & 255u;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < CK_UNROLL; ++u) {
+        const int j = col(i0, u);
+        ok[u] = j < hi && (mm == nullptr || mm[j] != 0);
+        v[u] = j < hi ? dd[j] : INFINITY;
+      }
+    }
+  }
+};
+
+// Slice sl of S of a row of C: [lo, hi), its length a multiple of 4 with
+// VEC.
+template <bool VEC>
+__device__ __forceinline__ void slice_bounds(int C, int sl, int S, int* lo,
+                                             int* hi) {
+  int len = (C + S - 1) / S;
+  if (VEC) len = (len + 3) & ~3;
+  *lo = min(C, sl * len);
+  *hi = min(C, *lo + len);
+}
+
+// Block (s, b): where query b has no bar from its running list, count the
+// keys' top HIST_BITS bits of slice s of its chunk (d [B, C], mask as in
+// chunk_topk_kernel) into hist [B][HIST_BINS]; the query's last block to
+// arrive writes hbar[b], the first key past the bin that holds the kc-th
+// entry (NO_KEY when fewer than kc are finite), and zeroes the counts.
+template <bool VEC>
+__global__ void __launch_bounds__(NT) chunk_hist_kernel(
+    const float* __restrict__ d, const uint8_t* __restrict__ mask,
+    long long mask_stride, int C, int kc, const float* __restrict__ run_v,
+    const int* __restrict__ run_r, int k, int* __restrict__ hist,
+    int* __restrict__ arrive, unsigned long long* __restrict__ hbar) {
+  __shared__ int h[HIST_BINS];
+  __shared__ int s_warp[NT / 32];
+  __shared__ int s_last;
+  const int sl = blockIdx.x, S = gridDim.x, b = blockIdx.y, t = threadIdx.x;
+  if (run_bar(run_v, run_r, k, b) != NO_KEY) return;  // the list bounds it
+  for (int i = t; i < HIST_BINS; i += NT) h[i] = 0;
+  __syncthreads();
+  int lo, hi;
+  slice_bounds<VEC>(C, sl, S, &lo, &hi);
+  const float* dd = d + (size_t)b * C;
+  const uint8_t* mm = mask ? mask + (size_t)b * mask_stride : nullptr;
+  using TL = Tile<VEC>;
+  for (int i0 = lo; i0 < hi; i0 += TL::STEP) {
+    float v[TL::E];
+    bool ok[TL::E];
+    TL::load(dd, mm, i0, hi, v, ok);
+#pragma unroll
+    for (int e = 0; e < TL::E; ++e) {
+      const unsigned dk = dist_key(v[e]);
+      if (ok[e] && finite_key(dk)) atomicAdd(&h[dk >> (32 - HIST_BITS)], 1);
+    }
+  }
+  __syncthreads();
+  int* hb = hist + (size_t)b * HIST_BINS;
+  for (int i = t; i < HIST_BINS; i += NT)
+    if (h[i]) atomicAdd(hb + i, h[i]);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(arrive + b, 1) == S - 1;
+  __syncthreads();
+  if (!s_last) return;
+  // the last block of the query: every count is in
+  __threadfence();
+  constexpr int PER = HIST_BINS / NT;
+  int c[PER], sum = 0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    c[j] = __ldcg(hb + t * PER + j);
+    sum += c[j];
+    hb[t * PER + j] = 0;  // ready for the next launch
+  }
+  int total;
+  const int before = block_excl_sum(sum, s_warp, &total);
+  if (before < kc && before + sum >= kc) {
+    int cum = before, j = 0;
+    while (cum + c[j] < kc) cum += c[j++];
+    const int bin = t * PER + j;
+    hbar[b] = bin + 1 < HIST_BINS
+                  ? (unsigned long long)(bin + 1) << (64 - HIST_BITS)
+                  : NO_KEY;
+  }
+  if (t == 0) {
+    if (total < kc) hbar[b] = NO_KEY;
+    arrive[b] = 0;
+  }
+}
+
+// Block (s, b): append the keys of slice s of query b's chunk (rows start
+// ..) that order strictly before the bar (the running list's k-th, else
+// hbar[b]) to surv [B][C], counted in cnt[b].
+template <bool VEC>
+__global__ void __launch_bounds__(NT) chunk_filter_kernel(
+    const float* __restrict__ d, const uint8_t* __restrict__ mask,
+    long long mask_stride, int C, int start, const float* __restrict__ run_v,
+    const int* __restrict__ run_r, int k,
+    const unsigned long long* __restrict__ hbar, int* __restrict__ cnt,
+    unsigned long long* __restrict__ surv) {
+  const int sl = blockIdx.x, S = gridDim.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  unsigned long long bar = run_bar(run_v, run_r, k, b);
+  if (bar == NO_KEY) bar = hbar[b];
+  int lo, hi;
+  slice_bounds<VEC>(C, sl, S, &lo, &hi);
+  const float* dd = d + (size_t)b * C;
+  const uint8_t* mm = mask ? mask + (size_t)b * mask_stride : nullptr;
+  unsigned long long* out = surv + (size_t)b * C;
+  using TL = Tile<VEC>;
+  for (int i0 = lo; i0 < hi; i0 += TL::STEP) {
+    float v[TL::E];
+    bool ok[TL::E];
+    TL::load(dd, mm, i0, hi, v, ok);
+    unsigned long long e[TL::E];
+    int n = 0;
+#pragma unroll
+    for (int u = 0; u < TL::E; ++u) {
+      e[u] = ok[u] ? entry_key(v[u], start + TL::col(i0, u)) : NO_KEY;
+      n += e[u] < bar;
+    }
+    int x = n;  // the warp's inclusive prefix of survivors
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (lane >= off) x += y;
+    }
+    const int warp_n = __shfl_sync(FULL, x, 31);
+    if (warp_n == 0) continue;  // uniform across the warp
+    int base = 0;
+    if (lane == 31) base = atomicAdd(cnt + b, warp_n);
+    base = __shfl_sync(FULL, base, 31) + x - n;
+#pragma unroll
+    for (int u = 0; u < TL::E; ++u)
+      if (e[u] < bar) out[base++] = e[u];
+  }
+}
+
+constexpr int FIN_NT = 1024;     // threads of a finishing block
+constexpr int RUN_SMEM = 4096;   // running keys it holds in shared memory
+
+// Block b: query b's chunk list, its cnt[b] survivors (at most SORT_SMEM:
+// all of them; else the kc smallest, by block_select_keys, into shared
+// memory or, at kc > SORT_SMEM, lists [B][list_pad]), sorted, merged with
+// the sorted running list (null: none; its keys in shared memory up to
+// RUN_SMEM) by binary search into out_v / out_r [B, k], padded with (+inf,
+// -1); cnt[b] zeroed for the next step.
+__global__ void __launch_bounds__(FIN_NT) chunk_finish_kernel(
+    const unsigned long long* __restrict__ surv, long long C,
+    int* __restrict__ cnt, int kc, unsigned long long* __restrict__ lists,
+    int list_pad, const float* __restrict__ run_v,
+    const int* __restrict__ run_r, int k, float* __restrict__ out_v,
+    int* __restrict__ out_r) {
+  extern __shared__ __align__(16) unsigned long long fs[];
+  __shared__ int h[256];
+  __shared__ unsigned long long s_state[2];
+  __shared__ int s_cnt;
+  const int b = blockIdx.x, t = threadIdx.x, T = blockDim.x;
+  const int n = cnt[b];
+  const unsigned long long* src = surv + (size_t)b * C;
+  unsigned long long* list = fs;
+  int m = n;
+  if (n <= SORT_SMEM) {
+    for (int i = t; i < n; i += T) fs[i] = src[i];
+  } else {
+    if (kc > SORT_SMEM) list = lists + (size_t)b * list_pad;
+    m = block_select_keys(src, n, kc, list, h, s_state, &s_cnt);
+  }
+  const int sz = pow2_at_least(m > 1 ? m : 1);
+  for (int i = m + t; i < sz; i += T) list[i] = NO_KEY;
+  const float* rv = run_v ? run_v + (size_t)b * k : nullptr;
+  const int* rr = run_r ? run_r + (size_t)b * k : nullptr;
+  unsigned long long* rk = fs + SORT_SMEM;
+  const bool held = rv != nullptr && k <= RUN_SMEM;
+  for (int i = t; held && i < k; i += T) rk[i] = entry_key(rv[i], rr[i]);
+  __syncthreads();
+  block_sort(list, sz);
+  const int nr = rv == nullptr ? 0
+                 : held       ? count_before(rk, k, NO_KEY, false)
+                              : count_run(rv, rr, k, NO_KEY, false);
+  float* ov = out_v + (size_t)b * k;
+  int* orow = out_r + (size_t)b * k;
+  for (int i = t; i < nr; i += T) {  // running entries first at equal keys
+    const unsigned long long key = held ? rk[i] : entry_key(rv[i], rr[i]);
+    const int rank = i + count_before(list, m, key, false);
+    if (rank < k) {
+      ov[rank] = rv[i];
+      orow[rank] = rr[i];
+    }
+  }
+  const int mk = m < k ? m : k;
+  for (int j = t; j < mk; j += T) {
+    const unsigned long long key = list[j];
+    const int rank = j + (nr == 0 ? 0
+                          : held ? count_before(rk, nr, key, true)
+                                 : count_run(rv, rr, nr, key, true));
+    if (rank < k) {
+      ov[rank] = key_dist((unsigned)(key >> 32));
+      orow[rank] = (int)((unsigned)key ^ 0x80000000u);
+    }
+  }
+  for (int j = min(nr + m, k) + t; j < k; j += T) {
+    ov[j] = INFINITY;
+    orow[j] = -1;
+  }
+  if (t == 0) cnt[b] = 0;  // every thread read it before the syncs above
+}
+
+// Block b: masked_topk of a row of N <= SORT_SMEM distances, sorted whole
+// in shared memory; the k first written, padded with (+inf, -1).
+__global__ void __launch_bounds__(NT) row_sort_topk_kernel(
+    const float* __restrict__ d, const uint8_t* __restrict__ mask,
+    long long mask_stride, int N, int k, float* __restrict__ out_v,
+    int* __restrict__ out_r) {
+  extern __shared__ __align__(16) unsigned long long fs[];
+  const int b = blockIdx.x, t = threadIdx.x, sz = pow2_at_least(N);
+  const float* dd = d + (size_t)b * N;
+  const uint8_t* mm = mask ? mask + (size_t)b * mask_stride : nullptr;
+  for (int i = t; i < sz; i += NT)
+    fs[i] = i < N && (mm == nullptr || mm[i] != 0) ? entry_key(dd[i], i)
+                                                    : NO_KEY;
+  __syncthreads();
+  block_sort(fs, sz);
+  float* ov = out_v + (size_t)b * k;
+  int* orow = out_r + (size_t)b * k;
+  for (int j = t; j < k; j += NT) {
+    const unsigned long long key = j < sz ? fs[j] : NO_KEY;
+    const bool ok = key != NO_KEY;
+    ov[j] = ok ? key_dist((unsigned)(key >> 32)) : INFINITY;
+    orow[j] = ok ? (int)((unsigned)key ^ 0x80000000u) : -1;
+  }
+}
+
+// The filtered select of one chunk (rows start ..) into out_v / out_r:
+// three launches.
+inline cudaError_t launch_filtered(const float* d, const uint8_t* mask,
+                                   long long mask_stride, int B, int C,
+                                   int kc, int start, const float* run_v,
+                                   const int* run_r, int k,
+                                   const FilterScratch& f, float* out_v,
+                                   int* out_r, cudaStream_t stream) {
+  static int cap[64] = {0};
+  const int smem =
+      (SORT_SMEM + (run_v != nullptr && k <= RUN_SMEM ? k : 0)) * 8;
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(chunk_finish_kernel), smem, cap);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(scan_slices(B, C), B);
+  const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(d) % 16 == 0 &&
+                   (mask == nullptr ||
+                    (reinterpret_cast<uintptr_t>(mask) % 4 == 0 &&
+                     mask_stride % 4 == 0));
+  if (vec)
+    chunk_hist_kernel<true><<<grid, NT, 0, stream>>>(
+        d, mask, mask_stride, C, kc, run_v, run_r, k, f.hist, f.arrive,
+        f.hbar);
+  else
+    chunk_hist_kernel<false><<<grid, NT, 0, stream>>>(
+        d, mask, mask_stride, C, kc, run_v, run_r, k, f.hist, f.arrive,
+        f.hbar);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  if (vec)
+    chunk_filter_kernel<true><<<grid, NT, 0, stream>>>(
+        d, mask, mask_stride, C, start, run_v, run_r, k, f.hbar, f.cnt,
+        f.surv);
+  else
+    chunk_filter_kernel<false><<<grid, NT, 0, stream>>>(
+        d, mask, mask_stride, C, start, run_v, run_r, k, f.hbar, f.cnt,
+        f.surv);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  chunk_finish_kernel<<<B, FIN_NT, smem, stream>>>(
+      f.surv, C, f.cnt, kc, f.lists, pow2_at_least(kc), run_v, run_r, k,
+      out_v, out_r);
+  return cudaGetLastError();
+}
+
+// The fused chunk step's launch (its scratch's head zero).
+inline cudaError_t launch_fused(const float* d, const uint8_t* mask,
+                                long long mask_stride, int B, int C, int kc,
+                                int start, const float* run_v,
+                                const int* run_r, int k, void* work,
+                                float* out_v, int* out_r,
+                                cudaStream_t stream) {
+  static int cap[64] = {0};
+  const int S = chunk_slices(B, C, kc);
+  const int kpad = pow2_at_least(k);
+  const size_t scan = (size_t)(NT / 32) * kc * 8;
+  const size_t merge = ((size_t)S * kc + kpad) * 8;
+  const int smem = (int)(scan > merge ? scan : merge);
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(chunk_topk_kernel), smem, cap);
+  if (e != cudaSuccess) return e;
+  unsigned char* p = static_cast<unsigned char*>(work);
+  int* arrive = reinterpret_cast<int*>(p);
+  unsigned long long* gbar =
+      reinterpret_cast<unsigned long long*>(p + chunk_arrive_bytes(B));
+  unsigned long long* cand =
+      reinterpret_cast<unsigned long long*>(p + chunk_head_bytes(B));
+  chunk_topk_kernel<<<dim3(S, B), NT, smem, stream>>>(
+      d, mask, mask_stride, C, start, kc, run_v, run_r, k, kpad, cand, arrive,
+      gbar, out_v, out_r);
+  return cudaGetLastError();
+}
+
+// Bytes of a step's scratch, by its route, and of its head (zero before
+// the first step).
+inline long long step_scratch_bytes(int B, int C, int kc, int k) {
+  if (fused_route(kc, k))
+    return (long long)(chunk_head_bytes(B) +
+                       (size_t)B * chunk_slices(B, C, kc) * kc * 8);
+  return (long long)filter_layout(B, C, kc).total;
+}
+
+inline long long step_head_bytes(int B, int C, int kc, int k) {
+  return (long long)(fused_route(kc, k) ? chunk_head_bytes(B)
+                                        : filter_layout(B, C, kc).hbar);
+}
+
+// masked_topk's route: a row sort up to SORT_SMEM, the fused kernel at k
+// <= 256, else the filtered select.
+inline bool row_sort_route(int N) { return N <= SORT_SMEM; }
+
 }  // namespace fvdb
 
-// Bytes of scratch the fused chunk step needs for B queries of C distances
-// at kc <= 256: arrival counts [B] | published bars [B] (both zeroed once,
-// before the first step) | slice lists [B][S][kc] 64-bit keys.
-FVDB_EXPORT long long fvdb_chunk_scratch_bytes(int B, int C, int kc) {
+// Bytes of scratch a chunk step of B queries of C distances at kc = min(k,
+// C) needs (zero before the first step; each step leaves it so): at kc <=
+// 256 and k <= 2,048 (the fused kernel) arrival counts [B] | published bars
+// [B] | slice lists [B][S][kc] keys; else the filtered select's
+// (FilterScratch), whose survivor buffer holds [B][C] keys.
+FVDB_EXPORT long long fvdb_chunk_scratch_bytes(int B, int C, int kc, int k) {
   using namespace fvdb;
-  if (B < 1 || C < 1 || kc < 1) return 0;
-  return (long long)(chunk_head_bytes(B) +
-                     (size_t)B * chunk_slices(B, C, kc) * kc * 8);
+  if (B < 1 || C < 1 || kc < 1 || k < kc) return 0;
+  return step_scratch_bytes(B, C, kc, k);
+}
+
+// The bytes of that scratch's head, which must be zero.
+FVDB_EXPORT long long fvdb_chunk_scratch_head(int B, int C, int kc, int k) {
+  using namespace fvdb;
+  if (B < 1 || C < 1 || kc < 1 || k < kc) return 0;
+  return step_head_bytes(B, C, kc, k);
 }
 
 // va/ra [B, ka], vb/rb [B, kb] -> out_v/out_r [B, k].
@@ -364,95 +944,69 @@ FVDB_EXPORT int fvdb_merge_topk(const float* va, const int* ra, int ka,
 }
 
 // One chunk of chunked_topk: d [B, C] distances of rows start .. start +
-// C - 1, mask [B or 1, C] uint8 (mask_stride C or 0; null: every entry);
-// masked [B, C] scratch (unused without a mask); work:
-// fvdb_select_scratch_bytes(B, kc) bytes; cand_v / cand_r [B, kc] scratch;
-// run_v / run_r [B, k] the running list, merged with the chunk's kc best
-// into out_v / out_r [B, k] (not the running list).
+// C - 1, mask [B or 1, C] uint8 (mask_stride C or 0; null: every entry),
+// read in place; run_v / run_r [B, k] the running list, sorted by (value,
+// row) with its padding last as every step leaves it (null: none), merged
+// with the chunk's kc = min(k, C) best into out_v / out_r [B, k] (not the
+// running list); work: work_bytes >= fvdb_chunk_scratch_bytes(B, C, kc, k)
+// bytes whose head is zero, as the step leaves it.
 FVDB_EXPORT int fvdb_chunk_step(const float* d, const uint8_t* mask,
                                 long long mask_stride, int B, int C, int kc,
-                                int start, float* masked, void* work,
-                                float* cand_v, int* cand_r,
-                                const float* run_v, const int* run_r, int k,
-                                float* out_v, int* out_r,
-                                cudaStream_t stream) {
+                                int start, const float* run_v,
+                                const int* run_r, int k, void* work,
+                                long long work_bytes, float* out_v,
+                                int* out_r, cudaStream_t stream) {
   using namespace fvdb;
-  if (B < 1 || C < 1 || kc < 1 || kc > C || k < 1)
+  if (B < 1 || B > 65535 || C < 1 || kc < 1 || kc > C || k < kc ||
+      (kc < k && kc < C) || work == nullptr ||
+      work_bytes < step_scratch_bytes(B, C, kc, k))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* src = d;
-  if (mask != nullptr) {
-    const long long n = (long long)B * C;
-    mask_chunk_kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
-        d, mask, mask_stride, B, C, masked);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    src = masked;
-  }
-  cudaError_t e = launch_select_topk(src, nullptr, nullptr, C, B, kc, work,
-                                     cand_v, cand_r, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  merge_topk_kernel<<<B, NT, 0, stream>>>(run_v, run_r, k, cand_v, cand_r,
-                                          kc, start, k, out_v, out_r);
-  return static_cast<int>(cudaGetLastError());
+  if (fused_route(kc, k))
+    return static_cast<int>(launch_fused(d, mask, mask_stride, B, C, kc,
+                                         start, run_v, run_r, k, work, out_v,
+                                         out_r, stream));
+  return static_cast<int>(launch_filtered(
+      d, mask, mask_stride, B, C, kc, start, run_v, run_r, k,
+      carve_filter(work, filter_layout(B, C, kc)), out_v, out_r, stream));
 }
 
-// One chunk of chunked_topk at kc = min(k, C) <= 256 and k <= 2,048, one
-// launch: d [B, C] distances of rows start .. start + C - 1, mask [B or 1,
-// C] uint8 (mask_stride C or 0; null: every entry), read in place; run_v /
-// run_r [B, k] the running list (null: none), merged with the chunk's kc
-// best into out_v / out_r [B, k] (not the running list); work:
-// work_bytes >= fvdb_chunk_scratch_bytes(B, C, kc) bytes whose head (the
-// arrival counts and published bars) is zero, as the step leaves it.
-FVDB_EXPORT int fvdb_chunk_step_fused(const float* d, const uint8_t* mask,
-                                      long long mask_stride, int B, int C,
-                                      int kc, int start, const float* run_v,
-                                      const int* run_r, int k, void* work,
-                                      long long work_bytes, float* out_v,
-                                      int* out_r, cudaStream_t stream) {
+// Bytes of scratch masked_topk of B rows of N at k needs (0 for the row
+// sort); its head need not be zero.
+FVDB_EXPORT long long fvdb_masked_topk_scratch_bytes(int B, int N, int k) {
   using namespace fvdb;
-  if (B < 1 || B > 65535 || C < 1 || kc < 1 || kc > CK_MAX || kc > C ||
-      k < kc || k > CK_MAX_RUN || work == nullptr ||
-      work_bytes < fvdb_chunk_scratch_bytes(B, C, kc))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static int cap[64] = {0};
-  const int S = chunk_slices(B, C, kc);
-  const int kpad = pow2_at_least(k);
-  const size_t scan = (size_t)(NT / 32) * kc * 8;
-  const size_t merge = ((size_t)S * kc + kpad) * 8;
-  const int smem = (int)(scan > merge ? scan : merge);
-  cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(chunk_topk_kernel), smem, cap);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  unsigned char* p = static_cast<unsigned char*>(work);
-  int* arrive = reinterpret_cast<int*>(p);
-  unsigned long long* gbar =
-      reinterpret_cast<unsigned long long*>(p + chunk_arrive_bytes(B));
-  unsigned long long* cand =
-      reinterpret_cast<unsigned long long*>(p + chunk_head_bytes(B));
-  chunk_topk_kernel<<<dim3(S, B), NT, smem, stream>>>(
-      d, mask, mask_stride, C, start, kc, run_v, run_r, k, kpad, cand, arrive,
-      gbar, out_v, out_r);
-  return static_cast<int>(cudaGetLastError());
+  if (B < 1 || N < 1 || k < 1 || row_sort_route(N)) return 0;
+  return step_scratch_bytes(B, N, k < N ? k : N, k);
 }
 
 // masked_topk: d [B, N], mask [B or 1, N] (mask_stride N or 0; null: every
-// entry); masked [B, N] scratch (unused without a mask); work:
-// fvdb_select_scratch_bytes(B, k) bytes; out_d / out_r [B, k], any k >= 1.
+// entry), read in place; work: fvdb_masked_topk_scratch_bytes(B, N, k)
+// bytes; out_d / out_r [B, k], any k >= 1. One launch at N <= SORT_SMEM or
+// k <= 256 (after zeroing the fused kernel's head), else the filtered
+// select with no running list.
 FVDB_EXPORT int fvdb_masked_topk(const float* d, const uint8_t* mask,
                                  long long mask_stride, int B, int N, int k,
-                                 float* masked, void* work, float* out_d,
-                                 int* out_r, cudaStream_t stream) {
+                                 void* work, long long work_bytes,
+                                 float* out_d, int* out_r,
+                                 cudaStream_t stream) {
   using namespace fvdb;
-  if (B < 1 || N < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const float* src = d;
-  if (mask != nullptr) {
-    const long long n = (long long)B * N;
-    mask_chunk_kernel<<<(unsigned)((n + NT - 1) / NT), NT, 0, stream>>>(
-        d, mask, mask_stride, B, N, masked);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    src = masked;
+  if (B < 1 || B > 65535 || N < 1 || k < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (row_sort_route(N)) {
+    row_sort_topk_kernel<<<B, NT, pow2_at_least(N) * 8, stream>>>(
+        d, mask, mask_stride, N, k, out_d, out_r);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(launch_select_topk(src, nullptr, nullptr, N, B, k,
-                                             work, out_d, out_r, stream));
+  const int kc = k < N ? k : N;
+  if (work == nullptr || work_bytes < step_scratch_bytes(B, N, kc, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e =
+      cudaMemsetAsync(work, 0, step_head_bytes(B, N, kc, k), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (fused_route(kc, k))
+    return static_cast<int>(launch_fused(d, mask, mask_stride, B, N, kc, 0,
+                                         nullptr, nullptr, k, work, out_d,
+                                         out_r, stream));
+  return static_cast<int>(launch_filtered(
+      d, mask, mask_stride, B, N, kc, 0, nullptr, nullptr, k,
+      carve_filter(work, filter_layout(B, N, kc)), out_d, out_r, stream));
 }

@@ -51,8 +51,9 @@ def masked_topk(dists: torch.Tensor, mask, k: int):
     k >= 1. Returns (vals [B, k] f32, idx [B, k] int32) by (distance,
     index), padded with +inf / -1 (also when k > N); a non-finite distance
     is never selected. The plain version on CPU tensors; on CUDA tensors
-    csrc/merge_topk.cu's fvdb_masked_topk (a mask pass, then
-    topk_select.cuh's radix select) or it raises."""
+    csrc/merge_topk.cu's fvdb_masked_topk, the mask read in place (rows of
+    at most 4,096 sorted whole by one block, k <= 256 the fused chunk
+    kernel, larger k the filtered select), or it raises."""
     if dists.device.type == "cpu":
         return masked_topk_plain(dists, mask, k)
     if dists.device.type != "cuda":
@@ -69,19 +70,26 @@ def masked_topk(dists: torch.Tensor, mask, k: int):
         return out_d.fill_(INF), out_r.fill_(-1)
     m_stride = n if mask is not None and mask.dim() == 2 else 0
     P, I, L = native.P, native.I, native.L
-    for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
-        hi = min(b, lo + _MAX_GRID_Q)
-        masked = torch.empty((hi - lo, n), dtype=torch.float32, device=dev) \
-            if mask is not None else None
-        work = select_scratch("merge_topk", hi - lo, k, dev)
-        m_ptr = 0 if mask is None else (mask[lo:hi].data_ptr() if m_stride
-                                        else mask.data_ptr())
-        native.call(
-            "merge_topk", "fvdb_masked_topk", [P, P, L, I, I, I, P, P, P, P, P],
-            dists[lo:hi].data_ptr(), m_ptr, m_stride, hi - lo, n, k,
-            0 if masked is None else masked.data_ptr(), work.data_ptr(),
-            out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
-            native.stream_of(dists))
+    fn = native.fn("merge_topk", "fvdb_masked_topk",
+                   [P, P, L, I, I, I, P, L, P, P, P])
+    d_ptr, o_d, o_r = dists.data_ptr(), out_d.data_ptr(), out_r.data_ptr()
+    m_ptr = 0 if mask is None else mask.data_ptr()
+    stream = native.stream_of(dists)
+    # the filtered select holds [queries, N] 64-bit survivor keys
+    filtered = n > _SORT_SMEM and k > _FUSED_KC
+    qb = min(_MAX_GRID_Q, max(1, _DUMP_BYTES // (8 * n))) if filtered \
+        else _MAX_GRID_Q
+    for lo in range(0, b, qb):
+        rows = min(b, lo + qb) - lo
+        nbytes = 0 if n <= _SORT_SMEM else native.query(
+            "merge_topk", "fvdb_masked_topk_scratch_bytes", [I, I, I], rows,
+            n, k)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev) \
+            if nbytes else None
+        err = fn(d_ptr + lo * n * 4, m_ptr + lo * m_stride, m_stride, rows,
+                 n, k, 0 if work is None else work.data_ptr(), nbytes,
+                 o_d + lo * k * 4, o_r + lo * k * 4, stream)
+        native.raise_on(err, "merge_topk", "fvdb_masked_topk")
         native.launches["masked_topk"] += 1
     return out_d, out_r
 
@@ -248,13 +256,15 @@ def chunk_step(d, mask, start: int, vals, idx, k: int, out=None,
     """chunked_topk's step: d [B, C] f32 distances of rows start .. start
     + C - 1, mask [C] or [B, C] bool or None; the chunk's masked top-min(k,
     C) by (distance, row), rows offset by ``start``, merged into the running
-    (vals [B, k], idx [B, k] int32). Returns the new running pair, written
-    to ``out`` (a pair of [B, k] tensors that are not the running ones)
-    when given. The plain version on CPU tensors; on CUDA tensors
-    csrc/merge_topk.cu's chunk step or it raises: at min(k, C) <= 256 and k
-    <= 2,048 one launch, whose scratch ``work`` (:func:`chunk_scratch`,
-    reused from step to step) is allocated when not given; above, the mask
-    pass, the radix select of topk_select.cuh and K8's merge."""
+    (vals [B, k], idx [B, k] int32), which is sorted by (distance, row)
+    with its (+inf, -1) padding last, as every step leaves it. Returns the
+    new running pair, written to ``out`` (a pair of [B, k] tensors that are
+    not the running ones) when given. The plain version on CPU tensors; on
+    CUDA tensors one call of csrc/merge_topk.cu's chunk step (at min(k, C)
+    <= 256 and k <= 2,048 the fused kernel, above it the filtered select),
+    the mask read in place, or it raises. ``work`` is its scratch
+    (:func:`chunk_scratch`, reused from step to step, which leave it as
+    they found it), allocated when not given."""
     if d.device.type == "cpu":
         return chunk_step_plain(d, mask, start, vals, idx, k)
     dev = d.device
@@ -274,42 +284,22 @@ def chunk_step(d, mask, start: int, vals, idx, k: int, out=None,
                 or out[0].data_ptr() == vals.data_ptr() \
                 or out[1].data_ptr() == idx.data_ptr():
             raise ValueError("chunk_step: out must be a new [B, k] pair")
-    kc = min(k, c)
-    if kc <= _FUSED_KC and k <= _FUSED_K:
-        if work is None:
-            work = chunk_scratch(b, c, kc, dev)
-        return _fused_step(_fused_fn(), native.stream_of(d), d, mask, start,
-                           vals, idx, k, out, work)
-    native.check(d, "d", torch.float32, 2, dev)
-    _check_mask(mask, b, c, dev)
-    m_stride = c if mask is not None and mask.dim() == 2 else 0
-    masked = torch.empty_like(d) if mask is not None else None
-    cand_v = torch.empty((b, kc), dtype=torch.float32, device=dev)
-    cand_r = torch.empty((b, kc), dtype=torch.int32, device=dev)
-    work = select_scratch("merge_topk", b, kc, dev)
-    P, I, L = native.P, native.I, native.L
-    native.call(
-        "merge_topk", "fvdb_chunk_step",
-        [P, P, L, I, I, I, I, P, P, P, P, P, P, I, P, P, P],
-        d.data_ptr(), 0 if mask is None else mask.data_ptr(), m_stride, b, c,
-        kc, int(start), 0 if masked is None else masked.data_ptr(),
-        work.data_ptr(), cand_v.data_ptr(), cand_r.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), k, out[0].data_ptr(),
-        out[1].data_ptr(), native.stream_of(d))
-    native.launches["chunk_step"] += 1
-    return out
+    if work is None:
+        work = chunk_scratch(b, c, min(k, c), dev, k)
+    return _step(_step_fn(), native.stream_of(d), d, mask, start, vals, idx,
+                 k, out, work)
 
 
-def _fused_fn():
+def _step_fn():
     P, I, L = native.P, native.I, native.L
-    return native.fn("merge_topk", "fvdb_chunk_step_fused",
+    return native.fn("merge_topk", "fvdb_chunk_step",
                      [P, P, L, I, I, I, I, P, P, I, P, L, P, P, P])
 
 
-def _fused_step(fn, stream: int, d, mask, start: int, vals, idx, k: int,
-                out, work):
-    """The fused chunk step's launch, its running and output pairs and
-    scratch checked by the caller: d and the mask are checked here."""
+def _step(fn, stream: int, d, mask, start: int, vals, idx, k: int, out,
+          work):
+    """The chunk step's launch, its running and output pairs and scratch
+    checked by the caller: d and the mask are checked here."""
     b, c = d.shape
     native.check(d, "d", torch.float32, 2, vals.device)
     _check_mask(mask, b, c, vals.device)
@@ -318,17 +308,24 @@ def _fused_step(fn, stream: int, d, mask, start: int, vals, idx, k: int,
              min(k, c), int(start), vals.data_ptr(), idx.data_ptr(), k,
              work.data_ptr(), work.numel(), out[0].data_ptr(),
              out[1].data_ptr(), stream)
-    native.raise_on(err, "merge_topk", "fvdb_chunk_step_fused")
+    native.raise_on(err, "merge_topk", "fvdb_chunk_step")
     native.launches["chunk_step"] += 1
     return out
 
 
-def chunk_scratch(b: int, c: int, kc: int, device) -> torch.Tensor:
-    """The fused chunk step's scratch for b queries of c distances at kc,
-    zeroed (its arrival counts start at 0, and each step leaves them so)."""
-    n = native.query("merge_topk", "fvdb_chunk_scratch_bytes",
-                     [native.I, native.I, native.I], b, c, kc)
-    return torch.zeros(n, dtype=torch.uint8, device=device)
+def chunk_scratch(b: int, c: int, kc: int, device, k: int | None = None
+                  ) -> torch.Tensor:
+    """The chunk step's scratch for b queries of c distances at kc =
+    min(k, c) (k None: kc), its head zeroed (each step leaves it so). At
+    kc <= 256 and k <= 2,048 the fused kernel's, else the filtered
+    select's, whose survivor buffer holds [b, c] 64-bit keys."""
+    k = kc if k is None else k
+    args = ([native.I] * 4, b, c, kc, k)
+    n = native.query("merge_topk", "fvdb_chunk_scratch_bytes", *args)
+    head = native.query("merge_topk", "fvdb_chunk_scratch_head", *args)
+    work = torch.empty(n, dtype=torch.uint8, device=device)
+    work[:head].zero_()
+    return work
 
 
 def chunked_topk(dist_fn, n_total: int, chunk: int, k: int, batch: int,
@@ -341,12 +338,11 @@ def chunked_topk(dist_fn, n_total: int, chunk: int, k: int, batch: int,
     device-side analog of a streaming min-heap. The running list lives on
     ``device`` (None: the card); dist_fn's tensors must be there too.
     Distances may be negative. On the card a run allocates two running
-    pairs, which the steps write in turn; at min(k, chunk) <= 256 the
-    fused step's scratch is allocated at a stream's first run and kept
-    (each step leaves it as it found it), and a chunk costs one C call with
-    only the chunk's own tensors checked."""
+    pairs, which the steps write in turn; the step's scratch is allocated
+    at a stream's first run (one for each chunk width) and kept (each step
+    leaves it as it found it), and a chunk costs one C call with only the
+    chunk's own tensors checked."""
     n_chunks = (n_total + chunk - 1) // chunk
-    kc = min(k, chunk)
     scratch = {}
 
     def run():
@@ -359,20 +355,16 @@ def chunked_topk(dist_fn, n_total: int, chunk: int, k: int, batch: int,
                 vals, idx = chunk_step(d, m, i * chunk, vals, idx, k)
             return vals, idx
         bufs = ((vals, idx), (torch.empty_like(vals), torch.empty_like(idx)))
-        if kc > _FUSED_KC or k > _FUSED_K:
-            for i in range(n_chunks):
-                d, m = dist_fn(i * chunk)
-                vals, idx = chunk_step(d, m, i * chunk, vals, idx, k,
-                                       bufs[(i + 1) % 2])
-            return vals, idx
-        stream = native.stream_of(vals)
-        if (dev, stream) not in scratch:  # runs on one stream take turns
-            scratch[dev, stream] = chunk_scratch(batch, chunk, kc, dev)
-        work, fn = scratch[dev, stream], _fused_fn()
+        stream, fn = native.stream_of(vals), _step_fn()
         for i in range(n_chunks):
             d, m = dist_fn(i * chunk)
-            vals, idx = _fused_step(fn, stream, d, m, i * chunk, vals, idx,
-                                    k, bufs[(i + 1) % 2], work)
+            # runs on one stream take turns; a short last chunk has its own
+            key = (dev, stream, d.shape[-1])
+            if key not in scratch:
+                scratch[key] = chunk_scratch(batch, key[2], min(k, key[2]),
+                                             dev, k)
+            vals, idx = _step(fn, stream, d, m, i * chunk, vals, idx, k,
+                              bufs[(i + 1) % 2], scratch[key])
         return vals, idx
 
     return run
@@ -558,9 +550,11 @@ def _num_sms(device) -> int:
 
 # K1 keeps its lists in shared memory up to this k (csrc/l2_topk.cu)
 _SMALL_K = 256
-# the fused chunk step's reach (csrc/merge_topk.cu): min(k, C) and k
+# the fused chunk step's reach (csrc/merge_topk.cu): min(k, C)
 _FUSED_KC = 256
-_FUSED_K = 2048
+# rows masked_topk sorts whole in shared memory (topk_select.cuh's
+# SORT_SMEM)
+_SORT_SMEM = 4096
 # bytes of [B, N] distances the k > _SMALL_K path holds at once
 _DUMP_BYTES = 1 << 30
 # queries a launch takes (a grid's y and z extents)

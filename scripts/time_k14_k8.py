@@ -7,8 +7,8 @@ computes the same function, with the host time of a wrapper call.
 Shapes are chip_smoke.py's: a block of 524,288 bf16 rows at D = 384 into
 rank 192 (centered, and off-center by three times the rows' spread), 128
 queries, and 32 queries of negative dot distances over 8 chunks of 131,072
-rows, masked, at k = 10 (the fused step) and k = 1,024 (mask pass, radix
-select and merge). Prints one line per measurement and the card's name and
+rows, masked, at k = 10 (the fused step) and k = 1,024 (the filtered
+select). Prints one line per measurement and the card's name and
 power limit; exits non-zero without a card or when a kernel disagrees with
 its plain version.
 """
@@ -188,8 +188,7 @@ def main() -> None:
         run_v = torch.full((b, k), float("inf"), device=dev)
         run_r = torch.full((b, k), -1, dtype=torch.int32, device=dev)
         outs = (torch.empty_like(run_v), torch.empty_like(run_r))
-        work = tp.chunk_scratch(b, chunk, min(k, chunk), dev) \
-            if k <= 256 else None
+        work = tp.chunk_scratch(b, chunk, min(k, chunk), dev, k)
         step = (lambda: tp.chunk_step(dall[0], keep[0], 0, run_v, run_r, k,
                                       outs, work))
         # a step against the run's result: its bar drops almost every entry

@@ -975,44 +975,69 @@ def test_ivf_scan_kernel_by_metric_and_row_type_matches_plain_on_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk,k,masked", [(4096, 10, False),
-                                            (1000, 300, True)])
-def test_chunked_topk_matches_plain_on_card(chunk, k, masked):
-    """chunked_topk with a dist_fn of negative dot distances (and a mask):
-    the composition of the chunk's radix select and K8's merge gives the
-    plain version's rows, whose chunks are offset by their start."""
+@pytest.mark.parametrize("b,n,chunk,k,mask_kind,data", [
+    (16, 20_000, 4096, 10, None, "dot"),
+    (16, 20_000, 1000, 300, "rows", "dot"),
+    (16, 20_000, 4000, 257, "queries", "signed"),
+    (8, 40_000, 10_000, 1024, "rows", "falling"),
+    (1, 30_000, 5000, 2049, None, "dot"),
+    (300, 8192, 2048, 4096, "queries", "signed"),
+    (4, 32_768, 8192, 4096, None, "falling"),
+    (3, 24_000, 12_000, 5000, "rows", "falling")])
+def test_chunked_topk_matches_plain_on_card(b, n, chunk, k, mask_kind, data):
+    """chunked_topk over distances made on the card, against the plain
+    steps over the same distances: the same rows and values exactly. Dot
+    distances (negative), signed ones with ties, NaNs and +-inf, and
+    falling ones (every chunk beats the whole running list, so past the
+    first chunk more than 4,096 entries survive the bar and take the radix
+    select); [C], [B, C] and no mask; the fused step (k = 10) and the
+    filtered select (k = 257 .. 5,000, k > C, B = 1 and 300, a short last
+    chunk)."""
     dev = _card()
-    g = torch.Generator(device=dev).manual_seed(23)
-    n, b = 20_000, 16
-    x = torch.randn(n, 384, device=dev, generator=g)
-    q = torch.randn(b, 384, device=dev, generator=g)
-    keep = torch.rand(n, device=dev, generator=g) < 0.7
+    g = torch.Generator(device=dev).manual_seed(23 + k)
+    if data == "dot":
+        x = torch.randn(n, 384, device=dev, generator=g)
+        q = torch.randn(b, 384, device=dev, generator=g)
+        dist = -(q @ x.T)
+    elif data == "signed":
+        dist = _signed_matrix(g, dev, b, n)
+    else:
+        dist = -torch.arange(n, device=dev, dtype=torch.float32)[None] \
+            .repeat(b, 1) + torch.rand(b, n, device=dev, generator=g)
+    keep = {"rows": lambda: torch.rand(n, device=dev, generator=g) < 0.7,
+            "queries": lambda: torch.rand(b, n, device=dev,
+                                          generator=g) < 0.5,
+            None: lambda: None}[mask_kind]()
 
     def dist_fn(start, on=dev):
-        xs = x[start: start + chunk].to(on)
-        m = keep[start: start + chunk].to(on) if masked else None
-        return -(q.to(on) @ xs.T), m
+        d = dist[:, start: start + chunk].to(on).contiguous()
+        if keep is None:
+            return d, None
+        return d, keep[..., start: start + chunk].to(on).contiguous()
 
     vt, rt = topk_t.chunked_topk(dist_fn, n, chunk, k, b, device=dev)()
     vp, rp = topk_t.chunked_topk(lambda s: dist_fn(s, "cpu"), n, chunk, k,
                                  b, device="cpu")()
-    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
-    assert (vt[:, 0] < 0).all()
-    if masked:
-        assert keep[rt[rt >= 0].long()].all()
+    np.testing.assert_array_equal(rt.cpu().numpy(), rp.numpy())
+    assert torch.equal(vt.cpu(), vp)
+    if keep is not None:
+        ok = rt[rt >= 0].long()
+        assert (keep[ok] if keep.dim() == 1 else keep.gather(
+            1, rt.clamp(min=0).long())[rt >= 0]).all()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,mask_kind", [(10, "rows"), (256, "queries"),
-                                         (256, None), (257, "rows")])
+                                         (256, None), (257, "rows"),
+                                         (1024, "queries"), (2049, None)])
 def test_chunk_step_pruning_bar_on_card(k, mask_kind):
     """A chunk step after a first one: entries that tie the running k-th
     distance exactly (at higher rows, so the running entries keep their
     places), entries just below it, slices whose every entry is masked out
     (the whole second half of the chunk, and for a [B, C] mask one query's
     whole chunk), negative distances; the fused step at kc 10 and 256, the
-    radix select and merge at 257. The plain version's rows and values
-    exactly."""
+    filtered select at 257, 1,024 and 2,049 (its bar the running k-th). The
+    plain version's rows and values exactly."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(29)
     b, c = 8, 40_000
@@ -1382,12 +1407,17 @@ def _signed_matrix(g, dev, b, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,k,mask_kind", [
     (128, 1_048_576, 16, "rows"), (128, 1_048_576, 1_024, "rows"),
-    (37, 4096, 64, "per_query"), (5, 300, 700, "none"),
-    (3, 1000, 256, "sparse")])
+    (128, 1_048_576, 1_024, "per_query"), (37, 4096, 64, "per_query"),
+    (5, 300, 700, "none"), (3, 1000, 256, "sparse"), (5, 4096, 5000, "none"),
+    (9, 4097, 64, "rows"), (9, 4097, 300, "per_query"),
+    (4, 5000, 6000, "rows"), (70_000, 64, 8, "rows")])
 def test_masked_topk_matches_plain_on_card(b, n, k, mask_kind):
-    """B3: the entry point's radix select against the plain sort, exactly
-    (the same (distance, row) list), k > N and NaN / +-inf entries
-    included (never selected)."""
+    """B3: each route of the entry point against the plain sort, exactly
+    (the same (distance, row) list): rows of at most 4,096 sorted whole
+    (k > N, N = 4,096, B past one launch's 65,535), the fused kernel at k
+    <= 256 and the filtered select past it (N = 4,097; k > N past 4,096
+    survivors), [N] and [B, N] masks; NaN / +-inf entries never
+    selected."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(51 + k)
     d = _signed_matrix(g, dev, b, n)

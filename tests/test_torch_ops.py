@@ -292,22 +292,24 @@ def test_launch_counters_stay_at_zero_on_the_cpu():
 
 # ---------------------------------------------------------------- B1-B4
 @pytest.mark.parametrize("mask_kind", ["rows", "per_query", "none"])
-@pytest.mark.parametrize("k", [1, 16, 700])
+@pytest.mark.parametrize("k", [1, 16, 700, 1024, 4097])
 def test_masked_topk_entry_point_matches_reference(mask_kind, k):
     """B3: the ops entry point over a given matrix, k past N included
-    (padded with +inf / -1), equal to the reference's masked_topk."""
+    (padded with +inf / -1), equal to the reference's masked_topk: 7 x 500
+    at k = 1 .. 700, 5 x 4,096 at k = 1,024 and k = 4,097 > N."""
     rng = np.random.default_rng(41)
-    d = rng.standard_normal((7, 500)).astype(np.float32)
-    mask = {"rows": rng.random(500) < 0.6,
-            "per_query": rng.random((7, 500)) < 0.6,
+    b, n = (7, 500) if k <= 700 else (5, 4096)
+    d = rng.standard_normal((b, n)).astype(np.float32)
+    mask = {"rows": rng.random(n) < 0.6,
+            "per_query": rng.random((b, n)) < 0.6,
             "none": None}[mask_kind]
-    jm = np.ones(500, bool) if mask is None else mask
-    vj, ij = topk_j.masked_topk(jnp.asarray(d), jnp.asarray(jm), min(k, 500))
+    jm = np.ones(n, bool) if mask is None else mask
+    vj, ij = topk_j.masked_topk(jnp.asarray(d), jnp.asarray(jm), min(k, n))
     vt, it = topk_t.masked_topk(
         torch.from_numpy(d), None if mask is None else torch.from_numpy(mask),
         k)
-    assert tuple(vt.shape) == (7, k) and it.dtype == torch.int32
-    kj = min(k, 500)
+    assert tuple(vt.shape) == (b, k) and it.dtype == torch.int32
+    kj = min(k, n)
     _assert_topk_equal(vj, ij, vt.numpy()[:, :kj], it.numpy()[:, :kj])
     assert (it.numpy()[:, kj:] == -1).all()
     assert np.isinf(vt.numpy()[:, kj:]).all()

@@ -98,17 +98,21 @@ def _distances(seed, b, n, chunk):
     return dist
 
 
-@pytest.mark.parametrize("k,mask_kind", [
-    (7, None), (7, "rows"), (7, "queries"),
-    (300, None), (300, "rows"), (300, "queries")])
-def test_chunked_topk_matches_reference(k, mask_kind):
-    """chunked_topk over four chunks of 100 rows, the port's against the
-    reference's fori_loop: negative distances, equal distances in two
+@pytest.mark.parametrize("k,mask_kind,chunk", [
+    pytest.param(k, m, 100, id=f"{k}-{m}")
+    for k, m in ((7, None), (7, "rows"), (7, "queries"), (300, None),
+                 (300, "rows"), (300, "queries"))] + [
+    pytest.param(300, "rows", 512, id="300-rows-512"),
+    pytest.param(1100, "queries", 512, id="1100-queries-512")])
+def test_chunked_topk_matches_reference(k, mask_kind, chunk):
+    """chunked_topk over four chunks of 100 or 512 rows, the port's against
+    the reference's fori_loop: negative distances, equal distances in two
     chunks, a chunk whose every entry is masked out ([C] and [B, C] masks,
     or none), a running list still padded after the first chunk (most of it
     masked at k = 7; k = 300 > C pads it at any mask), k <= 256 and
-    k > 256."""
-    b, chunk = 5, 100
+    k > 256; at chunk 512, the last chunk's every fifth entry ties the
+    running k-th (k = 300) and k = 1,100 exceeds the chunk."""
+    b = 5
     n = 4 * chunk
     dist = _distances(72, b, n, chunk)
     rng = np.random.default_rng(73)
@@ -124,6 +128,12 @@ def test_chunked_topk_matches_reference(k, mask_kind):
         keep[2 * chunk:3 * chunk] |= keep[:chunk]
     if mask_kind is None:
         keep = np.ones(n, bool)
+    if chunk == 512 and k < chunk:  # ties with the running k-th, last chunk
+        kth = np.sort(np.where(keep, dist, np.inf)[:, :3 * chunk], 1)[:, k - 1]
+        tie = np.isfinite(kth)
+        assert tie.any()
+        cols = 3 * chunk + np.arange(0, chunk, 5)
+        dist[np.ix_(tie, cols)] = kth[tie, None]
 
     def fn_j(start):  # start is traced inside the reference's fori_loop
         d = jax.lax.dynamic_slice_in_dim(jnp.asarray(dist), start, chunk, 1)
