@@ -30,7 +30,12 @@
    (the entry point among them), and 2,048 inserts linked through the beam
    plan. The counters must show K1, K4, K5, K6, K10, K11 and K12. Then K10,
    K11, K12, K13 and K1 at k = 1,024 and 16,384 against their plain
-   versions on the index's own state.
+   versions on the index's own state; K12 with its stages' device time
+   apart (the grouped route's work list, scan and select, from
+   torch.profiler's kernel records) and the list rows it reads as
+   modelled from its probes beside the distinct rows a bound counts, at
+   B = 1 (the per-query route) and with every query probing the longest
+   list.
 6. Reduced phase: the same index in the reduced-rank regime, the default
    above the flat threshold, as bench.py's bench_pca serves it (flat
    threshold 0, FVDB_PCA_RERANK=device, rank and oversample auto): the
@@ -115,9 +120,11 @@
    and 4 shards, 2,048 inserts into the 1M graph >= 99% at rank 1;
    persistence saved at 4 shards and loaded at 2, search bit-identical
    (flat 1M; IVF on 16 lists). The counters must show every kernel of the
-   path; then the shard merge (S in 1, 4, 8; k_s in 10, 200, 2,048),
-   set-rows, K6's partial and finish, K12 with a list range and each
-   composition against their plain versions.
+   path; then the shard merge (each route by S * k_s, 30 to 20,000, with
+   -1 rows and NaN distances in mid-list and a row map that drops rows;
+   at its four path shapes its device and host microseconds beside
+   torch.topk's), set-rows, K6's partial and finish, K12 with a list range
+   and each composition against their plain versions.
 12. Cold phase: bench.py's cold-start tier (bench_cold_serve) on the same
    1M index, after the parallel phase: the chunked save to a
    MemoryObjectStore; a lazy load (its serve-ready time: the sidecars), the
@@ -865,7 +872,7 @@ def k7_checks(torch, ctx, results: dict) -> None:
     from fabstir_vectordb_tpu_torch.ops import kmeans as km
 
     d = ctx["d"]
-    dev = ctx["h"].store.device
+    dev = ctx["h"].store.torch_device
     x = torch.from_numpy(ctx["x"][:10_000]).to(dev)
     n = x.shape[0]
     mask = torch.ones(n, dtype=torch.bool, device=dev)
@@ -1189,6 +1196,7 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
     tl = lists.tiles
     n_c = int(lists.centroids.shape[0])
     bms, by = bound(*work["ivf_scan"])
+    scan_args = (x_d, xsq_d, st["ivf_mask"], lists, pk, qd, k_srv)
     results["ivf_scan"] = dict(
         shape=f"B=128 C={n_c} n_probe=16 k={k_srv} L_pad={tl.shape[1]} "
               f"(query, row) pairs={pairs} distinct rows={rows_once}",
@@ -1197,8 +1205,41 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         ms=cuda_ms(torch, lambda: iv.ivf_search(*ivf_args)),
         plain_ms=cuda_ms(torch, lambda: iv.ivf_search_plain(*ivf_args),
                          iters=2, warmup=1),
-        bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=by,
+        stage_us=k12_stage_us(torch, lambda: iv.ivf_scan(*scan_args)),
+        modelled_reads=k12_reads(torch, lists, st["ivf_mask"], pk, d, 4))
     launch_of["ivf_scan"] = counts["ivf_scan"]
+    # B = 1 (single searches: the per-query route) and every query probing
+    # the longest list (one list's groups and chunks), against the plain
+    # version on the same probes
+    one = tuple(a[:1] if i in (4, 5) else a for i, a in enumerate(scan_args))
+    vk, rk_ = iv.ivf_scan(*one)
+    vp, rp_ = iv.ivf_scan_plain(*one)
+    err1, differ1 = topk_check("ivf_scan[B=1]", vk, rk_, vp, rp_, tol)
+    rd1 = k12_reads(torch, lists, st["ivf_mask"], pk[:1], d, 4,
+                    grouped=False)
+    bms1, by1 = bound(rd1["distinct_bytes"], 2.0 * d * rd1["rows_read"])
+    results["ivf_scan[B=1]"] = dict(
+        shape=f"B=1 C={n_c} n_probe=16 k={k_srv} (the per-query route)",
+        max_abs_err=err1, tol=tol, rows_differing_at_ties=differ1,
+        ms=cuda_ms(torch, lambda: iv.ivf_scan(*one)),
+        device_us=float(np.median(device_us_each(
+            torch, [lambda: iv.ivf_scan(*one)] * 20))),
+        plain_ms=cuda_ms(torch, lambda: iv.ivf_scan_plain(*one), iters=2,
+                         warmup=1),
+        bound_ms=bms1, bound_by=by1,
+        stage_us=k12_stage_us(torch, lambda: iv.ivf_scan(*one)),
+        modelled_reads=rd1)
+    launch_of["ivf_scan[B=1]"] = counts["ivf_scan"]
+    longest = int(torch.argmax(lists.list_len))
+    same = torch.full_like(pk[:, :1], longest)
+    vk, rk_ = iv.ivf_scan(x_d, xsq_d, st["ivf_mask"], lists, same, qd, k_srv)
+    vp, rp_ = iv.ivf_scan_plain(x_d, xsq_d, st["ivf_mask"], lists, same, qd,
+                                k_srv)
+    e_same, _ = topk_check("ivf_scan[one list]", vk, rk_, vp, rp_, tol)
+    results["ivf_scan"]["one_list_check"] = (
+        f"128 queries on list {longest} "
+        f"({int(lists.list_len[longest])} entries), max_abs_err {e_same}")
     hy_args = (x_d, xsq_d, hm, st["ivf_mask"], st["ones"], st["nbrs0"],
                st["nbrs_up"], st["up_offset"], st["entry"],
                st["entry_level"], lists, qd, k_srv, 64, 16, st["has_hnsw"])
@@ -1247,7 +1288,8 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         launch_of[f"l2_topk[k={k}]"] = counts["l2_topk_large"]
     for name in ("greedy_descent", "beam_search[serve]",
                  "beam_search[serve-filtered]", "beam_search[link]",
-                 "ivf_scan", "l2_topk[k=1024]", "l2_topk[k=16384]"):
+                 "ivf_scan", "ivf_scan[B=1]", "l2_topk[k=1024]",
+                 "l2_topk[k=16384]"):
         print_kernel(name, results[name], launch_of[name])
     regime(False)
 
@@ -1255,7 +1297,8 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
 def print_kernel(name: str, r: dict, launches=None) -> None:
     print(f"kernel {name}: agree=True launches={launches} library_ms="
           f"{r.get('library_ms')} " + " ".join(
-              f"{k}={v}" for k, v in r.items() if k != "library_ms"),
+              f"{k}={v}" for k, v in r.items()
+              if k not in ("library_ms", "modelled_reads")),
           flush=True)
 
 
@@ -1736,7 +1779,7 @@ def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
             for _ in range(20)]
     fmask = np.arange(cap) % 10 == 3
     oracle = ti.TieredFlatSearcher(store.data[:count], members,
-                                   device=store.device)
+                                   device=store.torch_device)
     t = time.perf_counter()
     _, exact = oracle.search(sample, 10)
     _, exact_f = oracle.search(sample, 10, extra_mask=fmask[:count])
@@ -1943,7 +1986,7 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
 
     store = h.store
     cap, count = store.capacity, store.count
-    dev = store.device
+    dev = store.torch_device
     xb, sq_host = store._mirror.x, store._mirror.x_sq  # the bf16 mirror
     xf = torch.empty((cap, xb.shape[1]), dtype=torch.float32, device=dev)
     for lo in range(0, cap, 262_144):  # the f32 mirror beside it
@@ -2249,7 +2292,7 @@ def engines_phase(torch, native, card: str, perf: dict, results: dict,
         single, batched = np.stack(single), np.concatenate(batched)
         members = hm0 | im0
         oracle = ti.TieredFlatSearcher(store.data[:store.count], members,
-                                       device=store.device)
+                                       device=store.torch_device)
         t = time.perf_counter()
         _, ex = oracle.search(np.concatenate([qs, qb]), 10)
         oracle_s = time.perf_counter() - t
@@ -2492,6 +2535,60 @@ def ivf_work(lists, mask, probe, b: int, k: int, d: int, elem: int):
     return nbytes, 2.0 * d * (pairs + b * n_c), pairs, rows_once
 
 
+def k12_reads(torch, lists, mask, probe, d: int, elem: int, c_lo: int = 0,
+              grouped: bool = True) -> dict:
+    """The list rows K12 reads for ``probe`` as modelled from the probes,
+    not counted on the card: each probed list's live rows once a group of
+    up to GROUP_QT of its queries (the grouped route) or once a query (the
+    per-query route), beside the distinct live rows a bound counts, as
+    rows and bytes. The model leaves out L2 hits, the tiles, the row ids
+    and the queries."""
+    from fabstir_vectordb_tpu_torch.index import ivf as iv
+
+    tl = lists.tiles
+    c = tl.shape[0]
+    live = ((tl >= 0) & mask[tl.clamp_min(0).long()]).sum(1)
+    loc = probe.long() - c_lo
+    own = (loc >= 0) & (loc < c)
+    cnt = torch.bincount(loc[own], minlength=c)
+    per = (cnt + iv.GROUP_QT - 1) // iv.GROUP_QT if grouped else cnt
+    rows = int((live * per).sum())
+    distinct = int(live[cnt > 0].sum())
+    return {"rows_read": rows, "bytes_read": rows * d * elem,
+            "distinct_rows": distinct, "distinct_bytes": distinct * d * elem}
+
+
+def k12_stage_us(torch, fn, reps: int = 5) -> dict:
+    """Device microseconds a K12 call ``fn`` spends in each stage, from
+    torch.profiler's kernel records over ``reps`` calls (means): the work
+    list (ivf_group_kernel, the grouped route), the list scan
+    (ivf_tasks_kernel, or ivf_scan_kernel on the per-query route) and the
+    selection (every other kernel and memset of the call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = {"group": 0.0, "scan": 0.0, "select": 0.0}
+    kernels = 0
+    for e in p.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kernels += 1
+        stage = ("group" if "ivf_group_kernel" in e.name else
+                 "scan" if "ivf_tasks_kernel" in e.name
+                 or "ivf_scan_kernel" in e.name else "select")
+        us[stage] += e.time_range.elapsed_us() / reps
+    if kernels == 0:
+        return {"not measured": "the profiler recorded no device activity"}
+    return {**us, "route": "grouped" if us["group"] else "per-query"}
+
+
 def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
     """K10, K11 (serve, link, above layer 0) and K13 on bf16 rows, K12 on
     bf16 rows and by metric, K1 by metric on f32 and bf16 rows, and
@@ -2643,7 +2740,10 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
             ms=cuda_ms(torch, lambda: iv.ivf_search(*iargs, metric=metric)),
             plain_ms=cuda_ms(torch, lambda: iv.ivf_search_plain(
                 *iargs, metric=metric), iters=2, warmup=1),
-            library_ms=None, bound_ms=bms, bound_by=by)
+            library_ms=None, bound_ms=bms, bound_by=by,
+            stage_us=k12_stage_us(torch, lambda: iv.ivf_scan(
+                x, x_sq, im, lists, pk, qd, 16, metric=metric)),
+            modelled_reads=k12_reads(torch, lists, im, pk, d, elem))
         launch_of[key] = counts[native.counter("ivf_scan", elem == 2,
                                                metric)]
         names.append(key)
@@ -2895,7 +2995,7 @@ def _scale_run(torch, native, card, perf, results, launch_of, trace,
     h = HybridIndex(d, HybridConfig(
         ivf=IVFConfig(n_clusters=256, n_probe=16, train_size=10_000, seed=0),
         auto_migrate=False), device=None)
-    store, dev = h.store, h.store.device
+    store, dev = h.store, h.store.torch_device
     cfg = SearchConfig(auto_migrate=False)
 
     # ---- the main path, counted from 0
@@ -3135,7 +3235,7 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
 
     store = h.store
     n, d, k = SCALE_ROWS, src.dim, 10
-    dev = store.device
+    dev = store.torch_device
     br = src.block_rows
     n_el = br * d
     # K17 over block 0, the plain version in slices of 65,536 rows; then 64
@@ -3807,9 +3907,17 @@ def plain_kernels(shd, ing):
             setattr(m, name, fn)
 
 
+# the merge's synthetic (S, k_s): each route by S * k_s (a warp to 64, a
+# block's registers to 8,192 and to 16,384, the buffer past it)
+MERGE_CASES = ((1, 10), (1, 64), (1, 200), (1, 2048), (4, 10), (4, 200),
+               (4, 2048), (8, 10), (8, 200), (8, 2048), (5, 4000))
+
+
 def merge_lists(torch, g, dev, s, b, ks):
     """s shards' sorted partial top-ks lists of b queries: signed
-    distances, ties, a (+inf, -1) padded tail on every other query."""
+    distances, ties, a (+inf, -1) padded tail on every other query, and
+    in mid-list -1 rows (with finite distances) and NaN distances, which
+    never enter."""
     vals = torch.randn(s, b, ks, device=dev, generator=g) * 10
     vals[:, :, ::7] = vals[:, :, :1]
     vals, _ = torch.sort(vals, dim=-1)
@@ -3818,6 +3926,9 @@ def merge_lists(torch, g, dev, s, b, ks):
     pad = max(1, ks // 5)
     vals[:, 1::2, -pad:] = float("inf")
     rows[:, 1::2, -pad:] = -1
+    hole = torch.rand(s, b, ks, device=dev, generator=g)
+    rows[hole < 0.03] = -1
+    vals[(hole > 0.5) & (hole < 0.51)] = float("nan")
     return vals.contiguous(), rows.contiguous()
 
 
@@ -3859,12 +3970,12 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
     from fabstir_vectordb_tpu_torch.utils.transfer import to_device
 
     h, x_np, n, d = ctx["h"], ctx["x"], ctx["n"], ctx["d"]
-    dev = h.store.device
+    dev = h.store.torch_device
     gc.collect()
     torch.cuda.empty_cache()
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    mirror = h.store.device_mirror("float32")
+    mirror = h.store.device("float32")
     X, XSQ = mirror.x, mirror.x_sq
     cap = int(X.shape[0])
     rng = np.random.default_rng(21)
@@ -4156,7 +4267,7 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
           f"{PAR_INSERTS} inserts into the 1M graph at S=4 {ins_s:.3f} s, "
           f"{at1:.4f} at rank 1; launches {ins_l} ({card})", flush=True)
     del builder
-    mirror = h.store.device_mirror("float32")  # the store grew: new rows
+    mirror = h.store.device("float32")  # the store grew: new rows
     X, XSQ = mirror.x[:cap], mirror.x_sq[:cap]
 
     # ---- persistence: flat saved at 4 shards, loaded at 2; IVF on a
@@ -4234,20 +4345,25 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
 
     g = torch.Generator(device=dev).manual_seed(22)
     worst = 0.0
-    for s in (1, 4, 8):
-        for ks in (10, 200, 2048):
-            vals, rows = merge_lists(torch, g, dev, s, b, ks)
-            base = torch.arange(s, dtype=torch.int32, device=dev) << 21
-            for k in (10, ks):
-                vk, rk = tp.shard_merge(vals, rows, k, base=base)
-                vp, rp = tp.shard_merge_plain(vals, rows, k, base=base)
-                if not torch.equal(rk, rp):
-                    fail(f"shard_merge S={s} k_s={ks} k={k}: rows differ")
-                fin = torch.isfinite(vp)
-                if not torch.equal(fin, torch.isfinite(vk)):
-                    fail(f"shard_merge S={s} k_s={ks}: padding differs")
-                worst = max(worst, float((vk - vp)[fin].abs().max())
-                            if fin.any() else 0.0)
+    for s, ks in MERGE_CASES:
+        vals, rows = merge_lists(torch, g, dev, s, b, ks)
+        base = torch.arange(s, dtype=torch.int32, device=dev) << 21
+        row_map = torch.randperm(s << 21, device=dev, generator=g).to(
+            torch.int32)
+        row_map[::29] = -1  # rows the map drops never enter
+        for k, rm in ((10, None), (ks, None), (ks, row_map)):
+            vk, rk = tp.shard_merge(vals, rows, k, base=base, row_map=rm)
+            vp, rp = tp.shard_merge_plain(vals, rows, k, base=base,
+                                          row_map=rm)
+            what = f"shard_merge S={s} k_s={ks} k={k}" + (
+                " row map" if rm is not None else "")
+            if not torch.equal(rk, rp):
+                fail(f"{what}: rows differ")
+            fin = torch.isfinite(vp)
+            if not torch.equal(fin, torch.isfinite(vk)):
+                fail(f"{what}: padding differs")
+            worst = max(worst, float((vk - vp)[fin].abs().max())
+                        if fin.any() else 0.0)
     if worst != 0.0:
         fail(f"shard_merge: distances off the plain version's by {worst}")
 
@@ -4266,16 +4382,33 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
         nbytes = s * bb * ks * 8 + bb * k * 8 + s * 4 + (
             s * bb * ks * 4 if row_map is not None else 0)
         bms, by = bound(nbytes, float(s * bb * ks), INT32_OPS)
+
+        def merge():
+            return tp.shard_merge(vals, rows, k, base=base, row_map=row_map)
+
+        def topk():
+            return torch.topk(flat_v, k, dim=1, largest=False)
+
+        # ms: back-to-back calls, the cost a call adds to the path (at
+        # these sizes host time as much as card time), as for torch.topk;
+        # beside them the card's time of one call (events around each of
+        # 20 calls queued behind a sleep; the median) and the host
+        # microseconds a call
         entry(f"shard_merge[{tag}]", launches,
               shape=f"S={s} B={bb} k_s={ks} k={k}"
               + (" row map" if row_map is not None else ""),
-              max_abs_err=max(err, worst), synthetic_cases=18,
-              ms=cuda_ms(torch, lambda: tp.shard_merge(
-                  vals, rows, k, base=base, row_map=row_map)),
+              max_abs_err=max(err, worst),
+              synthetic_cases=3 * len(MERGE_CASES),
+              ms=cuda_ms(torch, merge),
               plain_ms=cuda_ms(torch, lambda: tp.shard_merge_plain(
                   vals, rows, k, base=base, row_map=row_map)),
-              library_ms=cuda_ms(torch, lambda: torch.topk(
-                  flat_v, k, dim=1, largest=False)),
+              library_ms=cuda_ms(torch, topk),
+              device_us=float(np.median(device_us_each(torch,
+                                                       [merge] * 20))),
+              library_device_us=float(np.median(device_us_each(
+                  torch, [topk] * 20))),
+              host_us=host_us(torch, merge, 2000),
+              library_host_us=host_us(torch, topk, 2000),
               bound_ms=bms, bound_by=by)
 
     sl4 = m4.shard_slices(cap, "data")
@@ -4374,7 +4507,12 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
           plain_ms=cuda_ms(torch, lambda: iv.ivf_scan_plain(
               sh0.x, sh0.x_sq, sh0.valid, sh0.lists, probe, Q, 10,
               c_lo=sh0.c_lo), iters=1, warmup=1),
-          library_ms=None, bound_ms=bms, bound_by=by)
+          library_ms=None, bound_ms=bms, bound_by=by,
+          stage_us=k12_stage_us(torch, lambda: iv.ivf_scan(
+              sh0.x, sh0.x_sq, sh0.valid, sh0.lists, probe, Q, 10,
+              c_lo=sh0.c_lo)),
+          modelled_reads=k12_reads(torch, sh0.lists, sh0.valid, probe, d, 4,
+                                   c_lo=sh0.c_lo))
 
     # the compositions: the path's calls, then the same with every kernel
     # swapped for its plain version
@@ -4669,7 +4807,7 @@ def cold_phase(torch, native, card: str, perf: dict, results: dict,
         fail(f"cold: {found:.4f} of the inserts found at rank 1")
 
     # ---- the ops entry points over the loaded rows (B2-B4)
-    mirror = lz.store.device_mirror("float32")
+    mirror = lz.store.device("float32")
     n_rows = lz.store.count
     live_rows = torch.from_numpy(lz.store.active_mask(n_rows)).to(
         mirror.x.device)
@@ -4913,6 +5051,10 @@ SOURCES = {
 # that differ at ties
 TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
             "codes_differing_at_ties", "overlap")
+# measured beside ms: K12's stages (from the profiler), a call's card time
+# (device_us) and host time, and torch.topk's beside the merge's
+DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
+               "library_device_us")
 
 
 def main() -> None:
@@ -5042,10 +5184,16 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **{k: r[k] for k in TIE_KEYS if k in r},
+            **{k: r[k] for k in TIE_KEYS + DETAIL_KEYS if k in r},
         })
     if perf:
         print("main_path " + json.dumps(perf, default=float), flush=True)
+    reads = {key: r["modelled_reads"] for key, r in results.items()
+             if "modelled_reads" in r}
+    if reads:
+        print("k12_reads modelled from the probes (list rows x query "
+              "groups; not counted on the card) " + json.dumps(reads),
+              flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

@@ -176,7 +176,7 @@ __global__ void __launch_bounds__(NT) select_compact_kernel(
   const int b = blockIdx.y, t = threadIdx.x, lane = t & 31;
   SelState* sb = st + b;
   const int kk = sb->k;
-  if (kk == 0) return;
+  if (kk <= 0) return;  // no candidate, or finished before the passes
   const int shift = sb->shift;
   const unsigned long long top = sb->prefix >> shift;
   const float* d = cand_d + (size_t)b * stride;
@@ -212,6 +212,7 @@ __global__ void __launch_bounds__(NT) select_sort_kernel(
   extern __shared__ unsigned long long sbuf[];
   const int b = blockIdx.x, t = threadIdx.x;
   const int kk = st[b].k;
+  if (kk < 0) return;  // a query finished before the passes
   unsigned long long* g = gbuf + (size_t)b * k_pad;
   unsigned long long* buf = k_pad <= SORT_SMEM ? sbuf : g;
   const int sz = kk > 0 ? pow2_at_least(kk) : 1;
@@ -248,24 +249,44 @@ __global__ void __launch_bounds__(NT) select_sort_kernel(
   }
 }
 
-// Select the k smallest (distance, row) of each of B rows of candidates:
-// the first n_per[b] (without n_per, stride) of row b of cand_d; cand_r ==
-// null means a candidate's row is its column. work: fvdb_select_scratch_
-// bytes(B, k) bytes. Writes out_* [B, k].
-inline cudaError_t launch_select_topk(const float* cand_d, const int* cand_r,
-                                      const int* n_per, long long stride,
-                                      int B, int k, void* work, float* out_d,
-                                      int* out_r, cudaStream_t stream) {
-  if (B < 1 || B > 65535 || k < 1 || stride < 1 || work == nullptr)
-    return cudaErrorInvalidValue;
-  const SelScratch s = carve_select(work, B, k);
-  cudaError_t e = cudaMemsetAsync(work, 0, s.zero_bytes, stream);
-  if (e != cudaSuccess) return e;
+// The grid of a pass: (slices, B), each query's candidates over slices.
+inline dim3 select_grid(long long stride, int B, long long per_block) {
   long long slices = (SEL_BLOCKS + B - 1) / B;
+  if (per_block > 0 && (stride + per_block - 1) / per_block > slices)
+    slices = (stride + per_block - 1) / per_block;
   const long long max_slices = (stride + 2047) / 2048;  // >= 2K a block
   if (slices > max_slices) slices = max_slices;
   if (slices < 1) slices = 1;
-  const dim3 grid((unsigned)slices, B);
+  return dim3((unsigned)slices, B);
+}
+
+// Zero the selection's state, histograms and arrival counts.
+inline cudaError_t select_zero(void* work, int B, int k,
+                               cudaStream_t stream) {
+  return cudaMemsetAsync(work, 0, carve_select(work, B, k).zero_bytes,
+                         stream);
+}
+
+// Select the k smallest (distance, row) of each of B rows of candidates:
+// the first n_per[b] (without n_per, stride) of row b of cand_d; cand_r ==
+// null means a candidate's row is its column. work: fvdb_select_scratch_
+// bytes(B, k) bytes. Writes out_* [B, k]. per_block > 0 gives each row at
+// least stride / per_block blocks (long rows of many queries: more loads
+// in flight than SEL_BLOCKS blocks hold). zeroed: the caller has already
+// zeroed the state (select_zero) and may have finished some queries
+// (state done = 1, k = -1), which every pass then leaves alone.
+inline cudaError_t launch_select_topk(const float* cand_d, const int* cand_r,
+                                      const int* n_per, long long stride,
+                                      int B, int k, void* work, float* out_d,
+                                      int* out_r, cudaStream_t stream,
+                                      long long per_block = 0,
+                                      bool zeroed = false) {
+  if (B < 1 || B > 65535 || k < 1 || stride < 1 || work == nullptr)
+    return cudaErrorInvalidValue;
+  const SelScratch s = carve_select(work, B, k);
+  cudaError_t e = zeroed ? cudaSuccess : select_zero(work, B, k, stream);
+  if (e != cudaSuccess) return e;
+  const dim3 grid = select_grid(stride, B, per_block);
   for (int pass = 0; pass < SEL_PASSES; ++pass) {
     select_pass_kernel<<<grid, NT, 0, stream>>>(cand_d, cand_r, n_per, stride,
                                                  k, pass, s.st, s.hist,

@@ -38,13 +38,13 @@ class FlatIndex:
         FVDB_SERVING_DTYPE); the store holds one mirror, so pinning another
         dtype replaces the serving one."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
-        mirror = self.store.device_mirror(dtype or limits.serving_dtype())
+        mirror = self.store.device(dtype or limits.serving_dtype())
         n = int(mirror.x.shape[0])
         mask = self.store.active_mask(n)
         if extra_mask is not None:
             mask = mask & fit_mask(extra_mask, n)
         k_eff = min(bucket(k), n)
-        dev = self.store.device
+        dev = self.store.torch_device
         d, rows = l2_topk(mirror.x, mirror.x_sq, to_device(mask, dev),
                           to_device(queries, dev), k_eff,
                           round_query=mirror.x.dtype == torch.bfloat16,
@@ -86,7 +86,7 @@ def recall_at_k(oracle: FlatIndex, approx_rows: np.ndarray,
     count = store.count
     members = store.active_mask(count)
     _, exact = TieredFlatSearcher(store.data[:count], members,
-                                  device=store.device).search(
+                                  device=store.torch_device).search(
         np.atleast_2d(np.asarray(queries, np.float32)), k)
     hits = 0
     total = 0

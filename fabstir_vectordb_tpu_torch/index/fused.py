@@ -385,7 +385,7 @@ class FusedSearcher:
         m = np.ascontiguousarray(extra_mask)
         digest = hashlib.blake2b(m.tobytes(), digest_size=16).digest()
         if digest != self._mask_digest:
-            self._mask_dev = to_device(m, self.hybrid.store.device)
+            self._mask_dev = to_device(m, self.hybrid.store.torch_device)
             self._mask_digest = digest
         return self._mask_dev
 
@@ -412,7 +412,7 @@ class FusedSearcher:
         if pruned:
             h.hnsw._fix_entry_point()  # the entry may have been deleted
         mirror = serving_mirror(h.store)
-        device = h.store.device
+        device = h.store.torch_device
         n = int(mirror.x.shape[0])
         active = h.store.active_mask(n)
         hnsw_mask = active & h.hnsw.member_mask(n)
@@ -487,7 +487,7 @@ class FusedSearcher:
         h.store.release_mirror()
         self._dev = None
         self._key = None
-        device = h.store.device
+        device = h.store.torch_device
         data = h.store.data
         count = max(h.store.count, 1)
         dim = data.shape[1]
@@ -687,7 +687,7 @@ class FusedSearcher:
         if self._members_dev is None or self._members_key != key:
             members = h.store.active_mask(n_rows) & (
                 h.hnsw.member_mask(n_rows) | h.ivf.member_mask(n_rows))
-            self._members_dev = to_device(members, h.store.device)
+            self._members_dev = to_device(members, h.store.torch_device)
             self._members_key = key
         return self._members_dev
 
@@ -700,7 +700,7 @@ class FusedSearcher:
         whole pool."""
         proj = self._proj_state()
         n_rows = proj["n_rows"]
-        device = self.hybrid.store.device
+        device = self.hybrid.store.torch_device
         mask = self._members_state(n_rows)
         if extra_mask is not None:
             mask = mask & self._device_mask(fit_mask(extra_mask, n_rows))
@@ -827,7 +827,7 @@ class FusedSearcher:
         dev = self._device_state(pruned=True)
         extra = (dev["ones"] if extra_mask is None else self._device_mask(
             fit_mask(extra_mask, int(dev["x"].shape[0]))))
-        q = to_device(queries_np, self.hybrid.store.device)
+        q = to_device(queries_np, self.hybrid.store.torch_device)
         vals, rows = hybrid_search(
             dev["x"], dev["x_sq"], dev["hnsw_mask"], dev["ivf_mask"], extra,
             dev["nbrs0"], dev["nbrs_up"], dev["up_offset"], dev["entry"],
@@ -850,7 +850,7 @@ class FusedSearcher:
         mask = dev["members"]
         if extra_mask is not None:
             mask = mask & self._device_mask(fit_mask(extra_mask, cap))
-        q = to_device(queries_np, self.hybrid.store.device)
+        q = to_device(queries_np, self.hybrid.store.torch_device)
         bf16 = x.dtype == torch.bfloat16
         if limits.flat_select() == "approx" and cap > k:
             ov_k = min(bucket(max(limits.flat_oversample(), 4 * k)), cap)

@@ -624,7 +624,7 @@ class HNSWIndex:
                 and tuple(dev["nbrs0"].shape) == self.nbrs0.shape
                 and tuple(dev["nbrs_up"].shape) == self.nbrs_up.shape
                 and tuple(dev["up_offset"].shape) == self.up_offset.shape)
-            device = self.store.device
+            device = self.store.torch_device
             if shapes_ok and (len(self._dirty0) + len(self._dirty_up)
                               < 0.25 * self.nbrs0.shape[0]):
                 for name, host, dirty in (
@@ -760,7 +760,8 @@ class HNSWIndex:
             if plan is not None and plan[0]:
                 n_pad = plan[1]
                 if mask_dev is None:
-                    mask_dev = to_device(self._search_mask(), self.store.device)
+                    mask_dev = to_device(self._search_mask(),
+                                         self.store.torch_device)
                     if pending is not None:  # the in-flight rows are members
                         self._scatter_members(mask_dev, pending[0])
                 levels_new = np.array(
@@ -801,7 +802,7 @@ class HNSWIndex:
         on the closest _HEUR_POOL) WITHOUT reading back."""
         cfg = self.config
         mirror = serving_mirror(self.store)
-        q = to_device(self.store.data[batch], self.store.device)
+        q = to_device(self.store.data[batch], self.store.torch_device)
         vals, ids = l2_topk(mirror.x[:n_pad], mirror.x_sq[:n_pad],
                             mask_dev[:n_pad], q, cfg.ef_construction)
         c_sel = min(cfg.ef_construction, _HEUR_POOL)
@@ -890,7 +891,7 @@ class HNSWIndex:
         """Candidate pools of a batch of new rows (their sampled levels in
         ``levels_new``, read by the per-layer plan)."""
         cfg = self.config
-        device = self.store.device
+        device = self.store.torch_device
         flat_link_ok, n_pad = self._flat_plan()
         if cfg.link_mode == "auto" and flat_link_ok:
             mask = to_device(self._search_mask(), device)
@@ -1127,7 +1128,7 @@ class HNSWIndex:
             p_n = cand_f.size
             if p_n >= _PAIR_DEVICE_MIN:
                 mirror = serving_mirror(self.store)
-                dev = self.store.device
+                dev = self.store.torch_device
                 d_f = pair_sq_l2(
                     mirror.x, mirror.x_sq,
                     to_device(t_rows[tgt_f].astype(np.int32), dev),
@@ -1152,7 +1153,7 @@ class HNSWIndex:
 
             if t_over >= _KEPT_DEVICE_MIN:
                 mirror = serving_mirror(self.store)
-                dev = self.store.device
+                dev = self.store.torch_device
                 kept = heuristic_kept(
                     mirror.x, to_device(cand.astype(np.int32), dev),
                     to_device(d, dev), width).cpu().numpy()
@@ -1192,7 +1193,7 @@ class HNSWIndex:
         # the mask fits the mirror's row count: a concurrent capacity grow
         # between the two snapshots must not mix shapes
         mask = self._search_mask(n=int(mirror.x.shape[0]))
-        device = self.store.device
+        device = self.store.torch_device
         mask_d = to_device(mask, device)
         res_mask = None
         if extra_mask is not None:

@@ -27,9 +27,24 @@ from ..utils.padding import bucket, fit_mask, grow_rows
 from ..utils.transfer import to_device, to_host
 from .store import VectorStore, serving_mirror
 
-# bytes of (distance, row) candidates one K12 launch holds; larger batches
-# run in query chunks
-_CAND_BYTES = 1 << 28
+# bytes of (distance, row) candidates, and of the filtered select's
+# survivor slots, one K12 call holds; larger batches run in query chunks,
+# each of which reads its lists again (a B = 128 batch of the 1M tier at
+# n_probe 16 fits in one)
+_CAND_BYTES = 1 << 30
+# batches of at least this many queries take K12's grouped route (a list
+# read once a group of queries that probe it); smaller ones the per-query
+# route, where lists are rarely shared and a block a (chunk, probe, query)
+# keeps more loads in flight. On the H100, over bench.py's 1M-tier shapes
+# (16 of 256 lists): per-query faster at B = 1, 2, 4 (190 / 327 / 414 us
+# against 274 / 363 / 458), grouped from B = 8 (655 against 778 us;
+# scripts/time_merge_ivf.py)
+GROUP_MIN_B = 8
+# csrc/ivf_scan.cu's task shape: queries a group, list entries a chunk
+GROUP_QT, GROUP_RT = 32, 256
+# ... and its filtered select: up to this k, at most this many survivors a
+# query (8-byte keys) in its scratch
+_BAR_MAX_K, _SURV_CAP = 32, 8192
 
 
 @dataclass
@@ -99,9 +114,47 @@ def ivf_scan_plain(x, x_sq, mask, lists: IVFLists, probe, q, k: int,
     return vals, idx
 
 
+def ivf_groups_plain(probe, list_len, c_lo: int = 0):
+    """Plain version of K12's work list (csrc/ivf_scan.cu's
+    ivf_group_kernel) for probe [B, P] over the lists c_lo .. c_lo + C - 1
+    of list_len [C]: a dict of ``slot`` [B, P] (each pair's candidate-slot
+    offset: its query's earlier probes' owned lengths summed), ``n_lists``
+    [B] (a query's list candidates), ``lstart`` [C + 1] and ``tstart`` [C +
+    1] (exclusive sums of each list's pairs and tasks), ``pair_b`` and
+    ``pair_slot`` (the pairs that scan rows, by list; the card orders a
+    list's pairs by arrival, this version by query) and ``n_tasks``. A
+    task is a group of <= GROUP_QT queries and a chunk of <= GROUP_RT rows
+    of one list."""
+    b, p = probe.shape
+    c = list_len.shape[0]
+    local = probe.long() - c_lo
+    owned = (probe >= 0) & (local >= 0) & (local < c)
+    lens = torch.where(owned, list_len.long()[local.clamp(0, max(c - 1, 0))],
+                       torch.zeros_like(local))
+    slot = torch.cumsum(lens, 1) - lens
+    scans = lens > 0
+    lid = torch.where(scans, local, torch.full_like(local, c))
+    order = torch.argsort(lid.reshape(-1), stable=True)
+    flat = lid.reshape(-1)[order]
+    keep = flat < c
+    cnt = torch.bincount(flat[keep], minlength=c)
+    ll = list_len.long()
+    tasks = torch.where((cnt > 0) & (ll > 0),
+                        ((cnt + GROUP_QT - 1) // GROUP_QT)
+                        * ((ll + GROUP_RT - 1) // GROUP_RT),
+                        torch.zeros_like(cnt))
+    zero = torch.zeros(1, dtype=torch.long, device=probe.device)
+    lstart = torch.cat([zero, torch.cumsum(cnt, 0)])
+    tstart = torch.cat([zero, torch.cumsum(tasks, 0)])
+    return {"slot": slot, "n_lists": lens.sum(1), "lstart": lstart,
+            "tstart": tstart, "pair_b": order[keep] // p,
+            "pair_slot": slot.reshape(-1)[order[keep]],
+            "n_tasks": int(tstart[-1])}
+
+
 def ivf_scan(x, x_sq, mask, lists: IVFLists, probe, q, k: int,
              extra_mask=None, seed=None, metric: str = "euclidean",
-             c_lo: int = 0):
+             c_lo: int = 0, grouped: bool | None = None):
     """K12's list scan and top-k from given probes: probe [B, P] int32
     global list ids (-1: none), of which ``lists.tiles`` [C_local, L_pad]
     holds the lists c_lo .. c_lo + C_local - 1 (each packed at the front
@@ -111,15 +164,29 @@ def ivf_scan(x, x_sq, mask, lists: IVFLists, probe, q, k: int,
     by (distance, row), +inf / -1 padded. K15's sharded IVF search runs it
     on each shard's lists (rows there are positions in the shard's packed
     rows). The plain version on CPU tensors, csrc/ivf_scan.cu on CUDA
-    tensors; a query's candidates take at most the P longest lists' rows,
-    so the candidate buffer is sized by those and queries go in chunks of
-    at most _CAND_BYTES of it."""
+    tensors: the grouped route (a list read once a group of up to
+    GROUP_QT queries that probe it; at k <= 32 its scan sets a bar a query
+    and the select sorts what passes it, the radix select taking a query
+    only where more than 8,192 pass) from GROUP_MIN_B queries, the
+    per-query route below (``grouped`` forces one); a query's candidates
+    take at most the P longest lists' rows, so the candidate buffer is
+    sized by those and queries go in chunks of at most _CAND_BYTES of it
+    and of the survivor slots."""
     check_metric(metric)
     if x.device.type == "cpu":
         return ivf_scan_plain(x, x_sq, mask, lists, probe, q, k, extra_mask,
                               seed, metric, c_lo)
     if x.device.type != "cuda":
         raise ValueError(f"ivf_scan: unsupported device {x.device}")
+    return _scan(x, x_sq, mask, lists, probe, q, k, extra_mask, seed,
+                 metric, c_lo, grouped)[:2]
+
+
+def _scan(x, x_sq, mask, lists, probe, q, k, extra_mask, seed, metric,
+          c_lo, grouped):
+    """The CUDA route of :func:`ivf_scan`; also returns the last chunk's
+    group scratch (None on the per-query route), which still holds its
+    work list (csrc/ivf_scan.cu's GroupScratch), and n_per."""
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
     native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
@@ -150,33 +217,45 @@ def ivf_scan(x, x_sq, mask, lists: IVFLists, probe, q, k: int,
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
-        return out_d, out_r
+        return out_d, out_r, None, None
+    if grouped is None:
+        grouped = b >= GROUP_MIN_B
+    grouped = grouped and c_local > 0
     stride = max(1, lists.most_candidates(n_probe) + k_seed)
-    qc = max(1, min(b, _CAND_BYTES // (8 * stride)))
+    surv = min(stride, _SURV_CAP) if grouped and k <= _BAR_MAX_K else 0
+    qc = max(1, min(b, _CAND_BYTES // (8 * (stride + surv))))
     cand_d = torch.empty((qc, stride), dtype=torch.float32, device=dev)
     cand_r = torch.empty((qc, stride), dtype=torch.int32, device=dev)
     n_per = torch.empty(qc, dtype=torch.int32, device=dev)
+    grp = None
+    if grouped:
+        grp = torch.empty(native.query(
+            "ivf_scan", "fvdb_ivf_group_ints", [native.I] * 4 + [native.L],
+            qc, n_probe, c_local, k, stride), dtype=torch.int32, device=dev)
     P, I, L = native.P, native.I, native.L
+    fn = native.fn("ivf_scan", "fvdb_ivf_scan",
+                   [P, I, I, P, P, P, P, I, P, P, I, I, I, P, I, I, I, P, P,
+                    I, I, I, L, P, P, P, P, P, P, P, P])
+    stream = native.stream_of(x)
     for lo in range(0, b, qc):
         hi = min(b, lo + qc)
         work = select_scratch("ivf_scan", hi - lo, k, dev)
-        native.call(
-            "ivf_scan", "fvdb_ivf_scan",
-            [P, I, I, P, P, P, P, I, P, P, I, I, I, P, I, I, I, P, P, I, I, I,
-             L, P, P, P, P, P, P, P],
-            x.data_ptr(), int(bf16), METRIC_CODE[metric], x_sq.data_ptr(),
-            mask.data_ptr(),
-            0 if extra_mask is None else extra_mask.data_ptr(),
-            lists.tiles.data_ptr(), l_pad, lists.list_len.data_ptr(),
-            probe[lo:hi].data_ptr(), n_probe, int(c_lo), c_local,
-            q[lo:hi].data_ptr(), hi - lo, d, x.shape[0],
-            0 if seed_d is None else seed_d[lo:hi].data_ptr(),
-            0 if seed_r is None else seed_r[lo:hi].data_ptr(), seed_stride,
-            k_seed, k, stride, cand_d.data_ptr(), cand_r.data_ptr(),
-            n_per.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
-            out_r[lo:hi].data_ptr(), native.stream_of(x))
+        err = fn(x.data_ptr(), int(bf16), METRIC_CODE[metric],
+                 x_sq.data_ptr(), mask.data_ptr(),
+                 0 if extra_mask is None else extra_mask.data_ptr(),
+                 lists.tiles.data_ptr(), l_pad, lists.list_len.data_ptr(),
+                 probe[lo:hi].data_ptr(), n_probe, int(c_lo), c_local,
+                 q[lo:hi].data_ptr(), hi - lo, d, x.shape[0],
+                 0 if seed_d is None else seed_d[lo:hi].data_ptr(),
+                 0 if seed_r is None else seed_r[lo:hi].data_ptr(),
+                 seed_stride, k_seed, k, stride, cand_d.data_ptr(),
+                 cand_r.data_ptr(), n_per.data_ptr(),
+                 0 if grp is None else grp.data_ptr(), work.data_ptr(),
+                 out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(), stream)
+        if err:
+            native.raise_on(err, "ivf_scan", "fvdb_ivf_scan")
         native.launches[native.counter("ivf_scan", bf16, metric)] += 1
-    return out_d, out_r
+    return out_d, out_r, grp, n_per[: min(b, qc)]
 
 
 def ivf_search_plain(x, x_sq, mask, lists: IVFLists, q, k: int,
@@ -304,7 +383,7 @@ class IVFIndex:
         if n_pad > n:
             sample = np.concatenate(
                 [sample, np.zeros((n_pad - n, sample.shape[1]), np.float32)])
-        dev = self.store.device
+        dev = self.store.torch_device
         res = kmeans_train_stepped(
             self.config.seed, to_device(sample, dev),
             torch.arange(n_pad, device=dev) < n,
@@ -341,7 +420,7 @@ class IVFIndex:
         if rows.size == 0:
             return
         self._ensure_capacity()
-        dev = self.store.device
+        dev = self.store.torch_device
         cents = to_device(self.centroids, dev)
         mirror = serving_mirror(self.store)
         for lo in range(0, rows.size, self._ASSIGN_CHUNK):
@@ -463,7 +542,7 @@ class IVFIndex:
         if lists is None or self._dev_lists_version != self._version:
             v = self._version  # read before building, as tiles() does
             lists = IVFLists.upload(self.centroids, self.tiles(),
-                                    self.store.device)
+                                    self.store.torch_device)
             self._dev_lists, self._dev_lists_version = lists, v
         return lists
 
@@ -483,7 +562,7 @@ class IVFIndex:
         mirror = serving_mirror(self.store)
         # masks fit the mirror's row count
         n = int(mirror.x.shape[0])
-        device = self.store.device
+        device = self.store.torch_device
         lists = self.device_lists()
         key = (self._version, self.store._version, n)
         if extra_mask is not None:  # per-call filter, on a fresh snapshot

@@ -59,10 +59,10 @@ class MirrorStager:
     ``install`` assembles the blocks in row order into the [capacity, dim]
     mirror on that stream, takes the norms there and records an event; the
     mirror is published with it, and every reader's stream waits on it
-    (``VectorStore.device_mirror``) before its first kernel reads the
+    (``VectorStore.device``) before its first kernel reads the
     mirror, so a search never sees a half-copied one. Blocks may arrive in
     any order; ``index`` is their position in row order. The mirror is
-    bit-identical to the one ``device_mirror`` would upload (same dtype
+    bit-identical to the one ``VectorStore.device`` would upload (same dtype
     cast, same norms, zero tail)."""
 
     def __init__(self, dtype: str = "float32", device=None):
@@ -99,9 +99,9 @@ class MirrorStager:
         staged in ``index`` order matching store rows [0, n)."""
         dt = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
         with store._lock:
-            if store.device != self.device:
+            if store.torch_device != self.device:
                 raise ValueError(f"staged on {self.device}, the store serves "
-                                 f"on {store.device}")
+                                 f"on {store.torch_device}")
             x_sq_host = (store.host_sq() if self.dtype == "bfloat16"
                          else None)
             with self._on_side():
@@ -112,8 +112,8 @@ class MirrorStager:
                     blk = self._slots[i]
                     x[pos: pos + blk.shape[0]].copy_(blk)
                     pos += blk.shape[0]
-                # the same expressions as device_mirror: bf16 mirrors carry
-                # the f32 norms of the f32 host rows
+                # the same expressions as VectorStore.device: bf16 mirrors
+                # carry the f32 norms of the f32 host rows
                 x_sq = (to_device(x_sq_host, self.device)
                         if x_sq_host is not None else (x * x).sum(1))
                 ready = None
@@ -168,7 +168,7 @@ class VectorStore:
     def __init__(self, dim: int, initial_capacity: int = 1024, device=None):
         if dim <= 0:
             raise DimensionMismatchError("dim must be positive")
-        self.device = resolve_device(device)
+        self.torch_device = resolve_device(device)
         self.dim = dim
         self.capacity = grow_capacity(1, initial_capacity)
         self.count = 0  # allocated rows (including soft-deleted)
@@ -196,9 +196,9 @@ class VectorStore:
         (``source.spot_check``): mirror builds trust it. Any later change of
         row data or row count (add, fill, register, vacuum) detaches it;
         soft deletes keep it (they live in masks, not in row data)."""
-        if source is not None and source.device != self.device:
+        if source is not None and source.device != self.torch_device:
             raise ValueError(f"the source makes rows on {source.device}, "
-                             f"the store serves on {self.device}")
+                             f"the store serves on {self.torch_device}")
         self.device_source = source
 
     # ------------------------------------------------------------ mutation
@@ -385,7 +385,7 @@ class VectorStore:
         mask[:count] = ~deleted[:count]
         return mask
 
-    def device_mirror(self, dtype: str = "float32") -> DeviceMirror:
+    def device(self, dtype: str = "float32") -> DeviceMirror:
         """Device-resident (x, x_sq); uploaded again only when the host
         data or the dtype changed. ``dtype="bfloat16"`` keeps the rows in
         bf16 (rounded to nearest even from the f32 host rows, half the
@@ -401,17 +401,18 @@ class VectorStore:
                 self._mirror = m = None
                 if dtype == "bfloat16":
                     x = put_bf16_blocks(self.data, self.data.shape[0],
-                                        self.device)
-                    x_sq = to_device(self.host_sq(), self.device)
+                                        self.torch_device)
+                    x_sq = to_device(self.host_sq(), self.torch_device)
                 else:
-                    x = to_device(self.data, self.device)
+                    x = to_device(self.data, self.torch_device)
                     x_sq = (x * x).sum(1)
                 self._mirror = DeviceMirror(x=x, x_sq=x_sq,
                                             version=self._version,
                                             dtype=dtype)
             elif m.ready is not None:
                 # a staged mirror: this thread's stream waits for its copies
-                torch.cuda.current_stream(self.device).wait_event(m.ready)
+                torch.cuda.current_stream(self.torch_device).wait_event(
+                    m.ready)
             return self._mirror
 
     def release_mirror(self) -> None:
@@ -440,5 +441,5 @@ class VectorStore:
 
 def serving_mirror(store: VectorStore) -> DeviceMirror:
     """The mirror in the serving dtype (FVDB_SERVING_DTYPE)."""
-    return store.device_mirror(limits.serving_dtype())
+    return store.device(limits.serving_dtype())
 

@@ -11,7 +11,9 @@ versions (stable sorts) and in the kernels alike.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 
 import torch
 
@@ -182,9 +184,13 @@ def shard_merge_plain(vals, rows, k: int, base=None, row_map=None):
     return merge_topk_plain(v, g, v[:, :0], g[:, :0], k)
 
 
-# candidates a query the shard merge sorts in shared memory
-# (csrc/shard_merge.cu's MERGE_SMEM)
-_MERGE_SMEM = 2048
+# candidates a query the shard merge sorts in one launch
+# (csrc/shard_merge.cu's MERGE_REG); past it a buffer and a radix select
+_MERGE_REG = 16384
+# the zero shard bases of a merge without ``base``, by (S, device)
+_zero_base: dict = {}
+# each thread's packed argument words of fvdb_shard_merge_packed
+_merge_words = threading.local()
 
 
 def shard_merge(vals, rows, k: int, base=None, row_map=None):
@@ -195,49 +201,67 @@ def shard_merge(vals, rows, k: int, base=None, row_map=None):
     or, with row_map (int32), to row_map[base[s] + r]. Returns the k
     smallest (vals [B, k], rows [B, k] global) by (distance, row), padded
     with (+inf, -1); rows < 0 and distances that are not finite never
-    enter. The plain version on CPU tensors; on CUDA tensors
-    csrc/shard_merge.cu (a bitonic sort in shared memory up to S * k_s =
-    2,048, past it a buffer and topk_select.cuh's radix select), or it
+    enter, wherever they sit in a list. The plain version on CPU tensors;
+    on CUDA tensors csrc/shard_merge.cu (a bitonic sort of 64-bit keys: in
+    a warp's registers up to S * k_s = 64, in a block's registers up to
+    16,384, past it a buffer and topk_select.cuh's radix select), or it
     raises."""
-    if vals.device.type == "cpu":
-        return shard_merge_plain(vals, rows, k, base, row_map)
-    if vals.device.type != "cuda":
-        raise ValueError(f"shard_merge: unsupported device {vals.device}")
     dev = vals.device
-    native.check(vals, "vals", torch.float32, 3, dev)
-    native.check(rows, "rows", torch.int32, 3, dev)
+    if dev.type == "cpu":
+        return shard_merge_plain(vals, rows, k, base, row_map)
+    if dev.type != "cuda":
+        raise ValueError(f"shard_merge: unsupported device {dev}")
+    if vals.dtype != torch.float32 or rows.dtype != torch.int32 \
+            or vals.dim() != 3 or rows.shape != vals.shape \
+            or rows.device != dev or not vals.is_contiguous() \
+            or not rows.is_contiguous() or k < 1 or vals.shape[2] < 1:
+        raise ValueError(f"shard_merge: vals {vals.dtype} "
+                         f"{tuple(vals.shape)}, rows {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}, k={k} "
+                         "(contiguous [S, B, k_s] f32 / int32, k_s, k >= 1)")
     s, b, ks = vals.shape
     if base is None:
-        base = torch.zeros(s, dtype=torch.int32, device=dev)
-    native.check(base, "base", torch.int32, 1, dev)
-    if row_map is not None:
-        native.check(row_map, "row_map", torch.int32, 1, dev)
-    if rows.shape != vals.shape or base.shape[0] != s or k < 1 or ks < 1:
-        raise ValueError(f"shard_merge: vals {tuple(vals.shape)}, rows "
-                         f"{tuple(rows.shape)}, base {tuple(base.shape)}, "
-                         f"k={k}")
-    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
-    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+        base = _zero_base.get((s, dev))
+        if base is None:
+            base = _zero_base[(s, dev)] = torch.zeros(
+                s, dtype=torch.int32, device=dev)
+    elif base.dtype != torch.int32 or base.device != dev \
+            or base.shape != (s,) or not base.is_contiguous():
+        raise ValueError(f"shard_merge: base {base.dtype} "
+                         f"{tuple(base.shape)} on {base.device} for {s} "
+                         "shards (contiguous int32)")
+    if row_map is not None and (
+            row_map.dtype != torch.int32 or row_map.device != dev
+            or row_map.dim() != 1 or not row_map.is_contiguous()):
+        raise ValueError(f"shard_merge: row_map {row_map.dtype} "
+                         f"{tuple(row_map.shape)} on {row_map.device} "
+                         "(contiguous 1-D int32)")
+    # new_empty takes the dtype and device of the checked inputs: two such
+    # calls cost the host less than one allocation and the two views
+    out_d, out_r = vals.new_empty((b, k)), rows.new_empty((b, k))
     if b == 0:
         return out_d, out_r
-    cand_d = cand_r = work = None
-    if s * ks > _MERGE_SMEM:
+    scratch = (0, 0, 0)
+    if s * ks > _MERGE_REG:
         if b > _MAX_GRID_Q:
             raise ValueError(f"shard_merge takes at most {_MAX_GRID_Q} "
-                             f"queries past {_MERGE_SMEM} candidates")
-        cand_d = torch.empty((b, s * ks), dtype=torch.float32, device=dev)
-        cand_r = torch.empty((b, s * ks), dtype=torch.int32, device=dev)
-        work = select_scratch("shard_merge", b, k, dev)
-    P, I = native.P, native.I
-    native.call(
-        "shard_merge", "fvdb_shard_merge",
-        [P, P, P, P, I, I, I, I, P, P, P, P, P, P],
-        vals.data_ptr(), rows.data_ptr(), base.data_ptr(),
-        0 if row_map is None else row_map.data_ptr(), s, b, ks, k,
-        0 if cand_d is None else cand_d.data_ptr(),
-        0 if cand_r is None else cand_r.data_ptr(),
-        0 if work is None else work.data_ptr(), out_d.data_ptr(),
-        out_r.data_ptr(), native.stream_of(vals))
+                             f"queries past {_MERGE_REG} candidates")
+        bufs = (torch.empty((b, s * ks), dtype=torch.float32, device=dev),
+                torch.empty((b, s * ks), dtype=torch.int32, device=dev),
+                select_scratch("shard_merge", b, k, dev))  # held to the end
+        scratch = tuple(t.data_ptr() for t in bufs)
+    words = getattr(_merge_words, "w", None)
+    if words is None:  # this thread's words, and the function once
+        words = _merge_words.w = (ctypes.c_longlong * 14)()
+        _merge_words.fn = native.fn("shard_merge", "fvdb_shard_merge_packed",
+                                    [ctypes.POINTER(ctypes.c_longlong)])
+    words[:] = (vals.data_ptr(), rows.data_ptr(), base.data_ptr(),
+                0 if row_map is None else row_map.data_ptr(), s, b, ks, k,
+                *scratch, out_d.data_ptr(), out_r.data_ptr(),
+                native.stream_of(vals))
+    err = _merge_words.fn(words)
+    if err:
+        native.raise_on(err, "shard_merge", "fvdb_shard_merge_packed")
     native.launches["shard_merge"] += 1
     return out_d, out_r
 

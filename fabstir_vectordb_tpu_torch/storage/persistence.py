@@ -619,7 +619,8 @@ class HybridPersister:
 
             def _materialize() -> None:
                 try:
-                    lazy_stager = _maybe_stager(n, store.dim, store.device)
+                    lazy_stager = _maybe_stager(n, store.dim,
+                                                store.torch_device)
                     if serial or range_fast:
                         # one chunk at a time in THIS thread: (a) yields the
                         # core to an on-demand search fetch between chunks,

@@ -420,7 +420,7 @@ def test_host_norms_cover_count_and_survive_deletes(monkeypatch):
     assert (sq[1000:] == 0).all()
     st.mark_deleted("v3")
     assert st.host_sq() is sq and calls == [1000]
-    assert st.device_mirror("bfloat16").x_sq.numpy() is not None
+    assert st.device("bfloat16").x_sq.numpy() is not None
     np.testing.assert_array_equal(st._mirror.x_sq.numpy(), sq)
     assert calls == [1000]
     st.fill_rows(0, x[:2] * 2)

@@ -219,7 +219,7 @@ def test_the_materializer_installs_the_staged_mirror(dtype, monkeypatch):
     assert m is not None and m.version == s._version and m.dtype == dtype
     staged_x, staged_sq = m.x.clone(), m.x_sq.clone()
     s.release_mirror()
-    fresh = s.device_mirror(dtype)
+    fresh = s.device(dtype)
     assert torch.equal(staged_x, fresh.x)
     assert torch.equal(staged_sq, fresh.x_sq)
     # an eager load stages and installs the same

@@ -76,14 +76,35 @@ def test_store_and_flat_search_match_reference():
     _, r_all = FlatIndex(st).search_rows(q, 10)
     assert recall_at_k(FlatIndex(st), r_all, q, 10) == 1.0
     assert recall_at_k(FlatIndex(st), rt, q, 10) < 1.0  # the filtered rows
-    m = st.device_mirror()
+    m = st.device()
     np.testing.assert_allclose(m.x_sq.numpy(), (x ** 2).sum(1)
                                .tolist() + [0.0] * (st.capacity - 3000),
                                rtol=1e-5)
     # re-upload only when the host copy changes
-    assert st.device_mirror() is m
+    assert st.device() is m
     st.mark_deleted("v4")
-    assert st.device_mirror() is not m
+    assert st.device() is not m
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_store_device_mirror_matches_reference(dtype):
+    """``VectorStore.device(dtype)`` is the reference's method in both
+    packages: the same mirror rows (bf16 rounded alike, compared exactly)
+    and norms (f32 sums in another order: 1e-6 relative); the port keeps
+    its ``torch.device`` as ``torch_device``."""
+    x = _data(4, 700)
+    sj, st = StoreJ(D), VectorStore(D, device=CPU)
+    for s in (sj, st):
+        s.add_batch(_ids(700), x)
+        s.mark_deleted("v5")
+    assert st.torch_device == torch.device(CPU)
+    mj, mt = sj.device(dtype=dtype), st.device(dtype=dtype)
+    assert mt.dtype == mj.dtype == dtype
+    np.testing.assert_array_equal(mt.x.float().numpy(),
+                                  np.asarray(mj.x, np.float32))
+    np.testing.assert_allclose(mt.x_sq.numpy(), np.asarray(mj.x_sq),
+                               rtol=1e-6)
+    assert st.device(dtype) is mt
 
 
 def test_store_vacuum_and_reinsert_match_reference():
@@ -363,4 +384,4 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
         VectorStore(D)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         HybridIndex(D)
-    assert VectorStore(D, device=CPU).device.type == "cpu"
+    assert VectorStore(D, device=CPU).torch_device.type == "cpu"

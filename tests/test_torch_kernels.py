@@ -207,7 +207,7 @@ def _graph_on_card(n=3000, d=64, seed=31):
     rows = st.add_batch([f"r{i}" for i in range(n)], x)
     g = hnsw_t.HNSWIndex(st, hnsw_t.HNSWConfig(bootstrap_threshold=256))
     g.insert_rows(rows)
-    m = st.device_mirror()
+    m = st.device()
     mask = torch.from_numpy(g._search_mask()).to(dev)
     arrs = g._device_arrays()
     rng = np.random.default_rng(seed)
@@ -303,7 +303,7 @@ def test_ivf_scan_kernel_matches_plain_on_card(k, seeded, chunked,
     rng = np.random.default_rng(3)
     ivf.set_trained(x[rng.choice(n, 32, replace=False)])
     ivf.insert_rows(rows[: n - 500])
-    m = st.device_mirror()
+    m = st.device()
     lists = IVFLists.upload(ivf.centroids, ivf.tiles(), dev)
     mask = torch.from_numpy(st.active_mask() & ivf.member_mask()).to(dev)
     extra = torch.from_numpy(np.arange(st.capacity) % 4 != 1).to(dev)
@@ -953,7 +953,7 @@ def test_ivf_scan_kernel_by_metric_and_row_type_matches_plain_on_card(
     rng = np.random.default_rng(4)
     ivf.set_trained(x[rng.choice(n, 32, replace=False)])
     ivf.insert_rows(rows[: n - 500])
-    m = st.device_mirror("bfloat16" if bf16 else "float32")
+    m = st.device("bfloat16" if bf16 else "float32")
     lists = IVFLists.upload(ivf.centroids, ivf.tiles(), dev)
     mask = torch.from_numpy(st.active_mask() & ivf.member_mask()).to(dev)
     q = torch.from_numpy(x[:37] + 0.2).to(dev)
@@ -1265,6 +1265,167 @@ def test_shard_merge_matches_plain_on_card(s, ks, mapped):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,ks", [(3, 10), (4, 10), (1, 64), (4, 512),
+                                  (4, 2048), (8, 2048), (5, 4000)])
+def test_shard_merge_routes_match_plain_on_card(s, ks):
+    """Each route of K15's merge by candidate count (a warp's registers to
+    64, a block's registers to 8,192 and, 16 keys a thread, to 16,384, the
+    buffer and radix select past it), with a row map that drops some rows, -1 rows and
+    NaN / -inf distances in mid-list, bases and ties across shards:
+    exactly the plain version's (distance, row) list."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(s * 7_919 + ks)
+    b = 37
+    vals, rows = _shard_lists(g, dev, s, b, ks)
+    hole = torch.rand(s, b, ks, device=dev, generator=g)
+    rows[hole < 0.05] = -1
+    vals[(hole > 0.5) & (hole < 0.52)] = float("nan")
+    vals[(hole > 0.6) & (hole < 0.61)] = float("-inf")
+    vals[:, :, 1] = vals[:, :, 0]  # ties inside and across shards
+    per = int(rows.max()) + 1
+    base = torch.arange(s, dtype=torch.int32, device=dev) * per
+    row_map = torch.randperm(s * per, device=dev, generator=g).to(
+        torch.int32)
+    row_map[torch.rand(s * per, device=dev, generator=g) < 0.03] = -1
+    for rm in (None, row_map):
+        for k in sorted({1, 10, min(s * ks, 2048), s * ks + 5}):
+            vk, rk = topk_t.shard_merge(vals, rows, k, base=base,
+                                        row_map=rm)
+            vp, rp = topk_t.shard_merge_plain(vals, rows, k, base=base,
+                                              row_map=rm)
+            assert torch.equal(rk, rp) and torch.equal(vk, vp), (k, rm)
+    assert (rk[:, -5:] == -1).all() and torch.isinf(vk[:, -5:]).all()
+
+
+def _ivf_case(seed, dev, n=16_000, d=64, c=24, c_lo=0, c_local=None,
+              long_len=3000):
+    """Lists made by hand: uneven lengths, one list (3) of ``long_len``
+    entries (3,000: 12 chunks of 256), two empty lists, entries past the
+    mirror (>= N), the rows of lists c_lo .. c_lo + c_local - 1 in the
+    tiles."""
+    from fabstir_vectordb_tpu_torch.index.ivf import IVFLists
+
+    rng = np.random.default_rng(seed)
+    c_local = c if c_local is None else c_local
+    lens = rng.integers(50, 700, c)
+    lens[3], lens[5], lens[7] = long_len, 0, 0
+    rows = rng.permutation(n)
+    tiles = np.full((c, max(4096, long_len)), -1, np.int32)
+    at = 0
+    for i in range(c):
+        take = rows[at: at + lens[i]] if at + lens[i] <= n else \
+            rng.integers(0, n, lens[i])
+        tiles[i, : lens[i]] = np.sort(take)
+        at += lens[i]
+    tiles[2, 0] = n + 5  # a row past the mirror never enters
+    if long_len > 3000:  # lane 31 of every chunk of list 3 past the mirror
+        tiles[3, 31:long_len:32] = n + 7
+    x = torch.from_numpy(_data(seed, n, d) * 2).to(dev)
+    lists = IVFLists.upload(np.zeros((c_local, d), np.float32),
+                            tiles[c_lo: c_lo + c_local], dev)
+    mask = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    mask2 = torch.from_numpy(np.arange(n) % 5 != 3).to(dev)
+    return x, lists, mask, mask2, rng
+
+
+def _work_list(grp, n_per, b, p, c, k_seed):
+    """The grouped route's work list as csrc/ivf_scan.cu's GroupScratch
+    holds it after a call (laid out by carve_group), in ivf_groups_plain's
+    terms, pairs by list in arrival order, with each query's |q|^2
+    (``q_sq``) and survivor count (``surv``); n_per counts the seed."""
+    g = grp.long()
+    o = c + 2 * (c + 1)
+    lstart, tstart = g[c: c + c + 1], g[c + c + 1: o]
+    npairs = int(lstart[-1])
+    at = o + 4 * b * p  # past prank, poff, pair_b, pair_off
+    return {"slot": g[o + b * p: o + 2 * b * p].reshape(b, p),
+            "n_lists": n_per.long() - k_seed, "lstart": lstart, "tstart": tstart,
+            "pair_b": g[o + 2 * b * p: o + 2 * b * p + npairs],
+            "pair_slot": g[o + 3 * b * p: o + 3 * b * p + npairs],
+            "q_sq": grp[at: at + b].view(torch.float32),
+            "n_tasks": int(grp[at + b]), "surv": g[at + b + 2: at + 2 * b + 2]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,metric,bf16,seeded,shard,probes", [
+    (1, "euclidean", False, True, False, "mixed"),
+    (37, "cosine", True, False, False, "mixed"),
+    (37, "dot", True, True, False, "mixed"),
+    (128, "dot", False, True, True, "mixed"),
+    (128, "euclidean", True, False, False, "one list"),
+    (128, "cosine", False, True, False, "mixed"),
+    (1024, "euclidean", False, True, False, "mixed"),
+    (16, "euclidean", False, True, False, "overflow")])
+def test_ivf_scan_routes_match_plain_on_card(b, metric, bf16, seeded, shard,
+                                             probes):
+    """K12's grouped and per-query routes against ivf_scan_plain: f32 and
+    bf16 rows by metric, with and without a seed, both masks, a list range
+    (probes of lists outside it scan nothing), every query probing the one
+    long list, empty lists and entries past the mirror. The grouped
+    route's work list equals ivf_groups_plain's. "overflow": half the batch
+    probes only a list of 15,000 entries whose every chunk leaves lane 31
+    empty, so no task sets those queries' bar (k = 32 needs 32 lane minima)
+    and more than 8,192 of their candidates survive the filter (the radix
+    passes take them); the other half, on short lists, finish in the block
+    sort."""
+    from fabstir_vectordb_tpu_torch.index import ivf as ivf_mod
+
+    dev = _card()
+    c_lo, c_local = (8, 12) if shard else (0, 24)
+    overflow = probes == "overflow"
+    x, lists, mask, mask2, rng = _ivf_case(
+        50 + b, dev, n=32_000 if overflow else 16_000, c_lo=c_lo,
+        c_local=c_local, long_len=15_000 if overflow else 3000)
+    xs = x.to(torch.bfloat16) if bf16 else x
+    x_sq = (x * x).sum(1)
+    if probes == "one list":
+        probe = np.full((b, 1), 3, np.int32)
+    elif overflow:
+        others = np.array([i for i in range(24) if i != 3])
+        probe = np.stack([rng.permutation(others)[:6] for _ in range(b)])
+        probe[::2] = [3, -1, -1, -1, -1, -1]
+    else:
+        probe = np.stack([rng.permutation(24)[:6] for _ in range(b)])
+        probe[0, :] = [3, 5, 7, 2, 9, -1]  # long, empty, empty, past-N
+    probe = torch.from_numpy(probe.astype(np.int32)).to(dev)
+    q = torch.from_numpy(_data(b, b, x.shape[1]) * 2).to(dev)
+    seed = None
+    if seeded:  # rows outside the lists' values, as the beam's are
+        sd = torch.sort(torch.rand(b, 20, device=dev) * 50 - 10, 1)[0]
+        sr = torch.randint(0, x.shape[0], (b, 20), device=dev,
+                           dtype=torch.int32)
+        seed = (sd.contiguous(), sr.contiguous())
+    k = 32 if overflow else 16 if b > 1 else 300
+    vp, rp = ivf_mod.ivf_scan_plain(xs, x_sq, mask, lists, probe, q, k,
+                                    extra_mask=mask2, seed=seed,
+                                    metric=metric, c_lo=c_lo)
+    atol = 1e-5 if metric == "cosine" else 1e-3
+    for grouped in (False, True):
+        vk, rk, grp, n_per = ivf_mod._scan(xs, x_sq, mask, lists, probe, q,
+                                           k, mask2, seed, metric, c_lo,
+                                           grouped)
+        _assert_close_up_to_ties(vk, rk, vp, rp, 1e-5, atol)
+    w = _work_list(grp, n_per, b, probe.shape[1], c_local,
+                   min(k, 20) if seeded else 0)
+    if overflow:  # the radix passes took the even queries, and only them
+        assert (w["surv"][::2] > 8192).all(), w["surv"]
+        assert (w["surv"][1::2] <= 8192).all(), w["surv"]
+    wp = ivf_mod.ivf_groups_plain(probe, lists.list_len, c_lo)
+    for key in ("slot", "n_lists", "lstart", "tstart"):
+        assert torch.equal(w[key].cpu(), wp[key].cpu()), key
+    assert w["n_tasks"] == wp["n_tasks"]
+    torch.testing.assert_close(w["q_sq"], (q * q).sum(1), rtol=1e-5,
+                               atol=1e-5)
+    ls = wp["lstart"].tolist()
+    for li in range(c_local):  # a list's pairs, in any arrival order
+        got = sorted(zip(w["pair_b"][ls[li]: ls[li + 1]].tolist(),
+                         w["pair_slot"][ls[li]: ls[li + 1]].tolist()))
+        want = sorted(zip(wp["pair_b"][ls[li]: ls[li + 1]].tolist(),
+                          wp["pair_slot"][ls[li]: ls[li + 1]].tolist()))
+        assert got == want, li
+
+
+@pytest.mark.cuda
 def test_set_rows_matches_plain_on_card():
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(35)
@@ -1487,7 +1648,7 @@ def test_staged_mirror_on_card_equals_an_upload(dtype, monkeypatch):
         d, rows = loaded.search_rows(q, 10, config=cfg, now=1.0e9)
         staged_x, staged_sq = m.x.clone(), m.x_sq.clone()
         loaded.store.release_mirror()
-        fresh = loaded.store.device_mirror(dtype)
+        fresh = loaded.store.device(dtype)
         assert torch.equal(staged_x, fresh.x)
         assert torch.equal(staged_sq, fresh.x_sq)
         # the search on the staged mirror answers as on a fresh upload

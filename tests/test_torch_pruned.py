@@ -223,6 +223,54 @@ def test_ivf_search_matches_reference(pair, k, n_probe):
     _assert_same(vj, rj, vt, rt)
 
 
+@pytest.mark.parametrize("n_probe,c_lo,c_local", [(4, 0, 16), (16, 0, 16),
+                                                   (6, 4, 8)])
+def test_ivf_work_list_covers_the_reference_probes(pair, n_probe, c_lo,
+                                                    c_local):
+    """K12's grouped work list (``ivf_groups_plain``) from the reference's
+    own probes: each (query, probe) pair of an owned, non-empty list sits
+    exactly once under its list, its slot is its query's earlier probes'
+    owned lengths summed, and each list's tasks cover its queries in
+    groups of GROUP_QT and its rows in chunks of GROUP_RT. With a list
+    range (a shard's lists c_lo .. c_lo + c_local - 1) a probe outside it
+    scans nothing."""
+    hj, _, x = pair
+    a = _arrays(hj)
+    tiles = hj.ivf._build_tiles()
+    q = _queries(x, 8, 40)
+    _, _, pj = ivf_j.ivf_search_kernel(
+        *_j(a["x"], a["x_sq"], a["ivf_mask"], hj.ivf.centroids, tiles, q),
+        10, n_probe)
+    probe = np.array(pj, np.int32)
+    lens = (tiles >= 0).sum(1)[c_lo: c_lo + c_local]
+    w = ivf_t.ivf_groups_plain(torch.from_numpy(probe),
+                               torch.from_numpy(lens.astype(np.int32)), c_lo)
+    local = probe - c_lo
+    owned = (local >= 0) & (local < c_local)
+    own_len = np.where(owned, lens[np.clip(local, 0, c_local - 1)], 0)
+    want_slot = np.cumsum(own_len, 1) - own_len
+    np.testing.assert_array_equal(w["slot"].numpy(), want_slot)
+    np.testing.assert_array_equal(w["n_lists"].numpy(), own_len.sum(1))
+    lstart, tstart = w["lstart"].numpy(), w["tstart"].numpy()
+    pair_b, pair_slot = w["pair_b"].numpy(), w["pair_slot"].numpy()
+    seen = set()
+    tasks = 0
+    for li in range(c_local):
+        qs = pair_b[lstart[li]: lstart[li + 1]]
+        want = np.nonzero((local == li).any(1) & (lens[li] > 0))[0]
+        np.testing.assert_array_equal(np.sort(qs), want)
+        for b, s in zip(qs, pair_slot[lstart[li]: lstart[li + 1]]):
+            p = int(np.nonzero(local[b] == li)[0][0])
+            assert s == want_slot[b, p] and (b, p) not in seen
+            seen.add((b, p))
+        if qs.size:
+            tasks += (-(-qs.size // ivf_t.GROUP_QT)
+                      * -(-int(lens[li]) // ivf_t.GROUP_RT))
+        assert tstart[li + 1] - tstart[li] == (tasks - tstart[li])
+    assert seen == {(b, p) for b, p in zip(*np.nonzero(own_len > 0))}
+    assert w["n_tasks"] == tasks == tstart[-1]
+
+
 def test_hybrid_search_composition_matches_reference(pair):
     """K13 with the beam's top-k seeding K12 equals the reference's
     beam, merge_topk, list scan, merge_topk program."""
