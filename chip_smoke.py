@@ -55,9 +55,13 @@
    of their rows; device re-score: recall@10 >= 0.95 against a float64
    brute force over the bf16-stored rows; raw; approx), the mirror's bytes
    and the prewarm + first search; 2,048 inserts linked on the bf16 mirror,
-   >= 99% found at rank 1. The counters must show K9, K2 on f32 and bf16
-   rows, K1 on bf16 rows with the query rounded and (K3) not, K4 and K5 on
-   bf16 rows; then those against their plain versions at these shapes.
+   >= 99% found at rank 1. The counters must show K9 on f32 rows and, on
+   the tensor cores, on bf16 rows, K2 on f32 and bf16 rows, K1 on bf16
+   rows with the query rounded (tensor cores) and (K3) not, K4 and K5 on
+   bf16 rows; then those against their plain versions at these shapes (K1
+   rounded also at B = 1, k = 128), each with its pass (tile_pass) and,
+   for the rounded query, a bf16 torch.matmul of the same product beside
+   it (gemm_ms).
 8. Engines phase: the same index, the graph and list engines at every row
    type and metric. The pruned regime on a bf16 mirror
    (FVDB_SERVING_DTYPE=bfloat16, FVDB_PCA_SERVE=0, flat threshold 0): 256
@@ -216,6 +220,15 @@ def cuda_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def gemm_ms(torch, q, xb) -> float:
+    """One bf16 ``torch.matmul`` of the rounded queries q [B, D] and the
+    bf16 rows xb [N, D]^T: a yardstick of the tensor cores' rate at a tile
+    pass's shape. The port never calls it, and it is no ``library_ms``: it
+    computes the products only (no norms, mask or selection)."""
+    qb = q.to(torch.bfloat16)
+    return cuda_ms(torch, lambda: torch.matmul(qb, xb.T))
 
 
 def device_us_each(torch, fns) -> list:
@@ -1741,9 +1754,10 @@ def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
     exact oracle, a filtered batch and 1,000 deletes; bf16 serving in four
     modes (host refine, device re-score, raw, approx) with the mirror's
     bytes and the prewarm + first search; 2,048 inserts linked on the bf16
-    mirror. The counters must show K9, K2 on f32 and bf16 rows, K1 on bf16
-    rows with and without the rounded query, K4 and K5 on bf16 rows; then
-    each against its plain version at these shapes."""
+    mirror. The counters must show K9 on f32 and (tensor cores) bf16 rows,
+    K2 on f32 and bf16 rows, K1 on bf16 rows with (tensor cores) and
+    without the rounded query, K4 and K5 on bf16 rows; then each against
+    its plain version at these shapes."""
     import gc
 
     from fabstir_vectordb_tpu_torch.index import tiered as ti
@@ -1933,9 +1947,13 @@ def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
             fail(f"flat1m bf16 inserts: {rank1} at rank 1 < 0.99")
         torch.cuda.synchronize()
         counts = dict(native.launches)
-        path = {"approx_topk": "K9", "rerank_f32_rows": "K2 on f32 rows",
+        path = {"approx_topk_f32": "K9 on f32 rows (turbo)",
+                "approx_topk": "K9 on bf16 rows, query rounded (tensor "
+                               "cores)",
+                "rerank_f32_rows": "K2 on f32 rows",
                 "rerank_f32": "K2 on bf16 rows",
-                "l2_topk_bf16_rq": "K1 on bf16 rows, query rounded",
+                "l2_topk_bf16_rq": "K1 on bf16 rows, query rounded (tensor "
+                                   "cores)",
                 "l2_topk_bf16": "K3 (K1 on bf16 rows, f32 query)",
                 "heuristic_kept_bf16": "K4 on bf16 rows",
                 "pair_sq_l2_bf16": "K5 on bf16 rows"}
@@ -1976,9 +1994,12 @@ def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
 
 def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                          launch_of):
-    """K9, K1 on bf16 rows (query rounded; and unrounded at the link
-    shape), K2 on f32 rows, the bf16 re-score composition, K4 and K5 on
-    bf16 rows against their plain versions, on the 1M store's mirrors."""
+    """K9, K1 on bf16 rows (query rounded, B = 128 and 1; and unrounded at
+    the link shape), K2 on f32 rows, the bf16 re-score composition, K4 and
+    K5 on bf16 rows against their plain versions, on the 1M store's
+    mirrors; each entry names its pass (tile_pass) and, with the query
+    rounded, the time of a bf16 torch.matmul of the same product
+    (gemm_ms)."""
     from fabstir_vectordb_tpu_torch.index import fused as fu
     from fabstir_vectordb_tpu_torch.index import hnsw as hn
     from fabstir_vectordb_tpu_torch.ops import topk as tp
@@ -2031,29 +2052,36 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                 plain_ms=cuda_ms(torch, lambda: tp.approx_topk_plain(
                     x, x_sq, mem, q, ov, round_query=rq), iters=2, warmup=1),
                 library_ms=None, bound_ms=bms,
-                bound_by=by + (" (bf16 tensor-core rate)" if rq else ""))
-            launch_of[key] = counts["approx_topk"]
+                bound_by=by + (" (bf16 tensor-core rate)" if rq else ""),
+                tile_pass=tp.tile_route(x.dtype, rq, d),
+                gemm_ms=gemm_ms(torch, q, xb) if rq else None)
+            launch_of[key] = counts["approx_topk" if rq else "approx_topk_f32"]
 
-    # K1 serving the bf16 mirror, the query rounded, at k 16, 128, 1,024
-    for k in (16, 128, 1024):
-        vk, rk = tp.l2_topk(xb, sq_host, mem, q128, k, round_query=True)
-        vp, rp = tp.l2_topk_plain(xb, sq_host, mem, q128, k, round_query=True)
-        tol = 2e-5 * float(sq_host.max() + (q128 * q128).sum(1).max())
-        key = f"l2_topk[bf16 serve k={k}]"
+    # K1 serving the bf16 mirror, the query rounded, at k 16, 128, 1,024,
+    # and at B = 1 with k = 128 (the single refine search's pool)
+    for b, k in ((128, 16), (128, 128), (128, 1024), (1, 128)):
+        q = q128[:b].contiguous()
+        vk, rk = tp.l2_topk(xb, sq_host, mem, q, k, round_query=True)
+        vp, rp = tp.l2_topk_plain(xb, sq_host, mem, q, k, round_query=True)
+        tol = 2e-5 * float(sq_host.max() + (q * q).sum(1).max())
+        key = f"l2_topk[bf16 serve k={k}]" if b == 128 else \
+            f"l2_topk[bf16 serve B={b} k={k}]"
         err, differ = topk_check(key, vk, rk, vp, rp, tol)
-        bms, by = bound(cap * (d * 2 + 4 + 1) + 128 * d * 4 + 128 * k * 8,
-                        2.0 * 128 * n_in * d, BF16_FLOPS)
+        bms, by = bound(cap * (d * 2 + 4 + 1) + b * d * 4 + b * k * 8,
+                        2.0 * b * n_in * d, BF16_FLOPS)
         results[key] = dict(
-            shape=f"B=128 N={cap} D={d} k={k} (query rounded, f32 host "
+            shape=f"B={b} N={cap} D={d} k={k} (query rounded, f32 host "
                   f"norms)", max_abs_err=err, tol=tol,
             rows_differing_at_ties=differ,
-            ms=cuda_ms(torch, lambda: tp.l2_topk(xb, sq_host, mem, q128, k,
+            ms=cuda_ms(torch, lambda: tp.l2_topk(xb, sq_host, mem, q, k,
                                                  round_query=True)),
             plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
-                xb, sq_host, mem, q128, k, round_query=True), iters=2,
+                xb, sq_host, mem, q, k, round_query=True), iters=2,
                 warmup=1),
             library_ms=None, bound_ms=bms,
-            bound_by=f"{by} (bf16 tensor-core rate)")
+            bound_by=f"{by} (bf16 tensor-core rate)",
+            tile_pass=tp.tile_route(xb.dtype, True, d),
+            gemm_ms=gemm_ms(torch, q, xb))
         launch_of[key] = counts["l2_topk_bf16_rq"]
 
     # K2 on f32 rows: the turbo pool of 128 re-scored to k_eff = 16
@@ -2092,7 +2120,8 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
         plain_ms=cuda_ms(torch, lambda: fu.flat_search_rerank(
             xb, sq_host, mem, q128, 64, 128, plain=True), iters=2, warmup=1),
         library_ms=None, bound_ms=bms,
-        bound_by=f"{by} (bf16 tensor-core rate)")
+        bound_by=f"{by} (bf16 tensor-core rate)",
+        tile_pass=tp.tile_route(xb.dtype, True, d))
     launch_of["flat_search_rerank"] = counts["rerank_f32"]
 
     # K3: link candidates on the bf16 mirror (f32 query), then K4 on them
@@ -2110,7 +2139,8 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                    iters=2),
         plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
             xb, sq_host, mem, ql, 200), iters=1, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by)
+        library_ms=None, bound_ms=bms, bound_by=by,
+        tile_pass=tp.tile_route(xb.dtype, False, d))
     launch_of["l2_topk[bf16 candidates]"] = counts["l2_topk_bf16"]
     ids, dd = rk[:, :128].contiguous(), vk[:, :128].contiguous()
     kk = hn.heuristic_kept(xb, ids, dd, 32)
@@ -2168,7 +2198,8 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
     for name in ("approx_topk[f32 B=1]", "approx_topk[f32 B=128]",
                  "approx_topk[bf16 B=1]", "approx_topk[bf16 B=128]",
                  "l2_topk[bf16 serve k=16]", "l2_topk[bf16 serve k=128]",
-                 "l2_topk[bf16 serve k=1024]", "rerank_f32[f32 rows]",
+                 "l2_topk[bf16 serve k=1024]",
+                 "l2_topk[bf16 serve B=1 k=128]", "rerank_f32[f32 rows]",
                  "flat_search_rerank", "l2_topk[bf16 candidates]",
                  "heuristic_kept[bf16 link]", "pair_sq_l2[bf16]"):
         print_kernel(name, results[name], launch_of[name])
@@ -4060,7 +4091,7 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
                 r["hstate4"], r["istate4"], Q, 10, 64, 16))):
         r[key], sec[key], lau[key] = step(fn)
     counts = dict(native.launches)
-    path = ("l2_topk", "l2_topk_bf16_rq", "approx_topk",
+    path = ("l2_topk", "l2_topk_bf16_rq", "approx_topk_f32",
             "rerank_f32_rows", "project_queries", "ivf_scan", "lloyd_partial",
             "lloyd_finish", "assign_clusters", "greedy_descent",
             "beam_search", "shard_merge")
@@ -5045,6 +5076,10 @@ SOURCES = {
     "masked_approx_topk": "fabstir_vectordb_tpu_torch/csrc/approx_topk.cu",
 }
 
+# K1's and K9's tensor-core pass over a bf16 mirror (an entry whose
+# tile_pass is "wgmma"), built into csrc/l2_topk.cu and csrc/approx_topk.cu
+TILE_SOURCE = "fabstir_vectordb_tpu_torch/csrc/bf16_tile.cuh"
+
 
 # what an entry held to its plain version up to ties reports beside its
 # max_abs_err: the first k-means++ pick at a key tie, the rows or codes
@@ -5052,9 +5087,11 @@ SOURCES = {
 TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
             "codes_differing_at_ties", "overlap")
 # measured beside ms: K12's stages (from the profiler), a call's card time
-# (device_us) and host time, and torch.topk's beside the merge's
+# (device_us) and host time, and torch.topk's beside the merge's; K1's and
+# K9's pass (tile_pass: "wgmma" or "fma", ops.topk.tile_route) and a bf16
+# torch.matmul of the same product (gemm_ms)
 DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
-               "library_device_us")
+               "library_device_us", "tile_pass", "gemm_ms")
 
 
 def main() -> None:
@@ -5178,7 +5215,9 @@ def main() -> None:
         base = key.split("[")[0]
         launches = launch_of.get(key, counts.get(key, counts.get(base, 0)))
         kernels.append({
-            "name": key, "route": "cuda", "source": SOURCES[base],
+            "name": key, "route": "cuda",
+            "source": TILE_SOURCE if r.get("tile_pass") == "wgmma"
+            else SOURCES[base],
             "replaces": REPLACES.get(key, REPLACES[base]),
             "launches": int(launches),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -39,6 +39,11 @@
 //
 // Design: l2_tile.cuh (a tile product of 32 queries x 256 rows feeding
 // per-query lists in shared memory, then a merge of the slices' lists).
+// bf16 rows with the query rounded (a bf16 serving mirror) at D % 8 == 0
+// (and D <= 8,192) take bf16_tile.cuh's tensor-core pass instead
+// (fvdb_l2_topk_bf16_tc, fvdb_l2_topk_large_bf16_tc), with the same three
+// metrics and the same two selections; other D stay on l2_tile.cuh's FMA
+// pass, chosen by shape in ops/topk.py and counted apart.
 //
 // k > 256 (a filtered search asks for 3 k, and k reaches 16,384): the lists
 // would not fit shared memory, so pass 1 runs the same tile product but
@@ -48,6 +53,7 @@
 // buffer costs 4 N bytes written and ~4 passes of 4 N bytes read a query,
 // against the 4 N D / 32 bytes a query of the product itself; the wrapper
 // runs query chunks so it stays within 1 GiB.
+#include "bf16_tile.cuh"
 #include "l2_tile.cuh"
 #include "topk_select.cuh"
 
@@ -153,4 +159,94 @@ FVDB_EXPORT int fvdb_l2_topk_large_bf16(
         x, x_sq, mask, mask_stride, q, B, N, D, k, S, xsq_scratch, dump,
         work, out_d, out_r, stream);
   }));
+}
+
+namespace fvdb {
+
+// Rows of a slice of the tensor-core pass: a multiple of its tile.
+inline int tc_slice_rows(int N, int S) {
+  const int split = (N + S - 1) / S;
+  return (split + TC_ROWS - 1) / TC_ROWS * TC_ROWS;
+}
+
+// The tensor-core pass in LISTS or DUMP mode over bf16 rows, the query
+// rounded: x_sq from the scratch when not given, the rows' tensor map.
+inline cudaError_t tc_pass(int mode, const __nv_bfloat16* x,
+                           const float*& x_sq, const uint8_t* mask,
+                           long long mask_stride, const float* q, int B,
+                           int N, int D, int k, int S, int metric, int width,
+                           int stages, int smem, float* xsq_scratch,
+                           unsigned long long* bars, float* part_d,
+                           int* part_r, float* dump, cudaStream_t stream) {
+  if (B < 1 || N < 1 || S < 1 || S > 65535 ||
+      (mode == SEL_LISTS && (k < 1 || k > TC_MAX_K)))
+    return cudaErrorInvalidValue;
+  cudaError_t e = tc_check(x, q, width, D, mode, k, stages, smem);
+  if (e != cudaSuccess) return e;
+  e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map;
+  if (!rows_map(x, N, D, &map)) return cudaErrorInvalidValue;
+  if (mode == SEL_LISTS) {
+    e = cudaMemsetAsync(bars, 0xff, (size_t)B * (8 + 4 * S), stream);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((B + width - 1) / width, S);
+  const int split = tc_slice_rows(N, S);
+  return with_metric(metric, [&](auto m) {
+    constexpr int MT = decltype(m)::value;
+    return mode == SEL_LISTS
+               ? launch_tc_width<SEL_LISTS, MT>(
+                     width, map, x_sq, mask, mask_stride, q, B, N, D, k,
+                     split, stages, smem, grid, bars, part_d, part_r,
+                     (float*)nullptr, 0, (unsigned long long*)nullptr,
+                     stream)
+               : launch_tc_width<SEL_DUMP, MT>(
+                     width, map, x_sq, mask, mask_stride, q, B, N, D, 0,
+                     split, stages, smem, grid,
+                     (unsigned long long*)nullptr, (float*)nullptr,
+                     (int*)nullptr, dump, 0, (unsigned long long*)nullptr,
+                     stream);
+  });
+}
+
+}  // namespace fvdb
+
+// bf16 rows x [N, D] with the query rounded, on the tensor cores
+// (bf16_tile.cuh), k <= 256: D % 8 == 0, x and q 16-byte aligned; width,
+// stages and smem from ops/topk.py tile_plan(B, k, D, "lists"); bars: B (8
+// + 4 S) bytes of scratch; the rest as fvdb_l2_topk_bf16.
+FVDB_EXPORT int fvdb_l2_topk_bf16_tc(
+    const __nv_bfloat16* x, const float* x_sq, const uint8_t* mask,
+    long long mask_stride, const float* q, int B, int N, int D, int k, int S,
+    int row_base, int metric, int width, int stages, int smem,
+    float* xsq_scratch, unsigned long long* bars, float* part_d, int* part_r,
+    float* out_d, int* out_r, cudaStream_t stream) {
+  using namespace fvdb;
+  cudaError_t e = tc_pass(SEL_LISTS, x, x_sq, mask, mask_stride, q, B, N, D,
+                          k, S, metric, width, stages, smem, xsq_scratch,
+                          bars, part_d, part_r, nullptr, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem2 = (NT / 32) * k * 8;  // <= 16 KB: under the default cap
+  l2_topk_merge<<<B, NT, smem2, stream>>>(part_d, part_r, B, k, S, row_base,
+                                           out_d, out_r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same at any k: the masked distances to dump [B, N] on the tensor
+// cores (width, stages and smem from tile_plan(B, k, D, "dump")), then the
+// radix select; work: fvdb_select_scratch_bytes(B, k) bytes.
+FVDB_EXPORT int fvdb_l2_topk_large_bf16_tc(
+    const __nv_bfloat16* x, const float* x_sq, const uint8_t* mask,
+    long long mask_stride, const float* q, int B, int N, int D, int k, int S,
+    int metric, int width, int stages, int smem, float* xsq_scratch,
+    float* dump, void* work, float* out_d, int* out_r, cudaStream_t stream) {
+  using namespace fvdb;
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = tc_pass(SEL_DUMP, x, x_sq, mask, mask_stride, q, B, N, D,
+                          k, S, metric, width, stages, smem, xsq_scratch,
+                          nullptr, nullptr, nullptr, dump, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
+                                             work, out_d, out_r, stream));
 }

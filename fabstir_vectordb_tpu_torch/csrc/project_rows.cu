@@ -375,50 +375,6 @@ __global__ void __launch_bounds__(NT) project_queries_kernel(
   }
 }
 
-// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
-// point query (no link against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A row-major [rows, cols] matrix (row stride ld elements; ld * its
-// element size a multiple of 16 bytes) read in boxes of box_rows x
-// box_cols: bf16 64-byte swizzled (box_cols 32), or f32 as it lies.
-inline bool tile_map(CUtensorMap* m, const void* base, bool bf16,
-                     long long rows, long long cols, long long ld,
-                     int box_rows, int box_cols) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * (bf16 ? 2 : 4)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(m,
-             bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-             2, const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE,
-             bf16 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int NTILE>
 cudaError_t launch_mma(const __nv_bfloat16* src, int n, int ld, int R,
                        const __nv_bfloat16* ps, const float* mup, int Rp,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -510,7 +511,10 @@ def approx_topk(x, x_sq, mask, q, ov_k: int, round_query: bool = False):
     or [B, N] bool, or None for every row; ``round_query`` (bf16 rows only)
     as in :func:`l2_topk`. Returns (vals [B, ov_k] f32, rows [B, ov_k]
     int32) by (distance, row), padded with (+inf, -1). The plain version on
-    CPU tensors, csrc/approx_topk.cu on CUDA tensors."""
+    CPU tensors, csrc/approx_topk.cu on CUDA tensors: bf16 rows with the
+    query rounded on the tensor cores where :func:`tile_route` says so
+    (csrc/bf16_tile.cuh, counted as "approx_topk"), the rest on the FMA
+    pass ("approx_topk_f32", "approx_topk_bf16", "approx_topk_bf16_rq_fma")."""
     bf16 = x.dtype == torch.bfloat16
     if round_query and not bf16:
         raise ValueError("approx_topk: round_query takes bf16 rows")
@@ -535,31 +539,56 @@ def approx_topk(x, x_sq, mask, q, ov_k: int, round_query: bool = False):
     rounds = math.ceil(n / m)
     P, I, L = native.P, native.I, native.L
     m_stride = n if mask is not None and mask.dim() == 2 else 0
+    tc = round_query and tile_route(x.dtype, True, d) == "wgmma" \
+        and math.ceil(m / _TC_ROWS) <= _MAX_GRID_Q
+    counter = "approx_topk" if tc else native.counter(
+        "approx_topk", bf16, rq=round_query, fma=round_query) \
+        if bf16 else "approx_topk_f32"
     for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
         hi = min(b, lo + _MAX_GRID_Q)
         bb = hi - lo
-        # round ranges so that the grid fits one wave at 2 blocks an SM: a
-        # few blocks past it would run as a second wave of their own
-        tiles = math.ceil(bb / 32) * math.ceil(m / 256)
-        z = max(1, min(rounds, 2 * _num_sms(dev) // tiles))
-        i_per = math.ceil(rounds / z)
-        z = math.ceil(rounds / i_per)
         keys = torch.empty((bb, m), dtype=torch.int64, device=dev)
         cand_d = torch.empty((bb, m), dtype=torch.float32, device=dev)
         cand_r = torch.empty((bb, m), dtype=torch.int32, device=dev)
         work = select_scratch("approx_topk", bb, ov_k, dev)
         m_ptr = 0 if mask is None else (mask[lo:hi].data_ptr() if m_stride
                                         else mask.data_ptr())
-        native.call(
-            "approx_topk", "fvdb_approx_pool",
-            [P, I, I, P, P, L, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P],
-            x.data_ptr(), int(bf16), int(round_query), x_sq.data_ptr(),
-            m_ptr, m_stride, q[lo:hi].data_ptr(), bb, n, d, m, ov_k, z,
-            i_per, keys.data_ptr(), cand_d.data_ptr(), cand_r.data_ptr(),
-            work.data_ptr(), out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
-            native.stream_of(x))
-        native.launches["approx_topk"] += 1
+        if tc:  # csrc/bf16_tile.cuh: 128 bins a block
+            plan = tile_plan(bb, ov_k, d, "bins")
+            z, i_per = _round_ranges(rounds, plan.tiles
+                                     * math.ceil(m / _TC_ROWS), dev, 1)
+            native.call(
+                "approx_topk", "fvdb_approx_pool_tc",
+                [P, P, P, L, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P,
+                 P, P],
+                x.data_ptr(), x_sq.data_ptr(), m_ptr, m_stride,
+                q[lo:hi].data_ptr(), bb, n, d, m, ov_k, z, i_per, plan.width,
+                plan.stages, plan.smem, keys.data_ptr(), cand_d.data_ptr(),
+                cand_r.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
+                out_r[lo:hi].data_ptr(), native.stream_of(x))
+        else:  # l2_tile.cuh: 32 queries and 256 bins a block
+            z, i_per = _round_ranges(rounds, math.ceil(bb / 32)
+                                     * math.ceil(m / 256), dev, 2)
+            native.call(
+                "approx_topk", "fvdb_approx_pool",
+                [P, I, I, P, P, L, P, I, I, I, I, I, I, I, P, P, P, P, P, P,
+                 P],
+                x.data_ptr(), int(bf16), int(round_query), x_sq.data_ptr(),
+                m_ptr, m_stride, q[lo:hi].data_ptr(), bb, n, d, m, ov_k, z,
+                i_per, keys.data_ptr(), cand_d.data_ptr(), cand_r.data_ptr(),
+                work.data_ptr(), out_d[lo:hi].data_ptr(),
+                out_r[lo:hi].data_ptr(), native.stream_of(x))
+        native.launches[counter] += 1
     return out_d, out_r
+
+
+def _round_ranges(rounds: int, tiles: int, dev, per_sm: int):
+    """K9's round ranges: z ranges of i_per rounds each, so that ``tiles``
+    blocks a range make one wave at ``per_sm`` blocks an SM (a few blocks
+    past it would run as a second wave of their own)."""
+    z = max(1, min(rounds, per_sm * _num_sms(dev) // tiles))
+    i_per = math.ceil(rounds / z)
+    return math.ceil(rounds / i_per), i_per
 
 
 _SMS: dict = {}
@@ -610,7 +639,10 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
     when fewer than k rows are unmasked). On CPU tensors it runs the plain
     version; on CUDA tensors it launches csrc/l2_topk.cu (k <= 256:
     per-query lists in shared memory; larger k: the masked distances of a
-    query chunk to a buffer, then a radix select) or raises.
+    query chunk to a buffer, then a radix select) or raises. bf16 rows
+    with the query rounded take the tensor-core pass (csrc/bf16_tile.cuh)
+    where :func:`tile_route` says so, and l2_tile.cuh's FMA pass at other
+    D (its own counter, "..._fma").
 
     bf16 rows without rounding (euclidean only): the HNSW link candidates
     on a bf16 mirror and the reduced-rank calibration oracle's streamed
@@ -654,14 +686,18 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
     scratch = torch.empty(n, dtype=torch.float32, device=dev) \
         if x_sq is None else None
     scratch_ptr = 0 if scratch is None else scratch.data_ptr()
+    # the query rounded on bf16 rows: the tensor-core pass where
+    # tile_route says so, else the FMA pass (counted apart)
+    tc = round_query and tile_route(x.dtype, True, d) == "wgmma"
     # one counter a kernel: f32 rows, bf16 rows, bf16 rows with the query
-    # rounded; the k > 256 path of f32 rows counts apart; cosine and dot
-    # add their name
+    # rounded (tensor cores; "_fma" the FMA pass); the k > 256 path of f32
+    # rows counts apart; cosine and dot add their name
     counter = native.counter(
         "l2_topk_large" if k > _SMALL_K and not bf16 else "l2_topk", bf16,
-        metric, rq=round_query)
+        metric, rq=round_query, fma=round_query and not tc)
+    code = METRIC_CODE[metric]
     # bf16 entry points take round_q after their last int, then the metric
-    rq = ([int(round_query)] if bf16 else []) + [METRIC_CODE[metric]]
+    rq = ([int(round_query)] if bf16 else []) + [code]
     rq_t = ([I] if bf16 else []) + [I]
     if k > _SMALL_K:
         qc = max(1, min(b, _DUMP_BYTES // (4 * n), _MAX_GRID_Q))
@@ -669,32 +705,62 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
             hi = min(b, lo + qc)
             dump = torch.empty((hi - lo, n), dtype=torch.float32, device=dev)
             work = select_scratch("l2_topk", hi - lo, k, dev)
-            native.call(
-                "l2_topk", "fvdb_l2_topk_large_bf16" if bf16
-                else "fvdb_l2_topk_large",
-                [P, P, P, L, P, I, I, I, I, I, *rq_t, P, P, P, P, P, P],
-                x.data_ptr(), sq_ptr, mask[lo:hi].data_ptr()
-                if m_stride else m_ptr, m_stride,
-                q[lo:hi].data_ptr(), hi - lo, n, d, k,
-                _splits(hi - lo, n, dev), *rq, scratch_ptr, dump.data_ptr(),
-                work.data_ptr(), out_d[lo:hi].data_ptr(),
-                out_r[lo:hi].data_ptr(), native.stream_of(x))
+            mq = mask[lo:hi].data_ptr() if m_stride else m_ptr
+            if tc:
+                plan = tile_plan(hi - lo, k, d, "dump")
+                native.call(
+                    "l2_topk", "fvdb_l2_topk_large_bf16_tc",
+                    [P, P, P, L, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P,
+                     P],
+                    x.data_ptr(), sq_ptr, mq, m_stride, q[lo:hi].data_ptr(),
+                    hi - lo, n, d, k, _tc_splits(plan.tiles, n, dev), code,
+                    plan.width, plan.stages, plan.smem, scratch_ptr,
+                    dump.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
+                    out_r[lo:hi].data_ptr(), native.stream_of(x))
+            else:
+                native.call(
+                    "l2_topk", "fvdb_l2_topk_large_bf16" if bf16
+                    else "fvdb_l2_topk_large",
+                    [P, P, P, L, P, I, I, I, I, I, *rq_t, P, P, P, P, P, P],
+                    x.data_ptr(), sq_ptr, mq, m_stride, q[lo:hi].data_ptr(),
+                    hi - lo, n, d, k, _splits(hi - lo, n, dev), *rq,
+                    scratch_ptr, dump.data_ptr(), work.data_ptr(),
+                    out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
+                    native.stream_of(x))
             native.launches[counter] += 1
             # the norms of this x are in scratch now: later chunks reuse them
             sq_ptr = sq_ptr or scratch_ptr
         if row_base:
             out_r = torch.where(out_r >= 0, out_r + row_base, out_r)
         return out_d, out_r
-    splits = _splits(b, n, dev)
+    if tc:
+        plan = tile_plan(b, k, d, "lists")
+        splits = _tc_splits(plan.tiles, n, dev)
+    else:
+        splits = _splits(b, n, dev)
     part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
     part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
-    native.call(
-        "l2_topk", "fvdb_l2_topk_bf16" if bf16 else "fvdb_l2_topk",
-        [P, P, P, L, P, I, I, I, I, I, I, *rq_t, P, P, P, P, P, P],
-        x.data_ptr(), sq_ptr, m_ptr, m_stride,
-        q.data_ptr(), b, n, d, k, splits, row_base, *rq, scratch_ptr,
-        part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
-        out_r.data_ptr(), native.stream_of(x))
+    if tc:
+        # each query's k-th bound (8 bytes), then its slices' j-th keys (4)
+        bars = torch.empty(b + (b * splits + 1) // 2, dtype=torch.int64,
+                           device=dev)
+        native.call(
+            "l2_topk", "fvdb_l2_topk_bf16_tc",
+            [P, P, P, L, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P,
+             P],
+            x.data_ptr(), sq_ptr, m_ptr, m_stride, q.data_ptr(), b, n, d, k,
+            splits, row_base, code, plan.width, plan.stages, plan.smem,
+            scratch_ptr, bars.data_ptr(), part_d.data_ptr(),
+            part_r.data_ptr(), out_d.data_ptr(), out_r.data_ptr(),
+            native.stream_of(x))
+    else:
+        native.call(
+            "l2_topk", "fvdb_l2_topk_bf16" if bf16 else "fvdb_l2_topk",
+            [P, P, P, L, P, I, I, I, I, I, I, *rq_t, P, P, P, P, P, P],
+            x.data_ptr(), sq_ptr, m_ptr, m_stride,
+            q.data_ptr(), b, n, d, k, splits, row_base, *rq, scratch_ptr,
+            part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
+            out_r.data_ptr(), native.stream_of(x))
     native.launches[counter] += 1
     return out_d, out_r
 
@@ -717,6 +783,89 @@ def _splits(b: int, n: int, dev) -> int:
     tiles."""
     q_tiles = math.ceil(b / 32)
     return max(1, min(math.ceil(n / 512), 2 * _num_sms(dev) // q_tiles))
+
+
+def _tc_splits(tiles: int, n: int, dev) -> int:
+    """Row slices of the tensor-core pass: ``tiles`` query tiles x slices
+    make one wave at one block an SM (its shared memory holds the queries,
+    the ring and the lists); slices keep at least two 128-row tiles."""
+    return max(1, min(math.ceil(n / 256), _num_sms(dev) // tiles,
+                      _MAX_GRID_Q))
+
+
+# csrc/bf16_tile.cuh, the tensor-core pass over bf16 rows with the query
+# rounded: its query widths (the wgmma's N), tile rows, ring slot bytes
+# (128 rows x 64 dims of bf16), staged keys a query, ring stages at most,
+# the dynamic shared memory a launch may take (232,448 bytes a block less
+# 1 KB of static barriers, padded to the dynamic array's alignment), and
+# the widest D it takes
+_TC_WIDTHS = (8, 32, 64, 128)
+_TC_ROWS = 128
+_TC_STEP = 128 * 64 * 2
+_TC_CAP = 32
+_TC_MAX_STAGES = 8
+_TC_SMEM_LIMIT = 232_448 - 1024
+_TC_MAX_D = 8192
+TILE_MODES = ("lists", "dump", "bins")
+
+
+class TilePlan(NamedTuple):
+    width: int   # queries a block (the wgmma's N): 8, 32, 64 or 128
+    stages: int  # ring slots of 16 KB
+    smem: int    # dynamic shared-memory bytes of a block
+    tiles: int   # query tiles: ceil(B / width)
+
+
+def tile_route(dtype, round_query: bool, d: int) -> str:
+    """Which pass K1 and K9 run on the card: "wgmma" (csrc/bf16_tile.cuh)
+    for bf16 rows with the query rounded at D % 8 == 0 (TMA reads 16-byte
+    rows) up to D = 8,192, else "fma" (csrc/l2_tile.cuh): f32 rows, bf16
+    rows with an f32 query, and other D."""
+    return "wgmma" if (dtype == torch.bfloat16 and round_query
+                       and d % 8 == 0 and 8 <= d <= _TC_MAX_D) else "fma"
+
+
+def _tc_smem(width: int, d: int, mode: str, k: int, stages: int) -> int:
+    """csrc/bf16_tile.cuh's tc_smem_bytes: alignment slack, the ring, the
+    staged queries (D in steps of 64, 128 bytes a query a step), |q|^2,
+    and for "lists" the lists, the staging, bars, counts and fills."""
+    b = 1024 + stages * _TC_STEP + math.ceil(d / 64) * width * 128 + width * 4
+    if mode == "lists":
+        b += width * (8 * k + 8 * _TC_CAP + 16)
+    return b
+
+
+def tile_plan(b: int, k: int, d: int, mode: str) -> TilePlan | None:
+    """The tensor-core pass's launch plan for B queries at k over D dims in
+    ``mode`` ("lists": K1 at k <= 256, "dump": K1 past it, "bins": K9),
+    or None where :func:`tile_route` sends the shape to the FMA pass.
+
+    The query width is the narrowest of 8 / 32 / 64 / 128 that holds B (at
+    most 64 for "bins", whose running minima take registers a query), made
+    narrower while the ring would have fewer than 4 stages of 16 KB (the
+    lists take width x k x 8 bytes, the staged queries width x D x 2), and
+    at worst the widest with 2."""
+    if mode not in TILE_MODES:
+        raise ValueError(f"tile_plan: mode {mode!r}, expected one of "
+                         f"{TILE_MODES}")
+    if tile_route(torch.bfloat16, True, d) != "wgmma":
+        return None
+    kk = k if mode == "lists" else 0
+    if mode == "lists" and not 1 <= k <= _SMALL_K:
+        raise ValueError(f"tile_plan: lists take 1 <= k <= {_SMALL_K}, "
+                         f"got {k}")
+    widest = 64 if mode == "bins" else 128
+    need = next(w for w in _TC_WIDTHS if w >= min(max(b, 1), widest))
+    widths = [w for w in _TC_WIDTHS if w <= need][::-1]
+    for least in (4, 2):
+        for w in widths:
+            stages = min(_TC_MAX_STAGES,
+                         (_TC_SMEM_LIMIT - _tc_smem(w, d, mode, kk, 0))
+                         // _TC_STEP)
+            if stages >= least:
+                return TilePlan(w, stages, _tc_smem(w, d, mode, kk, stages),
+                                math.ceil(b / w))
+    return None
 
 
 class StreamingTopK:

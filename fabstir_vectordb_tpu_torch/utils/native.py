@@ -42,26 +42,31 @@ launches: dict[str, int] = {
     "seed_pick": 0, "seed_min_update": 0, "seed_counts": 0,
     "stage1_select": 0, "project_rows": 0, "project_queries": 0,
     "rerank_f32": 0, "rerank_f32_rows": 0, "merge_topk": 0, "synth_rows": 0,
-    "approx_topk": 0, "chunk_step": 0, "quantize_u8": 0,
+    "approx_topk": 0, "approx_topk_f32": 0, "approx_topk_bf16": 0,
+    "approx_topk_bf16_rq_fma": 0, "chunk_step": 0, "quantize_u8": 0,
     "dequantize_u8": 0, "pq_encode": 0, "pq_decode": 0, "pq_adc_table": 0,
     "pq_adc_distances": 0, "lloyd_partial": 0, "lloyd_finish": 0,
     "shard_merge": 0, "set_rows": 0, "set_member_rows": 0, "masked_topk": 0,
     "masked_approx_topk": 0, "lloyd_step": 0,
 }
+# K1 on bf16 rows, the query rounded, at a D the tensor-core pass does not
+# take (csrc/bf16_tile.cuh): l2_tile.cuh's FMA pass
+launches["l2_topk_bf16_rq_fma"] = 0
 # K1 and K12 by metric: "<counter>_cosine", "<counter>_dot"
-for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq", "ivf_scan",
-              "ivf_scan_bf16"):
+for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
+              "l2_topk_bf16_rq_fma", "ivf_scan", "ivf_scan_bf16"):
     for _metric in ("cosine", "dot"):
         launches[f"{_base}_{_metric}"] = 0
 
 
 def counter(base: str, bf16: bool = False, metric: str = "euclidean",
-            up: bool = False, rq: bool = False) -> str:
+            up: bool = False, rq: bool = False, fma: bool = False) -> str:
     """The launch counter of a kernel's variant: ``base``, then "_bf16"
-    for bf16 rows, "_rq" for the query rounded to bf16, "_up" for a layer
-    above 0, "_<metric>" for cosine or dot."""
+    for bf16 rows, "_rq" for the query rounded to bf16, "_fma" for that
+    query on the FMA pass (a D the tensor-core pass does not take), "_up"
+    for a layer above 0, "_<metric>" for cosine or dot."""
     name = (base + ("_bf16" if bf16 else "") + ("_rq" if rq else "")
-            + ("_up" if up else ""))
+            + ("_fma" if fma else "") + ("_up" if up else ""))
     return name if metric == "euclidean" else f"{name}_{metric}"
 
 

@@ -866,6 +866,173 @@ def test_l2_topk_by_metric_matches_plain_on_card(metric, k, bf16):
         assert float(full[0][0][full[1][0] == 5][0]) == 1.0
 
 
+def _serving_mirror(seed, n, d, b, mask_kind, dev):
+    """A bf16 serving mirror on the card: rows rounded to bf16 with the f32
+    rows' norms (shifted off the origin, so cosine and dot rank), queries,
+    and a mask of rows ("rows", 90%), of (query, row) pairs ("per_query",
+    50%) or none."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xf = torch.randn(n, d, device=dev, generator=g) + 0.3
+    x_sq = (xf * xf).sum(1)
+    q = torch.randn(b, d, device=dev, generator=g) + 0.3
+    mask = None
+    if mask_kind == "rows":
+        mask = torch.rand(n, device=dev, generator=g) < 0.9
+    elif mask_kind == "per_query":
+        mask = torch.rand(b, n, device=dev, generator=g) < 0.5
+    return xf.to(torch.bfloat16), x_sq, q, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,d,mask_kind,metric", [
+    (1, 1, 384, "rows", "euclidean"), (1, 128, 384, "none", "euclidean"),
+    (8, 16, 384, "per_query", "euclidean"), (9, 256, 384, "rows", "cosine"),
+    (128, 16, 384, "rows", "dot"), (128, 128, 768, "rows", "euclidean"),
+    (129, 64, 384, "per_query", "cosine"), (129, 1024, 384, "rows",
+                                             "euclidean"),
+    (1, 1024, 768, "none", "dot"), (9, 1024, 384, "per_query", "cosine"),
+    (128, 1, 768, "none", "cosine"), (8, 256, 768, "per_query", "dot"),
+    (9, 16, 96, "rows", "euclidean"), (129, 300, 200, "per_query", "dot"),
+    (8, 16, 8, "none", "euclidean"),
+    (128, 256, 100, "rows", "euclidean"), (8, 1024, 100, "none", "cosine"),
+    (1, 16, 100, "per_query", "dot")])
+def test_l2_topk_rounded_query_by_shape_matches_plain_on_card(
+        b, k, d, mask_kind, metric):
+    """K1 on a bf16 serving mirror, the query rounded, at B 1 / 8 / 9 / 128
+    / 129, k 1 to 1,024 (lists and buffer), D 384 / 768 on the tensor cores
+    (csrc/bf16_tile.cuh; 96, 200 and 8 an odd count of 32-dim steps) and
+    D 100 on the FMA pass, with each mask kind
+    and metric, over N = 50,001 (not a multiple of a tile): rows equal to
+    the plain version up to ties, distances within 1e-5 relative; the
+    launch counted on the route tile_route names."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, x_sq, q, mask = _serving_mirror(31, 50_001, d, b, mask_kind, dev)
+    counter = native.counter("l2_topk", True, metric, rq=True)
+    before = (native.launches[counter],
+              native.launches[native.counter("l2_topk", True, metric,
+                                             rq=True, fma=True)])
+    vt, rt = topk_t.l2_topk(x, x_sq, mask, q, k, round_query=True,
+                            metric=metric)
+    after = (native.launches[counter],
+             native.launches[native.counter("l2_topk", True, metric,
+                                            rq=True, fma=True)])
+    tc = topk_t.tile_route(x.dtype, True, d) == "wgmma"
+    assert (after[0] - before[0], after[1] - before[1]) == \
+        ((1, 0) if tc else (0, 1))
+    vp, rp = topk_t.l2_topk_plain(x, x_sq, mask, q, k, round_query=True,
+                                  metric=metric)
+    atol = 1e-5 if metric == "cosine" else 1e-2
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, atol)
+    assert (vt[:, 1:] >= vt[:, :-1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,keep,n,ov_k", [
+    (1, 384, 1.0, 262_144, 128), (128, 384, 0.9, 262_144, 128),
+    (129, 384, 0.002, 100_000, 64), (1, 100, 0.9, 100_000, 128),
+    (129, 100, 1.0, 50_001, 16), (128, 384, 0.9, 2000, 128),
+    (1, 384, 0.002, 4000, 256), (128, 200, 0.9, 100_000, 128)])
+def test_approx_topk_rounded_query_by_shape_matches_plain_on_card(
+        b, d, keep, n, ov_k):
+    """K9 on bf16 rows, the query rounded, at B 1 / 128 / 129 and D 384
+    or 200 (tensor cores) / 100 (FMA), keeping every row, 90% or 0.2% (the
+    pool pads); a last partial round (N not a multiple of M) and M = N (N
+    <= 4,972 at these ov_k): pools share >= 0.99 of their rows, shared
+    rows' distances within 1e-5 relative."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, x_sq, q, _ = _serving_mirror(32, n, d, b, "none", dev)
+    g = torch.Generator(device=dev).manual_seed(33)
+    mask = torch.rand(n, device=dev, generator=g) < keep
+    before = (native.launches["approx_topk"],
+              native.launches["approx_topk_bf16_rq_fma"])
+    vt, rt = topk_t.approx_topk(x, x_sq, mask, q, ov_k, round_query=True)
+    tc = topk_t.tile_route(x.dtype, True, d) == "wgmma"
+    assert (native.launches["approx_topk"] - before[0],
+            native.launches["approx_topk_bf16_rq_fma"] - before[1]) == \
+        ((1, 0) if tc else (0, 1))
+    vp, rp = topk_t.approx_topk_plain(x, x_sq, mask, q, ov_k,
+                                      round_query=True)
+    assert _pool_overlap(rt, rp) >= 0.99
+    _assert_shared_rows_close(vt, rt, vp, rp, 1e-5)
+    fin = torch.isfinite(vt)
+    assert torch.equal(fin, torch.isfinite(vp)) and (rt[~fin] == -1).all()
+    assert mask[rt[fin].long()].all()
+    assert (vt[:, 1:] >= vt[:, :-1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,k", [("lists", 16), ("dump", 300),
+                                    ("bins", 64)])
+def test_bf16_tile_ties_come_out_by_row_on_card(path, k):
+    """Duplicated rows sit at equal distances: the tensor-core pass puts
+    them in ascending row order, in its lists, its buffer and its bins,
+    and picks the rows the plain version picks."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(34)
+    half = 3000
+    xf = torch.randn(half, 384, device=dev, generator=g)
+    xf = torch.cat([xf, xf[:half // 2], xf])  # every row twice or more
+    x_sq = (xf * xf).sum(1)
+    x = xf.to(torch.bfloat16)
+    q = xf[:16] + 0.05 * torch.randn(16, 384, device=dev, generator=g)
+    if path == "bins":
+        vt, rt = topk_t.approx_topk(x, x_sq, None, q, k, round_query=True)
+        vp, rp = topk_t.approx_topk_plain(x, x_sq, None, q, k,
+                                          round_query=True)
+        assert _pool_overlap(rt, rp) >= 0.99
+    else:
+        vt, rt = topk_t.l2_topk(x, x_sq, None, q, k, round_query=True)
+        vp, rp = topk_t.l2_topk_plain(x, x_sq, None, q, k, round_query=True)
+        _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+    vt, rt = vt.cpu().numpy(), rt.cpu().numpy()
+    same = vt[:, 1:] == vt[:, :-1]
+    assert same.any()  # the copies did meet
+    assert (rt[:, 1:][same] > rt[:, :-1][same]).all()
+
+
+@pytest.mark.cuda
+def test_bf16_tile_route_counts_and_stage1_stays_on_the_fma_pass():
+    """The tensor-core route is what the counters say ran: K1 (both k
+    ranges, each metric) and K9 on bf16 rows with the query rounded count
+    under l2_topk_bf16_rq* and approx_topk, the f32 and unrounded routes
+    under their own names; K14's stage 1 runs l2_tile.cuh's pass (no K1
+    launch) and still equals its plain version."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, x_sq, q, mask = _serving_mirror(35, 20_000, 384, 4, "rows", dev)
+    native.reset_launches()
+    for metric in ("euclidean", "cosine", "dot"):
+        for k in (16, 300):
+            topk_t.l2_topk(x, x_sq, mask, q, k, round_query=True,
+                           metric=metric)
+    topk_t.approx_topk(x, x_sq, mask, q, 64, round_query=True)
+    topk_t.approx_topk(x.float(), x_sq, mask, q, 64)
+    topk_t.approx_topk(x, x_sq, mask, q, 64)
+    topk_t.l2_topk(x, x_sq, mask, q, 16)
+    want = {"l2_topk_bf16_rq": 2, "l2_topk_bf16_rq_cosine": 2,
+            "l2_topk_bf16_rq_dot": 2, "approx_topk": 1, "approx_topk_f32": 1,
+            "approx_topk_bf16": 1, "l2_topk_bf16": 1}
+    assert {key: v for key, v in native.launches.items()
+            if v and key.startswith(("l2_topk", "approx_topk"))} == want
+    g = torch.Generator(device=dev).manual_seed(36)
+    xp = torch.randn(50_001, 192, device=dev, generator=g).to(torch.bfloat16)
+    xp_sq = (xp.float() ** 2).sum(1)
+    qp = torch.randn(32, 192, device=dev, generator=g)
+    native.reset_launches()
+    vt, rt = fused_t.stage1_select(xp, xp_sq, None, qp, 512)
+    assert native.launches["stage1_select"] == 1
+    assert not any(v for key, v in native.launches.items()
+                   if key.startswith(("l2_topk", "approx_topk")))
+    vp, rp = fused_t.stage1_select_plain(xp, xp_sq, None, qp, 512)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+
+
 def _bf16_mirror(m):
     """The f32 mirror's rows in bf16 with the f32 rows' norms, as a bf16
     serving mirror holds them."""
