@@ -965,6 +965,26 @@ def test_approx_topk_rounded_query_by_shape_matches_plain_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 100, 129])
+def test_bf16_tile_small_corpora_match_plain_on_card(n):
+    """The tensor-core pass over fewer rows than a tile (TMA fills the
+    rest of the box with zeros): K1 with lists (k 16) and with the buffer
+    (k 300), K9 where M = N, against their plain versions; past N the
+    results pad with (+inf, -1)."""
+    dev = _card()
+    x, x_sq, q, mask = _serving_mirror(37, n, 384, 5, "rows", dev)
+    for k in (16, 300):
+        vt, rt = topk_t.l2_topk(x, x_sq, mask, q, k, round_query=True)
+        vp, rp = topk_t.l2_topk_plain(x, x_sq, mask, q, k,
+                                      round_query=True)
+        _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+    vt, rt = topk_t.approx_topk(x, x_sq, mask, q, 64, round_query=True)
+    vp, rp = topk_t.approx_topk_plain(x, x_sq, mask, q, 64,
+                                      round_query=True)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("path,k", [("lists", 16), ("dump", 300),
                                     ("bins", 64)])
 def test_bf16_tile_ties_come_out_by_row_on_card(path, k):
