@@ -101,7 +101,7 @@ def _mirror(seed, n, d, b):
     return x, xb, (x * x).sum(1), q, mask
 
 
-@pytest.mark.parametrize("b,d,k", [(1, 36, 16), (1, 384, 128), (3, 36, 300),
+@pytest.mark.parametrize("b,d,k", [(1, 36, 16), (1, 48, 128), (3, 36, 300),
                                    (1, 64, 1)])
 def test_rounded_query_search_matches_flat_search_kernel(b, d, k):
     """K1 on a bf16 mirror (the query rounded in the product, f32 host
@@ -119,7 +119,7 @@ def test_rounded_query_search_matches_flat_search_kernel(b, d, k):
 
 
 @pytest.mark.parametrize("b,d,n,ov_k", [(1, 36, 2000, 256),
-                                        (1, 384, 2000, 128),
+                                        (1, 48, 2000, 128),
                                         (2, 36, 1000, 64)])
 def test_rounded_query_pool_matches_masked_approx_topk_where_exact(b, d, n,
                                                                    ov_k):
