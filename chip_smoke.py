@@ -181,6 +181,7 @@ ADC_CHUNK = 131_072  # chunked_topk's chunk over the ADC distances
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (no TF32)
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 # H100 SXM int32: 64 lanes an SM (Hopper white paper) x 132 SMs x 1.98 GHz
 INT32_OPS = 64 * 132 * 1.98e9
 NOW = 1_700_000_000.0
@@ -258,6 +259,20 @@ def host_us(torch, fn, calls: int = 200) -> float:
     t = time.perf_counter() - t
     torch.cuda.synchronize()
     return t / calls * 1e6
+
+
+def route_bound(nbytes: float, flops: float, route: str):
+    """bound() at the rate of K1's route (ops.topk.tile_route): three TF32
+    products ("tf32x3"), three bf16 products ("bf16x3"), one bf16 product
+    ("wgmma"), f32 FMA ("fma"); ``flops`` counts one product's operations.
+    The reason names the route."""
+    rate, times, what = {
+        "tf32x3": (TF32_FLOPS, 3, " (3 TF32 products)"),
+        "bf16x3": (BF16_FLOPS, 3, " (3 bf16 products, tensor-core rate)"),
+        "wgmma": (BF16_FLOPS, 1, " (bf16 tensor-core rate)"),
+        "fma": (F32_FLOPS, 1, "")}[route]
+    ms, by = bound(nbytes, times * flops, rate)
+    return ms, by + what
 
 
 def project_bound(n: int, d: int, r: int):
@@ -344,12 +359,16 @@ def kernels_phase(torch, tp, hn, km, dev, results):
         ms = cuda_ms(torch, lambda: tp.l2_topk(x, x_sq, mask, q, k))
         pms = cuda_ms(torch, lambda: tp.l2_topk_plain(x, x_sq, mask, q, k),
                       iters=3)
-        bms, by = bound(n * d * 4 + n * 4 + n + b * d * 4 + b * k * 8,
-                        2.0 * b * n_in * d)
+        # three TF32 products on the tensor-core route (tile_route), one
+        # f32 product on the FMA pass (its bound beside)
+        route = tp.tile_route(x.dtype, False, d)
+        nbytes = n * d * 4 + n * 4 + n + b * d * 4 + b * k * 8
+        bms, by = route_bound(nbytes, 2.0 * b * n_in * d, route)
         results[f"l2_topk[{tag}]"] = dict(
             shape=f"B={b} N={n} D={d} k={k} mask={n_in / n:.3f}",
             max_abs_err=err, tol=tol, rows_differing_at_ties=differ, ms=ms,
-            plain_ms=pms, bound_ms=bms, bound_by=by)
+            plain_ms=pms, bound_ms=bms, bound_by=by, tile_pass=route,
+            bound_fma_ms=bound(nbytes, 2.0 * b * n_in * d)[0])
         if tag == "candidates":
             cand_ids, cand_d = rk[:, :128].contiguous(), vk[:, :128].contiguous()
 
@@ -736,6 +755,9 @@ def main_path(torch, native, card: str, counts: dict, perf: dict,
     for name, c in counts.items():
         if c <= 0:
             fail(f"main path: {name} was launched no time")
+    # "l2_topk" counts K1 on the tensor cores (three TF32 products); the
+    # FMA pass takes f32 rows only at a D that TMA cannot read
+    perf["l2_topk_fma_launches"] = native.launches["l2_topk_fma"]
     if trace:  # device busy share of the two search shapes
         for name, fn in (
                 ("single", lambda: [s.search(q, k) for q in qs[:64]]),
@@ -1289,15 +1311,17 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         tol = 2e-5 * float(xsq_d.max() + (q4 * q4).sum(1).max())
         err, differ = topk_check(f"l2_topk[k={k}]", vk, rk_, vp, rp_, tol)
         nn = int(x_d.shape[0])
-        bms, by = bound(nn * d * 4 + nn * 4 + nn + 4 * d * 4 + 4 * k * 8,
-                        2.0 * 4 * n_in * d)
+        bms, by = route_bound(nn * d * 4 + nn * 4 + nn + 4 * d * 4
+                              + 4 * k * 8, 2.0 * 4 * n_in * d,
+                              fu.tile_route(x_d.dtype, False, d))
         results[f"l2_topk[k={k}]"] = dict(
             shape=f"B=4 N={nn} D={d} k={k}", max_abs_err=err, tol=tol,
             rows_differing_at_ties=differ,
             ms=cuda_ms(torch, lambda: tp.l2_topk(x_d, xsq_d, mem, q4, k)),
             plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
                 x_d, xsq_d, mem, q4, k), iters=2, warmup=1),
-            bound_ms=bms, bound_by=by)
+            bound_ms=bms, bound_by=by,
+            tile_pass=fu.tile_route(x_d.dtype, False, d))
         launch_of[f"l2_topk[k={k}]"] = counts["l2_topk_large"]
     for name in ("greedy_descent", "beam_search[serve]",
                  "beam_search[serve-filtered]", "beam_search[link]",
@@ -1305,6 +1329,12 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
                  "l2_topk[k=16384]"):
         print_kernel(name, results[name], launch_of[name])
     regime(False)
+
+
+# K14's stage 1 by route: the tensor cores, the FMA pass (a rank that is
+# not a multiple of 8), and a launch whose survivors passed their buffer,
+# run again on the FMA pass
+S1_ROUTES = ("stage1_select", "stage1_select_fma", "stage1_select_overflow")
 
 
 def print_kernel(name: str, r: dict, launches=None) -> None:
@@ -1443,7 +1473,8 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
           f"{(held - own) / 1e6:.1f} MB of {held / 1e6:.1f} MB, a full-dim "
           f"f32 mirror would be {f32_mirror / 1e6:.1f} MB ({card})",
           flush=True)
-    print(f"reduced: launches { {k: counts[k] for k in path} }", flush=True)
+    print(f"reduced: launches { {k: counts[k] for k in path + S1_ROUTES} }",
+          flush=True)
     if trace:
         for name, fn in (
                 ("reduced_single", lambda: [search(q[None]) for q in qs[:64]]),
@@ -1486,7 +1517,9 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
             plain_ms=cuda_ms(torch, lambda: fu.stage1_select_plain(
                 xp, xp_sq, mem, qp, ov), iters=2, warmup=1),
             library_ms=None, bound_ms=bms,
-            bound_by=f"{by} (bf16 tensor-core rate)")
+            bound_by=f"{by} (bf16 tensor-core rate)",
+            tile_pass=fu.tile_route(torch.bfloat16, True, r),
+            **{f"{c}_launches": counts[c] for c in S1_ROUTES[1:]})
         launch_of[key] = counts["stage1_select"]
     # K14 projection: one block of the device-mode build
     blk_n = min(524_288, n_rows)
@@ -1590,8 +1623,12 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
     vk, rk = tp.l2_topk(blk, None, m0, q128, width)
     vp, rp = tp.l2_topk_plain(blk, None, m0, q128, width)
     err1, differ1 = topk_check("l2_topk[bf16]", vk, rk, vp, rp, tol)
-    bms, by = bound(blk_n * (d * 2 + 1) + 128 * d * 4 + 128 * width * 8,
-                    2.0 * 128 * b_in * d + 2.0 * blk_n * d)
+    # three bf16 products (the query's exact split) on the tensor cores;
+    # the FMA pass's bound beside
+    nbytes = blk_n * (d * 2 + 1) + 128 * d * 4 + 128 * width * 8
+    route = tp.tile_route(blk.dtype, False, d)
+    bms, by = route_bound(nbytes, 2.0 * 128 * b_in * d + 2.0 * blk_n * d,
+                          route)
     results["l2_topk[bf16]"] = dict(
         shape=f"B=128 N={blk_n} D={d} k={width} (bf16 rows, norms in the "
               f"kernel)", max_abs_err=err1, tol=tol,
@@ -1600,7 +1637,8 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
         ms=cuda_ms(torch, lambda: tp.l2_topk(blk, None, m0, q128, width)),
         plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
             blk, None, m0, q128, width), iters=2, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by)
+        library_ms=None, bound_ms=bms, bound_by=by, tile_pass=route,
+        bound_fma_ms=bound(nbytes, 2.0 * 128 * b_in * d + 2.0 * blk_n * d)[0])
     launch_of["l2_topk[bf16]"] = counts["l2_topk_bf16"]
     va, ra = steps["plain"]
     mk = tp.merge_topk(va, ra, vk, rk, width)
@@ -2053,7 +2091,8 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                     x, x_sq, mem, q, ov, round_query=rq), iters=2, warmup=1),
                 library_ms=None, bound_ms=bms,
                 bound_by=by + (" (bf16 tensor-core rate)" if rq else ""),
-                tile_pass=tp.tile_route(x.dtype, rq, d),
+                # K9 on f32 rows stays on the FMA pass
+                tile_pass=tp.tile_route(x.dtype, rq, d) if rq else "fma",
                 gemm_ms=gemm_ms(torch, q, xb) if rq else None)
             launch_of[key] = counts["approx_topk" if rq else "approx_topk_f32"]
 
@@ -2130,8 +2169,9 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
     vp, rp = tp.l2_topk_plain(xb, sq_host, mem, ql, 200)
     tol = 2e-5 * float(sq_host.max() + (ql * ql).sum(1).max())
     err, differ = topk_check("l2_topk[bf16 candidates]", vk, rk, vp, rp, tol)
-    bms, by = bound(cap * (d * 2 + 4 + 1) + 1024 * d * 4 + 1024 * 200 * 8,
-                    2.0 * 1024 * n_in * d)
+    nbytes = cap * (d * 2 + 4 + 1) + 1024 * d * 4 + 1024 * 200 * 8
+    route = tp.tile_route(xb.dtype, False, d)
+    bms, by = route_bound(nbytes, 2.0 * 1024 * n_in * d, route)
     results["l2_topk[bf16 candidates]"] = dict(
         shape=f"B=1024 N={cap} D={d} k=200 (f32 query, bf16 rows)",
         max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
@@ -2139,8 +2179,8 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                    iters=2),
         plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
             xb, sq_host, mem, ql, 200), iters=1, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by,
-        tile_pass=tp.tile_route(xb.dtype, False, d))
+        library_ms=None, bound_ms=bms, bound_by=by, tile_pass=route,
+        bound_fma_ms=bound(nbytes, 2.0 * 1024 * n_in * d)[0])
     launch_of["l2_topk[bf16 candidates]"] = counts["l2_topk_bf16"]
     ids, dd = rk[:, :128].contiguous(), vk[:, :128].contiguous()
     kk = hn.heuristic_kept(xb, ids, dd, 32)
@@ -2832,9 +2872,10 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
                               else (x_sq_max * q_sq_max) ** 0.5)
                 err, share = pool_check(key, vk, rk, vp, rp, tol)
                 elem = x.element_size()
-                bms, by = bound(cap * (d * elem + 4 + 1) + q_bytes
-                                + 128 * k * 8, 2.0 * 128 * n_in * d,
-                                BF16_FLOPS if bf else F32_FLOPS)
+                route = tp.tile_route(x.dtype, bf, d)
+                bms, by = route_bound(cap * (d * elem + 4 + 1) + q_bytes
+                                      + 128 * k * 8, 2.0 * 128 * n_in * d,
+                                      route)
                 results[key] = dict(
                     shape=f"B=128 N={cap} D={d} k={k} {metric} "
                           f"({'bf16 rows, query rounded' if bf else 'f32'})",
@@ -2844,8 +2885,8 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
                     plain_ms=cuda_ms(torch, lambda: tp.l2_topk_plain(
                         x, x_sq, mem, qd, k, round_query=bf, metric=metric),
                         iters=2, warmup=1),
-                    library_ms=None, bound_ms=bms,
-                    bound_by=by + (" (bf16 tensor-core rate)" if bf else ""))
+                    library_ms=None, bound_ms=bms, bound_by=by,
+                    tile_pass=route)
                 launch_of[key] = counts[native.counter(
                     "l2_topk" if bf or k <= 256 else "l2_topk_large", bf,
                     metric, rq=bf)]
@@ -3144,7 +3185,8 @@ def _scale_run(torch, native, card, perf, results, launch_of, trace,
           f"queries against the streamed exact oracle ({oracle.n_tiles} tiles "
           f"of {oracle.tile_rows} rows, {oracle_s:.3f} s); {memory_line(torch)}"
           f" ({card})", flush=True)
-    print(f"scale: launches { {name: counts[name] for name in path} }",
+    print(f"scale: launches { {name: counts[name] for name in path} }; "
+          f"stage 1 by route { {c: counts[c] for c in S1_ROUTES} }",
           flush=True)
     if rec < 0.95:
         fail(f"scale: recall@10 {rec} < 0.95")
@@ -3261,7 +3303,7 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
     from fabstir_vectordb_tpu_torch.index import fused as fu
     from fabstir_vectordb_tpu_torch.index import tiered as ti
     from fabstir_vectordb_tpu_torch.ops import kmeans as km
-    from fabstir_vectordb_tpu_torch.utils import limits, synth
+    from fabstir_vectordb_tpu_torch.utils import limits, native, synth
     from fabstir_vectordb_tpu_torch.utils.padding import bucket
 
     store = h.store
@@ -3359,8 +3401,9 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
                        + (qt * qt).sum(1).max())
     err, differ = topk_check("tile_step", vk, rk, vp, rp, tol)
     n_in = int(mt.sum())
-    bms, by = bound(tr * (d * 4 + 1) + 32 * d * 4 + 3 * 32 * k * 8,
-                    2.0 * 32 * n_in * d + 2.0 * tr * d)
+    bms, by = route_bound(tr * (d * 4 + 1) + 32 * d * 4 + 3 * 32 * k * 8,
+                          2.0 * 32 * n_in * d + 2.0 * tr * d,
+                          fu.tile_route(xt.dtype, False, d))
     results["tile_step"] = dict(
         shape=f"B=32 tile={tr} D={d} k={k} (norms in the kernel, row base)",
         max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
@@ -3381,30 +3424,43 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
     q128 = torch.from_numpy(bq).to(dev)
     qp = fu.project_queries(q128, mu, pm)
     budget = limits.stage1_transient_bytes()  # as the dispatch passes it
-    for tag, b in (("B=1", 1), ("B=32", 32)):
+    for tag, b in (("B=1", 1), ("B=32", 32), ("B=128", 128)):
         qb = qp[:b].contiguous()
+        native.reset_launches()
         vk, rk = fu.stage1_select(xp, xp_sq, mem, qb, ov, budget)
-        vp, rp = fu.stage1_select_plain(xp, xp_sq, mem, qb, ov)
+        one = native.launches["stage1_select"]
+        if tag == "B=128":
+            pool = rk
+            if one != 1:
+                fail(f"stage1_select[10M B=128]: {one} launches, not one")
+        # the plain version in slices of 32 queries ([32, N] f32 at a time)
         tol = 2e-5 * float(xp_sq.max() + (qb * qb).sum(1).max())
-        err, differ = topk_check(f"stage1_select[10M {tag}]", vk, rk, vp, rp,
-                                 tol)
+        err, differ = 0.0, 0
+        for lo in range(0, b, 32):
+            vp, rp = fu.stage1_select_plain(xp, xp_sq, mem,
+                                            qb[lo:lo + 32], ov)
+            e, dd = topk_check(f"stage1_select[10M {tag}]", vk[lo:lo + 32],
+                               rk[lo:lo + 32], vp, rp, tol)
+            err, differ = max(err, e), differ + dd
+            del vp, rp
         bms, by = bound(n_rows * (r * 2 + 4 + 1) + b * r * 4 + b * ov * 8,
                         2.0 * b * n_in * r, BF16_FLOPS)
         key = f"stage1_select[10M {tag}]"
+        q32 = qb[:32]
         results[key] = dict(
             shape=f"B={b} N={n_rows} r={r} ov_k={ov}", max_abs_err=err,
             tol=tol, rows_differing_at_ties=differ,
             ms=cuda_ms(torch, lambda: fu.stage1_select(xp, xp_sq, mem, qb,
                                                        ov, budget), iters=3),
-            plain_ms=cuda_ms(torch, lambda: fu.stage1_select_plain(
-                xp, xp_sq, mem, qb, ov), iters=1, warmup=1),
+            plain_ms=(b / q32.shape[0]) * cuda_ms(
+                torch, lambda: fu.stage1_select_plain(xp, xp_sq, mem, q32,
+                                                      ov), iters=1, warmup=1),
             library_ms=None, bound_ms=bms,
-            bound_by=f"{by} (bf16 tensor-core rate)")
+            bound_by=f"{by} (bf16 tensor-core rate)",
+            tile_pass=fu.tile_route(torch.bfloat16, True, r),
+            launches_one_call=one,
+            **{f"{c}_launches": counts[c] for c in S1_ROUTES[1:]})
         launch_of[key] = counts["stage1_select"]
-    pool = torch.cat([fu.stage1_select(xp, xp_sq, mem,
-                                       qp[i:i + 32].contiguous(), ov,
-                                       budget)[1]
-                      for i in range(0, 128, 32)])
     m = min(64, ov)
     vk, rk = fu.rerank_f32(rx, q128, pool, m)
     vp, rp = fu.rerank_f32_plain(rx, q128, pool, m)
@@ -3449,7 +3505,8 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
     del centered, out_k, out_p, yk, yp
     for name in ("synth_rows[bf16 block]", "assign_clusters[10M tier block]",
                  "tile_step", "stage1_select[10M B=1]",
-                 "stage1_select[10M B=32]", "rerank_f32[10M]",
+                 "stage1_select[10M B=32]", "stage1_select[10M B=128]",
+                 "rerank_f32[10M]",
                  "project_rows[10M]"):
         print_kernel(name, results[name], launch_of[name])
 
@@ -4554,10 +4611,12 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
     comps = [
         ("sharded_flat_search[S=4 k=10]", "flat4", "rows",
          lambda: flat4(X, XSQ, M, Q, 10),
-         bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80, 2.0 * b * n_in * d)),
+         route_bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80,
+                     2.0 * b * n_in * d, fu.tile_route(X.dtype, False, d))),
         ("sharded_flat_search[S=1 k=10]", "flat1", "rows",
          lambda: flat1(X, XSQ, M, Q, 10),
-         bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80, 2.0 * b * n_in * d)),
+         route_bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80,
+                     2.0 * b * n_in * d, fu.tile_route(X.dtype, False, d))),
         ("sharded_flat_search[approx S=4 k=10]", "approx4", "overlap",
          lambda: pl.sharded_flat_search(m4, select="approx")(X, XSQ, M, Q,
                                                               10),
@@ -5091,7 +5150,9 @@ TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
 # K9's pass (tile_pass: "wgmma" or "fma", ops.topk.tile_route) and a bf16
 # torch.matmul of the same product (gemm_ms)
 DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
-               "library_device_us", "tile_pass", "gemm_ms")
+               "library_device_us", "tile_pass", "gemm_ms", "bound_fma_ms",
+               "stage1_select_fma_launches",
+               "stage1_select_overflow_launches", "launches_one_call")
 
 
 def main() -> None:
@@ -5216,8 +5277,8 @@ def main() -> None:
         launches = launch_of.get(key, counts.get(key, counts.get(base, 0)))
         kernels.append({
             "name": key, "route": "cuda",
-            "source": TILE_SOURCE if r.get("tile_pass") == "wgmma"
-            else SOURCES[base],
+            "source": TILE_SOURCE if r.get("tile_pass", "fma") != "fma"
+            and base != "stage1_select" else SOURCES[base],
             "replaces": REPLACES.get(key, REPLACES[base]),
             "launches": int(launches),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -32,18 +32,21 @@
 //
 // What bounds it on the H100: at the search shapes (B = 1..128, N = 131,072,
 // D = 384) the corpus read is 201 MB, 60 us at 3.35 TB/s, while the products
-// are 2*B*N*D = 12.9 GFLOP at B = 128, 0.19 ms at the 67 TFLOP/s f32 rate: f32
-// arithmetic bounds it from B of about 40 up. At the link-candidate shape
-// (B = 1,024, k = 200) the products dominate outright, and the other risk is
-// the 200-deep list each query has to keep.
+// are 2*B*N*D = 12.9 GFLOP at B = 128: 0.19 ms at the 67 TFLOP/s f32 FMA
+// rate, 0.08 ms as three TF32 products at 495 TFLOP/s. At the
+// link-candidate shape (B = 1,024, k = 200) the products dominate outright
+// (0.62 ms as three TF32 products), and the other risk is the 200-deep
+// list each query has to keep.
 //
-// Design: l2_tile.cuh (a tile product of 32 queries x 256 rows feeding
-// per-query lists in shared memory, then a merge of the slices' lists).
-// bf16 rows with the query rounded (a bf16 serving mirror) at D % 8 == 0
-// (and D <= 8,192) take bf16_tile.cuh's tensor-core pass instead
-// (fvdb_l2_topk_bf16_tc, fvdb_l2_topk_large_bf16_tc), with the same three
-// metrics and the same two selections; other D stay on l2_tile.cuh's FMA
-// pass, chosen by shape in ops/topk.py and counted apart.
+// Design: bf16_tile.cuh's tensor-core pass (fvdb_l2_topk_tc,
+// fvdb_l2_topk_large_tc) where ops/topk.py tile_route says so: bf16 rows
+// with the query rounded (a bf16 serving mirror, any metric), f32 rows by
+// three TF32 products (any metric), bf16 rows with an f32 query split in
+// three bf16 parts, at the D that TMA takes, with the same two selections.
+// Other D (and rows TMA cannot read in place) take l2_tile.cuh's FMA pass
+// (a tile product of 32 queries x 256 rows feeding per-query lists in
+// shared memory, then a merge of the slices' lists), chosen by shape in
+// ops/topk.py and counted apart.
 //
 // k > 256 (a filtered search asks for 3 k, and k reaches 16,384): the lists
 // would not fit shared memory, so pass 1 runs the same tile product but
@@ -52,9 +55,14 @@
 // radix select picks the k smallest (distance, row) of each buffer row. The
 // buffer costs 4 N bytes written and ~4 passes of 4 N bytes read a query,
 // against the 4 N D / 32 bytes a query of the product itself; the wrapper
-// runs query chunks so it stays within 1 GiB.
+// runs query chunks so it stays within 1 GiB. f32 rows by euclidean
+// distance take neither at any k: the filter route of tile_filter.cuh (a
+// bar from a sample of the rows' tiles, the survivors under it, their k
+// smallest; fvdb_l2_topk_filter_tc) keeps the lists' merges and the buffer
+// out of the pass.
 #include "bf16_tile.cuh"
 #include "l2_tile.cuh"
+#include "tile_filter.cuh"
 #include "topk_select.cuh"
 
 // x [N, D]; x_sq [N] or null (then the rows' norms are written to
@@ -169,9 +177,10 @@ inline int tc_slice_rows(int N, int S) {
   return (split + TC_ROWS - 1) / TC_ROWS * TC_ROWS;
 }
 
-// The tensor-core pass in LISTS or DUMP mode over bf16 rows, the query
-// rounded: x_sq from the scratch when not given, the rows' tensor map.
-inline cudaError_t tc_pass(int mode, const __nv_bfloat16* x,
+// The tensor-core pass in LISTS or DUMP mode by route (bf16_tile.cuh's
+// TC_RQ, TC_TF32X3, TC_BF16X3): x_sq from the scratch when not given, the
+// rows' tensor map.
+inline cudaError_t tc_pass(int mode, int kind, const void* x,
                            const float*& x_sq, const uint8_t* mask,
                            long long mask_stride, const float* q, int B,
                            int N, int D, int k, int S, int metric, int width,
@@ -179,14 +188,19 @@ inline cudaError_t tc_pass(int mode, const __nv_bfloat16* x,
                            unsigned long long* bars, float* part_d,
                            int* part_r, float* dump, cudaStream_t stream) {
   if (B < 1 || N < 1 || S < 1 || S > 65535 ||
-      (mode == SEL_LISTS && (k < 1 || k > TC_MAX_K)))
+      (mode == SEL_LISTS && (k < 1 || k > TC_MAX_K)) ||
+      (kind == TC_BF16X3 && metric != EUCLID))
     return cudaErrorInvalidValue;
-  cudaError_t e = tc_check(x, q, width, D, mode, k, stages, smem);
+  cudaError_t e = tc_check(x, q, width, D, mode, k, stages, smem, kind);
   if (e != cudaSuccess) return e;
-  e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  e = kind == TC_TF32X3
+          ? norms_or_given(static_cast<const float*>(x), N, D, x_sq,
+                           xsq_scratch, stream)
+          : norms_or_given(static_cast<const __nv_bfloat16*>(x), N, D, x_sq,
+                           xsq_scratch, stream);
   if (e != cudaSuccess) return e;
   CUtensorMap map;
-  if (!rows_map(x, N, D, &map)) return cudaErrorInvalidValue;
+  if (!rows_map(x, N, D, &map, kind)) return cudaErrorInvalidValue;
   if (mode == SEL_LISTS) {
     e = cudaMemsetAsync(bars, 0xff, (size_t)B * (8 + 4 * S), stream);
     if (e != cudaSuccess) return e;
@@ -196,14 +210,14 @@ inline cudaError_t tc_pass(int mode, const __nv_bfloat16* x,
   return with_metric(metric, [&](auto m) {
     constexpr int MT = decltype(m)::value;
     return mode == SEL_LISTS
-               ? launch_tc_width<SEL_LISTS, MT>(
-                     width, map, x_sq, mask, mask_stride, q, B, N, D, k,
-                     split, stages, smem, grid, bars, part_d, part_r,
+               ? launch_tc_kind<SEL_LISTS, MT>(
+                     kind, width, map, x_sq, mask, mask_stride, q, B, N, D,
+                     k, split, stages, smem, grid, bars, part_d, part_r,
                      (float*)nullptr, 0, (unsigned long long*)nullptr,
                      stream)
-               : launch_tc_width<SEL_DUMP, MT>(
-                     width, map, x_sq, mask, mask_stride, q, B, N, D, 0,
-                     split, stages, smem, grid,
+               : launch_tc_kind<SEL_DUMP, MT>(
+                     kind, width, map, x_sq, mask, mask_stride, q, B, N, D,
+                     0, split, stages, smem, grid,
                      (unsigned long long*)nullptr, (float*)nullptr,
                      (int*)nullptr, dump, 0, (unsigned long long*)nullptr,
                      stream);
@@ -212,20 +226,22 @@ inline cudaError_t tc_pass(int mode, const __nv_bfloat16* x,
 
 }  // namespace fvdb
 
-// bf16 rows x [N, D] with the query rounded, on the tensor cores
-// (bf16_tile.cuh), k <= 256: D % 8 == 0, x and q 16-byte aligned; width,
-// stages and smem from ops/topk.py tile_plan(B, k, D, "lists"); bars: B (8
-// + 4 S) bytes of scratch; the rest as fvdb_l2_topk_bf16.
-FVDB_EXPORT int fvdb_l2_topk_bf16_tc(
-    const __nv_bfloat16* x, const float* x_sq, const uint8_t* mask,
+// K1 on the tensor cores (bf16_tile.cuh), k <= 256, by route (kind): 0
+// bf16 rows with the query rounded (any metric), 1 f32 rows (3xTF32, any
+// metric), 2 bf16 rows with an f32 query (euclidean); x [N, D] of that row
+// type, D % 8 == 0 (f32 rows: D % 4), x and q 16-byte aligned; width,
+// stages and smem from ops/topk.py tile_plan(B, k, D, "lists", route);
+// bars: B (8 + 4 S) bytes of scratch; the rest as fvdb_l2_topk.
+FVDB_EXPORT int fvdb_l2_topk_tc(
+    const void* x, int kind, const float* x_sq, const uint8_t* mask,
     long long mask_stride, const float* q, int B, int N, int D, int k, int S,
     int row_base, int metric, int width, int stages, int smem,
     float* xsq_scratch, unsigned long long* bars, float* part_d, int* part_r,
     float* out_d, int* out_r, cudaStream_t stream) {
   using namespace fvdb;
-  cudaError_t e = tc_pass(SEL_LISTS, x, x_sq, mask, mask_stride, q, B, N, D,
-                          k, S, metric, width, stages, smem, xsq_scratch,
-                          bars, part_d, part_r, nullptr, stream);
+  cudaError_t e = tc_pass(SEL_LISTS, kind, x, x_sq, mask, mask_stride, q, B,
+                          N, D, k, S, metric, width, stages, smem,
+                          xsq_scratch, bars, part_d, part_r, nullptr, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int smem2 = (NT / 32) * k * 8;  // <= 16 KB: under the default cap
   l2_topk_merge<<<B, NT, smem2, stream>>>(part_d, part_r, B, k, S, row_base,
@@ -234,19 +250,50 @@ FVDB_EXPORT int fvdb_l2_topk_bf16_tc(
 }
 
 // The same at any k: the masked distances to dump [B, N] on the tensor
-// cores (width, stages and smem from tile_plan(B, k, D, "dump")), then the
-// radix select; work: fvdb_select_scratch_bytes(B, k) bytes.
-FVDB_EXPORT int fvdb_l2_topk_large_bf16_tc(
-    const __nv_bfloat16* x, const float* x_sq, const uint8_t* mask,
+// cores (width, stages and smem from tile_plan(B, k, D, "dump", route)),
+// then the radix select; work: fvdb_select_scratch_bytes(B, k) bytes.
+FVDB_EXPORT int fvdb_l2_topk_large_tc(
+    const void* x, int kind, const float* x_sq, const uint8_t* mask,
     long long mask_stride, const float* q, int B, int N, int D, int k, int S,
     int metric, int width, int stages, int smem, float* xsq_scratch,
     float* dump, void* work, float* out_d, int* out_r, cudaStream_t stream) {
   using namespace fvdb;
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = tc_pass(SEL_DUMP, x, x_sq, mask, mask_stride, q, B, N, D,
-                          k, S, metric, width, stages, smem, xsq_scratch,
-                          nullptr, nullptr, nullptr, dump, stream);
+  cudaError_t e = tc_pass(SEL_DUMP, kind, x, x_sq, mask, mask_stride, q, B,
+                          N, D, k, S, metric, width, stages, smem,
+                          xsq_scratch, nullptr, nullptr, nullptr, dump,
+                          stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
                                              work, out_d, out_r, stream));
+}
+
+// Bytes of the filter route's scratch (tile_filter.cuh) for B queries at k
+// with the plan's sample and survivor capacities (ops/topk.py
+// filter_plan).
+FVDB_EXPORT long long fvdb_l2_topk_filter_bytes(int B, int k, int cap_s,
+                                                int cap) {
+  return fvdb::tile_filter_bytes(B, k, cap_s, cap);
+}
+
+// K1 on f32 rows by euclidean distance at any k on the tensor cores' filter
+// route (three TF32 products; a bar from a sample of the rows' tiles, the
+// survivors under it, their k smallest): x [N, D] f32 (D % 4 == 0, 16-byte
+// aligned), x_sq [N] or null (then the rows' norms go to xsq_scratch [N]
+// first), mask [B or 1, N] (mask_stride N or 0; null: every row), q [B, D];
+// the plan's arguments as launch_tile_filter takes them (tile_plan(B, 0, D,
+// "filter", "tf32x3"), filter_plan); out_* [B, k] (rows without a base);
+// *overflow: the queries whose survivors passed cap.
+FVDB_EXPORT int fvdb_l2_topk_filter_tc(
+    const float* x, const float* x_sq, const uint8_t* mask,
+    long long mask_stride, const float* q, int B, int N, int D, int k,
+    int width, int stages, int smem, int S_s, int S, int tstride, int cap_s,
+    int cap, int chunk, float* xsq_scratch, void* work, float* out_d,
+    int* out_r, int* overflow, cudaStream_t stream) {
+  using namespace fvdb;
+  cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_tile_filter<TC_TF32X3>(
+      x, x_sq, mask, mask_stride, q, B, N, D, k, width, stages, smem, S_s, S,
+      tstride, cap_s, cap, chunk, work, out_d, out_r, overflow, stream));
 }

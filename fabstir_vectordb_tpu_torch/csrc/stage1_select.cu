@@ -11,19 +11,24 @@
 // padded with (+inf, -1). The reference selects with lax.approx_min_k, which
 // is exact on the CPU backend; this kernel selects exactly.
 //
-// What bounds it on the H100: at the serving shape (B = 128, N = 1,048,576,
-// r <= 192) the mirror read is N * r * 2 bytes (403 MB at r = 192, 0.12 ms)
+// What bounds it on the H100: the mirror read, N * r * 2 bytes (403 MB at
+// N = 1,048,576 and r = 192, 0.12 ms; 4.03 GB at 10,485,760, 1.2 ms),
 // against 2 B N r products, which at the tensor cores' 989 TFLOP/s bf16 rate
-// (0.05 ms) leave the bytes in charge; this first version multiplies with
-// f32 FMA (the bf16 values are exact in f32), so it runs against the 67
-// TFLOP/s f32 rate instead.
+// take 0.05 ms at B = 128 over 1M rows (0.52 ms over 10M): one read of the
+// mirror bounds it.
 //
-// Design: K1's tile pass (l2_tile.cuh) instantiated for bf16 rows and a
-// bf16-rounded query writes the masked distances of a query chunk to a
-// [B, N] buffer, and topk_select.cuh's radix select picks each query's
-// ov_k, for any ov_k. (K1's per-query shared-memory lists were slower here
-// at every shape but B = 128 with ov_k <= 64.)
+// Design (fvdb_stage1_filter, r % 8 == 0): bf16_tile.cuh's tensor-core
+// pass, which reads the mirror once a query tile, in its filter route
+// (tile_filter.cuh): a bar a query from a sample of the mirror's tiles,
+// the survivors under it, their ov_k smallest; no [B, N] buffer.
+//
+// fvdb_stage1_select, the dump route (any r; the wrapper's route where r %
+// 8 != 0, and the overflow's): K1's FMA tile pass (l2_tile.cuh) for bf16
+// rows and a bf16-rounded query writes the masked distances of a query
+// chunk to a [B, N] buffer, and topk_select.cuh's radix select picks each
+// query's ov_k.
 #include "l2_tile.cuh"
+#include "tile_filter.cuh"
 #include "topk_select.cuh"
 
 // xp [N, R] bf16, xp_sq [N], mask [N] (null: every row), qp [B, R] f32;
@@ -44,4 +49,27 @@ FVDB_EXPORT int fvdb_stage1_select(const __nv_bfloat16* xp,
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
                                              work, out_d, out_r, stream));
+}
+
+// Bytes of the filter route's scratch for B queries at ov_k with the
+// plan's sample and survivor capacities (ops/topk.py filter_plan).
+FVDB_EXPORT long long fvdb_stage1_filter_bytes(int B, int k, int cap_s,
+                                               int cap) {
+  return fvdb::tile_filter_bytes(B, k, cap_s, cap);
+}
+
+// The tensor-core route (tile_filter.cuh): xp [N, R] bf16 (R % 8 == 0,
+// 16-byte aligned), xp_sq [N], mask [N] (null: every row), qp [B, R] f32
+// (16-byte aligned); the plan's arguments as launch_tile_filter takes them
+// (tile_plan(B, 0, R, "filter"), filter_plan); out_* [B, k]; *overflow:
+// the queries whose survivors passed cap.
+FVDB_EXPORT int fvdb_stage1_filter(
+    const __nv_bfloat16* xp, const float* xp_sq, const uint8_t* mask,
+    const float* qp, int B, int N, int R, int k, int width, int stages,
+    int smem, int S_s, int S, int tstride, int cap_s, int cap, int chunk,
+    void* work, float* out_d, int* out_r, int* overflow,
+    cudaStream_t stream) {
+  return static_cast<int>(fvdb::launch_tile_filter<fvdb::TC_RQ>(
+      xp, xp_sq, mask, 0, qp, B, N, R, k, width, stages, smem, S_s, S,
+      tstride, cap_s, cap, chunk, work, out_d, out_r, overflow, stream));
 }

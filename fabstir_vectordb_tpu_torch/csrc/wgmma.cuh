@@ -2,7 +2,9 @@
 // kernels: shared-memory descriptors of 64- and 128-byte-swizzled K-major
 // tiles, TMA copies into such tiles completed on shared-memory barriers
 // (mbarrier), the fences around an asynchronous product, m64nNk16 bf16
-// x bf16 -> f32 products for N = 8, 32, 64, 96 and 128, and the host's
+// x bf16 -> f32 products for N = 8, 32, 64, 96 and 128, m64nNk8 tf32 x
+// tf32 -> f32 products (A from registers) for N = 8, 32, 64 and 128, the
+// round of an f32 to tf32, and the host's
 // encoding of a tensor map (libcuda's cuTensorMapEncodeTiled).
 //
 // A 64-byte-swizzled K-major tile is rows of 32 bf16 values stored in
@@ -118,6 +120,20 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// x rounded to TF32 (to nearest, ties away from zero), as an f32 whose low
+// 13 bits are zero. Volatile, so that it stays before the wgmma fence that
+// follows it when it makes an A fragment.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .b32 t;\n"
+      "cvt.rna.tf32.f32 t, %1;\n"
+      "and.b32 %0, t, 0xffffe000;\n}\n"
+      : "=r"(r)
+      : "f"(x));
+  return r;
+}
+
 // Keeps the compiler from moving reads or writes of an accumulator
 // register across the asynchronous product.
 template <int M>
@@ -260,6 +276,120 @@ struct Wgmma<128> {
   }
 };
 
+// d[64 x N] (+)= A[64 x 8] . B[8 x N]^T in TF32 (tf32 x tf32 -> f32: the
+// tensor cores read the top 19 bits of each f32), A from registers and B a
+// K-major f32 tile in shared memory (128-byte swizzle: rows of 32 f32; a
+// step of 8 values, 32 bytes, adds 2 to the descriptor's address field);
+// scale_d 0 overwrites d. Thread t of the warpgroup holds a[e] at row 16
+// (t / 32) + (t % 32) / 4 + 8 (e % 2) and column t % 4 + 4 (e / 2) of A,
+// and d as in Wgmma.
+template <int N>
+struct WgmmaTF32;
+
+template <>
+struct WgmmaTF32<8> {
+  __device__ __forceinline__ static void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTF32<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTF32<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTF32<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
 // libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
 // point query (no link against libcuda).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -300,9 +430,9 @@ inline bool tile_map(CUtensorMap* m, const void* base, bool bf16,
                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
              2, const_cast<void*>(base), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
-             !bf16  ? CU_TENSOR_MAP_SWIZZLE_NONE
-             : sw128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                     : CU_TENSOR_MAP_SWIZZLE_64B,
+             sw128  ? CU_TENSOR_MAP_SWIZZLE_128B
+             : bf16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                    : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -44,9 +44,10 @@ import torch
 
 from ..ops.distance import pairwise_sq_l2
 from ..ops.projection import pca_basis
-from ..ops.topk import (_MAX_GRID_Q, _splits, INF, approx_topk, l2_topk,
+from ..ops.topk import (_MAX_GRID_Q, _TC_ROWS, _splits, INF, FilterPlan,
+                        approx_topk, filter_launch, filter_plan, l2_topk,
                         l2_topk_plain, masked_topk_plain, merge_topk,
-                        merge_topk_plain, select_scratch)
+                        merge_topk_plain, select_scratch, tile_route)
 from ..utils import limits, native
 from ..utils.padding import bucket, fit_mask, round_up
 from ..utils.transfer import put_bf16_blocks, to_device, to_host
@@ -110,16 +111,63 @@ def stage1_select_plain(xp, xp_sq, mask, qp, ov_k: int):
     return masked_topk_plain(d.clamp_min(0.0), mask, ov_k)
 
 
+def stage1_query_bytes(n: int, r: int, ov_k: int, device_type: str) -> int:
+    """Scratch a query of K14's stage 1 takes on the route it runs: on the
+    card at a rank the tensor-core route takes, that route's plan; else
+    the [B, N] f32 distances of the FMA route's buffer (and of the plain
+    version, which CPU tensors run)."""
+    if device_type == "cuda" and tile_route(torch.bfloat16, True, r) \
+            == "wgmma":
+        return filter_plan(n, ov_k).query_bytes
+    return 4 * n
+
+
+def stage1_filter_plain(xp, xp_sq, mask, qp, ov_k: int,
+                        plan: FilterPlan | None = None):
+    """The tensor-core route's selection in plain PyTorch: the bar from
+    every tstride-th tile of 128 rows (the sample's ov_k-th distance, +inf
+    with fewer), the survivors at or below it, their ov_k smallest by
+    (distance, row). Returns (vals, rows, survivors [B]); a count past
+    plan.cap is the route's overflow. Equal to :func:`stage1_select_plain`
+    by construction (the sample's rows are rows of the mirror)."""
+    n = xp.shape[0]
+    plan = plan or filter_plan(n, ov_k)
+    qr = qp.to(torch.bfloat16).float()
+    q_sq = (qp * qp).sum(-1)
+    d = (q_sq[:, None] - 2.0 * (qr @ xp.float().T)
+         + xp_sq[None, :]).clamp_min(0.0)
+    if mask is not None:
+        d = torch.where(mask[None, :], d, torch.full_like(d, INF))
+    if plan.tstride:
+        taken = (torch.arange(n, device=xp.device) // _TC_ROWS) \
+            % plan.tstride == 0
+        sample = torch.where(taken[None, :], d, torch.full_like(d, INF))
+        bar = masked_topk_plain(sample, None, ov_k)[0][:, -1]
+    else:
+        bar = torch.full((d.shape[0],), INF, device=xp.device)
+    keep = torch.isfinite(d) & (d <= bar[:, None])
+    vals, rows = masked_topk_plain(torch.where(keep, d, torch.full_like(
+        d, INF)), None, ov_k)
+    return vals, rows, keep.sum(1)
+
+
 def stage1_select(xp, xp_sq, mask, qp, ov_k: int,
-                  transient_bytes: int | None = None):
+                  transient_bytes: int | None = None,
+                  capacity: int | None = None):
     """K14's stage 1 (the reference's stage1_select_kernel): the ov_k
     nearest rows of the projected bf16 mirror xp [N, r] (f32 norms xp_sq
     [N], mask [N] bool or None) to the projected queries qp [B, r] f32.
     Returns (vals [B, ov_k], rows [B, ov_k]) sorted by (distance, row),
-    padded with (+inf, -1). A launch takes as many queries as keep its
-    [queries, N] f32 buffer within ``transient_bytes`` (None:
-    limits.stage1_transient_bytes()). The plain version on CPU tensors,
-    csrc/stage1_select.cu on CUDA tensors."""
+    padded with (+inf, -1). The plain version on CPU tensors; on CUDA
+    tensors csrc/stage1_select.cu: at r % 8 == 0 the tensor-core route (a
+    bar from a sample of the mirror, the survivors under it, their ov_k
+    smallest; counted as "stage1_select"), else the FMA pass into a [B, N]
+    buffer and a radix select ("stage1_select_fma"). A launch whose
+    survivors pass their buffer (``capacity`` a query, None: the plan's)
+    runs again on the FMA route ("stage1_select_overflow"): the wrapper
+    reads that count from the card after each launch. A launch takes as
+    many queries as keep its device scratch (:func:`stage1_query_bytes`)
+    within ``transient_bytes`` (None: limits.stage1_transient_bytes())."""
     if xp.device.type == "cpu":
         return stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
     dev = xp.device
@@ -137,11 +185,57 @@ def stage1_select(xp, xp_sq, mask, qp, ov_k: int,
     out_r = torch.empty((b, ov_k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_r
-    P, I = native.P, native.I
-    m_ptr = 0 if mask is None else mask.data_ptr()
-    # query chunks keep the [chunk, N] distance buffer within the budget
     if transient_bytes is None:
         transient_bytes = limits.stage1_transient_bytes()
+    qc = max(1, min(b, int(transient_bytes)
+                    // stage1_query_bytes(n, r, ov_k, "cuda"), _MAX_GRID_Q))
+    tc = tile_route(torch.bfloat16, True, r) == "wgmma" \
+        and xp.data_ptr() % 16 == 0 and qp.data_ptr() % 16 == 0
+    for lo in range(0, b, qc):
+        hi = min(b, lo + qc)
+        if tc and _stage1_filter(xp, xp_sq, mask, qp[lo:hi], ov_k,
+                                 out_d[lo:hi], out_r[lo:hi], capacity):
+            continue
+        _stage1_dump(xp, xp_sq, mask, qp[lo:hi], ov_k, out_d[lo:hi],
+                     out_r[lo:hi], transient_bytes)
+        native.launches["stage1_select_overflow" if tc
+                        else "stage1_select_fma"] += 1
+    return out_d, out_r
+
+
+def _stage1_filter(xp, xp_sq, mask, qp, ov_k: int, out_d, out_r,
+                   capacity: int | None) -> bool:
+    """One launch of the tensor-core route into out_d / out_r; False when
+    a query's survivors passed their buffer (out_* then hold no answer)."""
+    dev = xp.device
+    n, r = xp.shape
+    b = qp.shape[0]
+    fl = filter_launch("stage1_select", b, n, r, ov_k, "wgmma", dev, capacity)
+    tp, plan = fl.tile, fl.plan
+    work = torch.empty(fl.work_bytes, dtype=torch.uint8, device=dev)
+    overflow = torch.empty(1, dtype=torch.int32, device=dev)
+    P, I = native.P, native.I
+    native.call(
+        "stage1_select", "fvdb_stage1_filter",
+        [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P],
+        xp.data_ptr(), xp_sq.data_ptr(), 0 if mask is None
+        else mask.data_ptr(), qp.data_ptr(), b, n, r, ov_k, tp.width,
+        tp.stages, tp.smem, fl.sample_slices, fl.slices, plan.tstride,
+        plan.cap_s, plan.cap, plan.chunk, work.data_ptr(), out_d.data_ptr(),
+        out_r.data_ptr(), overflow.data_ptr(), native.stream_of(xp))
+    native.launches["stage1_select"] += 1
+    return int(overflow.item()) == 0
+
+
+def _stage1_dump(xp, xp_sq, mask, qp, ov_k: int, out_d, out_r,
+                 transient_bytes: int) -> None:
+    """The FMA route into out_d / out_r, in query chunks whose [chunk, N]
+    f32 buffers stay within ``transient_bytes``."""
+    dev = xp.device
+    n, r = xp.shape
+    b = qp.shape[0]
+    P, I = native.P, native.I
+    m_ptr = 0 if mask is None else mask.data_ptr()
     qc = max(1, min(b, int(transient_bytes) // (4 * n), _MAX_GRID_Q))
     for lo in range(0, b, qc):
         hi = min(b, lo + qc)
@@ -154,8 +248,6 @@ def stage1_select(xp, xp_sq, mask, qp, ov_k: int,
             hi - lo, n, r, ov_k, _splits(hi - lo, n, dev), dump.data_ptr(),
             work.data_ptr(), out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
             native.stream_of(xp))
-        native.launches["stage1_select"] += 1
-    return out_d, out_r
 
 
 def project_rows_plain(src, mu, p, out, out_sq, lo: int = 0) -> None:
@@ -711,11 +803,12 @@ class FusedSearcher:
                    int(proj["xp"].shape[0]))
         q = to_device(queries_np, device)
         qp = project_queries(q, proj["mu"], proj["p"])
-        # power-of-two query chunks keep the [B, N] stage-1 transient under
+        # power-of-two query chunks keep stage 1's device scratch under
         # limits.stage1_transient_bytes()
         b = int(qp.shape[0])
         b_sub = max(1, min(
-            b, limits.stage1_transient_bytes() // max(n_rows * 4, 1)))
+            b, limits.stage1_transient_bytes() // stage1_query_bytes(
+                *proj["xp"].shape, ov_k, device.type)))
         b_sub = 1 << (b_sub.bit_length() - 1)
         budget = limits.stage1_transient_bytes()
         if b <= b_sub:

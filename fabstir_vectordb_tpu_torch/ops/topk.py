@@ -12,6 +12,7 @@ versions (stable sorts) and in the kernels alike.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import NamedTuple
@@ -639,10 +640,17 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
     when fewer than k rows are unmasked). On CPU tensors it runs the plain
     version; on CUDA tensors it launches csrc/l2_topk.cu (k <= 256:
     per-query lists in shared memory; larger k: the masked distances of a
-    query chunk to a buffer, then a radix select) or raises. bf16 rows
-    with the query rounded take the tensor-core pass (csrc/bf16_tile.cuh)
-    where :func:`tile_route` says so, and l2_tile.cuh's FMA pass at other
-    D (its own counter, "..._fma").
+    query chunk to a buffer, then a radix select) or raises. The
+    tensor-core pass (csrc/bf16_tile.cuh) takes the shapes
+    :func:`tile_route` sends it (bf16 rows with the query rounded, f32 rows
+    by three TF32 products, bf16 rows with an f32 query split in three
+    bf16 parts), rows and queries 16-byte aligned; l2_tile.cuh's FMA pass
+    takes the rest, each under its own counter ("..._fma"). f32 rows by
+    euclidean distance at k >= 128 take the tensor-core pass's filter route
+    (csrc/tile_filter.cuh: a bar from a sample of the rows' tiles, the
+    survivors under it, no lists and no [B, N] buffer), which reads one
+    int back from the card a launch; a launch whose survivors pass their
+    buffer runs again on the lists or the buffer ("l2_topk_overflow").
 
     bf16 rows without rounding (euclidean only): the HNSW link candidates
     on a bf16 mirror and the reduced-rank calibration oracle's streamed
@@ -675,6 +683,19 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
             f"{None if x_sq is None else tuple(x_sq.shape)}")
     if k < 1:
         raise ValueError(f"l2_topk takes k >= 1, got {k}")
+    return _l2_topk_card(x, x_sq, mask, q, k, row_base, round_query, metric,
+                         True)
+
+
+def _l2_topk_card(x, x_sq, mask, q, k: int, row_base: int,
+                  round_query: bool, metric: str, filter_route: bool):
+    """:func:`l2_topk` on the card, its arguments checked; ``filter_route``
+    lets f32 rows by euclidean distance at k >= 128 take the filter route
+    (the reruns of a launch that overflowed it do not)."""
+    bf16 = x.dtype == torch.bfloat16
+    dev = x.device
+    n, d = x.shape
+    b = q.shape[0]
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0 or n == 0:
@@ -686,16 +707,33 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
     scratch = torch.empty(n, dtype=torch.float32, device=dev) \
         if x_sq is None else None
     scratch_ptr = 0 if scratch is None else scratch.data_ptr()
-    # the query rounded on bf16 rows: the tensor-core pass where
-    # tile_route says so, else the FMA pass (counted apart)
-    tc = round_query and tile_route(x.dtype, True, d) == "wgmma"
+    # the tensor-core pass where tile_route says so (and TMA can read the
+    # rows and queries in place), else the FMA pass, counted apart
+    route = tile_route(x.dtype, round_query, d)
+    if route != "fma" and (x.data_ptr() % 16 or q.data_ptr() % 16
+                           or (route == "bf16x3" and metric != "euclidean")):
+        route = "fma"
+    if route == "tf32x3" and metric == "euclidean" and filter_route \
+            and k >= _FILTER_MIN_K:
+        return _filter_topk(x, x_sq, mask, q, k, row_base)
+    plan = None
+    if route != "fma":
+        qc = b if k <= _SMALL_K else max(1, min(b, _DUMP_BYTES // (4 * n),
+                                               _MAX_GRID_Q))
+        plan = tile_plan(qc, k, d, "lists" if k <= _SMALL_K else "dump",
+                         route)
+        if plan is None:
+            route = "fma"
+    tc = route != "fma"
     # one counter a kernel: f32 rows, bf16 rows, bf16 rows with the query
-    # rounded (tensor cores; "_fma" the FMA pass); the k > 256 path of f32
-    # rows counts apart; cosine and dot add their name
+    # rounded; the tensor-core routes count under these names, the FMA pass
+    # under "..._fma"; the k > 256 path of f32 rows counts apart; cosine and
+    # dot add their name
     counter = native.counter(
         "l2_topk_large" if k > _SMALL_K and not bf16 else "l2_topk", bf16,
-        metric, rq=round_query, fma=round_query and not tc)
+        metric, rq=round_query, fma=not tc)
     code = METRIC_CODE[metric]
+    kind = TILE_ROUTES.get(route, 0)
     # bf16 entry points take round_q after their last int, then the metric
     rq = ([int(round_query)] if bf16 else []) + [code]
     rq_t = ([I] if bf16 else []) + [I]
@@ -707,14 +745,14 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
             work = select_scratch("l2_topk", hi - lo, k, dev)
             mq = mask[lo:hi].data_ptr() if m_stride else m_ptr
             if tc:
-                plan = tile_plan(hi - lo, k, d, "dump")
                 native.call(
-                    "l2_topk", "fvdb_l2_topk_large_bf16_tc",
-                    [P, P, P, L, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P,
-                     P],
-                    x.data_ptr(), sq_ptr, mq, m_stride, q[lo:hi].data_ptr(),
-                    hi - lo, n, d, k, _tc_splits(plan.tiles, n, dev), code,
-                    plan.width, plan.stages, plan.smem, scratch_ptr,
+                    "l2_topk", "fvdb_l2_topk_large_tc",
+                    [P, I, P, P, L, P, I, I, I, I, I, I, I, I, I, P, P, P, P,
+                     P, P],
+                    x.data_ptr(), kind, sq_ptr, mq, m_stride,
+                    q[lo:hi].data_ptr(), hi - lo, n, d, k,
+                    _tc_splits(math.ceil((hi - lo) / plan.width), n, dev),
+                    code, plan.width, plan.stages, plan.smem, scratch_ptr,
                     dump.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
                     out_r[lo:hi].data_ptr(), native.stream_of(x))
             else:
@@ -733,11 +771,7 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
         if row_base:
             out_r = torch.where(out_r >= 0, out_r + row_base, out_r)
         return out_d, out_r
-    if tc:
-        plan = tile_plan(b, k, d, "lists")
-        splits = _tc_splits(plan.tiles, n, dev)
-    else:
-        splits = _splits(b, n, dev)
+    splits = _tc_splits(plan.tiles, n, dev) if tc else _splits(b, n, dev)
     part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
     part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
     if tc:
@@ -745,11 +779,11 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
         bars = torch.empty(b + (b * splits + 1) // 2, dtype=torch.int64,
                            device=dev)
         native.call(
-            "l2_topk", "fvdb_l2_topk_bf16_tc",
-            [P, P, P, L, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P, P,
-             P],
-            x.data_ptr(), sq_ptr, m_ptr, m_stride, q.data_ptr(), b, n, d, k,
-            splits, row_base, code, plan.width, plan.stages, plan.smem,
+            "l2_topk", "fvdb_l2_topk_tc",
+            [P, I, P, P, L, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P,
+             P, P],
+            x.data_ptr(), kind, sq_ptr, m_ptr, m_stride, q.data_ptr(), b, n,
+            d, k, splits, row_base, code, plan.width, plan.stages, plan.smem,
             scratch_ptr, bars.data_ptr(), part_d.data_ptr(),
             part_r.data_ptr(), out_d.data_ptr(), out_r.data_ptr(),
             native.stream_of(x))
@@ -762,6 +796,148 @@ def l2_topk(x: torch.Tensor, x_sq: torch.Tensor | None, mask: torch.Tensor,
             part_d.data_ptr(), part_r.data_ptr(), out_d.data_ptr(),
             out_r.data_ptr(), native.stream_of(x))
     native.launches[counter] += 1
+    return out_d, out_r
+
+
+class FilterPlan(NamedTuple):
+    tstride: int      # the sample takes every tstride-th tile (0: none)
+    cap_s: int        # the sample's rows a query (its keys' buffer)
+    cap: int          # survivors a query, with a reservation a slice spare
+    chunk: int        # slots a block reserves for a query at a time
+    query_bytes: int  # device scratch a query
+
+
+# the filter route (csrc/tile_filter.cuh): tiles of 128 rows; a sample
+# that would take more than a quarter of them saves nothing; survivors a
+# query the buffer holds, in expected survivors (tstride k), and besides
+# them room for a reservation of _FILTER_CHUNK slots a row slice (a block
+# pads what it does not fill): up to _FILTER_SLICES slices, one a
+# streaming multiprocessor of an H100
+_FILTER_MIN_STRIDE = 4
+# K1 on f32 rows takes the filter route from this k: below it the lists'
+# merges cost less than the route's sample pass, two finishing launches
+# and the count it reads back (K1 at B=128 k=16 over 131,072 rows: 0.59 ms
+# on the lists, 0.66 on the filter route; K3 at k=200: 4.62 / 4.11 ms,
+# scripts/time_tile_routes.py on an H100)
+_FILTER_MIN_K = 128
+_FILTER_CAP_FACTOR = 4
+_FILTER_CHUNK = 128
+_FILTER_SLICES = 132
+
+
+def filter_plan(n: int, k: int, slices: int = _FILTER_SLICES) -> FilterPlan:
+    """The filter route's plan (csrc/tile_filter.cuh; K14's stage 1, K1 on
+    f32 rows by euclidean distance) over n rows at k with ``slices`` row
+    slices: the sample's tile stride, the power of two at most sqrt(n / k)
+    (the sample, about n / tstride rows, and the survivors under its bar,
+    about tstride k, then cost about the same), none below 4 (no bar:
+    every row is a slot); the survivor capacity, 4 tstride k (at most
+    every row) and a reservation of 128 slots a slice; and the device bytes
+    a query takes: the sample's keys, the survivors' keys, the sample's
+    pool and counts, and past 4,096 the finishing lists."""
+    tiles = math.ceil(n / _TC_ROWS)
+    rows = tiles * _TC_ROWS
+    stride = 1 << int(math.floor(math.log2(max(1.0, math.sqrt(n / k)))))
+    if stride < _FILTER_MIN_STRIDE:
+        tstride, cap_s, cap = 0, 0, rows
+    else:
+        tstride = stride
+        cap_s = math.ceil(tiles / stride) * _TC_ROWS
+        cap = min(rows, _FILTER_CAP_FACTOR * stride * k) \
+            + slices * _FILTER_CHUNK
+    kc = min(k, cap)
+    lists = 8 * (1 << (kc - 1).bit_length()) if kc > _SORT_SMEM else 0
+    return FilterPlan(tstride, cap_s, cap, _FILTER_CHUNK,
+                      8 * (cap_s + cap) + 8 * k + 8 + lists)
+
+
+class FilterLaunch(NamedTuple):
+    tile: TilePlan    # the pass's plan
+    sample_slices: int  # row slices of the sample pass
+    slices: int       # row slices of the whole pass
+    plan: FilterPlan
+    work_bytes: int   # the launch's scratch
+
+
+def filter_launch(source: str, b: int, n: int, d: int, k: int, route: str,
+                  device, capacity: int | None = None) -> FilterLaunch:
+    """The arguments of one launch of the filter route (``source``'s
+    library, its fvdb_*_filter_bytes) for b queries over n rows of d dims
+    at k on ``route`` ("wgmma": K14's stage 1; "tf32x3": K1 on f32 rows),
+    with at most ``capacity`` survivors a query (None: the plan's); kept
+    per shape, since a search repeats its shapes."""
+    return _filter_launch(source, b, n, d, k, route, _num_sms(device),
+                          capacity)
+
+
+@functools.lru_cache(maxsize=256)
+def _filter_launch(source: str, b: int, n: int, d: int, k: int, route: str,
+                   sms: int, capacity: int | None) -> FilterLaunch:
+    tp = tile_plan(b, 0, d, "filter", route)
+    slices = _slices(tp.tiles, n, sms)
+    plan = filter_plan(n, k, slices)
+    if capacity is not None:
+        plan = plan._replace(cap=max(1, min(plan.cap, int(capacity))))
+    nbytes = native.query(source, _FILTER_BYTES[source], [native.I] * 4, b,
+                          k, plan.cap_s, plan.cap)
+    return FilterLaunch(tp, _slices(tp.tiles, max(plan.cap_s, 1), sms),
+                        slices, plan, nbytes)
+
+
+# each library's export of the filter route's scratch bytes
+_FILTER_BYTES = {"l2_topk": "fvdb_l2_topk_filter_bytes",
+                 "stage1_select": "fvdb_stage1_filter_bytes"}
+
+
+def _filter_topk(x, x_sq, mask, q, k: int, row_base: int):
+    """K1 on f32 rows by euclidean distance on the filter route
+    (csrc/l2_topk.cu fvdb_l2_topk_filter_tc), in query chunks whose scratch
+    stays within _DUMP_BYTES; a chunk whose survivors passed their buffer
+    runs again on the lists or the buffer ("l2_topk_overflow"). Reads one
+    int back from the card a chunk."""
+    dev = x.device
+    n, d = x.shape
+    b = q.shape[0]
+    counter = "l2_topk_large" if k > _SMALL_K else "l2_topk"
+    qc = max(1, min(b, _DUMP_BYTES // filter_plan(n, k).query_bytes,
+                    _MAX_GRID_Q))
+    m_stride = n if mask is not None and mask.dim() == 2 else 0
+    scratch = torch.empty(n, dtype=torch.float32, device=dev) \
+        if x_sq is None else None
+    sq_ptr = scratch.data_ptr() if x_sq is None else x_sq.data_ptr()
+    P, I, L = native.P, native.I, native.L
+    outs = []
+    for lo in range(0, b, qc):
+        hi = min(b, lo + qc)
+        qq = q[lo:hi]
+        mq = None if mask is None else (mask[lo:hi] if m_stride else mask)
+        fl = filter_launch("l2_topk", hi - lo, n, d, k, "tf32x3", dev)
+        tp, plan = fl.tile, fl.plan
+        work = torch.empty(fl.work_bytes, dtype=torch.uint8, device=dev)
+        od = torch.empty((hi - lo, k), dtype=torch.float32, device=dev)
+        orow = torch.empty((hi - lo, k), dtype=torch.int32, device=dev)
+        overflow = torch.empty(1, dtype=torch.int32, device=dev)
+        native.call(
+            "l2_topk", "fvdb_l2_topk_filter_tc",
+            [P, P, P, L, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P,
+             P, P],
+            x.data_ptr(), 0 if scratch is not None and lo == 0 else sq_ptr,
+            0 if mq is None else mq.data_ptr(), m_stride, qq.data_ptr(),
+            hi - lo, n, d, k, tp.width, tp.stages, tp.smem, fl.sample_slices,
+            fl.slices, plan.tstride, plan.cap_s, plan.cap, plan.chunk,
+            0 if scratch is None else scratch.data_ptr(), work.data_ptr(),
+            od.data_ptr(), orow.data_ptr(), overflow.data_ptr(),
+            native.stream_of(x))
+        native.launches[counter] += 1
+        if int(overflow.item()):
+            od, orow = _l2_topk_card(x, scratch if x_sq is None else x_sq,
+                                     mq, qq, k, 0, False, "euclidean", False)
+            native.launches["l2_topk_overflow"] += 1
+        outs.append((od, orow))
+    out_d = torch.cat([o[0] for o in outs]) if len(outs) > 1 else outs[0][0]
+    out_r = torch.cat([o[1] for o in outs]) if len(outs) > 1 else outs[0][1]
+    if row_base:
+        out_r = torch.where(out_r >= 0, out_r + row_base, out_r)
     return out_d, out_r
 
 
@@ -789,24 +965,33 @@ def _tc_splits(tiles: int, n: int, dev) -> int:
     """Row slices of the tensor-core pass: ``tiles`` query tiles x slices
     make one wave at one block an SM (its shared memory holds the queries,
     the ring and the lists); slices keep at least two 128-row tiles."""
-    return max(1, min(math.ceil(n / 256), _num_sms(dev) // tiles,
-                      _MAX_GRID_Q))
+    return _slices(tiles, n, _num_sms(dev))
 
 
-# csrc/bf16_tile.cuh, the tensor-core pass over bf16 rows with the query
-# rounded: its query widths (the wgmma's N), tile rows, ring slot bytes
-# (128 rows x 64 dims of bf16), staged keys a query, ring stages at most,
-# the dynamic shared memory a launch may take (232,448 bytes a block less
-# 1 KB of static barriers, padded to the dynamic array's alignment), and
-# the widest D it takes
+def _slices(tiles: int, n: int, sms: int) -> int:
+    return max(1, min(math.ceil(n / 256), sms // tiles, _MAX_GRID_Q))
+
+
+# csrc/bf16_tile.cuh, the tensor-core pass: its query widths (the wgmma's
+# N), tile rows, ring slot bytes (128 rows x 128 bytes), staged keys a
+# query, ring stages at most, the dynamic shared memory a launch may take
+# (232,448 bytes a block less 1 KB of static barriers, padded to the
+# dynamic array's alignment), and the widest D of the rounded route and of
+# the split ones (whose staged parts take two or three times the room)
 _TC_WIDTHS = (8, 32, 64, 128)
 _TC_ROWS = 128
 _TC_STEP = 128 * 64 * 2
 _TC_CAP = 32
+_TC_FCAP = 64  # the filter's staged keys a query
 _TC_MAX_STAGES = 8
 _TC_SMEM_LIMIT = 232_448 - 1024
 _TC_MAX_D = 8192
-TILE_MODES = ("lists", "dump", "bins")
+_TC_MAX_D_SPLIT = 2048
+TILE_MODES = ("lists", "dump", "bins", "filter")
+# the routes of the tensor-core pass and their codes in csrc/bf16_tile.cuh
+# (KIND): bf16 rows with the query rounded; f32 rows by three TF32
+# products; bf16 rows with an f32 query split in three bf16 parts
+TILE_ROUTES = {"wgmma": 0, "tf32x3": 1, "bf16x3": 2}
 
 
 class TilePlan(NamedTuple):
@@ -817,53 +1002,84 @@ class TilePlan(NamedTuple):
 
 
 def tile_route(dtype, round_query: bool, d: int) -> str:
-    """Which pass K1 and K9 run on the card: "wgmma" (csrc/bf16_tile.cuh)
-    for bf16 rows with the query rounded at D % 8 == 0 (TMA reads 16-byte
-    rows) up to D = 8,192, else "fma" (csrc/l2_tile.cuh): f32 rows, bf16
-    rows with an f32 query, and other D."""
-    return "wgmma" if (dtype == torch.bfloat16 and round_query
-                       and d % 8 == 0 and 8 <= d <= _TC_MAX_D) else "fma"
+    """Which pass K1 (and, for "wgmma", K9 and K14's stage 1) runs on the
+    card: "wgmma" (csrc/bf16_tile.cuh, one bf16 product) for bf16 rows with
+    the query rounded at D % 8 == 0 up to D = 8,192; "tf32x3" (three TF32
+    products, f32 accuracy) for f32 rows at D % 4 == 0 up to 2,048;
+    "bf16x3" (the f32 query split in three bf16 parts, products exact) for
+    bf16 rows with an f32 query at D % 8 == 0 up to 2,048; else "fma"
+    (csrc/l2_tile.cuh). TMA reads 16-byte rows, hence the D it takes."""
+    if dtype == torch.bfloat16 and round_query:
+        return "wgmma" if d % 8 == 0 and 8 <= d <= _TC_MAX_D else "fma"
+    if dtype == torch.float32:
+        return "tf32x3" if d % 4 == 0 and 4 <= d <= _TC_MAX_D_SPLIT else "fma"
+    return "bf16x3" if (dtype == torch.bfloat16 and d % 8 == 0
+                        and 8 <= d <= _TC_MAX_D_SPLIT) else "fma"
 
 
-def _tc_smem(width: int, d: int, mode: str, k: int, stages: int) -> int:
+def _tc_smem(width: int, d: int, mode: str, k: int, stages: int,
+             route: str = "wgmma") -> int:
     """csrc/bf16_tile.cuh's tc_smem_bytes: alignment slack, the ring, the
-    staged queries (D in steps of 64, 128 bytes a query a step), |q|^2,
-    and for "lists" the lists, the staging, bars, counts and fills."""
-    b = 1024 + stages * _TC_STEP + math.ceil(d / 64) * width * 128 + width * 4
+    staged queries (D in steps of 128 bytes, 128 bytes a query a step a
+    part), |q|^2, for "lists" the lists, the staging, bars, counts and
+    fills, and for "filter" the bars, the staging, its counts and the
+    reservations."""
+    step = 32 if route == "tf32x3" else 64
+    parts = {"wgmma": 1, "tf32x3": 2, "bf16x3": 3}[route]
+    b = (1024 + stages * _TC_STEP + math.ceil(d / step) * width * 128 * parts
+         + width * 4)
     if mode == "lists":
         b += width * (8 * k + 8 * _TC_CAP + 16)
+    if mode == "filter":
+        b += width * (8 * _TC_FCAP + 16)
     return b
 
 
-def tile_plan(b: int, k: int, d: int, mode: str) -> TilePlan | None:
+def tile_plan(b: int, k: int, d: int, mode: str,
+              route: str = "wgmma") -> TilePlan | None:
     """The tensor-core pass's launch plan for B queries at k over D dims in
-    ``mode`` ("lists": K1 at k <= 256, "dump": K1 past it, "bins": K9),
-    or None where :func:`tile_route` sends the shape to the FMA pass.
+    ``mode`` ("lists": K1 at k <= 256, "dump": K1 past it, "bins": K9,
+    "filter": K14's stage 1 and K1 on f32 rows by euclidean distance) on
+    ``route`` (:func:`tile_route`'s name; "bf16x3" takes "lists" and
+    "dump", "tf32x3" those and "filter"), or None where the route does not
+    take D.
 
     The query width is the narrowest of 8 / 32 / 64 / 128 that holds B (at
-    most 64 for "bins", whose running minima take registers a query), made
-    narrower while the ring would have fewer than 4 stages of 16 KB (the
-    lists take width x k x 8 bytes, the staged queries width x D x 2), and
-    at worst the widest with 2."""
+    most 64 for "bins", whose running minima take registers a query, and
+    for "bf16x3"; 32 for "tf32x3", whose big products take four
+    accumulators a query), made narrower while the ring would have fewer
+    than 4 stages of 16 KB (the lists take width x k x 8 bytes, the staged
+    queries width x 128 bytes a step a part), and at worst the widest
+    with 2."""
     if mode not in TILE_MODES:
         raise ValueError(f"tile_plan: mode {mode!r}, expected one of "
                          f"{TILE_MODES}")
-    if tile_route(torch.bfloat16, True, d) != "wgmma":
+    if route not in TILE_ROUTES:
+        raise ValueError(f"tile_plan: route {route!r}, expected one of "
+                         f"{tuple(TILE_ROUTES)}")
+    if (route == "bf16x3" and mode not in ("lists", "dump")) \
+            or (route == "tf32x3" and mode == "bins"):
+        raise ValueError(f"tile_plan: route {route!r} does not take "
+                         f"{mode!r}")
+    dtype = torch.float32 if route == "tf32x3" else torch.bfloat16
+    if tile_route(dtype, route == "wgmma", d) != route:
         return None
     kk = k if mode == "lists" else 0
     if mode == "lists" and not 1 <= k <= _SMALL_K:
         raise ValueError(f"tile_plan: lists take 1 <= k <= {_SMALL_K}, "
                          f"got {k}")
-    widest = 64 if mode == "bins" else 128
+    widest = 128 if route == "wgmma" and mode != "bins" else \
+        32 if route == "tf32x3" else 64
     need = next(w for w in _TC_WIDTHS if w >= min(max(b, 1), widest))
     widths = [w for w in _TC_WIDTHS if w <= need][::-1]
     for least in (4, 2):
         for w in widths:
             stages = min(_TC_MAX_STAGES,
-                         (_TC_SMEM_LIMIT - _tc_smem(w, d, mode, kk, 0))
+                         (_TC_SMEM_LIMIT - _tc_smem(w, d, mode, kk, 0, route))
                          // _TC_STEP)
             if stages >= least:
-                return TilePlan(w, stages, _tc_smem(w, d, mode, kk, stages),
+                return TilePlan(w, stages,
+                                _tc_smem(w, d, mode, kk, stages, route),
                                 math.ceil(b / w))
     return None
 

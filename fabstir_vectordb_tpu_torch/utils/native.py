@@ -49,12 +49,22 @@ launches: dict[str, int] = {
     "shard_merge": 0, "set_rows": 0, "set_member_rows": 0, "masked_topk": 0,
     "masked_approx_topk": 0, "lloyd_step": 0,
 }
-# K1 on bf16 rows, the query rounded, at a D the tensor-core pass does not
-# take (csrc/bf16_tile.cuh): l2_tile.cuh's FMA pass
-launches["l2_topk_bf16_rq_fma"] = 0
+# K1 on each row type at a shape the tensor-core pass does not take
+# (csrc/bf16_tile.cuh): l2_tile.cuh's FMA pass
+for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16", "l2_topk_bf16_rq"):
+    launches[f"{_base}_fma"] = 0
+# K14's stage 1: at a rank the tensor-core pass does not take, the FMA pass
+# and its [B, N] buffer; a launch whose survivors passed their buffer, run
+# again on that route
+launches["stage1_select_fma"] = 0
+launches["stage1_select_overflow"] = 0
+# K1 on f32 rows by euclidean distance: a launch of the filter route whose
+# survivors passed their buffer, run again on the lists or the buffer
+launches["l2_topk_overflow"] = 0
 # K1 and K12 by metric: "<counter>_cosine", "<counter>_dot"
 for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
-              "l2_topk_bf16_rq_fma", "ivf_scan", "ivf_scan_bf16"):
+              "l2_topk_fma", "l2_topk_large_fma", "l2_topk_bf16_rq_fma",
+              "ivf_scan", "ivf_scan_bf16"):
     for _metric in ("cosine", "dot"):
         launches[f"{_base}_{_metric}"] = 0
 
@@ -62,9 +72,9 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
 def counter(base: str, bf16: bool = False, metric: str = "euclidean",
             up: bool = False, rq: bool = False, fma: bool = False) -> str:
     """The launch counter of a kernel's variant: ``base``, then "_bf16"
-    for bf16 rows, "_rq" for the query rounded to bf16, "_fma" for that
-    query on the FMA pass (a D the tensor-core pass does not take), "_up"
-    for a layer above 0, "_<metric>" for cosine or dot."""
+    for bf16 rows, "_rq" for the query rounded to bf16, "_fma" for K1 on
+    the FMA pass (a shape the tensor-core pass does not take), "_up" for a
+    layer above 0, "_<metric>" for cosine or dot."""
     name = (base + ("_bf16" if bf16 else "") + ("_rq" if rq else "")
             + ("_fma" if fma else "") + ("_up" if up else ""))
     return name if metric == "euclidean" else f"{name}_{metric}"

@@ -42,14 +42,14 @@ sys.path.insert(0, str(ROOT))
 VARIANTS = {
     "as_is": [],
     "x_from_l2": [
-        ("                    (g % KS) * TC_K, tile_row0(g / KS), "
+        ("                    (g % KS) * SD, tile_row0(g / KS), "
          "full + slot);",
-         "                    (g % KS) * TC_K, ((g / KS) % 8) * TC_ROWS,\n"
+         "                    (g % KS) * SD, ((g / KS) % 8) * TC_ROWS,\n"
          "                    full + slot);"),
     ],
     "no_mma": [
-        ("        Wgmma<QW>::mma(part, da + 2 * j, db + 2 * j, j);",
-         "        if (da == 0) "
+        ("          Wgmma<QW>::mma(part, da + 2 * j, db + 2 * j, j);",
+         "          if (da == 0) "
          "Wgmma<QW>::mma(part, da + 2 * j, db + 2 * j, j);"),
     ],
     "no_offer": [
@@ -162,10 +162,10 @@ def time_variant(name: str) -> None:
     if name == "lists_w64":
         plan = tp.tile_plan
 
-        def narrow(b, k, d, mode):
-            return plan(min(b, 64), k, d, mode)._replace(
+        def narrow(b, k, d, mode, route="wgmma"):
+            return plan(min(b, 64), k, d, mode, route)._replace(
                 tiles=-(-b // 64)) if mode == "lists" and b > 64 \
-                else plan(b, k, d, mode)
+                else plan(b, k, d, mode, route)
         tp.tile_plan = narrow
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(17)

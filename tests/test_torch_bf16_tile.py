@@ -76,18 +76,80 @@ def test_tile_plan_widths_at_the_serving_shapes():
         topk_t.tile_plan(8, 257, 384, "lists")
 
 
-@pytest.mark.parametrize("d", [8, 36, 100, 384, 768, 8192, 8200])
+@pytest.mark.parametrize("d", [8, 36, 100, 384, 768, 2048, 2052, 8192,
+                               8200])
 @pytest.mark.parametrize("dtype,round_query", [
     (torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, False)])
 def test_tile_route_is_the_one_the_kernel_note_states(dtype, round_query, d):
     """csrc/bf16_tile.cuh's note: bf16 rows with the query rounded at
-    D % 8 == 0 up to 8,192 take the tensor cores; f32 rows, an f32 query
-    and every other D the FMA pass (l2_tile.cuh)."""
-    want = "wgmma" if (dtype == torch.bfloat16 and round_query
-                       and d % 8 == 0 and d <= 8192) else "fma"
+    D % 8 == 0 up to 8,192 take one bf16 product ("wgmma"); f32 rows at
+    D % 4 == 0 and bf16 rows with an f32 query at D % 8 == 0, up to 2,048,
+    take the split routes ("tf32x3", "bf16x3"); every other D the FMA pass
+    (l2_tile.cuh). A route has a plan exactly where it takes D."""
+    if dtype == torch.bfloat16 and round_query:
+        want = "wgmma" if d % 8 == 0 and d <= 8192 else "fma"
+    elif dtype == torch.float32:
+        want = "tf32x3" if d % 4 == 0 and d <= 2048 else "fma"
+    else:
+        want = "bf16x3" if d % 8 == 0 and d <= 2048 else "fma"
     assert topk_t.tile_route(dtype, round_query, d) == want
     assert (topk_t.tile_plan(4, 16, d, "lists") is None) == \
         (topk_t.tile_route(torch.bfloat16, True, d) == "fma")
+    for route in ("tf32x3", "bf16x3"):
+        rdt = torch.float32 if route == "tf32x3" else torch.bfloat16
+        assert (topk_t.tile_plan(4, 16, d, "lists", route) is None) == \
+            (topk_t.tile_route(rdt, False, d) != route)
+
+
+@pytest.mark.parametrize("route", ["tf32x3", "bf16x3"])
+@pytest.mark.parametrize("mode", ["lists", "dump", "filter"])
+@pytest.mark.parametrize("d", [4, 32, 36, 384, 2048])
+@pytest.mark.parametrize("k,b", [(1, 1), (16, 128), (200, 1024),
+                                 (256, 129)])
+def test_split_route_plans_fit_their_parts(route, mode, d, k, b):
+    """The split routes stage two (TF32) or three (bf16) parts of each
+    query, 128 bytes a step a part (32 f32 or 64 bf16 dims): every plan
+    fits a block with at least two ring stages, at most 64 queries wide
+    (32 for TF32), and its bytes are the kernel's; the TF32 route takes
+    the filter mode besides lists and dump (its staging: 64 keys a query
+    and their counts), the bf16 one does not."""
+    if mode == "filter" and route == "bf16x3":
+        with pytest.raises(ValueError):
+            topk_t.tile_plan(b, k, d, mode, route)
+        return
+    plan = topk_t.tile_plan(b, k, d, mode, route)
+    rdt = torch.float32 if route == "tf32x3" else torch.bfloat16
+    if topk_t.tile_route(rdt, False, d) != route:
+        assert plan is None
+        return
+    parts, step = (2, 32) if route == "tf32x3" else (3, 64)
+    kk = k if mode == "lists" else 0
+    assert plan.width <= (32 if route == "tf32x3" else 64)
+    assert plan.stages >= 2
+    assert plan.smem + STATIC_BARRIERS <= SMEM_PER_BLOCK
+    assert plan.smem == (1024 + plan.stages * 16384
+                         + math.ceil(d / step) * plan.width * 128 * parts
+                         + plan.width * 4
+                         + (plan.width * (8 * kk + 8 * 32 + 16)
+                            if mode == "lists" else 0)
+                         + (plan.width * (8 * 64 + 16)
+                            if mode == "filter" else 0))
+    assert plan.tiles == math.ceil(b / plan.width)
+    with pytest.raises(ValueError):
+        topk_t.tile_plan(b, k, d, "bins", route)
+
+
+def test_split_route_widths_at_k3_and_k1_shapes():
+    """f32 rows at D = 384 stage 3 KB a query: K3's link candidates (k =
+    200) and K1's search (k = 16) take 32 queries a block, as every f32
+    plan at most does (four accumulators of big products a query); bf16
+    rows with an f32 query at D = 32 take 64."""
+    assert topk_t.tile_plan(1024, 200, 384, "lists", "tf32x3").width == 32
+    assert topk_t.tile_plan(128, 16, 384, "lists", "tf32x3").width == 32
+    assert topk_t.tile_plan(128, 16, 32, "lists", "tf32x3").width == 32
+    assert topk_t.tile_plan(128, 16, 32, "lists", "bf16x3").width == 64
+    assert topk_t.tile_plan(1024, 200, 384, "lists", "bf16x3").width == 32
+    assert topk_t.tile_plan(1, 16, 384, "lists", "tf32x3").width == 8
 
 
 def _mirror(seed, n, d, b):
@@ -138,3 +200,4 @@ def test_rounded_query_pool_matches_masked_approx_topk_where_exact(b, d, n,
                                 ov_k, round_query=True)
     _assert_topk_equal(vj, rj, vt.numpy(), rt.numpy())
     assert (rt.numpy()[:, int(mask.sum()):] == -1).all()
+

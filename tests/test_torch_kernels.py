@@ -358,7 +358,8 @@ def test_stage1_select_kernel_matches_plain_on_card(b, ov_k, n, keep, chunk,
     """K14's stage 1 over a bf16 mirror at small and large ov_k, a last
     partial tile, (keep 0.4%) fewer unmasked rows than ov_k, so the tail
     pads, every row masked, and (chunk) a batch taken in query chunks whose
-    distance buffers are held one at a time, one launch counted each."""
+    scratch (the tensor-core route's plan) is held one at a time, one
+    launch counted each."""
     from fabstir_vectordb_tpu_torch.index import fused as fused_t
     from fabstir_vectordb_tpu_torch.utils import native
 
@@ -370,9 +371,11 @@ def test_stage1_select_kernel_matches_plain_on_card(b, ov_k, n, keep, chunk,
     qp = torch.randn(b, r, device=dev, generator=g)
     mask = torch.rand(n, device=dev, generator=g) < keep
     before = native.launches["stage1_select"]
-    budget = {"transient_bytes": chunk * n * 4} if chunk else {}
+    per_query = fused_t.stage1_query_bytes(n, r, ov_k, "cuda")
+    budget = {"transient_bytes": chunk * per_query} if chunk else {}
     vt, rt = fused_t.stage1_select(xp, xp_sq, mask, qp, ov_k, **budget)
     assert native.launches["stage1_select"] - before == -(-b // (chunk or b))
+    assert native.launches["stage1_select_overflow"] == 0
     vp, rp = fused_t.stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
     _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
 
@@ -645,12 +648,15 @@ def test_tiered_search_streams_exactly_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("budget_gib,launches", [(2, 1), (1, 2)])
+@pytest.mark.parametrize("budget_gib,launches", [(2, 1), (1, 1), (0, 2)])
 def test_stage1_launches_follow_the_transient_budget(budget_gib, launches):
-    """A 32-query sub-batch over 10,485,760 rows: under 1 GiB a launch
-    holds 25 queries (two launches, two passes over the mirror); under the
-    2 GiB that the reduced-rank dispatch passes at bench.py's operating
-    point it is one launch, and the answers are the same."""
+    """A 32-query sub-batch over 10,485,760 rows: the tensor-core route
+    holds the sample's and the survivors' keys, not a [B, N] buffer
+    (41.9 MB a query, 25 queries under 1 GiB), so under 1 GiB and under
+    the 2 GiB that the reduced-rank dispatch passes at bench.py's operating
+    point it is one launch that reads the mirror once; under 16 queries'
+    worth of scratch (budget 0 here) two launches; the answers are the
+    same."""
     from fabstir_vectordb_tpu_torch.index import fused as fused_t
     from fabstir_vectordb_tpu_torch.utils import native
 
@@ -658,12 +664,13 @@ def test_stage1_launches_follow_the_transient_budget(budget_gib, launches):
     g = torch.Generator(device=dev).manual_seed(12)
     n, r, b = 10_485_760, 16, 32
     assert (1 << 30) // (4 * n) == 25
+    per_query = fused_t.stage1_query_bytes(n, r, 64, "cuda")
+    budget = (budget_gib << 30) or 16 * per_query
     xp = torch.randn(n, r, device=dev, generator=g).to(torch.bfloat16)
     xp_sq = (xp.float() ** 2).sum(1)
     qp = torch.randn(b, r, device=dev, generator=g)
     before = native.launches["stage1_select"]
-    vt, rt = fused_t.stage1_select(xp, xp_sq, None, qp, 64,
-                                   budget_gib << 30)
+    vt, rt = fused_t.stage1_select(xp, xp_sq, None, qp, 64, budget)
     assert native.launches["stage1_select"] - before == launches
     vr, rr = fused_t.stage1_select(xp, xp_sq, None, qp, 64, 4 << 30)
     assert torch.equal(vt, vr) and torch.equal(rt, rr)
@@ -1016,11 +1023,14 @@ def test_bf16_tile_ties_come_out_by_row_on_card(path, k):
 
 @pytest.mark.cuda
 def test_bf16_tile_route_counts_and_stage1_stays_on_the_fma_pass():
-    """The tensor-core route is what the counters say ran: K1 (both k
+    """The tensor-core routes are what the counters say ran: K1 (both k
     ranges, each metric) and K9 on bf16 rows with the query rounded count
-    under l2_topk_bf16_rq* and approx_topk, the f32 and unrounded routes
-    under their own names; K14's stage 1 runs l2_tile.cuh's pass (no K1
-    launch) and still equals its plain version."""
+    under l2_topk_bf16_rq* and approx_topk, K1 on f32 rows and on bf16 rows
+    with an f32 query (the split routes) under l2_topk and l2_topk_bf16,
+    K9's FMA routes under their own names; K14's stage 1 at r = 192 runs
+    the tensor-core pass (its FILTER mode: "stage1_select", no K1 launch,
+    no overflow, no FMA pass) and still equals its plain version. (The
+    name is the one this test had while stage 1 stayed on the FMA pass.)"""
     from fabstir_vectordb_tpu_torch.index import fused as fused_t
     from fabstir_vectordb_tpu_torch.utils import native
 
@@ -1035,9 +1045,10 @@ def test_bf16_tile_route_counts_and_stage1_stays_on_the_fma_pass():
     topk_t.approx_topk(x.float(), x_sq, mask, q, 64)
     topk_t.approx_topk(x, x_sq, mask, q, 64)
     topk_t.l2_topk(x, x_sq, mask, q, 16)
+    topk_t.l2_topk(x.float(), x_sq, mask, q, 16)
     want = {"l2_topk_bf16_rq": 2, "l2_topk_bf16_rq_cosine": 2,
             "l2_topk_bf16_rq_dot": 2, "approx_topk": 1, "approx_topk_f32": 1,
-            "approx_topk_bf16": 1, "l2_topk_bf16": 1}
+            "approx_topk_bf16": 1, "l2_topk_bf16": 1, "l2_topk": 1}
     assert {key: v for key, v in native.launches.items()
             if v and key.startswith(("l2_topk", "approx_topk"))} == want
     g = torch.Generator(device=dev).manual_seed(36)
@@ -1047,6 +1058,8 @@ def test_bf16_tile_route_counts_and_stage1_stays_on_the_fma_pass():
     native.reset_launches()
     vt, rt = fused_t.stage1_select(xp, xp_sq, None, qp, 512)
     assert native.launches["stage1_select"] == 1
+    assert native.launches["stage1_select_fma"] == 0
+    assert native.launches["stage1_select_overflow"] == 0
     assert not any(v for key, v in native.launches.items()
                    if key.startswith(("l2_topk", "approx_topk")))
     vp, rp = fused_t.stage1_select_plain(xp, xp_sq, None, qp, 512)
@@ -1841,3 +1854,177 @@ def test_staged_mirror_on_card_equals_an_upload(dtype, monkeypatch):
         # the search on the staged mirror answers as on a fresh upload
         dw, want = loaded.search_rows(q, 10, config=cfg, now=1.0e9)
         assert np.array_equal(rows, want) and np.array_equal(d, dw)
+
+
+def _stage1_mirror(seed, n, r, b, keep, dev, dup=0):
+    """A projected bf16 mirror on the card with its norms, projected
+    queries and a row mask keeping ``keep`` of the rows (None: no mask);
+    with ``dup`` the last dup rows repeat the first ones (ties)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xf = torch.randn(n, r, device=dev, generator=g)
+    if dup:
+        xf[n - dup:] = xf[:dup]
+    xp = xf.to(torch.bfloat16)
+    xp_sq = (xp.float() ** 2).sum(1)
+    qp = torch.randn(b, r, device=dev, generator=g)
+    mask = None if keep is None else \
+        torch.rand(n, device=dev, generator=g) < keep
+    return xp, xp_sq, qp, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,b,ov_k,keep", [
+    (192, 1, 1, None), (192, 32, 256, 0.9), (192, 128, 1024, 0.9),
+    (192, 5, 2048, None), (64, 64, 1024, 0.001), (64, 3, 2048, 0.9),
+    (192, 9, 256, 0.001), (36, 16, 1024, 0.9)])
+def test_stage1_filter_route_matches_plain_on_card(r, b, ov_k, keep):
+    """K14's stage 1 by route at 1,000,003 rows: r = 192 and 64 on the
+    tensor cores (a sample's bar, the survivors, no [B, N] buffer; counted
+    as "stage1_select"), r = 36 on the FMA pass ("stage1_select_fma");
+    masks of none, 90% and 0.1% of the rows (ov_k past the unmasked rows:
+    no bar, the tail pads); no launch overflows."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    xp, xp_sq, qp, mask = _stage1_mirror(50, 1_000_003, r, b, keep, dev)
+    native.reset_launches()
+    vt, rt = fused_t.stage1_select(xp, xp_sq, mask, qp, ov_k)
+    tc = r % 8 == 0
+    assert native.launches["stage1_select"] == int(tc)
+    assert native.launches["stage1_select_fma"] == int(not tc)
+    assert native.launches["stage1_select_overflow"] == 0
+    vp, rp = fused_t.stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+
+
+@pytest.mark.cuda
+def test_stage1_filter_overflow_takes_the_dump_route_on_card():
+    """A survivor buffer of 300 keys a query (the wrapper's ``capacity``)
+    under a bar that passes ~8 ov_k rows: the launch overflows, runs again
+    on the FMA route (counted as "stage1_select_overflow") and still
+    equals the plain version."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    xp, xp_sq, qp, mask = _stage1_mirror(51, 200_003, 192, 7, 0.9, dev)
+    native.reset_launches()
+    vt, rt = fused_t.stage1_select(xp, xp_sq, mask, qp, 256, capacity=300)
+    assert native.launches["stage1_select"] == 1
+    assert native.launches["stage1_select_overflow"] == 1
+    vp, rp = fused_t.stage1_select_plain(xp, xp_sq, mask, qp, 256)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ov_k", [16, 1024])
+def test_stage1_filter_keeps_rows_tied_at_the_bar_on_card(ov_k):
+    """Half the rows repeat earlier ones, and the queries sit near
+    repeated rows: the copies tie at the bar and inside the pool; the
+    route keeps all of them and orders them by row, as the plain version
+    does."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    n = 400_000
+    xp, xp_sq, _, _ = _stage1_mirror(52, n, 192, 8, None, dev, dup=n // 2)
+    qp = xp[:8].float() + 0.01
+    native.reset_launches()
+    vt, rt = fused_t.stage1_select(xp, xp_sq, None, qp, ov_k)
+    assert native.launches["stage1_select_overflow"] == 0
+    vp, rp = fused_t.stage1_select_plain(xp, xp_sq, None, qp, ov_k)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+    vt, rt = vt.cpu().numpy(), rt.cpu().numpy()
+    same = vt[:, 1:] == vt[:, :-1]
+    assert same.any() and (rt[:, 1:][same] > rt[:, :-1][same]).all()
+
+
+def _f32_rows(seed, n, d, b, mask_kind, dev, near=False):
+    """f32 rows shifted off the origin (cosine and dot rank), queries
+    (``near``: each a stored row plus 1e-3 noise, beside a second copy of
+    that row moved by 1e-4: near-duplicates), and a mask of rows ("rows",
+    90%), of (query, row) pairs ("per_query", 50%) or none."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, device=dev, generator=g) + 0.3
+    q = torch.randn(b, d, device=dev, generator=g) + 0.3
+    if near:
+        pick = torch.randint(0, n // 2, (b,), device=dev, generator=g)
+        x[n // 2: n // 2 + b] = x[pick] + 1e-4
+        q = x[pick] + 1e-3 * torch.randn(b, d, device=dev, generator=g)
+    mask = None
+    if mask_kind == "rows":
+        mask = torch.rand(n, device=dev, generator=g) < 0.9
+    elif mask_kind == "per_query":
+        mask = torch.rand(b, n, device=dev, generator=g) < 0.5
+    return x, (x * x).sum(1), q, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k,d,mask_kind,metric", [
+    (1, 1, 384, "rows", "euclidean"), (128, 16, 384, "rows", "euclidean"),
+    (1024, 200, 384, "rows", "euclidean"), (37, 256, 384, "per_query",
+                                            "euclidean"),
+    (128, 1024, 384, "rows", "euclidean"), (1, 16, 32, "none", "euclidean"),
+    (128, 200, 32, "per_query", "cosine"), (128, 16, 384, "rows", "cosine"),
+    (129, 16, 384, "per_query", "dot"), (9, 1024, 384, "none", "dot"),
+    (128, 16, 36, "rows", "euclidean"), (5, 16, 100, "rows", "euclidean"),
+    (64, 16, 37, "rows", "euclidean")])
+def test_f32_tile_route_matches_plain_on_card(b, k, d, mask_kind, metric):
+    """K1 on f32 rows on its route: D % 4 == 0 on the tensor cores by three
+    TF32 products ("l2_topk*", lists to k = 256, the buffer past it), odd
+    D on the FMA pass ("l2_topk*_fma"), with [N] and [B, N] masks, by
+    metric, at B 1 to 1,024, against the plain version's f32 products
+    (sums in another order, ~2^-22 of each product dropped)."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, x_sq, q, mask = _f32_rows(53, 65_536, d, b, mask_kind, dev)
+    native.reset_launches()
+    vt, rt = topk_t.l2_topk(x, x_sq, mask, q, k, metric=metric)
+    route = topk_t.tile_route(torch.float32, False, d)
+    base = "l2_topk_large" if k > 256 else "l2_topk"
+    name = native.counter(base, False, metric, fma=route == "fma")
+    assert native.launches[name] == 1
+    vp, rp = topk_t.l2_topk_plain(x, x_sq, mask, q, k, metric=metric)
+    scale = float(x_sq.max() + (q * q).sum(1).max())
+    tol = 2e-6 * scale if metric == "euclidean" else 1e-5
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 300])
+def test_f32_tile_route_near_duplicates_on_card(k):
+    """Queries a hair from a stored row that has a near-duplicate 1e-4
+    away: the split products keep f32 accuracy, so the row and its copy
+    come out first, in the plain version's order and within its
+    distances' f32 error."""
+    dev = _card()
+    x, x_sq, q, _ = _f32_rows(54, 100_000, 384, 64, "none", dev, near=True)
+    vt, rt = topk_t.l2_topk(x, x_sq, None, q, k)
+    vp, rp = topk_t.l2_topk_plain(x, x_sq, None, q, k)
+    scale = float(x_sq.max() + (q * q).sum(1).max())
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 2e-6 * scale)
+    assert torch.equal(torch.sort(rt[:, :2], 1).values,
+                       torch.sort(rp[:, :2], 1).values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(1024, 200), (128, 11), (4, 1024)])
+def test_bf16_rows_f32_query_route_matches_plain_on_card(b, k):
+    """K1 on bf16 rows with an f32 query (K3 on a bf16 mirror, the
+    calibration oracle's blocks): the query split in three bf16 parts,
+    three exact products ("l2_topk_bf16"), against the plain version's
+    upcast rows and f32 query."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, _, q, mask = _f32_rows(55, 65_536, 384, b, "rows", dev)
+    xb = x.to(torch.bfloat16)
+    native.reset_launches()
+    vt, rt = topk_t.l2_topk(xb, None, mask, q, k)
+    assert native.launches["l2_topk_bf16"] == 1
+    vp, rp = topk_t.l2_topk_plain(xb, None, mask, q, k)
+    scale = float((xb.float() ** 2).sum(1).max() + (q * q).sum(1).max())
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 2e-6 * scale)
