@@ -339,6 +339,14 @@ def topk_check(tag, vk, rk, vp, rp, tol):
     return err, differ
 
 
+# the routes that the main path takes only where a shape falls off the
+# tensor-core pass or a launch's survivors pass their buffer (K1 / K3 on the
+# FMA pass, stage 1's dump route), each held to its plain version at a main
+# path's shape; printed on a line of their own ("route_checks"), since the
+# kernels line counts the main path's launches
+ROUTE_CHECKS: dict = {}
+
+
 def kernels_phase(torch, tp, hn, km, dev, results):
     """Each kernel against its plain version at the main path's shapes."""
     g = torch.Generator(device=dev).manual_seed(0)
@@ -459,11 +467,43 @@ def kernels_phase(torch, tp, hn, km, dev, results):
             plain_ms=cuda_ms(torch,
                              lambda: km.lloyd_block_plain(xt, mk, init, 5)),
             bound_ms=bms, bound_by=by)
+    fma_checks(torch, tp, x, x_sq, mask, g)
     b1_b4_checks(torch, tp, hn, km, dev, results)
     for name, r in results.items():
         print(f"kernel {name}: agree=True library_ms={r.get('library_ms')} "
               + " ".join(f"{k}={v}" for k, v in r.items()
                          if k != "library_ms"), flush=True)
+
+
+def fma_checks(torch, tp, x, x_sq, mask, g):
+    """K1 and K3 on f32 rows on l2_tile.cuh's FMA pass, the route of rows
+    that TMA cannot read in place (here 4 bytes off a 16-byte boundary) and
+    of odd D, at the search and link-candidate shapes ("l2_topk_fma")."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    n, d = x.shape
+    xu = torch.empty(n * d + 1, device=x.device)[1:].view(n, d)
+    xu.copy_(x)
+    n_in = int(mask.sum())
+    for tag, b, k in (("search", 128, 16), ("candidates", 1024, 200)):
+        q = torch.randn(b, d, device=x.device, generator=g)
+        before = native.launches["l2_topk_fma"]
+        vk, rk = tp.l2_topk(xu, x_sq, mask, q, k)
+        launched = native.launches["l2_topk_fma"] - before
+        if launched != 1:
+            fail(f"l2_topk_fma[{tag}]: {launched} launches of the FMA pass")
+        vp, rp = tp.l2_topk_plain(x, x_sq, mask, q, k)
+        tol = 2e-5 * float(x_sq.max() + (q * q).sum(1).max())
+        err, differ = topk_check(f"l2_topk_fma[{tag}]", vk, rk, vp, rp, tol)
+        nbytes = n * d * 4 + n * 4 + n + b * d * 4 + b * k * 8
+        bms, by = bound(nbytes, 2.0 * b * n_in * d)
+        ROUTE_CHECKS[f"l2_topk_fma[{tag}]"] = dict(
+            shape=f"B={b} N={n} D={d} k={k} rows 4 bytes off 16",
+            launches_in_check=launched, max_abs_err=err, tol=tol,
+            rows_differing_at_ties=differ,
+            ms=cuda_ms(torch, lambda: tp.l2_topk(xu, x_sq, mask, q, k)),
+            bound_ms=bms, bound_by=by)
+    del xu
 
 
 def b1_b4_checks(torch, tp, hn, km, dev, results):
@@ -1521,6 +1561,31 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
             tile_pass=fu.tile_route(torch.bfloat16, True, r),
             **{f"{c}_launches": counts[c] for c in S1_ROUTES[1:]})
         launch_of[key] = counts["stage1_select"]
+    # the dump route (csrc/stage1_select.cu: the FMA pass into a [B, N]
+    # buffer, the radix select), which stage 1 takes at a rank off the
+    # tensor cores and where a launch's survivors pass their buffer: forced
+    # here by a buffer of half the pool a query
+    route = "stage1_select_overflow" if fu.tile_route(
+        torch.bfloat16, True, r) == "wgmma" else "stage1_select_fma"
+    before = native.launches[route]
+    vk, rk = fu.stage1_select(xp, xp_sq, mem, qp128, ov_serve,
+                              capacity=ov_serve // 2)
+    launched = native.launches[route] - before
+    if launched < 1:
+        fail(f"stage1_select: {route} was launched no time")
+    vp, rp = fu.stage1_select_plain(xp, xp_sq, mem, qp128, ov_serve)
+    tol = 2e-5 * float(xp_sq.max() + (qp128 * qp128).sum(1).max())
+    err, differ = topk_check("stage1_select[dump route]", vk, rk, vp, rp, tol)
+    bms, by = bound(n_rows * (r * 2 + 4 + 1) + 128 * r * 4 + 128 * n_rows * 4
+                    + 128 * ov_serve * 8, 2.0 * 128 * n_in * r)
+    ROUTE_CHECKS["stage1_select[dump route]"] = dict(
+        shape=f"B=128 N={n_rows} r={r} ov_k={ov_serve} capacity "
+              f"{ov_serve // 2}", route=route, launches_in_check=launched,
+        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+        # the whole call: the launch that overflows, then the dump route
+        ms=cuda_ms(torch, lambda: fu.stage1_select(
+            xp, xp_sq, mem, qp128, ov_serve, capacity=ov_serve // 2)),
+        bound_ms=bms, bound_by=f"{by} (f32 FMA rate, the buffer)")
     # K14 projection: one block of the device-mode build
     blk_n = min(524_288, n_rows)
     blk = rx[:blk_n]
@@ -3446,15 +3511,16 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
         bms, by = bound(n_rows * (r * 2 + 4 + 1) + b * r * 4 + b * ov * 8,
                         2.0 * b * n_in * r, BF16_FLOPS)
         key = f"stage1_select[10M {tag}]"
-        q32 = qb[:32]
         results[key] = dict(
             shape=f"B={b} N={n_rows} r={r} ov_k={ov}", max_abs_err=err,
             tol=tol, rows_differing_at_ties=differ,
             ms=cuda_ms(torch, lambda: fu.stage1_select(xp, xp_sq, mem, qb,
                                                        ov, budget), iters=3),
-            plain_ms=(b / q32.shape[0]) * cuda_ms(
-                torch, lambda: fu.stage1_select_plain(xp, xp_sq, mem, q32,
-                                                      ov), iters=1, warmup=1),
+            # the plain version over all b queries, in the slices of 32
+            # that it was checked in
+            plain_ms=cuda_ms(torch, lambda: [
+                fu.stage1_select_plain(xp, xp_sq, mem, qb[lo:lo + 32], ov)
+                for lo in range(0, b, 32)], iters=1, warmup=1),
             library_ms=None, bound_ms=bms,
             bound_by=f"{by} (bf16 tensor-core rate)",
             tile_pass=fu.tile_route(torch.bfloat16, True, r),
@@ -5135,9 +5201,14 @@ SOURCES = {
     "masked_approx_topk": "fabstir_vectordb_tpu_torch/csrc/approx_topk.cu",
 }
 
-# K1's and K9's tensor-core pass over a bf16 mirror (an entry whose
-# tile_pass is "wgmma"), built into csrc/l2_topk.cu and csrc/approx_topk.cu
+# the tensor-core pass (an entry whose tile_pass is not "fma": K1 and K9 on
+# a bf16 mirror, K1 / K3 on f32 rows and on bf16 rows with an f32 query),
+# built into csrc/l2_topk.cu and csrc/approx_topk.cu
 TILE_SOURCE = "fabstir_vectordb_tpu_torch/csrc/bf16_tile.cuh"
+# K14's stage 1 on that pass: its filter route, launched through
+# csrc/l2_topk.cu (the dump route of csrc/stage1_select.cu is in
+# ROUTE_CHECKS)
+FILTER_SOURCE = "fabstir_vectordb_tpu_torch/csrc/tile_filter.cuh"
 
 
 # what an entry held to its plain version up to ties reports beside its
@@ -5277,8 +5348,8 @@ def main() -> None:
         launches = launch_of.get(key, counts.get(key, counts.get(base, 0)))
         kernels.append({
             "name": key, "route": "cuda",
-            "source": TILE_SOURCE if r.get("tile_pass", "fma") != "fma"
-            and base != "stage1_select" else SOURCES[base],
+            "source": SOURCES[base] if r.get("tile_pass", "fma") == "fma"
+            else FILTER_SOURCE if base == "stage1_select" else TILE_SOURCE,
             "replaces": REPLACES.get(key, REPLACES[base]),
             "launches": int(launches),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -5294,6 +5365,8 @@ def main() -> None:
         print("k12_reads modelled from the probes (list rows x query "
               "groups; not counted on the card) " + json.dumps(reads),
               flush=True)
+    if ROUTE_CHECKS:
+        print("route_checks " + json.dumps(ROUTE_CHECKS), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

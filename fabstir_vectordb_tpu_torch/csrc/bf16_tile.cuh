@@ -1,7 +1,7 @@
 // K1's and K9's pass on the tensor cores, over bf16 rows with the query
 // rounded to bf16 (the bf16 serving mirror's distance: csrc/l2_topk.cu's
 // round_q entry points, csrc/approx_topk.cu's rounded pool and K14's stage
-// 1 in csrc/stage1_select.cu), over f32 rows (K1 and K3 on the f32 mirror,
+// 1 on the filter route of tile_filter.cuh), over f32 rows (K1 and K3 on the f32 mirror,
 // K8's tile step) and over bf16 rows with an f32 query (K3 on a bf16
 // mirror, the calibration oracle's blocks).
 //
@@ -96,10 +96,10 @@
 //    row), and a thread keeps its bins' running distance and round in
 //    registers. At the end one atomicMin a (query, bin) folds the packed
 //    key into [B, M].
-//  * FILTER (K14's stage 1): survivors as filtered_select.cuh's keys
-//    (distance, row) in a buffer [B, cap] a query. With a bar, a distance
-//    at or below its query's bar survives: it is staged in shared memory
-//    (64 a query, a shared atomic), and every 4 tiles a query's staged
+//  * FILTER (K14's stage 1, K1 on f32 rows at k >= 128): survivors as
+//    filtered_select.cuh's keys (distance, row) in a buffer [B, cap] a
+//    query. With a bar, a distance at or below its query's bar survives:
+//    it is staged in shared memory (64 a query, a shared atomic), and every 4 tiles a query's staged
 //    keys go out once 32 are staged (all at the slice's end; a full
 //    staging sends a key to a slot of its own) into slots that the block
 //    reserved for the query, chunk at a time by one global atomic on its
@@ -111,7 +111,7 @@
 //    atomics. With tstride > 1 the pass takes every tstride-th tile of 128
 //    rows only, with the same arithmetic at the same place of the tile and
 //    the same query column, so its distances are bit-identical to the
-//    whole pass's (csrc/stage1_select.cu's sample).
+//    whole pass's (tile_filter.cuh's sample).
 #pragma once
 
 #include <mutex>

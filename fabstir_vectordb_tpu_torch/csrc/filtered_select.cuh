@@ -1,6 +1,6 @@
 // The end of a filtered select, shared by csrc/merge_topk.cu (the chunk
-// step and masked_topk past k = 256) and csrc/stage1_select.cu (K14's
-// stage 1): 64-bit order keys of (distance, row), the radix select of a
+// step and masked_topk past k = 256) and tile_filter.cuh (the filter
+// route of K14's stage 1 and of K1 on f32 rows): 64-bit order keys of (distance, row), the radix select of a
 // query's keys inside one block, and the finishing kernel that sorts a
 // query's survivors (the kc smallest, by that select, past SORT_SMEM) and
 // merges them with a sorted running list. csrc/merge_topk.cu's header says

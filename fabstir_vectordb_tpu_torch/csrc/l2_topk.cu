@@ -56,10 +56,11 @@
 // buffer costs 4 N bytes written and ~4 passes of 4 N bytes read a query,
 // against the 4 N D / 32 bytes a query of the product itself; the wrapper
 // runs query chunks so it stays within 1 GiB. f32 rows by euclidean
-// distance take neither at any k: the filter route of tile_filter.cuh (a
+// distance at k >= 128 take neither: the filter route of tile_filter.cuh (a
 // bar from a sample of the rows' tiles, the survivors under it, their k
 // smallest; fvdb_l2_topk_filter_tc) keeps the lists' merges and the buffer
-// out of the pass.
+// out of the pass. K14's stage 1 (index/fused.py) launches the same export
+// on bf16 rows with the query rounded.
 #include "bf16_tile.cuh"
 #include "l2_tile.cuh"
 #include "tile_filter.cuh"
@@ -276,24 +277,38 @@ FVDB_EXPORT long long fvdb_l2_topk_filter_bytes(int B, int k, int cap_s,
   return fvdb::tile_filter_bytes(B, k, cap_s, cap);
 }
 
-// K1 on f32 rows by euclidean distance at any k on the tensor cores' filter
-// route (three TF32 products; a bar from a sample of the rows' tiles, the
-// survivors under it, their k smallest): x [N, D] f32 (D % 4 == 0, 16-byte
-// aligned), x_sq [N] or null (then the rows' norms go to xsq_scratch [N]
-// first), mask [B or 1, N] (mask_stride N or 0; null: every row), q [B, D];
-// the plan's arguments as launch_tile_filter takes them (tile_plan(B, 0, D,
-// "filter", "tf32x3"), filter_plan); out_* [B, k] (rows without a base);
-// *overflow: the queries whose survivors passed cap.
+// The tensor cores' filter route by euclidean distance at any k (a bar
+// from a sample of the rows' tiles, the survivors under it, their k
+// smallest), by route (kind): 0 bf16 rows with the query rounded (K14's
+// stage 1 over its projected mirror), 1 f32 rows by three TF32 products
+// (K3, K1 at k >= 128). x [N, D] of that row type (D % 8 == 0; f32 rows
+// D % 4), x and q [B, D] f32 16-byte aligned; x_sq [N] or null (then the
+// rows' norms go to xsq_scratch [N] first), mask [B or 1, N] (mask_stride
+// N or 0; null: every row); the plan's arguments as launch_tile_filter
+// takes them (tile_plan(B, 0, D, "filter", route), filter_plan); out_*
+// [B, k] (rows without a base); *overflow: the queries whose survivors
+// passed cap.
 FVDB_EXPORT int fvdb_l2_topk_filter_tc(
-    const float* x, const float* x_sq, const uint8_t* mask,
+    const void* x, int kind, const float* x_sq, const uint8_t* mask,
     long long mask_stride, const float* q, int B, int N, int D, int k,
     int width, int stages, int smem, int S_s, int S, int tstride, int cap_s,
     int cap, int chunk, float* xsq_scratch, void* work, float* out_d,
     int* out_r, int* overflow, cudaStream_t stream) {
   using namespace fvdb;
-  cudaError_t e = norms_or_given(x, N, D, x_sq, xsq_scratch, stream);
+  if (kind != TC_RQ && kind != TC_TF32X3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = kind == TC_TF32X3
+                      ? norms_or_given(static_cast<const float*>(x), N, D,
+                                       x_sq, xsq_scratch, stream)
+                      : norms_or_given(static_cast<const __nv_bfloat16*>(x),
+                                       N, D, x_sq, xsq_scratch, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_tile_filter<TC_TF32X3>(
-      x, x_sq, mask, mask_stride, q, B, N, D, k, width, stages, smem, S_s, S,
-      tstride, cap_s, cap, chunk, work, out_d, out_r, overflow, stream));
+  auto launch = [&](auto kc) {
+    return launch_tile_filter<decltype(kc)::value>(
+        x, x_sq, mask, mask_stride, q, B, N, D, k, width, stages, smem, S_s,
+        S, tstride, cap_s, cap, chunk, work, out_d, out_r, overflow, stream);
+  };
+  return static_cast<int>(
+      kind == TC_RQ ? launch(std::integral_constant<int, TC_RQ>())
+                    : launch(std::integral_constant<int, TC_TF32X3>()));
 }

@@ -17,18 +17,19 @@
 // take 0.05 ms at B = 128 over 1M rows (0.52 ms over 10M): one read of the
 // mirror bounds it.
 //
-// Design (fvdb_stage1_filter, r % 8 == 0): bf16_tile.cuh's tensor-core
-// pass, which reads the mirror once a query tile, in its filter route
-// (tile_filter.cuh): a bar a query from a sample of the mirror's tiles,
-// the survivors under it, their ov_k smallest; no [B, N] buffer.
+// Design (r % 8 == 0): bf16_tile.cuh's tensor-core pass, which reads the
+// mirror once a query tile, in its filter route (tile_filter.cuh): a bar a
+// query from a sample of the mirror's tiles, the survivors under it, their
+// ov_k smallest; no [B, N] buffer. K1 on f32 rows takes the same route, so
+// the wrapper launches it through csrc/l2_topk.cu's fvdb_l2_topk_filter_tc
+// (kind 0: bf16 rows, the query rounded).
 //
-// fvdb_stage1_select, the dump route (any r; the wrapper's route where r %
-// 8 != 0, and the overflow's): K1's FMA tile pass (l2_tile.cuh) for bf16
+// fvdb_stage1_select here, the dump route (any r; the wrapper's route where
+// r % 8 != 0, and the overflow's): K1's FMA tile pass (l2_tile.cuh) for bf16
 // rows and a bf16-rounded query writes the masked distances of a query
 // chunk to a [B, N] buffer, and topk_select.cuh's radix select picks each
 // query's ov_k.
 #include "l2_tile.cuh"
-#include "tile_filter.cuh"
 #include "topk_select.cuh"
 
 // xp [N, R] bf16, xp_sq [N], mask [N] (null: every row), qp [B, R] f32;
@@ -49,27 +50,4 @@ FVDB_EXPORT int fvdb_stage1_select(const __nv_bfloat16* xp,
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(launch_select_topk(dump, nullptr, nullptr, N, B, k,
                                              work, out_d, out_r, stream));
-}
-
-// Bytes of the filter route's scratch for B queries at ov_k with the
-// plan's sample and survivor capacities (ops/topk.py filter_plan).
-FVDB_EXPORT long long fvdb_stage1_filter_bytes(int B, int k, int cap_s,
-                                               int cap) {
-  return fvdb::tile_filter_bytes(B, k, cap_s, cap);
-}
-
-// The tensor-core route (tile_filter.cuh): xp [N, R] bf16 (R % 8 == 0,
-// 16-byte aligned), xp_sq [N], mask [N] (null: every row), qp [B, R] f32
-// (16-byte aligned); the plan's arguments as launch_tile_filter takes them
-// (tile_plan(B, 0, R, "filter"), filter_plan); out_* [B, k]; *overflow:
-// the queries whose survivors passed cap.
-FVDB_EXPORT int fvdb_stage1_filter(
-    const __nv_bfloat16* xp, const float* xp_sq, const uint8_t* mask,
-    const float* qp, int B, int N, int R, int k, int width, int stages,
-    int smem, int S_s, int S, int tstride, int cap_s, int cap, int chunk,
-    void* work, float* out_d, int* out_r, int* overflow,
-    cudaStream_t stream) {
-  return static_cast<int>(fvdb::launch_tile_filter<fvdb::TC_RQ>(
-      xp, xp_sq, mask, 0, qp, B, N, R, k, width, stages, smem, S_s, S,
-      tstride, cap_s, cap, chunk, work, out_d, out_r, overflow, stream));
 }

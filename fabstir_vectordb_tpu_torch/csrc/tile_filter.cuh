@@ -1,6 +1,7 @@
-// The filter route of bf16_tile.cuh's pass (K14's stage 1 in
-// csrc/stage1_select.cu, K1 on f32 rows by euclidean distance in
-// csrc/l2_topk.cu): the exact top-k of each query with no [B, N] buffer.
+// The filter route of bf16_tile.cuh's pass (K14's stage 1 and K1 on f32
+// rows by euclidean distance, both launched by csrc/l2_topk.cu's
+// fvdb_l2_topk_filter_tc): the exact top-k of each query with no [B, N]
+// buffer.
 //  1. A bar a query that is exact by construction: the pass in FILTER mode
 //     over every tstride-th tile of 128 rows with no bar writes each
 //     query's masked distances there as keys, a slot a row (the sample),

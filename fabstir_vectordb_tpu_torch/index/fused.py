@@ -45,7 +45,7 @@ import torch
 from ..ops.distance import pairwise_sq_l2
 from ..ops.projection import pca_basis
 from ..ops.topk import (_MAX_GRID_Q, _TC_ROWS, _splits, INF, FilterPlan,
-                        approx_topk, filter_launch, filter_plan, l2_topk,
+                        approx_topk, filter_plan, filter_topk, l2_topk,
                         l2_topk_plain, masked_topk_plain, merge_topk,
                         merge_topk_plain, select_scratch, tile_route)
 from ..utils import limits, native
@@ -159,13 +159,15 @@ def stage1_select(xp, xp_sq, mask, qp, ov_k: int,
     [N], mask [N] bool or None) to the projected queries qp [B, r] f32.
     Returns (vals [B, ov_k], rows [B, ov_k]) sorted by (distance, row),
     padded with (+inf, -1). The plain version on CPU tensors; on CUDA
-    tensors csrc/stage1_select.cu: at r % 8 == 0 the tensor-core route (a
-    bar from a sample of the mirror, the survivors under it, their ov_k
-    smallest; counted as "stage1_select"), else the FMA pass into a [B, N]
-    buffer and a radix select ("stage1_select_fma"). A launch whose
-    survivors pass their buffer (``capacity`` a query, None: the plan's)
-    runs again on the FMA route ("stage1_select_overflow"): the wrapper
-    reads that count from the card after each launch. A launch takes as
+    tensors at r % 8 == 0 the tensor-core filter route
+    (:func:`ops.topk.filter_topk`, csrc/tile_filter.cuh: a bar from a
+    sample of the mirror, the survivors under it, their ov_k smallest;
+    counted as "stage1_select"), else csrc/stage1_select.cu's FMA pass into
+    a [B, N] buffer and a radix select ("stage1_select_fma"). A launch
+    whose survivors pass their buffer (``capacity`` a query, None: the
+    plan's) runs again on the FMA route, each of its launches counted as
+    "stage1_select_overflow": the wrapper reads that count from the card
+    after each launch. A launch takes as
     many queries as keep its device scratch (:func:`stage1_query_bytes`)
     within ``transient_bytes`` (None: limits.stage1_transient_bytes())."""
     if xp.device.type == "cpu":
@@ -193,44 +195,20 @@ def stage1_select(xp, xp_sq, mask, qp, ov_k: int,
         and xp.data_ptr() % 16 == 0 and qp.data_ptr() % 16 == 0
     for lo in range(0, b, qc):
         hi = min(b, lo + qc)
-        if tc and _stage1_filter(xp, xp_sq, mask, qp[lo:hi], ov_k,
-                                 out_d[lo:hi], out_r[lo:hi], capacity):
+        if tc and filter_topk(xp, xp_sq, mask, qp[lo:hi], ov_k, out_d[lo:hi],
+                              out_r[lo:hi], "stage1_select", capacity):
             continue
         _stage1_dump(xp, xp_sq, mask, qp[lo:hi], ov_k, out_d[lo:hi],
-                     out_r[lo:hi], transient_bytes)
-        native.launches["stage1_select_overflow" if tc
-                        else "stage1_select_fma"] += 1
+                     out_r[lo:hi], transient_bytes,
+                     "stage1_select_overflow" if tc else "stage1_select_fma")
     return out_d, out_r
 
 
-def _stage1_filter(xp, xp_sq, mask, qp, ov_k: int, out_d, out_r,
-                   capacity: int | None) -> bool:
-    """One launch of the tensor-core route into out_d / out_r; False when
-    a query's survivors passed their buffer (out_* then hold no answer)."""
-    dev = xp.device
-    n, r = xp.shape
-    b = qp.shape[0]
-    fl = filter_launch("stage1_select", b, n, r, ov_k, "wgmma", dev, capacity)
-    tp, plan = fl.tile, fl.plan
-    work = torch.empty(fl.work_bytes, dtype=torch.uint8, device=dev)
-    overflow = torch.empty(1, dtype=torch.int32, device=dev)
-    P, I = native.P, native.I
-    native.call(
-        "stage1_select", "fvdb_stage1_filter",
-        [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P],
-        xp.data_ptr(), xp_sq.data_ptr(), 0 if mask is None
-        else mask.data_ptr(), qp.data_ptr(), b, n, r, ov_k, tp.width,
-        tp.stages, tp.smem, fl.sample_slices, fl.slices, plan.tstride,
-        plan.cap_s, plan.cap, plan.chunk, work.data_ptr(), out_d.data_ptr(),
-        out_r.data_ptr(), overflow.data_ptr(), native.stream_of(xp))
-    native.launches["stage1_select"] += 1
-    return int(overflow.item()) == 0
-
-
 def _stage1_dump(xp, xp_sq, mask, qp, ov_k: int, out_d, out_r,
-                 transient_bytes: int) -> None:
+                 transient_bytes: int, counter: str) -> None:
     """The FMA route into out_d / out_r, in query chunks whose [chunk, N]
-    f32 buffers stay within ``transient_bytes``."""
+    f32 buffers stay within ``transient_bytes``, each launch counted as
+    ``counter``."""
     dev = xp.device
     n, r = xp.shape
     b = qp.shape[0]
@@ -248,6 +226,7 @@ def _stage1_dump(xp, xp_sq, mask, qp, ov_k: int, out_d, out_r,
             hi - lo, n, r, ov_k, _splits(hi - lo, n, dev), dump.data_ptr(),
             work.data_ptr(), out_d[lo:hi].data_ptr(), out_r[lo:hi].data_ptr(),
             native.stream_of(xp))
+        native.launches[counter] += 1
 
 
 def project_rows_plain(src, mu, p, out, out_sq, lo: int = 0) -> None:

@@ -859,83 +859,94 @@ class FilterLaunch(NamedTuple):
     work_bytes: int   # the launch's scratch
 
 
-def filter_launch(source: str, b: int, n: int, d: int, k: int, route: str,
-                  device, capacity: int | None = None) -> FilterLaunch:
-    """The arguments of one launch of the filter route (``source``'s
-    library, its fvdb_*_filter_bytes) for b queries over n rows of d dims
-    at k on ``route`` ("wgmma": K14's stage 1; "tf32x3": K1 on f32 rows),
-    with at most ``capacity`` survivors a query (None: the plan's); kept
-    per shape, since a search repeats its shapes."""
-    return _filter_launch(source, b, n, d, k, route, _num_sms(device),
-                          capacity)
+def filter_launch(b: int, n: int, d: int, k: int, route: str, device,
+                  capacity: int | None = None) -> FilterLaunch:
+    """The arguments of one launch of the filter route for b queries over
+    n rows of d dims at k on ``route`` ("wgmma": K14's stage 1; "tf32x3":
+    K1 on f32 rows), with at most ``capacity`` survivors a query (None: the
+    plan's); kept per shape, since a search repeats its shapes."""
+    return _filter_launch(b, n, d, k, route, _num_sms(device), capacity)
 
 
 @functools.lru_cache(maxsize=256)
-def _filter_launch(source: str, b: int, n: int, d: int, k: int, route: str,
-                   sms: int, capacity: int | None) -> FilterLaunch:
+def _filter_launch(b: int, n: int, d: int, k: int, route: str, sms: int,
+                   capacity: int | None) -> FilterLaunch:
     tp = tile_plan(b, 0, d, "filter", route)
     slices = _slices(tp.tiles, n, sms)
     plan = filter_plan(n, k, slices)
     if capacity is not None:
         plan = plan._replace(cap=max(1, min(plan.cap, int(capacity))))
-    nbytes = native.query(source, _FILTER_BYTES[source], [native.I] * 4, b,
-                          k, plan.cap_s, plan.cap)
+    nbytes = native.query("l2_topk", "fvdb_l2_topk_filter_bytes",
+                          [native.I] * 4, b, k, plan.cap_s, plan.cap)
     return FilterLaunch(tp, _slices(tp.tiles, max(plan.cap_s, 1), sms),
                         slices, plan, nbytes)
 
 
-# each library's export of the filter route's scratch bytes
-_FILTER_BYTES = {"l2_topk": "fvdb_l2_topk_filter_bytes",
-                 "stage1_select": "fvdb_stage1_filter_bytes"}
+def filter_topk(x, x_sq, mask, q, k: int, out_d, out_r, counter: str,
+                capacity: int | None = None, xsq_scratch=None) -> bool:
+    """One launch of the filter route (csrc/l2_topk.cu
+    fvdb_l2_topk_filter_tc) by euclidean distance: bf16 rows x [N, D] with
+    the query rounded (route "wgmma", K14's stage 1) or f32 rows (route
+    "tf32x3", K1 at k >= 128), checked by the caller; x_sq [N] or None
+    (then the rows' norms go to ``xsq_scratch`` [N] first); mask [N],
+    [B, N] or None; the k smallest of each query of q [B, D] into out_d /
+    out_r [B, k] (rows without a base), counted as ``counter``; at most
+    ``capacity`` survivors a query (None: the plan's). Reads the overflow
+    count back from the card: False when a query's survivors passed their
+    buffer (out_* then hold no answer)."""
+    dev = x.device
+    n, d = x.shape
+    b = q.shape[0]
+    route = "wgmma" if x.dtype == torch.bfloat16 else "tf32x3"
+    fl = filter_launch(b, n, d, k, route, dev, capacity)
+    tp, plan = fl.tile, fl.plan
+    work = torch.empty(fl.work_bytes, dtype=torch.uint8, device=dev)
+    overflow = torch.empty(1, dtype=torch.int32, device=dev)
+    P, I, L = native.P, native.I, native.L
+    native.call(
+        "l2_topk", "fvdb_l2_topk_filter_tc",
+        [P, I, P, P, L, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P,
+         P, P],
+        x.data_ptr(), TILE_ROUTES[route],
+        0 if x_sq is None else x_sq.data_ptr(),
+        0 if mask is None else mask.data_ptr(),
+        n if mask is not None and mask.dim() == 2 else 0, q.data_ptr(), b,
+        n, d, k, tp.width, tp.stages, tp.smem, fl.sample_slices, fl.slices,
+        plan.tstride, plan.cap_s, plan.cap, plan.chunk,
+        0 if xsq_scratch is None else xsq_scratch.data_ptr(),
+        work.data_ptr(), out_d.data_ptr(), out_r.data_ptr(),
+        overflow.data_ptr(), native.stream_of(x))
+    native.launches[counter] += 1
+    return int(overflow.item()) == 0
 
 
 def _filter_topk(x, x_sq, mask, q, k: int, row_base: int):
     """K1 on f32 rows by euclidean distance on the filter route
-    (csrc/l2_topk.cu fvdb_l2_topk_filter_tc), in query chunks whose scratch
-    stays within _DUMP_BYTES; a chunk whose survivors passed their buffer
-    runs again on the lists or the buffer ("l2_topk_overflow"). Reads one
-    int back from the card a chunk."""
+    (:func:`filter_topk`), in query chunks whose scratch stays within
+    _DUMP_BYTES; a chunk whose survivors passed their buffer runs again on
+    the lists or the buffer ("l2_topk_overflow" counts those chunks)."""
     dev = x.device
-    n, d = x.shape
+    n = x.shape[0]
     b = q.shape[0]
     counter = "l2_topk_large" if k > _SMALL_K else "l2_topk"
     qc = max(1, min(b, _DUMP_BYTES // filter_plan(n, k).query_bytes,
                     _MAX_GRID_Q))
-    m_stride = n if mask is not None and mask.dim() == 2 else 0
     scratch = torch.empty(n, dtype=torch.float32, device=dev) \
         if x_sq is None else None
-    sq_ptr = scratch.data_ptr() if x_sq is None else x_sq.data_ptr()
-    P, I, L = native.P, native.I, native.L
-    outs = []
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     for lo in range(0, b, qc):
         hi = min(b, lo + qc)
         qq = q[lo:hi]
-        mq = None if mask is None else (mask[lo:hi] if m_stride else mask)
-        fl = filter_launch("l2_topk", hi - lo, n, d, k, "tf32x3", dev)
-        tp, plan = fl.tile, fl.plan
-        work = torch.empty(fl.work_bytes, dtype=torch.uint8, device=dev)
-        od = torch.empty((hi - lo, k), dtype=torch.float32, device=dev)
-        orow = torch.empty((hi - lo, k), dtype=torch.int32, device=dev)
-        overflow = torch.empty(1, dtype=torch.int32, device=dev)
-        native.call(
-            "l2_topk", "fvdb_l2_topk_filter_tc",
-            [P, P, P, L, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P,
-             P, P],
-            x.data_ptr(), 0 if scratch is not None and lo == 0 else sq_ptr,
-            0 if mq is None else mq.data_ptr(), m_stride, qq.data_ptr(),
-            hi - lo, n, d, k, tp.width, tp.stages, tp.smem, fl.sample_slices,
-            fl.slices, plan.tstride, plan.cap_s, plan.cap, plan.chunk,
-            0 if scratch is None else scratch.data_ptr(), work.data_ptr(),
-            od.data_ptr(), orow.data_ptr(), overflow.data_ptr(),
-            native.stream_of(x))
-        native.launches[counter] += 1
-        if int(overflow.item()):
-            od, orow = _l2_topk_card(x, scratch if x_sq is None else x_sq,
-                                     mq, qq, k, 0, False, "euclidean", False)
+        mq = mask[lo:hi] if mask is not None and mask.dim() == 2 else mask
+        # the first chunk writes the rows' norms to scratch, the rest read
+        sq = x_sq if x_sq is not None or lo == 0 else scratch
+        if not filter_topk(x, sq, mq, qq, k, out_d[lo:hi], out_r[lo:hi],
+                           counter, xsq_scratch=scratch):
+            out_d[lo:hi], out_r[lo:hi] = _l2_topk_card(
+                x, scratch if x_sq is None else x_sq, mq, qq, k, 0, False,
+                "euclidean", False)
             native.launches["l2_topk_overflow"] += 1
-        outs.append((od, orow))
-    out_d = torch.cat([o[0] for o in outs]) if len(outs) > 1 else outs[0][0]
-    out_r = torch.cat([o[1] for o in outs]) if len(outs) > 1 else outs[0][1]
     if row_base:
         out_r = torch.where(out_r >= 0, out_r + row_base, out_r)
     return out_d, out_r

@@ -53,13 +53,14 @@ launches: dict[str, int] = {
 # (csrc/bf16_tile.cuh): l2_tile.cuh's FMA pass
 for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16", "l2_topk_bf16_rq"):
     launches[f"{_base}_fma"] = 0
-# K14's stage 1: at a rank the tensor-core pass does not take, the FMA pass
-# and its [B, N] buffer; a launch whose survivors passed their buffer, run
-# again on that route
+# K14's stage 1 on the FMA pass and its [B, N] buffer (a launch each): at a
+# rank the tensor-core pass does not take ("_fma"), and where a launch of
+# the filter route had survivors past their buffer ("_overflow")
 launches["stage1_select_fma"] = 0
 launches["stage1_select_overflow"] = 0
-# K1 on f32 rows by euclidean distance: a launch of the filter route whose
+# K1 on f32 rows by euclidean distance: a chunk of the filter route whose
 # survivors passed their buffer, run again on the lists or the buffer
+# (whose launches count under their own names)
 launches["l2_topk_overflow"] = 0
 # K1 and K12 by metric: "<counter>_cosine", "<counter>_dot"
 for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",

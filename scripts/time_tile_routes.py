@@ -44,8 +44,8 @@ list (the warp's ballot) and none inserted; "no_offer", the products and
 the distances through shared memory with no offer; "tf32x3"
 (bf16_tile.cuh): "as_is"; "no_offer", no distance offered to a list;
 "no_mma", no tensor-core product (the rows still read and split); and
-"stage1" (csrc/stage1_select.cu, stage 1 at 10M B = 1 and 128, 1M B =
-128): "as_is"; "no_epilogue", no distance kept (the sample's slots and
+"stage1" (the FILTER mode as csrc/l2_topk.cu builds it, stage 1 at 10M
+B = 1 and 128, 1M B = 128): "as_is"; "no_epilogue", no distance kept (the sample's slots and
 the survivors left as they lie); "no_flush", survivors staged but never
 written out; "compare_only", the bar's test alone (its passes counted,
 none staged); "no_slots", the sample's slots not written; "no_mma", no
@@ -93,7 +93,7 @@ SPLITS = {
                     "        for (int j = 0; j < 4 * (k < 0); ++j) {\n"
                     "          WgmmaTF32<QW>::mma(ps")],
     },
-    "stage1": {  # bf16_tile.cuh's FILTER mode in csrc/stage1_select.cu
+    "stage1": {  # bf16_tile.cuh's FILTER mode, built into csrc/l2_topk.cu
         "as_is": [],
         "no_epilogue": [("bf16_tile.cuh",
                          "      if (fa.bar == nullptr) {  // a slot a row",
@@ -137,8 +137,8 @@ SPLITS = {
                        "TC_ROWS, full + slot);")],
     },
 }
-SPLIT_SOURCE = {"fma": "l2_topk", "tf32x3": "l2_topk",
-                "stage1": "stage1_select"}
+# every pass that --split cuts up is built into csrc/l2_topk.cu
+SPLIT_SOURCE = "l2_topk"
 
 
 def card_line() -> str:
@@ -315,7 +315,7 @@ def split(root: Path, route: str) -> None:
     if route != "stage1" and tp.tile_route(torch.float32, False, D) != route:
         sys.exit(f"--split {route}: f32 rows take "
                  f"{tp.tile_route(torch.float32, False, D)} in {root}")
-    source = SPLIT_SOURCE[route]
+    source = SPLIT_SOURCE
     procs = []
     for name, patches in SPLITS[route].items():
         out = root / "build" / "split" / route / name
@@ -351,7 +351,7 @@ def split_variant(root: Path, which: str) -> None:
     from fabstir_vectordb_tpu_torch.ops import topk as tp
     from fabstir_vectordb_tpu_torch.utils import native
 
-    source = SPLIT_SOURCE[route]
+    source = SPLIT_SOURCE
     lib = ctypes.CDLL(str(root / "build" / "split" / route / name
                           / f"{source}.so"))
     lib.fvdb_error_string.restype = ctypes.c_char_p

@@ -1918,6 +1918,32 @@ def test_stage1_filter_overflow_takes_the_dump_route_on_card():
 
 
 @pytest.mark.cuda
+def test_stage1_overflow_counts_each_launch_of_the_dump_route_on_card():
+    """A launch of the filter route over 7 queries overflows (``capacity``
+    300) under a transient that holds the route's scratch for all 7 but
+    [2, N] f32 buffers only: the rerun takes four launches of the FMA route
+    and "stage1_select_overflow" counts each of them; the answer equals
+    the plain version."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    n, r, b, ov_k = 1_000_003, 64, 7, 256
+    xp, xp_sq, qp, mask = _stage1_mirror(53, n, r, b, 0.9, dev)
+    budget = 5 * 4 * n // 2
+    assert budget // fused_t.stage1_query_bytes(n, r, ov_k, "cuda") >= b
+    assert budget // (4 * n) == 2
+    native.reset_launches()
+    vt, rt = fused_t.stage1_select(xp, xp_sq, mask, qp, ov_k, budget,
+                                   capacity=300)
+    assert native.launches["stage1_select"] == 1
+    assert native.launches["stage1_select_overflow"] == 4
+    assert native.launches["stage1_select_fma"] == 0
+    vp, rp = fused_t.stage1_select_plain(xp, xp_sq, mask, qp, ov_k)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ov_k", [16, 1024])
 def test_stage1_filter_keeps_rows_tied_at_the_bar_on_card(ov_k):
     """Half the rows repeat earlier ones, and the queries sit near
@@ -1991,6 +2017,29 @@ def test_f32_tile_route_matches_plain_on_card(b, k, d, mask_kind, metric):
     scale = float(x_sq.max() + (q * q).sum(1).max())
     tol = 2e-6 * scale if metric == "euclidean" else 1e-5
     _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, tol)
+
+
+@pytest.mark.cuda
+def test_f32_filter_route_overflow_runs_again_on_the_lists_on_card():
+    """Every row the same: every distance ties at the bar, the survivors
+    pass their buffer, and the chunk runs again on the lists
+    ("l2_topk_overflow" 1, "l2_topk" 2: the filter launch and the lists'),
+    with the norms the first launch wrote to its scratch; the answer
+    equals the plain version's."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(56)
+    x = torch.randn(1, 384, device=dev, generator=g).expand(65_536, 384)
+    x = x.contiguous()
+    q = torch.randn(8, 384, device=dev, generator=g)
+    native.reset_launches()
+    vt, rt = topk_t.l2_topk(x, None, None, q, 200)
+    assert native.launches["l2_topk_overflow"] == 1
+    assert native.launches["l2_topk"] == 2
+    vp, rp = topk_t.l2_topk_plain(x, None, None, q, 200)
+    scale = float((x[0] ** 2).sum() + (q * q).sum(1).max())
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 2e-6 * scale)
 
 
 @pytest.mark.cuda

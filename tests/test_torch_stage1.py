@@ -1,7 +1,7 @@
 """K14's stage 1 on the tensor cores, its host side on the CPU: the filter
 route's plan (``ops.topk.filter_plan``: the sample's tile stride, the
 survivor capacity, the scratch a query; K1 on f32 rows takes it too),
-the selection that csrc/stage1_select.cu makes (a bar from a sample of the
+the selection that the filter route makes (a bar from a sample of the
 mirror's tiles, the survivors under it, their ov_k smallest) stated in
 plain PyTorch and held to the reference's stage1_select_kernel and to the
 port's plain version, and the launch sizes that the wrapper and the
