@@ -36,19 +36,27 @@
 // read once a query tile: the products bound it there.
 //
 // Design:
-//  * A block is two consumer warpgroups and a producer warp. A tile is 128
+//  * A block is two consumer warpgroups and a producer warpgroup, which
+//    hands most of its registers to the consumers (setmaxnreg: 232 a
+//    consumer thread, not the 168 that 384 threads leave). A tile is 128
 //    consecutive rows, a step 128 bytes of each (64 bf16 or 32 f32 dims):
-//    the producer's TMA copies each step as it lies into a ring of
+//    one producer lane's TMA copies each step as it lies into a ring of
 //    128-byte-swizzled slots (16 KB, up to 8), counted on the slot's "full"
 //    barrier; each consumer warp arrives on its "empty" barrier when its
-//    products are done with it.
+//    products are done with it (TC_TF32X3: once its fragments are in
+//    registers).
 //  * The rows are the wgmma's M side (a warpgroup takes 64 of the tile),
 //    the block's QW queries its N side (QW = 8, 32, 64 or 128, so one
 //    query is 8 columns, not 32): each query is prepared once (rounded,
 //    or split into its parts) and staged whole (all of D) in shared memory
 //    as the B operand, one tile a part. f32 rows are the A operand from
 //    registers: each thread reads its fragment of the slot and splits it
-//    there, so no second tile of rows is written.
+//    there, so no second tile of rows is written. Past the LISTS epilogue
+//    it reads and splits the next step's while the tensor cores take this
+//    step's products (two sets of fragments, which the 232 registers hold:
+//    at 168 the compiler serialized the products and the pass ran ~30%
+//    slower; with the lists it did so even at 232, so LISTS reads each
+//    step before its products).
 //  * The tensor cores cut their sums to f32 instead of rounding them, so
 //    each step is summed from zero and then added to f32 registers (as
 //    csrc/project_rows.cu does with its windows); the split routes sum the
@@ -126,7 +134,12 @@ constexpr int TC_ROWS = 128;                  // rows a tile: 2 warpgroups
 constexpr int TC_K = 64;                      // bf16 dims a step: 128 bytes
 constexpr int TC_STEP_BYTES = TC_ROWS * TC_K * 2;  // a ring slot: 16 KB
 constexpr int TC_CONSUMERS = 256;             // two warpgroups
-constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and the producer warp
+constexpr int TC_THREADS = TC_CONSUMERS + 128;  // and a producer warpgroup
+// registers a thread after setmaxnreg: a sub-partition holds two consumer
+// warps and one producer warp of the block, 3 x 168 registers at launch
+// (__launch_bounds__ of 384 threads), 2 x 232 + 40 after
+constexpr int TC_CONSUMER_REGS = 232;
+constexpr int TC_PRODUCER_REGS = 40;
 constexpr int TC_CAP = 32;        // staged keys a query at most
 constexpr int TC_MERGE_AT = 16;   // staged keys that call for a merge
 constexpr int TC_PUB_LOADS = 5;   // the slices' j-th keys a lane reads:
@@ -494,7 +507,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1) bf16_tile_pass(
   }
   __syncthreads();
 
-  if (t >= TC_CONSUMERS) {  // the producer warp: one lane issues the copies
+  if (t >= TC_CONSUMERS) {  // the producer warpgroup: one lane issues the
+    // copies, and the group gives its registers to the consumers
+    setmaxnreg_dec<TC_PRODUCER_REGS>();
     if (t == TC_CONSUMERS) {
       const int T = n_tiles * KS;
       for (int g = 0; g < T; ++g) {
@@ -507,6 +522,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) bf16_tile_pass(
     }
     return;
   }
+  setmaxnreg_inc<TC_CONSUMER_REGS>();
 
   const int wg = t >> 7, w = t >> 5, lane = t & 31;
   const int rloc = wg * 64 + (w & 3) * 16 + (lane >> 2);  // rows rloc, +8
@@ -534,17 +550,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1) bf16_tile_pass(
   for (int tile = 0; tile < n_tiles; ++tile) {
 #pragma unroll
     for (int i = 0; i < M; ++i) acc[i] = 0.f;
-    for (int c = 0; c < KS; ++c, ++g) {  // a step: 128 bytes, summed from 0
-      const int slot = g % stages;
-      mbar_wait(full + slot, (g / stages) & 1);
-      const unsigned char* rows = ring + slot * TC_STEP_BYTES;
-      const uint64_t db = sw128_desc(smem_addr(qs + (size_t)c * QW * 128));
-      if constexpr (KIND == TC_TF32X3) {
-        // this thread's A fragments of the 4 sub-steps of 8 dims, split:
-        // rows rloc (e even) and rloc + 8, dims 8 j + lane % 4 (+ 4)
-        const uint64_t db_s =
-            sw128_desc(smem_addr(qs + (size_t)(KS + c) * QW * 128));
-        uint32_t ab[4][4], as[4][4];
+    if constexpr (KIND == TC_TF32X3) {
+      // this thread's A fragments of step gg's 4 sub-steps of 8 dims,
+      // split: rows rloc (e even) and rloc + 8, dims 8 j + lane % 4 (+ 4);
+      // the rows are in registers then, so the warp frees the slot
+      auto load_a = [&](int gg, uint32_t (&ab)[4][4], uint32_t (&as)[4][4]) {
+        const int slot = gg % stages;
+        mbar_wait(full + slot, (gg / stages) & 1);
+        const unsigned char* rows = ring + slot * TC_STEP_BYTES;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -556,6 +569,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1) bf16_tile_pass(
             ab[j][e] = tf32_rna(v);
             as[j][e] = tf32_rna(v - __uint_as_float(ab[j][e]));
           }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);
+      };
+      // step c's products from (ab, as), committed and not waited on
+      auto mma = [&](int c, const uint32_t (&ab)[4][4],
+                     const uint32_t (&as)[4][4]) {
+        const uint64_t db = sw128_desc(smem_addr(qs + (size_t)c * QW * 128));
+        const uint64_t db_s =
+            sw128_desc(smem_addr(qs + (size_t)(KS + c) * QW * 128));
 #pragma unroll
         for (int j = 0; j < 4; ++j) fence_regs(pb[j]);
         fence_regs(ps);
@@ -566,38 +588,70 @@ __global__ void __launch_bounds__(TC_THREADS, 1) bf16_tile_pass(
           WgmmaTF32<QW>::mma(ps, ab[j], db_s + 2 * j, 1);
           WgmmaTF32<QW>::mma(pb[j], ab[j], db + 2 * j, 0);
         }
-      } else if constexpr (KIND == TC_BF16X3) {
-        const uint64_t da = sw128_desc(smem_addr(rows + wg * 64 * 128));
-        fence_regs(part);
-        fence_regs(ps);
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < TC_K / 16; ++j) {  // hi; mid and lo apart
-#pragma unroll
-          for (int p = 1; p < PARTS; ++p)
-            Wgmma<QW>::mma(ps, da + 2 * j,
-                           db + (uint64_t)((p * KS * QW * 128) >> 4) + 2 * j,
-                           j + p - 1);
-          Wgmma<QW>::mma(part, da + 2 * j, db + 2 * j, j);
-        }
-      } else {
-        const uint64_t da = sw128_desc(smem_addr(rows + wg * 64 * 128));
-        fence_regs(part);
-        wgmma_fence();
-#pragma unroll
-        for (int j = 0; j < TC_K / 16; ++j)
-          Wgmma<QW>::mma(part, da + 2 * j, db + 2 * j, j);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      if constexpr (KIND == TC_TF32X3) {
+        wgmma_commit();
+      };
+      // the products waited on and the step added to the f32 sums
+      auto add = [&]() {
+        wgmma_wait<0>();
 #pragma unroll
         for (int j = 0; j < 4; ++j) fence_regs(pb[j]);
         fence_regs(ps);
 #pragma unroll
         for (int i = 0; i < M; ++i)
           acc[i] += ((pb[0][i] + pb[1][i]) + (pb[2][i] + pb[3][i])) + ps[i];
+      };
+      uint32_t ab0[4][4], as0[4][4];
+      if constexpr (MODE == SEL_LISTS) {
+        // the lists leave no room for a second set of fragments (at 232
+        // registers the compiler serialized the products): each step is
+        // read and split before its products
+        for (int c = 0; c < KS; ++c) {
+          load_a(g + c, ab0, as0);
+          mma(c, ab0, as0);
+          add();
+        }
       } else {
+        // two sets of fragments: the next step's rows are read and split
+        // while the tensor cores take this step's products
+        uint32_t ab1[4][4], as1[4][4];
+        load_a(g, ab0, as0);
+        for (int c = 0; c < KS; c += 2) {
+          mma(c, ab0, as0);
+          if (c + 1 < KS) load_a(g + c + 1, ab1, as1);
+          add();
+          if (c + 1 < KS) {
+            mma(c + 1, ab1, as1);
+            if (c + 2 < KS) load_a(g + c + 2, ab0, as0);
+            add();
+          }
+        }
+      }
+      g += KS;
+    } else {
+      for (int c = 0; c < KS; ++c, ++g) {  // a step: 128 bytes, from 0
+        const int slot = g % stages;
+        mbar_wait(full + slot, (g / stages) & 1);
+        const unsigned char* rows = ring + slot * TC_STEP_BYTES;
+        const uint64_t db =
+            sw128_desc(smem_addr(qs + (size_t)c * QW * 128));
+        const uint64_t da = sw128_desc(smem_addr(rows + wg * 64 * 128));
+        fence_regs(part);
+        if constexpr (KIND == TC_BF16X3) fence_regs(ps);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < TC_K / 16; ++j) {
+          if constexpr (KIND == TC_BF16X3) {  // hi; mid and lo apart
+#pragma unroll
+            for (int p = 1; p < PARTS; ++p)
+              Wgmma<QW>::mma(
+                  ps, da + 2 * j,
+                  db + (uint64_t)((p * KS * QW * 128) >> 4) + 2 * j,
+                  j + p - 1);
+          }
+          Wgmma<QW>::mma(part, da + 2 * j, db + 2 * j, j);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
         fence_regs(part);
         if constexpr (KIND == TC_BF16X3) {
           fence_regs(ps);
@@ -606,9 +660,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1) bf16_tile_pass(
         }
 #pragma unroll
         for (int i = 0; i < M; ++i) acc[i] += part[i];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + slot);
     }
 
     // the epilogue: thread lane of warp w holds rows rloc (h = 0) and

@@ -120,6 +120,17 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// This warpgroup's registers a thread become N (a multiple of 8, 24-256):
+// dec gives registers back to the block's pool, inc waits until the pool
+// holds them. Every thread of the warpgroup runs the same one.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 // x rounded to TF32 (to nearest, ties away from zero), as an f32 whose low
 // 13 bits are zero. Volatile, so that it stays before the wgmma fence that
 // follows it when it makes an A fragment.
