@@ -21,7 +21,9 @@ a bf16 ``torch.matmul`` of [B, 192] x [192, N].
 f32 rows (``ops.topk.l2_topk``): K3's link candidates (131,072 x 384, B =
 1,024, k = 200) and K1's search (B = 128, k = 16) there; the other callers
 of the f32 pass: K1 by cosine and dot over 1,048,576 x 384 at k = 16 and
-1,024, K15's flat shard search (B = 128, k = 10, 1M), K8's tile step (B =
+1,024, K15's flat shard search (B = 128, k = 10, 1M), K1 at the
+filtered searches' large k (B = 4, k = 1,024 and 16,384, 1M: the filter
+route), K8's tile step (B =
 32, 699,392 rows, k = 10, norms in the kernel, a row base); and bf16 rows
 with an f32 query: K3 on a bf16 mirror (1M, B = 1,024, k = 200) and the
 calibration oracle's block (524,288 rows, B = 128, k = 11, norms in the
@@ -43,10 +45,11 @@ the split routes): "as_is"; "no_insert", every distance offered to its
 list (the warp's ballot) and none inserted; "no_offer", the products and
 the distances through shared memory with no offer; "tf32x3"
 (bf16_tile.cuh): "as_is"; "no_offer", no distance offered to a list;
-"no_mma", no tensor-core product (the rows still read and split); and
+"no_mma", no tensor-core product (the rows still read and split);
+"x_from_l2", every block reading the same eight tiles (L2 hits); and
 "stage1" (the FILTER mode as csrc/l2_topk.cu builds it, stage 1 at 10M
-B = 1 and 128, 1M B = 128): "as_is"; "no_epilogue", no distance kept (the sample's slots and
-the survivors left as they lie); "no_flush", survivors staged but never
+B = 1 and 128, 1M B = 128): "as_is"; "no_epilogue", no distance kept
+(the sample's slots and the survivors left as they lie); "no_flush", survivors staged but never
 written out; "compare_only", the bar's test alone (its passes counted,
 none staged); "no_slots", the sample's slots not written; "no_mma", no
 product; "x_from_l2", every block reading the same eight tiles (L2
@@ -69,8 +72,11 @@ NF, D = 131_072, 384
 # patched copies of a tree's headers, by the pass that they cut up
 # (file, text, its replacement): K1 / K3 on f32 rows on the FMA pass or on
 # the TF32 route, and K14's stage 1 on the FILTER route
-STAGE1_ROWS = ("                    (g % KS) * SD, tile_row0(g / KS), "
-               "full + slot);")
+TILE_ROWS = ("                    (g % KS) * SD, tile_row0(g / KS), "
+             "full + slot);")
+X_FROM_L2 = ("bf16_tile.cuh", TILE_ROWS,
+             "                    (g % KS) * SD, ((g / KS) % 8) * TC_ROWS, "
+             "full + slot);")
 SPLITS = {
     "fma": {  # l2_tile.cuh's FMA pass (the parent of the split routes)
         "as_is": [],
@@ -92,6 +98,7 @@ SPLITS = {
                     "          WgmmaTF32<QW>::mma(ps",
                     "        for (int j = 0; j < 4 * (k < 0); ++j) {\n"
                     "          WgmmaTF32<QW>::mma(ps")],
+        "x_from_l2": [X_FROM_L2],
     },
     "stage1": {  # bf16_tile.cuh's FILTER mode, built into csrc/l2_topk.cu
         "as_is": [],
@@ -132,9 +139,7 @@ SPLITS = {
                       "            fa.surv[(size_t)(q0 + col) * fa.cap + v] =",
                       "            if (split < 0) "
                       "fa.surv[(size_t)(q0 + col) * fa.cap + v] =")],
-        "x_from_l2": [("bf16_tile.cuh", STAGE1_ROWS,
-                       "                    (g % KS) * SD, ((g / KS) % 8) * "
-                       "TC_ROWS, full + slot);")],
+        "x_from_l2": [X_FROM_L2],
     },
 }
 # every pass that --split cuts up is built into csrc/l2_topk.cu
@@ -266,6 +271,9 @@ def f32(torch, tp, res, it, prof=False) -> None:
         ("k1 f32 dot B=128 N=1M k=1024", x1, x1_sq, mask1, 128, 1024,
          {"metric": "dot"}, 0),
         ("k15 flat shard B=128 N=1M k=10", x1, x1_sq, mask1, 128, 10, {}, 0),
+        ("k1 f32 large k B=4 N=1M k=1024", x1, x1_sq, mask1, 4, 1024, {}, 0),
+        ("k1 f32 large k B=4 N=1M k=16384", x1, x1_sq, mask1, 4, 16_384, {},
+         0),
         ("k8 tile step B=32 N=699392 k=10", x1[:699_392], None,
          mask1[:699_392], 32, 10, {"row_base": 699_392}, 0),
         ("k3 bf16 rows B=1024 N=1M k=200", xb, None, mask1, 1024, 200, {},
