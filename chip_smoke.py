@@ -55,8 +55,8 @@
    of their rows; device re-score: recall@10 >= 0.95 against a float64
    brute force over the bf16-stored rows; raw; approx), the mirror's bytes
    and the prewarm + first search; 2,048 inserts linked on the bf16 mirror,
-   >= 99% found at rank 1. The counters must show K9 on f32 rows and, on
-   the tensor cores, on bf16 rows, K2 on f32 and bf16 rows, K1 on bf16
+   >= 99% found at rank 1. The counters must show K9 on the tensor cores
+   on f32 and on bf16 rows, K2 on f32 and bf16 rows, K1 on bf16
    rows with the query rounded (tensor cores) and (K3) not, K4 and K5 on
    bf16 rows; then those against their plain versions at these shapes (K1
    rounded also at B = 1, k = 128), each with its pass (tile_pass) and,
@@ -390,28 +390,16 @@ def kernels_phase(torch, tp, hn, km, dev, results):
         kk = hn.heuristic_kept(x, ids, dd, 32)
         kp = hn.heuristic_kept_plain(x, ids, dd, 32)
         torch.cuda.synchronize()
-        rows = (kk != kp).any(1).nonzero().flatten().tolist()
-        xs = x.double()
-        for r in rows:  # a flip must sit at a near-tie of the plain scan
-            i = int((kk[r] != kp[r]).nonzero()[0])
-            v = xs[ids[r].clamp_min(0).long()]
-            before = kp[r, :i].nonzero().flatten()
-            pd = ((v[i] - v[before]) ** 2).sum(-1)
-            dmin = float(pd.min()) if pd.numel() else float("inf")
-            if abs(float(dd[r, i]) - dmin) > 1e-5 * float(dd[r, i]):
-                fail(f"heuristic_kept[{tag}]: row {r} differs off a tie")
+        flips = k4_flips(f"heuristic_kept[{tag}]", kk, kp, ids, dd, x, False)
         ms = cuda_ms(torch, lambda: hn.heuristic_kept(x, ids, dd, 32))
         pms = cuda_ms(torch, lambda: hn.heuristic_kept_plain(x, ids, dd, 32),
                       iters=3)
-        b = ids.shape[0]
-        n_valid = int((ids >= 0).sum())
-        bms, by = bound(n_valid * d * 4 + b * c * 9,
-                        b * c * (c + 1) / 2 * 2.0 * d)
         results[f"heuristic_kept[{tag}]"] = dict(
-            shape=f"B={b} C={c} D={d} m=32",
+            shape=f"B={ids.shape[0]} C={c} D={d} m=32",
             max_abs_err=float((kk != kp).any().item()),
-            rows_differing_at_ties=len(rows), ms=ms, plain_ms=pms,
-            bound_ms=bms, bound_by=by)
+            rows_differing_at_ties=flips, ms=ms, plain_ms=pms,
+            **k4_bound(hn, x, ids))
+    k4_fma_checks(torch, hn, x, cand_ids, cand_d)
 
     # K5: reverse-prune pair distances
     p = 65_536
@@ -473,6 +461,81 @@ def kernels_phase(torch, tp, hn, km, dev, results):
         print(f"kernel {name}: agree=True library_ms={r.get('library_ms')} "
               + " ".join(f"{k}={v}" for k, v in r.items()
                          if k != "library_ms"), flush=True)
+
+
+# K4's route (index.hnsw.heuristic_route) as route_bound names it: three
+# TF32 products, one bf16 product, f32 FMA
+K4_RATE = {"tf32x3": "tf32x3", "bf16": "wgmma", "fma": "fma"}
+
+
+def k4_bound(hn, x, ids) -> dict:
+    """K4's pass and its bound: the gathered rows, the ids and distances in
+    and the flags out, against the Gram products over the triangle on and
+    above the diagonal at the rate of its route (and of f32 FMA)."""
+    b, c = ids.shape
+    d = x.shape[1]
+    route = hn.heuristic_route(x)
+    nbytes = int((ids >= 0).sum()) * d * x.element_size() + b * c * 9
+    flops = b * c * (c + 1) / 2 * 2.0 * d
+    bms, by = route_bound(nbytes, flops, K4_RATE[route])
+    return dict(bound_ms=bms, bound_by=by, tile_pass=route,
+                bound_fma_ms=bound(nbytes, flops)[0])
+
+
+def k4_fma_checks(torch, hn, x, cand_ids, cand_d):
+    """K4 on its FMA route (rows cp.async cannot copy 16 bytes at a time:
+    here 4 or 2 bytes off a 16-byte boundary), on f32 and on bf16 rows, at
+    the link shape ("heuristic_kept_fma", "heuristic_kept_bf16_fma")."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    n, d = x.shape
+    for dt in (torch.float32, torch.bfloat16):
+        xa = x.to(dt)
+        xu = torch.empty(n * d + 1, dtype=dt, device=x.device)[1:].view(n, d)
+        xu.copy_(xa)
+        name = native.counter("heuristic_kept", dt == torch.bfloat16,
+                              fma=True)
+        before = native.launches[name]
+        kk = hn.heuristic_kept(xu, cand_ids, cand_d, 32)
+        launched = native.launches[name] - before
+        if launched != 1:
+            fail(f"{name}: {launched} launches of the FMA route")
+        kp = hn.heuristic_kept_plain(xa, cand_ids, cand_d, 32)
+        torch.cuda.synchronize()
+        flips = k4_flips(f"{name}[link]", kk, kp, cand_ids, cand_d, xa,
+                         dt == torch.bfloat16)
+        ROUTE_CHECKS[f"{name}[link]"] = dict(
+            shape=f"B={cand_ids.shape[0]} C={cand_ids.shape[1]} D={d} m=32 "
+                  f"{'bf16' if dt == torch.bfloat16 else 'f32'} rows off 16",
+            launches_in_check=launched,
+            max_abs_err=float((kk != kp).any().item()),
+            rows_differing_at_ties=flips,
+            ms=cuda_ms(torch, lambda: hn.heuristic_kept(
+                xu, cand_ids, cand_d, 32)),  # noqa: B023
+            **{k: v for k, v in k4_bound(hn, xu, cand_ids).items()
+               if k in ("bound_ms", "bound_by")})
+        del xu, xa
+
+
+def k4_flips(tag, kk, kp, ids, dd, x, bf16: bool) -> int:
+    """Queries whose K4 flags differ from the plain version's; each one's
+    first flip must sit at a near-tie of the plain scan: within 1e-5 of
+    the query distance on f32 rows, of twice the largest squared norm of
+    the pool on bf16 rows (both sides sum the Gram expansion in f32: a tie
+    is within 1e-5 of the norms it cancels)."""
+    rows = (kk != kp).any(1).nonzero().flatten().tolist()
+    for r in rows:
+        i = int((kk[r] != kp[r]).nonzero()[0])
+        v = x[ids[r].clamp_min(0).long()].double()
+        before = kp[r, :i].nonzero().flatten()
+        pd = ((v[i] - v[before]) ** 2).sum(-1)
+        dmin = float(pd.min()) if pd.numel() else float("inf")
+        tol = 1e-5 * (2.0 * float((v * v).sum(-1).max()) if bf16
+                      else float(dd[r, i]))
+        if abs(float(dd[r, i]) - dmin) > tol:
+            fail(f"{tag}: row {r} differs off a tie ({float(dd[r, i])} "
+                 f"against {dmin}, tol {tol})")
+    return len(rows)
 
 
 def fma_checks(torch, tp, x, x_sq, mask, g):
@@ -798,6 +861,9 @@ def main_path(torch, native, card: str, counts: dict, perf: dict,
     # "l2_topk" counts K1 on the tensor cores (three TF32 products); the
     # FMA pass takes f32 rows only at a D that TMA cannot read
     perf["l2_topk_fma_launches"] = native.launches["l2_topk_fma"]
+    # "heuristic_kept" counts K4 on the tensor cores; its FMA route takes
+    # rows that cp.async cannot copy 16 bytes at a time
+    perf["heuristic_kept_fma_launches"] = native.launches["heuristic_kept_fma"]
     if trace:  # device busy share of the two search shapes
         for name, fn in (
                 ("single", lambda: [s.search(q, k) for q in qs[:64]]),
@@ -2050,7 +2116,8 @@ def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
             fail(f"flat1m bf16 inserts: {rank1} at rank 1 < 0.99")
         torch.cuda.synchronize()
         counts = dict(native.launches)
-        path = {"approx_topk_f32": "K9 on f32 rows (turbo)",
+        path = {"approx_topk_tf32": "K9 on f32 rows, three TF32 products "
+                                    "(turbo)",
                 "approx_topk": "K9 on bf16 rows, query rounded (tensor "
                                "cores)",
                 "rerank_f32_rows": "K2 on f32 rows",
@@ -2093,6 +2160,35 @@ def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
         bf16_insert_vectors_per_s=2048 / ins_s, bf16_insert_rank1=rank1,
         **{f"bf16_{tag}_{key}": v for tag, r in bf16.items()
            for key, v in r.items() if key not in ("rows", "dists")})
+
+
+def k9_fma_check(torch, tp, xf, sq_f, mem, q128, ov):
+    """K9 on f32 rows on l2_tile.cuh's FMA pass (rows 4 bytes off a 16-byte
+    boundary, which TMA cannot read in place; odd D takes it too) at the
+    turbo batch's shape ("approx_topk_f32"), held to its plain version."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    n, d = xf.shape
+    xu = torch.empty(n * d + 1, device=xf.device)[1:].view(n, d)
+    xu.copy_(xf)
+    before = native.launches["approx_topk_f32"]
+    vk, rk = tp.approx_topk(xu, sq_f, mem, q128, ov)
+    launched = native.launches["approx_topk_f32"] - before
+    if launched != 1:
+        fail(f"approx_topk_f32: {launched} launches of the FMA pass")
+    vp, rp = tp.approx_topk_plain(xf, sq_f, mem, q128, ov)
+    tol = 1e-5 * float(sq_f.max() + (q128 * q128).sum(1).max())
+    err, share = pool_check("approx_topk_f32[B=128]", vk, rk, vp, rp, tol)
+    b, n_in = q128.shape[0], int(mem.sum())
+    bms, by = bound(n * (d * 4 + 4 + 1) + b * d * 4 + b * ov * 8,
+                    2.0 * b * n_in * d)
+    ROUTE_CHECKS["approx_topk_f32[B=128]"] = dict(
+        shape=f"B={b} N={n} D={d} ov_k={ov} rows 4 bytes off 16",
+        launches_in_check=launched, max_abs_err=err, tol=tol,
+        pool_overlap_with_plain=share,
+        ms=cuda_ms(torch, lambda: tp.approx_topk(xu, sq_f, mem, q128, ov)),
+        bound_ms=bms, bound_by=by)
+    del xu
 
 
 def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
@@ -2141,9 +2237,9 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
             rec10 = float(np.mean([
                 len(set(a.tolist()) & set(e[:10].tolist())) / 10
                 for a, e in zip(rk.cpu().numpy(), re.cpu().numpy())]))
-            bms, by = bound(cap * (d * elem + 4 + 1) + b * d * 4 + b * ov * 8,
-                            2.0 * b * n_in * d,
-                            BF16_FLOPS if rq else F32_FLOPS)
+            route = tp.tile_route(x.dtype, rq, d)
+            nbytes = cap * (d * elem + 4 + 1) + b * d * 4 + b * ov * 8
+            bms, by = route_bound(nbytes, 2.0 * b * n_in * d, route)
             results[key] = dict(
                 shape=f"B={b} N={cap} D={d} ov_k={ov} bins="
                       f"{tp.approx_bins(cap, ov)} members={n_in}",
@@ -2154,12 +2250,12 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                     x, x_sq, mem, q, ov, round_query=rq)),
                 plain_ms=cuda_ms(torch, lambda: tp.approx_topk_plain(
                     x, x_sq, mem, q, ov, round_query=rq), iters=2, warmup=1),
-                library_ms=None, bound_ms=bms,
-                bound_by=by + (" (bf16 tensor-core rate)" if rq else ""),
-                # K9 on f32 rows stays on the FMA pass
-                tile_pass=tp.tile_route(x.dtype, rq, d) if rq else "fma",
+                library_ms=None, bound_ms=bms, bound_by=by, tile_pass=route,
+                bound_fma_ms=bound(nbytes, 2.0 * b * n_in * d)[0],
                 gemm_ms=gemm_ms(torch, q, xb) if rq else None)
-            launch_of[key] = counts["approx_topk" if rq else "approx_topk_f32"]
+            launch_of[key] = counts["approx_topk" if rq else
+                                    "approx_topk_tf32"]
+    k9_fma_check(torch, tp, xf, sq_f, mem, q128, ov)
 
     # K1 serving the bf16 mirror, the query rounded, at k 16, 128, 1,024,
     # and at B = 1 with k = 128 (the single refine search's pool)
@@ -2251,30 +2347,16 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
     kk = hn.heuristic_kept(xb, ids, dd, 32)
     kp = hn.heuristic_kept_plain(xb, ids, dd, 32)
     torch.cuda.synchronize()
-    flips = (kk != kp).any(1).nonzero().flatten().tolist()
-    for r in flips:  # a flip must sit at a near-tie of the plain scan
-        i = int((kk[r] != kp[r]).nonzero()[0])
-        v = xb[ids[r].clamp_min(0).long()].double()
-        before = kp[r, :i].nonzero().flatten()
-        pd = ((v[i] - v[before]) ** 2).sum(-1)
-        dmin = float(pd.min()) if pd.numel() else float("inf")
-        # both sides sum the Gram expansion in f32: a tie is within 1e-5
-        # of the norms it cancels (the candidates sit near each other in
-        # a cluster far from the origin)
-        tol = 1e-5 * 2.0 * float((v * v).sum(-1).max())
-        if abs(float(dd[r, i]) - dmin) > tol:
-            fail(f"heuristic_kept[bf16 link]: row {r} differs off a tie "
-                 f"({float(dd[r, i])} against {dmin}, tol {tol})")
-    bms, by = bound(int((ids >= 0).sum()) * d * 2 + 1024 * 128 * 9,
-                    1024 * 128 * 129 / 2 * 2.0 * d)
+    # the candidates sit near each other in a cluster far from the origin
+    flips = k4_flips("heuristic_kept[bf16 link]", kk, kp, ids, dd, xb, True)
     results["heuristic_kept[bf16 link]"] = dict(
         shape=f"B=1024 C=128 D={d} m=32 (bf16 rows)",
         max_abs_err=float((kk != kp).any().item()),
-        rows_differing_at_ties=len(flips),
+        rows_differing_at_ties=flips,
         ms=cuda_ms(torch, lambda: hn.heuristic_kept(xb, ids, dd, 32)),
         plain_ms=cuda_ms(torch, lambda: hn.heuristic_kept_plain(
             xb, ids, dd, 32), iters=2, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by)
+        library_ms=None, **k4_bound(hn, xb, ids))
     launch_of["heuristic_kept[bf16 link]"] = counts["heuristic_kept_bf16"]
 
     # K5: reverse-prune pair distances on bf16 rows with the host norms
@@ -4214,7 +4296,7 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
                 r["hstate4"], r["istate4"], Q, 10, 64, 16))):
         r[key], sec[key], lau[key] = step(fn)
     counts = dict(native.launches)
-    path = ("l2_topk", "l2_topk_bf16_rq", "approx_topk_f32",
+    path = ("l2_topk", "l2_topk_bf16_rq", "approx_topk_tf32",
             "rerank_f32_rows", "project_queries", "ivf_scan", "lloyd_partial",
             "lloyd_finish", "assign_clusters", "greedy_descent",
             "beam_search", "shard_merge")
@@ -4686,7 +4768,8 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
         ("sharded_flat_search[approx S=4 k=10]", "approx4", "overlap",
          lambda: pl.sharded_flat_search(m4, select="approx")(X, XSQ, M, Q,
                                                               10),
-         bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80, 2.0 * b * n_in * d)),
+         route_bound(cap * d * 4 + cap * 5 + b * d * 4 + b * 80,
+                     2.0 * b * n_in * d, fu.tile_route(X.dtype, False, d))),
         ("sharded_projected_search[S=4 ov_k=2048]", "proj4", "overlap",
          lambda: pl.sharded_projected_search(m4)(XP, XP_SQ, M, mu_d, p_d, Q,
                                                  2048),
@@ -5211,6 +5294,15 @@ TILE_SOURCE = "fabstir_vectordb_tpu_torch/csrc/bf16_tile.cuh"
 FILTER_SOURCE = "fabstir_vectordb_tpu_torch/csrc/tile_filter.cuh"
 
 
+def source_of(base: str, r: dict) -> str:
+    """The source of an entry's kernel: its own file, or for K1 and K9 off
+    the FMA pass (tile_pass) the tensor-core pass's header (K14's stage 1
+    its filter route's); K4's routes are both in csrc/heuristic_kept.cu."""
+    if base == "heuristic_kept" or r.get("tile_pass", "fma") == "fma":
+        return SOURCES[base]
+    return FILTER_SOURCE if base == "stage1_select" else TILE_SOURCE
+
+
 # what an entry held to its plain version up to ties reports beside its
 # max_abs_err: the first k-means++ pick at a key tie, the rows or codes
 # that differ at ties
@@ -5218,8 +5310,10 @@ TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
             "codes_differing_at_ties", "overlap")
 # measured beside ms: K12's stages (from the profiler), a call's card time
 # (device_us) and host time, and torch.topk's beside the merge's; K1's and
-# K9's pass (tile_pass: "wgmma" or "fma", ops.topk.tile_route) and a bf16
-# torch.matmul of the same product (gemm_ms)
+# K9's pass (tile_pass: ops.topk.tile_route's name), K4's
+# (index.hnsw.heuristic_route's), the bound on f32 FMA beside a
+# tensor-core route's (bound_fma_ms) and a bf16 torch.matmul of the same
+# product (gemm_ms)
 DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
                "library_device_us", "tile_pass", "gemm_ms", "bound_fma_ms",
                "stage1_select_fma_launches",
@@ -5348,8 +5442,7 @@ def main() -> None:
         launches = launch_of.get(key, counts.get(key, counts.get(base, 0)))
         kernels.append({
             "name": key, "route": "cuda",
-            "source": SOURCES[base] if r.get("tile_pass", "fma") == "fma"
-            else FILTER_SOURCE if base == "stage1_select" else TILE_SOURCE,
+            "source": source_of(base, r),
             "replaces": REPLACES.get(key, REPLACES[base]),
             "launches": int(launches),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -24,12 +24,16 @@
 // products 2 B N D = 103 GFLOP, 1.54 ms at the 67 TFLOP/s f32 rate: the
 // arithmetic. The pool is [B, M] keys, 2.5 MB at M = 2,477: it stays in L2.
 //
-// bf16 rows with the query rounded at D % 8 == 0 (and D <= 8,192) take
-// bf16_tile.cuh's tensor-core pass in its BINS mode (fvdb_approx_pool_tc):
-// a block owns 128 bins and a range of rounds, the running minima of its
-// threads' bins stay in registers, and the same atomicMin folds them into
-// the [B, M] keys; the unpacking and the radix select are as below. The
-// other rows (f32, bf16 with an f32 query, other D) take the FMA pass:
+// bf16 rows with the query rounded at D % 8 == 0 (and D <= 8,192), and f32
+// rows at D % 4 == 0 (and D <= 2,048; three TF32 products, f32 accuracy),
+// take bf16_tile.cuh's tensor-core pass in its BINS mode
+// (fvdb_approx_pool_tc): a block owns 128 bins and a range of rounds, the
+// running minima of its threads' bins stay in registers, and the same
+// atomicMin folds them into the [B, M] keys; the unpacking and the radix
+// select are as below. f32 rows at B = 128 over 1,048,576 x 384 are then
+// 3 x 103 GFLOP of TF32 products, 0.62 ms at 495 TFLOP/s, against the
+// rows' 0.48 ms. The other rows (bf16 with an f32 query, other D) take the
+// FMA pass:
 //
 // Design: pass 1 is K1's tile product (l2_tile.cuh) in its BINS mode. A
 // block takes 32 queries, 256 consecutive bins and a range of rounds (rows
@@ -46,6 +50,8 @@
 // consecutive rows) and keeps the smallest (distance key << 32 | row),
 // skipping masked and non-finite entries; the radix select then takes the
 // ov_k smallest minima. It reads the matrix once: B N 4 bytes.
+#include <type_traits>
+
 #include "bf16_tile.cuh"
 #include "l2_tile.cuh"
 #include "topk_select.cuh"
@@ -157,32 +163,39 @@ FVDB_EXPORT int fvdb_approx_pool(const void* x, int x_bf16, int round_q,
   return static_cast<int>(e);
 }
 
-// bf16 rows x [N, D] with the query rounded, on the tensor cores: D % 8 ==
-// 0, x and q 16-byte aligned; width, stages and smem from ops/topk.py
-// tile_plan(B, ov_k, D, "bins"); a grid of Z round ranges of i_per rounds
-// each; the rest as fvdb_approx_pool.
+// On the tensor cores, by route kind (bf16_tile.cuh): TC_RQ, bf16 rows x
+// [N, D] with the query rounded, D % 8 == 0; TC_TF32X3, f32 rows by three
+// TF32 products, D % 4 == 0; x and q 16-byte aligned; width, stages and
+// smem from ops/topk.py tile_plan(B, ov_k, D, "bins", route); a grid of Z
+// round ranges of i_per rounds each; the rest as fvdb_approx_pool.
 FVDB_EXPORT int fvdb_approx_pool_tc(
-    const __nv_bfloat16* x, const float* x_sq, const uint8_t* mask,
+    const void* x, int kind, const float* x_sq, const uint8_t* mask,
     long long mask_stride, const float* q, int B, int N, int D, int M,
     int ov_k, int Z, int i_per, int width, int stages, int smem,
     unsigned long long* keys, float* cand_d, int* cand_r, void* work,
     float* out_d, int* out_r, cudaStream_t stream) {
   using namespace fvdb;
   if (B < 1 || N < 1 || M < 1 || M > N || ov_k < 1 || Z < 1 || Z > 65535 ||
-      i_per < 1 || x_sq == nullptr || (M + TC_ROWS - 1) / TC_ROWS > 65535)
+      i_per < 1 || x_sq == nullptr || (M + TC_ROWS - 1) / TC_ROWS > 65535 ||
+      (kind != TC_RQ && kind != TC_TF32X3))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = tc_check(x, q, width, D, SEL_BINS, 0, stages, smem);
+  cudaError_t e = tc_check(x, q, width, D, SEL_BINS, 0, stages, smem, kind);
   if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap map;
-  if (!rows_map(x, N, D, &map)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!rows_map(x, N, D, &map, kind))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long cells = (long long)B * M;
   e = cudaMemsetAsync(keys, 0xff, cells * sizeof(unsigned long long), stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((B + width - 1) / width, (M + TC_ROWS - 1) / TC_ROWS, Z);
-  e = launch_tc_width<SEL_BINS, EUCLID>(
-      width, map, x_sq, mask, mask_stride, q, B, N, D, 0, i_per, stages, smem,
-      grid, (unsigned long long*)nullptr, (float*)nullptr, (int*)nullptr,
-      (float*)nullptr, M, keys, stream);
+  const auto launch = [&](auto route) {
+    return launch_tc_width<SEL_BINS, EUCLID, decltype(route)::value>(
+        width, map, x_sq, mask, mask_stride, q, B, N, D, 0, i_per, stages,
+        smem, grid, (unsigned long long*)nullptr, (float*)nullptr,
+        (int*)nullptr, (float*)nullptr, M, keys, stream);
+  };
+  e = kind == TC_RQ ? launch(std::integral_constant<int, TC_RQ>())
+                    : launch(std::integral_constant<int, TC_TF32X3>());
   if (e != cudaSuccess) return static_cast<int>(e);
   unpack_bins_kernel<<<(unsigned)((cells + NT - 1) / NT), NT, 0, stream>>>(
       keys, cells, cand_d, cand_r);

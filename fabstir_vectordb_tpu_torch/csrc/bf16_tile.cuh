@@ -2,8 +2,8 @@
 // rounded to bf16 (the bf16 serving mirror's distance: csrc/l2_topk.cu's
 // round_q entry points, csrc/approx_topk.cu's rounded pool and K14's stage
 // 1 on the filter route of tile_filter.cuh), over f32 rows (K1 and K3 on the f32 mirror,
-// K8's tile step) and over bf16 rows with an f32 query (K3 on a bf16
-// mirror, the calibration oracle's blocks).
+// K8's tile step, K9's pool on the f32 mirror) and over bf16 rows with an
+// f32 query (K3 on a bf16 mirror, the calibration oracle's blocks).
 //
 // d(q, x) = max(|q|^2 - 2 q'.x + x_sq, 0) with f32 sums, |q|^2 from the
 // f32 query, x_sq as given (or the rows' norms), or by metric (common.cuh's
@@ -98,7 +98,7 @@
 //    False) go to a [B, N] buffer straight from the fragment (a warp
 //    writes whole 32-byte sectors), and topk_select.cuh's radix select
 //    follows.
-//  * BINS (K9): row r is in bin r mod M. A block owns 128 bins and a range
+//  * BINS (K9, on routes TC_RQ and TC_TF32X3): row r is in bin r mod M. A block owns 128 bins and a range
 //    of rounds (round i: rows i M + j0 .., contiguous); a bin's rows only
 //    grow from round to round, so a strict < keep its smallest (distance,
 //    row), and a thread keeps its bins' running distance and round in
@@ -160,6 +160,18 @@ constexpr int SEL_FILTER = 3;     // survivors under a bar (l2_tile.cuh's
 constexpr int TC_RQ = 0;
 constexpr int TC_TF32X3 = 1;
 constexpr int TC_BF16X3 = 2;
+
+// TC_TF32X3 under these epilogues and widths reads each step's fragments
+// before its products (one set of registers); under the others it reads
+// the next step's while the tensor cores take this step's (two sets). The
+// lists, and BINS' running minima at 32 queries a block, leave no room for
+// a second set: ptxas serialized the products there (K9 on f32 rows at B
+// = 128 over 1M x 384: 4.88 ms with two sets, 2.95 ms with one; at 8
+// queries two sets are ~6% faster, scripts/time_tile_routes.py --split
+// k9f32 on an H100).
+__host__ __device__ constexpr bool tf32_one_set(int mode, int qw) {
+  return mode == SEL_LISTS || (mode == SEL_BINS && qw > 8);
+}
 
 // Staged query parts of a route, and the dims a step (128 bytes of a row).
 __host__ __device__ constexpr int tc_parts(int kind) {
@@ -601,7 +613,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1) bf16_tile_pass(
           acc[i] += ((pb[0][i] + pb[1][i]) + (pb[2][i] + pb[3][i])) + ps[i];
       };
       uint32_t ab0[4][4], as0[4][4];
-      if constexpr (MODE == SEL_LISTS) {
+      if constexpr (tf32_one_set(MODE, QW)) {
         // the lists leave no room for a second set of fragments (at 232
         // registers the compiler serialized the products): each step is
         // read and split before its products
@@ -924,7 +936,7 @@ inline bool rows_map(const void* x, int N, int D, CUtensorMap* out,
 
 // Checks shared by the launches: D and the pointers as TMA and the staged
 // queries read them, the plan's width, stages and bytes. The split routes
-// take widths up to 64 (TC_TF32X3 32) and no BINS.
+// take widths up to 64 (TC_TF32X3 32); TC_BF16X3 takes no BINS.
 inline cudaError_t tc_check(const void* x, const float* q, int width, int D,
                             int mode, int k, int stages, int smem,
                             int kind = TC_RQ) {
@@ -936,7 +948,8 @@ inline cudaError_t tc_check(const void* x, const float* q, int width, int D,
       smem < tc_smem_bytes(width, D, mode, k, stages, kind) ||
       (width != 8 && width != 32 && width != 64 && width != 128) ||
       (mode == SEL_BINS && width > 64) ||
-      (kind != TC_RQ && (width > 64 || mode == SEL_BINS)) ||
+      (kind != TC_RQ && width > 64) ||
+      (kind == TC_BF16X3 && mode == SEL_BINS) ||
       (kind == TC_TF32X3 && width > 32) ||
       kind < TC_RQ || kind > TC_BF16X3)
     return cudaErrorInvalidValue;

@@ -10,19 +10,65 @@
 // kept, and d_i < min over kept j of pd[i][j] (strict).
 //
 // What bounds it on the H100: the gather is C * D * 4 bytes a query (196,608
-// at C = 128, D = 384; 201 MB for B = 1,024), 60 us at 3.35 TB/s; the Gram
-// products are 2 * C^2 * D = 12.6 MFLOP a query, 0.19 ms for B = 1,024 at
-// 67 TFLOP/s: arithmetic bounds it.
+// at C = 128, D = 384; 201 MB for B = 1,024), 60 us at 3.35 TB/s. The Gram
+// products over the triangle on and above the diagonal are C (C + 1) D =
+// 6.3 MFLOP a query: 0.19 ms for B = 1,024 at f32 FMA's 67 TFLOP/s (the
+// FMA route below builds both triangles: twice that), 0.04 ms as three
+// TF32 products at 495 TFLOP/s. On the tensor cores the gather bounds it.
 //
-// Design: one block per query. The C x D candidate rows (196 KB) and the
-// C x C table (64 KB) do not both fit a block's 227 KB, so the Gram matrix is
-// built in D-chunks: each 32-dim chunk of the C rows is staged in shared
-// memory and every thread accumulates an 8 x 8 block of g in registers.
-// Only the finished C x C table of pd goes to shared memory. The sequential
-// keep scan then reads one flag per step, because each keep updates a
-// running dmin of every later candidate in parallel (one column of pd), so
-// the block synchronises only on keeps (at most m of them).
+// Two routes, chosen by the wrapper (index/hnsw.py heuristic_route):
+//
+// The tensor-core route (fvdb_heuristic_kept_tc, _bf16_tc): rows that
+// cp.async can copy 16 bytes at a time (f32 rows at D % 4 == 0, bf16 rows
+// at D % 8 == 0, the mirror 16-byte aligned).
+//  * A block is four warps and 128 candidate rows: one query at C <= 128
+//    (rows padded to CP = 128), two at C <= 64, four at C <= 32; three
+//    blocks an SM. The rows' ids are read once; each 128-byte piece of
+//    every row (32 f32 or 64 bf16 dims) is copied by cp.async, 16 bytes a
+//    thread, into a ring of 16 KB stages (four for bf16 rows; three for
+//    f32 rows, whose small parts below take the fourth slot's room), so
+//    the next pieces are in flight while the warps take the products of
+//    this one (the rows are random, so TMA's tiled copies do not apply).
+//    A row's 16-byte chunks are XOR-swizzled by the row's low three bits,
+//    so the fragment reads below meet no bank conflict. Padded rows and
+//    dims past D are zero-filled.
+//  * The Gram matrix is taken by mma.sync from shared memory (m16n8k8
+//    TF32 for f32 rows, m16n8k16 bf16 for bf16 rows), only its tiles of 16
+//    x 8 that reach the diagonal or lie above it: warp p of a query takes
+//    the row blocks p and CP / 16 - 1 - p, 2 CP / 16 + 2 tiles (18 at CP =
+//    128), the same count for every warp, and reads a row block's
+//    fragments once a step for all of its tiles. (Eight warps a query, 9
+//    tiles each, ran the f32 link shape at 0.70 ms against four warps'
+//    0.38, one block an SM at 1.12.) f32 rows are split as bf16_tile.cuh's
+//    route tf32x3 splits them, x = big + small, big = tf32(x), small =
+//    tf32(x - big), once a stage into shared memory (split_stage); a k8
+//    step's big . big product is taken from zero (a chain would cut it at
+//    the partial sum's size, as bf16_tile.cuh says), the big . small and
+//    small . big products are added to it, and the step goes to f32 sums.
+//    bf16 products are exact in f32; each k16 step is taken from zero in
+//    the same way.
+//  * The sums go to a packed upper triangle in shared memory (it takes the
+//    ring's place once the last products are done; 33 KB at CP = 128):
+//    row i holds g_ij for j >= i, g_ji = g_ij is read there, and sq_i is
+//    the diagonal of the same products, as the FMA route takes it.
+//  * One warp a query scans: lane l holds the running minima of
+//    candidates l, l + 32, ... in registers. A ballot finds the first
+//    candidate past the last keep that passes (the minima of those before
+//    it have not changed since that keep), then every lane lowers the
+//    minima of its later candidates from one row of the triangle. The
+//    scan takes a step a keep (at most m), not a step a candidate, and no
+//    block barrier.
+//
+// The FMA route (fvdb_heuristic_kept, _bf16) takes the other rows: one
+// block a query builds the whole C x C Gram matrix (both triangles) in
+// D-chunks: each 32-dim chunk of the C rows is staged in shared memory and
+// every thread accumulates an 8 x 8 block of g in registers. Only the
+// finished C x C table of pd goes to shared memory. The sequential keep
+// scan then reads one flag per step, because each keep updates a running
+// dmin of every later candidate in parallel (one column of pd), so the
+// block synchronises only on keeps (at most m of them).
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace fvdb {
 
@@ -125,9 +171,569 @@ cudaError_t heuristic_kept(const T* x, const int* cand_ids,
   return cudaGetLastError();
 }
 
+// ---- the tensor-core route
+
+constexpr int HK_THREADS = 128;  // four warps
+constexpr int HK_ROWS = 128;     // candidate rows a block (one a thread)
+constexpr int HK_PIECE = 128;    // bytes of a row a stage
+constexpr int HK_SLOTS = 4;      // 16 KB slots: a ring of four stages,
+                                 // or (f32 rows) of three and the small
+                                 // parts of the stage being taken
+constexpr int HK_SLOT = HK_ROWS * HK_PIECE;
+constexpr int HK_SMEM = HK_SLOTS * HK_SLOT;
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  // the bytes past src_bytes (0 or 16) are zero-filled; L1 is bypassed
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d = a . b + c, m16n8k8 TF32 (a row-major 16 x 8, b 8 x 8 by columns):
+// lane l holds a at rows l / 4 (+ 8 for a1, a3) and columns l % 4 (+ 4 for
+// a2, a3), b at row l % 4 (+ 4 for b1) and column l / 4, d at row l / 4
+// (+ 8 for d2, d3) and columns 2 (l % 4) (+ 1 for d1, d3).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1,
+                                         const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+// The same at m16n8k16 bf16: each register two bf16 of consecutive
+// columns (rows of b), the first in the low half; a2, a3 and b1 hold
+// columns 8 on.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1,
+                                         const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Stage kc of f32 rows as TF32 parts: big = tf32(x) in place, small =
+// tf32(x - big) (exact in f32) at the same place of `sml`, 16 bytes at a
+// time, each element once (split where each fragment was read, an element
+// was split ~4.7 times over, and the splits held the f32 link shape at
+// 0.32 ms against 0.20 without them: scripts/time_tile_routes.py --split
+// k4 on an H100).
+__device__ __forceinline__ void split_stage(unsigned char* slot,
+                                           unsigned char* sml, int t) {
+#pragma unroll
+  for (int i = 0; i < HK_SLOT / 16 / HK_THREADS; ++i) {
+    const int off = 16 * (t + HK_THREADS * i);
+    uint4 v = *reinterpret_cast<const uint4*>(slot + off), b, s;
+    uint32_t* vv = &v.x;
+    uint32_t* bb = &b.x;
+    uint32_t* ss = &s.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bb[e] = tf32_rna(__uint_as_float(vv[e]));
+      ss[e] = tf32_rna(__uint_as_float(vv[e]) - __uint_as_float(bb[e]));
+    }
+    *reinterpret_cast<uint4*>(slot + off) = b;
+    *reinterpret_cast<uint4*>(sml + off) = s;
+  }
+}
+
+// Column blocks a warp takes together in a step (its tiles' products
+// interleaved, up to 2 KG at a time).
+constexpr int KG = 4;
+
+// Offset of g_ij (i <= j) in the packed upper triangle of a CP x CP
+// matrix: row i holds columns i .. CP - 1.
+__host__ __device__ constexpr int tri_at(int i, int j, int cp) {
+  return i * cp - i * (i - 1) / 2 + (j - i);
+}
+
+// One step of a stage's products for warp P of a query whose rows start at
+// row q_row of the slot: row blocks I1 = P and I2 = NI - 1 - P (16 rows
+// each) against every column block of 8 rows that reaches their diagonal.
+// acc[i] is tile i: I1's tiles J = 2 I1 .. 2 NI - 1 first, then I2's.
+// Lane l reads 32-bit words at row 16 I + l / 4 (+ 8) and at the stage's
+// 16-byte chunks 2 kk and 2 kk + 1 (swizzled by the row's low bits: row
+// & 7 = l / 4), 4 (l % 4) bytes in: f32 columns 8 kk + l % 4 (+ 4), or
+// bf16 column pairs 16 kk + 2 (l % 4) (+ 8): the fragments' places. f32
+// rows' big parts are in the slot, their small parts at the same place
+// of sml.
+template <bool F32, int NI, int P>
+__device__ __forceinline__ void gram_step(const unsigned char* slot,
+                                          const unsigned char* sml, int q_row,
+                                          int lane,
+                                          float (&acc)[2 * NI + 2][4]) {
+  constexpr int I1 = P, I2 = NI - 1 - P;
+  constexpr int T1 = 2 * NI - 2 * I1;  // I1's tiles
+  const int g = lane >> 2, tq = lane & 3;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int o0 = (((2 * kk) ^ g) << 4) + 4 * tq;
+    const int o1 = (((2 * kk + 1) ^ g) << 4) + 4 * tq;
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int r0 = (q_row + 16 * (s ? I2 : I1) + g) * HK_PIECE;
+      const int r1 = r0 + 8 * HK_PIECE;
+      const int at[4] = {r0 + o0, r1 + o0, r0 + o1, r1 + o1};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ab[s][e] = lds32(slot + at[e]);
+        if constexpr (F32) as[s][e] = lds32(sml + at[e]);
+      }
+    }
+    // the column blocks J = 2 I1 + j, KG at a time: their fragments read
+    // first, then each of the three products of every tile of the group
+    // (up to 2 KG independent chains in flight), then the sums
+    constexpr int NJ = 2 * NI - 2 * I1;
+#pragma unroll
+    for (int j0 = 0; j0 < NJ; j0 += KG) {
+      uint32_t bb[KG][2], bs[KG][2];
+      float d[KG][2][4];
+#pragma unroll
+      for (int u = 0; u < KG; ++u) {
+        if (j0 + u >= NJ) continue;
+        const int rj = (q_row + 8 * (2 * I1 + j0 + u) + g) * HK_PIECE;
+        bb[u][0] = lds32(slot + rj + o0);
+        bb[u][1] = lds32(slot + rj + o1);
+        if constexpr (F32) {
+          bs[u][0] = lds32(sml + rj + o0);
+          bs[u][1] = lds32(sml + rj + o1);
+        }
+      }
+      // tile (s, J) of the group: s = 0 (I1) always, s = 1 (I2) where J
+      // reaches I2's diagonal
+      auto has = [&](int u, int s) {
+        return j0 + u < NJ && (s == 0 || 2 * I1 + j0 + u >= 2 * I2);
+      };
+#pragma unroll
+      for (int u = 0; u < KG; ++u)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (!has(u, s)) continue;
+          if constexpr (F32)
+            mma_tf32(d[u][s], ab[s], bb[u][0], bb[u][1], zero);
+          else
+            mma_bf16(d[u][s], ab[s], bb[u][0], bb[u][1], zero);
+        }
+      if constexpr (F32) {
+#pragma unroll
+        for (int u = 0; u < KG; ++u)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            if (has(u, s))
+              mma_tf32(d[u][s], as[s], bb[u][0], bb[u][1], d[u][s]);
+#pragma unroll
+        for (int u = 0; u < KG; ++u)
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+            if (has(u, s))
+              mma_tf32(d[u][s], ab[s], bs[u][0], bs[u][1], d[u][s]);
+      }
+#pragma unroll
+      for (int u = 0; u < KG; ++u)
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (!has(u, s)) continue;
+          const int J = 2 * I1 + j0 + u;
+          float (&a)[4] = acc[s == 0 ? J - 2 * I1 : T1 + J - 2 * I2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] += d[u][s][e];
+        }
+    }
+  }
+}
+
+// The sums of warp P's tiles into its query's triangle (entries below the
+// diagonal of a diagonal tile are dropped).
+template <int NI, int P>
+__device__ __forceinline__ void gram_store(float* tq, int lane,
+                                           const float (&acc)[2 * NI + 2][4]) {
+  constexpr int CP = 16 * NI, I1 = P, I2 = NI - 1 - P;
+  constexpr int T1 = 2 * NI - 2 * I1;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2 * NI + 2; ++i) {
+    const int I = i < T1 ? I1 : I2;
+    const int J = i < T1 ? 2 * I1 + i : 2 * I2 + (i - T1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * I + g + 8 * (e >> 1), c = 8 * J + 2 * t4 + (e & 1);
+      if (r <= c) tq[tri_at(r, c, CP)] = acc[i][e];
+    }
+  }
+}
+
+// gram_step / gram_store for the runtime warp index p of a query.
+template <bool F32, int NI, int P = 0>
+__device__ __forceinline__ void gram_step_of(int p, const unsigned char* slot,
+                                             const unsigned char* sml,
+                                             int q_row, int lane,
+                                             float (&acc)[2 * NI + 2][4]) {
+  if constexpr (P < NI / 2) {
+    if (p == P)
+      gram_step<F32, NI, P>(slot, sml, q_row, lane, acc);
+    else
+      gram_step_of<F32, NI, P + 1>(p, slot, sml, q_row, lane, acc);
+  }
+}
+template <int NI, int P = 0>
+__device__ __forceinline__ void gram_store_of(
+    int p, float* tq, int lane, const float (&acc)[2 * NI + 2][4]) {
+  if constexpr (P < NI / 2) {
+    if (p == P)
+      gram_store<NI, P>(tq, lane, acc);
+    else
+      gram_store_of<NI, P + 1>(p, tq, lane, acc);
+  }
+}
+
+// The keep scan of query b by one warp over its triangle tq.
+template <int CP>
+__device__ __forceinline__ void keep_scan(const float* tq,
+                                          const int* __restrict__ cand_ids,
+                                          const float* __restrict__ cand_d,
+                                          int b, int C, int m,
+                                          uint8_t* __restrict__ kept,
+                                          int lane) {
+  constexpr int NW = CP / 32;  // candidates a lane
+  float dist[NW], dmin[NW], sq[NW];
+  bool valid[NW];
+  unsigned keptw[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int c = lane + 32 * j;
+    const int id = c < C ? cand_ids[(size_t)b * C + c] : -1;
+    const float d = c < C ? cand_d[(size_t)b * C + c] : INFINITY;
+    valid[j] = id >= 0 && isfinite(d);
+    dist[j] = d;
+    dmin[j] = INFINITY;
+    sq[j] = tq[tri_at(c, c, CP)];
+    keptw[j] = 0u;
+  }
+  int last = -1;
+  for (int cnt = 0; cnt < m; ++cnt) {
+    // the first candidate past the last keep that passes its test
+    int next = CP;
+#pragma unroll
+    for (int j = NW - 1; j >= 0; --j) {
+      const unsigned bal = __ballot_sync(
+          FULL, valid[j] && dist[j] < dmin[j] && lane + 32 * j > last);
+      if (bal) next = 32 * j + __ffs(bal) - 1;
+    }
+    if (next == CP) break;
+    last = next;
+    const int jn = next >> 5, ln = next & 31;
+    float sqn = 0.f;
+#pragma unroll
+    for (int j = 0; j < NW; ++j)
+      if (j == jn) {
+        sqn = sq[j];
+        keptw[j] |= 1u << ln;
+      }
+    sqn = __shfl_sync(FULL, sqn, ln);
+    // row `next` of the triangle: g[next][r] at row[r] for r >= next
+    const float* row = tq + tri_at(next, next, CP) - next;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const int r = lane + 32 * j;
+      if (r > next) dmin[j] = fminf(dmin[j], (sq[j] - 2.f * row[r]) + sqn);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    const int c = lane + 32 * j;
+    if (c < C) kept[(size_t)b * C + c] = (uint8_t)((keptw[j] >> lane) & 1u);
+  }
+}
+
+// CP = 16 NI candidate rows a query (NI = 2, 4 or 8), NI / 2 warps a
+// query, 8 / NI queries a block.
+template <typename T, int NI>
+__global__ void __launch_bounds__(HK_THREADS, 3) heuristic_kept_tc_kernel(
+    const T* __restrict__ x, const int* __restrict__ cand_ids,
+    const float* __restrict__ cand_d, int B, int C, int D, int m,
+    uint8_t* __restrict__ kept) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int CP = 16 * NI;
+  // ring slots; f32 rows keep their small parts in the fourth slot's room
+  constexpr int STAGES = F32 ? HK_SLOTS - 1 : HK_SLOTS;
+  constexpr int EP = 16 / (int)sizeof(T);  // elements a 16-byte copy
+  constexpr int DS = HK_PIECE / (int)sizeof(T);  // dims a stage
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ long long roff[HK_ROWS];  // a row's first element; -1: zeros
+
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int q0 = blockIdx.x * (8 / NI);
+  {
+    const int b = q0 + t / CP, c = t % CP;
+    roff[t] = b < B && c < C
+                  ? (long long)max(cand_ids[(size_t)b * C + c], 0) * D
+                  : -1;
+  }
+  __syncthreads();
+  const uint32_t ring = smem_addr(smem);
+  const int KS = (D + DS - 1) / DS;  // stages of the rows
+  // stage kc of every row: 8 copies of 16 bytes a row, a thread's eight at
+  // rows t / 8 + 16 i, chunk t % 8 (eight threads a row's 128 bytes)
+  auto issue = [&](int kc) {
+    const uint32_t dst = ring + (kc % STAGES) * HK_SLOT;
+#pragma unroll
+    for (int i = 0; i < HK_ROWS * 8 / HK_THREADS; ++i) {
+      const int p = t + HK_THREADS * i, r = p >> 3, ch = p & 7;
+      const int d0 = kc * DS + ch * EP;
+      const long long off = roff[r];
+      const bool in = off >= 0 && d0 < D;
+      cp_async16(dst + r * HK_PIECE + ((ch ^ (r & 7)) << 4),
+                 in ? static_cast<const void*>(x + off + d0)
+                    : static_cast<const void*>(x),
+                 in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KS) issue(s);
+    cp_async_commit();
+  }
+  unsigned char* sml = smem + (HK_SLOTS - 1) * HK_SLOT;
+  const int ql = w / (NI / 2), p = w % (NI / 2);
+  float acc[2 * NI + 2][4];
+#pragma unroll
+  for (int i = 0; i < 2 * NI + 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int kc = 0; kc < KS; ++kc) {
+    cp_async_wait<STAGES - 2>();  // stage kc has landed (this thread's)
+    __syncthreads();  // every thread's, and every warp is past stage kc - 1
+    if (kc + STAGES - 1 < KS) issue(kc + STAGES - 1);
+    cp_async_commit();
+    unsigned char* slot = smem + (kc % STAGES) * HK_SLOT;
+    if constexpr (F32) {
+      split_stage(slot, sml, t);
+      __syncthreads();
+    }
+    gram_step_of<F32, NI>(p, slot, sml, ql * CP, lane, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the triangles take its place
+  float* tq = reinterpret_cast<float*>(smem) + ql * (CP * (CP + 1) / 2);
+  gram_store_of<NI>(p, tq, lane, acc);
+  __syncthreads();
+  if (p == 0 && q0 + ql < B)
+    keep_scan<CP>(tq, cand_ids, cand_d, q0 + ql, C, m, kept, lane);
+}
+
+// ---- f32 rows at C > 64 on wgmma
+
+// d[64 x 64] (+)= A[64 x 8] . B[8 x 64]^T in TF32, A and B K-major f32
+// tiles in shared memory given by their descriptors (128-byte swizzle: a
+// step of 8 values, 32 bytes, adds 2 to a descriptor's address field);
+// scale_d 0 overwrites d. d as in wgmma.cuh's Wgmma.
+__device__ __forceinline__ void wgmma_tf32_ss64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+constexpr int WG_THREADS = 384;  // three warpgroups
+constexpr int WG_STAGES = 4;     // ring slots of 16 KB, then the small parts
+constexpr int WG_SMEM = 1024 + (WG_STAGES + 1) * HK_SLOT;  // + alignment
+
+// f32 rows at 64 < C <= 128, one query a block: the ring as above (128
+// rows padded, 128 bytes a row a stage, 1,024-byte aligned, so that a slot
+// is a 128-byte-swizzled K-major tile as wgmma reads it), each stage split
+// once into big (in place) and small parts, and the Gram matrix's three
+// 64 x 64 blocks on and above the diagonal taken by one warpgroup each:
+// rows 0-63 x 0-63, rows 0-63 x 64-127, rows 64-127 x 64-127, A and B
+// both from shared memory. As the mma.sync route sums them: each k8 big .
+// big product from zero in its own accumulator, the big . small and small
+// . big products added to it, and the step added to f32 sums (the small
+// products in an accumulator of their own, as bf16_tile.cuh keeps them,
+// took 32 more registers a thread and spilled at 168). mma.sync's m16n8k8 TF32 products ran at ~86 TFLOP/s here
+// (the f32 link shape 0.147 ms with the big product alone, 0.315 with the
+// three: scripts/time_tile_routes.py --split k4 on an H100), so the
+// 16 x 8 tiles' saving of work did not pay for their rate.
+__global__ void __launch_bounds__(WG_THREADS, 1) heuristic_kept_wg_kernel(
+    const float* __restrict__ x, const int* __restrict__ cand_ids,
+    const float* __restrict__ cand_d, int B, int C, int D, int m,
+    uint8_t* __restrict__ kept) {
+  constexpr int CP = 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ long long roff[HK_ROWS];  // a row's first element; -1: zeros
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sml = smem + WG_STAGES * HK_SLOT;
+
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31, b = blockIdx.x;
+  if (t < HK_ROWS)
+    roff[t] = t < C ? (long long)max(cand_ids[(size_t)b * C + t], 0) * D
+                    : -1;
+  __syncthreads();
+  const uint32_t ring = smem_addr(smem);
+  const int KS = (D + 31) / 32;  // stages of the rows
+  auto issue = [&](int kc) {
+    const uint32_t dst = ring + (kc % WG_STAGES) * HK_SLOT;
+    for (int p = t; p < HK_ROWS * 8; p += WG_THREADS) {
+      const int r = p >> 3, ch = p & 7;
+      const int d0 = kc * 32 + ch * 4;
+      const long long off = roff[r];
+      const bool in = off >= 0 && d0 < D;
+      cp_async16(dst + r * HK_PIECE + ((ch ^ (r & 7)) << 4),
+                 in ? static_cast<const void*>(x + off + d0)
+                    : static_cast<const void*>(x),
+                 in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < KS) issue(s);
+    cp_async_commit();
+  }
+  // warpgroup u's block: A rows a0 .. a0 + 63 against B rows b0 .. b0 + 63
+  const int u = t >> 7, tw = t & 127;
+  const int a0 = u == 2 ? 64 : 0, b0 = u == 0 ? 0 : 64;
+  float acc[32], pb[2][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int kc = 0; kc < KS; ++kc) {
+    cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();  // stage kc is in; every warpgroup is past stage kc - 1
+    if (kc + WG_STAGES - 1 < KS) issue(kc + WG_STAGES - 1);
+    cp_async_commit();
+    unsigned char* slot = smem + (kc % WG_STAGES) * HK_SLOT;
+    for (int p = t; p < HK_SLOT / 16; p += WG_THREADS) {
+      uint4 v = *reinterpret_cast<const uint4*>(slot + 16 * p), bg, sm;
+      const uint32_t* vv = &v.x;
+      uint32_t* bb = &bg.x;
+      uint32_t* ss = &sm.x;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bb[e] = tf32_rna(__uint_as_float(vv[e]));
+        ss[e] = tf32_rna(__uint_as_float(vv[e]) - __uint_as_float(bb[e]));
+      }
+      *reinterpret_cast<uint4*>(slot + 16 * p) = bg;
+      *reinterpret_cast<uint4*>(sml + 16 * p) = sm;
+    }
+    fence_proxy_async();  // the split parts, to wgmma's reads
+    __syncthreads();
+    const uint64_t da = sw128_desc(smem_addr(slot + a0 * HK_PIECE));
+    const uint64_t db = sw128_desc(smem_addr(slot + b0 * HK_PIECE));
+    const uint64_t da_s = sw128_desc(smem_addr(sml + a0 * HK_PIECE));
+    const uint64_t db_s = sw128_desc(smem_addr(sml + b0 * HK_PIECE));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // k8 steps 2 h and 2 h + 1
+      fence_regs(pb[0]);
+      fence_regs(pb[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * h + jj;
+        wgmma_tf32_ss64(pb[jj], da + 2 * j, db + 2 * j, 0);
+        wgmma_tf32_ss64(pb[jj], da_s + 2 * j, db + 2 * j, 1);
+        wgmma_tf32_ss64(pb[jj], da + 2 * j, db_s + 2 * j, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pb[0]);
+      fence_regs(pb[1]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += pb[0][i] + pb[1][i];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the triangle takes its place
+  float* tq = reinterpret_cast<float*>(smem);
+  // thread tw holds d[i] at row 16 (tw / 32) + (tw % 32) / 4 + 8 ((i / 2)
+  // % 2) and column 8 (i / 4) + 2 (tw % 4) + i % 2 of its block
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = a0 + 16 * (tw >> 5) + ((tw & 31) >> 2) + 8 * ((i >> 1) & 1);
+    const int c = b0 + 8 * (i >> 2) + 2 * (tw & 3) + (i & 1);
+    if (r <= c) tq[tri_at(r, c, CP)] = acc[i];
+  }
+  __syncthreads();
+  if (w == 0) keep_scan<CP>(tq, cand_ids, cand_d, b, C, m, kept, lane);
+}
+
+template <typename T, int NI>
+cudaError_t launch_kept_tc(const T* x, const int* cand_ids,
+                           const float* cand_d, int B, int C, int D, int m,
+                           uint8_t* kept, cudaStream_t stream) {
+  static_assert(4 * (16 * NI) * (16 * NI + 1) / 2 * (8 / NI) <= HK_SMEM,
+                "the triangles fit the ring");
+  static int cap[64];
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(heuristic_kept_tc_kernel<T, NI>), HK_SMEM,
+      cap);
+  if (e != cudaSuccess) return e;
+  const int qb = 8 / NI;
+  heuristic_kept_tc_kernel<T, NI><<<(B + qb - 1) / qb, HK_THREADS, HK_SMEM,
+                                    stream>>>(x, cand_ids, cand_d, B, C, D,
+                                              m, kept);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t heuristic_kept_tc(const T* x, const int* cand_ids,
+                              const float* cand_d, int B, int C, int D, int m,
+                              uint8_t* kept, cudaStream_t stream) {
+  constexpr int EP = 16 / (int)sizeof(T);
+  if (B < 1 || C < 1 || C > CMAX || D < EP || D % EP != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return cudaErrorInvalidValue;
+  if (C <= 32)
+    return launch_kept_tc<T, 2>(x, cand_ids, cand_d, B, C, D, m, kept, stream);
+  if (C <= 64)
+    return launch_kept_tc<T, 4>(x, cand_ids, cand_d, B, C, D, m, kept, stream);
+  if constexpr (sizeof(T) == 4) {  // f32 rows past 64: wgmma
+    static int cap[64];
+    cudaError_t e = raise_smem_cap(
+        reinterpret_cast<const void*>(heuristic_kept_wg_kernel), WG_SMEM, cap);
+    if (e != cudaSuccess) return e;
+    heuristic_kept_wg_kernel<<<B, WG_THREADS, WG_SMEM, stream>>>(
+        x, cand_ids, cand_d, B, C, D, m, kept);
+    return cudaGetLastError();
+  } else {
+    return launch_kept_tc<T, 8>(x, cand_ids, cand_d, B, C, D, m, kept,
+                                stream);
+  }
+}
+
 }  // namespace fvdb
 
 // x [N, D]; cand_ids, cand_d [B, C] (C <= 128); kept [B, C] (0/1 bytes).
+// The FMA route.
 FVDB_EXPORT int fvdb_heuristic_kept(const float* x, const int* cand_ids,
                                     const float* cand_d, int B, int C, int D,
                                     int m, uint8_t* kept,
@@ -144,4 +750,23 @@ FVDB_EXPORT int fvdb_heuristic_kept_bf16(const __nv_bfloat16* x,
                                          cudaStream_t stream) {
   return static_cast<int>(fvdb::heuristic_kept(x, cand_ids, cand_d, B, C, D,
                                                m, kept, stream));
+}
+
+// The tensor-core route over f32 rows: D % 4 == 0, x 16-byte aligned.
+FVDB_EXPORT int fvdb_heuristic_kept_tc(const float* x, const int* cand_ids,
+                                       const float* cand_d, int B, int C,
+                                       int D, int m, uint8_t* kept,
+                                       cudaStream_t stream) {
+  return static_cast<int>(fvdb::heuristic_kept_tc(x, cand_ids, cand_d, B, C,
+                                                  D, m, kept, stream));
+}
+
+// The tensor-core route over bf16 rows: D % 8 == 0, x 16-byte aligned.
+FVDB_EXPORT int fvdb_heuristic_kept_bf16_tc(const __nv_bfloat16* x,
+                                            const int* cand_ids,
+                                            const float* cand_d, int B, int C,
+                                            int D, int m, uint8_t* kept,
+                                            cudaStream_t stream) {
+  return static_cast<int>(fvdb::heuristic_kept_tc(x, cand_ids, cand_d, B, C,
+                                                  D, m, kept, stream));
 }

@@ -132,13 +132,19 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 // x rounded to TF32 (to nearest, ties away from zero), as an f32 whose low
-// 13 bits are zero. Volatile, so that it stays before the wgmma fence that
+// 13 bits are zero: what cvt.rna.tf32.f32 gives a finite x, by two integer
+// operations (half a TF32 ulp added to the magnitude's bits carries into
+// the exponent where it should). The conversion instruction issues at a
+// fraction of their rate: with it, K9 on f32 rows at B = 128 over 1M x 384
+// took 2.96 ms against 2.70 (scripts/time_tile_routes.py --split k9f32
+// on an H100). Volatile, so that it stays before the wgmma fence that
 // follows it when it makes an A fragment.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm volatile(
       "{\n.reg .b32 t;\n"
-      "cvt.rna.tf32.f32 t, %1;\n"
+      "mov.b32 t, %1;\n"
+      "add.u32 t, t, 0x1000;\n"
       "and.b32 %0, t, 0xffffe000;\n}\n"
       : "=r"(r)
       : "f"(x));

@@ -130,13 +130,28 @@ def heuristic_kept_plain(x, cand_ids, cand_d, m: int) -> torch.Tensor:
     return kept
 
 
+def heuristic_route(x) -> str:
+    """The route K4 takes over the rows of x on the card: "tf32x3" (f32
+    rows, three TF32 products on the tensor cores) or "bf16" (bf16 rows,
+    one bf16 product, exact in f32) where cp.async copies every row 16
+    bytes at a time (D % 4 == 0 for f32 rows, D % 8 == 0 for bf16, the
+    rows 16-byte aligned), else "fma" (f32 FMA)."""
+    per_copy = 16 // x.element_size()
+    if x.shape[1] % per_copy or x.data_ptr() % 16:
+        return "fma"
+    return "bf16" if x.dtype == torch.bfloat16 else "tf32x3"
+
+
 def heuristic_kept(x, cand_ids, cand_d, m: int) -> torch.Tensor:
     """K4: heuristic-selection mask over the rows of x [N, D] (f32, or bf16
     upcast exactly). cand_ids int32 / cand_d f32 [B, C], each row sorted
     ascending by distance to its query (-1 / +inf padded, C <= 128 on the
     card). Returns kept [B, C] bool with at most m True a row. A -1 id
     gathers row 0 but is never kept. The plain version on CPU tensors,
-    csrc/heuristic_kept.cu on CUDA tensors."""
+    csrc/heuristic_kept.cu on CUDA tensors: the tensor cores where
+    :func:`heuristic_route` says so (counted as "heuristic_kept",
+    "heuristic_kept_bf16"), else the FMA route ("heuristic_kept_fma",
+    "heuristic_kept_bf16_fma")."""
     if x.device.type == "cpu":
         return heuristic_kept_plain(x, cand_ids, cand_d, m)
     dev = x.device
@@ -151,14 +166,16 @@ def heuristic_kept(x, cand_ids, cand_d, m: int) -> torch.Tensor:
     kept = torch.empty((b, c), dtype=torch.uint8, device=dev)
     if b == 0:
         return kept.bool()
+    fma = heuristic_route(x) == "fma"
     P, I = native.P, native.I
     native.call(
         "heuristic_kept",
-        "fvdb_heuristic_kept_bf16" if bf16 else "fvdb_heuristic_kept",
+        "fvdb_heuristic_kept" + ("_bf16" if bf16 else "")
+        + ("" if fma else "_tc"),
         [P, P, P, I, I, I, I, P, P],
         x.data_ptr(), cand_ids.data_ptr(), cand_d.data_ptr(), b, c,
         x.shape[1], m, kept.data_ptr(), native.stream_of(x))
-    native.launches[native.counter("heuristic_kept", bf16)] += 1
+    native.launches[native.counter("heuristic_kept", bf16, fma=fma)] += 1
     return kept.bool()
 
 

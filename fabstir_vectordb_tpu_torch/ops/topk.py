@@ -513,9 +513,11 @@ def approx_topk(x, x_sq, mask, q, ov_k: int, round_query: bool = False):
     as in :func:`l2_topk`. Returns (vals [B, ov_k] f32, rows [B, ov_k]
     int32) by (distance, row), padded with (+inf, -1). The plain version on
     CPU tensors, csrc/approx_topk.cu on CUDA tensors: bf16 rows with the
-    query rounded on the tensor cores where :func:`tile_route` says so
-    (csrc/bf16_tile.cuh, counted as "approx_topk"), the rest on the FMA
-    pass ("approx_topk_f32", "approx_topk_bf16", "approx_topk_bf16_rq_fma")."""
+    query rounded and f32 rows on the tensor cores where :func:`tile_route`
+    says so and the rows and queries are 16-byte aligned
+    (csrc/bf16_tile.cuh, counted as "approx_topk" and "approx_topk_tf32"),
+    the rest on the FMA pass ("approx_topk_f32", "approx_topk_bf16",
+    "approx_topk_bf16_rq_fma")."""
     bf16 = x.dtype == torch.bfloat16
     if round_query and not bf16:
         raise ValueError("approx_topk: round_query takes bf16 rows")
@@ -540,10 +542,17 @@ def approx_topk(x, x_sq, mask, q, ov_k: int, round_query: bool = False):
     rounds = math.ceil(n / m)
     P, I, L = native.P, native.I, native.L
     m_stride = n if mask is not None and mask.dim() == 2 else 0
-    tc = round_query and tile_route(x.dtype, True, d) == "wgmma" \
-        and math.ceil(m / _TC_ROWS) <= _MAX_GRID_Q
-    counter = "approx_topk" if tc else native.counter(
-        "approx_topk", bf16, rq=round_query, fma=round_query) \
+    # the tensor-core pass takes bf16 rows with the query rounded and f32
+    # rows (three TF32 products); bf16 rows with an f32 query stay on the
+    # FMA pass, as does every shape TMA cannot read in place
+    route = tile_route(x.dtype, round_query, d)
+    if route not in ("wgmma", "tf32x3") or x.data_ptr() % 16 \
+            or q.data_ptr() % 16 or math.ceil(m / _TC_ROWS) > _MAX_GRID_Q:
+        route = "fma"
+    tc = route != "fma"
+    counter = {"wgmma": "approx_topk", "tf32x3": "approx_topk_tf32"}[route] \
+        if tc else native.counter("approx_topk", bf16, rq=round_query,
+                                  fma=round_query) \
         if bf16 else "approx_topk_f32"
     for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
         hi = min(b, lo + _MAX_GRID_Q)
@@ -555,14 +564,17 @@ def approx_topk(x, x_sq, mask, q, ov_k: int, round_query: bool = False):
         m_ptr = 0 if mask is None else (mask[lo:hi].data_ptr() if m_stride
                                         else mask.data_ptr())
         if tc:  # csrc/bf16_tile.cuh: 128 bins a block
-            plan = tile_plan(bb, ov_k, d, "bins")
-            z, i_per = _round_ranges(rounds, plan.tiles
-                                     * math.ceil(m / _TC_ROWS), dev, 1)
+            plan = tile_plan(bb, ov_k, d, "bins", route)
+            tiles = plan.tiles * math.ceil(m / _TC_ROWS)
+            z, i_per = _round_ranges(rounds, tiles, dev, 1) \
+                if route == "wgmma" else \
+                _round_waves(rounds, tiles, _num_sms(dev))
             native.call(
                 "approx_topk", "fvdb_approx_pool_tc",
-                [P, P, P, L, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P, P,
-                 P, P],
-                x.data_ptr(), x_sq.data_ptr(), m_ptr, m_stride,
+                [P, I, P, P, L, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P,
+                 P, P, P],
+                x.data_ptr(), TILE_ROUTES[route], x_sq.data_ptr(), m_ptr,
+                m_stride,
                 q[lo:hi].data_ptr(), bb, n, d, m, ov_k, z, i_per, plan.width,
                 plan.stages, plan.smem, keys.data_ptr(), cand_d.data_ptr(),
                 cand_r.data_ptr(), work.data_ptr(), out_d[lo:hi].data_ptr(),
@@ -589,6 +601,26 @@ def _round_ranges(rounds: int, tiles: int, dev, per_sm: int):
     past it would run as a second wave of their own)."""
     z = max(1, min(rounds, per_sm * _num_sms(dev) // tiles))
     i_per = math.ceil(rounds / z)
+    return math.ceil(rounds / i_per), i_per
+
+
+def _round_waves(rounds: int, tiles: int, sms: int, least: int = 8):
+    """K9's round ranges on the TF32 route (one block an SM, each as long
+    as the next) on a card of ``sms`` SMs: the fewest ranges whose blocks
+    fill their last wave to within 2% of the best fill that any count of
+    ranges of at least ``least`` rounds reaches, so that a tile count such
+    as 80 (B = 128 at 32 queries a block, 20 bin tiles) does not leave 52
+    of 132 SMs idle. Returns (ranges, rounds a range)."""
+
+    def plan(z):
+        i_per = math.ceil(rounds / z)
+        blocks = tiles * math.ceil(rounds / i_per)
+        return blocks / (math.ceil(blocks / sms) * sms), i_per
+
+    zs = range(1, max(1, rounds // least) + 1)
+    best = max(plan(z)[0] for z in zs)
+    z = next(z for z in zs if plan(z)[0] >= best - 0.02)
+    i_per = plan(z)[1]
     return math.ceil(rounds / i_per), i_per
 
 
@@ -1013,13 +1045,14 @@ class TilePlan(NamedTuple):
 
 
 def tile_route(dtype, round_query: bool, d: int) -> str:
-    """Which pass K1 (and, for "wgmma", K9 and K14's stage 1) runs on the
-    card: "wgmma" (csrc/bf16_tile.cuh, one bf16 product) for bf16 rows with
-    the query rounded at D % 8 == 0 up to D = 8,192; "tf32x3" (three TF32
-    products, f32 accuracy) for f32 rows at D % 4 == 0 up to 2,048;
-    "bf16x3" (the f32 query split in three bf16 parts, products exact) for
-    bf16 rows with an f32 query at D % 8 == 0 up to 2,048; else "fma"
-    (csrc/l2_tile.cuh). TMA reads 16-byte rows, hence the D it takes."""
+    """Which pass K1 (and, for "wgmma" and "tf32x3", K9; for "wgmma", K14's
+    stage 1) runs on the card: "wgmma" (csrc/bf16_tile.cuh, one bf16
+    product) for bf16 rows with the query rounded at D % 8 == 0 up to D =
+    8,192; "tf32x3" (three TF32 products, f32 accuracy) for f32 rows at D
+    % 4 == 0 up to 2,048; "bf16x3" (the f32 query split in three bf16
+    parts, products exact) for bf16 rows with an f32 query at D % 8 == 0 up
+    to 2,048; else "fma" (csrc/l2_tile.cuh). TMA reads 16-byte rows, hence
+    the D it takes."""
     if dtype == torch.bfloat16 and round_query:
         return "wgmma" if d % 8 == 0 and 8 <= d <= _TC_MAX_D else "fma"
     if dtype == torch.float32:
@@ -1052,8 +1085,8 @@ def tile_plan(b: int, k: int, d: int, mode: str,
     ``mode`` ("lists": K1 at k <= 256, "dump": K1 past it, "bins": K9,
     "filter": K14's stage 1 and K1 on f32 rows by euclidean distance) on
     ``route`` (:func:`tile_route`'s name; "bf16x3" takes "lists" and
-    "dump", "tf32x3" those and "filter"), or None where the route does not
-    take D.
+    "dump", "wgmma" and "tf32x3" every mode), or None where the route does
+    not take D.
 
     The query width is the narrowest of 8 / 32 / 64 / 128 that holds B (at
     most 64 for "bins", whose running minima take registers a query, and
@@ -1068,8 +1101,7 @@ def tile_plan(b: int, k: int, d: int, mode: str,
     if route not in TILE_ROUTES:
         raise ValueError(f"tile_plan: route {route!r}, expected one of "
                          f"{tuple(TILE_ROUTES)}")
-    if (route == "bf16x3" and mode not in ("lists", "dump")) \
-            or (route == "tf32x3" and mode == "bins"):
+    if route == "bf16x3" and mode not in ("lists", "dump"):
         raise ValueError(f"tile_plan: route {route!r} does not take "
                          f"{mode!r}")
     dtype = torch.float32 if route == "tf32x3" else torch.bfloat16

@@ -53,6 +53,13 @@ launches: dict[str, int] = {
 # (csrc/bf16_tile.cuh): l2_tile.cuh's FMA pass
 for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16", "l2_topk_bf16_rq"):
     launches[f"{_base}_fma"] = 0
+# K4 at rows that cp.async cannot copy 16 bytes at a time: the FMA route
+# ("heuristic_kept" and "heuristic_kept_bf16" count the tensor cores)
+launches["heuristic_kept_fma"] = 0
+launches["heuristic_kept_bf16_fma"] = 0
+# K9 on f32 rows on the tensor cores (three TF32 products; "approx_topk_f32"
+# counts the FMA pass)
+launches["approx_topk_tf32"] = 0
 # K14's stage 1 on the FMA pass and its [B, N] buffer (a launch each): at a
 # rank the tensor-core pass does not take ("_fma"), and where a launch of
 # the filter route had survivors past their buffer ("_overflow")
@@ -73,8 +80,8 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
 def counter(base: str, bf16: bool = False, metric: str = "euclidean",
             up: bool = False, rq: bool = False, fma: bool = False) -> str:
     """The launch counter of a kernel's variant: ``base``, then "_bf16"
-    for bf16 rows, "_rq" for the query rounded to bf16, "_fma" for K1 on
-    the FMA pass (a shape the tensor-core pass does not take), "_up" for a
+    for bf16 rows, "_rq" for the query rounded to bf16, "_fma" for K1 or K4
+    on the FMA pass (a shape the tensor-core pass does not take), "_up" for a
     layer above 0, "_<metric>" for cosine or dot."""
     name = (base + ("_bf16" if bf16 else "") + ("_rq" if rq else "")
             + ("_fma" if fma else "") + ("_up" if up else ""))

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time K14's stage 1 and K1 / K3 on f32 rows (and on bf16 rows with an
-f32 query) on one NVIDIA GPU, beside yardsticks that the port never calls.
+"""Time K14's stage 1, K1 / K3 on f32 rows (and on bf16 rows with an f32
+query), K4 and K9 on f32 rows on one NVIDIA GPU, beside yardsticks that the
+port never calls.
 
     python scripts/time_tile_routes.py [--root DIR] [--out DIR] [--iters N]
-                                       [--only stage1|f32] [--profile]
-                                       [--split fma|tf32x3|stage1]
+                                       [--only stage1|f32|k4|k9f32]
+                                       [--profile]
+                                       [--split fma|tf32x3|stage1|k4|k9f32]
 
 ``--root`` imports ``fabstir_vectordb_tpu_torch`` from another checkout (an
 older tree unpacked under ``build/``, e.g. ``git archive HEAD~``), so two
@@ -30,6 +32,23 @@ calibration oracle's block (524,288 rows, B = 128, k = 11, norms in the
 kernel). Yardstick: an f32 ``torch.matmul`` of the same product with TF32
 off (and a bf16 one for the bf16 rows).
 
+K4 (``index.hnsw.heuristic_kept``, ``--only k4``): the candidate pools of
+1,024 queries over 131,072 x 384 seeded f32 rows, each query's 128
+nearest rows by an f32 ``torch.matmul`` (TF32 off) and ``torch.topk``: the
+link pool (C = 128, m = 32), the reverse prune (C = 64, the last 8 padded
+with (-1, +inf)), the link pool on the rows in bf16, and the link pool on
+rows 4 bytes off a 16-byte boundary (the FMA route in a tree that has
+another). Each is held to its plain version: the kept flags equal but
+where the first flip of a query sits at a near-tie of the plain scan
+(1e-5 of the query distance on f32 rows; of twice the largest squared
+norm on bf16 rows).
+
+K9 on f32 rows (``ops.topk.approx_topk``, ``--only k9f32``): a pool of 128
+over 1,048,576 x 384 seeded f32 rows, 99% of them in the mask, at B = 1
+and 128 (2,477 bins), held to its plain version: the pools share >= 0.99
+of their rows on average, the shared rows' distances within 1e-5 of the
+largest norms.
+
 ``--profile`` adds each shape's device microseconds by kernel, from
 torch.profiler's kernel records of one call. Each result is held to its
 plain version on the same inputs (sorted
@@ -53,8 +72,22 @@ B = 1 and 128, 1M B = 128): "as_is"; "no_epilogue", no distance kept
 written out; "compare_only", the bar's test alone (its passes counted,
 none staged); "no_slots", the sample's slots not written; "no_mma", no
 product; "x_from_l2", every block reading the same eight tiles (L2
-hits). The results are wrong on purpose; only the
-time is read.
+hits); "k9f32" (bf16_tile.cuh's BINS mode on the TF32 route, built into
+csrc/approx_topk.cu, K9 on f32 rows at B = 1 and 128): "as_is";
+"cvt_round", the TF32 rounding by cvt.rna.tf32.f32 (the tree's two
+integer operations give the same bits); "two_sets", the next step's
+fragments read during this step's products
+at every width (two register sets; the tree reads them before the
+products at 32 queries a block, as under the lists); "k4" (K4's
+tensor-core route, csrc/heuristic_kept.cu: link f32, prune f32, link
+bf16; the variants cut the f32 route at C > 64): "as_is";
+"one_product", the big products alone; "small_apart", the small
+products in an accumulator of their own over the whole row (32 more
+registers a thread); "mma_sync", the f32 rows on mma.sync's 16 x 8
+tiles (the route of C <= 64 and of bf16 rows). The results are wrong
+on purpose, but for "k9f32", whose variants compute the same; only the
+time is read. Each variant's ptxas report (registers, spills, serialized
+products) is printed.
 """
 from __future__ import annotations
 
@@ -77,6 +110,9 @@ TILE_ROWS = ("                    (g % KS) * SD, tile_row0(g / KS), "
 X_FROM_L2 = ("bf16_tile.cuh", TILE_ROWS,
              "                    (g % KS) * SD, ((g / KS) % 8) * TC_ROWS, "
              "full + slot);")
+# K4's small products on wgmma, chained onto each k8 big product
+K4_SMALL = ("        wgmma_tf32_ss64(pb[jj], da_s + 2 * j, db + 2 * j, 1);\n"
+            "        wgmma_tf32_ss64(pb[jj], da + 2 * j, db_s + 2 * j, 1);\n")
 SPLITS = {
     "fma": {  # l2_tile.cuh's FMA pass (the parent of the split routes)
         "as_is": [],
@@ -141,9 +177,43 @@ SPLITS = {
                       "fa.surv[(size_t)(q0 + col) * fa.cap + v] =")],
         "x_from_l2": [X_FROM_L2],
     },
+    "k4": {  # csrc/heuristic_kept.cu's tensor-core route (f32 rows)
+        "as_is": [],
+        "one_product": [("heuristic_kept.cu", K4_SMALL, "")],
+        "small_apart": [
+            ("heuristic_kept.cu", "  float acc[32], pb[2][32];",
+             "  float acc[32], ps[32], pb[2][32];"),
+            ("heuristic_kept.cu", K4_SMALL,
+             "        wgmma_tf32_ss64(ps, da_s + 2 * j, db + 2 * j, kc > 0 || "
+             "j > 0);\n        wgmma_tf32_ss64(ps, da + 2 * j, db_s + 2 * j,"
+             " 1);\n"),
+            ("heuristic_kept.cu", "      fence_regs(pb[1]);\n",
+             "      fence_regs(pb[1]);\n      fence_regs(ps);\n"),
+            ("heuristic_kept.cu",
+             "  float* tq = reinterpret_cast<float*>(smem);\n",
+             "  float* tq = reinterpret_cast<float*>(smem);\n#pragma unroll\n"
+             "  for (int i = 0; i < 32; ++i) acc[i] += ps[i];\n")],
+        "mma_sync": [("heuristic_kept.cu",
+                      "  if constexpr (sizeof(T) == 4) {  // f32 rows past "
+                      "64: wgmma",
+                      "  if constexpr (sizeof(T) == 0) {")],
+    },
+    "k9f32": {  # bf16_tile.cuh's BINS mode on the TF32 route
+        "as_is": [],
+        "cvt_round": [("wgmma.cuh", "      \"mov.b32 t, %1;\\n\"\n"
+                       "      \"add.u32 t, t, 0x1000;\\n\"",
+                       "      \"cvt.rna.tf32.f32 t, %1;\\n\"")],
+        "two_sets": [("bf16_tile.cuh",
+                      "  return mode == SEL_LISTS || (mode == SEL_BINS && "
+                      "qw > 8);",
+                      "  return mode == SEL_LISTS;")],
+    },
 }
-# every pass that --split cuts up is built into csrc/l2_topk.cu
-SPLIT_SOURCE = "l2_topk"
+# the source each --split pass is built into
+SPLIT_SOURCE = {"fma": "l2_topk", "tf32x3": "l2_topk", "stage1": "l2_topk",
+                "k4": "heuristic_kept", "k9f32": "approx_topk"}
+# what a ptxas report line says that is worth printing
+PTXAS_WORDS = ("registers", "spill", "serializ")
 
 
 def card_line() -> str:
@@ -310,6 +380,129 @@ def f32(torch, tp, res, it, prof=False) -> None:
         print(f"{key} {res[key]}", flush=True)
 
 
+def near_tie_flips(kk, kp, ids, dd, x, bf16: bool) -> int:
+    """Queries whose K4 flags differ from the plain version's; each one's
+    first flip must sit at a near-tie of the plain scan (the flags after
+    it follow from it)."""
+    rows = (kk != kp).any(1).nonzero().flatten().tolist()
+    for r in rows:
+        i = int((kk[r] != kp[r]).nonzero()[0])
+        v = x[ids[r].clamp_min(0).long()].double()
+        before = kp[r, :i].nonzero().flatten()
+        pd = ((v[i] - v[before]) ** 2).sum(-1)
+        dmin = float(pd.min()) if pd.numel() else float("inf")
+        tol = 1e-5 * (2.0 * float((v * v).sum(-1).max()) if bf16
+                      else float(dd[r, i]))
+        if abs(float(dd[r, i]) - dmin) > tol:
+            raise SystemExit(f"heuristic_kept: query {r} flips off a tie")
+    return len(rows)
+
+
+def k4_cases(torch) -> list:
+    """K4's shapes: (name, rows, candidate ids, their distances, bf16)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn(NF, D, device=dev, generator=g)
+    q = torch.randn(1024, D, device=dev, generator=g)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist = (x * x).sum(1)[None] - 2.0 * q @ x.T + (q * q).sum(1)[:, None]
+    dd, ids = torch.topk(dist, 128, dim=1, largest=False, sorted=True)
+    del dist
+    ids = ids.to(torch.int32)
+    xu = torch.empty(NF * D + 1, device=dev)[1:].view(NF, D)
+    xu.copy_(x)
+    pid, pdd = ids[:, :64].clone(), dd[:, :64].clone()
+    pid[:, -8:] = -1
+    pdd[:, -8:] = float("inf")
+    return [("k4 link f32 B=1024 C=128", x, ids, dd, False),
+            ("k4 prune f32 B=1024 C=64", x, pid, pdd, False),
+            ("k4 link bf16 B=1024 C=128", x.to(torch.bfloat16), ids, dd,
+             True),
+            ("k4 link f32 rows off 16 B=1024 C=128", xu, ids, dd, False)]
+
+
+def k4(torch, hn, res, it) -> None:
+    route = getattr(hn, "heuristic_route", lambda _: "fma")
+    for key, xx, ii, di, bf in k4_cases(torch):
+        ii, di = ii.contiguous(), di.contiguous()
+
+        def run(xx=xx, ii=ii, di=di):
+            return hn.heuristic_kept(xx, ii, di, 32)
+
+        kk, kp = run(), hn.heuristic_kept_plain(xx, ii, di, 32)
+        flips = near_tie_flips(kk, kp, ii, di, xx, bf)
+        b, c = ii.shape
+        rows = int((ii >= 0).sum())
+        nbytes = rows * D * xx.element_size() + b * c * 9
+        ops = b * c * (c + 1) / 2 * 2.0 * D
+        res[key] = {"ms": cuda_ms(torch, run, it),
+                    "plain_ms": cuda_ms(torch, lambda: hn.heuristic_kept_plain(
+                        xx, ii, di, 32), 2),  # noqa: B023
+                    "route": route(xx), "queries_flipped_at_ties": flips,
+                    "bound_bytes_ms": nbytes / 3.35e12 * 1e3,
+                    "bound_tc_ms": 3 * ops / 495e12 * 1e3 if not bf
+                    else ops / 989e12 * 1e3,
+                    "bound_fma_ms": ops / 67e12 * 1e3}
+        print(f"{key} {res[key]}", flush=True)
+
+
+def pool_share(rk, rp, vk, vp, tol: float, what: str) -> float:
+    """The mean share of rows two pools have in common; the shared rows'
+    distances must agree within tol."""
+    rk, rp, vk, vp = (t.cpu().numpy() for t in (rk, rp, vk, vp))
+    shares = []
+    for i in range(rk.shape[0]):
+        a = dict(zip(rk[i].tolist(), vk[i].tolist()))
+        b = dict(zip(rp[i].tolist(), vp[i].tolist()))
+        common = [r for r in a if r >= 0 and r in b]
+        for r in common:
+            if abs(a[r] - b[r]) > tol:
+                raise SystemExit(f"{what}: row {r} has another distance")
+        shares.append(len(common) / max(1, sum(r >= 0 for r in b)))
+    share = float(np.mean(shares))
+    if share < 0.99:
+        raise SystemExit(f"{what}: pool overlap {share} < 0.99")
+    return share
+
+
+def k9f32(torch, tp, native, res, it, prof=False) -> None:
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(N1, D, device=dev, generator=g)
+    x_sq = (x * x).sum(1)
+    mask = torch.rand(N1, device=dev, generator=g) < 0.99
+    q = torch.randn(128, D, device=dev, generator=g)
+    for b in (1, 128):
+        qq = q[:b].contiguous()
+
+        def run(qq=qq):
+            return tp.approx_topk(x, x_sq, mask, qq, 128)
+
+        before = dict(native.launches)
+        vk, rk = run()
+        pass_ = [k for k, v in native.launches.items() if v != before[k]]
+        vp, rp = tp.approx_topk_plain(x, x_sq, mask, qq, 128)
+        key = f"k9 f32 B={b} N=1M ov_k=128"
+        tol = 1e-5 * float(x_sq.max() + (qq * qq).sum(1).max())
+        share = pool_share(rk, rp, vk, vp, tol, key)
+        del vp, rp
+        res[key] = {"ms": cuda_ms(torch, run, it), "counted_as": pass_,
+                    "pool_overlap_with_plain": share,
+                    "bound_bytes_ms": (N1 * (D * 4 + 4 + 1) + b * D * 4
+                                       + b * 128 * 8) / 3.35e12 * 1e3,
+                    "bound_tf32x3_ms": 3 * 2.0 * b * N1 * D / 495e12 * 1e3,
+                    "bound_fma_ms": 2.0 * b * N1 * D / 67e12 * 1e3}
+        if prof:
+            res[key]["kernel_us"] = kernel_us(torch, run)
+        print(f"{key} {res[key]}", flush=True)
+
+
+def print_ptxas(tag: str, log: str) -> None:
+    for line in log.splitlines():
+        if any(w in line for w in PTXAS_WORDS):
+            print(f"ptxas {tag}: {line.strip()}", flush=True)
+
+
 def split(root: Path, route: str) -> None:
     """Build the variants of the pass that f32 rows take in root (``route``,
     as its ops.topk.tile_route names it) from root's sources and time each
@@ -320,10 +513,12 @@ def split(root: Path, route: str) -> None:
     from fabstir_vectordb_tpu_torch.ops import topk as tp
     from fabstir_vectordb_tpu_torch.utils import native
 
-    if route != "stage1" and tp.tile_route(torch.float32, False, D) != route:
+    want = "tf32x3" if route == "k9f32" else route
+    if route not in ("stage1", "k4") \
+            and tp.tile_route(torch.float32, False, D) != want:
         sys.exit(f"--split {route}: f32 rows take "
                  f"{tp.tile_route(torch.float32, False, D)} in {root}")
-    source = SPLIT_SOURCE
+    source = SPLIT_SOURCE[route]
     procs = []
     for name, patches in SPLITS[route].items():
         out = root / "build" / "split" / route / name
@@ -344,6 +539,7 @@ def split(root: Path, route: str) -> None:
         log, _ = p.communicate()
         if p.returncode:
             sys.exit(f"{name}: nvcc failed\n{log}")
+        print_ptxas(f"{route} {name}", log)
     for name in SPLITS[route]:
         r = subprocess.run([sys.executable, __file__, "--root", str(root),
                             "--split-variant", f"{route}:{name}"])
@@ -359,7 +555,7 @@ def split_variant(root: Path, which: str) -> None:
     from fabstir_vectordb_tpu_torch.ops import topk as tp
     from fabstir_vectordb_tpu_torch.utils import native
 
-    source = SPLIT_SOURCE
+    source = SPLIT_SOURCE[route]
     lib = ctypes.CDLL(str(root / "build" / "split" / route / name
                           / f"{source}.so"))
     lib.fvdb_error_string.restype = ctypes.c_char_p
@@ -385,6 +581,24 @@ def split_variant(root: Path, which: str) -> None:
             out.append(f"{tag} " + f"{cuda_ms(torch, lambda: fu.stage1_select(x, xs, m, q, ov, 2 << 30), 5):.4f}")  # noqa: B023,E501
         print(f"split {route} {name}: " + "; ".join(out) + " ms", flush=True)
         return
+    if route == "k4":
+        from fabstir_vectordb_tpu_torch.index import hnsw as hn
+
+        for key, xx, ii, di, _ in k4_cases(torch)[:3]:
+            out.append(f"{key[3:]} {cuda_ms(torch, lambda: hn.heuristic_kept(xx, ii, di, 32), 10):.4f}")  # noqa: B023,E501
+        print(f"split {route} {name}: " + "; ".join(out) + " ms", flush=True)
+        return
+    if route == "k9f32":
+        g = torch.Generator(device=dev).manual_seed(21)
+        x = torch.randn(N1, D, device=dev, generator=g)
+        x_sq = (x * x).sum(1)
+        mask = torch.rand(N1, device=dev, generator=g) < 0.99
+        q = torch.randn(128, D, device=dev, generator=g)
+        for b in (1, 128):
+            qq = q[:b].contiguous()
+            out.append(f"B={b} {cuda_ms(torch, lambda: tp.approx_topk(x, x_sq, mask, qq, 128), 10):.4f}")  # noqa: B023,E501
+        print(f"split {route} {name}: " + "; ".join(out) + " ms", flush=True)
+        return
     g = torch.Generator(device=dev).manual_seed(19)
     x = torch.randn(NF, D, device=dev, generator=g) + 0.3
     x_sq = (x * x).sum(1)
@@ -403,7 +617,8 @@ def main() -> None:
     ap.add_argument("--out", default="smoke_out",
                     help="directory for the results' JSON file")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("stage1", "f32"), default=None)
+    ap.add_argument("--only", choices=("stage1", "f32", "k4", "k9f32"),
+                    default=None)
     ap.add_argument("--split", choices=tuple(SPLITS), default=None)
     ap.add_argument("--profile", action="store_true",
                     help="add each shape's device time by kernel (one call "
@@ -425,6 +640,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script times the card")
     from fabstir_vectordb_tpu_torch.index import fused as fu
+    from fabstir_vectordb_tpu_torch.index import hnsw as hn
     from fabstir_vectordb_tpu_torch.ops import topk as tp
     from fabstir_vectordb_tpu_torch.utils import native
 
@@ -432,12 +648,20 @@ def main() -> None:
     print(f"card: {card}; tree: {root}", flush=True)
     t = native.build_all()
     print(f"built in {t:.1f} s", flush=True)
+    for name in ("heuristic_kept", "approx_topk"):
+        print_ptxas(name, native.build_log.get(name, ""))
     res = {"card": card, "tree": root.name}
     if args.only in (None, "stage1"):
         stage1(torch, fu, res, args.iters, args.profile)
         torch.cuda.empty_cache()
     if args.only in (None, "f32"):
         f32(torch, tp, res, args.iters, args.profile)
+        torch.cuda.empty_cache()
+    if args.only in (None, "k4"):
+        k4(torch, hn, res, args.iters)
+        torch.cuda.empty_cache()
+    if args.only in (None, "k9f32"):
+        k9f32(torch, tp, native, res, args.iters, args.profile)
     res["launches"] = {k: v for k, v in native.launches.items() if v}
     print(json.dumps(res), flush=True)
     out = Path(args.out)

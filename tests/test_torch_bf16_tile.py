@@ -112,7 +112,8 @@ def test_split_route_plans_fit_their_parts(route, mode, d, k, b):
     fits a block with at least two ring stages, at most 64 queries wide
     (32 for TF32), and its bytes are the kernel's; the TF32 route takes
     the filter mode besides lists and dump (its staging: 64 keys a query
-    and their counts), the bf16 one does not."""
+    and their counts) and the bins mode (K9 on f32 rows, at most 32
+    queries wide), the bf16 one neither."""
     if mode == "filter" and route == "bf16x3":
         with pytest.raises(ValueError):
             topk_t.tile_plan(b, k, d, mode, route)
@@ -135,8 +136,73 @@ def test_split_route_plans_fit_their_parts(route, mode, d, k, b):
                          + (plan.width * (8 * 64 + 16)
                             if mode == "filter" else 0))
     assert plan.tiles == math.ceil(b / plan.width)
-    with pytest.raises(ValueError):
-        topk_t.tile_plan(b, k, d, "bins", route)
+    if route == "bf16x3":  # the TF32 route takes BINS (K9 on f32 rows)
+        with pytest.raises(ValueError):
+            topk_t.tile_plan(b, k, d, "bins", route)
+    else:
+        bins = topk_t.tile_plan(b, k, d, "bins", route)
+        assert bins.width <= 32 and bins.stages >= 2
+        assert bins.smem == topk_t._tc_smem(bins.width, d, "bins", 0,
+                                            bins.stages, route)
+
+
+@pytest.mark.parametrize("d", [4, 36, 100, 384, 768, 2048, 2052])
+@pytest.mark.parametrize("ov_k", [16, 128, 1024])
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 33, 128, 129])
+def test_tf32_bins_plan_fits_and_covers_every_query(b, ov_k, d):
+    """K9 on f32 rows (bf16_tile.cuh's BINS mode on the TF32 route): a plan
+    exactly where f32 rows take the route (D % 4 == 0 up to 2,048), at
+    most 32 queries wide (the running minima and the big products' four
+    accumulators take registers a query), no wider than the batch needs,
+    at least two ring stages; its bytes are the kernel's (the ring, the two
+    staged parts of each query, |q|^2; nothing by ov_k) and fit a block;
+    its tiles take every query once."""
+    plan = topk_t.tile_plan(b, ov_k, d, "bins", "tf32x3")
+    if topk_t.tile_route(torch.float32, False, d) != "tf32x3":
+        assert plan is None
+        return
+    assert plan.width in (8, 32)
+    assert plan.width <= next(w for w in (8, 32) if w >= min(b, 32))
+    assert 2 <= plan.stages <= 8
+    assert plan.smem == (1024 + plan.stages * 16384
+                         + math.ceil(d / 32) * plan.width * 128 * 2
+                         + plan.width * 4)
+    assert plan.smem + STATIC_BARRIERS <= SMEM_PER_BLOCK
+    assert plan.tiles == math.ceil(b / plan.width)
+
+
+def test_tf32_bins_widths_at_the_turbo_shapes():
+    """The turbo pool over 384-d f32 rows: one query pads to 8 columns, a
+    batch of 128 takes 32 a block; both keep the ring's eight stages."""
+    one = topk_t.tile_plan(1, 128, 384, "bins", "tf32x3")
+    batch = topk_t.tile_plan(128, 128, 384, "bins", "tf32x3")
+    assert (one.width, one.stages, one.tiles) == (8, 8, 1)
+    assert (batch.width, batch.stages, batch.tiles) == (32, 8, 4)
+
+
+@pytest.mark.parametrize("rounds,tiles", [(424, 20), (424, 80), (424, 40),
+                                          (1, 20), (5, 80), (4096, 7),
+                                          (2000, 133)])
+def test_round_waves_fill_the_last_wave(rounds, tiles):
+    """K9's round ranges on the TF32 route, 132 SMs: the ranges cover the
+    rounds once, each of the rounds a range takes but the last; the blocks
+    (tiles x ranges) fill their last wave to within 2% of the best that
+    any count of ranges of >= 8 rounds reaches, with the fewest such
+    ranges; at the turbo shape (424 rounds, 80 or 20 tiles) >= 98%."""
+    z, i_per = topk_t._round_waves(rounds, tiles, 132)
+    assert (z - 1) * i_per < rounds <= z * i_per
+
+    def fill(zz):
+        ip = math.ceil(rounds / zz)
+        blocks = tiles * math.ceil(rounds / ip)
+        return blocks / (math.ceil(blocks / 132) * 132)
+
+    zs = range(1, max(1, rounds // 8) + 1)
+    best = max(fill(zz) for zz in zs)
+    assert fill(z) >= best - 0.02
+    assert all(fill(zz) < best - 0.02 for zz in zs if zz < z)
+    if rounds == 424 and tiles in (20, 80):
+        assert fill(z) >= 0.98
 
 
 def test_split_route_widths_at_k3_and_k1_shapes():

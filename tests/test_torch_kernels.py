@@ -47,12 +47,12 @@ def _assert_topk_equal(vj, rj, vt, rt):
     np.testing.assert_allclose(vt[fin], vj[fin], rtol=RTOL, atol=ATOL)
 
 
-def _candidate_pools(seed, b, c, n=2000, pad_from=None):
+def _candidate_pools(seed, b, c, n=2000, pad_from=None, d=D):
     """Candidate pools sorted by distance to their query, as the link path
     builds them; rows past ``pad_from`` are (-1, +inf) padding."""
     rng = np.random.default_rng(seed)
-    x = _data(seed, n)
-    q = _data(seed + 1, b)
+    x = _data(seed, n, d)
+    q = _data(seed + 1, b, d)
     ids = np.stack([rng.choice(n, c, replace=False) for _ in range(b)])
     d = ((x[ids] - q[:, None, :]) ** 2).sum(-1)
     order = np.argsort(d, axis=1)
@@ -1027,7 +1027,8 @@ def test_bf16_tile_route_counts_and_stage1_stays_on_the_fma_pass():
     ranges, each metric) and K9 on bf16 rows with the query rounded count
     under l2_topk_bf16_rq* and approx_topk, K1 on f32 rows and on bf16 rows
     with an f32 query (the split routes) under l2_topk and l2_topk_bf16,
-    K9's FMA routes under their own names; K14's stage 1 at r = 192 runs
+    K9 on f32 rows (three TF32 products) under approx_topk_tf32, K9 on
+    bf16 rows with an f32 query (the FMA pass) under approx_topk_bf16; K14's stage 1 at r = 192 runs
     the tensor-core pass (its FILTER mode: "stage1_select", no K1 launch,
     no overflow, no FMA pass) and still equals its plain version. (The
     name is the one this test had while stage 1 stayed on the FMA pass.)"""
@@ -1047,8 +1048,9 @@ def test_bf16_tile_route_counts_and_stage1_stays_on_the_fma_pass():
     topk_t.l2_topk(x, x_sq, mask, q, 16)
     topk_t.l2_topk(x.float(), x_sq, mask, q, 16)
     want = {"l2_topk_bf16_rq": 2, "l2_topk_bf16_rq_cosine": 2,
-            "l2_topk_bf16_rq_dot": 2, "approx_topk": 1, "approx_topk_f32": 1,
-            "approx_topk_bf16": 1, "l2_topk_bf16": 1, "l2_topk": 1}
+            "l2_topk_bf16_rq_dot": 2, "approx_topk": 1,
+            "approx_topk_tf32": 1, "approx_topk_bf16": 1, "l2_topk_bf16": 1,
+            "l2_topk": 1}
     assert {key: v for key, v in native.launches.items()
             if v and key.startswith(("l2_topk", "approx_topk"))} == want
     g = torch.Generator(device=dev).manual_seed(36)
@@ -2077,3 +2079,102 @@ def test_bf16_rows_f32_query_route_matches_plain_on_card(b, k):
     vp, rp = topk_t.l2_topk_plain(xb, None, mask, q, k)
     scale = float((xb.float() ** 2).sum(1).max() + (q * q).sum(1).max())
     _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 2e-6 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c,d", [(128, 384), (100, 384), (64, 384),
+                                 (37, 384), (128, 98), (37, 100)])
+def test_heuristic_kept_routes_match_plain_on_card(c, d, bf16):
+    """K4 by route against its plain version, each query's last 5
+    candidates (-1, +inf) padding: rows that cp.async copies 16 bytes at a
+    time (f32 at D % 4 == 0, bf16 at D % 8 == 0) on the tensor cores
+    (f32 rows past 64 candidates on wgmma, padded to 128; else mma.sync,
+    C = 128: one query a block; 64: two; 37: two, padded to 64),
+    counted as heuristic_kept / heuristic_kept_bf16; D = 98 and 100 on the
+    FMA route (heuristic_kept_fma / heuristic_kept_bf16_fma). Flags equal
+    but where a query's first flip sits at a near-tie of the plain scan."""
+    from fabstir_vectordb_tpu_torch.index import hnsw as hn
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, ids, dd = _candidate_pools(57, 300, c, n=20_000, pad_from=c - 5, d=d)
+    xt = torch.from_numpy(x).to(dev)
+    if bf16:
+        xt = xt.to(torch.bfloat16)
+    idt, dt = torch.from_numpy(ids).to(dev), torch.from_numpy(dd).to(dev)
+    route = hn.heuristic_route(xt)
+    assert route == ("fma" if d % (8 if bf16 else 4) else
+                     "bf16" if bf16 else "tf32x3")
+    native.reset_launches()
+    kt = hnsw_t.heuristic_kept(xt, idt, dt, 32)
+    name = native.counter("heuristic_kept", bf16, fma=route == "fma")
+    assert {k: v for k, v in native.launches.items() if v} == {name: 1}
+    kp = hnsw_t.heuristic_kept_plain(xt, idt, dt, 32)
+    kt, kp = kt.cpu().numpy(), kp.cpu().numpy()
+    assert not kt[:, c - 5:].any()
+    assert (kt.sum(1) <= 32).all() and kt.any()
+    _assert_kept_equal_up_to_near_ties(kp, kt, ids, dd,
+                                       xt.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_heuristic_kept_tensor_cores_on_rows_off_16_bytes_take_fma_on_card():
+    """Rows 4 bytes off a 16-byte boundary cannot be copied 16 bytes at a
+    time: K4 takes the FMA route and answers as on aligned rows."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, ids, dd = _candidate_pools(58, 64, 128, n=5000, d=384)
+    xt = torch.from_numpy(x).to(dev)
+    xu = torch.empty(xt.numel() + 1, device=dev)[1:].view(xt.shape)
+    xu.copy_(xt)
+    idt, dt = torch.from_numpy(ids).to(dev), torch.from_numpy(dd).to(dev)
+    native.reset_launches()
+    ku = hnsw_t.heuristic_kept(xu, idt, dt, 16).cpu().numpy()
+    ka = hnsw_t.heuristic_kept(xt, idt, dt, 16).cpu().numpy()
+    assert native.launches["heuristic_kept_fma"] == 1
+    assert native.launches["heuristic_kept"] == 1
+    _assert_kept_equal_up_to_near_ties(ku, ka, ids, dd, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,mask_kind,ov_k", [
+    (1, 262_144, 384, "rows", 128), (8, 262_144, 384, "per_query", 128),
+    (33, 100_000, 384, "rows", 64), (128, 262_144, 384, "per_query", 128),
+    (128, 1_048_576, 384, "rows", 128), (33, 2000, 384, "rows", 128),
+    (1, 4000, 384, "none", 256), (128, 100_000, 98, "rows", 128),
+    (8, 50_001, 36, "per_query", 16)])
+def test_approx_topk_f32_rows_by_shape_matches_plain_on_card(
+        b, n, d, mask_kind, ov_k):
+    """K9 on f32 rows by route: D % 4 == 0 on the tensor cores by three
+    TF32 products (counted as approx_topk_tf32), D = 98 on the FMA pass
+    (approx_topk_f32), at B 1 / 8 / 33 / 128 with [N] and [B, N] masks,
+    M < N and M = N (N = 2,000 and 4,000 at these ov_k: the exact pool):
+    pools share >= 0.99 of their rows with the plain version's, shared
+    rows' distances within 1e-5 relative, no masked row, (+inf, -1)
+    padding where the plain pool pads."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    x, x_sq, q, mask = _f32_rows(59, n, d, b, mask_kind, dev)
+    native.reset_launches()
+    vt, rt = topk_t.approx_topk(x, x_sq, mask, q, ov_k)
+    tc = topk_t.tile_route(torch.float32, False, d) == "tf32x3"
+    assert {k: v for k, v in native.launches.items() if v} == \
+        {"approx_topk_tf32" if tc else "approx_topk_f32": 1}
+    vp, rp = topk_t.approx_topk_plain(x, x_sq, mask, q, ov_k)
+    assert _pool_overlap(rt, rp) >= 0.99
+    _assert_shared_rows_close(vt, rt, vp, rp, 1e-5)
+    fin = torch.isfinite(vt)
+    assert torch.equal(fin, torch.isfinite(vp)) and (rt[~fin] == -1).all()
+    rows = rt.clamp_min(0).long()
+    if mask is None:
+        pass
+    elif mask.dim() == 1:
+        assert mask[rows[fin]].all()
+    else:
+        assert torch.gather(mask, 1, rows)[fin].all()
+    assert (vt[:, 1:] >= vt[:, :-1]).all()
+    if topk_t.approx_bins(n, ov_k) >= n:  # the exact pool
+        _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)

@@ -148,6 +148,30 @@ def test_heuristic_kept_matches_reference(c, m, pad_from):
     _assert_kept_equal_up_to_near_ties(kh, kt, ids, d, x)
 
 
+@pytest.mark.parametrize("c,d,pad_from", [(128, 384, 120), (37, 384, 30),
+                                          (64, 98, None)])
+def test_heuristic_kept_route_and_reference_at_serving_widths(c, d,
+                                                              pad_from):
+    """K4's route by its rows (the tensor cores where cp.async copies each
+    row 16 bytes at a time: f32 at D % 4 == 0, bf16 at D % 8 == 0, the
+    rows 16-byte aligned; else the FMA route), and K4 against the
+    reference's heuristic_kept_kernel at the link width (D = 384, C = 128
+    and an odd C, -1 / +inf padded) and at a D the FMA route takes."""
+    x, ids, dd = _candidate_pools(13, 64, c, n=5000, pad_from=pad_from, d=d)
+    xt = torch.from_numpy(x)
+    assert hnsw_t.heuristic_route(xt) == ("tf32x3" if d % 4 == 0 else "fma")
+    assert hnsw_t.heuristic_route(xt.to(torch.bfloat16)) == (
+        "bf16" if d % 8 == 0 else "fma")
+    off = torch.empty(xt.numel() + 1)[1:].view(xt.shape)
+    assert hnsw_t.heuristic_route(off) == "fma"
+    kj = np.asarray(hnsw_j.heuristic_kept_kernel(
+        jnp.asarray(x), jnp.asarray(ids), jnp.asarray(dd), 32))
+    kt = hnsw_t.heuristic_kept(xt, torch.from_numpy(ids),
+                               torch.from_numpy(dd), 32).numpy()
+    assert (kt.sum(1) <= 32).all() and not kt[ids < 0].any()
+    _assert_kept_equal_up_to_near_ties(kj, kt, ids, dd, x)
+
+
 def test_pair_sq_l2_matches_pair_dists_kernel():
     """K5 against _pair_dists_kernel."""
     rng = np.random.default_rng(13)
