@@ -21,36 +21,30 @@
 // The tensor-core route (fvdb_heuristic_kept_tc, _bf16_tc): rows that
 // cp.async can copy 16 bytes at a time (f32 rows at D % 4 == 0, bf16 rows
 // at D % 8 == 0, the mirror 16-byte aligned).
-//  * A block is four warps and 128 candidate rows: one query at C <= 128
-//    (rows padded to CP = 128), two at C <= 64, four at C <= 32; three
-//    blocks an SM. The rows' ids are read once; each 128-byte piece of
+//  * A block holds R = 64 or 128 candidate rows: two queries at C <= 32
+//    (each padded to 32), one at C <= 64 (padded to 64), one at C <= 128
+//    (padded to 128). The rows' ids are read once; each 128-byte piece of
 //    every row (32 f32 or 64 bf16 dims) is copied by cp.async, 16 bytes a
-//    thread, into a ring of 16 KB stages (four for bf16 rows; three for
-//    f32 rows, whose small parts below take the fourth slot's room), so
-//    the next pieces are in flight while the warps take the products of
-//    this one (the rows are random, so TMA's tiled copies do not apply).
-//    A row's 16-byte chunks are XOR-swizzled by the row's low three bits,
-//    so the fragment reads below meet no bank conflict. Padded rows and
-//    dims past D are zero-filled.
-//  * The Gram matrix is taken by mma.sync from shared memory (m16n8k8
-//    TF32 for f32 rows, m16n8k16 bf16 for bf16 rows), only its tiles of 16
-//    x 8 that reach the diagonal or lie above it: warp p of a query takes
-//    the row blocks p and CP / 16 - 1 - p, 2 CP / 16 + 2 tiles (18 at CP =
-//    128), the same count for every warp, and reads a row block's
-//    fragments once a step for all of its tiles. (Eight warps a query, 9
-//    tiles each, ran the f32 link shape at 0.70 ms against four warps'
-//    0.38, one block an SM at 1.12.) f32 rows are split as bf16_tile.cuh's
-//    route tf32x3 splits them, x = big + small, big = tf32(x), small =
-//    tf32(x - big), once a stage into shared memory (split_stage); a k8
-//    step's big . big product is taken from zero (a chain would cut it at
-//    the partial sum's size, as bf16_tile.cuh says), the big . small and
-//    small . big products are added to it, and the step goes to f32 sums.
-//    bf16 products are exact in f32; each k16 step is taken from zero in
-//    the same way.
-//  * The sums go to a packed upper triangle in shared memory (it takes the
-//    ring's place once the last products are done; 33 KB at CP = 128):
-//    row i holds g_ij for j >= i, g_ji = g_ij is read there, and sq_i is
-//    the diagonal of the same products, as the FMA route takes it.
+//    thread, into a ring of four stages, so the next pieces are in flight
+//    while the tensor cores take this one (the rows are random, so TMA's
+//    tiled copies do not apply). A row's 16-byte chunks are XOR-swizzled
+//    by the row's low three bits (the 128-byte swizzle that wgmma reads).
+//    Padded rows and dims past D are zero-filled.
+//  * The Gram matrix by wgmma from shared memory, its 64 x 64 blocks on or
+//    above the diagonal (one at R = 64, three at R = 128): f32 rows split
+//    once a stage into TF32 big and small parts as bf16_tile.cuh's route
+//    tf32x3 splits them, three products; bf16 rows one exact product. One
+//    warpgroup a block takes them, three warpgroups at R = 128 on f32
+//    rows. (mma.sync over the 16 x 8 tiles that reach the diagonal, this
+//    route's first design below 64 candidates and on bf16 rows, took 77-82
+//    us of device time at the f32 prune shape against wgmma's 68 and
+//    68-70 at the bf16 link against 61, but 26 at the bf16 prune against
+//    28 and 26-28 at C = 32 against 33: scripts/time_tile_routes.py --only
+//    k4 --profile on an H100. One kernel takes every shape.)
+//  * The sums go to a packed upper triangle a query in shared memory (it
+//    takes the ring's place once the last products are done; 33 KB at CP
+//    = 128): row i holds g_ij for j >= i, g_ji = g_ij is read there, and
+//    sq_i is the diagonal of the same products, as the FMA route takes it.
 //  * One warp a query scans: lane l holds the running minima of
 //    candidates l, l + 32, ... in registers. A ballot finds the first
 //    candidate past the last keep that passes (the minima of those before
@@ -173,14 +167,7 @@ cudaError_t heuristic_kept(const T* x, const int* cand_ids,
 
 // ---- the tensor-core route
 
-constexpr int HK_THREADS = 128;  // four warps
-constexpr int HK_ROWS = 128;     // candidate rows a block (one a thread)
-constexpr int HK_PIECE = 128;    // bytes of a row a stage
-constexpr int HK_SLOTS = 4;      // 16 KB slots: a ring of four stages,
-                                 // or (f32 rows) of three and the small
-                                 // parts of the stage being taken
-constexpr int HK_SLOT = HK_ROWS * HK_PIECE;
-constexpr int HK_SMEM = HK_SLOTS * HK_SLOT;
+constexpr int HK_PIECE = 128;  // bytes of a row a stage
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
@@ -197,48 +184,49 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// d = a . b + c, m16n8k8 TF32 (a row-major 16 x 8, b 8 x 8 by columns):
-// lane l holds a at rows l / 4 (+ 8 for a1, a3) and columns l % 4 (+ 4 for
-// a2, a3), b at row l % 4 (+ 4 for b1) and column l / 4, d at row l / 4
-// (+ 8 for d2, d3) and columns 2 (l % 4) (+ 1 for d1, d3).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1,
-                                         const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-// The same at m16n8k16 bf16: each register two bf16 of consecutive
-// columns (rows of b), the first in the low half; a2, a3 and b1 hold
-// columns 8 on.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1,
-                                         const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Stage kc of ROWS rows into the slot at dst by THREADS threads: 8 copies
+// of 16 bytes a row (eight threads a row's 128 bytes), the chunk ch of row
+// r at r * 128 + ((ch ^ (r % 8)) * 16), the 128-byte swizzle. roff[r] is
+// the row's first element, -1 for a padded row (zero-filled, as are the
+// dims past D).
+template <typename T, int THREADS, int ROWS>
+__device__ __forceinline__ void issue_stage(uint32_t dst,
+                                            const T* __restrict__ x,
+                                            const long long* roff, int kc,
+                                            int D, int t) {
+  constexpr int EP = 16 / (int)sizeof(T);        // elements a copy
+  constexpr int DS = HK_PIECE / (int)sizeof(T);  // dims a stage
+  constexpr int N = ROWS * 8;
+#pragma unroll
+  for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
+    const int p = t + THREADS * i;
+    if (N % THREADS != 0 && p >= N) break;
+    const int r = p >> 3, ch = p & 7;
+    const int d0 = kc * DS + ch * EP;
+    const long long off = roff[r];
+    const bool in = off >= 0 && d0 < D;
+    cp_async16(dst + r * HK_PIECE + ((ch ^ (r & 7)) << 4),
+               in ? static_cast<const void*>(x + off + d0)
+                  : static_cast<const void*>(x),
+               in ? 16 : 0);
+  }
 }
 
-// Stage kc of f32 rows as TF32 parts: big = tf32(x) in place, small =
-// tf32(x - big) (exact in f32) at the same place of `sml`, 16 bytes at a
-// time, each element once (split where each fragment was read, an element
-// was split ~4.7 times over, and the splits held the f32 link shape at
-// 0.32 ms against 0.20 without them: scripts/time_tile_routes.py --split
-// k4 on an H100).
+// A stage of f32 rows (BYTES of it) as TF32 parts by THREADS threads: big
+// = tf32(x) in place, small = tf32(x - big) (exact in f32) at the same
+// place of `sml`, 16 bytes at a time, each element once (split where each
+// fragment was read, an element was split ~4.7 times over, and the splits
+// held the f32 link shape at 0.32 ms against 0.20 without them:
+// scripts/time_tile_routes.py --split k4 on an H100).
+template <int THREADS, int BYTES>
 __device__ __forceinline__ void split_stage(unsigned char* slot,
                                            unsigned char* sml, int t) {
+  constexpr int N = BYTES / 16;
 #pragma unroll
-  for (int i = 0; i < HK_SLOT / 16 / HK_THREADS; ++i) {
-    const int off = 16 * (t + HK_THREADS * i);
-    uint4 v = *reinterpret_cast<const uint4*>(slot + off), b, s;
+  for (int i = 0; i < (N + THREADS - 1) / THREADS; ++i) {
+    const int p = t + THREADS * i;
+    if (N % THREADS != 0 && p >= N) break;
+    uint4 v = *reinterpret_cast<const uint4*>(slot + 16 * p), b, s;
     uint32_t* vv = &v.x;
     uint32_t* bb = &b.x;
     uint32_t* ss = &s.x;
@@ -247,160 +235,15 @@ __device__ __forceinline__ void split_stage(unsigned char* slot,
       bb[e] = tf32_rna(__uint_as_float(vv[e]));
       ss[e] = tf32_rna(__uint_as_float(vv[e]) - __uint_as_float(bb[e]));
     }
-    *reinterpret_cast<uint4*>(slot + off) = b;
-    *reinterpret_cast<uint4*>(sml + off) = s;
+    *reinterpret_cast<uint4*>(slot + 16 * p) = b;
+    *reinterpret_cast<uint4*>(sml + 16 * p) = s;
   }
 }
-
-// Column blocks a warp takes together in a step (its tiles' products
-// interleaved, up to 2 KG at a time).
-constexpr int KG = 4;
 
 // Offset of g_ij (i <= j) in the packed upper triangle of a CP x CP
 // matrix: row i holds columns i .. CP - 1.
 __host__ __device__ constexpr int tri_at(int i, int j, int cp) {
   return i * cp - i * (i - 1) / 2 + (j - i);
-}
-
-// One step of a stage's products for warp P of a query whose rows start at
-// row q_row of the slot: row blocks I1 = P and I2 = NI - 1 - P (16 rows
-// each) against every column block of 8 rows that reaches their diagonal.
-// acc[i] is tile i: I1's tiles J = 2 I1 .. 2 NI - 1 first, then I2's.
-// Lane l reads 32-bit words at row 16 I + l / 4 (+ 8) and at the stage's
-// 16-byte chunks 2 kk and 2 kk + 1 (swizzled by the row's low bits: row
-// & 7 = l / 4), 4 (l % 4) bytes in: f32 columns 8 kk + l % 4 (+ 4), or
-// bf16 column pairs 16 kk + 2 (l % 4) (+ 8): the fragments' places. f32
-// rows' big parts are in the slot, their small parts at the same place
-// of sml.
-template <bool F32, int NI, int P>
-__device__ __forceinline__ void gram_step(const unsigned char* slot,
-                                          const unsigned char* sml, int q_row,
-                                          int lane,
-                                          float (&acc)[2 * NI + 2][4]) {
-  constexpr int I1 = P, I2 = NI - 1 - P;
-  constexpr int T1 = 2 * NI - 2 * I1;  // I1's tiles
-  const int g = lane >> 2, tq = lane & 3;
-  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int o0 = (((2 * kk) ^ g) << 4) + 4 * tq;
-    const int o1 = (((2 * kk + 1) ^ g) << 4) + 4 * tq;
-    uint32_t ab[2][4], as[2][4];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int r0 = (q_row + 16 * (s ? I2 : I1) + g) * HK_PIECE;
-      const int r1 = r0 + 8 * HK_PIECE;
-      const int at[4] = {r0 + o0, r1 + o0, r0 + o1, r1 + o1};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ab[s][e] = lds32(slot + at[e]);
-        if constexpr (F32) as[s][e] = lds32(sml + at[e]);
-      }
-    }
-    // the column blocks J = 2 I1 + j, KG at a time: their fragments read
-    // first, then each of the three products of every tile of the group
-    // (up to 2 KG independent chains in flight), then the sums
-    constexpr int NJ = 2 * NI - 2 * I1;
-#pragma unroll
-    for (int j0 = 0; j0 < NJ; j0 += KG) {
-      uint32_t bb[KG][2], bs[KG][2];
-      float d[KG][2][4];
-#pragma unroll
-      for (int u = 0; u < KG; ++u) {
-        if (j0 + u >= NJ) continue;
-        const int rj = (q_row + 8 * (2 * I1 + j0 + u) + g) * HK_PIECE;
-        bb[u][0] = lds32(slot + rj + o0);
-        bb[u][1] = lds32(slot + rj + o1);
-        if constexpr (F32) {
-          bs[u][0] = lds32(sml + rj + o0);
-          bs[u][1] = lds32(sml + rj + o1);
-        }
-      }
-      // tile (s, J) of the group: s = 0 (I1) always, s = 1 (I2) where J
-      // reaches I2's diagonal
-      auto has = [&](int u, int s) {
-        return j0 + u < NJ && (s == 0 || 2 * I1 + j0 + u >= 2 * I2);
-      };
-#pragma unroll
-      for (int u = 0; u < KG; ++u)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          if (!has(u, s)) continue;
-          if constexpr (F32)
-            mma_tf32(d[u][s], ab[s], bb[u][0], bb[u][1], zero);
-          else
-            mma_bf16(d[u][s], ab[s], bb[u][0], bb[u][1], zero);
-        }
-      if constexpr (F32) {
-#pragma unroll
-        for (int u = 0; u < KG; ++u)
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-            if (has(u, s))
-              mma_tf32(d[u][s], as[s], bb[u][0], bb[u][1], d[u][s]);
-#pragma unroll
-        for (int u = 0; u < KG; ++u)
-#pragma unroll
-          for (int s = 0; s < 2; ++s)
-            if (has(u, s))
-              mma_tf32(d[u][s], ab[s], bs[u][0], bs[u][1], d[u][s]);
-      }
-#pragma unroll
-      for (int u = 0; u < KG; ++u)
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          if (!has(u, s)) continue;
-          const int J = 2 * I1 + j0 + u;
-          float (&a)[4] = acc[s == 0 ? J - 2 * I1 : T1 + J - 2 * I2];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] += d[u][s][e];
-        }
-    }
-  }
-}
-
-// The sums of warp P's tiles into its query's triangle (entries below the
-// diagonal of a diagonal tile are dropped).
-template <int NI, int P>
-__device__ __forceinline__ void gram_store(float* tq, int lane,
-                                           const float (&acc)[2 * NI + 2][4]) {
-  constexpr int CP = 16 * NI, I1 = P, I2 = NI - 1 - P;
-  constexpr int T1 = 2 * NI - 2 * I1;
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2 * NI + 2; ++i) {
-    const int I = i < T1 ? I1 : I2;
-    const int J = i < T1 ? 2 * I1 + i : 2 * I2 + (i - T1);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * I + g + 8 * (e >> 1), c = 8 * J + 2 * t4 + (e & 1);
-      if (r <= c) tq[tri_at(r, c, CP)] = acc[i][e];
-    }
-  }
-}
-
-// gram_step / gram_store for the runtime warp index p of a query.
-template <bool F32, int NI, int P = 0>
-__device__ __forceinline__ void gram_step_of(int p, const unsigned char* slot,
-                                             const unsigned char* sml,
-                                             int q_row, int lane,
-                                             float (&acc)[2 * NI + 2][4]) {
-  if constexpr (P < NI / 2) {
-    if (p == P)
-      gram_step<F32, NI, P>(slot, sml, q_row, lane, acc);
-    else
-      gram_step_of<F32, NI, P + 1>(p, slot, sml, q_row, lane, acc);
-  }
-}
-template <int NI, int P = 0>
-__device__ __forceinline__ void gram_store_of(
-    int p, float* tq, int lane, const float (&acc)[2 * NI + 2][4]) {
-  if constexpr (P < NI / 2) {
-    if (p == P)
-      gram_store<NI, P>(tq, lane, acc);
-    else
-      gram_store_of<NI, P + 1>(p, tq, lane, acc);
-  }
 }
 
 // The keep scan of query b by one warp over its triangle tq.
@@ -462,84 +305,6 @@ __device__ __forceinline__ void keep_scan(const float* tq,
   }
 }
 
-// CP = 16 NI candidate rows a query (NI = 2, 4 or 8), NI / 2 warps a
-// query, 8 / NI queries a block.
-template <typename T, int NI>
-__global__ void __launch_bounds__(HK_THREADS, 3) heuristic_kept_tc_kernel(
-    const T* __restrict__ x, const int* __restrict__ cand_ids,
-    const float* __restrict__ cand_d, int B, int C, int D, int m,
-    uint8_t* __restrict__ kept) {
-  constexpr bool F32 = sizeof(T) == 4;
-  constexpr int CP = 16 * NI;
-  // ring slots; f32 rows keep their small parts in the fourth slot's room
-  constexpr int STAGES = F32 ? HK_SLOTS - 1 : HK_SLOTS;
-  constexpr int EP = 16 / (int)sizeof(T);  // elements a 16-byte copy
-  constexpr int DS = HK_PIECE / (int)sizeof(T);  // dims a stage
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ long long roff[HK_ROWS];  // a row's first element; -1: zeros
-
-  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
-  const int q0 = blockIdx.x * (8 / NI);
-  {
-    const int b = q0 + t / CP, c = t % CP;
-    roff[t] = b < B && c < C
-                  ? (long long)max(cand_ids[(size_t)b * C + c], 0) * D
-                  : -1;
-  }
-  __syncthreads();
-  const uint32_t ring = smem_addr(smem);
-  const int KS = (D + DS - 1) / DS;  // stages of the rows
-  // stage kc of every row: 8 copies of 16 bytes a row, a thread's eight at
-  // rows t / 8 + 16 i, chunk t % 8 (eight threads a row's 128 bytes)
-  auto issue = [&](int kc) {
-    const uint32_t dst = ring + (kc % STAGES) * HK_SLOT;
-#pragma unroll
-    for (int i = 0; i < HK_ROWS * 8 / HK_THREADS; ++i) {
-      const int p = t + HK_THREADS * i, r = p >> 3, ch = p & 7;
-      const int d0 = kc * DS + ch * EP;
-      const long long off = roff[r];
-      const bool in = off >= 0 && d0 < D;
-      cp_async16(dst + r * HK_PIECE + ((ch ^ (r & 7)) << 4),
-                 in ? static_cast<const void*>(x + off + d0)
-                    : static_cast<const void*>(x),
-                 in ? 16 : 0);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KS) issue(s);
-    cp_async_commit();
-  }
-  unsigned char* sml = smem + (HK_SLOTS - 1) * HK_SLOT;
-  const int ql = w / (NI / 2), p = w % (NI / 2);
-  float acc[2 * NI + 2][4];
-#pragma unroll
-  for (int i = 0; i < 2 * NI + 2; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  for (int kc = 0; kc < KS; ++kc) {
-    cp_async_wait<STAGES - 2>();  // stage kc has landed (this thread's)
-    __syncthreads();  // every thread's, and every warp is past stage kc - 1
-    if (kc + STAGES - 1 < KS) issue(kc + STAGES - 1);
-    cp_async_commit();
-    unsigned char* slot = smem + (kc % STAGES) * HK_SLOT;
-    if constexpr (F32) {
-      split_stage(slot, sml, t);
-      __syncthreads();
-    }
-    gram_step_of<F32, NI>(p, slot, sml, ql * CP, lane, acc);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: the triangles take its place
-  float* tq = reinterpret_cast<float*>(smem) + ql * (CP * (CP + 1) / 2);
-  gram_store_of<NI>(p, tq, lane, acc);
-  __syncthreads();
-  if (p == 0 && q0 + ql < B)
-    keep_scan<CP>(tq, cand_ids, cand_d, q0 + ql, C, m, kept, lane);
-}
-
-// ---- f32 rows at C > 64 on wgmma
-
 // d[64 x 64] (+)= A[64 x 8] . B[8 x 64]^T in TF32, A and B K-major f32
 // tiles in shared memory given by their descriptors (128-byte swizzle: a
 // step of 8 values, 32 bytes, adds 2 to a descriptor's address field);
@@ -566,141 +331,182 @@ __device__ __forceinline__ void wgmma_tf32_ss64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-constexpr int WG_THREADS = 384;  // three warpgroups
-constexpr int WG_STAGES = 4;     // ring slots of 16 KB, then the small parts
-constexpr int WG_SMEM = 1024 + (WG_STAGES + 1) * HK_SLOT;  // + alignment
+constexpr int HK_STAGES = 4;  // ring slots, then (f32 rows) the small parts
 
-// f32 rows at 64 < C <= 128, one query a block: the ring as above (128
-// rows padded, 128 bytes a row a stage, 1,024-byte aligned, so that a slot
-// is a 128-byte-swizzled K-major tile as wgmma reads it), each stage split
-// once into big (in place) and small parts, and the Gram matrix's three
-// 64 x 64 blocks on and above the diagonal taken by one warpgroup each:
-// rows 0-63 x 0-63, rows 0-63 x 64-127, rows 64-127 x 64-127, A and B
-// both from shared memory. As the mma.sync route sums them: each k8 big .
-// big product from zero in its own accumulator, the big . small and small
-// . big products added to it, and the step added to f32 sums (the small
-// products in an accumulator of their own, as bf16_tile.cuh keeps them,
-// took 32 more registers a thread and spilled at 168). mma.sync's m16n8k8 TF32 products ran at ~86 TFLOP/s here
+// A block's shape: R candidate rows (64 or 128) in its ring, CP of them a
+// query (32, 64 or 128: C padded), R / CP queries; the 64 x 64 blocks of
+// the R x R Gram matrix on or above the diagonal (one at R = 64, three at
+// 128) taken by NWG warpgroups: three on f32 rows at R = 128 (one block
+// each), else one (all of them).
+template <typename T, int R>
+__host__ __device__ constexpr int hk_warpgroups() {
+  return sizeof(T) == 4 && R == 128 ? 3 : 1;
+}
+template <typename T, int R>
+__host__ __device__ constexpr int hk_smem() {  // + 1,024 to align the ring
+  return 1024 + (HK_STAGES + (sizeof(T) == 4)) * R * HK_PIECE;
+}
+// blocks an SM: three warpgroups take one; one warpgroup with three
+// blocks' sums takes three (168 registers a thread), with one four (128)
+template <typename T, int R>
+__host__ __device__ constexpr int hk_blocks_per_sm() {
+  return hk_warpgroups<T, R>() == 3 ? 1 : R == 128 ? 3 : 4;
+}
+
+// The ring as above (R rows, 128 bytes a row a stage, 1,024-byte aligned,
+// so that a slot is a 128-byte-swizzled K-major tile as wgmma reads it),
+// f32 stages split once into big (in place) and small parts, and the Gram
+// matrix's 64 x 64 blocks on or above the diagonal by wgmma, A and B both
+// from shared memory (at R = 64 and CP = 32 the block holds two queries'
+// 32 x 32 triangles, and their cross products go unused). Each product is
+// summed from zero in an accumulator of its own and then added to f32
+// sums (a chain would cut it at the partial sum's size, as bf16_tile.cuh
+// says): on f32 rows each k8 big . big product, with the big . small and
+// small . big products chained onto it (the small products in an
+// accumulator of their own, as bf16_tile.cuh keeps them, took 32 more
+// registers a thread and spilled at 168); on bf16 rows a stage's four
+// m64n64k16 products, each exact, chained as bf16_tile.cuh chains a step
+// on bf16 rows. mma.sync's m16n8k8 TF32 products ran at ~86 TFLOP/s here
 // (the f32 link shape 0.147 ms with the big product alone, 0.315 with the
-// three: scripts/time_tile_routes.py --split k4 on an H100), so the
-// 16 x 8 tiles' saving of work did not pay for their rate.
-__global__ void __launch_bounds__(WG_THREADS, 1) heuristic_kept_wg_kernel(
-    const float* __restrict__ x, const int* __restrict__ cand_ids,
-    const float* __restrict__ cand_d, int B, int C, int D, int m,
-    uint8_t* __restrict__ kept) {
-  constexpr int CP = 128;
+// three: scripts/time_tile_routes.py --split k4 on an H100), so the 16 x
+// 8 tiles' saving of work did not pay for their rate.
+template <typename T, int R, int CP>
+__global__ void __launch_bounds__(128 * hk_warpgroups<T, R>(),
+                                  hk_blocks_per_sm<T, R>())
+    heuristic_kept_tc_kernel(const T* __restrict__ x,
+                             const int* __restrict__ cand_ids,
+                             const float* __restrict__ cand_d, int B, int C,
+                             int D, int m, uint8_t* __restrict__ kept) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int NWG = hk_warpgroups<T, R>(), NT_ = 128 * NWG;
+  constexpr int QB = R / CP, SLOT = R * HK_PIECE;
+  constexpr int NB = (R == 128 ? 3 : 1) / NWG;  // blocks a warpgroup
+  constexpr int TRI = CP * (CP + 1) / 2;         // a query's triangle
+  constexpr int DS = HK_PIECE / (int)sizeof(T);  // dims a stage
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ long long roff[HK_ROWS];  // a row's first element; -1: zeros
+  __shared__ long long roff[R];  // a row's first element; -1: zeros
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* sml = smem + WG_STAGES * HK_SLOT;
+  unsigned char* sml = smem + HK_STAGES * SLOT;
 
-  const int t = threadIdx.x, w = t >> 5, lane = t & 31, b = blockIdx.x;
-  if (t < HK_ROWS)
-    roff[t] = t < C ? (long long)max(cand_ids[(size_t)b * C + t], 0) * D
-                    : -1;
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int q0 = blockIdx.x * QB;
+  if (t < R) {
+    const int b = q0 + t / CP, c = t % CP;
+    roff[t] = b < B && c < C
+                  ? (long long)max(cand_ids[(size_t)b * C + c], 0) * D
+                  : -1;
+  }
   __syncthreads();
   const uint32_t ring = smem_addr(smem);
-  const int KS = (D + 31) / 32;  // stages of the rows
-  auto issue = [&](int kc) {
-    const uint32_t dst = ring + (kc % WG_STAGES) * HK_SLOT;
-    for (int p = t; p < HK_ROWS * 8; p += WG_THREADS) {
-      const int r = p >> 3, ch = p & 7;
-      const int d0 = kc * 32 + ch * 4;
-      const long long off = roff[r];
-      const bool in = off >= 0 && d0 < D;
-      cp_async16(dst + r * HK_PIECE + ((ch ^ (r & 7)) << 4),
-                 in ? static_cast<const void*>(x + off + d0)
-                    : static_cast<const void*>(x),
-                 in ? 16 : 0);
-    }
-  };
+  const int KS = (D + DS - 1) / DS;  // stages of the rows
 #pragma unroll
-  for (int s = 0; s < WG_STAGES - 1; ++s) {
-    if (s < KS) issue(s);
+  for (int s = 0; s < HK_STAGES - 1; ++s) {
+    if (s < KS) issue_stage<T, NT_, R>(ring + s * SLOT, x, roff, s, D, t);
     cp_async_commit();
   }
-  // warpgroup u's block: A rows a0 .. a0 + 63 against B rows b0 .. b0 + 63
+  // block i of warpgroup u: A rows a0(i) .. + 63 against B rows b0(i) ..
+  // + 63, the blocks (0, 0), (0, 64), (64, 64) in turn
   const int u = t >> 7, tw = t & 127;
-  const int a0 = u == 2 ? 64 : 0, b0 = u == 0 ? 0 : 64;
-  float acc[32], pb[2][32];
+  auto a0 = [&](int i) { return u + i == 2 ? 64 : 0; };
+  auto b0 = [&](int i) { return u + i == 0 ? 0 : 64; };
+  float acc[NB][32], pb[2][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
   for (int kc = 0; kc < KS; ++kc) {
-    cp_async_wait<WG_STAGES - 2>();
+    cp_async_wait<HK_STAGES - 2>();
+    fence_proxy_async();  // this thread's copies, to wgmma's reads
     __syncthreads();  // stage kc is in; every warpgroup is past stage kc - 1
-    if (kc + WG_STAGES - 1 < KS) issue(kc + WG_STAGES - 1);
+    const int kn = kc + HK_STAGES - 1;
+    if (kn < KS)
+      issue_stage<T, NT_, R>(ring + (kn % HK_STAGES) * SLOT, x, roff, kn, D,
+                             t);
     cp_async_commit();
-    unsigned char* slot = smem + (kc % WG_STAGES) * HK_SLOT;
-    for (int p = t; p < HK_SLOT / 16; p += WG_THREADS) {
-      uint4 v = *reinterpret_cast<const uint4*>(slot + 16 * p), bg, sm;
-      const uint32_t* vv = &v.x;
-      uint32_t* bb = &bg.x;
-      uint32_t* ss = &sm.x;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bb[e] = tf32_rna(__uint_as_float(vv[e]));
-        ss[e] = tf32_rna(__uint_as_float(vv[e]) - __uint_as_float(bb[e]));
-      }
-      *reinterpret_cast<uint4*>(slot + 16 * p) = bg;
-      *reinterpret_cast<uint4*>(sml + 16 * p) = sm;
+    unsigned char* slot = smem + (kc % HK_STAGES) * SLOT;
+    if constexpr (F32) {
+      split_stage<NT_, SLOT>(slot, sml, t);
+      fence_proxy_async();  // the split parts, to wgmma's reads
+      __syncthreads();
     }
-    fence_proxy_async();  // the split parts, to wgmma's reads
-    __syncthreads();
-    const uint64_t da = sw128_desc(smem_addr(slot + a0 * HK_PIECE));
-    const uint64_t db = sw128_desc(smem_addr(slot + b0 * HK_PIECE));
-    const uint64_t da_s = sw128_desc(smem_addr(sml + a0 * HK_PIECE));
-    const uint64_t db_s = sw128_desc(smem_addr(sml + b0 * HK_PIECE));
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // k8 steps 2 h and 2 h + 1
-      fence_regs(pb[0]);
-      fence_regs(pb[1]);
-      wgmma_fence();
+    for (int i = 0; i < NB; ++i) {
+      const uint64_t da = sw128_desc(smem_addr(slot + a0(i) * HK_PIECE));
+      const uint64_t db = sw128_desc(smem_addr(slot + b0(i) * HK_PIECE));
+      if constexpr (F32) {
+        const uint64_t da_s = sw128_desc(smem_addr(sml + a0(i) * HK_PIECE));
+        const uint64_t db_s = sw128_desc(smem_addr(sml + b0(i) * HK_PIECE));
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * h + jj;
-        wgmma_tf32_ss64(pb[jj], da + 2 * j, db + 2 * j, 0);
-        wgmma_tf32_ss64(pb[jj], da_s + 2 * j, db + 2 * j, 1);
-        wgmma_tf32_ss64(pb[jj], da + 2 * j, db_s + 2 * j, 1);
+        for (int h = 0; h < 2; ++h) {  // k8 steps 2 h and 2 h + 1
+          fence_regs(pb[0]);
+          fence_regs(pb[1]);
+          wgmma_fence();
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = 2 * h + jj;
+            wgmma_tf32_ss64(pb[jj], da + 2 * j, db + 2 * j, 0);
+            wgmma_tf32_ss64(pb[jj], da_s + 2 * j, db + 2 * j, 1);
+            wgmma_tf32_ss64(pb[jj], da + 2 * j, db_s + 2 * j, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(pb[0]);
+          fence_regs(pb[1]);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[i][e] += pb[0][e] + pb[1][e];
+        }
+      } else {  // the stage's four k16 steps, chained
+        fence_regs(pb[0]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          Wgmma<64>::mma(pb[0], da + 2 * j, db + 2 * j, j > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(pb[0]);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[i][e] += pb[0][e];
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(pb[0]);
-      fence_regs(pb[1]);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] += pb[0][i] + pb[1][i];
     }
   }
   cp_async_wait<0>();
-  __syncthreads();  // the ring is free: the triangle takes its place
+  __syncthreads();  // the ring is free: the triangles take its place
   float* tq = reinterpret_cast<float*>(smem);
-  // thread tw holds d[i] at row 16 (tw / 32) + (tw % 32) / 4 + 8 ((i / 2)
-  // % 2) and column 8 (i / 4) + 2 (tw % 4) + i % 2 of its block
+  // thread tw holds d[e] at row 16 (tw / 32) + (tw % 32) / 4 + 8 ((e / 2)
+  // % 2) and column 8 (e / 4) + 2 (tw % 4) + e % 2 of its block; an entry
+  // goes to its query's triangle
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int r = a0 + 16 * (tw >> 5) + ((tw & 31) >> 2) + 8 * ((i >> 1) & 1);
-    const int c = b0 + 8 * (i >> 2) + 2 * (tw & 3) + (i & 1);
-    if (r <= c) tq[tri_at(r, c, CP)] = acc[i];
-  }
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r =
+          a0(i) + 16 * (tw >> 5) + ((tw & 31) >> 2) + 8 * ((e >> 1) & 1);
+      const int c = b0(i) + 8 * (e >> 2) + 2 * (tw & 3) + (e & 1);
+      if (r <= c && r / CP == c / CP)
+        tq[(r / CP) * TRI + tri_at(r % CP, c % CP, CP)] = acc[i][e];
+    }
   __syncthreads();
-  if (w == 0) keep_scan<CP>(tq, cand_ids, cand_d, b, C, m, kept, lane);
+  if (w < QB && q0 + w < B)
+    keep_scan<CP>(tq + w * TRI, cand_ids, cand_d, q0 + w, C, m, kept, lane);
 }
 
-template <typename T, int NI>
+template <typename T, int R, int CP>
 cudaError_t launch_kept_tc(const T* x, const int* cand_ids,
                            const float* cand_d, int B, int C, int D, int m,
                            uint8_t* kept, cudaStream_t stream) {
-  static_assert(4 * (16 * NI) * (16 * NI + 1) / 2 * (8 / NI) <= HK_SMEM,
+  constexpr int smem = hk_smem<T, R>();
+  static_assert(4 * (R / CP) * CP * (CP + 1) / 2 + 1024 <= smem,
                 "the triangles fit the ring");
   static int cap[64];
   cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(heuristic_kept_tc_kernel<T, NI>), HK_SMEM,
+      reinterpret_cast<const void*>(heuristic_kept_tc_kernel<T, R, CP>), smem,
       cap);
   if (e != cudaSuccess) return e;
-  const int qb = 8 / NI;
-  heuristic_kept_tc_kernel<T, NI><<<(B + qb - 1) / qb, HK_THREADS, HK_SMEM,
-                                    stream>>>(x, cand_ids, cand_d, B, C, D,
-                                              m, kept);
+  constexpr int QB = R / CP;
+  heuristic_kept_tc_kernel<T, R, CP>
+      <<<(B + QB - 1) / QB, 128 * hk_warpgroups<T, R>(), smem, stream>>>(
+          x, cand_ids, cand_d, B, C, D, m, kept);
   return cudaGetLastError();
 }
 
@@ -713,21 +519,13 @@ cudaError_t heuristic_kept_tc(const T* x, const int* cand_ids,
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return cudaErrorInvalidValue;
   if (C <= 32)
-    return launch_kept_tc<T, 2>(x, cand_ids, cand_d, B, C, D, m, kept, stream);
+    return launch_kept_tc<T, 64, 32>(x, cand_ids, cand_d, B, C, D, m, kept,
+                                     stream);
   if (C <= 64)
-    return launch_kept_tc<T, 4>(x, cand_ids, cand_d, B, C, D, m, kept, stream);
-  if constexpr (sizeof(T) == 4) {  // f32 rows past 64: wgmma
-    static int cap[64];
-    cudaError_t e = raise_smem_cap(
-        reinterpret_cast<const void*>(heuristic_kept_wg_kernel), WG_SMEM, cap);
-    if (e != cudaSuccess) return e;
-    heuristic_kept_wg_kernel<<<B, WG_THREADS, WG_SMEM, stream>>>(
-        x, cand_ids, cand_d, B, C, D, m, kept);
-    return cudaGetLastError();
-  } else {
-    return launch_kept_tc<T, 8>(x, cand_ids, cand_d, B, C, D, m, kept,
-                                stream);
-  }
+    return launch_kept_tc<T, 64, 64>(x, cand_ids, cand_d, B, C, D, m, kept,
+                                     stream);
+  return launch_kept_tc<T, 128, 128>(x, cand_ids, cand_d, B, C, D, m, kept,
+                                     stream);
 }
 
 }  // namespace fvdb

@@ -566,9 +566,11 @@ def approx_topk(x, x_sq, mask, q, ov_k: int, round_query: bool = False):
         if tc:  # csrc/bf16_tile.cuh: 128 bins a block
             plan = tile_plan(bb, ov_k, d, "bins", route)
             tiles = plan.tiles * math.ceil(m / _TC_ROWS)
-            z, i_per = _round_ranges(rounds, tiles, dev, 1) \
-                if route == "wgmma" else \
-                _round_waves(rounds, tiles, _num_sms(dev))
+            # round ranges that fill the last wave: taken on f32 rows; on
+            # bf16 rows they were 1-3% slower than one wave of longer
+            # ranges (scripts/time_tile_routes.py --only k9bf16 on an H100)
+            z, i_per = _round_waves(rounds, tiles, _num_sms(dev)) \
+                if route == "tf32x3" else _round_ranges(rounds, tiles, dev, 1)
             native.call(
                 "approx_topk", "fvdb_approx_pool_tc",
                 [P, I, P, P, L, P, I, I, I, I, I, I, I, I, I, I, P, P, P, P,
@@ -604,20 +606,26 @@ def _round_ranges(rounds: int, tiles: int, dev, per_sm: int):
     return math.ceil(rounds / i_per), i_per
 
 
-def _round_waves(rounds: int, tiles: int, sms: int, least: int = 8):
+# the fewest rounds a range of the TF32 route takes (a range reads its
+# query tile and writes its bins' minima once)
+_LEAST_ROUNDS = 8
+
+
+@functools.lru_cache(maxsize=256)
+def _round_waves(rounds: int, tiles: int, sms: int):
     """K9's round ranges on the TF32 route (one block an SM, each as long
     as the next) on a card of ``sms`` SMs: the fewest ranges whose blocks
     fill their last wave to within 2% of the best fill that any count of
-    ranges of at least ``least`` rounds reaches, so that a tile count such
-    as 80 (B = 128 at 32 queries a block, 20 bin tiles) does not leave 52
-    of 132 SMs idle. Returns (ranges, rounds a range)."""
+    ranges of at least _LEAST_ROUNDS rounds reaches, so that a tile count
+    such as 80 (B = 128 at 32 queries a block, 20 bin tiles) does not leave
+    52 of 132 SMs idle. Returns (ranges, rounds a range)."""
 
     def plan(z):
         i_per = math.ceil(rounds / z)
         blocks = tiles * math.ceil(rounds / i_per)
         return blocks / (math.ceil(blocks / sms) * sms), i_per
 
-    zs = range(1, max(1, rounds // least) + 1)
+    zs = range(1, max(1, rounds // _LEAST_ROUNDS) + 1)
     best = max(plan(z)[0] for z in zs)
     z = next(z for z in zs if plan(z)[0] >= best - 0.02)
     i_per = plan(z)[1]

@@ -4,7 +4,7 @@ query), K4 and K9 on f32 rows on one NVIDIA GPU, beside yardsticks that the
 port never calls.
 
     python scripts/time_tile_routes.py [--root DIR] [--out DIR] [--iters N]
-                                       [--only stage1|f32|k4|k9f32]
+                                       [--only stage1|f32|k4|k9f32|k9bf16]
                                        [--profile]
                                        [--split fma|tf32x3|stage1|k4|k9f32]
 
@@ -36,22 +36,23 @@ K4 (``index.hnsw.heuristic_kept``, ``--only k4``): the candidate pools of
 1,024 queries over 131,072 x 384 seeded f32 rows, each query's 128
 nearest rows by an f32 ``torch.matmul`` (TF32 off) and ``torch.topk``: the
 link pool (C = 128, m = 32), the reverse prune (C = 64, the last 8 padded
-with (-1, +inf)), the link pool on the rows in bf16, and the link pool on
-rows 4 bytes off a 16-byte boundary (the FMA route in a tree that has
-another). Each is held to its plain version: the kept flags equal but
-where the first flip of a query sits at a near-tie of the plain scan
-(1e-5 of the query distance on f32 rows; of twice the largest squared
-norm on bf16 rows).
+with (-1, +inf)), both on the rows in bf16, the first 32 candidates (an
+ef_construction of 32), and the link pool on rows 4 bytes off a 16-byte
+boundary (the FMA route in a tree that has another). Each is held to its
+plain version: the kept flags equal but where the first flip of a query
+sits at a near-tie of the plain scan (1e-5 of the query distance on f32
+rows; of twice the largest squared norm on bf16 rows).
 
 K9 on f32 rows (``ops.topk.approx_topk``, ``--only k9f32``): a pool of 128
 over 1,048,576 x 384 seeded f32 rows, 99% of them in the mask, at B = 1
-and 128 (2,477 bins), held to its plain version: the pools share >= 0.99
-of their rows on average, the shared rows' distances within 1e-5 of the
-largest norms.
+and 128 (2,477 bins); ``--only k9bf16``: the same rows in bf16, the query
+rounded (the turbo pool's route); each held to its plain version: the
+pools share >= 0.99 of their rows on average, the shared rows' distances
+within 1e-5 of the largest norms.
 
 ``--profile`` adds each shape's device microseconds by kernel, from
-torch.profiler's kernel records of one call. Each result is held to its
-plain version on the same inputs (sorted
+torch.profiler's kernel records of one call (K4: the mean of 20). Each
+result is held to its plain version on the same inputs (sorted
 distances within 2e-5 of the largest norms, rows equal but at ties; 1e-5
 for cosine), 10M stage 1 in slices of 32 queries. Times are CUDA events
 over back-to-back calls after a warm-up. Prints one JSON line and writes
@@ -79,12 +80,11 @@ integer operations give the same bits); "two_sets", the next step's
 fragments read during this step's products
 at every width (two register sets; the tree reads them before the
 products at 32 queries a block, as under the lists); "k4" (K4's
-tensor-core route, csrc/heuristic_kept.cu: link f32, prune f32, link
-bf16; the variants cut the f32 route at C > 64): "as_is";
-"one_product", the big products alone; "small_apart", the small
-products in an accumulator of their own over the whole row (32 more
-registers a thread); "mma_sync", the f32 rows on mma.sync's 16 x 8
-tiles (the route of C <= 64 and of bf16 rows). The results are wrong
+tensor-core route, csrc/heuristic_kept.cu, at every --only k4 shape but
+the FMA route's): "as_is"; "one_product", the f32 rows' big products
+alone; "bf16_three_wg", bf16 rows past 64 candidates on three warpgroups
+(one block each, one block an SM) for one (three blocks' sums, three
+blocks an SM). The results are wrong
 on purpose, but for "k9f32", whose variants compute the same; only the
 time is read. Each variant's ptxas report (registers, spills, serialized
 products) is printed.
@@ -111,8 +111,9 @@ X_FROM_L2 = ("bf16_tile.cuh", TILE_ROWS,
              "                    (g % KS) * SD, ((g / KS) % 8) * TC_ROWS, "
              "full + slot);")
 # K4's small products on wgmma, chained onto each k8 big product
-K4_SMALL = ("        wgmma_tf32_ss64(pb[jj], da_s + 2 * j, db + 2 * j, 1);\n"
-            "        wgmma_tf32_ss64(pb[jj], da + 2 * j, db_s + 2 * j, 1);\n")
+K4_SMALL = (
+    "            wgmma_tf32_ss64(pb[jj], da_s + 2 * j, db + 2 * j, 1);\n"
+    "            wgmma_tf32_ss64(pb[jj], da + 2 * j, db_s + 2 * j, 1);\n")
 SPLITS = {
     "fma": {  # l2_tile.cuh's FMA pass (the parent of the split routes)
         "as_is": [],
@@ -177,26 +178,12 @@ SPLITS = {
                       "fa.surv[(size_t)(q0 + col) * fa.cap + v] =")],
         "x_from_l2": [X_FROM_L2],
     },
-    "k4": {  # csrc/heuristic_kept.cu's tensor-core route (f32 rows)
+    "k4": {  # csrc/heuristic_kept.cu's tensor-core route
         "as_is": [],
         "one_product": [("heuristic_kept.cu", K4_SMALL, "")],
-        "small_apart": [
-            ("heuristic_kept.cu", "  float acc[32], pb[2][32];",
-             "  float acc[32], ps[32], pb[2][32];"),
-            ("heuristic_kept.cu", K4_SMALL,
-             "        wgmma_tf32_ss64(ps, da_s + 2 * j, db + 2 * j, kc > 0 || "
-             "j > 0);\n        wgmma_tf32_ss64(ps, da + 2 * j, db_s + 2 * j,"
-             " 1);\n"),
-            ("heuristic_kept.cu", "      fence_regs(pb[1]);\n",
-             "      fence_regs(pb[1]);\n      fence_regs(ps);\n"),
-            ("heuristic_kept.cu",
-             "  float* tq = reinterpret_cast<float*>(smem);\n",
-             "  float* tq = reinterpret_cast<float*>(smem);\n#pragma unroll\n"
-             "  for (int i = 0; i < 32; ++i) acc[i] += ps[i];\n")],
-        "mma_sync": [("heuristic_kept.cu",
-                      "  if constexpr (sizeof(T) == 4) {  // f32 rows past "
-                      "64: wgmma",
-                      "  if constexpr (sizeof(T) == 0) {")],
+        "bf16_three_wg": [("heuristic_kept.cu",
+                           "  return sizeof(T) == 4 && R == 128 ? 3 : 1;",
+                           "  return R == 128 ? 3 : 1;")],
     },
     "k9f32": {  # bf16_tile.cuh's BINS mode on the TF32 route
         "as_is": [],
@@ -238,21 +225,22 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def kernel_us(torch, fn) -> dict:
-    """Device microseconds by kernel name of one call (torch.profiler's
-    kernel records), the longest first."""
+def kernel_us(torch, fn, calls: int = 1) -> dict:
+    """Device microseconds by kernel name of a call (torch.profiler's
+    kernel records, the mean over ``calls`` calls), the longest first."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     out: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name.split("<")[0].split("(")[0][:60]
-            out[name] = out.get(name, 0.0) + e.device_time
+            out[name] = out.get(name, 0.0) + e.device_time / calls
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
@@ -414,14 +402,17 @@ def k4_cases(torch) -> list:
     pid, pdd = ids[:, :64].clone(), dd[:, :64].clone()
     pid[:, -8:] = -1
     pdd[:, -8:] = float("inf")
+    xb = x.to(torch.bfloat16)
     return [("k4 link f32 B=1024 C=128", x, ids, dd, False),
             ("k4 prune f32 B=1024 C=64", x, pid, pdd, False),
-            ("k4 link bf16 B=1024 C=128", x.to(torch.bfloat16), ids, dd,
-             True),
+            ("k4 link bf16 B=1024 C=128", xb, ids, dd, True),
+            ("k4 prune bf16 B=1024 C=64", xb, pid, pdd, True),
+            ("k4 f32 B=1024 C=32", x, ids[:, :32].contiguous(),
+             dd[:, :32].contiguous(), False),
             ("k4 link f32 rows off 16 B=1024 C=128", xu, ids, dd, False)]
 
 
-def k4(torch, hn, res, it) -> None:
+def k4(torch, hn, res, it, prof=False) -> None:
     route = getattr(hn, "heuristic_route", lambda _: "fma")
     for key, xx, ii, di, bf in k4_cases(torch):
         ii, di = ii.contiguous(), di.contiguous()
@@ -443,6 +434,9 @@ def k4(torch, hn, res, it) -> None:
                     "bound_tc_ms": 3 * ops / 495e12 * 1e3 if not bf
                     else ops / 989e12 * 1e3,
                     "bound_fma_ms": ops / 67e12 * 1e3}
+        if prof:  # the device's time alone: below ~0.06 ms a call the
+            # wrapper's host time can set the pace of back-to-back calls
+            res[key]["kernel_us"] = kernel_us(torch, run, 20)
         print(f"{key} {res[key]}", flush=True)
 
 
@@ -465,32 +459,36 @@ def pool_share(rk, rp, vk, vp, tol: float, what: str) -> float:
     return share
 
 
-def k9f32(torch, tp, native, res, it, prof=False) -> None:
+def k9(torch, tp, native, res, it, prof=False, bf16=False) -> None:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(21)
     x = torch.randn(N1, D, device=dev, generator=g)
-    x_sq = (x * x).sum(1)
+    if bf16:
+        x = x.to(torch.bfloat16)
+    x_sq = (x.float() ** 2).sum(1)
     mask = torch.rand(N1, device=dev, generator=g) < 0.99
     q = torch.randn(128, D, device=dev, generator=g)
     for b in (1, 128):
         qq = q[:b].contiguous()
 
         def run(qq=qq):
-            return tp.approx_topk(x, x_sq, mask, qq, 128)
+            return tp.approx_topk(x, x_sq, mask, qq, 128, bf16)
 
         before = dict(native.launches)
         vk, rk = run()
         pass_ = [k for k, v in native.launches.items() if v != before[k]]
-        vp, rp = tp.approx_topk_plain(x, x_sq, mask, qq, 128)
-        key = f"k9 f32 B={b} N=1M ov_k=128"
+        vp, rp = tp.approx_topk_plain(x, x_sq, mask, qq, 128, bf16)
+        key = f"k9 {'bf16' if bf16 else 'f32'} B={b} N=1M ov_k=128"
         tol = 1e-5 * float(x_sq.max() + (qq * qq).sum(1).max())
         share = pool_share(rk, rp, vk, vp, tol, key)
         del vp, rp
         res[key] = {"ms": cuda_ms(torch, run, it), "counted_as": pass_,
                     "pool_overlap_with_plain": share,
-                    "bound_bytes_ms": (N1 * (D * 4 + 4 + 1) + b * D * 4
-                                       + b * 128 * 8) / 3.35e12 * 1e3,
-                    "bound_tf32x3_ms": 3 * 2.0 * b * N1 * D / 495e12 * 1e3,
+                    "bound_bytes_ms": (N1 * (D * x.element_size() + 4 + 1)
+                                       + b * D * 4 + b * 128 * 8)
+                    / 3.35e12 * 1e3,
+                    "bound_tc_ms": (2.0 if bf16 else 6.0) * b * N1 * D
+                    / (989e12 if bf16 else 495e12) * 1e3,
                     "bound_fma_ms": 2.0 * b * N1 * D / 67e12 * 1e3}
         if prof:
             res[key]["kernel_us"] = kernel_us(torch, run)
@@ -584,7 +582,7 @@ def split_variant(root: Path, which: str) -> None:
     if route == "k4":
         from fabstir_vectordb_tpu_torch.index import hnsw as hn
 
-        for key, xx, ii, di, _ in k4_cases(torch)[:3]:
+        for key, xx, ii, di, _ in k4_cases(torch)[:-1]:
             out.append(f"{key[3:]} {cuda_ms(torch, lambda: hn.heuristic_kept(xx, ii, di, 32), 10):.4f}")  # noqa: B023,E501
         print(f"split {route} {name}: " + "; ".join(out) + " ms", flush=True)
         return
@@ -617,7 +615,8 @@ def main() -> None:
     ap.add_argument("--out", default="smoke_out",
                     help="directory for the results' JSON file")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("stage1", "f32", "k4", "k9f32"),
+    ap.add_argument("--only", choices=("stage1", "f32", "k4", "k9f32",
+                                       "k9bf16"),
                     default=None)
     ap.add_argument("--split", choices=tuple(SPLITS), default=None)
     ap.add_argument("--profile", action="store_true",
@@ -658,10 +657,12 @@ def main() -> None:
         f32(torch, tp, res, args.iters, args.profile)
         torch.cuda.empty_cache()
     if args.only in (None, "k4"):
-        k4(torch, hn, res, args.iters)
+        k4(torch, hn, res, args.iters, args.profile)
         torch.cuda.empty_cache()
     if args.only in (None, "k9f32"):
-        k9f32(torch, tp, native, res, args.iters, args.profile)
+        k9(torch, tp, native, res, args.iters, args.profile)
+    if args.only in (None, "k9bf16"):
+        k9(torch, tp, native, res, args.iters, args.profile, bf16=True)
     res["launches"] = {k: v for k, v in native.launches.items() if v}
     print(json.dumps(res), flush=True)
     out = Path(args.out)

@@ -2084,21 +2084,23 @@ def test_bf16_rows_f32_query_route_matches_plain_on_card(b, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("c,d", [(128, 384), (100, 384), (64, 384),
-                                 (37, 384), (128, 98), (37, 100)])
+                                 (37, 384), (32, 384), (17, 384), (128, 98),
+                                 (37, 100)])
 def test_heuristic_kept_routes_match_plain_on_card(c, d, bf16):
-    """K4 by route against its plain version, each query's last 5
-    candidates (-1, +inf) padding: rows that cp.async copies 16 bytes at a
-    time (f32 at D % 4 == 0, bf16 at D % 8 == 0) on the tensor cores
-    (f32 rows past 64 candidates on wgmma, padded to 128; else mma.sync,
-    C = 128: one query a block; 64: two; 37: two, padded to 64),
-    counted as heuristic_kept / heuristic_kept_bf16; D = 98 and 100 on the
-    FMA route (heuristic_kept_fma / heuristic_kept_bf16_fma). Flags equal
-    but where a query's first flip sits at a near-tie of the plain scan."""
+    """K4 by route against its plain version over 301 queries (no multiple
+    of a block's queries), each query's last 5 candidates (-1, +inf)
+    padding: rows that cp.async copies 16 bytes at a time (f32 at D % 4 ==
+    0, bf16 at D % 8 == 0) on the tensor cores (wgmma, the rows padded to
+    128 past 64 candidates, else to 64: C = 128 and 100, then 64, 37, 32
+    and 17), counted as heuristic_kept / heuristic_kept_bf16; D = 98 and
+    100 on the FMA route (heuristic_kept_fma / heuristic_kept_bf16_fma).
+    Flags equal but where a query's first flip sits at a near-tie of the
+    plain scan."""
     from fabstir_vectordb_tpu_torch.index import hnsw as hn
     from fabstir_vectordb_tpu_torch.utils import native
 
     dev = _card()
-    x, ids, dd = _candidate_pools(57, 300, c, n=20_000, pad_from=c - 5, d=d)
+    x, ids, dd = _candidate_pools(57, 301, c, n=20_000, pad_from=c - 5, d=d)
     xt = torch.from_numpy(x).to(dev)
     if bf16:
         xt = xt.to(torch.bfloat16)
@@ -2116,6 +2118,83 @@ def test_heuristic_kept_routes_match_plain_on_card(c, d, bf16):
     assert (kt.sum(1) <= 32).all() and kt.any()
     _assert_kept_equal_up_to_near_ties(kp, kt, ids, dd,
                                        xt.float().cpu().numpy())
+
+
+# both roundings of wgmma.cuh's TF32 routes over a table of f32 bit patterns
+_TF32_ROUNDINGS = r"""
+#include "wgmma.cuh"
+__global__ void both(const uint32_t* in, uint32_t* by_int, uint32_t* by_cvt,
+                     int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float x = __uint_as_float(in[i]);
+  by_int[i] = fvdb::tf32_rna(x);
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  by_cvt[i] = r & 0xffffe000u;
+}
+extern "C" int tf32_both(const uint32_t* in, uint32_t* by_int,
+                         uint32_t* by_cvt, int n) {
+  both<<<(n + 255) / 256, 256>>>(in, by_int, by_cvt, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def _f32_bit_patterns() -> np.ndarray:
+    """f32 bit patterns of both signs: every low 13 bits (the ties at
+    0x1000 among them) under TF32 mantissas 0, 1, 0x155, 0x2aa, 0x3fe and
+    0x3ff at exponents 0 (denormals), 1, 2, 100, 127, 200, 253 and 254;
+    every pattern from 0x7f7f0000 to the largest finite 0x7f7fffff (the
+    ones from 0x7f7ff000 round past it); infinities; 2^22 seeded ones."""
+    low = np.arange(1 << 13, dtype=np.uint32)
+    grid = [(e << 23) | (h << 13) | low
+            for e in (0, 1, 2, 100, 127, 200, 253, 254)
+            for h in (0, 1, 0x155, 0x2AA, 0x3FE, 0x3FF)]
+    top = np.arange(0x7F7F0000, 0x7F800000 + 1, dtype=np.uint32)
+    rng = np.random.default_rng(60)
+    seeded = rng.integers(0, 1 << 32, 1 << 22, dtype=np.uint32)
+    pos = np.concatenate([*grid, top, seeded])
+    return np.concatenate([pos, pos ^ np.uint32(0x80000000)])
+
+
+@pytest.mark.cuda
+def test_tf32_rounding_by_integer_operations_matches_cvt_on_card(tmp_path):
+    """wgmma.cuh's tf32_rna (half a TF32 ulp added to the bits, the low 13
+    cleared), which every TF32 route splits its f32 values by, against
+    cvt.rna.tf32.f32 (to nearest, ties away from zero): the same bits for
+    every finite input and for the infinities; at the largest finites both
+    round to an infinity. A NaN whose payload lies only in the low 13
+    bits becomes an infinity there (its small part x - big stays a NaN)."""
+    import ctypes
+    import subprocess
+
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    src = tmp_path / "tf32_roundings.cu"
+    src.write_text(_TF32_ROUNDINGS)
+    lib = tmp_path / "tf32_roundings.so"
+    subprocess.run([native.nvcc(), *native.NVCC_FLAGS, "-I", str(native.CSRC),
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    run = ctypes.CDLL(str(lib)).tf32_both
+    bits = _f32_bit_patterns()
+    x = torch.from_numpy(bits.view(np.int32)).to(dev)
+    by_int, by_cvt = torch.empty_like(x), torch.empty_like(x)
+    assert run(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(by_int.data_ptr()),
+               ctypes.c_void_p(by_cvt.data_ptr()), ctypes.c_int(x.numel())) == 0
+    a = by_int.cpu().numpy().view(np.uint32)
+    c = by_cvt.cpu().numpy().view(np.uint32)
+    vals = bits.view(np.float32)
+    finite = np.isfinite(vals)
+    assert finite.sum() > 8_000_000
+    differ = np.nonzero(finite & (a != c))[0]
+    assert differ.size == 0, [hex(v) for v in bits[differ[:8]]]
+    inf = np.isinf(vals)
+    np.testing.assert_array_equal(a[inf], bits[inf])
+    np.testing.assert_array_equal(c[inf], bits[inf])
+    big = (bits & 0x7FFFFFFF) >= 0x7F7FF000
+    assert np.isinf(a[big & finite].view(np.float32)).all()
 
 
 @pytest.mark.cuda
