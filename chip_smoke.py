@@ -144,8 +144,13 @@
    128 lists, retrained on the card; an eager load onto a bf16 mirror, its
    prewarm + first search, its answers against a float64 brute force. The
    counters, from 0, must show B1-B4.
-13. One JSON line with every kernel's numbers, the card's name and power
-   limit, then ``{"ok": true, "device": {...}}`` as the last line.
+13. One JSON line with every kernel's numbers (K6 on its FMA tile, the
+   flat tier's 3 lists, as ``lloyd_block_fma``), the routes the main path
+   takes only off its shapes ("route_checks"), K11's and K6's launches by
+   shape on each phase's main path ("launches_by_shape", so that a cost
+   can be ordered by each shape's launches times that shape's time), the
+   card's name and power limit, then ``{"ok": true, "device": {...}}`` as
+   the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
 stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
@@ -345,6 +350,17 @@ def topk_check(tag, vk, rk, vp, rp, tol):
 # path's shape; printed on a line of their own ("route_checks"), since the
 # kernels line counts the main path's launches
 ROUTE_CHECKS: dict = {}
+# K11's and K6's launches by shape on each phase's main path (read where the
+# phase reads its counts, before any check), so that a kernel's cost can
+# be ordered by each shape's launches times that shape's time
+SHAPE_LAUNCHES: dict = {}
+
+
+def note_shapes(phase: str, native) -> None:
+    SHAPE_LAUNCHES[phase] = {
+        k: v for k, v in native.shape_launches.items()
+        if v and k.split(" ")[0].startswith(("beam_search", "assign",
+                                              "lloyd"))}
 
 
 def kernels_phase(torch, tp, hn, km, dev, results):
@@ -422,6 +438,8 @@ def kernels_phase(torch, tp, hn, km, dev, results):
         bound_ms=bms, bound_by=by)
 
     # K6: IVF-sized Lloyd block and the session's 10-row x 3-cluster train
+    from fabstir_vectordb_tpu_torch.utils import native
+
     rng = np.random.default_rng(1)
     for tag, nn, cc, valid in (("65536x256", 65_536, 256, 65_536),
                                ("session", 16, 3, 10)):
@@ -432,11 +450,19 @@ def kernels_phase(torch, tp, hn, km, dev, results):
         mk = torch.arange(nn, device=dev) < valid
         init = xt[torch.from_numpy(rng.choice(valid, cc, replace=False))
                   .to(dev)].contiguous()
+        # K6's tensor-core route at 256 lists, its FMA tile at 3
+        fma = km.lloyd_route(nn, cc, d) == "fma"
+        sfx = "_fma" if fma else ""
+        before = {k: native.launches[k + sfx]
+                  for k in ("lloyd_block", "assign_clusters")}
         ck, ek = km.lloyd_block(xt, mk, init, 5)
         cp, ep = km.lloyd_block_plain(xt, mk, init, 5)
         ak, _ = km.assign_clusters(xt, init, mk)
         ap, _ = km.assign_clusters_plain(xt, init, mk)
         torch.cuda.synchronize()
+        if any(native.launches[k + sfx] != v + 1 for k, v in before.items()):
+            fail(f"lloyd_block[{tag}]: not on the {'FMA' if fma else 'tensor-core'}"
+                 f" route")
         err = float((ck - cp).abs().max())
         scale = float(xt.abs().max())
         tol = 1e-5 * scale
@@ -446,15 +472,29 @@ def kernels_phase(torch, tp, hn, km, dev, results):
         if not bool((ak == ap).all()):
             fail(f"assign_clusters[{tag}]: assignments differ")
         steps = 5
+        # the tensor-core route's bound: three TF32 products
         bms, by = bound(steps * (nn * d * 4 + 2 * cc * d * 4) + nn,
-                        steps * 2.0 * valid * cc * d)
-        results[f"lloyd_block[{tag}]"] = dict(
+                        steps * 2.0 * valid * cc * d * (1 if fma else 3),
+                        F32_FLOPS if fma else TF32_FLOPS)
+        results[f"lloyd_block{sfx}[{tag}]"] = dict(
             shape=f"N={nn} (valid {valid}) C={cc} D={d} steps={steps}",
             max_abs_err=err, tol=tol,
             ms=cuda_ms(torch, lambda: km.lloyd_block(xt, mk, init, 5)),
             plain_ms=cuda_ms(torch,
                              lambda: km.lloyd_block_plain(xt, mk, init, 5)),
             bound_ms=bms, bound_by=by)
+        if fma:  # the flat tier's assignment would take this tile too
+            bms, by = bound(nn * d * 4 + cc * d * 4 + nn * 9,
+                            2.0 * nn * cc * d)
+            ROUTE_CHECKS[f"assign_clusters_fma[{tag}]"] = dict(
+                shape=f"N={nn} (valid {valid}) C={cc} D={d}",
+                max_abs_err=float((km.assign_clusters(xt, init, mk)[1]
+                                   - km.assign_clusters_plain(
+                                       xt, init, mk)[1]).abs().max()),
+                ms=cuda_ms(torch, lambda: km.assign_clusters(xt, init, mk)),
+                plain_ms=cuda_ms(torch, lambda: km.assign_clusters_plain(
+                    xt, init, mk)),
+                bound_ms=bms, bound_by=by)
     fma_checks(torch, tp, x, x_sq, mask, g)
     b1_b4_checks(torch, tp, hn, km, dev, results)
     for name, r in results.items():
@@ -620,7 +660,7 @@ def b1_b4_checks(torch, tp, hn, km, dev, results):
              f"{float(ek)} vs {float(ep)}")
     valid = int(mk.sum())
     bms, by = bound(nn * d * 4 + nn + 2 * cc * d * 4,
-                    2.0 * valid * cc * d)
+                    lloyd_work(valid, d, cc, 1)[1])
     results["lloyd_step"] = dict(
         shape=f"N={nn} (valid {valid}) C={cc} D={d}", max_abs_err=err,
         tol=tol, error_rel_diff=abs(float(ek) - float(ep)) / float(ep),
@@ -853,8 +893,10 @@ def main_path(torch, native, card: str, counts: dict, perf: dict,
     torch.cuda.synchronize()
     counts["l2_topk[search]"] = (native.launches["l2_topk"]
                                  - counts["l2_topk[candidates]"])
-    for name in ("heuristic_kept", "pair_sq_l2", "lloyd_block"):
+    # K6 at the flat tier's 3 lists: its FMA tile (ops.kmeans.lloyd_route)
+    for name in ("heuristic_kept", "pair_sq_l2", "lloyd_block_fma"):
         counts[name] = native.launches[name]
+    note_shapes("flat-100K", native)
     for name, c in counts.items():
         if c <= 0:
             fail(f"main path: {name} was launched no time")
@@ -864,6 +906,9 @@ def main_path(torch, native, card: str, counts: dict, perf: dict,
     # "heuristic_kept" counts K4 on the tensor cores; its FMA route takes
     # rows that cp.async cannot copy 16 bytes at a time
     perf["heuristic_kept_fma_launches"] = native.launches["heuristic_kept_fma"]
+    # K6's tensor-core route takes no shape of the flat tier (3 lists)
+    perf["lloyd_tc_launches_flat"] = sum(
+        native.launches[k] for k in ("lloyd_block", "assign_clusters"))
     if trace:  # device busy share of the two search shapes
         for name, fn in (
                 ("single", lambda: [s.search(q, k) for q in qs[:64]]),
@@ -1199,6 +1244,9 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         fail(f"beam-linked inserts found at rank 1: {self_rate} < 0.99")
     torch.cuda.synchronize()
     counts = dict(native.launches)
+    note_shapes("pruned-1M (with the 1M build)", native)
+    # K6 on the tensor cores: the 1M build's IVF training (256 lists)
+    launch_of["lloyd_block[65536x256]"] = counts["lloyd_block"]
     for name in ("l2_topk", "l2_topk_large", "heuristic_kept", "pair_sq_l2",
                  "lloyd_block", "greedy_descent", "beam_search", "ivf_scan"):
         if counts[name] <= 0:
@@ -1274,7 +1322,8 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         bound_ms=bms, bound_by=by)
     launch_of["greedy_descent"] = counts["greedy_descent"]
 
-    # K11: serve (ef 64, W 4, +- the filter) and link (ef 200, W 1)
+    # K11: serve (ef 64, W 4, +- the filter; B = 128 and one query) and
+    # link (ef 200, W 1)
     ex_h = tp.l2_topk(x_d, xsq_d, hm, qd, 10)[1].cpu().numpy()
     ex_hf = tp.l2_topk(x_d, xsq_d, hm & fm, qd, 10)[1].cpu().numpy()
     ql = torch.from_numpy(new[:1024]).to(dev)
@@ -1282,6 +1331,8 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
                               ql, st["entry"], st["entry_level"])
     for tag, qq, start, ef, w, rm, exact in (
             ("serve", qd, ck, 64, limits.beam_expand(), None, ex_h),
+            ("serve B=1", qd[:1], ck[:1], 64, limits.beam_expand(), None,
+             ex_h[:1]),
             ("serve-filtered", qd, ck, 64, limits.beam_expand(), fm, ex_hf),
             ("link", ql, cl, 200, 1, None, None)):
         args = (x_d, xsq_d, hm, st["nbrs0"], st["nbrs_up"], st["up_offset"],
@@ -1310,7 +1361,8 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
         results[f"beam_search[{tag}]"] = dict(
             shape=f"B={b} ef={ef} W={w} M0=32 D={d}", max_abs_err=err,
             overlap=ov, recall_at_10=rk, plain_recall_at_10=rp,
-            steps=bst["steps"], rows=bst["rows"], distinct_rows=seen,
+            steps=bst["steps"], steps_max=bst["steps_max"], rows=bst["rows"],
+            distinct_rows=seen, warps_a_query=hn.beam_plan(b, w, 32),
             ms=cuda_ms(torch, lambda: hn.beam_search(*args)),
             plain_ms=cuda_ms(torch, lambda: hn.beam_search_plain(*args),
                              iters=2, warmup=1),
@@ -1565,6 +1617,7 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
                  f"the mask or deleted")
     torch.cuda.synchronize()
     counts = dict(native.launches)
+    note_shapes("reduced-1M", native)
     path = ("project_rows", "project_queries", "stage1_select", "rerank_f32",
             "l2_topk_bf16", "merge_topk")
     for name in path:
@@ -2116,6 +2169,7 @@ def flat1m_phase(torch, native, card: str, perf: dict, results: dict,
             fail(f"flat1m bf16 inserts: {rank1} at rank 1 < 0.99")
         torch.cuda.synchronize()
         counts = dict(native.launches)
+        note_shapes("flat1m", native)
         path = {"approx_topk_tf32": "K9 on f32 rows, three TF32 products "
                                     "(turbo)",
                 "approx_topk": "K9 on bf16 rows, query rounded (tensor "
@@ -2697,6 +2751,7 @@ def engines_phase(torch, native, card: str, perf: dict, results: dict,
                       f"probes recall@10 {rec16:.4f} ({card})", flush=True)
         torch.cuda.synchronize()
         counts = dict(native.launches)
+        note_shapes("engines-1m", native)
         path = {"greedy_descent_bf16": "K10 on bf16 rows",
                 "beam_search_bf16": "K11 on bf16 rows",
                 "beam_search_bf16_up": "K11 above layer 0, bf16 rows",
@@ -2882,6 +2937,8 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
     for tag, x, x_sq, qq, start, active, lay, ef, w, exact in (
             ("bf16 serve", xb, sq, qd, ck, None, 0, 64, limits.beam_expand(),
              ex_h),
+            ("bf16 serve B=1", xb, sq, qd[:1], ck[:1], None, 0, 64,
+             limits.beam_expand(), ex_h[:1]),
             ("bf16 link", xb, sq, ql, cl, None, 0, 200, 1, None),
             ("bf16 upper layer", xb, sq, ql, cu_b, act, layer, 200, 1, None),
             ("upper layer", xf, sq_f, ql, cu_f, act, layer, 200, 1, None)):
@@ -2918,7 +2975,9 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
                   f" rows)",
             max_abs_err=float((bk - bp)[both].abs().max()) if both.any()
             else 0.0, overlap=ov, recall_at_10=rk, plain_recall_at_10=rp,
-            steps=bst["steps"], rows=bst["rows"], distinct_rows=seen,
+            steps=bst["steps"], steps_max=bst["steps_max"], rows=bst["rows"],
+            distinct_rows=seen, warps_a_query=hn.beam_plan(
+                b, w, 32 if lay == 0 else int(nbrs_up.shape[1])),
             ms=cuda_ms(torch, lambda: hn.beam_search(*args)),
             plain_ms=cuda_ms(torch, lambda: hn.beam_search_plain(*args),
                              iters=2, warmup=1),
@@ -3319,6 +3378,7 @@ def _scale_run(torch, native, card, perf, results, launch_of, trace,
     rec = recall(got, exact)
     torch.cuda.synchronize()
     counts = dict(native.launches)
+    note_shapes("scale-10M", native)
     path = {"synth_rows": "K17", "assign_clusters": "K6",
             "project_rows": "K14 projection",
             "project_queries": "K14 queries", "stage1_select": "K14 select",
@@ -3524,7 +3584,8 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
     if agree < 0.999:
         fail(f"assign_clusters: {agree} of rows agree with the plain version")
     c = cents_ivf.shape[0]
-    bms, by = bound(br * d * 4 + c * d * 4 + br * 8, 2.0 * br * c * d)
+    nbytes, ops = lloyd_work(br, d, c, 1)
+    bms, by = bound(nbytes + br * 8, ops)
     results["assign_clusters[10M tier block]"] = dict(
         shape=f"N={br} C={c} D={d}", max_abs_err=float(
             (dk - dp)[ak == ap].abs().max()), agree=agree,
@@ -3738,9 +3799,15 @@ def pp_work(n: int, d: int, c: int):
 
 def lloyd_work(n: int, d: int, c: int, iterations: int):
     """Lloyd iterations over n x d rows and c centroids, as (bytes, f32
-    ops): the rows and centroids read and 2 n c d ops each."""
-    return (iterations * (n * d * 4 + 2 * c * d * 4),
-            iterations * 2.0 * n * c * d)
+    ops): the rows and centroids read and 2 n c d ops each; on K6's
+    tensor-core route (ops.kmeans.lloyd_route) three TF32 products of
+    them, given as the f32 ops that take as long at bound()'s f32 rate."""
+    from fabstir_vectordb_tpu_torch.ops.kmeans import lloyd_route
+
+    ops = iterations * 2.0 * n * c * d
+    if lloyd_route(n, c, d) == "tf32x3":
+        ops *= 3 * F32_FLOPS / TF32_FLOPS
+    return iterations * (n * d * 4 + 2 * c * d * 4), ops
 
 
 def launch_delta(native, before: dict) -> dict:
@@ -3835,6 +3902,7 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
     (u8c, u8m, u8s), u8q_s, u8q_l = step(lambda: qz.quantize_u8(x))
     y, u8d_s, u8d_l = step(lambda: qz.dequantize_u8(u8c, u8m, u8s))
     counts = dict(native.launches)
+    note_shapes("quant-1m", native)
     path = ("seed_pick", "seed_min_update", "lloyd_block", "quantize_u8",
             "dequantize_u8", "pq_encode", "pq_decode", "pq_adc_table",
             "pq_adc_distances", "chunk_step")
@@ -4296,6 +4364,7 @@ def parallel_phase(torch, native, card: str, perf: dict, results: dict,
                 r["hstate4"], r["istate4"], Q, 10, 64, 16))):
         r[key], sec[key], lau[key] = step(fn)
     counts = dict(native.launches)
+    note_shapes("parallel-1m", native)
     path = ("l2_topk", "l2_topk_bf16_rq", "approx_topk_tf32",
             "rerank_f32_rows", "project_queries", "ivf_scan", "lloyd_partial",
             "lloyd_finish", "assign_clusters", "greedy_descent",
@@ -5131,6 +5200,7 @@ def cold_phase(torch, native, card: str, perf: dict, results: dict,
         os.environ.pop("FVDB_SERVING_DTYPE", None)
     torch.cuda.synchronize()
     counts = {k: v for k, v in native.launches.items() if v}
+    note_shapes("cold-1m", native)
     for name in ("set_member_rows", "masked_topk", "masked_approx_topk",
                  "lloyd_step", "l2_topk", "lloyd_block"):
         if native.launches[name] <= 0:
@@ -5176,6 +5246,8 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "heuristic_kept": "fabstir_vectordb_tpu/index/hnsw.py:160",
     "pair_sq_l2": "fabstir_vectordb_tpu/index/hnsw.py:222",
     "lloyd_block": "fabstir_vectordb_tpu/ops/kmeans.py:112",
+    "lloyd_block_fma": "fabstir_vectordb_tpu/ops/kmeans.py:112",
+    "assign_clusters_fma": "fabstir_vectordb_tpu/ops/kmeans.py:70",
     "greedy_descent": "fabstir_vectordb_tpu/index/hnsw.py:249",
     "beam_search": "fabstir_vectordb_tpu/index/hnsw.py:312",
     "ivf_scan": "fabstir_vectordb_tpu/index/ivf.py:79",
@@ -5232,6 +5304,8 @@ SOURCES = {
     "heuristic_kept": "fabstir_vectordb_tpu_torch/csrc/heuristic_kept.cu",
     "pair_sq_l2": "fabstir_vectordb_tpu_torch/csrc/pair_sq_l2.cu",
     "lloyd_block": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
+    "lloyd_block_fma": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
+    "assign_clusters_fma": "fabstir_vectordb_tpu_torch/csrc/lloyd.cu",
     "greedy_descent": "fabstir_vectordb_tpu_torch/csrc/greedy_descent.cu",
     "beam_search": "fabstir_vectordb_tpu_torch/csrc/beam_search.cu",
     "ivf_scan": "fabstir_vectordb_tpu_torch/csrc/ivf_scan.cu",
@@ -5315,6 +5389,7 @@ TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
 # tensor-core route's (bound_fma_ms) and a bf16 torch.matmul of the same
 # product (gemm_ms)
 DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
+               "steps_max", "warps_a_query",
                "library_device_us", "tile_pass", "gemm_ms", "bound_fma_ms",
                "stage1_select_fma_launches",
                "stage1_select_overflow_launches", "launches_one_call")
@@ -5460,6 +5535,9 @@ def main() -> None:
               flush=True)
     if ROUTE_CHECKS:
         print("route_checks " + json.dumps(ROUTE_CHECKS), flush=True)
+    if SHAPE_LAUNCHES:
+        print("launches_by_shape (K11, K6) " + json.dumps(SHAPE_LAUNCHES),
+              flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card: {card}",
           flush=True)

@@ -346,7 +346,8 @@ def beam_search_plain(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q,
                       stats: dict | None = None):
     """Plain version of K11: the reference's _beam_search_jit step for step
     (stable sorts, the same done / keep logic). ``stats`` (a dict) gets
-    "steps" (steps of running queries), "parents" (lists gathered),
+    "steps" (steps of running queries), "steps_max" (the most steps one
+    query ran: its chain of dependent reads), "parents" (lists gathered),
     "rows" (neighbours that passed the filters and were scored) and "seen"
     (see _mark_seen): the work the kernel does on these inputs."""
     if use_nbrs0 is None:
@@ -385,6 +386,7 @@ def beam_search_plain(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q,
         res_d, res_id = pool_d, pool_id
     done = ~active
     rows_max = nbrs_up.shape[0] - 1
+    ran = torch.zeros(b, dtype=torch.int64, device=dev)  # steps a query ran
     it = 0
     while it < max_iters and bool((~done).any()):
         und = torch.where(pool_exp | (pool_id < 0),
@@ -420,6 +422,7 @@ def beam_search_plain(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q,
             for key, v in (("steps", run), ("parents", parent_ok),
                            ("rows", valid)):
                 stats[key] = stats.get(key, 0) + int(v.sum())
+            ran += run
             _mark_seen(stats, x, nbr[valid])
         nd = _gather_dists(x, x_sq, q, q_sq, nbr)
         nd = torch.where(valid, nd, torch.full_like(nd, INF))
@@ -445,7 +448,24 @@ def beam_search_plain(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q,
             res_d, res_id = pool_d, pool_id
         done = done2
         it += 1
+    if stats is not None:
+        stats["steps_max"] = int(ran.max()) if b else 0
     return _dedup_sorted(res_d, res_id)
+
+
+# warps a query of K11 (1-8): about 16 of a step's W x width candidates a
+# warp, halved while the launch would hold more warps than the card keeps
+# resident at once (132 SMs x 16 warps at the kernel's 128 registers)
+BEAM_RESIDENT_WARPS = 2048
+
+
+def beam_plan(b: int, expand: int, width: int) -> int:
+    """Warps a query (a block) of K11 for B = b queries expanding
+    ``expand`` lists of ``width`` a step."""
+    warps = min(8, max(1, -(-expand * width // 16)))
+    while warps > 1 and b * warps > BEAM_RESIDENT_WARPS:
+        warps //= 2
+    return warps
 
 
 def beam_search(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start_ids,
@@ -463,7 +483,7 @@ def beam_search(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start_ids,
     expands the ``expand`` best unexpanded pool entries. Returns (d [B, ef]
     f32, ids [B, ef] int32) sorted ascending, +inf / -1 padded. The plain
     version on CPU tensors, csrc/beam_search.cu on CUDA tensors (expand x
-    list width <= 256)."""
+    list width <= 256; ``beam_plan`` warps a query)."""
     if use_nbrs0 is None:
         use_nbrs0 = int(layer) == 0
     if x.device.type == "cpu":
@@ -504,18 +524,20 @@ def beam_search(x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start_ids,
                if per_q else None)
     native.call(
         "beam_search", "fvdb_beam_search",
-        [P, I, P, P, P, I, I, P, I, P, I, I, P, I, P, P, I, I, I, P, P, P,
-         P],
+        [P, I, P, P, P, I, I, P, I, P, I, I, P, I, P, P, I, I, I, I, P, P,
+         P, P],
         x.data_ptr(), int(bf16), x_sq.data_ptr(), mask.data_ptr(),
         adj.data_ptr(), adj.shape[0], mw, 0 if use_nbrs0 else up_offset.data_ptr(),
         int(layer), q.data_ptr(), b, d, start_ids.data_ptr(), s,
         0 if active is None else active.data_ptr(),
         0 if result_mask is None else result_mask.data_ptr(), int(ef),
-        int(max_iters), int(expand),
+        int(max_iters), int(expand), beam_plan(b, expand, mw),
         0 if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
         out_id.data_ptr(), native.stream_of(x))
-    native.launches[native.counter("beam_search", bf16,
-                                   up=not use_nbrs0)] += 1
+    name = native.counter("beam_search", bf16, up=not use_nbrs0)
+    native.launches[name] += 1
+    native.count_shape(name, f"B={b} ef={ef} W={expand} layer={int(layer)}"
+                       + (" filtered" if result_mask is not None else ""))
     return out_d, out_id
 
 

@@ -2,7 +2,9 @@
 
 The JAX package's ``ops/kmeans.py`` with PyTorch inside. The Lloyd
 iterations and the nearest-centroid assignment are a hand-written kernel on
-the card (csrc/lloyd.cu), which also runs an iteration in two halves for
+the card (csrc/lloyd.cu: its distances on the tensor cores by three TF32
+products, or on an FMA tile at the shapes that route does not take, as
+:func:`lloyd_route` picks), which also runs an iteration in two halves for
 the sharded Lloyd step (``lloyd_partial`` on each shard, ``lloyd_finish``
 on the sums summed across the shards); the seeding's device programs (the
 weighted pick, the min-distance table, the candidates' populations) are
@@ -32,6 +34,46 @@ class TrainResult(NamedTuple):
     final_error: float  # mean squared assignment distance
 
 
+# centroids below which K6 keeps its FMA tile: the tensor-core route takes
+# them 128 a pass
+LLOYD_TC_MIN_C = 64
+
+
+def lloyd_route(n: int, c: int, d: int, aligned: bool = True) -> str:
+    """K6's route for n rows of d dims against c centroids: "tf32x3" (the
+    tensor cores, three TF32 products; TMA copies 16-byte rows) at d % 4
+    == 0, c >= LLOYD_TC_MIN_C and rows and centroids 16-byte aligned,
+    else "fma" (csrc/lloyd.cu's FMA tile)."""
+    del n  # every row count takes either route
+    return "tf32x3" if d % 4 == 0 and c >= LLOYD_TC_MIN_C and aligned \
+        else "fma"
+
+
+def _lloyd_args(x, cents, base: str):
+    """(tc flag, the parts' scratch [2, C, D] or None, the launch
+    counter) of a K6 call on CUDA tensors."""
+    aligned = x.data_ptr() % 16 == 0 and cents.data_ptr() % 16 == 0
+    c, d = cents.shape
+    tc = lloyd_route(x.shape[0], c, d, aligned) == "tf32x3"
+    parts = (torch.empty(2 * c * d, dtype=torch.float32, device=x.device)
+             if tc else None)
+    return int(tc), parts, base if tc else f"{base}_fma"
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _lloyd_scratch(n: int, c: int, d: int, dev):
+    """One f32 scratch of a Lloyd call and the pointers to its parts: sums
+    [C, D] first (the tensor-core route adds rows into them 16 bytes at a
+    time), then x_sq [N], c_sq [C], counts [C], stats [2]."""
+    scratch = torch.empty(c * d + n + c + c + 2, dtype=torch.float32,
+                          device=dev)
+    offs = np.cumsum([0, c * d, n, c, c])
+    return scratch, [scratch[int(o):].data_ptr() for o in offs]
+
+
 def assign_clusters_plain(x, centroids, mask=None, c_sq=None):
     d = pairwise_sq_l2(x, centroids, c_sq)  # [N, C]
     assign = torch.argmin(d, dim=1).to(torch.int32)  # first minimum
@@ -45,7 +87,8 @@ def assign_clusters_plain(x, centroids, mask=None, c_sq=None):
 def assign_clusters(x, centroids, mask=None):
     """Nearest-centroid assignment: (assign [N] int32, d2 [N] f32); rows
     outside ``mask`` get -1 and 0. The plain version on CPU tensors, the
-    assignment kernel of csrc/lloyd.cu on CUDA tensors."""
+    assignment kernel of csrc/lloyd.cu on CUDA tensors (its route by
+    :func:`lloyd_route`)."""
     if x.device.type == "cpu":
         return assign_clusters_plain(x, centroids, mask)
     dev = x.device
@@ -62,14 +105,16 @@ def assign_clusters(x, centroids, mask=None):
     if n == 0:
         return assign, d2
     scratch = torch.empty(n + c, dtype=torch.float32, device=dev)
+    tc, parts, name = _lloyd_args(x, centroids, "assign_clusters")
     P, I = native.P, native.I
     native.call(
-        "lloyd", "fvdb_assign", [P, P, P, I, I, I, P, P, P, P, P],
+        "lloyd", "fvdb_assign", [P, P, P, I, I, I, I, P, P, P, P, P, P],
         x.data_ptr(), 0 if mask is None else mask.data_ptr(),
-        centroids.data_ptr(), n, c, d, scratch.data_ptr(),
-        scratch[n:].data_ptr(), assign.data_ptr(), d2.data_ptr(),
-        native.stream_of(x))
-    native.launches["assign_clusters"] += 1
+        centroids.data_ptr(), n, c, d, tc, scratch.data_ptr(),
+        scratch[n:].data_ptr(), _ptr(parts), assign.data_ptr(),
+        d2.data_ptr(), native.stream_of(x))
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} C={c} D={d}")
     return assign, d2
 
 
@@ -113,18 +158,18 @@ def lloyd_step(x, mask, centroids):
         raise ValueError("shape mismatch in lloyd_step")
     new = torch.empty_like(centroids)
     err = torch.empty(1, dtype=torch.float32, device=dev)
-    # x_sq [N] | c_sq [C] | sums [C, D] | counts [C] | stats [2]
-    scratch = torch.empty(n + c + c * d + c + 2, dtype=torch.float32,
-                          device=dev)
-    offs = np.cumsum([0, n, c, c * d, c])
-    ptr = [scratch[int(o):].data_ptr() for o in offs]
+    scratch, (sums, x_sq, c_sq, counts, stats) = _lloyd_scratch(n, c, d,
+                                                                dev)
+    tc, parts, name = _lloyd_args(x, centroids, "lloyd_step")
     P, I = native.P, native.I
     native.call(
-        "lloyd", "fvdb_lloyd_step", [P, P, P, I, I, I, P, P, P, P, P, P, P, P],
+        "lloyd", "fvdb_lloyd_step",
+        [P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P],
         x.data_ptr(), 0 if mask is None else mask.data_ptr(),
-        centroids.data_ptr(), n, c, d, *ptr, new.data_ptr(), err.data_ptr(),
-        native.stream_of(x))
-    native.launches["lloyd_step"] += 1
+        centroids.data_ptr(), n, c, d, tc, x_sq, c_sq, _ptr(parts), sums,
+        counts, stats, new.data_ptr(), err.data_ptr(), native.stream_of(x))
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} C={c} D={d}")
     return new, err[0]
 
 
@@ -155,18 +200,18 @@ def lloyd_block(x, mask, cents, steps: int):
         raise ValueError("shape mismatch in lloyd_block")
     all_c = torch.empty((steps, c, d), dtype=torch.float32, device=dev)
     errs = torch.empty(steps, dtype=torch.float32, device=dev)
-    # x_sq [N] | c_sq [C] | sums [C, D] | counts [C] | stats [2]
-    scratch = torch.empty(n + c + c * d + c + 2, dtype=torch.float32,
-                          device=dev)
-    offs = np.cumsum([0, n, c, c * d, c])
-    ptr = [scratch[int(o):].data_ptr() for o in offs]
+    scratch, (sums, x_sq, c_sq, counts, stats) = _lloyd_scratch(n, c, d,
+                                                                dev)
+    tc, parts, name = _lloyd_args(x, cents, "lloyd_block")
     P, I = native.P, native.I
     native.call(
         "lloyd", "fvdb_lloyd_block",
-        [P, P, P, I, I, I, I, P, P, P, P, P, P, P, P],
-        x.data_ptr(), mask.data_ptr(), cents.data_ptr(), n, c, d, steps,
-        *ptr, all_c.data_ptr(), errs.data_ptr(), native.stream_of(x))
-    native.launches["lloyd_block"] += 1
+        [P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P, P],
+        x.data_ptr(), mask.data_ptr(), cents.data_ptr(), n, c, d, steps, tc,
+        x_sq, c_sq, _ptr(parts), sums, counts, stats, all_c.data_ptr(),
+        errs.data_ptr(), native.stream_of(x))
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} C={c} D={d} steps={steps}")
     return all_c, errs
 
 
@@ -207,13 +252,17 @@ def lloyd_partial(x, mask, cents):
     counts = torch.empty(c, dtype=torch.float32, device=dev)
     stats = torch.empty(2, dtype=torch.float32, device=dev)
     scratch = torch.empty(n + c, dtype=torch.float32, device=dev)
+    tc, parts, name = _lloyd_args(x, cents, "lloyd_partial")
     P, I = native.P, native.I
     native.call(
-        "lloyd", "fvdb_lloyd_partial", [P, P, P, I, I, I, P, P, P, P, P, P],
-        x.data_ptr(), mask.data_ptr(), cents.data_ptr(), n, c, d,
-        scratch.data_ptr(), scratch[n:].data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), stats.data_ptr(), native.stream_of(x))
-    native.launches["lloyd_partial"] += 1
+        "lloyd", "fvdb_lloyd_partial",
+        [P, P, P, I, I, I, I, P, P, P, P, P, P, P],
+        x.data_ptr(), mask.data_ptr(), cents.data_ptr(), n, c, d, tc,
+        scratch.data_ptr(), scratch[n:].data_ptr(), _ptr(parts),
+        sums.data_ptr(), counts.data_ptr(), stats.data_ptr(),
+        native.stream_of(x))
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} C={c} D={d}")
     return sums, counts, stats
 
 

@@ -57,6 +57,12 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16", "l2_topk_bf16_rq"):
 # ("heuristic_kept" and "heuristic_kept_bf16" count the tensor cores)
 launches["heuristic_kept_fma"] = 0
 launches["heuristic_kept_bf16_fma"] = 0
+# K6 on its FMA tile, at the shapes its tensor-core route does not take
+# (ops/kmeans.py lloyd_route; the names without "_fma" count the tensor
+# cores)
+for _base in ("assign_clusters", "lloyd_block", "lloyd_partial",
+              "lloyd_step"):
+    launches[f"{_base}_fma"] = 0
 # K9 on f32 rows on the tensor cores (three TF32 products; "approx_topk_f32"
 # counts the FMA pass)
 launches["approx_topk_tf32"] = 0
@@ -75,6 +81,17 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
               "ivf_scan", "ivf_scan_bf16"):
     for _metric in ("cosine", "dot"):
         launches[f"{_base}_{_metric}"] = 0
+
+
+# launches of K11 and K6 by shape ("<counter> <shape>"): the wrappers add
+# one beside their counter's, and reset_launches clears them with it
+shape_launches: dict[str, int] = {}
+
+
+def count_shape(name: str, shape: str) -> None:
+    """One launch of counter ``name`` at ``shape``."""
+    key = f"{name} {shape}"
+    shape_launches[key] = shape_launches.get(key, 0) + 1
 
 
 def counter(base: str, bf16: bool = False, metric: str = "euclidean",
@@ -97,6 +114,7 @@ build_log: dict[str, str] = {}  # source -> ptxas report of its last build
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    shape_launches.clear()
 
 
 def nvcc() -> str:

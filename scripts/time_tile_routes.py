@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time K14's stage 1, K1 / K3 on f32 rows (and on bf16 rows with an f32
-query), K4 and K9 on f32 rows on one NVIDIA GPU, beside yardsticks that the
-port never calls.
+query), K4, K9 on f32 rows, K11 and K6 on one NVIDIA GPU, beside
+yardsticks that the port never calls.
 
     python scripts/time_tile_routes.py [--root DIR] [--out DIR] [--iters N]
-                                       [--only stage1|f32|k4|k9f32|k9bf16]
+                                       [--only stage1|f32|k4|k9f32|k9bf16|
+                                               k11|k6]
                                        [--profile]
-                                       [--split fma|tf32x3|stage1|k4|k9f32]
+                                       [--split fma|tf32x3|stage1|k4|k9f32|
+                                                k11|k6]
 
 ``--root`` imports ``fabstir_vectordb_tpu_torch`` from another checkout (an
 older tree unpacked under ``build/``, e.g. ``git archive HEAD~``), so two
@@ -50,6 +52,25 @@ rounded (the turbo pool's route); each held to its plain version: the
 pools share >= 0.99 of their rows on average, the shared rows' distances
 within 1e-5 of the largest norms.
 
+K11 (``index.hnsw.beam_search``, ``--only k11``): a seeded layered graph
+over every 8th row of 1,048,576 x 384 clustered f32 rows (k11_graph: exact
+neighbours, 32 at layer 0, 16 above), starts by K10's descent; serve at B
+= 1 and 128 (ef 64, W 4, +- a filter of half the rows), on f32 and bf16
+rows; the layer-0 link (B = 1,024, ef 200, W 1) and one upper layer (the
+queries below it inactive) on each. Each held to its plain version
+(overlap >= 0.99, no filtered-out row), with the plain version's steps
+(all queries, and the longest query's chain) beside a latency bound:
+that chain times one dependent global read, which a one-thread pointer
+chase over 1 GiB measures here (and over 8 MiB, from L2). Device
+microseconds by kernel always (torch.profiler).
+
+K6 (``ops.kmeans``, ``--only k6``): the 10M tier's assignment block
+(1,048,576 x 384, C = 256), kmeans_train's Lloyd block (65,536, 5 steps),
+the sharded partial (1,000,000 rows) and the sharded assignment's four
+shard calls, PQ's block (D = 48) and B2's step, each against its plain
+version (assignments >= 99.9% equal; the centroids' and errors' gaps
+printed) and its route.
+
 ``--profile`` adds each shape's device microseconds by kernel, from
 torch.profiler's kernel records of one call (K4: the mean of 20). Each
 result is held to its plain version on the same inputs (sorted
@@ -84,9 +105,24 @@ tensor-core route, csrc/heuristic_kept.cu, at every --only k4 shape but
 the FMA route's): "as_is"; "one_product", the f32 rows' big products
 alone; "bf16_three_wg", bf16 rows past 64 candidates on three warpgroups
 (one block each, one block an SM) for one (three blocks' sums, three
-blocks an SM). The results are wrong
-on purpose, but for "k9f32", whose variants compute the same; only the
-time is read. Each variant's ptxas report (registers, spills, serialized
+blocks an SM); "k11" (csrc/beam_search.cu at K11's f32 shapes: a phase
+done twice, so the walk is the same and the added time is the phase's:
+the parent kernel's "member_twice" (each candidate's serial pool scan),
+"rank_twice" (the O(nv) rank), "gather_twice" (the rows' distances);
+this tree's "gather_twice", "scan_from_zero" (the
+parents sought from position 0, not from the first unexpanded one),
+"regs_255" (one block an SM in the launch bounds: 255 registers, not
+128), "one_warp" (one warp a query) and "stats" (the clock64 cycles of each
+phase of a step in one active query's block, printed a call); a variant
+whose text a tree does not hold is skipped); "k6" (csrc/lloyd.cu's
+tensor-core route at the 1M assignment and partial and the Lloyd
+block): "as_is"; "no_sums", no row added into the sums (the N x D
+atomics); "scalar_atomics", the sums four 4-byte atomics a 16-byte
+piece; "no_mma", no product; "x_from_l2", every block reading the first
+128 rows (L2 hits).
+The results are wrong
+on purpose, but for "k9f32" and "k11", whose variants compute the same;
+only the time is read. Each variant's ptxas report (registers, spills, serialized
 products) is printed.
 """
 from __future__ import annotations
@@ -197,8 +233,115 @@ SPLITS = {
     },
 }
 # the source each --split pass is built into
+SPLITS["k11"] = {  # csrc/beam_search.cu: a phase twice, the walk unchanged
+    "as_is": [],
+    # the parent kernel (one 256-thread block a query)
+    "member_twice": [("beam_search.cu",
+                      "    for (int p = 0; ok && p < pool_n; ++p) ok = "
+                      "L.pid[p] != id;",
+                      "    for (int p = 0; ok && p < pool_n; ++p) ok = "
+                      "L.pid[p] != id;\n    for (int p = 0; ok && p < "
+                      "pool_n; ++p) ok = L.pid[p] != id;")],
+    "rank_twice": [("beam_search.cu",
+                    "      for (int j = 0; j < nv; ++j) {\n"
+                    "        const float dj = v_d[j];\n"
+                    "        rank += (dj < di) || (dj == di && j < t);",
+                    "      for (int j = 0; j < 2 * nv; ++j) {\n"
+                    "        const float dj = v_d[j % nv];\n"
+                    "        rank += j < nv && ((dj < di) || (dj == di && "
+                    "j < t));")],
+    "gather_twice": [("beam_search.cu",
+                      "    for (int i0 = w * 4; i0 < nv; i0 += (NT / 32) * 4) {",
+                      "    for (int rep = 0; rep < 2; ++rep)\n"
+                      "    for (int i0 = w * 4; i0 < nv; i0 += (NT / 32) * 4) {"),
+                     ("beam_search.cu",
+                      "    for (int base = w * BS_G; base < nv; base += NW * "
+                      "BS_G) {",
+                      "    for (int rep = 0; rep < 2; ++rep)\n"
+                      "    for (int base = w * BS_G; base < nv; base += NW * "
+                      "BS_G) {")],
+    # this tree's kernel (a block of 1-8 warps a query)
+    "scan_from_zero": [("beam_search.cu",
+                        "        for (int p0 = first; p0 < pool_n && nsel < "
+                        "W; p0 += 32) {",
+                        "        for (int p0 = 0 * first; p0 < pool_n && nsel "
+                        "< W; p0 += 32) {")],
+    "stats": [  # clock64 of each phase in one active block's thread 0
+        ("beam_search.cu", "// KC: 32s of candidates a lane holds",
+         "__device__ long long fvdb_phase_dev[8];\n"
+         "// KC: 32s of candidates a lane holds"),
+        ("beam_search.cu",
+         "  int pool_n = 0, res_n = 0, first = 0, filled = 0;",
+         "  int pool_n = 0, res_n = 0, first = 0, filled = 0;\n"
+         "  long long _ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};"),
+        ("beam_search.cu", "    const bool from_start = s0 < s_eff;",
+         "    const long long _ts = clock64();\n"
+         "    const bool from_start = s0 < s_eff;"),
+        ("beam_search.cu", "    if (s_ctl[0]) break;\n",
+         "    if (s_ctl[0]) break;\n    _ph[0] += clock64() - _ts;\n"
+         "    long long _tp = clock64();\n"),
+        ("beam_search.cu",
+         "    for (int i = t; i < nsel; i += NTH) L.pexp[s_sel[i]] = 1;\n"
+         "    __syncthreads();",
+         "    for (int i = t; i < nsel; i += NTH) L.pexp[s_sel[i]] = 1;\n"
+         "    __syncthreads();\n    _ph[2] += clock64() - _tp; _tp = "
+         "clock64();"),
+        ("beam_search.cu",
+         "    if (from_start) s0 += NC;\n    __syncthreads();\n  }",
+         "    _ph[7] += clock64() - _tp; _tp = clock64();\n"
+         "    if (from_start) s0 += NC;\n    __syncthreads();\n"
+         "    _ph[5] += clock64() - _tp; _ph[4] += 1; _ph[6] += nv;\n  }"),
+        ("beam_search.cu",
+         "    od[j] = INFINITY;\n    oi[j] = -1;\n  }\n}",
+         "    od[j] = INFINITY;\n    oi[j] = -1;\n  }\n"
+         "  if (t == 0 && b == (gridDim.x > 2 ? 2 : 0))\n"
+         "    for (int i = 0; i < 8; ++i) fvdb_phase_dev[i] = _ph[i];\n}"),
+        ("beam_search.cu",
+         "// x [N, D] (x_bf16: bf16, else f32), x_sq [N], mask [N] (uint8); adj",
+         "FVDB_EXPORT int fvdb_beam_phase_cycles(long long* out) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, fvdb::fvdb_phase_dev,\n"
+         "                                   8 * sizeof(long long));\n}\n"
+         "// x [N, D] (x_bf16: bf16, else f32), x_sq [N], mask [N] (uint8); adj"),
+    ],
+    "regs_255": [("beam_search.cu",
+                  "__global__ void __launch_bounds__(BS_MAX_WARPS * 32, 2) "
+                  "beam_search_kernel(",
+                  "__global__ void __launch_bounds__(BS_MAX_WARPS * 32, 1) "
+                  "beam_search_kernel(")],
+    "one_warp": [("beam_search.cu",
+                  "    kernel<<<B, 32 * warps, smem, stream>>>(",
+                  "    kernel<<<B, 32, smem, stream>>>(")],
+}
+SPLITS["k6"] = {  # csrc/lloyd.cu's tensor-core route
+    "as_is": [],
+    "no_sums": [("lloyd.cu",
+                 "        if (vec) {\n"
+                 "          atomicAdd(reinterpret_cast<float4*>(sr + d), v);\n"
+                 "        } else {",
+                 "        if (c < 0) {\n"
+                 "          atomicAdd(reinterpret_cast<float4*>(sr + d), v);\n"
+                 "        } else if (c < 0) {")],
+    "scalar_atomics": [("lloyd.cu",
+                        "  const bool vec = (reinterpret_cast<uintptr_t>(sums) "
+                        "& 15) == 0;",
+                        "  const bool vec = false;")],
+    "no_mma": [("lloyd.cu",
+                "        WgmmaTF32<128>::mma(pb, ab[j], db + 2 * j, 0);\n"
+                "        WgmmaTF32<128>::mma(pb, as[j], db + 2 * j, 1);\n"
+                "        WgmmaTF32<128>::mma(pb, ab[j], ds + 2 * j, 1);",
+                "        if (N < 0) {\n"
+                "        WgmmaTF32<128>::mma(pb, ab[j], db + 2 * j, 0);\n"
+                "        WgmmaTF32<128>::mma(pb, as[j], db + 2 * j, 1);\n"
+                "        WgmmaTF32<128>::mma(pb, ab[j], ds + 2 * j, 1);\n"
+                "        }")],
+    "x_from_l2": [("lloyd.cu", "        tma_load_2d(dst, &tmx, k0, n0, full "
+                   "+ slot);", "        tma_load_2d(dst, &tmx, k0, 0, full "
+                   "+ slot);")],
+}
+# the source each --split pass is built into
 SPLIT_SOURCE = {"fma": "l2_topk", "tf32x3": "l2_topk", "stage1": "l2_topk",
-                "k4": "heuristic_kept", "k9f32": "approx_topk"}
+                "k4": "heuristic_kept", "k9f32": "approx_topk",
+                "k11": "beam_search", "k6": "lloyd"}
 # what a ptxas report line says that is worth printing
 PTXAS_WORDS = ("registers", "spill", "serializ")
 
@@ -495,13 +638,336 @@ def k9(torch, tp, native, res, it, prof=False, bf16=False) -> None:
         print(f"{key} {res[key]}", flush=True)
 
 
+K11_N, K11_EVERY = 1_048_576, 8  # rows of the store; every 8th in the graph
+# a pointer chase a thread at a time: the card's dependent global read
+CHASE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void chase(const int* __restrict__ nxt, int hops,
+                      long long* out) {
+  int p = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < hops; ++i) p = nxt[p];
+  out[0] = clock64() - t0;
+  out[1] = p;
+}
+extern "C" int fvdb_chase(const int* nxt, int hops, long long* out) {
+  chase<<<1, 1>>>(nxt, hops, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def round_trip_ns(torch, native, root: Path) -> dict:
+    """Nanoseconds of one dependent global read by one thread (a chase
+    through a random cycle of ints): over 1 GiB (HBM) and 8 MiB (L2)."""
+    out_dir = root / "build" / "chase"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "chase.cu").write_text(CHASE_SRC)
+    r = subprocess.run([native.nvcc(), *native.NVCC_FLAGS, "-o",
+                        str(out_dir / "chase.so"), str(out_dir / "chase.cu")],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"chase: nvcc failed\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(str(out_dir / "chase.so"))
+    lib.fvdb_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    dev = torch.device("cuda")
+    khz = torch.cuda.get_device_properties(0).clock_rate if hasattr(
+        torch.cuda.get_device_properties(0), "clock_rate") else None
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(22)
+    for tag, n in (("hbm", 1 << 28), ("l2", 1 << 21)):
+        perm = torch.randperm(n, device=dev, generator=g).to(torch.int32)
+        nxt = torch.empty_like(perm)
+        nxt[perm] = torch.roll(perm, 1)  # one cycle through every slot
+        out = torch.zeros(2, dtype=torch.int64, device=dev)
+        hops = 20_000
+        lib.fvdb_chase(nxt.data_ptr(), 1000, out.data_ptr())  # warm
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        err = lib.fvdb_chase(nxt.data_ptr(), hops, out.data_ptr())
+        b.record()
+        torch.cuda.synchronize()
+        if err:
+            raise SystemExit(f"chase: CUDA error {err}")
+        res[f"{tag}_ns"] = a.elapsed_time(b) * 1e6 / hops
+        res[f"{tag}_cycles"] = int(out[0]) / hops
+        del perm, nxt
+    res["sm_clock_khz"] = khz
+    return res
+
+
+def k11_graph(torch):
+    """A seeded layered graph over every 8th row of 1,048,576 x 384
+    clustered f32 rows (bench.py's mixture: 1,024 centers, noise 0.35):
+    layer 0 each member's 32 nearest members, layer l >= 1 (a member's
+    level l with probability 16^-l) its 16 nearest of that level, as
+    index/hnsw.py's device arrays hold them (nbrs0 [N, 32], nbrs_up read
+    at up_offset[id] + l - 1). Exact neighbours by an f32 torch.matmul
+    (TF32 off) and torch.topk, not HNSW's heuristic: a walk's shape, not
+    its recall, is what is timed."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    centers = torch.randn(1024, D, device=dev, generator=g)
+    lab = torch.randint(0, 1024, (K11_N,), device=dev, generator=g)
+    x = centers[lab] + 0.35 * torch.randn(K11_N, D, device=dev, generator=g)
+    del lab
+    x_sq = (x * x).sum(1)
+    members = torch.arange(0, K11_N, K11_EVERY, device=dev)
+    nm = members.numel()
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def knn(ids, k):
+        xm, sq = x[ids], x_sq[ids]
+        out = torch.empty((ids.numel(), k), dtype=torch.int32, device=dev)
+        for lo in range(0, ids.numel(), 4096):
+            hi = min(ids.numel(), lo + 4096)
+            dd = sq[lo:hi, None] - 2.0 * xm[lo:hi] @ xm.T + sq[None]
+            dd[torch.arange(hi - lo, device=dev),
+               torch.arange(lo, hi, device=dev)] = float("inf")
+            out[lo:hi] = ids[torch.topk(dd, k, dim=1, largest=False)[1]
+                             ].to(torch.int32)
+        return out
+
+    nbrs0 = torch.full((K11_N, 32), -1, dtype=torch.int32, device=dev)
+    nbrs0[members] = knn(members, 32)
+    u = torch.rand(nm, device=dev, generator=g)
+    level = torch.floor(-torch.log(u.clamp_min(1e-12)) / np.log(16)).to(
+        torch.int32).clamp_max(4)
+    level[0] = int(level.max()) + 1 if int(level.max()) < 4 else 4
+    top = int(level.max())
+    up_offset = torch.full((K11_N,), -1, dtype=torch.int32, device=dev)
+    up_rows = int(level.sum())
+    nbrs_up = torch.full((max(up_rows, 1), 16), -1, dtype=torch.int32,
+                         device=dev)
+    base = torch.cumsum(level, 0) - level
+    up_offset[members] = base.to(torch.int32)
+    for lay in range(1, top + 1):
+        at = members[level >= lay]
+        if at.numel() > 1:
+            nb = knn(at, min(16, at.numel() - 1))
+            rows = up_offset[at].long() + lay - 1
+            nbrs_up[rows, :nb.shape[1]] = nb
+    mask = torch.zeros(K11_N, dtype=torch.bool, device=dev)
+    mask[members] = True
+    entry = int(members[0])
+    q = (centers[torch.randint(0, 1024, (1024,), device=dev, generator=g)]
+         + 0.35 * torch.randn(1024, D, device=dev, generator=g))
+    fmask = torch.rand(K11_N, device=dev, generator=g) < 0.5
+    return {"x": x, "x_sq": x_sq, "mask": mask, "nbrs0": nbrs0,
+            "nbrs_up": nbrs_up, "up_offset": up_offset, "entry": entry,
+            "top": top, "q": q, "fmask": fmask, "members": nm}
+
+
+def k11_cases(torch, hn, gr) -> list:
+    """K11's shapes: (name, rows, x_sq, queries, start [B, 1], active,
+    layer, ef, W, result mask). Starts by K10's descent (to layer 0, or to
+    each query's level for the upper layer: a quarter of the queries at
+    each of levels 0-3, so about half take part at layer 2)."""
+    x, x_sq, q = gr["x"], gr["x_sq"], gr["q"]
+    xb = x.to(torch.bfloat16)
+    sq_b = (xb.float() ** 2).sum(1)
+    args = (gr["mask"], gr["nbrs_up"], gr["up_offset"])
+    cur, _ = hn.greedy_descent(x, x_sq, *args, q, gr["entry"], gr["top"])
+    cur_b, _ = hn.greedy_descent(xb, sq_b, *args, q, gr["entry"], gr["top"])
+    layer = min(2, gr["top"])
+    stop_np = np.minimum(np.arange(1024) % 4, gr["top"]).astype(np.int32)
+    stop = torch.from_numpy(stop_np).to(q.device)
+    act = torch.from_numpy(stop_np >= layer).to(q.device)
+    cu, _ = hn.greedy_descent(x, x_sq, *args, q, gr["entry"], gr["top"], stop)
+    cu_b, _ = hn.greedy_descent(xb, sq_b, *args, q, gr["entry"], gr["top"],
+                                stop)
+    s = cur[:, None].contiguous()
+    sb = cur_b[:, None].contiguous()
+    fm = gr["fmask"]
+    return [
+        ("k11 serve f32 B=1 ef=64 W=4", x, x_sq, q[:1], s[:1], None, 0, 64,
+         4, None),
+        ("k11 serve f32 B=128 ef=64 W=4", x, x_sq, q[:128], s[:128], None, 0,
+         64, 4, None),
+        ("k11 serve f32 filtered B=128 ef=64 W=4", x, x_sq, q[:128], s[:128],
+         None, 0, 64, 4, fm),
+        ("k11 serve bf16 B=1 ef=64 W=4", xb, sq_b, q[:1], sb[:1], None, 0, 64,
+         4, None),
+        ("k11 serve bf16 B=128 ef=64 W=4", xb, sq_b, q[:128], sb[:128], None,
+         0, 64, 4, None),
+        ("k11 serve bf16 filtered B=128 ef=64 W=4", xb, sq_b, q[:128],
+         sb[:128], None, 0, 64, 4, fm),
+        ("k11 link f32 B=1024 ef=200 W=1", x, x_sq, q, s, None, 0, 200, 1,
+         None),
+        ("k11 link bf16 B=1024 ef=200 W=1", xb, sq_b, q, sb, None, 0, 200, 1,
+         None),
+        (f"k11 upper layer {layer} f32 B=1024 ef=200 W=1", x, x_sq, q,
+         cu[:, None].contiguous(), act, layer, 200, 1, None),
+        (f"k11 upper layer {layer} bf16 B=1024 ef=200 W=1", xb, sq_b, q,
+         cu_b[:, None].contiguous(), act, layer, 200, 1, None),
+    ]
+
+
+def k11(torch, hn, native, root, res, it, prof=False) -> None:
+    gr = k11_graph(torch)
+    rt = round_trip_ns(torch, native, root)
+    res["global_round_trip"] = rt
+    print(f"global round trip {rt}", flush=True)
+    for (key, x, x_sq, qq, start, act, lay, ef, w, rm) in k11_cases(
+            torch, hn, gr):
+        args = (x, x_sq, gr["mask"], gr["nbrs0"], gr["nbrs_up"],
+                gr["up_offset"], qq, start, act, lay, ef, ef + 32, rm, None,
+                w)
+
+        def run(args=args):
+            return hn.beam_search(*args)
+
+        _, ik = run()
+        st = {}
+        _, ip = hn.beam_search_plain(*args, stats=st)
+        on = torch.ones(qq.shape[0], dtype=torch.bool, device=qq.device) \
+            if act is None else act
+        if not torch.equal(ik[~on], ip[~on]):
+            raise SystemExit(f"{key}: an inactive query's starts differ")
+        ov = k11_overlap(ik[on].cpu().numpy(), ip[on].cpu().numpy())
+        if ov < 0.99:
+            raise SystemExit(f"{key}: overlap {ov} with the plain version")
+        if rm is not None:
+            got = ik[ik >= 0].long()
+            if not bool(rm[got].all()):
+                raise SystemExit(f"{key}: a filtered-out row came back")
+        b = qq.shape[0]
+        seen = int(st["seen"].sum())
+        nbytes = (seen * (D * x.element_size() + 4 + 1)
+                  + st["parents"] * 32 * 4 + b * D * 4 + b * ef * 8)
+        steps_max = st.get("steps_max", 0)
+        res[key] = {"ms": cuda_ms(torch, run, it), "overlap_with_plain": ov,
+                    "steps": st["steps"], "steps_max": steps_max,
+                    "rows": st["rows"], "distinct_rows": seen,
+                    "bound_bytes_ms": nbytes / 3.35e12 * 1e3,
+                    "bound_latency_ms": steps_max * rt["hbm_ns"] * 1e-6,
+                    "bound_fma_ms": st["rows"] * 2.0 * D / 67e12 * 1e3,
+                    "warps_a_query": getattr(hn, "beam_plan", lambda *a: 8)(
+                        b, w, 32 if lay == 0 else 16)}
+        res[key]["kernel_us"] = kernel_us(torch, run, 5 if b > 1 else 20)
+        print(f"{key} {res[key]}", flush=True)
+
+
+def k11_overlap(a, b) -> float:
+    """Mean share of each row's valid ids of b that a holds too."""
+    out = []
+    for ra, rb in zip(a, b):
+        sb = set(rb[rb >= 0].tolist())
+        out.append(len(sb & set(ra[ra >= 0].tolist())) / max(len(sb), 1))
+    return float(np.mean(out))
+
+
+def k6_cases(torch) -> list:
+    """K6's shapes: (name, call, plain call, rows, C, D, steps, kind):
+    the 10M tier's assignment block (1,048,576 x 384 against 256 lists),
+    kmeans_train's Lloyd block (65,536 x 384, C = 256, 5 steps), the
+    sharded Lloyd partial (1,000,000 rows, S = 1) and the sharded
+    assignment's four shard calls (250,000 rows each), PQ's Lloyd block
+    (D = 48) and B2's lloyd_step (95% of the rows in the mask); rows drawn
+    as bench.py draws them (1,024 centers, noise 0.35), starting
+    centroids rows of the set."""
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    centers = torch.randn(1024, D, device=dev, generator=g)
+    lab = torch.randint(0, 1024, (N1,), device=dev, generator=g)
+    x = centers[lab] + 0.35 * torch.randn(N1, D, device=dev, generator=g)
+    del lab
+    cents = x[torch.randperm(N1, device=dev, generator=g)[:256]].contiguous()
+    xb = x[:65_536].contiguous()
+    mb = torch.ones(65_536, dtype=torch.bool, device=dev)
+    m95 = torch.rand(65_536, device=dev, generator=g) < 0.95
+    cb = xb[torch.randperm(65_536, device=dev, generator=g)[:256]].contiguous()
+    xp = xb[:, :48].contiguous()
+    cp = cb[:, :48].contiguous()
+    x1m, m1m = x[:1_000_000], torch.ones(1_000_000, dtype=torch.bool,
+                                         device=dev)
+    shards = [x1m[i * 250_000:(i + 1) * 250_000] for i in range(4)]
+    return [
+        ("k6 assign N=1048576 C=256 D=384", lambda: km.assign_clusters(
+            x, cents), lambda: km.assign_clusters_plain(x, cents), N1, 256,
+         D, 1, "assign"),
+        ("k6 lloyd_block N=65536 C=256 D=384 steps=5", lambda: km.lloyd_block(
+            xb, mb, cb, 5), lambda: km.lloyd_block_plain(xb, mb, cb, 5),
+         65_536, 256, D, 5, "block"),
+        ("k6 lloyd_partial N=1000000 C=256 D=384", lambda: km.lloyd_partial(
+            x1m, m1m, cents), lambda: km.lloyd_partial_plain(x1m, m1m, cents),
+         1_000_000, 256, D, 1, "partial"),
+        ("k6 sharded assign 4 x 250000 C=256 D=384", lambda: [
+            km.assign_clusters(s, cents) for s in shards], lambda: [
+            km.assign_clusters_plain(s, cents) for s in shards], 1_000_000,
+         256, D, 1, "assign4"),
+        ("k6 lloyd_block pq N=65536 C=256 D=48 steps=5", lambda: km.lloyd_block(
+            xp, mb, cp, 5), lambda: km.lloyd_block_plain(xp, mb, cp, 5),
+         65_536, 256, 48, 5, "block"),
+        ("k6 lloyd_step (B2) N=65536 C=256 D=384 95% masked in",
+         lambda: km.lloyd_step(xb, m95, cb), lambda: km.lloyd_step_plain(
+             xb, m95, cb), 65_536, 256, D, 1, "step"),
+    ]
+
+
+def k6_agree(kind, got, want) -> dict:
+    """How a K6 call compares with its plain version: the share of equal
+    assignments, or the centroids' and errors' largest difference."""
+    if kind in ("assign", "assign4"):
+        got = got if kind == "assign4" else [got]
+        want = want if kind == "assign4" else [want]
+        eq = sum(int((a[0] == b[0]).sum()) for a, b in zip(got, want))
+        n = sum(a[0].numel() for a in got)
+        share = eq / n
+        if share < 0.999:
+            raise SystemExit(f"assignments agree {share} < 0.999")
+        d2 = max(float((a[1] - b[1]).abs().max()) for a, b in zip(got, want))
+        return {"assign_agree": share, "d2_max_abs_err": d2}
+    if kind == "partial":
+        return {"sums_max_abs_err": float((got[0] - want[0]).abs().max()),
+                "counts_equal": bool(torch_equal(got[1], want[1])),
+                "error_rel": abs(float(got[2][0] - want[2][0]))
+                / max(float(want[2][0]), 1e-30)}
+    return {"centroids_max_abs_err": float((got[0] - want[0]).abs().max()),
+            "error_max_rel": float(((got[1] - want[1]).abs()
+                                    / want[1].abs().clamp_min(1e-30)).max())}
+
+
+def torch_equal(a, b) -> bool:
+    return bool((a == b).all())
+
+
+def k6(torch, res, it, prof=False) -> None:
+    from fabstir_vectordb_tpu_torch.ops import kmeans as km
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for key, run, plain, n, c, d, steps, kind in k6_cases(torch):
+        before = dict(native.launches)
+        got = run()
+        counted = [k for k, v in native.launches.items() if v != before[k]]
+        res[key] = {"counted_as": counted, **k6_agree(kind, got, plain())}
+        del got
+        ops = 2.0 * n * c * d * steps
+        nbytes = steps * (n * d * 4 + 2 * c * d * 4) + n * 8
+        res[key].update({
+            "ms": cuda_ms(torch, run, it),
+            "plain_ms": cuda_ms(torch, plain, 3),
+            "bound_tc_ms": 3 * ops / 495e12 * 1e3,
+            "bound_fma_ms": ops / 67e12 * 1e3,
+            "bound_bytes_ms": nbytes / 3.35e12 * 1e3,
+            "route": getattr(km, "lloyd_route", lambda *a: "fma")(n, c, d)})
+        if prof:
+            res[key]["kernel_us"] = kernel_us(torch, run, 3)
+        print(f"{key} {res[key]}", flush=True)
+
+
 def print_ptxas(tag: str, log: str) -> None:
     for line in log.splitlines():
         if any(w in line for w in PTXAS_WORDS):
             print(f"ptxas {tag}: {line.strip()}", flush=True)
 
 
-def split(root: Path, route: str) -> None:
+def split(root: Path, route: str, only=None) -> None:
     """Build the variants of the pass that f32 rows take in root (``route``,
     as its ops.topk.tile_route names it) from root's sources and time each
     in a process of its own."""
@@ -512,23 +978,34 @@ def split(root: Path, route: str) -> None:
     from fabstir_vectordb_tpu_torch.utils import native
 
     want = "tf32x3" if route == "k9f32" else route
-    if route not in ("stage1", "k4") \
+    if route not in ("stage1", "k4", "k11", "k6") \
             and tp.tile_route(torch.float32, False, D) != want:
         sys.exit(f"--split {route}: f32 rows take "
                  f"{tp.tile_route(torch.float32, False, D)} in {root}")
     source = SPLIT_SOURCE[route]
     procs = []
+    names = []
     for name, patches in SPLITS[route].items():
+        if only and name not in only:
+            continue
         out = root / "build" / "split" / route / name
         out.mkdir(parents=True, exist_ok=True)
+        applied = 0
         for src in [*native.CSRC.glob("*.cuh"), native.CSRC / f"{source}.cu"]:
             text = src.read_text()
             for fname, old, new in patches:
                 if fname == src.name:
                     if old not in text:
+                        if route == "k11":  # another tree's kernel
+                            continue
                         sys.exit(f"{name}: {fname} no longer holds {old!r}")
                     text = text.replace(old, new)
+                    applied += 1
             (out / src.name).write_text(text)
+        if patches and not applied:
+            print(f"split {route} {name}: not in this tree", flush=True)
+            continue
+        names.append(name)
         procs.append((name, subprocess.Popen(
             [native.nvcc(), *native.NVCC_FLAGS, "-o", str(out / f"{source}.so"),
              str(out / f"{source}.cu")], stdout=subprocess.PIPE,
@@ -538,7 +1015,7 @@ def split(root: Path, route: str) -> None:
         if p.returncode:
             sys.exit(f"{name}: nvcc failed\n{log}")
         print_ptxas(f"{route} {name}", log)
-    for name in SPLITS[route]:
+    for name in names:
         r = subprocess.run([sys.executable, __file__, "--root", str(root),
                             "--split-variant", f"{route}:{name}"])
         if r.returncode:
@@ -561,6 +1038,39 @@ def split_variant(root: Path, which: str) -> None:
     native._libs[source] = lib  # the wrapper calls this copy
     dev = torch.device("cuda")
     out = []
+    if route == "k11":
+        from fabstir_vectordb_tpu_torch.index import hnsw as hn
+
+        gr = k11_graph(torch)
+        for (key, x, x_sq, qq, start, act, lay, ef, w, rm) in k11_cases(
+                torch, hn, gr):
+            if "bf16" in key or "filtered" in key:
+                continue
+            args = (x, x_sq, gr["mask"], gr["nbrs0"], gr["nbrs_up"],
+                    gr["up_offset"], qq, start, act, lay, ef, ef + 32, rm,
+                    None, w)
+            us = kernel_us(torch, lambda: hn.beam_search(*args), 5)  # noqa: B023,E501
+            out.append(f"{key[4:]} {sum(us.values()):.1f}")
+            if hasattr(lib, "fvdb_beam_phase_cycles"):  # the stats variant
+                ph = (ctypes.c_longlong * 8)()
+                torch.cuda.synchronize()
+                lib.fvdb_beam_phase_cycles(ph)
+                n = max(ph[4], 1)
+                out.append("cycles a pass: parents and candidates %.0f, "
+                           "gathers to barrier %.0f, counts and merges "
+                           "%.0f, to the last barrier %.0f; passes %d, "
+                           "survivors a pass %.1f" % (
+                               ph[0] / n, ph[2] / n, ph[7] / n, ph[5] / n,
+                               ph[4], ph[6] / n))
+        print(f"split {route} {name}: " + "; ".join(out) + " device us",
+              flush=True)
+        return
+    if route == "k6":
+        for key, run, *_ in k6_cases(torch):
+            if "assign N=" in key or "partial" in key or "D=384 steps" in key:
+                out.append(f"{key[3:]} {cuda_ms(torch, run, 5):.4f}")
+        print(f"split {route} {name}: " + "; ".join(out) + " ms", flush=True)
+        return
     if route == "stage1":
         from fabstir_vectordb_tpu_torch.index import fused as fu
 
@@ -616,12 +1126,15 @@ def main() -> None:
                     help="directory for the results' JSON file")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only", choices=("stage1", "f32", "k4", "k9f32",
-                                       "k9bf16"),
+                                       "k9bf16", "k11", "k6"),
                     default=None)
     ap.add_argument("--split", choices=tuple(SPLITS), default=None)
     ap.add_argument("--profile", action="store_true",
                     help="add each shape's device time by kernel (one call "
                          "under torch.profiler)")
+    ap.add_argument("--variants", default=None,
+                    help="with --split: a comma-separated list of the "
+                         "variants to build and time (all by default)")
     ap.add_argument("--split-variant", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     root = Path(args.root).resolve() if args.root else \
@@ -631,7 +1144,8 @@ def main() -> None:
         return
     if args.split:
         print(f"card: {card_line()}; tree: {root}", flush=True)
-        split(root, args.split)
+        split(root, args.split,
+              args.variants.split(",") if args.variants else None)
         return
     sys.path.insert(0, str(root))
     import torch
@@ -647,7 +1161,7 @@ def main() -> None:
     print(f"card: {card}; tree: {root}", flush=True)
     t = native.build_all()
     print(f"built in {t:.1f} s", flush=True)
-    for name in ("heuristic_kept", "approx_topk"):
+    for name in ("heuristic_kept", "approx_topk", "beam_search", "lloyd"):
         print_ptxas(name, native.build_log.get(name, ""))
     res = {"card": card, "tree": root.name}
     if args.only in (None, "stage1"):
@@ -663,6 +1177,12 @@ def main() -> None:
         k9(torch, tp, native, res, args.iters, args.profile)
     if args.only in (None, "k9bf16"):
         k9(torch, tp, native, res, args.iters, args.profile, bf16=True)
+        torch.cuda.empty_cache()
+    if args.only in (None, "k11"):
+        k11(torch, hn, native, root, res, args.iters)
+        torch.cuda.empty_cache()
+    if args.only in (None, "k6"):
+        k6(torch, res, args.iters, args.profile)
     res["launches"] = {k: v for k, v in native.launches.items() if v}
     print(json.dumps(res), flush=True)
     out = Path(args.out)

@@ -2257,3 +2257,174 @@ def test_approx_topk_f32_rows_by_shape_matches_plain_on_card(
     assert (vt[:, 1:] >= vt[:, :-1]).all()
     if topk_t.approx_bins(n, ov_k) >= n:  # the exact pool
         _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-2)
+
+
+def _queries_on_card(m, b, seed):
+    """b queries near the graph's rows (rows plus noise)."""
+    rng = np.random.default_rng(seed)
+    x = m.x.cpu().numpy()
+    q = x[rng.integers(0, x.shape[0], b)] + 0.3 * rng.standard_normal(
+        (b, x.shape[1]))
+    return torch.from_numpy(q.astype(np.float32)).to(m.x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b,expand,filtered,layer,ef,warps", [
+    (1, 4, False, 0, 64, 8),        # serve, one query
+    (128, 4, False, 0, 64, 8),      # serve, a batch
+    (128, 4, True, 0, 64, 8),       # serve, filtered
+    (1_024, 1, False, 0, 200, 2),   # the layer-0 link
+    (1_024, 1, False, 1, 200, 1),   # an upper layer, inactive queries
+    (2_048, 1, False, 0, 200, 1),
+    (64, 4, True, 0, 2_048, 8),     # lists in global scratch
+    (64, 1, False, 0, 2_048, 2)])
+def test_beam_search_plans_match_plain_on_card(bf16, b, expand, filtered,
+                                               layer, ef, warps):
+    """K11 at each of its plans (warps a query, index/hnsw.py beam_plan)
+    and at the scratch path, on both row types: overlap >= 0.99 with the
+    plain version, the (eligible) starts of an inactive query exactly, no
+    filtered-out row, no id twice, ascending, (+inf, -1) padded."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    g, m, mask, a, _ = _graph_on_card()
+    x, x_sq = _bf16_mirror(m) if bf16 else (m.x, m.x_sq)
+    q = _queries_on_card(m, b, 9)
+    dev = q.device
+    width = (a["nbrs0"] if layer == 0 else a["nbrs_up"]).shape[1]
+    assert hnsw_t.beam_plan(b, expand, width) == warps
+    rng = np.random.default_rng(10)
+    members = np.nonzero(g._search_mask() & (g.levels >= layer))[0]
+    start = torch.from_numpy(rng.choice(members, (b, 1)).astype(np.int32)
+                             ).to(dev)
+    res = None
+    if filtered:
+        res = torch.from_numpy(np.arange(m.x.shape[0]) % 3 != 0).to(dev)
+    active = torch.from_numpy(np.arange(b) % 5 != 3).to(dev)
+    args = (x, x_sq, mask, a["nbrs0"], a["nbrs_up"], a["up_offset"], q,
+            start, active, layer, ef, ef + 32, res, None, expand)
+    name = native.counter("beam_search", bf16, up=layer > 0)
+    before = native.launches[name]
+    dk, ik = hnsw_t.beam_search(*args)
+    assert native.launches[name] == before + 1
+    dp, ip = hnsw_t.beam_search_plain(*args)
+    assert torch.equal(ik[~active], ip[~active])
+    assert _overlap(ik[active], ip[active]) >= 0.99
+    both = (ik == ip) & (ik >= 0)
+    torch.testing.assert_close(dk[both], dp[both], rtol=1e-5, atol=1e-3)
+    dk_n, ik_n = dk.cpu().numpy(), ik.cpu().numpy()
+    for dr, ir in zip(dk_n, ik_n):
+        n = int((ir >= 0).sum())
+        assert (ir[:n] >= 0).all() and (ir[n:] < 0).all()
+        assert (np.diff(dr[:n]) >= 0).all() and np.isinf(dr[n:]).all()
+        assert len(set(ir[:n].tolist())) == n
+    if filtered:
+        assert res.cpu().numpy()[ik_n[ik_n >= 0]].all()
+
+
+def _reentry_graph():
+    """Five nodes at squared distances 10, 5, 6, 3, 4 from a query at the
+    origin: S (the start), A and E (the only eligible rows), B, C; S links
+    A, E; A links B, C; B links back to A; C links B. With ef = 2 the pool
+    takes [A, E], then [B, C] (A leaves it), and B's list offers A again:
+    it is scored, dropped from the full pool, and merged into the results
+    a second time, where it pushes E out."""
+    d2 = np.array([10.0, 5.0, 6.0, 3.0, 4.0], np.float32)
+    x = np.zeros((5, 4), np.float32)
+    x[:, 0] = np.sqrt(d2)
+    x_sq = (x * x).sum(1).astype(np.float32)
+    nbrs0 = np.array([[1, 2], [3, 4], [-1, -1], [1, -1], [3, -1]], np.int32)
+    nbrs_up = np.full((1, 2), -1, np.int32)
+    up_offset = np.full(5, -1, np.int32)
+    q = np.zeros((1, 4), np.float32)
+    start = np.array([[0]], np.int32)
+    mask = np.ones(5, bool)
+    result_mask = np.array([False, True, True, False, False])
+    return (x, x_sq, mask, nbrs0, nbrs_up, up_offset, q, start), result_mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand", [1, 4])
+def test_filtered_beam_reentry_matches_plain_on_card(expand):
+    """An eligible id that leaves a full pool and comes back as a
+    candidate is merged into the result list again, as the plain version
+    (and the reference) merge it: the results equal the plain version's
+    exactly (tests/test_torch_beam_lloyd.py holds the plain version to
+    the JAX package's on this graph)."""
+    dev = _card()
+    args, res = _reentry_graph()
+    t = [torch.from_numpy(a).to(dev) for a in args]
+    t[6] = t[6].expand(5, -1).contiguous()  # five copies of the query
+    t[7] = t[7].expand(5, -1).contiguous()
+    active = torch.tensor([True, True, False, True, True], device=dev)
+    rm = torch.from_numpy(res).to(dev)
+    dk, ik = hnsw_t.beam_search(*t, active, 0, 2, 10, rm, None, expand)
+    dp, ip = hnsw_t.beam_search_plain(*t, active, 0, 2, 10, rm, None, expand)
+    assert torch.equal(ik, ip)
+    assert ik[0].tolist() == [1, -1]
+    torch.testing.assert_close(dk, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d,route", [
+    (3, 384, "fma"), (256, 384, "tf32x3"), (300, 384, "tf32x3"),
+    (256, 8, "tf32x3"), (256, 48, "tf32x3"), (256, 130, "fma"),
+    (300, 130, "fma")])
+def test_assign_clusters_routes_match_plain_on_card(c, d, route):
+    """K6's assignment by route (ops/kmeans.py lloyd_route), rows outside
+    a mask, and two equal centroids: every row nearest to them goes to the
+    first. Assignments equal the plain version's (>= 99.9%), distances
+    within 1e-5 of the largest squared norm."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    xs, lab = _mixture(50, 20_000, c, d=d, spread=0.5)
+    x = torch.from_numpy(xs).to(dev)
+    first = [int(np.nonzero(lab == i)[0][0]) for i in range(c)]
+    cents = x[first].clone()
+    cents[c - 1] = cents[1]  # the first of the two wins
+    mask = torch.rand(20_000, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(51)) < 0.9
+    assert km_t.lloyd_route(20_000, c, d) == route
+    name = "assign_clusters" + ("" if route == "tf32x3" else "_fma")
+    before = native.launches[name]
+    ak, dk = km_t.assign_clusters(x, cents, mask)
+    assert native.launches[name] == before + 1
+    ap, dp = km_t.assign_clusters_plain(x, cents, mask)
+    assert (ak == ap).float().mean().item() >= 0.999
+    assert bool((ak[~mask] == -1).all()) and bool((dk[~mask] == 0).all())
+    assert not bool((ak == c - 1).any()) and bool((ak == 1).any())
+    tol = 1e-5 * float((x * x).sum(1).max())
+    same = ak == ap
+    assert float((dk - dp)[same].abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d", [(3, 384), (256, 384), (300, 384),
+                                 (256, 8), (256, 48), (256, 130)])
+def test_lloyd_routes_match_plain_on_card(c, d):
+    """K6's Lloyd block, step and partial + finish on each route against
+    the plain versions from one starting centroid a cluster: centroids
+    within 1e-5 of the data scale (the atomics' order), errors within
+    1e-5 relative, counts equal."""
+    dev = _card()
+    n = 30_000
+    xs, lab = _mixture(52, n, c, d=d, spread=1.0)
+    x = torch.from_numpy(xs).to(dev)
+    mask = torch.rand(n, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(53)) < 0.9
+    first = [int(np.nonzero(lab == i)[0][0]) for i in range(c)]
+    init = x[first].clone()
+    scale = float(x.abs().max())
+    cb, eb = km_t.lloyd_block(x, mask, init, 3)
+    cp, ep = km_t.lloyd_block_plain(x, mask, init, 3)
+    assert float((cb - cp).abs().max()) <= 1e-5 * scale
+    assert float(((eb - ep).abs() / ep).max()) <= 1e-5
+    cs, es = km_t.lloyd_step(x, mask, init)
+    assert float((cs - cp[0]).abs().max()) <= 1e-5 * scale
+    assert abs(float(es) - float(ep[0])) <= 1e-5 * float(ep[0])
+    sums, counts, stats = km_t.lloyd_partial(x, mask, init)
+    sp, cnp, stp = km_t.lloyd_partial_plain(x, mask, init)
+    assert torch.equal(counts, cnp) and float(stats[1]) == float(stp[1])
+    assert float((sums - sp).abs().max()) <= 1e-5 * scale * float(
+        cnp.max())
