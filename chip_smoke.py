@@ -28,9 +28,11 @@
    searches with recall@10 against the flat regime's exact answers,
    per-engine k, filtered searches at k=10 and 100, k=300, 1,000 deletes
    (the entry point among them), and 2,048 inserts linked through the beam
-   plan. The counters must show K1, K4, K5, K6, K10, K11 and K12. Then K10,
-   K11, K12, K13 and K1 at k = 1,024 and 16,384 against their plain
-   versions on the index's own state; K12 with its stages' device time
+   plan. The counters must show K1, K4, K5, K6, K10, K11 and K12. Then K10
+   (at B = 128 and 1, its bound the larger of its bytes and its longest
+   walk's hops x one dependent read from L2), K11, K12, K13 and K1 at k =
+   1,024 and 16,384 against their plain versions on the index's own
+   state; K12 with its stages' device time
    apart (the grouped route's work list, scan and select, from
    torch.profiler's kernel records) and the list rows it reads as
    modelled from its probes beside the distinct rows a bound counts, at
@@ -44,7 +46,9 @@
    f32 mirror held; host stage 2, the pinned restart, 1,000 deletes and a
    fresh insert, the release on FVDB_PCA_SERVE=0. The counters must show
    K14 (selection, projection), K2, K8 and K1 on bf16 rows; then each
-   against its plain version on the regime's own state.
+   against its plain version on the regime's own state (K2 at B = 128 and
+   1 on its fused select, and a filtered search's pool of 16,384 on its
+   radix route).
 7. Flat1m phase: the same index in the flat regime at the default
    threshold, as bench.py's turbo phase (FVDB_FLAT_SELECT=approx) and the
    eager half of its cold-start phase (FVDB_SERVING_DTYPE=bfloat16) serve
@@ -146,9 +150,10 @@
    counters, from 0, must show B1-B4.
 13. One JSON line with every kernel's numbers (K6 on its FMA tile, the
    flat tier's 3 lists, as ``lloyd_block_fma``), the routes the main path
-   takes only off its shapes ("route_checks"), K11's and K6's launches by
-   shape on each phase's main path ("launches_by_shape", so that a cost
-   can be ordered by each shape's launches times that shape's time), the
+   takes only off its shapes ("route_checks"), K2's, K6's, K10's and K11's
+   launches by shape on each phase's main path ("launches_by_shape", so
+   that a cost can be ordered by each shape's launches times that shape's
+   time), the
    card's name and power limit, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
@@ -212,6 +217,110 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
     ``rate`` (f32 outside the tensor cores unless given), the larger."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+# one dependent global read from L2, by scripts/time_tile_routes.py's
+# round_trip_ns (a one-thread pointer chase through 8 MiB) on an NVIDIA
+# H100 80GB HBM3 at 700 W: the step of K10's and K2's latency bounds (the
+# upper layers K10 walks, and a pool K2 scores back to back, sit in L2)
+L2_READ_NS = 183.0
+
+
+def latency_bound(bms: float, by: str, reads: int):
+    """bound()'s (ms, reason), or ``reads`` dependent reads from L2 where
+    that takes longer."""
+    lat = reads * L2_READ_NS * 1e-6
+    if lat <= bms:
+        return bms, by
+    return lat, (f"bytes (latency: {reads} dependent reads x {L2_READ_NS}"
+                 f" ns from L2)")
+
+
+def queued_us(torch, fn, calls: int = 20) -> float:
+    """Device microseconds a call of ``fn`` takes back to back: CUDA events
+    around ``calls`` calls queued behind a sleep of the card, so no host
+    gap falls between them (torch.profiler's kernel records of these
+    short calls came back incomplete at times on this card)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / calls
+
+
+def k2_entry(torch, fu, results, key: str, x, q, pool, m: int) -> None:
+    """K2 on (x, q, pool) at m against its plain version: the results
+    entry ``key`` with its times (CUDA events back to back, device us by
+    events behind a sleep, the wrapper's host us) beside its bound (bytes,
+    or at B = 1 two dependent reads: the pool's ids, then its rows)."""
+    vk, rk = fu.rerank_f32(x, q, pool, m)
+    vp, rp = fu.rerank_f32_plain(x, q, pool, m)
+    fin = torch.isfinite(vp)
+    tol = 1e-5 * float(vp[fin].max()) if bool(fin.any()) else 0.0
+    err, differ = topk_check(key, vk, rk, vp, rp, tol)
+    valid = pool >= 0
+    distinct = int(torch.unique(pool[valid]).numel())
+    b, ov = pool.shape
+    d = x.shape[1]
+    bms, by = bound(distinct * d * x.element_size() + pool.numel() * 4
+                    + b * d * 4 + b * m * 8, 3.0 * int(valid.sum()) * d)
+    if b == 1:
+        bms, by = latency_bound(bms, by, 2)
+
+    def run():
+        return fu.rerank_f32(x, q, pool, m)
+
+    results[key] = dict(
+        shape=f"B={b} OV={ov} m={m} D={d} distinct rows {distinct}"
+              f"{' (bf16 rows)' if x.dtype == torch.bfloat16 else ''}",
+        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
+        ms=cuda_ms(torch, run, iters=20 if b == 1 else 5),
+        device_us=queued_us(torch, run), host_us=host_us(torch, run),
+        plain_ms=cuda_ms(torch, lambda: fu.rerank_f32_plain(x, q, pool, m),
+                         iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
+def k10_entry(torch, hn, results, key: str, gargs, shape: str) -> tuple:
+    """K10 on gargs against its plain version (99% of walks equal): the
+    results entry ``key`` with its times beside its bound, the larger of
+    its bytes and its longest query's hop attempts x one dependent read.
+    Returns its work (bytes, flops)."""
+    ck, dk = hn.greedy_descent(*gargs)
+    gst = {}
+    cp, dp = hn.greedy_descent_plain(*gargs, stats=gst)
+    same = ck == cp
+    agree = float(same.float().mean())
+    if agree < 0.99:
+        fail(f"{key}: {agree} of queries agree with plain")
+    x, q, m_up = gargs[0], gargs[5], int(gargs[3].shape[1])
+    b, d = q.shape
+    # bytes: each distinct row scored once, each hop's list; flops: every
+    # (query, row) distance
+    seen = int(gst["seen"].sum())
+    work = (seen * (d * x.element_size() + 4) + gst["hops"] * m_up * 4
+            + b * d * 4, gst["rows"] * 2.0 * d)
+    bms, by = latency_bound(*bound(*work), gst["longest"])
+
+    def run():
+        return hn.greedy_descent(*gargs)
+
+    results[key] = dict(
+        shape=shape, max_abs_err=float((dk - dp)[same].abs().max()),
+        agree=agree, hops=gst["hops"], longest=gst["longest"],
+        rows=gst["rows"], distinct_rows=seen,
+        ms=cuda_ms(torch, run, iters=20 if b == 1 else 5),
+        device_us=queued_us(torch, run), host_us=host_us(torch, run),
+        plain_ms=cuda_ms(torch, lambda: hn.greedy_descent_plain(*gargs),
+                         iters=2, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    return work
 
 
 def cuda_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
@@ -350,9 +459,10 @@ def topk_check(tag, vk, rk, vp, rp, tol):
 # path's shape; printed on a line of their own ("route_checks"), since the
 # kernels line counts the main path's launches
 ROUTE_CHECKS: dict = {}
-# K11's and K6's launches by shape on each phase's main path (read where the
-# phase reads its counts, before any check), so that a kernel's cost can
-# be ordered by each shape's launches times that shape's time
+# K2's, K6's, K10's and K11's launches by shape on each phase's main path
+# (read where the phase reads its counts, before any check), so that a
+# kernel's cost can be ordered by each shape's launches times that shape's
+# time
 SHAPE_LAUNCHES: dict = {}
 
 
@@ -360,7 +470,8 @@ def note_shapes(phase: str, native) -> None:
     SHAPE_LAUNCHES[phase] = {
         k: v for k, v in native.shape_launches.items()
         if v and k.split(" ")[0].startswith(("beam_search", "assign",
-                                              "lloyd"))}
+                                              "lloyd", "rerank",
+                                              "greedy"))}
 
 
 def kernels_phase(torch, tp, hn, km, dev, results):
@@ -1285,42 +1396,21 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
     dev = st["x"].device
     x_d, xsq_d = st["x"], st["x_sq"]
     qd = torch.from_numpy(qb[:128]).to(dev)
-    q_bytes = 128 * d * 4
     m_up = int(st["nbrs_up"].shape[1])
     hm = st["hnsw_mask"]
     fm = torch.from_numpy(fmask[:x_d.shape[0]]).to(dev)
 
-    # K10
-    ck, dk = hn.greedy_descent(x_d, xsq_d, hm, st["nbrs_up"],
-                               st["up_offset"], qd, st["entry"],
-                               st["entry_level"])
-    gst = {}
-    cp, dp = hn.greedy_descent_plain(x_d, xsq_d, hm, st["nbrs_up"],
-                                     st["up_offset"], qd, st["entry"],
-                                     st["entry_level"], stats=gst)
-    same = (ck == cp)
-    agree = float(same.float().mean())
-    if agree < 0.99:
-        fail(f"greedy_descent: {agree} of queries agree with plain")
-    err = float((dk - dp)[same].abs().max())
-    # bytes: each distinct row scored once, each hop's list; flops: every
-    # (query, row) distance
-    seen = int(gst["seen"].sum())
-    work["greedy_descent"] = (seen * (d * 4 + 4) + gst["hops"] * m_up * 4
-                              + q_bytes, gst["rows"] * 2.0 * d)
-    bms, by = bound(*work["greedy_descent"])
-    results["greedy_descent"] = dict(
-        shape=f"B=128 M={m_up} D={d} levels={st['entry_level']}",
-        max_abs_err=err, agree=agree, hops=gst["hops"], rows=gst["rows"],
-        distinct_rows=seen,
-        ms=cuda_ms(torch, lambda: hn.greedy_descent(
-            x_d, xsq_d, hm, st["nbrs_up"], st["up_offset"], qd, st["entry"],
-            st["entry_level"])),
-        plain_ms=cuda_ms(torch, lambda: hn.greedy_descent_plain(
-            x_d, xsq_d, hm, st["nbrs_up"], st["up_offset"], qd, st["entry"],
-            st["entry_level"]), iters=2, warmup=1),
-        bound_ms=bms, bound_by=by)
+    # K10, at B = 128 and one query
+    gargs = (x_d, xsq_d, hm, st["nbrs_up"], st["up_offset"], qd, st["entry"],
+             st["entry_level"])
+    shape = f"M={m_up} D={d} levels={st['entry_level']}"
+    work["greedy_descent"] = k10_entry(torch, hn, results, "greedy_descent",
+                                       gargs, f"B=128 {shape}")
+    k10_entry(torch, hn, results, "greedy_descent[B=1]",
+              gargs[:5] + (qd[:1],) + gargs[6:], f"B=1 {shape}")
+    ck = hn.greedy_descent(*gargs)[0]
     launch_of["greedy_descent"] = counts["greedy_descent"]
+    launch_of["greedy_descent[B=1]"] = counts["greedy_descent"]
 
     # K11: serve (ef 64, W 4, +- the filter; B = 128 and one query) and
     # link (ef 200, W 1)
@@ -1481,7 +1571,8 @@ def pruned_phase(torch, native, card: str, perf: dict, results: dict,
             bound_ms=bms, bound_by=by,
             tile_pass=fu.tile_route(x_d.dtype, False, d))
         launch_of[f"l2_topk[k={k}]"] = counts["l2_topk_large"]
-    for name in ("greedy_descent", "beam_search[serve]",
+    for name in ("greedy_descent", "greedy_descent[B=1]",
+                 "beam_search[serve]",
                  "beam_search[serve-filtered]", "beam_search[link]",
                  "ivf_scan", "ivf_scan[B=1]", "l2_topk[k=1024]",
                  "l2_topk[k=16384]"):
@@ -1766,25 +1857,20 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
         library_host_us=host_us(torch, lambda: torch.matmul(qc, pm)),
         bound_ms=bms, bound_by=by)
     launch_of["project_queries"] = counts["project_queries"]
-    # K2 on the serving pool of 128 queries
+    # K2 on the serving pool of 128 queries and of one; past the fused
+    # select, a filtered search's wide pool (stage 1 to 16,384, k = 100:
+    # m 512) on the radix route
     _, pool = fu.stage1_select(xp, xp_sq, mem, qp128, ov_serve)
-    vk, rk = fu.rerank_f32(rx, q128, pool, m_serve)
-    vp, rp = fu.rerank_f32_plain(rx, q128, pool, m_serve)
-    tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
-    err, differ = topk_check("rerank_f32", vk, rk, vp, rp, tol)
-    valid = pool >= 0
-    distinct = int(torch.unique(pool[valid]).numel())
-    bms, by = bound(distinct * d * 2 + pool.numel() * 4 + 128 * d * 4
-                    + 128 * m_serve * 8, 3.0 * int(valid.sum()) * d)
-    results["rerank_f32"] = dict(
-        shape=f"B=128 OV={ov_serve} m={m_serve} D={d} distinct rows "
-              f"{distinct}", max_abs_err=err, tol=tol,
-        rows_differing_at_ties=differ,
-        ms=cuda_ms(torch, lambda: fu.rerank_f32(rx, q128, pool, m_serve)),
-        plain_ms=cuda_ms(torch, lambda: fu.rerank_f32_plain(
-            rx, q128, pool, m_serve), iters=2, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by)
+    k2_entry(torch, fu, results, "rerank_f32", rx, q128, pool, m_serve)
+    k2_entry(torch, fu, results, "rerank_f32[B=1]", rx, q128[:1].contiguous(),
+             pool[:1].contiguous(), m_serve)
+    _, wide = fu.stage1_select(xp, xp_sq, mem, qp128[:4].contiguous(),
+                               16_384)
+    k2_entry(torch, fu, results, "rerank_f32[radix]", rx,
+             q128[:4].contiguous(), wide, 512)
     launch_of["rerank_f32"] = counts["rerank_f32"]
+    launch_of["rerank_f32[B=1]"] = counts["rerank_f32"]
+    launch_of["rerank_f32[radix]"] = counts["rerank_f32_radix"]
     # K8: the oracle step at 128 probes over the build's first two blocks
     # (K1 on bf16 rows, then the merge), and each kernel alone
     width = 11
@@ -1838,9 +1924,10 @@ def reduced_phase(torch, native, card: str, perf: dict, results: dict,
         bound_by=by)
     launch_of["merge_topk"] = counts["merge_topk"]
     for name in (*stage1_keys, "project_rows", "project_queries",
-                 "rerank_f32", "l2_topk[bf16]", "merge_topk"):
+                 "rerank_f32", "rerank_f32[B=1]", "rerank_f32[radix]",
+                 "l2_topk[bf16]", "merge_topk"):
         print_kernel(name, results[name], launch_of[name])
-    del proj, xp, xp_sq, rx, blk, out_k, out_p, sq_k, sq_p, pool
+    del proj, xp, xp_sq, rx, blk, out_k, out_p, sq_k, sq_p, pool, wide
 
     # ---- host stage 2 on the same index
     h.fused._release_proj()
@@ -2338,24 +2425,14 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
             gemm_ms=gemm_ms(torch, q, xb))
         launch_of[key] = counts["l2_topk_bf16_rq"]
 
-    # K2 on f32 rows: the turbo pool of 128 re-scored to k_eff = 16
+    # K2 on f32 rows: the turbo pool of 128 re-scored to k_eff = 16, for
+    # 128 queries and for one
     _, pool = tp.approx_topk(xf, sq_f, mem, q128, ov)
-    vk, rk = fu.rerank_f32(xf, q128, pool, 16)
-    vp, rp = fu.rerank_f32_plain(xf, q128, pool, 16)
-    tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
-    err, differ = topk_check("rerank_f32[f32 rows]", vk, rk, vp, rp, tol)
-    valid = pool >= 0
-    distinct = int(torch.unique(pool[valid]).numel())
-    bms, by = bound(distinct * d * 4 + pool.numel() * 4 + 128 * d * 4
-                    + 128 * 16 * 8, 3.0 * int(valid.sum()) * d)
-    results["rerank_f32[f32 rows]"] = dict(
-        shape=f"B=128 OV={ov} m=16 D={d} distinct rows {distinct}",
-        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
-        ms=cuda_ms(torch, lambda: fu.rerank_f32(xf, q128, pool, 16)),
-        plain_ms=cuda_ms(torch, lambda: fu.rerank_f32_plain(
-            xf, q128, pool, 16)), library_ms=None, bound_ms=bms,
-        bound_by=by)
-    launch_of["rerank_f32[f32 rows]"] = counts["rerank_f32_rows"]
+    k2_entry(torch, fu, results, "rerank_f32[f32 rows]", xf, q128, pool, 16)
+    k2_entry(torch, fu, results, "rerank_f32[f32 rows B=1]", xf,
+             q128[:1].contiguous(), pool[:1].contiguous(), 16)
+    for key in ("rerank_f32[f32 rows]", "rerank_f32[f32 rows B=1]"):
+        launch_of[key] = counts["rerank_f32_rows"]
 
     # the bf16 re-score composition of the refine mode: K1 (query rounded)
     # to 128, then K2 to 64
@@ -2441,7 +2518,8 @@ def flat1m_kernel_checks(torch, h, queries, bq, fresh, counts, results,
                  "l2_topk[bf16 serve k=16]", "l2_topk[bf16 serve k=128]",
                  "l2_topk[bf16 serve k=1024]",
                  "l2_topk[bf16 serve B=1 k=128]", "rerank_f32[f32 rows]",
-                 "flat_search_rerank", "l2_topk[bf16 candidates]",
+                 "rerank_f32[f32 rows B=1]", "flat_search_rerank",
+                 "l2_topk[bf16 candidates]",
                  "heuristic_kept[bf16 link]", "pair_sq_l2[bf16]"):
         print_kernel(name, results[name], launch_of[name])
 
@@ -2897,29 +2975,17 @@ def engines_kernel_checks(torch, h, qb, ql_np, counts, results, launch_of):
     work = {}
     names = []
 
-    # K10 on bf16 rows
+    # K10 on bf16 rows, at B = 128 and one query
     gargs = (xb, sq, hm, nbrs_up, up_off, qd, entry, level)
-    ck, dk = hn.greedy_descent(*gargs)
-    gst = {}
-    cp, dp = hn.greedy_descent_plain(*gargs, stats=gst)
-    same = ck == cp
-    agree = float(same.float().mean())
-    if agree < 0.99:
-        fail(f"greedy_descent[bf16]: {agree} of queries agree with plain")
-    seen = int(gst["seen"].sum())
-    work["greedy_descent[bf16]"] = (seen * (d * 2 + 4) + gst["hops"] * m_up
-                                    * 4 + q_bytes, gst["rows"] * 2.0 * d)
-    bms, by = bound(*work["greedy_descent[bf16]"])
-    results["greedy_descent[bf16]"] = dict(
-        shape=f"B=128 M={m_up} D={d} levels={level} (bf16 rows)",
-        max_abs_err=float((dk - dp)[same].abs().max()), agree=agree,
-        hops=gst["hops"], rows=gst["rows"], distinct_rows=seen,
-        ms=cuda_ms(torch, lambda: hn.greedy_descent(*gargs)),
-        plain_ms=cuda_ms(torch, lambda: hn.greedy_descent_plain(*gargs),
-                         iters=2, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by)
-    launch_of["greedy_descent[bf16]"] = counts["greedy_descent_bf16"]
-    names.append("greedy_descent[bf16]")
+    shape = f"M={m_up} D={d} levels={level} (bf16 rows)"
+    work["greedy_descent[bf16]"] = k10_entry(
+        torch, hn, results, "greedy_descent[bf16]", gargs, f"B=128 {shape}")
+    k10_entry(torch, hn, results, "greedy_descent[bf16 B=1]",
+              gargs[:5] + (qd[:1],) + gargs[6:], f"B=1 {shape}")
+    ck = hn.greedy_descent(*gargs)[0]
+    for key in ("greedy_descent[bf16]", "greedy_descent[bf16 B=1]"):
+        launch_of[key] = counts["greedy_descent_bf16"]
+        names.append(key)
 
     # K11: serve, layer-0 link, and one layer of the per-layer plan (the
     # queries below it inactive), on bf16 rows; that layer on f32 rows too
@@ -3671,22 +3737,11 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
             **{f"{c}_launches": counts[c] for c in S1_ROUTES[1:]})
         launch_of[key] = counts["stage1_select"]
     m = min(64, ov)
-    vk, rk = fu.rerank_f32(rx, q128, pool, m)
-    vp, rp = fu.rerank_f32_plain(rx, q128, pool, m)
-    tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
-    err, differ = topk_check("rerank_f32[10M]", vk, rk, vp, rp, tol)
-    valid = pool >= 0
-    distinct = int(torch.unique(pool[valid]).numel())
-    bms, by = bound(distinct * d * 2 + pool.numel() * 4 + 128 * d * 4
-                    + 128 * m * 8, 3.0 * int(valid.sum()) * d)
-    results["rerank_f32[10M]"] = dict(
-        shape=f"B=128 OV={ov} m={m} D={d} distinct rows {distinct}",
-        max_abs_err=err, tol=tol, rows_differing_at_ties=differ,
-        ms=cuda_ms(torch, lambda: fu.rerank_f32(rx, q128, pool, m)),
-        plain_ms=cuda_ms(torch, lambda: fu.rerank_f32_plain(
-            rx, q128, pool, m), iters=2, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by)
-    launch_of["rerank_f32[10M]"] = counts["rerank_f32"]
+    k2_entry(torch, fu, results, "rerank_f32[10M]", rx, q128, pool, m)
+    k2_entry(torch, fu, results, "rerank_f32[10M B=1]", rx,
+             q128[:1].contiguous(), pool[:1].contiguous(), m)
+    for key in ("rerank_f32[10M]", "rerank_f32[10M B=1]"):
+        launch_of[key] = counts["rerank_f32"]
     blk_n = min(524_288, n_rows)  # a block of the device-mode projection
     blk = rx[:blk_n]
     out_k = torch.empty((blk_n, r), dtype=torch.bfloat16, device=dev)
@@ -3715,7 +3770,7 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
     for name in ("synth_rows[bf16 block]", "assign_clusters[10M tier block]",
                  "tile_step", "stage1_select[10M B=1]",
                  "stage1_select[10M B=32]", "stage1_select[10M B=128]",
-                 "rerank_f32[10M]",
+                 "rerank_f32[10M]", "rerank_f32[10M B=1]",
                  "project_rows[10M]"):
         print_kernel(name, results[name], launch_of[name])
 
@@ -5242,6 +5297,7 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "l2_topk[bf16 candidates]": "fabstir_vectordb_tpu/index/hnsw.py:81",
     "approx_topk": "fabstir_vectordb_tpu/ops/topk.py:44",
     "rerank_f32[f32 rows]": "fabstir_vectordb_tpu/index/fused.py:114",
+    "rerank_f32[f32 rows B=1]": "fabstir_vectordb_tpu/index/fused.py:114",
     "flat_search_rerank": "fabstir_vectordb_tpu/index/fused.py:106",
     "heuristic_kept": "fabstir_vectordb_tpu/index/hnsw.py:160",
     "pair_sq_l2": "fabstir_vectordb_tpu/index/hnsw.py:222",
@@ -5389,7 +5445,7 @@ TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
 # tensor-core route's (bound_fma_ms) and a bf16 torch.matmul of the same
 # product (gemm_ms)
 DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
-               "steps_max", "warps_a_query",
+               "steps_max", "longest", "warps_a_query",
                "library_device_us", "tile_pass", "gemm_ms", "bound_fma_ms",
                "stage1_select_fma_launches",
                "stage1_select_overflow_launches", "launches_one_call")
@@ -5536,7 +5592,8 @@ def main() -> None:
     if ROUTE_CHECKS:
         print("route_checks " + json.dumps(ROUTE_CHECKS), flush=True)
     if SHAPE_LAUNCHES:
-        print("launches_by_shape (K11, K6) " + json.dumps(SHAPE_LAUNCHES),
+        print("launches_by_shape (K2, K6, K10, K11) "
+              + json.dumps(SHAPE_LAUNCHES),
               flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s; card: {card}",

@@ -156,6 +156,10 @@ inline cudaError_t with_metric(int metric, F&& f) {
   }
 }
 
+struct NoOp {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // Dot products of one query (D floats in shared memory) with G rows of x
 // (f32, or bf16 upcast exactly), taken by a whole warp; every lane ends
 // with the G sums. A row < 0 is skipped and gives 0. When D is a multiple
@@ -164,12 +168,15 @@ inline cudaError_t with_metric(int metric, F&& f) {
 // row's loads of three chunks are issued before any FMA, so a 384-dim
 // group costs one memory round trip instead of one a dim step; else lane l
 // sums dims l, l+32, .... Then a shuffle tree. The sums are the same for
-// both row types: the same products in the same order.
-template <int G, typename T>
+// both row types: the same products in the same order. after_loads() runs
+// once the first chunk's loads are out (before any FMA on them; at the
+// start on the scalar path): a caller's other loads can go out then.
+template <int G, typename T, typename F = NoOp>
 __device__ __forceinline__ void warp_dots(const float* qs,
                                           const T* __restrict__ x,
                                           const int (&rows)[G], int D,
-                                          float (&acc)[G]) {
+                                          float (&acc)[G],
+                                          F&& after_loads = F{}) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = 0.f;
@@ -185,6 +192,7 @@ __device__ __forceinline__ void warp_dots(const float* qs,
                         ? ld4(x + (size_t)rows[g] * D + d)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
       }
+      if (c0 == 0) after_loads();
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const int d = c0 + c * 128 + 4 * lane;
@@ -200,6 +208,7 @@ __device__ __forceinline__ void warp_dots(const float* qs,
       }
     }
   } else {
+    after_loads();
     for (int d = lane; d < D; d += 32) {
       const float qv = qs[d];
 #pragma unroll

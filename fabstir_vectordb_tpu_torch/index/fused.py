@@ -345,18 +345,43 @@ def rerank_f32_plain(x, q, rows, m: int):
     return merge_topk_plain(d, rows, d[:, :0], rows[:, :0], m)
 
 
+# K2 selects pools of up to this many candidates inside its kernel (the
+# fused route, csrc/rerank_f32.cu FUSED_OV); larger pools take the distance
+# buffer and the radix select (the radix route)
+RERANK_FUSED_OV = 4096
+# the fused route's arrival counts (zero, and left zero by every launch) and
+# key scratch, by (device index, stream): launches on one stream run in
+# order, so they share them
+_rerank_ws: dict = {}
+
+
+def _rerank_workspace(dev, stream: int, b: int, nbytes: int):
+    ws = _rerank_ws.get((dev.index, stream))
+    if ws is None or ws[0].numel() < b or ws[1].numel() < nbytes:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.zeros(max(b, have[0], 128), dtype=torch.int32,
+                          device=dev),
+              torch.empty(max(nbytes, have[1], 1 << 20), dtype=torch.uint8,
+                          device=dev))
+        _rerank_ws[(dev.index, stream)] = ws
+    return ws
+
+
 def rerank_f32(x, q, rows, m: int):
     """K2 (the reference's rerank_f32_kernel): re-score each query's
     candidate rows rows [B, OV] int32 (-1: none; distinct, as stage 1 and
     K1 / K9 give them) of the mirror x [N, D] (bf16, upcast exactly, or
     f32) against q [B, D] f32 in the difference form, and keep the m first
     by (distance, row), padded with (+inf, -1). The plain version on CPU
-    tensors, csrc/rerank_f32.cu on CUDA tensors."""
+    tensors, csrc/rerank_f32.cu on CUDA tensors (the selection fused into
+    the kernel up to RERANK_FUSED_OV candidates a query, the radix select
+    past it)."""
     if x.device.type == "cpu":
         return rerank_f32_plain(x, q, rows, m)
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
-    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
+    native.check_once(x, "rerank_f32 x",
+                      torch.bfloat16 if bf16 else torch.float32, 2, dev)
     native.check(q, "q", torch.float32, 2, dev)
     native.check(rows, "rows", torch.int32, 2, dev)
     n, d = x.shape
@@ -368,18 +393,31 @@ def rerank_f32(x, q, rows, m: int):
     if b == 0:
         return out_d, out_r
     P, I = native.P, native.I
-    for lo in range(0, b, _MAX_GRID_Q):  # the select's grid caps a launch
+    stream = native.stream_of(x)
+    fused = ov <= RERANK_FUSED_OV
+    name = ("rerank_f32" if bf16 else "rerank_f32_rows") + \
+        ("" if fused else "_radix")
+    for lo in range(0, b, _MAX_GRID_Q):  # the grid's y caps a launch
         hi = min(b, lo + _MAX_GRID_Q)
-        dist = torch.empty((hi - lo, ov), dtype=torch.float32, device=dev)
-        work = select_scratch("rerank_f32", hi - lo, m, dev)
+        if fused:  # the pools' keys: fvdb_rerank_scratch_bytes
+            arrive, work = _rerank_workspace(dev, stream, hi - lo,
+                                             (hi - lo) * ov * 8)
+            arrive = arrive.data_ptr()
+        else:
+            arrive = 0
+            work = torch.empty(native.query(
+                "rerank_f32", "fvdb_rerank_scratch_bytes", [I, I, I],
+                hi - lo, ov, m), dtype=torch.uint8, device=dev)
         native.call("rerank_f32",
                     "fvdb_rerank_f32" if bf16 else "fvdb_rerank_f32_rows",
                     [P, I, I, P, P, I, I, I, P, P, P, P, P],
-                    x.data_ptr(), n, d, q[lo:hi].data_ptr(),
-                    rows[lo:hi].data_ptr(), hi - lo, ov, m, dist.data_ptr(),
-                    work.data_ptr(), out_d[lo:hi].data_ptr(),
-                    out_r[lo:hi].data_ptr(), native.stream_of(x))
-        native.launches["rerank_f32" if bf16 else "rerank_f32_rows"] += 1
+                    x.data_ptr(), n, d, q.data_ptr() + 4 * lo * d,
+                    rows.data_ptr() + 4 * lo * ov, hi - lo, ov, m,
+                    work.data_ptr(), arrive, out_d.data_ptr() + 4 * lo * m,
+                    out_r.data_ptr() + 4 * lo * m, stream)
+        native.launches[name] += 1
+        native.count_shape(name, f"B={hi - lo} OV={ov} m={m} "
+                                 f"{'bf16' if bf16 else 'f32'}")
     return out_d, out_r
 
 

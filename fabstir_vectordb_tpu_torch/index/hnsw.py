@@ -237,8 +237,9 @@ def greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
                          max_hops: int = 512, stats: dict | None = None):
     """Plain version of K10 (the reference's while_loop, step for step).
     ``stats`` (a dict) gets "hops" (hop attempts of active queries),
-    "rows" (unmasked neighbour rows they scored) and "seen" (see
-    _mark_seen): the work the kernel does on these inputs."""
+    "rows" (unmasked neighbour rows they scored), "seen" (see _mark_seen):
+    the work the kernel does on these inputs, and "longest" (the most hop
+    attempts of any one query: the dependent chain that bounds a launch)."""
     b = q.shape[0]
     dev = q.device
     if stop_layer is None:
@@ -251,6 +252,7 @@ def greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
     layer = torch.full((b,), entry_level, dtype=torch.int32, device=dev)
     rows_max = nbrs_up.shape[0] - 1
     hops = 0
+    attempts = torch.zeros(b, dtype=torch.int64, device=dev)
     while hops < max_hops and bool((layer > stop_layer).any()):
         active = layer > stop_layer
         row = (up_offset[cur.clamp_min(0).long()] + layer - 1).clamp(
@@ -260,6 +262,7 @@ def greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
         valid = (nbr >= 0) & mask[nbr.clamp_min(0).long()]
         if stats is not None:
             scored = valid & active[:, None]
+            attempts = attempts + active
             stats["hops"] = stats.get("hops", 0) + int(active.sum())
             stats["rows"] = stats.get("rows", 0) + int(scored.sum())
             _mark_seen(stats, x, nbr[scored])
@@ -272,6 +275,9 @@ def greedy_descent_plain(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
         cur_d = torch.where(improved, best_d, cur_d)
         layer = torch.where(active & ~improved, layer - 1, layer)
         hops += 1
+    if stats is not None:
+        stats["longest"] = max(stats.get("longest", 0),
+                               int(attempts.max()) if b else 0)
     return cur, cur_d
 
 
@@ -288,11 +294,15 @@ def greedy_descent(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
                                     entry, entry_level, stop_layer, max_hops)
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
-    native.check(x, "x", torch.bfloat16 if bf16 else torch.float32, 2, dev)
-    native.check(x_sq, "x_sq", torch.float32, 1, dev)
-    native.check(mask, "mask", torch.bool, 1, dev)
-    native.check(nbrs_up, "nbrs_up", torch.int32, 2, dev)
-    native.check(up_offset, "up_offset", torch.int32, 1, dev)
+    # the graph's state is the same tensors call after call: checked once
+    native.check_once(x, "greedy_descent x",
+                      torch.bfloat16 if bf16 else torch.float32, 2, dev)
+    native.check_once(x_sq, "greedy_descent x_sq", torch.float32, 1, dev)
+    native.check_once(mask, "greedy_descent mask", torch.bool, 1, dev)
+    native.check_once(nbrs_up, "greedy_descent nbrs_up", torch.int32, 2,
+                      dev)
+    native.check_once(up_offset, "greedy_descent up_offset", torch.int32, 1,
+                      dev)
     native.check(q, "q", torch.float32, 2, dev)
     if stop_layer is not None:
         native.check(stop_layer, "stop_layer", torch.int32, 1, dev)
@@ -315,7 +325,9 @@ def greedy_descent(x, x_sq, mask, nbrs_up, up_offset, q, entry: int,
         0 if stop_layer is None else stop_layer.data_ptr(), b, d, m,
         int(entry), int(entry_level), int(max_hops), cur.data_ptr(),
         cur_d.data_ptr(), native.stream_of(x))
-    native.launches[native.counter("greedy_descent", bf16)] += 1
+    name = native.counter("greedy_descent", bf16)
+    native.launches[name] += 1
+    native.count_shape(name, f"B={b} M={m} levels={int(entry_level)}")
     return cur, cur_d
 
 

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -75,6 +76,11 @@ launches["stage1_select_overflow"] = 0
 # survivors passed their buffer, run again on the lists or the buffer
 # (whose launches count under their own names)
 launches["l2_topk_overflow"] = 0
+# K2 past the pool that its kernel selects in shared memory: the distance
+# buffer and topk_select.cuh's radix select ("rerank_f32" and
+# "rerank_f32_rows" count the fused route)
+launches["rerank_f32_radix"] = 0
+launches["rerank_f32_rows_radix"] = 0
 # K1 and K12 by metric: "<counter>_cosine", "<counter>_dot"
 for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
               "l2_topk_fma", "l2_topk_large_fma", "l2_topk_bf16_rq_fma",
@@ -83,8 +89,9 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
         launches[f"{_base}_{_metric}"] = 0
 
 
-# launches of K11 and K6 by shape ("<counter> <shape>"): the wrappers add
-# one beside their counter's, and reset_launches clears them with it
+# launches of K2, K6, K10 and K11 by shape ("<counter> <shape>"): the
+# wrappers add one beside their counter's, and reset_launches clears them
+# with it
 shape_launches: dict[str, int] = {}
 
 
@@ -235,6 +242,21 @@ def check(t, name: str, dtype, dims: int, device) -> None:
         raise ValueError(f"{name} must have {dims} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+_passed: dict[str, weakref.ref] = {}
+
+
+def check_once(t, name: str, dtype, dims: int, device) -> None:
+    """:func:`check`, skipped when ``t`` is the very tensor that last
+    passed it under ``name`` (a live tensor keeps its type, device, shape
+    and layout): the state a kernel is called with again and again, such
+    as a mirror, is checked once."""
+    ref = _passed.get(name)
+    if ref is not None and ref() is t:
+        return
+    check(t, name, dtype, dims, device)
+    _passed[name] = weakref.ref(t)
 
 
 def stream_of(t) -> int:

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time K14's stage 1, K1 / K3 on f32 rows (and on bf16 rows with an f32
-query), K4, K9 on f32 rows, K11 and K6 on one NVIDIA GPU, beside
+query), K4, K9 on f32 rows, K11, K6, K2 and K10 on one NVIDIA GPU, beside
 yardsticks that the port never calls.
 
     python scripts/time_tile_routes.py [--root DIR] [--out DIR] [--iters N]
                                        [--only stage1|f32|k4|k9f32|k9bf16|
-                                               k11|k6]
+                                               k11|k6|k2|k10]
                                        [--profile]
                                        [--split fma|tf32x3|stage1|k4|k9f32|
                                                 k11|k6]
@@ -71,6 +71,20 @@ shard calls, PQ's block (D = 48) and B2's step, each against its plain
 version (assignments >= 99.9% equal; the centroids' and errors' gaps
 printed) and its route.
 
+K2 (``index.fused.rerank_f32``, ``--only k2``): seeded bf16 rows
+(1,048,576 x 384, and 10,485,760 x 384 for the 10M tier's OV = 2,048) and
+the same 1M rows in f32, pools of random rows: bf16 OV = 1,024 m = 64, the
+10M tier's OV = 2,048 m = 64 and f32 rows OV = 128 m = 16, each at B =
+128 and B = 1, and a filtered search's pool of 16,384 at m = 512 (the
+radix route), each held to its plain version. K10
+(``index.hnsw.greedy_descent``, ``--only k10``): k11_graph's upper
+layers, f32 and bf16 rows, B = 128, 1 and 1,024, each held to its plain
+version (99% of walks equal), with its longest query's hop attempts
+beside a latency bound (those attempts x one dependent read from L2, and
+from HBM, by the pointer chase). Both give each shape's device
+microseconds by kernel (torch.profiler), its device microseconds by CUDA
+events behind a sleep, and the wrapper's host microseconds a call.
+
 ``--profile`` adds each shape's device microseconds by kernel, from
 torch.profiler's kernel records of one call (K4: the mean of 20). Each
 result is held to its plain version on the same inputs (sorted
@@ -132,6 +146,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -375,16 +390,51 @@ def kernel_us(torch, fn, calls: int = 1) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.split("<")[0].split("(")[0][:60]
-            out[name] = out.get(name, 0.0) + e.device_time / calls
+    for _ in range(3):  # a window whose kernel records came back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.split("<")[0].split("(")[0][:60]
+                out[name] = out.get(name, 0.0) + e.device_time / calls
+        if out:
+            break
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def queued_us(torch, fn, calls: int = 20) -> float:
+    """Device microseconds a call of ``fn`` takes back to back: CUDA
+    events around ``calls`` calls queued behind a sleep of the card, so no
+    host gap falls between them (a check on the profiler's sum)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / calls
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to return (its launches
+    queued, the card not waited for), over ``calls`` back-to-back calls
+    behind a sleep of the card, so no launch waits for a full queue."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def topk_err(vk, rk, vp, rp, tol: float, what: str) -> tuple:
@@ -961,6 +1011,126 @@ def k6(torch, res, it, prof=False) -> None:
         print(f"{key} {res[key]}", flush=True)
 
 
+def k2_cases(torch) -> list:
+    """K2's shapes: (name, rows x, queries, pools, m). Seeded bf16 rows
+    (1,048,576 x 384, the reduced-rank rerank mirror; 10,485,760 x 384 for
+    the 10M tier's OV = 2,048) and the same 1M rows in f32 (the turbo
+    pool's re-score), queries near the rows, pools of random rows (-1 in
+    the last eighth of the 1M pools, as a short stage 1 pads them); B =
+    128 and B = 1 at each, and a filtered k = 100 search's wide pool on
+    the radix route."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    xf = torch.randn(N1, D, device=dev, generator=g)
+    xb = xf.to(torch.bfloat16)
+    x10 = torch.empty((N10, D), dtype=torch.bfloat16, device=dev)
+    for lo in range(0, N10, N1):
+        x10[lo:lo + N1] = torch.randn(N1, D, device=dev,
+                                      generator=g).to(torch.bfloat16)
+    near = torch.randint(0, N1, (128,), device=dev, generator=g)
+    q = xf[near] + 0.3 * torch.randn(128, D, device=dev, generator=g)
+
+    def pool(n, ov, pad):
+        p = torch.randint(0, n, (128, ov), device=dev, generator=g,
+                          dtype=torch.int32)
+        if pad:
+            p[:, -ov // 8:] = -1
+        return p.contiguous()
+
+    p1, p10, pf = pool(N1, 1024, True), pool(N10, 2048, False), \
+        pool(N1, 128, False)
+    wide = pool(N1, 16_384, False)[:4].contiguous()
+    out = []
+    for b in (128, 1):
+        qq = q[:b].contiguous()
+        out += [(f"k2 bf16 B={b} OV=1024 m=64", xb, qq, p1[:b], 64),
+                (f"k2 bf16 B={b} OV=2048 m=64 (10M)", x10, qq, p10[:b], 64),
+                (f"k2 f32 B={b} OV=128 m=16", xf, qq, pf[:b], 16)]
+    out.append(("k2 bf16 B=4 OV=16384 m=512 (radix)", xb, q[:4], wide, 512))
+    return out
+
+
+def k2(torch, fu, native, root, res, it) -> None:
+    rt = round_trip_ns(torch, native, root)
+    res["global_round_trip"] = rt
+    print(f"global round trip {rt}", flush=True)
+    for key, x, qq, rows, m in k2_cases(torch):
+        rows = rows.contiguous()
+
+        def run(x=x, qq=qq, rows=rows, m=m):
+            return fu.rerank_f32(x, qq, rows, m)
+
+        vk, rk = run()
+        vp, rp = fu.rerank_f32_plain(x, qq, rows, m)
+        tol = 1e-5 * float(vp[torch.isfinite(vp)].max())
+        err, differ = topk_err(vk, rk, vp, rp, tol, key)
+        valid = rows >= 0
+        distinct = int(torch.unique(rows[valid]).numel())
+        b, ov = rows.shape
+        nbytes = (distinct * D * x.element_size() + rows.numel() * 4
+                  + b * D * 4 + b * m * 8)
+        us = kernel_us(torch, run, 20 if b == 1 else 5)
+        res[key] = {"ms": cuda_ms(torch, run, it), "device_us": sum(
+                        us.values()), "kernel_us": us,
+                    "queued_us": queued_us(torch, run),
+                    "host_us": host_us(torch, run), "max_abs_err": err,
+                    "rows_differing_at_ties": differ,
+                    "distinct_rows": distinct,
+                    "bound_bytes_ms": nbytes / 3.35e12 * 1e3,
+                    # the pool's row ids, then its rows: two dependent reads
+                    "bound_latency_ms": 2 * rt["l2_ns"] * 1e-6}
+        print(f"{key} {res[key]}", flush=True)
+
+
+def k10(torch, hn, native, root, res, it) -> None:
+    """K10 on k11_graph's upper layers (levels 1-4 over every 8th row of
+    1M x 384, 16 neighbours a list), f32 and bf16 rows, B = 1, 128 and
+    1,024 (a link plan's batch), from the entry to layer 0; each held to
+    its plain version (99% of walks equal) beside a latency bound (the
+    longest query's hop attempts x one dependent read, from L2 and from
+    HBM)."""
+    gr = k11_graph(torch)
+    rt = round_trip_ns(torch, native, root)
+    res["global_round_trip"] = rt
+    print(f"global round trip {rt}", flush=True)
+    x, x_sq, q = gr["x"], gr["x_sq"], gr["q"]
+    xb = x.to(torch.bfloat16)
+    sq_b = (xb.float() ** 2).sum(1)
+    for tag, xx, sq in (("f32", x, x_sq), ("bf16", xb, sq_b)):
+        for b in (128, 1, 1024):
+            qq = q[:b].contiguous()
+            args = (xx, sq, gr["mask"], gr["nbrs_up"], gr["up_offset"], qq,
+                    gr["entry"], gr["top"])
+
+            def run(args=args):
+                return hn.greedy_descent(*args)
+
+            ck, dk = run()
+            st = {}
+            cp, dp = hn.greedy_descent_plain(*args, stats=st)
+            agree = float((ck == cp).float().mean())
+            key = f"k10 {tag} B={b} M=16 levels={gr['top']}"
+            if agree < 0.99:
+                raise SystemExit(f"{key}: {agree} of walks agree")
+            seen = int(st["seen"].sum())
+            nbytes = (seen * (D * xx.element_size() + 4 + 1)
+                      + st["hops"] * 16 * 4 + b * D * 4 + b * 8)
+            longest = st.get("longest")  # None: a tree before it was kept
+            us = kernel_us(torch, run, 20 if b == 1 else 5)
+            res[key] = {"ms": cuda_ms(torch, run, it), "device_us": sum(
+                            us.values()), "kernel_us": us,
+                        "queued_us": queued_us(torch, run),
+                        "host_us": host_us(torch, run), "agree": agree,
+                        "hops": st["hops"], "longest": longest,
+                        "distinct_rows": seen,
+                        "bound_bytes_ms": nbytes / 3.35e12 * 1e3,
+                        "bound_latency_l2_ms": None if longest is None
+                        else longest * rt["l2_ns"] * 1e-6,
+                        "bound_latency_hbm_ms": None if longest is None
+                        else longest * rt["hbm_ns"] * 1e-6}
+            print(f"{key} {res[key]}", flush=True)
+
+
 def print_ptxas(tag: str, log: str) -> None:
     for line in log.splitlines():
         if any(w in line for w in PTXAS_WORDS):
@@ -1126,7 +1296,7 @@ def main() -> None:
                     help="directory for the results' JSON file")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only", choices=("stage1", "f32", "k4", "k9f32",
-                                       "k9bf16", "k11", "k6"),
+                                       "k9bf16", "k11", "k6", "k2", "k10"),
                     default=None)
     ap.add_argument("--split", choices=tuple(SPLITS), default=None)
     ap.add_argument("--profile", action="store_true",
@@ -1161,7 +1331,8 @@ def main() -> None:
     print(f"card: {card}; tree: {root}", flush=True)
     t = native.build_all()
     print(f"built in {t:.1f} s", flush=True)
-    for name in ("heuristic_kept", "approx_topk", "beam_search", "lloyd"):
+    for name in ("heuristic_kept", "approx_topk", "beam_search", "lloyd",
+                 "rerank_f32", "greedy_descent"):
         print_ptxas(name, native.build_log.get(name, ""))
     res = {"card": card, "tree": root.name}
     if args.only in (None, "stage1"):
@@ -1183,6 +1354,12 @@ def main() -> None:
         torch.cuda.empty_cache()
     if args.only in (None, "k6"):
         k6(torch, res, args.iters, args.profile)
+        torch.cuda.empty_cache()
+    if args.only in (None, "k2"):
+        k2(torch, fu, native, root, res, args.iters)
+        torch.cuda.empty_cache()
+    if args.only in (None, "k10"):
+        k10(torch, hn, native, root, res, args.iters)
     res["launches"] = {k: v for k, v in native.launches.items() if v}
     print(json.dumps(res), flush=True)
     out = Path(args.out)

@@ -2428,3 +2428,136 @@ def test_lloyd_routes_match_plain_on_card(c, d):
     assert torch.equal(counts, cnp) and float(stats[1]) == float(stp[1])
     assert float((sums - sp).abs().max()) <= 1e-5 * scale * float(
         cnp.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,ov,m,dtype,d,case", [
+    (1, 1024, 64, torch.bfloat16, 384, "split"),
+    (3, 1024, 64, torch.float32, 384, "split"),
+    (1, 128, 16, torch.float32, 384, "split"),
+    (2, 4096, 64, torch.bfloat16, 384, "fused"),
+    (2, 4097, 64, torch.bfloat16, 384, "radix"),
+    (2, 4097, 16, torch.float32, 384, "radix"),
+    (5, 40, 64, torch.float32, 384, "short"),
+    (4, 512, 16, torch.bfloat16, 384, "empty"),
+    (6, 300, 32, torch.float32, 101, "scalar"),
+    (6, 300, 32, torch.bfloat16, 100, "scalar"),
+    (6, 300, 32, torch.float32, 384, "unaligned")])
+def test_rerank_f32_routes_match_plain_on_card(b, ov, m, dtype, d, case):
+    """K2 by route: the grid split over a few queries ("split", where each
+    query alone must give the batch's answer bit for bit), the fused select
+    at its limit and the radix route just past it (each counted apart), a
+    pool shorter than m, pools of all -1, rows off the 16-byte layout (D %
+    4 != 0 on f32 rows, D % 8 != 0 on bf16 rows, a mirror 4 bytes off)."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(21)
+    n = 50_000
+    base = torch.randn(n * d + 1, device=dev, generator=g).to(dtype)
+    x = base[1:] if case == "unaligned" else base[:-1]
+    x = x.view(n, d)
+    q = torch.randn(b, d, device=dev, generator=g)
+    rows = torch.argsort(torch.rand(b, n, device=dev, generator=g), dim=1)[
+        :, :ov].to(torch.int32).contiguous()
+    rows[:, -max(ov // 8, 1):] = -1
+    if case == "empty":
+        rows[:] = -1
+    name = "rerank_f32" if dtype == torch.bfloat16 else "rerank_f32_rows"
+    before = (native.launches[name], native.launches[name + "_radix"])
+    vt, rt = fused_t.rerank_f32(x, q, rows, m)
+    torch.cuda.synchronize()
+    radix = case == "radix"
+    assert native.launches[name] - before[0] == int(not radix)
+    assert native.launches[name + "_radix"] - before[1] == int(radix)
+    vp, rp = fused_t.rerank_f32_plain(x, q, rows, m)
+    _assert_close_up_to_ties(vt, rt, vp, rp, 1e-5, 1e-3)
+    if case == "empty":
+        assert (rt == -1).all() and torch.isinf(vt).all()
+    if case == "short":
+        assert (rt[:, ov - ov // 8:] == -1).all()
+    if case == "split":
+        for i in range(b):
+            v1, r1 = fused_t.rerank_f32(x, q[i:i + 1].contiguous(),
+                                        rows[i:i + 1].contiguous(), m)
+            assert torch.equal(r1[0], rt[i]) and torch.equal(v1[0], vt[i])
+
+
+def _upper_graph(seed, n, d, m, top=4):
+    """A seeded upper-layer graph, as index/hnsw.py's device arrays hold it:
+    n clustered rows, node i at level l with probability 4^-l (at most
+    top, node 0 at top: the entry), its lists on layers 1 .. level at
+    nbrs_up[up_offset[i] + l - 1] (up_offset -1 for level-0 nodes), each
+    its m nearest nodes of that level (-1 where fewer are left)."""
+    rng = np.random.default_rng(seed)
+    x, _ = _mixture(seed, n, 24, d=d, spread=0.5)
+    level = np.minimum(np.floor(-np.log(rng.random(n)) / np.log(4)),
+                       top).astype(np.int32)
+    level[0] = top
+    up_offset = np.full(n, -1, np.int32)
+    upper = np.nonzero(level > 0)[0]
+    up_offset[upper] = (np.cumsum(level[upper]) - level[upper]).astype(
+        np.int32)
+    nbrs_up = np.full((int(level.sum()), m), -1, np.int32)
+    for lay in range(1, top + 1):
+        at = np.nonzero(level >= lay)[0]
+        xa = x[at].astype(np.float64)
+        dd = ((xa[:, None, :] - xa[None]) ** 2).sum(-1)
+        np.fill_diagonal(dd, np.inf)
+        kk = min(m, at.size - 1)
+        near = np.argsort(dd, axis=1, kind="stable")[:, :kk]
+        nbrs_up[up_offset[at] + lay - 1, :kk] = at[near]
+    q = (x[rng.integers(0, n, 64)]
+         + 0.3 * rng.standard_normal((64, d))).astype(np.float32)
+    return x, nbrs_up, up_offset, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,bf16,case", [
+    (5, 100, False, "stop"), (32, 128, False, "stop"),
+    (16, 96, True, "stop"), (32, 384, True, "stop"),
+    (16, 384, False, "masked_entry"), (16, 384, True, "max_hops"),
+    (32, 200, False, "masked_entry")])
+def test_greedy_descent_shapes_match_plain_on_card(m, d, bf16, case):
+    """K10 at M = 5 and 32, D % 128 != 0, bf16 rows, a fifth of the
+    nodes masked out (a masked entry too, case "masked_entry"), stop_layer
+    per query, max_hops reached (case "max_hops"), each held to the plain
+    version (99% of walks equal, distances close where equal: the norm
+    expansion |q|^2 - 2 q.x + |x|^2 summed in another order differs by a
+    few f32 ulps of |q|^2 + |x|^2, ~12,000 at D = 384 here, so the bound is
+    8 ulps of that, 1e-6 of it); every query alone (B = 1) gives the
+    batch's answer bit for bit."""
+    dev = _card()
+    x, nbrs_up, up_offset, q = _upper_graph(7 + m + d, 3000, d, m)
+    rng = np.random.default_rng(m * d)
+    mask = rng.random(x.shape[0]) >= 0.2
+    mask[0] = case != "masked_entry"
+    stop = rng.integers(0, 3, q.shape[0]).astype(np.int32)
+    xt = torch.from_numpy(x).to(dev)
+    x_sq = (xt * xt).sum(1)
+    if bf16:
+        xt = xt.to(torch.bfloat16)
+    args = (xt, x_sq, torch.from_numpy(mask).to(dev),
+            torch.from_numpy(nbrs_up).to(dev),
+            torch.from_numpy(up_offset).to(dev))
+    qt = torch.from_numpy(q).to(dev)
+    st = torch.from_numpy(stop).to(dev)
+    hops = 2 if case == "max_hops" else 512
+    ck, dk = hnsw_t.greedy_descent(*args, qt, 0, 4, st, hops)
+    stats = {}
+    cp, dp = hnsw_t.greedy_descent_plain(*args, qt, 0, 4, st, hops,
+                                         stats=stats)
+    assert (ck == cp).float().mean().item() >= 0.99
+    same = ck == cp
+    norms = float(x_sq.max() + (qt * qt).sum(1).max())
+    torch.testing.assert_close(dk[same], dp[same], rtol=1e-5,
+                               atol=1e-6 * norms)
+    if case == "max_hops":
+        assert stats["longest"] == 2
+    else:
+        assert stats["longest"] > 4  # walks moved on the upper layers
+    for i in range(8):
+        c1, d1 = hnsw_t.greedy_descent(*args, qt[i:i + 1].contiguous(), 0, 4,
+                                       st[i:i + 1].contiguous(), hops)
+        assert torch.equal(c1[0], ck[i]) and torch.equal(d1[0], dk[i])

@@ -314,6 +314,43 @@ def test_launch_counters_stay_at_zero_on_the_cpu():
     assert all(v == 0 for v in native.launches.values())
 
 
+def test_check_once_skips_only_the_tensor_that_passed():
+    """check_once checks a tensor the first time it is given under a name
+    and skips the same live tensor after; any other tensor is checked."""
+    t = torch.zeros((4, 3))
+    native.check_once(t, "once x", torch.float32, 2, t.device)
+    native.check_once(t, "once x", torch.float32, 2, t.device)
+    with pytest.raises(TypeError):
+        native.check_once(torch.zeros((4, 3), dtype=torch.float64),
+                          "once x", torch.float32, 2, t.device)
+    with pytest.raises(ValueError):
+        native.check_once(torch.zeros((3, 4)).T, "once x", torch.float32, 2,
+                          t.device)
+    with pytest.raises(ValueError):
+        native.check_once(t, "once y", torch.float32, 1, t.device)
+
+
+def test_rerank_workspace_grows_and_keeps_its_counts_zero():
+    """K2's fused route shares one workspace a device and stream: arrival
+    counts at zero (every launch leaves them so) and key scratch, reused
+    while large enough and replaced, never shrunk, when a call needs
+    more."""
+    from fabstir_vectordb_tpu_torch.index import fused as fused_t
+
+    dev = torch.device("cpu")
+    a1, k1 = fused_t._rerank_workspace(dev, 12345, 4, 1000)
+    a2, k2 = fused_t._rerank_workspace(dev, 12345, 100, 1000)
+    assert a2 is a1 and k2 is k1 and a1.numel() >= 128
+    assert k1.numel() >= 1 << 20
+    a3, k3 = fused_t._rerank_workspace(dev, 12345, 1000, 3 << 20)
+    assert a3.numel() >= 1000 and k3.numel() >= 3 << 20
+    assert not a3.any()
+    a4, _ = fused_t._rerank_workspace(dev, 12346, 4, 1000)
+    assert a4 is not a3  # another stream, another workspace
+    fused_t._rerank_ws.pop((None, 12345))
+    fused_t._rerank_ws.pop((None, 12346))
+
+
 # ---------------------------------------------------------------- B1-B4
 @pytest.mark.parametrize("mask_kind", ["rows", "per_query", "none"])
 @pytest.mark.parametrize("k", [1, 16, 700, 1024, 4097])

@@ -142,6 +142,76 @@ def test_greedy_descent_matches_reference(pair):
     assert a["level"] >= 2  # the walk crossed upper layers
 
 
+def _reference_steps(a, q, stop, max_hops=512):
+    """The reference's greedy descent (hnsw_j.greedy_descent_kernel's
+    while_loop body) for one query, step by step in numpy: its end (cur,
+    cur_d) and the hop attempts it made."""
+    x, x_sq, mask = a["x"], a["x_sq"], a["hnsw_mask"]
+    nbrs_up, up_offset = a["nbrs_up"], a["up_offset"]
+    q_sq = np.float32((q * q).sum())
+
+    def dists(ids):
+        safe = np.maximum(ids, 0)
+        d = q_sq - 2.0 * (x[safe] @ q) + x_sq[safe]
+        return np.maximum(d.astype(np.float32), 0.0)
+
+    cur, layer = a["entry"], a["level"]
+    cur_d = dists(np.array([cur]))[0] if mask[max(cur, 0)] else np.inf
+    steps = 0
+    while layer > stop and steps < max_hops:
+        row = min(max(up_offset[max(cur, 0)] + layer - 1, 0),
+                  nbrs_up.shape[0] - 1)
+        nbr = nbrs_up[row]
+        d = np.where((nbr >= 0) & mask[np.maximum(nbr, 0)], dists(nbr),
+                     np.inf)
+        j = int(np.argmin(d))
+        if d[j] < cur_d:
+            cur, cur_d = int(nbr[j]), d[j]
+        else:
+            layer -= 1
+        steps += 1
+    return cur, cur_d, steps
+
+
+@pytest.mark.parametrize("max_hops", [512, 3])
+def test_greedy_descent_longest_counts_the_reference_steps(pair, max_hops):
+    """The plain version's "longest" (the most hop attempts of any one
+    query, the chain that K10's latency bound counts) equals the attempts
+    of the reference's loop run one query at a time, step by step; that
+    loop ends where the JAX kernel does."""
+    hj, _, x = pair
+    a = _arrays(hj)
+    q = _queries(x, 5, 16)
+    stop = np.random.default_rng(6).integers(0, 2, 16).astype(np.int32)
+    cur_j, d_j = hnsw_j.greedy_descent_kernel(
+        *_j(a["x"], a["x_sq"], a["hnsw_mask"], a["nbrs_up"], a["up_offset"],
+            q), a["entry"], a["level"], jnp.asarray(stop), max_hops=max_hops)
+    arrs = _t(a["x"], a["x_sq"], a["hnsw_mask"], a["nbrs_up"],
+              a["up_offset"])
+    steps = []
+    for i in range(16):
+        cur, cur_d, n = _reference_steps(a, q[i], stop[i], max_hops)
+        assert cur == int(cur_j[i])
+        np.testing.assert_allclose(cur_d, float(d_j[i]), rtol=1e-5,
+                                   atol=2e-4)
+        st = {}
+        hnsw_t.greedy_descent_plain(
+            *arrs, torch.from_numpy(q[i:i + 1]), a["entry"], a["level"],
+            torch.from_numpy(stop[i:i + 1]), max_hops, stats=st)
+        assert st["longest"] == n == st["hops"]
+        steps.append(n)
+    st = {}
+    hnsw_t.greedy_descent_plain(*arrs, torch.from_numpy(q), a["entry"],
+                                a["level"], torch.from_numpy(stop), max_hops,
+                                stats=st)
+    assert st["longest"] == max(steps)
+    assert st["hops"] == sum(steps)
+    if max_hops == 3:  # every walk is cut at max_hops
+        assert max(steps) == 3
+    else:  # the queries' chains differ
+        assert max(steps) > min(steps)
+
+
 @pytest.mark.parametrize("expand,filtered,layer,starts", [
     (1, False, 0, "one"), (4, False, 0, "one"), (4, True, 0, "one"),
     (1, True, 0, "many"), (4, False, 1, "many")])
