@@ -109,7 +109,9 @@
    u8 element within half a step. The counters must show K7's pick and
    min-update, K6 and every K16 kernel; then each against its plain
    version at these shapes (k-means++'s picks equal to a key tie, the
-   trained errors within 1%).
+   trained errors within 1%, K6's Lloyd run step by step: each step within
+   1e-5 max|x| of the plain step from its centroids, rows sent apart only
+   at a float64 tie).
 11. Parallel phase: the multi-shard layer (K15, ``parallel/``) on the same
    1M index, after the quant phase: shard meshes of 4, 1 and 2 x 2 shards
    on the card and a NCCL process group of one rank. Flat exact search (k
@@ -471,7 +473,8 @@ def note_shapes(phase: str, native) -> None:
         k: v for k, v in native.shape_launches.items()
         if v and k.split(" ")[0].startswith(("beam_search", "assign",
                                               "lloyd", "rerank",
-                                              "greedy"))}
+                                              "greedy", "seed_",
+                                              "kmeans_pp"))}
 
 
 def kernels_phase(torch, tp, hn, km, dev, results):
@@ -1132,7 +1135,8 @@ def build_1m(torch, native, card: str, perf: dict, launch_of: dict):
     finally:
         km.kmeans_scalable_init, km._weighted_kmeanspp_host = (seeding,
                                                                 host_pp)
-    k7_names = ("seed_pick", "seed_min_update", "seed_counts")
+    k7_names = ("seed_pick", "seed_min_update_fma", "seed_min_update",
+                "seed_counts")
     for name in k7_names:
         launch_of[name] = native.launches[name]
         if launch_of[name] <= 0:
@@ -1164,8 +1168,11 @@ def build_1m(torch, native, card: str, perf: dict, launch_of: dict):
 
 
 def k7_checks(torch, ctx, results: dict) -> None:
-    """K7's three kernels against their plain versions at the IVF training
-    shape (the first 10,000 rows, l = 409, 2,046 candidates)."""
+    """K7's kmeans|| kernels against their plain versions at the IVF
+    training shape (the first 10,000 rows, l = 409, 2,046 candidates): the
+    pick, the table update and the counts on K6's tile pass, the first
+    one-candidate update on the FMA route; the counts' FMA route (C = 63)
+    on the route_checks line."""
     from fabstir_vectordb_tpu_torch.ops import kmeans as km
 
     d = ctx["d"]
@@ -1176,8 +1183,21 @@ def k7_checks(torch, ctx, results: dict) -> None:
     g = torch.Generator(device=dev).manual_seed(3)
     first = km.seed_pick_plain(None, mask, torch.rand(n, device=dev,
                                                       generator=g), 1, False)
-    d2 = km.seed_min_update_plain(x, mask, torch.full(
-        (n,), float("inf"), device=dev), first)
+    inf = torch.full((n,), float("inf"), device=dev)
+    x_sq_max = float((x * x).sum(1).max())
+    tol = 2e-5 * 2 * x_sq_max
+    d1k = km.seed_min_update(x, mask, inf, first)
+    d2 = km.seed_min_update_plain(x, mask, inf, first)
+    err = float((d1k - d2).abs().max())
+    if err > tol:
+        fail(f"seed_min_update_fma: max_abs_err {err} > {tol}")
+    results["seed_min_update_fma"] = dict(
+        shape=f"N={n} D={d} C=1", max_abs_err=err, tol=tol,
+        ms=cuda_ms(torch, lambda: km.seed_min_update(x, mask, inf, first)),
+        plain_ms=cuda_ms(torch, lambda: km.seed_min_update_plain(
+            x, mask, inf, first)), library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n * d * 4 + n * 9 + 4, 2.0 * n * d))))
     u = torch.rand(n, device=dev, generator=g)
     l, c_all = 409, 2046
     rk = km.seed_pick(d2, mask, u, l)
@@ -1191,10 +1211,11 @@ def k7_checks(torch, ctx, results: dict) -> None:
         library_ms=None,
         **dict(zip(("bound_ms", "bound_by"),
                    bound(n * (4 + 1 + 4) + l * 4, 4.0 * n))))
+    # the tile pass: three TF32 products, as the f32 operations that take
+    # as long at bound()'s f32 rate
+    tc = 3 * F32_FLOPS / TF32_FLOPS
     dk = km.seed_min_update(x, mask, d2, rk)
     dp = km.seed_min_update_plain(x, mask, d2, rk)
-    x_sq_max = float((x * x).sum(1).max())
-    tol = 2e-5 * 2 * x_sq_max
     err = float((dk - dp).abs().max())
     if err > tol:
         fail(f"seed_min_update: max_abs_err {err} > {tol}")
@@ -1203,24 +1224,39 @@ def k7_checks(torch, ctx, results: dict) -> None:
         ms=cuda_ms(torch, lambda: km.seed_min_update(x, mask, d2, rk)),
         plain_ms=cuda_ms(torch, lambda: km.seed_min_update_plain(
             x, mask, d2, rk)), library_ms=None,
+        bound_fma_ms=bound(0, 2.0 * l * n * d)[0],
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(n * d * 4 + n * 9 + l * 4, 2.0 * l * n * d))))
+                   bound(n * d * 4 + n * 9 + l * 4, 2.0 * l * n * d * tc))))
     cand = torch.cat([first, rk] + [km.seed_pick_plain(
         dp, mask, torch.rand(n, device=dev, generator=g), l)
         for _ in range(4)])[:c_all].contiguous()
-    ck = km.seed_counts(x, mask, cand)
-    cp = km.seed_counts_plain(x, mask, cand)
-    agree = float((ck == cp).float().mean())
-    if int(ck.sum()) != n or agree < 0.99:
-        fail(f"seed_counts: {agree} of counts agree, sum {int(ck.sum())}")
+
+    def counts_agree(name, cand):
+        ck = km.seed_counts(x, mask, cand)
+        cp = km.seed_counts_plain(x, mask, cand)
+        agree = float((ck == cp).float().mean())
+        moved = int((ck - cp).abs().sum()) // 2
+        if int(ck.sum()) != n or agree < 0.99 or moved > 0.001 * n:
+            fail(f"{name}: {agree} of counts agree, {moved} rows moved, "
+                 f"sum {int(ck.sum())}")
+        return dict(max_abs_err=float((ck - cp).abs().max()), agree=agree,
+                    rows_moved=moved)
+
+    c = cand.shape[0]
     results["seed_counts"] = dict(
-        shape=f"N={n} D={d} C={c_all}", max_abs_err=float(
-            (ck - cp).abs().max()), agree=agree,
+        shape=f"N={n} D={d} C={c}", **counts_agree("seed_counts", cand),
         ms=cuda_ms(torch, lambda: km.seed_counts(x, mask, cand)),
         plain_ms=cuda_ms(torch, lambda: km.seed_counts_plain(x, mask, cand)),
-        library_ms=None,
+        library_ms=None, bound_fma_ms=bound(0, 2.0 * c * n * d)[0],
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(n * d * 4 + n + c_all * 8, 2.0 * c_all * n * d))))
+                   bound(n * d * 4 + n + c * 8, 2.0 * c * n * d * tc))))
+    few = cand[:63].contiguous()
+    ROUTE_CHECKS["seed_counts_fma[C=63]"] = dict(
+        shape=f"N={n} D={d} C=63", **counts_agree("seed_counts_fma", few),
+        ms=cuda_ms(torch, lambda: km.seed_counts(x, mask, few)),
+        plain_ms=cuda_ms(torch, lambda: km.seed_counts_plain(x, mask, few)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n * d * 4 + n + 63 * 8, 2.0 * 63 * n * d))))
 
 
 def pruned_phase(torch, native, card: str, perf: dict, results: dict,
@@ -3775,30 +3811,22 @@ def scale_kernel_checks(torch, src, h, proj, sample, bq, oracle, members,
         print_kernel(name, results[name], launch_of[name])
 
 
-def pp_divergence(torch, km, state, x, mask, rk, rp):
-    """The first k-means++ pick where the kernel's rows rk and the plain
-    version's rp differ, and the gap between the two rows' keys E / d2
-    there ((None, 0.0) if none). The keys must tie within 1e-6 relative,
-    under the plain version's d2 and the draw the generator state
-    replays."""
-    diff = torch.nonzero(rk != rp)
-    if diff.numel() == 0:
+def pp_divergence(km, seed, x, mask, rk, rp, n_sub=1):
+    """The first k-means++ pick where the kernel's rows rk [n_sub, C] and
+    the plain version's rp differ, over the subspaces, and the largest
+    relative gap between the two rows' keys E / d2 there ((None, 0.0) if
+    none). The keys must tie within 1e-6, under the plain version's d2 and
+    the draw that ``seed`` keys."""
+    from tests.test_torch_kmeans_checks import pp_key_gaps
+
+    gaps = pp_key_gaps(seed, x, mask, rk, rp, n_sub)
+    if not gaps:
         return None, 0.0
-    i = int(diff[0, 0])
-    if i == 0:
-        fail("kmeans_pp_init: the first (uniform) pick differs")
-    n = x.shape[0]
-    g = torch.Generator(device=x.device)
-    g.set_state(state)
-    for _ in range(i + 1):
-        u = torch.rand(n, generator=g, device=x.device)
-    d2 = km.seed_min_update_plain(
-        x, mask, torch.full((n,), float("inf"), device=x.device), rp[:i])
-    e = -torch.log(u.clamp(1e-20, 1.0 - 1e-7))
-    ka, kb = (float(e[r] / d2[r]) for r in (int(rk[i]), int(rp[i])))
-    if abs(ka - kb) > 1e-6 * max(ka, kb):
-        fail(f"kmeans_pp_init: pick {i} differs off a tie (keys {ka}, {kb})")
-    return i, abs(ka - kb)
+    for m, i, gap in gaps:
+        if not gap <= 1e-6:
+            fail(f"k-means++: subspace {m} pick {i} differs off a tie (gap "
+                 f"{gap})")
+    return min(i for _, i, _ in gaps), max(g for _, _, g in gaps)
 
 
 def codes_check(torch, tag, x, cents, got, want, rel=1e-6):
@@ -3823,20 +3851,28 @@ def codes_check(torch, tag, x, cents, got, want, rel=1e-6):
     return int(n_idx.numel()), gap
 
 
-def pq_train_from_state(torch, km, gen, x, m: int, k: int, plain: bool):
+def pq_train_from_state(torch, km, qz, gen, x, m: int, k: int,
+                        plain: bool, init=None):
     """pq_train's steps from ``gen``'s state, through the kernels or their
     plain versions: (centroids [M, K, Ds], each subspace's Lloyd
-    iterations)."""
+    iterations, the seeding's seconds, Lloyd's seconds). ``init``: the
+    seeds [M, K, Ds] already drawn from that state (no seeding then)."""
     n, d = x.shape
     ds = d // m
     mask = torch.ones(n, dtype=torch.bool, device=x.device)
     block = km.lloyd_block_plain if plain else km.lloyd_block
-    subs = [x[:, j * ds:(j + 1) * ds].contiguous() for j in range(m)]
-    init = [s[km._pp_rows(gen, s, mask, k, plain=plain).long()] for s in subs]
-    res = [km._lloyd_until(s, mask, c, 25, 1e-4, block)
-           for s, c in zip(subs, init)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if init is None:
+        init = qz.pq_seeds(gen, x, m, k, plain)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = [km._lloyd_until(x[:, j * ds:(j + 1) * ds].contiguous(), mask,
+                           init[j].contiguous(), 25, 1e-4, block)
+           for j in range(m)]
+    torch.cuda.synchronize()
     return (torch.stack([r.centroids for r in res]),
-            [r.iterations for r in res])
+            [r.iterations for r in res], t1 - t0, time.perf_counter() - t1)
 
 
 def pq_distortion(torch, qz, cents, x):
@@ -3846,10 +3882,10 @@ def pq_distortion(torch, qz, cents, x):
 
 
 def pp_work(n: int, d: int, c: int):
-    """k-means++ over n x d rows, as (bytes, f32 ops): c picks (keys and a
-    select over n) and the c - 1 min-updates that follow all but the last
-    (the rows read once, 2 n d ops each)."""
-    return c * n * 13 + (c - 1) * n * d * 4, 2.0 * (c - 1) * n * d
+    """k-means++ over n x d rows (every subspace of them), as (bytes, f32
+    ops): the c - 1 updates that follow all but the last pick read the
+    rows once each (2 n d ops), each pick reads the mask."""
+    return c * n + (c - 1) * n * d * 4, 2.0 * (c - 1) * n * d
 
 
 def lloyd_work(n: int, d: int, c: int, iterations: int):
@@ -3889,6 +3925,7 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
     from fabstir_vectordb_tpu_torch.ops import quantization as qz
     from fabstir_vectordb_tpu_torch.ops import topk as tp
     from fabstir_vectordb_tpu_torch.utils.device import resolve_device
+    from tests import test_torch_kmeans_checks as kchk
 
     dev = resolve_device(None)
     if x_np is None:
@@ -3958,7 +3995,7 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
     y, u8d_s, u8d_l = step(lambda: qz.dequantize_u8(u8c, u8m, u8s))
     counts = dict(native.launches)
     note_shapes("quant-1m", native)
-    path = ("seed_pick", "seed_min_update", "lloyd_block", "quantize_u8",
+    path = ("kmeans_pp", "lloyd_block", "quantize_u8",
             "dequantize_u8", "pq_encode", "pq_decode", "pq_adc_table",
             "pq_adc_distances", "chunk_step")
     for name in path:
@@ -4036,55 +4073,101 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
             fail(f"quant: {kernels} launched no time in their call")
         return got
 
-    # k-means++ and kmeans_train (K7's pick and min-update, K6)
-    ppk, pp_s = {}, {}
-    for plain in (False, True):
+    def pp_entry(name, launches, m):
+        """K7's k-means++ kernel over the training rows in m subspaces
+        (one launch) against its plain version from the path's seed: pick
+        for pick up to key ties, the card's Philox routine bit for bit
+        (the fused kernel's own draws are covered by its picks). Returns the
+        plain version's rows and seconds, which the plain trainings below
+        start from."""
         g = torch.Generator(device=dev)
-        g.set_state(train_state)
-        ppk[plain], pp_s[plain] = timed(lambda: km._pp_rows(
-            g, train, tmask, kc, plain=plain))
-    tie_at, key_gap = pp_divergence(torch, km, train_state, train, tmask,
-                                    ppk[False], ppk[True])
+        g.set_state(train_state if m == 1 else pq[m]["state"])
+        seed = km.pp_seed(g)
+        rows, sec = {}, {}
+        for plain in (False, True):
+            rows[plain], sec[plain] = timed(lambda: km.kmeans_pp_rows(
+                seed, train, tmask, kc, m, plain))
+        tie_at, key_gap = pp_divergence(km, seed, train, tmask, rows[False],
+                                        rows[True], m)
+        # the card's Philox routine, which the kernel draws through
+        for sub, st in ((0, 0), (m - 1, 1), (m // 2, kc - 1)):
+            if not torch.equal(
+                    kchk.pp_uniforms_card(seed, sub, st, nt, dev),
+                    km.pp_uniforms(seed, [sub], st, nt, dev)[0]):
+                fail(f"{name}: the card's uniforms at subspace {sub} "
+                     f"step {st} differ from the plain version's")
+        bms, by = bound(*pp_work(nt, d, kc))
+        entry(name, own(launches, "kmeans_pp"),
+              shape=f"M={m} N={nt} Ds={d // m} C={kc}", max_abs_err=key_gap,
+              first_tie_pick=tie_at,
+              ms=cuda_ms(torch, lambda: km.kmeans_pp_rows(
+                  seed, train, tmask, kc, m), iters=3, warmup=1),
+              plain_ms=sec[True] * 1e3, library_ms=None, bound_ms=bms,
+              bound_by=by)
+        return rows[False], rows[True], sec[True]
+
+    # k-means++ (K7's kernel, one launch) and kmeans_train (K6)
+    ppk, ppp, pp_plain_s = pp_entry("kmeans_pp", km_l, 1)
     bms, by = bound(*pp_work(nt, d, kc))
-    entry("kmeans_pp_init", own(km_l, "seed_pick", "seed_min_update"),
-          shape=f"N={nt} D={d} C={kc}", max_abs_err=key_gap,
-          first_tie_pick=tie_at,
+    entry("kmeans_pp_init", own(km_l, "kmeans_pp"),
+          shape=f"N={nt} D={d} C={kc}",
+          max_abs_err=results["kmeans_pp"]["max_abs_err"],
+          first_tie_pick=results["kmeans_pp"]["first_tie_pick"],
           ms=cuda_ms(torch, lambda: km.kmeans_pp_init(gen, train, tmask, kc),
                      iters=3, warmup=1),
-          plain_ms=pp_s[True] * 1e3, library_ms=None, bound_ms=bms,
-          bound_by=by)
+          plain_ms=results["kmeans_pp"]["plain_ms"], library_ms=None,
+          bound_ms=bms, bound_by=by)
     # Lloyd from the same seeds through K6 and its plain version: the same
-    # stop, the same error within 1%, the same centroids
-    init = train[ppk[False].long()]
-    rk = km._lloyd_until(train, tmask, init, 25, 1e-4, km.lloyd_block)
-    rs = km._lloyd_until(train, tmask, init, 25, 1e-4, km.lloyd_block_plain)
+    # stop, the same error within 1%, the same centroids. K6's run is held
+    # step by step on its own steps: each within ctol of the plain step
+    # from the same centroids, a row that it or the plain run sends apart
+    # only at a float64 tie within the tensor cores' error (kchk.TIE; two
+    # roundings send such a row either way, and the runs part there), the
+    # two runs' centroids within ctol until they part, and at the end if
+    # they never do
+    init = train[ppk[0].long()]
+    logs = [], []
+    rk = km._lloyd_until(train, tmask, init, 25, 1e-4,
+                         kchk.recording(km.lloyd_block, logs[0]))
+    rs = km._lloyd_until(train, tmask, init, 25, 1e-4,
+                         kchk.recording(km.lloyd_block_plain, logs[1]))
     cerr = float((rk.centroids - rs.centroids).abs().max())
     ctol = 1e-5 * float(train.abs().max())
+    held = kchk.lloyd_check(train, tmask, init, *logs,
+                            min(rk.iterations, rs.iterations))
+    del logs
     print(f"quant: kmeans_train from one init: K6 {rk.iterations} "
           f"iterations, converged {rk.converged}, error {rk.final_error}; "
           f"plain {rs.iterations}, {rs.converged}, {rs.final_error}; "
-          f"centroids apart by {cerr} (tol {ctol})", flush=True)
+          f"last centroids apart by {cerr} (tol {ctol}); K6's steps "
+          f"against the plain step from their inputs: within "
+          f"{held['step_err']}, {held['rows_off']} rows assigned apart "
+          f"(largest gap {held['off_gap']}, tie limit {kchk.TIE}); the two "
+          f"runs parted at step {held['parted_at']} (gap "
+          f"{held['parting_gap']}), centroids within {held['apart']} "
+          f"before", flush=True)
     if (rk.iterations != rs.iterations or rk.converged != rs.converged
             or abs(rk.final_error - rs.final_error) > 0.01 * rs.final_error
-            or cerr > ctol):
+            or not kchk.lloyd_holds(held, ctol)
+            or (held["parted_at"] is None and cerr > ctol)):
         fail("kmeans_train: K6's run differs from the plain run's")
     # the whole kmeans_train, warm, from the path's seed: its time and the
     # work its iterations did; the plain one from the same seed
     g = torch.Generator(device=dev)
     g.set_state(train_state)
     rw, kw_s = timed(lambda: km.kmeans_train(g, train, tmask, kc))
-    g.set_state(train_state)
     _, plain_s = timed(lambda: km._lloyd_until(
-        train, tmask, train[km._pp_rows(g, train, tmask, kc,
-                                        plain=True).long()],
-        25, 1e-4, km.lloyd_block_plain))
+        train, tmask, train[ppp[0].long()], 25, 1e-4, km.lloyd_block_plain))
+    plain_s += pp_plain_s  # the plain k-means++ from the same seed
     pb, po = pp_work(nt, d, kc)
     lb, lo = lloyd_work(nt, d, kc, rw.iterations)
     bms, by = bound(pb + lb, po + lo)
-    entry("kmeans_train", own(km_l, "seed_pick", "seed_min_update",
-                              "lloyd_block"),
+    entry("kmeans_train", own(km_l, "kmeans_pp", "lloyd_block"),
           shape=f"N={nt} D={d} C={kc}, {rw.iterations} iterations",
-          max_abs_err=cerr, tol=ctol, error=rw.final_error,
+          max_abs_err=held["step_err"], tol=ctol, error=rw.final_error,
+          last_centroids_apart=cerr, parted_at=held["parted_at"],
+          parting_gap=held["parting_gap"], rows_off=held["rows_off"],
+          off_gap=held["off_gap"],
           plain_error=rs.final_error, ms=kw_s * 1e3, plain_ms=plain_s * 1e3,
           library_ms=None, bound_ms=bms, bound_by=by)
     del rk, rs, rw
@@ -4147,26 +4230,37 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
         ds = d // m
         # pq_train again from the path's seed, warm: its time and the work
         # its iterations did; the plain one from the same seed
+        _, rows_p, pseed_s = pp_entry(f"kmeans_pp[M={m}]", r["train_l"], m)
         g = torch.Generator(device=dev)
         g.set_state(r["state"])
-        (_, its), tk_s = timed(lambda: pq_train_from_state(
-            torch, km, g, train, m, kc, False))
-        g.set_state(r["state"])
-        (cb_p, _), plain_s = timed(lambda: pq_train_from_state(
-            torch, km, g, train, m, kc, True))
+        (_, its, seed_s, lloyd_s), tk_s = timed(lambda: pq_train_from_state(
+            torch, km, qz, g, train, m, kc, False))
+        # the plain run from the plain k-means++ above (the same seed)
+        init_p = train.reshape(nt, m, ds)[rows_p.long(), torch.arange(
+            m, device=dev)[:, None]]
+        (cb_p, _, _, plloyd_s), _ = timed(lambda: pq_train_from_state(
+            torch, km, qz, None, train, m, kc, True, init_p))
+        plain_s = pseed_s + plloyd_s
+        print(f"quant: pq_train M={m}: {tk_s * 1e3:.3f} ms, seeding "
+              f"{seed_s * 1e3:.3f} ms (one K7 launch), Lloyd "
+              f"{lloyd_s * 1e3:.3f} ms ({m} subspaces, {sum(its)} "
+              f"iterations); plain {plain_s * 1e3:.3f} ms: seeding "
+              f"{pseed_s * 1e3:.3f} ms, Lloyd {plloyd_s * 1e3:.3f} ms "
+              f"({card})", flush=True)
         dk = pq_distortion(torch, qz, cents, train)
         dp = pq_distortion(torch, qz, cb_p, train)
         if abs(dk - dp) > 0.01 * dp:
             fail(f"pq_train M={m}: distortion {dk} against the plain "
                  f"run's {dp}")
-        work = [pp_work(nt, ds, kc) for _ in range(m)] + [
-            lloyd_work(nt, ds, kc, i) for i in its]
+        work = [pp_work(nt, d, kc)] + [lloyd_work(nt, ds, kc, i)
+                                       for i in its]
         bms, by = bound(sum(w[0] for w in work), sum(w[1] for w in work))
-        entry(f"pq_train[M={m}]", own(r["train_l"], "seed_pick",
-                                      "seed_min_update", "lloyd_block"),
+        entry(f"pq_train[M={m}]", own(r["train_l"], "kmeans_pp",
+                                      "lloyd_block"),
               shape=f"N={nt} D={d} M={m} K={kc}, {sum(its)} iterations",
               max_abs_err=abs(dk - dp), distortion=dk, plain_distortion=dp,
               ms=tk_s * 1e3, plain_ms=plain_s * 1e3, library_ms=None,
+              seeding_ms=seed_s * 1e3, lloyd_ms=lloyd_s * 1e3,
               bound_ms=bms, bound_by=by)
         cp = qz.pq_encode_plain(cents, x)
         differ, gap = codes_check(torch, f"pq_encode[M={m}]", x, cents,
@@ -5311,6 +5405,8 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "seed_pick": "fabstir_vectordb_tpu/ops/kmeans.py:150",
     "seed_min_update": "fabstir_vectordb_tpu/ops/kmeans.py:130",
     "seed_counts": "fabstir_vectordb_tpu/ops/kmeans.py:140",
+    "seed_min_update_fma": "fabstir_vectordb_tpu/ops/kmeans.py:130",
+    "kmeans_pp": "fabstir_vectordb_tpu/ops/kmeans.py:33",
     "stage1_select": "fabstir_vectordb_tpu/index/fused.py:65",
     "project_rows": "fabstir_vectordb_tpu/index/fused.py:197",
     "project_queries": "fabstir_vectordb_tpu/index/fused.py:741",
@@ -5368,6 +5464,8 @@ SOURCES = {
     "seed_pick": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
     "seed_min_update": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
     "seed_counts": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
+    "seed_min_update_fma": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
+    "kmeans_pp": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
     "stage1_select": "fabstir_vectordb_tpu_torch/csrc/stage1_select.cu",
     "project_rows": "fabstir_vectordb_tpu_torch/csrc/project_rows.cu",
     "project_queries": "fabstir_vectordb_tpu_torch/csrc/project_rows.cu",
@@ -5383,9 +5481,10 @@ SOURCES = {
     "hybrid_search": "fabstir_vectordb_tpu_torch/index/fused.py",
     # the fused chunk step, or past k = 256 the filtered select
     "chunked_topk": "fabstir_vectordb_tpu_torch/csrc/merge_topk.cu",
-    # K7's pick and min-update, one pair a centroid
-    "kmeans_pp_init": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
-    # k-means++ then K6's blocks; pq_train maps it over the subspaces
+    # K7's k-means++ kernel (one launch) and the rows' gather
+    "kmeans_pp_init": "fabstir_vectordb_tpu_torch/ops/kmeans.py",
+    # k-means++ then K6's blocks; pq_train seeds every subspace in one
+    # launch, then runs Lloyd on each
     "kmeans_train": "fabstir_vectordb_tpu_torch/ops/kmeans.py",
     "pq_train": "fabstir_vectordb_tpu_torch/ops/quantization.py",
     "quantize_u8": "fabstir_vectordb_tpu_torch/csrc/quantize.cu",
@@ -5445,6 +5544,9 @@ TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
 # tensor-core route's (bound_fma_ms) and a bf16 torch.matmul of the same
 # product (gemm_ms)
 DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
+               "seeding_ms", "lloyd_ms", "rows_moved",
+               "last_centroids_apart", "parted_at", "parting_gap",
+               "rows_off", "off_gap",
                "steps_max", "longest", "warps_a_query",
                "library_device_us", "tile_pass", "gemm_ms", "bound_fma_ms",
                "stage1_select_fma_launches",
@@ -5524,7 +5626,8 @@ def main() -> None:
         t = time.perf_counter()
         ctx = build_1m(torch, native, card, perf, launch_of)
         k7_checks(torch, ctx, results)
-        for name in ("seed_pick", "seed_min_update", "seed_counts"):
+        for name in ("seed_pick", "seed_min_update_fma", "seed_min_update",
+                     "seed_counts"):
             print_kernel(name, results[name], launch_of[name])
         print(f"1M build: {time.perf_counter() - t:.1f} s", flush=True)
         for name, phase in (("pruned", pruned_phase),
@@ -5592,7 +5695,7 @@ def main() -> None:
     if ROUTE_CHECKS:
         print("route_checks " + json.dumps(ROUTE_CHECKS), flush=True)
     if SHAPE_LAUNCHES:
-        print("launches_by_shape (K2, K6, K10, K11) "
+        print("launches_by_shape (K2, K6, K7, K10, K11) "
               + json.dumps(SHAPE_LAUNCHES),
               flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -66,8 +66,7 @@
 // divides, keeps empty clusters, and writes the error. Each iteration's
 // centroids are written to their slot of the [steps, C, D] output, and the
 // next iteration reads them from there.
-#include "common.cuh"
-#include "wgmma.cuh"
+#include "lloyd_tile.cuh"
 
 namespace fvdb {
 
@@ -128,21 +127,6 @@ __global__ void __launch_bounds__(NT) row_sq_kernel(const float* __restrict__ a,
   if (r >= n) return;
   const float s = warp_row_sq(a + (size_t)r * D, D);
   if ((threadIdx.x & 31) == 0) out[r] = s;
-}
-
-// A warp's error and row count (summed across its lanes) into stats[0]
-// and stats[1]: one atomic each a warp, not one a row.
-__device__ __forceinline__ void add_stats(float err, float rows,
-                                          float* __restrict__ stats) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    err += __shfl_xor_sync(FULL, err, off);
-    rows += __shfl_xor_sync(FULL, rows, off);
-  }
-  if ((threadIdx.x & 31) == 0 && rows > 0.f) {
-    atomicAdd(&stats[0], err);
-    atomicAdd(&stats[1], rows);
-  }
 }
 
 // accumulate = 1: add each masked-in row to sums/counts/stats (Lloyd);
@@ -212,240 +196,6 @@ __global__ void __launch_bounds__(NT) assign_kernel(
   if (accumulate) add_stats(err, rows, stats);
 }
 
-// ---- the tensor-core route
-
-constexpr int LT_ROWS = 128;                  // rows of x a block
-constexpr int LT_CENTS = 128;                 // centroids a pass
-constexpr int LT_K = 32;                      // f32 dims a stage
-constexpr int LT_TILE = 128 * LT_K * 4;       // a 128 x 32 f32 tile: 16 KB
-constexpr int LT_STAGE = 3 * LT_TILE;         // rows, big, small parts
-constexpr int LT_STAGES = 4;
-constexpr int LT_CONSUMERS = 256;             // two warpgroups
-constexpr int LT_THREADS = LT_CONSUMERS + 32;  // and a producer warp
-constexpr int LT_SMEM = LT_STAGES * LT_STAGE + 1024;  // + the alignment
-
-// The centroids' TF32 parts: big = tf32(c), small = tf32(c - big), each
-// [n] (n = C * D) in its half of parts [2, n].
-__global__ void split_tf32_kernel(const float* __restrict__ c, long long n,
-                                  float* __restrict__ parts) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const float v = c[i];
-    const uint32_t big = tf32_rna(v);
-    parts[i] = __uint_as_float(big);
-    parts[n + i] = __uint_as_float(tf32_rna(v - __uint_as_float(big)));
-  }
-}
-
-// The assignment on the tensor cores (the head comment's design): tmx
-// maps x [N, D], tmb / tms the centroids' big / small parts [C, D], each in
-// 128 x 32 boxes, 128-byte swizzled. accumulate as assign_kernel's.
-__global__ void __launch_bounds__(LT_THREADS, 1) assign_tc_kernel(
-    const __grid_constant__ CUtensorMap tmx,
-    const __grid_constant__ CUtensorMap tmb,
-    const __grid_constant__ CUtensorMap tms, const float* __restrict__ x,
-    const uint8_t* __restrict__ mask, const float* __restrict__ cents,
-    const float* __restrict__ c_sq, int N, int C, int D, int accumulate,
-    int* __restrict__ assign, float* __restrict__ d2,
-    float* __restrict__ sums, float* __restrict__ counts,
-    float* __restrict__ stats) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[LT_STAGES], empty[LT_STAGES];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int t = threadIdx.x;
-  const int n0 = blockIdx.x * LT_ROWS;
-  const int KS = (D + LT_K - 1) / LT_K, CT = (C + LT_CENTS - 1) / LT_CENTS;
-  if (t == 0) {
-    for (int s = 0; s < LT_STAGES; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, LT_CONSUMERS / 32);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-  if (t >= LT_CONSUMERS) {  // the producer warp: one lane issues the copies
-    if (t == LT_CONSUMERS) {
-      for (int g = 0; g < CT * KS; ++g) {
-        const int slot = g % LT_STAGES, use = g / LT_STAGES;
-        if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
-        mbar_expect(full + slot, LT_STAGE);
-        const uint32_t dst = smem_addr(ring + slot * LT_STAGE);
-        const int k0 = (g % KS) * LT_K, c0 = (g / KS) * LT_CENTS;
-        tma_load_2d(dst, &tmx, k0, n0, full + slot);
-        tma_load_2d(dst + LT_TILE, &tmb, k0, c0, full + slot);
-        tma_load_2d(dst + 2 * LT_TILE, &tms, k0, c0, full + slot);
-      }
-    }
-    return;
-  }
-
-  const int wg = t >> 7, w = t >> 5, lane = t & 31;
-  const int rloc = wg * 64 + (w & 3) * 16 + (lane >> 2);  // rows rloc, +8
-  // |x|^2 of the two rows, from the fragments of the first pass (the four
-  // lanes of a quad hold a stage's 32 dims of them), summed by the quad
-  float xs[2] = {0.f, 0.f}, best_d[2];
-  int best_c[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    best_d[h] = INFINITY;
-    best_c[h] = 0x7fffffff;
-  }
-  int g = 0;  // the block's stage, as the producer counts them
-  for (int ct = 0; ct < CT; ++ct) {
-    float acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    for (int kc = 0; kc < KS; ++kc, ++g) {
-      const int slot = g % LT_STAGES;
-      mbar_wait(full + slot, (g / LT_STAGES) & 1);
-      const unsigned char* st = ring + slot * LT_STAGE;
-      // this thread's A fragments of the stage's 4 k8 steps, split: rows
-      // rloc (e even) and rloc + 8, dims 8 j + lane % 4 (+ 4)
-      uint32_t ab[4][4], as[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = rloc + 8 * (e & 1);
-          const int col = 8 * j + (lane & 3) + 4 * (e >> 1);
-          const float v = *reinterpret_cast<const float*>(
-              st + sw128(r, col >> 2) + (col & 3) * 4);
-          if (ct == 0) xs[e & 1] = fmaf(v, v, xs[e & 1]);
-          ab[j][e] = tf32_rna(v);
-          as[j][e] = tf32_rna(v - __uint_as_float(ab[j][e]));
-        }
-      const uint64_t db = sw128_desc(smem_addr(st + LT_TILE));
-      const uint64_t ds = sw128_desc(smem_addr(st + 2 * LT_TILE));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float pb[64];
-        fence_regs(pb);
-        wgmma_fence();
-        WgmmaTF32<128>::mma(pb, ab[j], db + 2 * j, 0);
-        WgmmaTF32<128>::mma(pb, as[j], db + 2 * j, 1);
-        WgmmaTF32<128>::mma(pb, ab[j], ds + 2 * j, 1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(pb);
-#pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] += pb[i];
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + slot);
-    }
-    if (ct == 0)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        xs[h] += __shfl_xor_sync(FULL, xs[h], 1);
-        xs[h] += __shfl_xor_sync(FULL, xs[h], 2);
-      }
-    // thread lane of warp w holds rows rloc (h = 0) and rloc + 8 (h = 1),
-    // centroids c0 + 8 (i / 4) + 2 (lane % 4) + i % 2
-    const int c0 = ct * LT_CENTS;
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int h = (i >> 1) & 1;
-      const int c = c0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-      if (c < C) {
-        const float d = fmaxf(xs[h] - 2.f * acc[i] + __ldg(c_sq + c), 0.f);
-        if (lex_less(d, c, best_d[h], best_c[h])) {
-          best_d[h] = d;
-          best_c[h] = c;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      const float od = __shfl_xor_sync(FULL, best_d[h], off);
-      const int oc = __shfl_xor_sync(FULL, best_c[h], off);
-      if (lex_less(od, oc, best_d[h], best_c[h])) {
-        best_d[h] = od;
-        best_c[h] = oc;
-      }
-    }
-  if (!accumulate) {
-    if ((lane & 3) == 0)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = n0 + rloc + 8 * h;
-        if (n >= N) continue;
-        const bool ok = mask == nullptr || mask[n];
-        assign[n] = ok ? best_c[h] : -1;
-        d2[n] = ok ? best_d[h] : 0.f;
-      }
-    return;
-  }
-  // the warp's 16 rows one at a time: the whole warp adds the row into its
-  // cluster's sums, four dims a lane per 128 (one 16-byte atomic where the
-  // sums are 16-byte aligned). The error takes the row's distance to its
-  // centroid again with the dot product by f32 FMA: the tensor cores' sums
-  // are cut, not rounded, and their bias (~2^-23 of |x|.|c| a k8 product)
-  // would not average out over the rows as the FMA tile's rounding does
-  // (the mean error of rows at |x|^2 ~ 6,000 and d2 ~ 1 moved ~1e-3).
-  const int rbase = n0 + wg * 64 + (w & 3) * 16;
-  const bool vec = (reinterpret_cast<uintptr_t>(sums) & 15) == 0;
-  float err = 0.f, rows = 0.f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    for (int qd = 0; qd < 8; ++qd) {
-      const int c = __shfl_sync(FULL, best_c[h], 4 * qd);
-      const float xq = __shfl_sync(FULL, xs[h], 4 * qd);
-      const int n = rbase + qd + 8 * h;
-      if (n >= N || (mask != nullptr && !mask[n])) continue;  // uniform
-      const float* xr = x + (size_t)n * D;
-      const float* cr = cents + (size_t)c * D;
-      float* sr = sums + (size_t)c * D;
-      float dot = 0.f;
-      for (int d = 4 * lane; d < D; d += 128) {
-        const float4 v = ld4(xr + d);
-        const float4 cv = ld4(cr + d);
-        dot = fmaf(v.x, cv.x, dot);
-        dot = fmaf(v.y, cv.y, dot);
-        dot = fmaf(v.z, cv.z, dot);
-        dot = fmaf(v.w, cv.w, dot);
-        if (vec) {
-          atomicAdd(reinterpret_cast<float4*>(sr + d), v);
-        } else {
-          atomicAdd(sr + d, v.x);
-          atomicAdd(sr + d + 1, v.y);
-          atomicAdd(sr + d + 2, v.z);
-          atomicAdd(sr + d + 3, v.w);
-        }
-      }
-#pragma unroll
-      for (int off = 16; off; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
-      if (lane == 0) {
-        atomicAdd(&counts[c], 1.f);
-        err += fmaxf(xq - 2.f * dot + __ldg(c_sq + c), 0.f);
-        rows += 1.f;
-      }
-    }
-  add_stats(err, rows, stats);
-}
-
-// The tensor maps of a call: x [N, D] and the centroids' two parts [C, D]
-// in 128 x 32 boxes, 128-byte swizzled.
-struct LloydMaps {
-  CUtensorMap x, big, small;
-};
-
-inline cudaError_t lloyd_maps(const float* x, int N, const float* parts,
-                              int C, int D, LloydMaps* m) {
-  if (D % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(parts) % 16 != 0)
-    return cudaErrorInvalidValue;
-  if ((N > 0 && !tile_map(&m->x, x, false, N, D, D, LT_ROWS, LT_K, true)) ||
-      !tile_map(&m->big, parts, false, C, D, D, LT_CENTS, LT_K, true) ||
-      !tile_map(&m->small, parts + (size_t)C * D, false, C, D, D, LT_CENTS,
-                LT_K, true))
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
-}
-
 __global__ void update_kernel(const float* __restrict__ sums,
                               const float* __restrict__ counts,
                               const float* __restrict__ stats,
@@ -477,18 +227,17 @@ inline cudaError_t assign_rows(const LloydMaps* maps, const float* x,
         counts, stats);
     return cudaSuccess;
   }
-  static int cap[64];
-  cudaError_t e = raise_smem_cap(
-      reinterpret_cast<const void*>(assign_tc_kernel), LT_SMEM, cap);
-  if (e != cudaSuccess) return e;
   const long long cd = (long long)C * D;
   const int nb = blocks_for(cd, 256);
   split_tf32_kernel<<<nb < 1024 ? nb : 1024, 256, 0, stream>>>(cents, cd,
                                                                 parts);
-  assign_tc_kernel<<<blocks_for(N, LT_ROWS), LT_THREADS, LT_SMEM, stream>>>(
-      maps->x, maps->big, maps->small, x, mask, cents, c_sq, N, C, D,
-      accumulate, assign, d2, sums, counts, stats);
-  return cudaSuccess;
+  return accumulate
+             ? launch_tc<TC_LLOYD>(*maps, x, mask, cents, c_sq, N, C, D, 1,
+                                   assign, d2, sums, counts, stats, nullptr,
+                                   stream)
+             : launch_tc<TC_ASSIGN>(*maps, x, mask, cents, c_sq, N, C, D, 1,
+                                    assign, d2, sums, counts, stats, nullptr,
+                                    stream);
 }
 
 // One iteration's partial over the rows of x (x_sq already taken): zero the

@@ -6,14 +6,18 @@ the card (csrc/lloyd.cu: its distances on the tensor cores by three TF32
 products, or on an FMA tile at the shapes that route does not take, as
 :func:`lloyd_route` picks), which also runs an iteration in two halves for
 the sharded Lloyd step (``lloyd_partial`` on each shard, ``lloyd_finish``
-on the sums summed across the shards); the seeding's device programs (the
-weighted pick, the min-distance table, the candidates' populations) are
-csrc/kmeans_seed.cu, and k-means++ is one pick and one min-update a
-centroid. Each has a plain version here, which the wrappers take on CPU
-tensors. The seeding draws from a ``torch.Generator``, so its picks differ
-from the reference's ``jax.random`` ones; kmeans||'s weighted k-means++
-over the candidates runs on the host, as there. Lloyd stops by the
-reference's rule, decided on the host after each block of iterations.
+on the sums summed across the shards). The seeding is csrc/kmeans_seed.cu:
+k-means++ is one launch for all its picks, and for every subspace of PQ's
+training at once (:func:`kmeans_pp_rows`), drawing its uniforms from a
+counter-based generator (Philox4x32-10, :func:`pp_uniforms`) keyed by one
+draw from the caller's ``torch.Generator``; kmeans||'s device steps (the
+weighted pick, the min-distance table, the candidates' populations) are a
+kernel each, the last two on K6's tile pass where :func:`lloyd_route` sends
+their shape. Each has a plain version here, which the wrappers take on CPU
+tensors. The draws differ from the reference's ``jax.random`` ones;
+kmeans||'s weighted k-means++ over the candidates runs on the host, as
+there. Lloyd stops by the reference's rule, decided on the host after each
+block of iterations.
 """
 from __future__ import annotations
 
@@ -328,16 +332,13 @@ def seed_pick_plain(d2, mask, u, l: int, weighted: bool = True,
     return torch.where(torch.isfinite(vals), rows, torch.full_like(rows, -1))
 
 
-def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None,
-              unweighted_if_empty: bool = False):
-    """K7's pick (``_scalable_first`` / ``_scalable_round``): rows [l]
-    int32, written into ``out`` when given. d2 [N] f32 (unused unweighted),
-    mask [N] bool, u [N] uniform f32 from the caller's generator.
-    ``unweighted_if_empty`` (k-means++): a weighted pick with no row of
-    mask and d2 > 0 draws uniformly over the mask instead, decided on the
-    card."""
+def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None):
+    """K7's kmeans|| pick (``_scalable_first`` / ``_scalable_round``): rows
+    [l] int32, written into ``out`` when given. d2 [N] f32 (unused
+    unweighted), mask [N] bool, u [N] uniform f32 from the caller's
+    generator."""
     if mask.device.type == "cpu":
-        rows = seed_pick_plain(d2, mask, u, l, weighted, unweighted_if_empty)
+        rows = seed_pick_plain(d2, mask, u, l, weighted)
         if out is None:
             return rows
         out.copy_(rows)
@@ -353,19 +354,17 @@ def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None,
     if out is None:
         out = torch.empty(l, dtype=torch.int32, device=dev)
     native.check(out, "out", torch.int32, 1, dev)
-    fallback = weighted and unweighted_if_empty
-    # key [N] | out_d [l] | the fallback's flag
-    scratch = torch.empty(n + l + 1, dtype=torch.float32, device=dev)
+    scratch = torch.empty(n + l, dtype=torch.float32, device=dev)  # key, d
     work = select_scratch("kmeans_seed", 1, l, dev)
     P, I = native.P, native.I
-    native.call("kmeans_seed", "fvdb_seed_pick",
-                [P, P, P, I, I, I, I, P, P, P, P, P, P],
+    native.call("kmeans_seed", "fvdb_seed_pick", [P, P, P, I, I, I, P, P, P,
+                                                  P, P],
                 d2.data_ptr() if weighted else 0, mask.data_ptr(),
-                u.data_ptr(), n, l, int(weighted), int(fallback),
-                scratch[n + l:].data_ptr() if fallback else 0,
-                scratch.data_ptr(), work.data_ptr(), scratch[n:].data_ptr(),
-                out.data_ptr(), native.stream_of(mask))
+                u.data_ptr(), n, l, int(weighted), scratch.data_ptr(),
+                work.data_ptr(), scratch[n:].data_ptr(), out.data_ptr(),
+                native.stream_of(mask))
     native.launches["seed_pick"] += 1
+    native.count_shape("seed_pick", f"N={n} l={l}")
     return out
 
 
@@ -381,31 +380,48 @@ def seed_min_update_plain(x, mask, d2, cand):
                        torch.zeros_like(d2))
 
 
-def _seed_args(x, mask, cand):
+def _seed_args(x, mask, cand, base: str):
+    """(n, d, c, tc, the launch counter) of a kmeans|| table update or
+    count on CUDA tensors: the tile pass where :func:`lloyd_route` sends c
+    candidates of d dims, else the FMA route ("<base>_fma")."""
     dev = x.device
     native.check(x, "x", torch.float32, 2, dev)
     native.check(mask, "mask", torch.bool, 1, dev)
     native.check(cand, "cand", torch.int32, 1, dev)
     n, d = x.shape
-    if mask.shape[0] != n or cand.shape[0] < 1:
+    c = cand.shape[0]
+    if mask.shape[0] != n or c < 1:
         raise ValueError("shape mismatch in the kmeans|| seeding")
-    return n, d, cand.shape[0]
+    tc = lloyd_route(n, c, d, x.data_ptr() % 16 == 0) == "tf32x3"
+    return n, d, c, tc, base if tc else f"{base}_fma"
+
+
+def _tile_scratch(c: int, d: int, extra: int, dev):
+    """The tile pass's scratch: the candidates' TF32 parts [2, C, D] (16-byte
+    aligned at the start), their f32 rows [C, D] and norms [C], then
+    ``extra`` floats."""
+    return torch.empty(3 * c * d + c + extra, dtype=torch.float32,
+                       device=dev)
 
 
 def seed_min_update(x, mask, d2, cand):
     """K7's min-distance table update (the second half of
-    ``_scalable_first`` / ``_scalable_round``): a new d2 [N]."""
+    ``_scalable_first`` / ``_scalable_round``): a new d2 [N]. On CUDA
+    tensors K6's tile pass with its table epilogue, or the FMA route at
+    the shapes :func:`lloyd_route` keeps off the tensor cores."""
     if x.device.type == "cpu":
         return seed_min_update_plain(x, mask, d2, cand)
-    n, d, c = _seed_args(x, mask, cand)
+    n, d, c, tc, name = _seed_args(x, mask, cand, "seed_min_update")
     native.check(d2, "d2", torch.float32, 1, x.device)
     out = torch.empty_like(d2)
+    scratch = _tile_scratch(c, d, 0, x.device) if tc else None
     P, I = native.P, native.I
     native.call("kmeans_seed", "fvdb_seed_min_update",
-                [P, P, P, I, I, I, P, P, P], x.data_ptr(), mask.data_ptr(),
-                cand.data_ptr(), c, n, d, d2.data_ptr(), out.data_ptr(),
-                native.stream_of(x))
-    native.launches["seed_min_update"] += 1
+                [P, P, P, I, I, I, P, P, I, P, P], x.data_ptr(),
+                mask.data_ptr(), cand.data_ptr(), c, n, d, d2.data_ptr(),
+                out.data_ptr(), int(tc), _ptr(scratch), native.stream_of(x))
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} C={c} D={d}")
     return out
 
 
@@ -422,16 +438,24 @@ def seed_counts_plain(x, mask, cand):
 
 
 def seed_counts(x, mask, cand):
-    """K7's candidate weights (``_scalable_weights``): counts [C] int32."""
+    """K7's candidate weights (``_scalable_weights``): counts [C] int32. On
+    CUDA tensors K6's tile pass with its nearest-candidate epilogue and a
+    histogram, or the FMA route (as :func:`seed_min_update`)."""
     if x.device.type == "cpu":
         return seed_counts_plain(x, mask, cand)
-    n, d, c = _seed_args(x, mask, cand)
+    n, d, c, tc, name = _seed_args(x, mask, cand, "seed_counts")
     out = torch.empty(c, dtype=torch.int32, device=x.device)
+    # then the rows' packed (distance, candidate) [N] int64, 8-byte aligned
+    scratch = _tile_scratch(c, d, 2 * n + 1, x.device) if tc else None
+    best = 0 if scratch is None else \
+        scratch[3 * c * d + c + c % 2:].data_ptr()
     P, I = native.P, native.I
-    native.call("kmeans_seed", "fvdb_seed_counts", [P, P, P, I, I, I, P, P],
-                x.data_ptr(), mask.data_ptr(), cand.data_ptr(), c, n, d,
-                out.data_ptr(), native.stream_of(x))
-    native.launches["seed_counts"] += 1
+    native.call("kmeans_seed", "fvdb_seed_counts",
+                [P, P, P, I, I, I, P, I, P, P, P], x.data_ptr(),
+                mask.data_ptr(), cand.data_ptr(), c, n, d, out.data_ptr(),
+                int(tc), _ptr(scratch), best, native.stream_of(x))
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} C={c} D={d}")
     return out
 
 
@@ -488,41 +512,129 @@ def kmeans_scalable_init(gen: torch.Generator, x, mask, n_clusters: int,
     return torch.from_numpy(out).to(dev)
 
 
-def _pp_rows(gen: torch.Generator, x, mask, n_clusters: int,
-             plain: bool = False) -> torch.Tensor:
-    """The rows [C] int32 that k-means++ picks: the first uniform over the
-    mask, each next one with probability proportional to d2 (uniform over
-    the mask where every d2 is 0), d2 then lowered by the new centroid.
-    One uniform draw of N a pick from ``gen`` (on x's device). ``plain``:
-    the plain versions of the pick and the update, on any device."""
+# ------------------------------------------------------------ k-means++
+_M32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b):
+    """(hi, lo) 32-bit words of a * b for a < 2^32 and int64 b < 2^32,
+    with b cut into 16-bit halves so that no product passes 2^48."""
+    p_lo, p_hi = a * (b & 0xFFFF), a * (b >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)  # < 2^49
+    return (p_hi >> 16) + (mid >> 32), mid & _M32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Salmon et al., SC'11) of the counter words (int64
+    tensors < 2^32, broadcast together) under key (k0, k1): the four output
+    words, as csrc/kmeans_seed.cu computes them."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + 0x9E3779B9) & _M32
+        k1 = (k1 + 0xBB67AE85) & _M32
+    return c0, c1, c2, c3
+
+
+def pp_uniforms(seed: int, subs, step: int, n: int, device=None):
+    """k-means++'s uniforms in (0, 1) for rows 0..n-1 at ``step`` of each
+    subspace in ``subs``: [len(subs), n] f32. Row r's is word r % 4 of
+    Philox4x32-10 of counter (r // 4, step, subspace, 0) under key (seed's
+    low and high 32 bits), taken as (2 (w >> 9) + 1) / 2^24, so a draw
+    depends on (seed, subspace, step, row) alone."""
+    subs = torch.as_tensor(list(subs), dtype=torch.int64, device=device)
+    quads = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    words = philox4x32_10(quads[None, :], zero + step, subs[:, None], zero,
+                          seed & _M32, (seed >> 32) & _M32)
+    w = torch.stack(torch.broadcast_tensors(*words), -1)  # [S, n/4, 4]
+    w = w.reshape(subs.shape[0], -1)[:, :n]
+    return (((w >> 9) << 1) | 1).to(torch.float32) * 2.0 ** -24
+
+
+def pp_seed(gen: torch.Generator) -> int:
+    """The 62-bit Philox key of a k-means++ call: one draw from ``gen``."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+
+
+def kmeans_pp_rows_plain(seed: int, x, mask, n_clusters: int,
+                         n_sub: int = 1):
+    """Plain version of :func:`kmeans_pp_rows`, a step at a time: each
+    subspace's table lowered by its last pick (the kmeans|| min-update),
+    then its pick by the exponential race over :func:`pp_uniforms` (the
+    kmeans|| pick with k-means++'s fallback)."""
+    n, d = x.shape
+    ds = d // n_sub
+    subs = [x[:, m * ds:(m + 1) * ds] for m in range(n_sub)]
+    rows = torch.empty((n_sub, n_clusters), dtype=torch.int32,
+                       device=x.device)
+    d2 = [torch.full((n,), INF, device=x.device)] * n_sub
+    for i in range(n_clusters):
+        u = pp_uniforms(seed, range(n_sub), i, n, x.device)
+        for m in range(n_sub):
+            if i > 0:
+                d2[m] = seed_min_update_plain(subs[m], mask, d2[m],
+                                              rows[m, i - 1:i])
+            rows[m, i:i + 1] = seed_pick_plain(d2[m], mask, u[m], 1, i > 0,
+                                               unweighted_if_empty=True)
+    return rows
+
+
+def kmeans_pp_rows(seed: int, x, mask, n_clusters: int, n_sub: int = 1,
+                   plain: bool = False):
+    """The rows [n_sub, C] int32 that k-means++ picks in each of the
+    ``n_sub`` subspaces of x [N, D] (equal column blocks), rows in mask [N]
+    bool: the first uniform over the mask, each next one with probability
+    proportional to d2 (uniform over the mask where every d2 is 0), d2 then
+    lowered by the new centroid (the reference's kmeans_pp_init, vmapped
+    over the subspaces as its pq_train does). ``seed`` keys the draws
+    (:func:`pp_uniforms`). On CUDA tensors one launch of
+    csrc/kmeans_seed.cu's fvdb_kmeans_pp for every pick of every subspace;
+    ``plain`` or CPU tensors: :func:`kmeans_pp_rows_plain`."""
     if n_clusters < 1:
         raise ValueError(f"n_clusters must be >= 1, got {n_clusters}")
+    if x.shape[1] % n_sub != 0:
+        raise ValueError(f"dim {x.shape[1]} not divisible by {n_sub}")
     if not bool(mask.any()):
         raise ValueError("k-means++: no row in the mask")
-    pick = seed_pick_plain if plain else seed_pick
-    update = seed_min_update_plain if plain else seed_min_update
+    if plain or x.device.type == "cpu":
+        return kmeans_pp_rows_plain(seed, x, mask, n_clusters, n_sub)
     dev = x.device
-    n = x.shape[0]
-    rows = torch.empty(n_clusters, dtype=torch.int32, device=dev)
-    first = pick(None, mask, torch.rand(n, generator=gen, device=dev), 1,
-                 False)
-    rows[:1] = first
-    d2 = update(x, mask, torch.full((n,), INF, device=dev), rows[:1])
-    for i in range(1, n_clusters):
-        rows[i:i + 1] = pick(d2, mask, torch.rand(n, generator=gen,
-                                                  device=dev), 1, True,
-                             unweighted_if_empty=True)
-        if i + 1 < n_clusters:
-            d2 = update(x, mask, d2, rows[i:i + 1])
+    native.check(x, "x", torch.float32, 2, dev)
+    native.check(mask, "mask", torch.bool, 1, dev)
+    n, d = x.shape
+    if mask.shape[0] != n:
+        raise ValueError("shape mismatch in kmeans_pp_rows")
+    rows = torch.empty((n_sub, n_clusters), dtype=torch.int32, device=dev)
+    P, I, U = native.P, native.I, native.U
+    nbytes = native.query("kmeans_seed", "fvdb_kmeans_pp_scratch_bytes",
+                          [I, I], n, n_sub)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    native.call("kmeans_seed", "fvdb_kmeans_pp",
+                [P, P, I, I, I, I, U, U, P, P, P], x.data_ptr(),
+                mask.data_ptr(), n, d, n_sub, n_clusters, seed & _M32,
+                (seed >> 32) & _M32, scratch.data_ptr(), rows.data_ptr(),
+                native.stream_of(x))
+    native.launches["kmeans_pp"] += 1
+    native.count_shape("kmeans_pp",
+                       f"M={n_sub} N={n} Ds={d // n_sub} C={n_clusters}")
     return rows
+
+
+def _pp_rows(gen: torch.Generator, x, mask, n_clusters: int,
+             plain: bool = False) -> torch.Tensor:
+    """k-means++'s rows [C] int32 over x [N, D] (one subspace), keyed by
+    one draw from ``gen`` (on x's device)."""
+    return kmeans_pp_rows(pp_seed(gen), x, mask, n_clusters, 1, plain)[0]
 
 
 def kmeans_pp_init(gen: torch.Generator, x, mask, n_clusters: int):
     """k-means++ seeding over the rows of x [N, D] f32 in mask [N] bool:
     centroids [C, D], each a row of x. With more clusters than rows that
-    can be told apart, the uniform fallback repeats rows. K7's pick and
-    min-update kernels on the card, one pair a centroid, with no host
-    read between them."""
+    can be told apart, the uniform fallback repeats rows. One launch of
+    K7's k-means++ kernel on the card."""
     return x[_pp_rows(gen, x, mask, n_clusters).long()]
 
 

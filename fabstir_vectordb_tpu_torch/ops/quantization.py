@@ -3,11 +3,12 @@ quantization (PQ) with asymmetric distance computation (ADC).
 
 The JAX package's ``ops/quantization.py`` with PyTorch inside. u8 codes and
 their decode are csrc/quantize.cu; PQ's encode, decode, lookup tables and
-the ADC scan are csrc/pq.cu; PQ training maps :func:`kmeans_train` (K7's
-k-means++ and K6's Lloyd) over the subspaces. Each kernel has a plain
-version here, which the wrappers take on CPU tensors; on CUDA tensors they
-launch the kernel or raise. Training draws from a ``torch.Generator`` where
-the reference takes a JAX key, one generator for every subspace in order.
+the ADC scan are csrc/pq.cu; PQ training seeds every subspace with K7's
+k-means++ in one launch (the reference vmaps kmeans_train over them), then
+runs K6's Lloyd on each. Each kernel has a plain version here, which the
+wrappers take on CPU tensors; on CUDA tensors they launch the kernel or
+raise. Training keys its draws by one draw from a ``torch.Generator``
+where the reference splits a JAX key over the subspaces.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from ..utils import native
 from ..utils.device import resolve_device
-from .kmeans import _lloyd_until, kmeans_pp_init
+from .kmeans import _lloyd_until, kmeans_pp_rows, pp_seed
 
 _PLAIN_ELEMS = 1 << 25  # distances a block of pq_encode's plain version
 
@@ -144,10 +145,21 @@ def pq_train(gen: torch.Generator, x, n_subspaces: int = 8,
                          f"{n_subspaces}")
     ds = d // n_subspaces
     k_eff = min(n_codes, n)
+    return _pq_train_from(x, pq_seeds(gen, x, n_subspaces, k_eff),
+                          max_iterations, n_codes)
+
+
+def pq_seeds(gen: torch.Generator, x, n_subspaces: int, k: int,
+             plain: bool = False):
+    """k-means++'s k starting centroids in each subspace of x [N, D], every
+    row in: [M, k, Ds], all M subspaces in one launch on the card (one
+    draw from ``gen`` keys them)."""
+    n, d = x.shape
+    ds = d // n_subspaces
     mask = torch.ones(n, dtype=torch.bool, device=x.device)
-    init = torch.stack([kmeans_pp_init(gen, _subspace(x, m, ds), mask, k_eff)
-                        for m in range(n_subspaces)])
-    return _pq_train_from(x, init, max_iterations, n_codes)
+    rows = kmeans_pp_rows(pp_seed(gen), x, mask, k, n_subspaces, plain)
+    sub = torch.arange(n_subspaces, device=x.device)[:, None]
+    return x.reshape(n, n_subspaces, ds)[rows.long(), sub]
 
 
 def _pq_args(cents, x, what: str):

@@ -48,7 +48,7 @@ launches: dict[str, int] = {
     "dequantize_u8": 0, "pq_encode": 0, "pq_decode": 0, "pq_adc_table": 0,
     "pq_adc_distances": 0, "lloyd_partial": 0, "lloyd_finish": 0,
     "shard_merge": 0, "set_rows": 0, "set_member_rows": 0, "masked_topk": 0,
-    "masked_approx_topk": 0, "lloyd_step": 0,
+    "masked_approx_topk": 0, "lloyd_step": 0, "kmeans_pp": 0,
 }
 # K1 on each row type at a shape the tensor-core pass does not take
 # (csrc/bf16_tile.cuh): l2_tile.cuh's FMA pass
@@ -64,6 +64,11 @@ launches["heuristic_kept_bf16_fma"] = 0
 for _base in ("assign_clusters", "lloyd_block", "lloyd_partial",
               "lloyd_step"):
     launches[f"{_base}_fma"] = 0
+# K7's kmeans|| table update and counts on the FMA tile, at the shapes the
+# tile pass does not take (ops/kmeans.py lloyd_route; "seed_min_update" and
+# "seed_counts" count the tensor cores)
+launches["seed_min_update_fma"] = 0
+launches["seed_counts_fma"] = 0
 # K9 on f32 rows on the tensor cores (three TF32 products; "approx_topk_f32"
 # counts the FMA pass)
 launches["approx_topk_tf32"] = 0
@@ -89,7 +94,7 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
         launches[f"{_base}_{_metric}"] = 0
 
 
-# launches of K2, K6, K10 and K11 by shape ("<counter> <shape>"): the
+# launches of K2, K6, K7, K10 and K11 by shape ("<counter> <shape>"): the
 # wrappers add one beside their counter's, and reset_launches clears them
 # with it
 shape_launches: dict[str, int] = {}

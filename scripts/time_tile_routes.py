@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time K14's stage 1, K1 / K3 on f32 rows (and on bf16 rows with an f32
-query), K4, K9 on f32 rows, K11, K6, K2 and K10 on one NVIDIA GPU, beside
-yardsticks that the port never calls.
+query), K4, K9 on f32 rows, K11, K6, K2, K10 and K7 on one NVIDIA GPU,
+beside yardsticks that the port never calls.
 
     python scripts/time_tile_routes.py [--root DIR] [--out DIR] [--iters N]
                                        [--only stage1|f32|k4|k9f32|k9bf16|
-                                               k11|k6|k2|k10]
+                                               k11|k6|k2|k10|k7]
                                        [--profile]
                                        [--split fma|tf32x3|stage1|k4|k9f32|
                                                 k11|k6]
@@ -70,6 +70,20 @@ the sharded partial (1,000,000 rows) and the sharded assignment's four
 shard calls, PQ's block (D = 48) and B2's step, each against its plain
 version (assignments >= 99.9% equal; the centroids' and errors' gaps
 printed) and its route.
+
+K7 (``ops.kmeans`` / ``ops.quantization``, ``--only k7``): k-means++ at
+kmeans_train's shape (65,536 x 384 of bench.py's mixture, C = 256),
+pq_train's seeding at M = 8 and 48 (K = 256: the tree's batched seeding,
+or one kmeans_pp_init a subspace where the tree has none), kmeans_train
+whole, and kmeans||'s table update (10,000 x 384, l = 409) and counts
+(2,046 candidates); each shape's device microseconds by kernel
+(torch.profiler), by CUDA events behind a sleep, and the host
+microseconds a call, beside its bounds: bytes, three TF32 products, and
+for k-means++ C grid barriers, whose nanoseconds a cooperative launch of
+csrc/grid_barrier.cuh's barrier across one block an SM measures here.
+Where the tree has them, each is held to its plain version (k-means++
+pick for pick up to key ties, the table within 1e-6 of the largest
+|x|^2, the counts with at most 0.1% of the rows moved).
 
 K2 (``index.fused.rerank_f32``, ``--only k2``): seeded bf16 rows
 (1,048,576 x 384, and 10,485,760 x 384 for the 10M tier's OV = 2,048) and
@@ -748,6 +762,182 @@ def round_trip_ns(torch, native, root: Path) -> dict:
     return res
 
 
+BARRIER_SRC = r"""
+#include "grid_barrier.cuh"
+__global__ void __launch_bounds__(1024, 1) barriers(unsigned* bar, int n) {
+  for (int i = 0; i < n; ++i) fvdb::grid_barrier(bar, gridDim.x);
+}
+extern "C" int fvdb_barriers(unsigned* bar, int n, int threads,
+                             void* stream) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  void* args[] = {&bar, &n};
+  return (int)cudaLaunchCooperativeKernel((const void*)barriers, dim3(sms),
+                                          dim3(threads), args, 0,
+                                          (cudaStream_t)stream);
+}
+"""
+
+
+def grid_barrier_ns(torch, native, root: Path) -> dict:
+    """Nanoseconds of one grid barrier (csrc/grid_barrier.cuh, this
+    script's tree) across one block of 1,024 threads an SM, by a
+    cooperative launch: (time of n barriers - time of none) / n."""
+    out_dir = root / "build" / "barrier"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "barrier.cu").write_text(BARRIER_SRC)
+    csrc = Path(__file__).resolve().parents[1] / \
+        "fabstir_vectordb_tpu_torch" / "csrc"
+    r = subprocess.run([native.nvcc(), *native.NVCC_FLAGS, "-I", str(csrc),
+                        "-o", str(out_dir / "barrier.so"),
+                        str(out_dir / "barrier.cu")],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(f"barrier: nvcc failed\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(str(out_dir / "barrier.so"))
+    lib.fvdb_barriers.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p]
+    bar = torch.zeros(2, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(n):
+        err = lib.fvdb_barriers(bar.data_ptr(), n, 1024, stream)
+        if err:
+            raise SystemExit(f"barrier: CUDA error {err}")
+
+    run(100)  # warm
+    torch.cuda.synchronize()
+    ms = {}
+    for n in (0, 5_000):
+        ms[n] = cuda_ms(torch, lambda n=n: run(n), 5, 1)
+    return {"ns": (ms[5_000] - ms[0]) * 1e6 / 5_000,
+            "launch_ms": ms[0]}
+
+
+def k7_cases(torch, km, qz) -> list:
+    """K7's shapes: (name, call, work) on bench.py's mixture (1,024
+    centers, noise 0.35): kmeans_pp_init and kmeans_train at 65,536 x 384,
+    C = 256; PQ's seeding at M = 8 and 48; kmeans||'s update (l = 409) and
+    counts (2,046) at 10,000 x 384. work: (bytes, f32 ops, TF32 ops,
+    barriers)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(24)
+    centers = torch.randn(1024, D, device=dev, generator=g)
+    lab = torch.randint(0, 1024, (65_536,), device=dev, generator=g)
+    x = (centers[lab] + 0.35 * torch.randn(65_536, D, device=dev,
+                                           generator=g)).contiguous()
+    mask = torch.ones(65_536, dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x10, m10 = x[:10_000], mask[:10_000]
+    cand = torch.randperm(10_000, device=dev, generator=g)[:2_046].to(
+        torch.int32)
+    d2 = km.seed_min_update_plain(x10, m10, torch.full(
+        (10_000,), float("inf"), device=dev), cand[:1])
+    l409 = cand[1:410].contiguous()
+
+    def seeds(m):
+        if hasattr(qz, "pq_seeds"):
+            return lambda: qz.pq_seeds(gen, x, m, 256)
+        ds = D // m
+        return lambda: torch.stack([
+            km.kmeans_pp_init(gen, x[:, j * ds:(j + 1) * ds].contiguous(),
+                              mask, 256) for j in range(m)])
+
+    pp = (255 * 65_536 * D * 4 + 256 * 65_536, 255 * 2.0 * 65_536 * D, 0.0,
+          256)
+    return [
+        ("k7 kmeans_pp_init N=65536 D=384 C=256",
+         lambda: km.kmeans_pp_init(gen, x, mask, 256), pp),
+        ("k7 pq seeding M=8 K=256 N=65536", seeds(8), pp),
+        ("k7 pq seeding M=48 K=256 N=65536", seeds(48), pp),
+        ("k7 kmeans_train N=65536 D=384 C=256",
+         lambda: km.kmeans_train(gen, x, mask, 256), pp),
+        ("k7 seed_min_update N=10000 D=384 l=409",
+         lambda: km.seed_min_update(x10, m10, d2, l409),
+         (10_000 * (D * 4 + 9) + 409 * 4, 0.0, 3 * 2.0 * 409 * 10_000 * D,
+          0)),
+        ("k7 seed_counts N=10000 D=384 C=2046",
+         lambda: km.seed_counts(x10, m10, cand),
+         (10_000 * (D * 4 + 1) + 2_046 * 8, 0.0,
+          3 * 2.0 * 2_046 * 10_000 * D, 0)),
+    ], (x, mask, x10, m10, d2, l409, cand)
+
+
+def k7_agree(torch, km, native, data) -> dict:
+    """The tree's K7 kernels against their plain versions (where the tree
+    has the batched k-means++): k-means++ at M = 1, 8 and 48, the table
+    update (and its FMA route's error at the same inputs) and the
+    counts."""
+    if not hasattr(km, "kmeans_pp_rows"):
+        return {}
+    from tests.test_torch_kmeans_checks import pp_key_gaps
+
+    x, mask, x10, m10, d2, l409, cand = data
+    out = {}
+    for m in (1, 8, 48):
+        rk = km.kmeans_pp_rows(99, x, mask, 256, m)
+        rp = km.kmeans_pp_rows(99, x, mask, 256, m, plain=True)
+        gaps = pp_key_gaps(99, x, mask, rk, rp, m)
+        if any(not g <= 1e-6 for _, _, g in gaps):
+            raise SystemExit(f"k7 kmeans_pp M={m}: picks apart off a tie "
+                             f"{gaps}")
+        out[f"kmeans_pp M={m} subspaces apart at ties"] = len(gaps)
+    tol = 1e-6 * float((x10 * x10).sum(1).max())
+    err = float((km.seed_min_update(x10, m10, d2, l409)
+                 - km.seed_min_update_plain(x10, m10, d2, l409)).abs().max())
+    if err > tol:
+        raise SystemExit(f"k7 seed_min_update: {err} > {tol}")
+    fma = torch.empty_like(d2)
+    P, I = native.P, native.I
+    native.call("kmeans_seed", "fvdb_seed_min_update",
+                [P, P, P, I, I, I, P, P, I, P, P], x10.data_ptr(),
+                m10.data_ptr(), l409.data_ptr(), 409, 10_000, D,
+                d2.data_ptr(), fma.data_ptr(), 0, 0,
+                native.stream_of(x10))
+    out["seed_min_update_fma_route_max_abs_err"] = float(
+        (fma - km.seed_min_update_plain(x10, m10, d2, l409)).abs().max())
+    ck, cp = km.seed_counts(x10, m10, cand), km.seed_counts_plain(x10, m10,
+                                                                 cand)
+    moved = int((ck - cp).abs().sum()) // 2
+    if moved > 10 or int(ck.sum()) != 10_000:
+        raise SystemExit(f"k7 seed_counts: {moved} rows moved")
+    out.update(seed_min_update_max_abs_err=err, seed_counts_rows_moved=moved)
+    return out
+
+
+def k7(torch, km, qz, native, root, res, it) -> None:
+    bar = grid_barrier_ns(torch, native, root)
+    res["grid_barrier"] = bar
+    print(f"grid barrier {bar}", flush=True)
+    cases, data = k7_cases(torch, km, qz)
+    res["k7 agree"] = k7_agree(torch, km, native, data)
+    print(f"k7 agree {res['k7 agree']}", flush=True)
+    for key, run, (nbytes, f32_ops, tf32_ops, barriers) in cases:
+        native.shape_launches.clear()
+        before = dict(native.launches)
+        run()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in native.launches.items()
+                    if v != before[k]}
+        shapes = {k: v for k, v in native.shape_launches.items()
+                  if k.startswith(("kmeans_pp", "seed_"))}
+        slow = "train" in key or "pq" in key and not hasattr(qz, "pq_seeds")
+        us = kernel_us(torch, run, 1)
+        res[key] = {"ms": cuda_ms(torch, run, 2 if slow else it, 1),
+                    "device_us": sum(us.values()),
+                    "kernel_us": dict(list(us.items())[:8]),
+                    "queued_us": queued_us(torch, run, 2 if slow else 10),
+                    "host_us": host_us(torch, run, 2 if slow else 20),
+                    "launches_a_call": launched,
+                    "launches_by_shape": shapes,
+                    "bound_bytes_ms": nbytes / 3.35e12 * 1e3,
+                    "bound_fma_ms": f32_ops / 67e12 * 1e3,
+                    "bound_tc_ms": tf32_ops / 495e12 * 1e3,
+                    "bound_latency_ms": barriers * bar["ns"] * 1e-6}
+        print(f"{key} {res[key]}", flush=True)
+
+
 def k11_graph(torch):
     """A seeded layered graph over every 8th row of 1,048,576 x 384
     clustered f32 rows (bench.py's mixture: 1,024 centers, noise 0.35):
@@ -1296,7 +1486,8 @@ def main() -> None:
                     help="directory for the results' JSON file")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only", choices=("stage1", "f32", "k4", "k9f32",
-                                       "k9bf16", "k11", "k6", "k2", "k10"),
+                                       "k9bf16", "k11", "k6", "k2", "k10",
+                                       "k7"),
                     default=None)
     ap.add_argument("--split", choices=tuple(SPLITS), default=None)
     ap.add_argument("--profile", action="store_true",
@@ -1332,7 +1523,7 @@ def main() -> None:
     t = native.build_all()
     print(f"built in {t:.1f} s", flush=True)
     for name in ("heuristic_kept", "approx_topk", "beam_search", "lloyd",
-                 "rerank_f32", "greedy_descent"):
+                 "rerank_f32", "greedy_descent", "kmeans_seed"):
         print_ptxas(name, native.build_log.get(name, ""))
     res = {"card": card, "tree": root.name}
     if args.only in (None, "stage1"):
@@ -1360,6 +1551,12 @@ def main() -> None:
         torch.cuda.empty_cache()
     if args.only in (None, "k10"):
         k10(torch, hn, native, root, res, args.iters)
+        torch.cuda.empty_cache()
+    if args.only in (None, "k7"):
+        from fabstir_vectordb_tpu_torch.ops import kmeans as km
+        from fabstir_vectordb_tpu_torch.ops import quantization as qz
+
+        k7(torch, km, qz, native, root, res, args.iters)
     res["launches"] = {k: v for k, v in native.launches.items() if v}
     print(json.dumps(res), flush=True)
     out = Path(args.out)

@@ -18,6 +18,9 @@ from fabstir_vectordb_tpu_torch.ops import quantization as qz_t
 from fabstir_vectordb_tpu_torch.ops import topk as topk_t
 from fabstir_vectordb_tpu_torch.parallel import ingest as ingest_t
 
+from .test_torch_kmeans_checks import (TIE, lloyd_check, pp_key_gaps,
+                                       pp_uniforms_card, recording)
+
 D = 32
 # squared distances: f32 products summed in different orders
 RTOL = ATOL = 1e-5
@@ -507,7 +510,10 @@ def test_oracle_step_kernels_match_plain_on_card():
 @pytest.mark.cuda
 def test_kmeans_seed_kernels_match_plain_on_card():
     """K7 at the IVF training shape (10,000 x 384, l = 409, 2,046
-    candidates)."""
+    candidates): the pick, and the table update and counts on K6's tile
+    pass (the first update, one candidate, on the FMA route)."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
     dev = _card()
     xs, _ = _mixture(25, 10_000, 256, d=384, spread=0.5)
     x = torch.from_numpy(xs).to(dev)
@@ -518,8 +524,15 @@ def test_kmeans_seed_kernels_match_plain_on_card():
     first_k = km_t.seed_pick(None, mask, u, 1, weighted=False)
     first_p = km_t.seed_pick_plain(None, mask, u, 1, weighted=False)
     assert torch.equal(first_k, first_p)
+    native.reset_launches()
     d2 = torch.full((10_000,), float("inf"), device=dev)
+    dk = km_t.seed_min_update(x, mask, d2, first_p)
     d2 = km_t.seed_min_update_plain(x, mask, d2, first_p)
+    # distances to one candidate, up to ~12,000: f32 sums of 384 products in
+    # two orders, ~2e-6 of the expansion's terms each
+    x_sq = float((x * x).sum(1).max())
+    torch.testing.assert_close(dk, d2, rtol=1e-5, atol=4e-6 * x_sq)
+    assert native.launches["seed_min_update_fma"] == 1
     cand = [first_p]
     for _ in range(5):
         u = torch.rand(10_000, device=dev, generator=g)
@@ -531,11 +544,133 @@ def test_kmeans_seed_kernels_match_plain_on_card():
         torch.testing.assert_close(dk, dp, rtol=1e-5, atol=5e-3)
         d2 = dp
         cand.append(rk)
+    assert native.launches["seed_min_update"] == 5
     cand = torch.cat(cand)
     ck = km_t.seed_counts(x, mask, cand)
     cp = km_t.seed_counts_plain(x, mask, cand)
+    assert native.launches["seed_counts"] == 1
     assert int(ck.sum()) == int(cp.sum()) == int(mask.sum())
     assert (ck == cp).float().mean().item() >= 0.99
+    # rows moved between candidates: at most 0.1%
+    assert int((ck - cp).abs().sum()) // 2 <= 0.001 * int(mask.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,c,short,route", [
+    (10_000, 384, 409, 0, "tf32x3"),     # a kmeans|| round at 256 lists
+    (10_000, 384, 2_046, 0, "tf32x3"),   # the counts' candidates
+    (10_000, 384, 409, 57, "tf32x3"),    # a short pick: -1 at the end
+    (5_000, 128, 63, 5, "fma"),          # under LLOYD_TC_MIN_C
+    (5_000, 128, 64, 5, "tf32x3"),
+    (3_001, 130, 200, 9, "fma"),         # D % 4 != 0
+])
+def test_kmeans_seed_tile_pass_matches_plain_on_card(n, d, c, short, route):
+    """kmeans||'s table update and counts by route (ops/kmeans.py
+    lloyd_route): the table within rtol 1e-5 (and 4e-6 of the largest
+    |x|^2: f32 sums of d products in two orders, ~2e-6 of the expansion's
+    terms each), the histograms with the same total and at most 0.1% of
+    the rows moved; -1 candidates skipped."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    xs, _ = _mixture(26, n, 96, d=d, spread=0.5)
+    x = torch.from_numpy(xs).to(dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[::29] = False
+    g = torch.Generator(device=dev).manual_seed(8)
+    cand = torch.randperm(n, device=dev, generator=g)[:c].to(torch.int32)
+    if short:
+        cand[-short:] = -1
+    d2 = torch.rand(n, device=dev, generator=g) * 400.0
+    d2[::7] = float("inf")
+    assert km_t.lloyd_route(n, c, d) == route
+    native.reset_launches()
+    dk = km_t.seed_min_update(x, mask, d2, cand)
+    dp = km_t.seed_min_update_plain(x, mask, d2, cand)
+    ck = km_t.seed_counts(x, mask, cand)
+    cp = km_t.seed_counts_plain(x, mask, cand)
+    torch.cuda.synchronize()
+    tail = "" if route == "tf32x3" else "_fma"
+    assert native.launches[f"seed_min_update{tail}"] == 1
+    assert native.launches[f"seed_counts{tail}"] == 1
+    x_sq = float((x * x).sum(1).max())
+    torch.testing.assert_close(dk, dp, rtol=1e-5, atol=4e-6 * x_sq)
+    assert bool((dk[~mask] == 0).all())
+    assert int(ck.sum()) == int(cp.sum()) == int(mask.sum())
+    if short:
+        assert int(ck[-short:].abs().sum()) == 0
+    assert int((ck - cp).abs().sum()) // 2 <= 0.001 * int(mask.sum())
+
+
+def _pp_case(n, d, seed=27, spread=0.5):
+    """Rows of a mixture with the last 13 masked out and poisoned with
+    1e4 (they would win every weighted draw)."""
+    xs, _ = _mixture(seed, n, 40, d=d, spread=spread)
+    xs[-13:] = 1e4
+    mask = np.arange(n) < n - 13
+    return xs, mask
+
+
+def _pp_check(x, mask, c, n_sub, seed, upto=None):
+    """The kernel's k-means++ picks against the plain version's under one
+    seed: every subspace's first pick apart (if any, before ``upto``) is a
+    key tie within 1e-6, no masked row is picked, and the card's Philox
+    routine (the one the kernel draws through) gives the plain version's
+    uniforms bit for bit."""
+    rk = km_t.kmeans_pp_rows(seed, x, mask, c, n_sub)
+    rp = km_t.kmeans_pp_rows(seed, x, mask, c, n_sub, plain=True)
+    assert rk.shape == (n_sub, c)
+    for m, i, gap in pp_key_gaps(seed, x, mask, rk, rp, n_sub):
+        assert i >= (upto or c) or gap <= 1e-6, (m, i, gap)
+    assert bool(mask[rk.long()].all())
+    n = x.shape[0]
+    for m, step in ((0, 0), (n_sub - 1, c - 1), (n_sub // 2, 1)):
+        assert torch.equal(pp_uniforms_card(seed, m, step, n, x.device),
+                           km_t.pp_uniforms(seed, [m], step, n, x.device)[0])
+    return rk, rp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,c,n_sub", [
+    (4_097, 48, 256, 1), (1_000, 8, 16, 1), (2_000, 384, 64, 1),
+    (4_096, 384, 256, 8), (4_096, 384, 256, 48),   # PQ's M = 8 and 48
+    (1_000, 33, 16, 1), (999, 30, 12, 3),         # 4-byte loads
+])
+def test_kmeans_pp_kernel_matches_plain_on_card(n, d, c, n_sub):
+    """K7's k-means++ in one launch (every pick of every subspace) against
+    its plain version, pick for pick up to key ties; masked rows poisoned,
+    N not a multiple of a block's rows."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    xs, mask = _pp_case(n, d)
+    x, mask = torch.from_numpy(xs).to(dev), torch.from_numpy(mask).to(dev)
+    native.reset_launches()
+    rk, rp = _pp_check(x, mask, c, n_sub, 0x1234_5678_9ABC + n)
+    assert native.launches["kmeans_pp"] == 1
+    for m in range(n_sub):
+        assert len(set(rk[m].tolist())) == c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sub", [1, 4])
+def test_kmeans_pp_kernel_duplicates_and_few_rows_on_card(n_sub):
+    """All-duplicate rows take the uniform fallback (the plain version's
+    draws exactly), and C past the rows in the mask repeats rows: pick for
+    pick while a row in the mask is left, then rows of the mask (each
+    picked row's d2 there is its own rounding, 0 in the kernel, in the
+    plain version whatever its sums give)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(28)
+    dup = torch.randn(1, 64, device=dev, generator=g).repeat(700, 1)
+    mask = torch.arange(700, device=dev) < 650
+    rk, rp = _pp_check(dup, mask, 32, n_sub, 77)
+    assert torch.equal(rk, rp)
+    x = torch.randn(300, 384, device=dev, generator=g)
+    mask = torch.arange(300, device=dev) < 287
+    rk, _ = _pp_check(x, mask, 300, n_sub, 78, upto=287)
+    for m in range(n_sub):
+        assert len(set(rk[m].tolist())) == 287
 
 
 def _bf16_order(t):
@@ -1275,9 +1410,11 @@ def test_chunk_step_pruning_bar_on_card(k, mask_kind):
 
 @pytest.mark.cuda
 def test_seed_pick_fallback_flag_leaves_kmeans_par_bit_identical_on_card():
-    """The k-means++ fallback flag changes nothing where a row is eligible
-    (kmeans||'s picks, l = 1 and 409), and where none is it draws as the
-    unweighted pick over the mask."""
+    """The plain pick's k-means++ fallback flag changes nothing where a row
+    is eligible: the kmeans|| pick on the card (l = 1 and 409, a third of
+    d2 at 0) equals the plain pick with and without it. Where no row is
+    eligible the card's pick is -1, and the flag draws as the unweighted
+    pick over the mask."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(31)
     n = 10_000
@@ -1287,26 +1424,30 @@ def test_seed_pick_fallback_flag_leaves_kmeans_par_bit_identical_on_card():
     for l in (1, 409):
         u = torch.rand(n, device=dev, generator=g)
         a = km_t.seed_pick(d2, mask, u, l)
-        b = km_t.seed_pick(d2, mask, u, l, unweighted_if_empty=True)
-        assert torch.equal(a, b)
         assert torch.equal(a, km_t.seed_pick_plain(d2, mask, u, l))
+        assert torch.equal(a, km_t.seed_pick_plain(d2, mask, u, l, True,
+                                                   unweighted_if_empty=True))
     zero = torch.zeros(n, device=dev)
     u = torch.rand(n, device=dev, generator=g)
     assert int(km_t.seed_pick(zero, mask, u, 1)[0]) == -1
-    got = km_t.seed_pick(zero, mask, u, 1, unweighted_if_empty=True)
+    got = km_t.seed_pick_plain(zero, mask, u, 1, True,
+                               unweighted_if_empty=True)
     assert torch.equal(got, km_t.seed_pick(None, mask, u, 1, weighted=False))
-    assert torch.equal(got, km_t.seed_pick_plain(zero, mask, u, 1, True,
-                                                 unweighted_if_empty=True))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,c", [(4_097, 48, 256), (1_000, 8, 16),
                                    (2_000, 384, 64)])
 def test_kmeans_pp_and_train_match_plain_on_card(n, d, c):
-    """k-means++ on K7's kernels picks the plain version's rows from the
-    same generator state (a key tie between two rows, ~1e-6 a pick here,
-    is the only way apart), never a row outside the mask; Lloyd from it
-    converges within 1% of the plain run's error."""
+    """k-means++ on K7's kernel picks the plain version's rows from the
+    same generator state (a key tie between two rows is the only way
+    apart), never a row outside the mask; Lloyd from it converges within
+    1% of the plain run's error, at the plain run's iteration, its
+    centroids within 1e-5 of max|x| of the plain run's. Held step by step
+    on its own steps too: each within that tolerance of the plain step
+    from the same centroids, and where the two runs assign a row apart,
+    a float64 tie within the tensor cores' error (two roundings send such
+    a row either way, and the runs part there)."""
     dev = _card()
     xs, _ = _mixture(32, n, 40, d=d, spread=0.5)
     x = torch.from_numpy(xs).to(dev)
@@ -1319,21 +1460,34 @@ def test_kmeans_pp_and_train_match_plain_on_card(n, d, c):
         g = torch.Generator(device=dev)
         g.set_state(state)
         picks[plain] = km_t._pp_rows(g, x, mask, c, plain=plain)
-    assert torch.equal(picks[False], picks[True])
+    g = torch.Generator(device=dev)
+    g.set_state(state)
+    seed = km_t.pp_seed(g)
+    for _, _, gap in pp_key_gaps(seed, x, mask, picks[False][None],
+                                      picks[True][None]):
+        assert gap <= 1e-6
     rows = picks[False].cpu().numpy()
     assert ((rows >= 0) & (rows < n - 13)).all()
     assert len(set(rows.tolist())) == c
     init = x[picks[False].long()]
-    kern = km_t._lloyd_until(x, mask, init, 25, 1e-4, km_t.lloyd_block)
+    logs = [], []
+    kern = km_t._lloyd_until(x, mask, init, 25, 1e-4,
+                             recording(km_t.lloyd_block, logs[0]))
     plain = km_t._lloyd_until(x, mask, init, 25, 1e-4,
-                              km_t.lloyd_block_plain)
+                              recording(km_t.lloyd_block_plain, logs[1]))
     assert kern.iterations == plain.iterations
     assert kern.converged == plain.converged
     assert abs(kern.final_error - plain.final_error) <= \
         0.01 * plain.final_error
     assert kern.centroids.shape == (c, d)
     tol = 1e-5 * float(x[:-13].abs().max())
-    assert float((kern.centroids - plain.centroids).abs().max()) <= tol
+    res = lloyd_check(x, mask, init, *logs, kern.iterations)
+    assert res["step_err"] <= tol, res
+    assert res["off_gap"] <= TIE and res["parting_gap"] <= TIE, res
+    assert res["apart"] <= tol, res
+    if res["parted_at"] is None:
+        cerr = float((kern.centroids - plain.centroids).abs().max())
+        assert cerr <= tol, (cerr, res)
 
 
 @pytest.mark.cuda

@@ -297,7 +297,8 @@ def test_kmeans_train_reaches_the_reference_error(seed):
 
 def test_seed_pick_fallback_leaves_eligible_draws_alone():
     """With an eligible row, the flag changes nothing (the kmeans|| pick is
-    the same); with none, it draws over the mask."""
+    the same); with none, it draws over the mask (k-means++'s plain
+    version)."""
     rng = np.random.default_rng(95)
     mask = _t(rng.random(500) < 0.8)
     d2 = _t(rng.random(500).astype(np.float32))
@@ -305,11 +306,12 @@ def test_seed_pick_fallback_leaves_eligible_draws_alone():
     for l in (1, 7):
         np.testing.assert_array_equal(
             km_t.seed_pick(d2, mask, u, l).numpy(),
-            km_t.seed_pick(d2, mask, u, l, unweighted_if_empty=True).numpy())
+            km_t.seed_pick_plain(d2, mask, u, l,
+                                 unweighted_if_empty=True).numpy())
     zero = torch.zeros(500)
     assert (km_t.seed_pick(zero, mask, u, 1) == -1).all()
     want = km_t.seed_pick(None, mask, u, 1, weighted=False)
-    got = km_t.seed_pick(zero, mask, u, 1, unweighted_if_empty=True)
+    got = km_t.seed_pick_plain(zero, mask, u, 1, unweighted_if_empty=True)
     assert torch.equal(got, want) and bool(mask[int(got)])
 
 
