@@ -461,7 +461,8 @@ def topk_check(tag, vk, rk, vp, rp, tol):
 # path's shape; printed on a line of their own ("route_checks"), since the
 # kernels line counts the main path's launches
 ROUTE_CHECKS: dict = {}
-# K2's, K6's, K10's and K11's launches by shape on each phase's main path
+# K2's, K6's, K7's, K10's, K11's and K16's encode's launches by shape on
+# each phase's main path
 # (read where the phase reads its counts, before any check), so that a
 # kernel's cost can be ordered by each shape's launches times that shape's
 # time
@@ -474,7 +475,7 @@ def note_shapes(phase: str, native) -> None:
         if v and k.split(" ")[0].startswith(("beam_search", "assign",
                                               "lloyd", "rerank",
                                               "greedy", "seed_",
-                                              "kmeans_pp"))}
+                                              "kmeans_pp", "pq_encode"))}
 
 
 def kernels_phase(torch, tp, hn, km, dev, results):
@@ -3973,7 +3974,11 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
         st = gen.get_state()
         cb, train_s, train_l = step(lambda: qz.pq_train(gen, train, m, kc,
                                                         25))
+        shapes0 = dict(native.shape_launches)
         codes, enc_s, enc_l = step(lambda: qz.pq_encode(cb.centroids, x))
+        enc_shapes = {k: v - shapes0.get(k, 0)
+                      for k, v in native.shape_launches.items()
+                      if v != shapes0.get(k, 0)}
         table, tab_s, tab_l = step(lambda: qz.pq_adc_table(cb.centroids, q))
         dist, scan_s, scan_l = step(lambda: qz.pq_adc_distances(table, codes))
         (_, rows), sel_s, _ = step(tp.chunked_topk(
@@ -3988,7 +3993,7 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
                      scan_s=scan_s, sel_s=sel_s, dec_s=dec_s,
                      re_differ=re_differ, train_l=train_l, enc_l=enc_l,
                      tab_l=tab_l, scan_l=scan_l, dec_l=dec_l,
-                     dec_sample=dec[sample].contiguous(),
+                     enc_shapes=enc_shapes, dec_sample=dec[sample].contiguous(),
                      adc_sample=dist[:, sample].contiguous())
         del dist, dec, re
     (u8c, u8m, u8s), u8q_s, u8q_l = step(lambda: qz.quantize_u8(x))
@@ -4265,12 +4270,38 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
         cp = qz.pq_encode_plain(cents, x)
         differ, gap = codes_check(torch, f"pq_encode[M={m}]", x, cents,
                                   codes, cp)
+        if m == 8:  # the FMA route at this shape: x 4 bytes off 16
+            xu = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
+            xu.copy_(x)
+            before = dict(native.launches)
+            cu = qz.pq_encode(cents, xu)
+            launched = launch_delta(native, before)
+            if launched != {"pq_encode_fma": 1}:
+                fail(f"pq_encode_fma[M={m}]: launched {launched}")
+            du, gu = codes_check(torch, f"pq_encode_fma[M={m}]", x, cents,
+                                 cu, cp)
+            ROUTE_CHECKS[f"pq_encode_fma[M={m}]"] = dict(
+                shape=f"N={n} D={d} M={m} K={kc} rows 4 bytes off 16",
+                launches_in_check=launched, max_abs_err=gu,
+                codes_differing_at_ties=du,
+                ms=cuda_ms(torch, lambda: qz.pq_encode(cents, xu)),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    n * d * 4 + n * m + m * kc * ds * 4, 2.0 * n * kc * d))))
+            del xu, cu
         del cp
-        bms, by = bound(n * d * 4 + n * m + m * kc * ds * 4,
-                        2.0 * n * kc * d)
-        entry(f"pq_encode[M={m}]", own(r["enc_l"], "pq_encode"),
+        # the work by route (ops.quantization.pq_encode_route): three TF32
+        # products of it on the tensor cores, as lloyd_work counts K6's
+        route = qz.pq_encode_route(kc, ds, x.data_ptr() % 16 == 0)
+        ops = 2.0 * n * kc * d
+        if route == "tf32x3":
+            ops *= 3 * F32_FLOPS / TF32_FLOPS
+        bms, by = bound(n * d * 4 + n * m + m * kc * ds * 4, ops)
+        name = "pq_encode" if route == "tf32x3" else "pq_encode_fma"
+        entry(f"{name}[M={m}]", own(r["enc_l"], name),
               shape=f"N={n} D={d} M={m} K={kc}", max_abs_err=gap,
-              codes_differing_at_ties=differ,
+              codes_differing_at_ties=differ, route=route,
+              launches_by_shape={k: v for k, v in r["enc_shapes"].items()
+                                 if k.startswith("pq_encode")},
               ms=cuda_ms(torch, lambda: qz.pq_encode(cents, x)),
               plain_ms=cuda_ms(torch, lambda: qz.pq_encode_plain(cents, x),
                                iters=2, warmup=1),
@@ -4313,7 +4344,9 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
                   table, codes)), library_ms=None, bound_ms=bms, bound_by=by)
     for m in pq:  # warm kernel times (the path's lines: first calls)
         perf.update({
-            f"pq_encode_ms_m{m}": results[f"pq_encode[M={m}]"]["ms"],
+            f"pq_encode_ms_m{m}": next(
+                results[f"{e}[M={m}]"]["ms"] for e in
+                ("pq_encode", "pq_encode_fma") if f"{e}[M={m}]" in results),
             f"pq_adc_scan_ms_m{m}": results[f"pq_adc_distances[M={m}]"]["ms"]})
     for name in names:
         print_kernel(name, results[name], launch_of[name])
@@ -5431,6 +5464,7 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "dequantize_u8": "fabstir_vectordb_tpu/ops/quantization.py:39",
     "pq_train": "fabstir_vectordb_tpu/ops/quantization.py:59",
     "pq_encode": "fabstir_vectordb_tpu/ops/quantization.py:87",
+    "pq_encode_fma": "fabstir_vectordb_tpu/ops/quantization.py:87",
     "pq_decode": "fabstir_vectordb_tpu/ops/quantization.py:106",
     "pq_adc_table": "fabstir_vectordb_tpu/ops/quantization.py:114",
     "pq_adc_distances": "fabstir_vectordb_tpu/ops/quantization.py:131",
@@ -5489,7 +5523,10 @@ SOURCES = {
     "pq_train": "fabstir_vectordb_tpu_torch/ops/quantization.py",
     "quantize_u8": "fabstir_vectordb_tpu_torch/csrc/quantize.cu",
     "dequantize_u8": "fabstir_vectordb_tpu_torch/csrc/quantize.cu",
+    # the tensor-core route: K6's tile pass (csrc/lloyd_tile.cuh's mainloop)
+    # under csrc/pq.cu's encode kernel; the FMA route's kernels
     "pq_encode": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
+    "pq_encode_fma": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_decode": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_adc_table": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_adc_distances": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
@@ -5550,7 +5587,8 @@ DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
                "steps_max", "longest", "warps_a_query",
                "library_device_us", "tile_pass", "gemm_ms", "bound_fma_ms",
                "stage1_select_fma_launches",
-               "stage1_select_overflow_launches", "launches_one_call")
+               "stage1_select_overflow_launches", "launches_one_call",
+               "route", "launches_by_shape")
 
 
 def main() -> None:
@@ -5695,7 +5733,7 @@ def main() -> None:
     if ROUTE_CHECKS:
         print("route_checks " + json.dumps(ROUTE_CHECKS), flush=True)
     if SHAPE_LAUNCHES:
-        print("launches_by_shape (K2, K6, K7, K10, K11) "
+        print("launches_by_shape (K2, K6, K7, K10, K11, K16's encode) "
               + json.dumps(SHAPE_LAUNCHES),
               flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

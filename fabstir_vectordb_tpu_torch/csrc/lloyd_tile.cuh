@@ -1,8 +1,10 @@
 // K6's tile pass on the tensor cores: rows of x against 128 centroids a
 // pass by TMA and three TF32 products a k8 step (csrc/lloyd.cu's head
-// comment has the design), shared by K6 (the assignment, Lloyd) and K7
-// (kmeans||'s table update and the candidates' counts, csrc/kmeans_seed.cu).
-// One mainloop; the epilogue (EPI) is a template parameter:
+// comment has the design), shared by K6 (the assignment, Lloyd), K7
+// (kmeans||'s table update and the candidates' counts, csrc/kmeans_seed.cu)
+// and K16's encode (csrc/pq.cu, over the mainloop's pieces below: a stage's
+// load, wait and release, its A fragments, a k8 step's three products).
+// One mainloop; assign_tc_kernel's epilogue (EPI) is a template parameter:
 //  * TC_ASSIGN: assign [N] (-1 outside the mask) and d2 [N] (0 there);
 //  * TC_LLOYD: each masked-in row added into its cluster's sums and count,
 //    its distance and 1 into stats;
@@ -108,6 +110,99 @@ __global__ void split_tf32_kernel(const float* __restrict__ c, long long n,
   }
 }
 
+// The mainloop's pieces, shared by assign_tc_kernel and K16's encode
+// (csrc/pq.cu): a ring of LT_STAGES stages, each a 128 x 32 f32 box of x
+// and the same box of the centroids' two parts (big, small), filled by the
+// producer warp's one lane by TMA and emptied by the two consumer
+// warpgroups, each k8 step three TF32 products.
+
+// Stage g of the block's sequence into its slot: the x box at (column k0,
+// row n0) and the parts' boxes at (k0, centroid c0), once the consumers
+// are done with the slot's last use. extra: bytes the caller copies into
+// its own slot on the same barrier (K16's |c|^2).
+__device__ __forceinline__ void tc_load_stage(
+    const CUtensorMap* tmx, const CUtensorMap* tmb, const CUtensorMap* tms,
+    unsigned char* ring, uint64_t* full, uint64_t* empty, int g, int k0,
+    int n0, int c0, int extra = 0) {
+  const int slot = g % LT_STAGES, use = g / LT_STAGES;
+  if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
+  mbar_expect(full + slot, LT_STAGE + extra);
+  const uint32_t dst = smem_addr(ring + slot * LT_STAGE);
+  tma_load_2d(dst, tmx, k0, n0, full + slot);
+  tma_load_2d(dst + LT_TILE, tmb, k0, c0, full + slot);
+  tma_load_2d(dst + 2 * LT_TILE, tms, k0, c0, full + slot);
+}
+
+// A consumer's wait for stage g; the stage's base.
+__device__ __forceinline__ const unsigned char* tc_wait_stage(
+    unsigned char* ring, uint64_t* full, int g) {
+  const int slot = g % LT_STAGES;
+  mbar_wait(full + slot, (g / LT_STAGES) & 1);
+  return ring + slot * LT_STAGE;
+}
+
+// The stage's slot handed back to the producer (each warp once).
+__device__ __forceinline__ void tc_release_stage(uint64_t* empty, int g) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty + g % LT_STAGES);
+}
+
+// This thread's A values of k8 step j of the stage: v[e] is row rloc (e
+// even) or rloc + 8 (e odd), dim 8 j + lane % 4 + 4 (e / 2) of the box.
+__device__ __forceinline__ void tc_fragments_k8(const unsigned char* st,
+                                                int rloc, int lane, int j,
+                                                float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = rloc + 8 * (e & 1);
+    const int col = 8 * j + (lane & 3) + 4 * (e >> 1);
+    v[e] = *reinterpret_cast<const float*>(st + sw128(r, col >> 2) +
+                                           (col & 3) * 4);
+  }
+}
+
+// The same for the stage's 4 k8 steps: v[j] as tc_fragments_k8's.
+__device__ __forceinline__ void tc_fragments(const unsigned char* st,
+                                             int rloc, int lane,
+                                             float (&v)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tc_fragments_k8(st, rloc, lane, j, v[j]);
+}
+
+// A k8 step's A values split into TF32 big and small parts.
+__device__ __forceinline__ void tc_split(const float (&v)[4],
+                                         uint32_t (&ab)[4],
+                                         uint32_t (&as)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    ab[e] = tf32_rna(v[e]);
+    as[e] = tf32_rna(v[e] - __uint_as_float(ab[e]));
+  }
+}
+
+// k8 step j of the stage at st: pb = big.big + small.big + big.small of the
+// warpgroup's 64 rows against the stage's 128 centroids (pb overwritten;
+// the tensor cores cut a chain's sums at its partial sum's size, so K6
+// adds pb to its f32 sums). accum: the products added onto pb on the
+// tensor cores, each add cut at the running total (~2^-23 of it: K16's
+// encode, which takes its near-ties again by f32 FMA).
+__device__ __forceinline__ void tc_k8(float (&pb)[64],
+                                      const uint32_t (&ab)[4],
+                                      const uint32_t (&as)[4],
+                                      const unsigned char* st, int j,
+                                      int accum = 0) {
+  const uint64_t db = sw128_desc(smem_addr(st + LT_TILE)) + 2 * j;
+  const uint64_t ds = sw128_desc(smem_addr(st + 2 * LT_TILE)) + 2 * j;
+  fence_regs(pb);
+  wgmma_fence();
+  WgmmaTF32<128>::mma(pb, ab, db, accum);
+  WgmmaTF32<128>::mma(pb, as, db, 1);
+  WgmmaTF32<128>::mma(pb, ab, ds, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(pb);
+}
+
 // The tile pass with epilogue EPI (above): tmx maps x [N, D], tmb / tms the
 // centroids' big / small parts [C, D], each in 128 x 32 boxes, 128-byte
 // swizzled. Block (bx, by) takes rows 128 bx.. and its share of the
@@ -142,16 +237,9 @@ __global__ void __launch_bounds__(LT_THREADS, 1) assign_tc_kernel(
   __syncthreads();
   if (t >= LT_CONSUMERS) {  // the producer warp: one lane issues the copies
     if (t == LT_CONSUMERS) {
-      for (int g = 0; g < (ct1 - ct0) * KS; ++g) {
-        const int slot = g % LT_STAGES, use = g / LT_STAGES;
-        if (use > 0) mbar_wait(empty + slot, (use - 1) & 1);
-        mbar_expect(full + slot, LT_STAGE);
-        const uint32_t dst = smem_addr(ring + slot * LT_STAGE);
-        const int k0 = (g % KS) * LT_K, c0 = (ct0 + g / KS) * LT_CENTS;
-        tma_load_2d(dst, &tmx, k0, n0, full + slot);
-        tma_load_2d(dst + LT_TILE, &tmb, k0, c0, full + slot);
-        tma_load_2d(dst + 2 * LT_TILE, &tms, k0, c0, full + slot);
-      }
+      for (int g = 0; g < (ct1 - ct0) * KS; ++g)
+        tc_load_stage(&tmx, &tmb, &tms, ring, full, empty, g,
+                      (g % KS) * LT_K, n0, (ct0 + g / KS) * LT_CENTS);
     }
     return;
   }
@@ -174,42 +262,26 @@ __global__ void __launch_bounds__(LT_THREADS, 1) assign_tc_kernel(
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     for (int kc = 0; kc < KS; ++kc, ++g) {
-      const int slot = g % LT_STAGES;
-      mbar_wait(full + slot, (g / LT_STAGES) & 1);
-      const unsigned char* st = ring + slot * LT_STAGE;
-      // this thread's A fragments of the stage's 4 k8 steps, split: rows
-      // rloc (e even) and rloc + 8, dims 8 j + lane % 4 (+ 4)
+      const unsigned char* st = tc_wait_stage(ring, full, g);
+      float v[4][4];
+      tc_fragments(st, rloc, lane, v);
       uint32_t ab[4][4], as[4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j) {
+        if (ct == ct0)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = rloc + 8 * (e & 1);
-          const int col = 8 * j + (lane & 3) + 4 * (e >> 1);
-          const float v = *reinterpret_cast<const float*>(
-              st + sw128(r, col >> 2) + (col & 3) * 4);
-          if (ct == ct0) xs[e & 1] = fmaf(v, v, xs[e & 1]);
-          ab[j][e] = tf32_rna(v);
-          as[j][e] = tf32_rna(v - __uint_as_float(ab[j][e]));
-        }
-      const uint64_t db = sw128_desc(smem_addr(st + LT_TILE));
-      const uint64_t ds = sw128_desc(smem_addr(st + 2 * LT_TILE));
+          for (int e = 0; e < 4; ++e)
+            xs[e & 1] = fmaf(v[j][e], v[j][e], xs[e & 1]);
+        tc_split(v[j], ab[j], as[j]);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float pb[64];
-        fence_regs(pb);
-        wgmma_fence();
-        WgmmaTF32<128>::mma(pb, ab[j], db + 2 * j, 0);
-        WgmmaTF32<128>::mma(pb, as[j], db + 2 * j, 1);
-        WgmmaTF32<128>::mma(pb, ab[j], ds + 2 * j, 1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(pb);
+        tc_k8(pb, ab[j], as[j], st, j);
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] += pb[i];
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + slot);
+      tc_release_stage(empty, g);
     }
     if (ct == ct0)
 #pragma unroll

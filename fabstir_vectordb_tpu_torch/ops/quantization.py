@@ -194,9 +194,26 @@ def pq_encode_plain(cents, x):
     return out
 
 
+# codes below which the encode keeps its FMA route: the tensor-core route
+# takes them 128 a pass (as K6's LLOYD_TC_MIN_C)
+PQ_TC_MIN_K = 64
+
+
+def pq_encode_route(k: int, ds: int, aligned: bool = True) -> str:
+    """The encode's route for K = k codes of ds dims: "tf32x3" (K6's tile
+    pass, csrc/lloyd_tile.cuh: three TF32 products on the tensor cores;
+    TMA copies 16-byte rows) at ds % 4 == 0, k >= PQ_TC_MIN_K and x and
+    the codebook 16-byte aligned, else "fma" (csrc/pq.cu's FMA
+    kernels)."""
+    return "tf32x3" if ds % 4 == 0 and k >= PQ_TC_MIN_K and aligned \
+        else "fma"
+
+
 def pq_encode(codebook_centroids, x):
     """Encode x [N, D] f32 -> codes u8 [N, M]: each subspace's first code
-    of least |x|^2 - 2 x.c + |c|^2."""
+    of least |x|^2 - 2 x.c + |c|^2. On the card by the route
+    :func:`pq_encode_route` picks (counted as "pq_encode" on the tensor
+    cores, "pq_encode_fma" on the FMA route)."""
     if x.device.type == "cpu":
         return pq_encode_plain(codebook_centroids, x)
     if x.device.type != "cuda":
@@ -204,12 +221,23 @@ def pq_encode(codebook_centroids, x):
     native.check(x, "x", torch.float32, 2, x.device)
     dev, m, k, ds = _pq_args(codebook_centroids, x, "pq_encode")
     n = x.shape[0]
+    aligned = (x.data_ptr() % 16 == 0
+               and codebook_centroids.data_ptr() % 16 == 0)
+    tc = pq_encode_route(k, ds, aligned) == "tf32x3"
     codes = torch.empty((n, m), dtype=torch.uint8, device=dev)
+    scratch = None
+    if tc:
+        size = native.query("pq", "fvdb_pq_encode_scratch",
+                            [native.I, native.I, native.I], m, k, ds)
+        scratch = torch.empty(size, dtype=torch.float32, device=dev)
     P, I = native.P, native.I
-    native.call("pq", "fvdb_pq_encode", [P, P, I, I, I, I, P, P],
+    native.call("pq", "fvdb_pq_encode", [P, P, I, I, I, I, I, P, P, P],
                 x.data_ptr(), codebook_centroids.data_ptr(), n, m, k, ds,
+                int(tc), 0 if scratch is None else scratch.data_ptr(),
                 codes.data_ptr(), native.stream_of(x))
-    native.launches["pq_encode"] += 1
+    name = "pq_encode" if tc else "pq_encode_fma"
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} M={m} K={k} Ds={ds}")
     return codes
 
 

@@ -69,6 +69,10 @@ for _base in ("assign_clusters", "lloyd_block", "lloyd_partial",
 # "seed_counts" count the tensor cores)
 launches["seed_min_update_fma"] = 0
 launches["seed_counts_fma"] = 0
+# K16's encode on its FMA route, at the shapes the tensor-core route does
+# not take (ops/quantization.py pq_encode_route; "pq_encode" counts the
+# tensor cores)
+launches["pq_encode_fma"] = 0
 # K9 on f32 rows on the tensor cores (three TF32 products; "approx_topk_f32"
 # counts the FMA pass)
 launches["approx_topk_tf32"] = 0
@@ -94,9 +98,9 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
         launches[f"{_base}_{_metric}"] = 0
 
 
-# launches of K2, K6, K7, K10 and K11 by shape ("<counter> <shape>"): the
-# wrappers add one beside their counter's, and reset_launches clears them
-# with it
+# launches of K2, K6, K7, K10, K11 and K16's encode by shape ("<counter>
+# <shape>"): the wrappers add one beside their counter's, and
+# reset_launches clears them with it
 shape_launches: dict[str, int] = {}
 
 

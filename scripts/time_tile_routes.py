@@ -5,7 +5,7 @@ beside yardsticks that the port never calls.
 
     python scripts/time_tile_routes.py [--root DIR] [--out DIR] [--iters N]
                                        [--only stage1|f32|k4|k9f32|k9bf16|
-                                               k11|k6|k2|k10|k7]
+                                               k11|k6|k2|k10|k7|k16]
                                        [--profile]
                                        [--split fma|tf32x3|stage1|k4|k9f32|
                                                 k11|k6]
@@ -84,6 +84,16 @@ csrc/grid_barrier.cuh's barrier across one block an SM measures here.
 Where the tree has them, each is held to its plain version (k-means++
 pick for pick up to key ties, the table within 1e-6 of the largest
 |x|^2, the counts with at most 0.1% of the rows moved).
+
+K16 (``ops.quantization``, ``--only k16``): the quant phase's rows
+(bench.py's 1M tier, 1,000,000 x 384: 1,024 centers, noise 0.35, seed 0),
+a PQ codebook trained on its first 65,536 at M = 8 and 48 (K = 256), the
+encode of all 1M rows and the ADC scan of 128 queries drawn as bench.py
+draws them ([128, 1M]); each shape's ms by CUDA events, device
+microseconds by kernel (torch.profiler) and launches, the encode's codes
+against its plain version (differing only at float64 ties within 1e-6),
+the scan against its plain version bit for bit (reported); where the tree
+has two encode routes, the FMA route at the same shapes (a direct call).
 
 K2 (``index.fused.rerank_f32``, ``--only k2``): seeded bf16 rows
 (1,048,576 x 384, and 10,485,760 x 384 for the 10M tier's OV = 2,048) and
@@ -938,6 +948,105 @@ def k7(torch, km, qz, native, root, res, it) -> None:
         print(f"{key} {res[key]}", flush=True)
 
 
+def bench_corpus(n: int, d: int, seed: int):
+    """bench.py's build_index data, as chip_smoke.py's quant phase makes
+    it: 1,024 standard-normal centers, rows 0.35-scaled standard normal
+    noise around them (f32, one generator)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((1024, d), dtype=np.float32)
+    assign = rng.integers(0, 1024, n)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    x *= 0.35
+    x += centers[assign]
+    return x
+
+
+def codes_at_ties(torch, x, cents, got, want, rel=1e-6) -> int:
+    """How many PQ codes differ; raises unless each pair's float64
+    distances to the row's subvector tie within rel of |v|^2 + max
+    |c|^2."""
+    ds = cents.shape[2]
+    n_idx, m_idx = torch.nonzero(got != want, as_tuple=True)
+    if n_idx.numel():
+        cols = m_idx[:, None] * ds + torch.arange(ds, device=x.device)
+        v = x[n_idx[:, None], cols].double()
+        a = cents[m_idx, got[n_idx, m_idx].long()].double()
+        b = cents[m_idx, want[n_idx, m_idx].long()].double()
+        gap = (((v - a) ** 2).sum(1) - ((v - b) ** 2).sum(1)).abs()
+        scale = (v * v).sum(1) + torch.maximum((a * a).sum(1),
+                                               (b * b).sum(1))
+        if bool((gap > rel * scale).any()):
+            raise SystemExit("k16 encode: a code apart off a tie")
+    return int(n_idx.numel())
+
+
+def k16(torch, native, res, it) -> None:
+    from fabstir_vectordb_tpu_torch.ops import quantization as qz
+
+    dev = torch.device("cuda")
+    n, b, kc = 1_000_000, 128, 256
+    x_np = bench_corpus(n, D, 0)
+    rng = np.random.default_rng(11)  # the quant phase's queries
+    q = torch.from_numpy(x_np[rng.integers(0, n, b)] + 0.1 * rng.
+                         standard_normal((b, D)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(x_np).to(dev)
+    del x_np
+    two = hasattr(qz, "pq_encode_route")
+    for m in (8, 48):
+        ds = D // m
+        gen = torch.Generator(device=dev).manual_seed(0)
+        cents = qz.pq_train(gen, x[:65_536], m, kc, 25).centroids
+        before = dict(native.launches)
+        codes = qz.pq_encode(cents, x)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in native.launches.items()
+                    if v != before[k]}
+        differ = codes_at_ties(torch, x, cents, codes,
+                               qz.pq_encode_plain(cents, x))
+        ops = 2.0 * n * kc * D
+        key = f"k16 encode M={m} N={n} D={D} K={kc}"
+        res[key] = {
+            "ms": cuda_ms(torch, lambda: qz.pq_encode(cents, x), it),
+            "kernel_us": kernel_us(torch, lambda: qz.pq_encode(cents, x)),
+            "launches_a_call": launched, "codes_differing_at_ties": differ,
+            "bound_tc_ms": 3 * ops / 495e12 * 1e3,
+            "bound_fma_ms": ops / 67e12 * 1e3,
+            "bound_bytes_ms": (n * D * 4 + n * m) / 3.35e12 * 1e3}
+        if two:  # the FMA route at the same shape, by a direct call
+            res[key]["route"] = qz.pq_encode_route(kc, ds)
+            out = torch.empty_like(codes)
+            P, I = native.P, native.I
+
+            def fma():
+                native.call("pq", "fvdb_pq_encode",
+                            [P, P, I, I, I, I, I, P, P, P], x.data_ptr(),
+                            cents.data_ptr(), n, m, kc, ds, 0, 0,
+                            out.data_ptr(), native.stream_of(x))
+
+            fma()
+            res[key]["fma_route_ms"] = cuda_ms(torch, fma, it)
+            res[key]["fma_route_codes_differing_at_ties"] = codes_at_ties(
+                torch, x, cents, out, qz.pq_encode_plain(cents, x))
+            del out
+        print(f"{key} {res[key]}", flush=True)
+        table = qz.pq_adc_table(cents, q)
+        ak = qz.pq_adc_distances(table, codes)
+        equal = torch.equal(ak, qz.pq_adc_distances_plain(table, codes))
+        del ak
+        key = f"k16 adc scan M={m} B={b} N={n} K={kc}"
+        res[key] = {
+            "ms": cuda_ms(torch, lambda: qz.pq_adc_distances(table, codes),
+                          it),
+            "kernel_us": kernel_us(torch, lambda: qz.pq_adc_distances(
+                table, codes)),
+            "bit_equal_to_plain": equal,
+            "bound_bytes_ms": (b * n * 4 + n * m + b * m * kc * 4)
+            / 3.35e12 * 1e3}
+        print(f"{key} {res[key]}", flush=True)
+        del codes, table
+        torch.cuda.empty_cache()
+
+
 def k11_graph(torch):
     """A seeded layered graph over every 8th row of 1,048,576 x 384
     clustered f32 rows (bench.py's mixture: 1,024 centers, noise 0.35):
@@ -1487,7 +1596,7 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only", choices=("stage1", "f32", "k4", "k9f32",
                                        "k9bf16", "k11", "k6", "k2", "k10",
-                                       "k7"),
+                                       "k7", "k16"),
                     default=None)
     ap.add_argument("--split", choices=tuple(SPLITS), default=None)
     ap.add_argument("--profile", action="store_true",
@@ -1523,7 +1632,7 @@ def main() -> None:
     t = native.build_all()
     print(f"built in {t:.1f} s", flush=True)
     for name in ("heuristic_kept", "approx_topk", "beam_search", "lloyd",
-                 "rerank_f32", "greedy_descent", "kmeans_seed"):
+                 "rerank_f32", "greedy_descent", "kmeans_seed", "pq"):
         print_ptxas(name, native.build_log.get(name, ""))
     res = {"card": card, "tree": root.name}
     if args.only in (None, "stage1"):
@@ -1557,6 +1666,8 @@ def main() -> None:
         from fabstir_vectordb_tpu_torch.ops import quantization as qz
 
         k7(torch, km, qz, native, root, res, args.iters)
+    if args.only in (None, "k16"):
+        k16(torch, native, res, args.iters)
     res["launches"] = {k: v for k, v in native.launches.items() if v}
     print(json.dumps(res), flush=True)
     out = Path(args.out)

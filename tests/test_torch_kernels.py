@@ -1530,36 +1530,53 @@ def _codes_equal_up_to_ties(x, cents, got, want, rel=1e-6):
     may pick either). Returns the count of codes that differ."""
     ds = cents.shape[2]
     n_idx, m_idx = torch.nonzero(got != want, as_tuple=True)
-    for n, j in zip(n_idx.tolist(), m_idx.tolist()):
-        v = x[n, j * ds:(j + 1) * ds].double()
-        a = cents[j, int(got[n, j])].double()
-        b = cents[j, int(want[n, j])].double()
-        da, db = ((v - a) ** 2).sum(), ((v - b) ** 2).sum()
-        scale = (v * v).sum() + max((a * a).sum(), (b * b).sum())
-        assert abs(float(da - db)) <= rel * float(scale), (n, j)
+    if n_idx.numel():  # every differing code at once
+        cols = m_idx[:, None] * ds + torch.arange(ds, device=x.device)
+        v = x[n_idx[:, None], cols].double()
+        a = cents[m_idx, got[n_idx, m_idx].long()].double()
+        b = cents[m_idx, want[n_idx, m_idx].long()].double()
+        da, db = ((v - a) ** 2).sum(1), ((v - b) ** 2).sum(1)
+        scale = (v * v).sum(1) + torch.maximum((a * a).sum(1),
+                                               (b * b).sum(1))
+        bad = torch.nonzero((da - db).abs() > rel * scale)[:, 0]
+        assert bad.numel() == 0, (int(n_idx[bad[0]]), int(m_idx[bad[0]]))
     return int(n_idx.numel())
 
 
+# (M, K, Ds, N, B): odd shapes at N = 3,001, B = 37; the main path's two
+# widths at N = 65,537, B = 128 (the new grids' row ranges and query groups)
+_PQ_SHAPES = [(1, 16, 48), (8, 256, 48), (48, 256, 4), (8, 16, 4),
+              (48, 16, 48), (48, 256, 8), (1, 256, 384), (3, 256, 128),
+              (2, 200, 130), (384, 16, 1), (250, 16, 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,ds", [(1, 16, 48), (8, 256, 48), (48, 256, 4),
-                                    (8, 16, 4), (48, 16, 48), (48, 256, 8),
-                                    (1, 256, 384), (3, 256, 128),
-                                    (2, 200, 130), (384, 16, 1),
-                                    (250, 16, 2)])
-def test_pq_kernels_match_plain_on_card(m, k, ds):
+@pytest.mark.parametrize(
+    "m,k,ds,n,b",
+    [pytest.param(*s, 3_001, 37, id="-".join(map(str, s)))
+     for s in _PQ_SHAPES]
+    + [(8, 256, 48, 65_537, 128), (48, 256, 8, 65_537, 128)])
+def test_pq_kernels_match_plain_on_card(m, k, ds, n, b):
     """encode / decode / tables / the ADC scan at odd shapes: N not a
     multiple of a block's rows, every code-load width of the scan (M = 1:
     bytes, 8: 8-byte, 48: 16-byte loads), B not a multiple of its query
     group; codebooks too wide for shared memory (Ds = 384, 128, 130: the
-    sliced encode) and more subspaces than one launch of the scan holds
-    (M = 384, 250: launches of 96)."""
+    sliced encode on the FMA route) and more subspaces than one launch of
+    the scan holds (M = 384, 250: launches of 96); the encode on each of
+    its routes (pq_encode_route), counted under its own name."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(34)
-    n, b = 3_001, 37
     cents = torch.randn(m, k, ds, device=dev, generator=g)
     x = torch.randn(n, m * ds, device=dev, generator=g)
     q = torch.randn(b, m * ds, device=dev, generator=g)
+    route = qz_t.pq_encode_route(k, ds, x.data_ptr() % 16 == 0)
+    before = dict(native.launches)
     ck = qz_t.pq_encode(cents, x)
+    name = "pq_encode" if route == "tf32x3" else "pq_encode_fma"
+    assert {c: v - before[c] for c, v in native.launches.items()
+            if v != before[c]} == {name: 1}
     cp = qz_t.pq_encode_plain(cents, x)
     assert ck.dtype == torch.uint8 and ck.shape == (n, m)
     assert _codes_equal_up_to_ties(x, cents, ck, cp) <= n * m // 1000
@@ -1574,6 +1591,42 @@ def test_pq_kernels_match_plain_on_card(m, k, ds):
         assert torch.equal(ak, ap)  # the same adds in the same order
     exact = ((q[:, None, :].double() - dk[None].double()) ** 2).sum(-1)
     torch.testing.assert_close(ak.double(), exact, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,ds", [(8, 256, 48), (48, 256, 8),
+                                    (24, 256, 16), (32, 200, 12)])
+def test_pq_encode_near_ties_on_card(m, k, ds):
+    """Rows on near-ties: each subvector the midpoint of two codewords plus
+    1e-7 of |c| along their difference, so the two codes' distances lie
+    within the tensor cores' error and the tensor-core route decides them
+    again by f32 FMA; a code may differ from the plain version's only at a
+    float64 tie within 1e-6. Then the same rows 4 bytes off 16 on the FMA
+    route."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(35)
+    n = 20_000
+    cents = torch.randn(m, k, ds, device=dev, generator=g)
+    i = torch.randint(0, k, (n, m), device=dev, generator=g)
+    j = (i + torch.randint(1, k, (n, m), device=dev, generator=g)) % k
+    sub = torch.arange(m, device=dev)[None, :]
+    ca, cb = cents[sub, i], cents[sub, j]  # [n, m, ds]
+    diff = cb - ca
+    x = (0.5 * (ca + cb) + 1e-7 * ca.norm(dim=-1, keepdim=True) * diff
+         / diff.norm(dim=-1, keepdim=True).clamp_min(1e-30))
+    x = x.reshape(n, m * ds).contiguous()
+    cp = qz_t.pq_encode_plain(cents, x)
+    xu = torch.empty(n * m * ds + 1, device=dev)[1:].view(n, m * ds)
+    xu.copy_(x)
+    for rows, name in ((x, "pq_encode"), (xu, "pq_encode_fma")):
+        assert qz_t.pq_encode_route(k, ds, rows.data_ptr() % 16 == 0) == (
+            "tf32x3" if name == "pq_encode" else "fma")
+        before = native.launches[name]
+        ck = qz_t.pq_encode(cents, rows)
+        assert native.launches[name] - before == 1
+        _codes_equal_up_to_ties(x, cents, ck, cp, rel=1e-6)
 
 
 def _shard_lists(g, dev, s, b, ks, signed=True):

@@ -81,14 +81,22 @@ def _codebook(seed, m, k, d=D):
     return rng.standard_normal((m, k, ds)).astype(np.float32)
 
 
-@pytest.mark.parametrize("m,k", [(1, 16), (4, 256), (8, 16), (32, 64)])
-def test_pq_encode_decode_match_reference(m, k):
+# (M, K, D): the D = 32 cases, then the main path's two widths at D = 384
+# (Ds = 48 and 8) and the tensor-core route's other unit sizes (Ds = 16,
+# two subspaces a stage; Ds = 12, its A columns past Ds zeroed)
+_PQ_REF = [pytest.param(m, k, D, id=f"{m}-{k}")
+           for m, k in ((1, 16), (4, 256), (8, 16), (32, 64))] + [
+    (8, 256, 384), (48, 256, 384), (2, 64, 32), (8, 64, 96)]
+
+
+@pytest.mark.parametrize("m,k,d", _PQ_REF)
+def test_pq_encode_decode_match_reference(m, k, d):
     """The same codebook in both packages (through convert): codes equal
     but at near-ties (1-dim subspaces meet a few), decoded rows equal."""
-    cents = _codebook(40 + m, m, k)
-    x = _data(41, 3000)
-    cb = convert.pq_codebook_from_numpy(cents, D, device="cpu")
-    assert cb.n_subspaces == m and cb.n_codes == k and cb.dim == D
+    cents = _codebook(40 + m, m, k, d)
+    x = _data(41, 3000, d)
+    cb = convert.pq_codebook_from_numpy(cents, d, device="cpu")
+    assert cb.n_subspaces == m and cb.n_codes == k and cb.dim == d
     cj = np.asarray(qz_j.pq_encode(jnp.asarray(cents), jnp.asarray(x)))
     ct = qz_t.pq_encode(cb.centroids, _t(x)).numpy()
     assert ct.dtype == np.uint8 and ct.shape == (3000, m)
@@ -105,11 +113,11 @@ def test_pq_encode_decode_match_reference(m, k):
         np.testing.assert_array_equal(re, ct)
 
 
-@pytest.mark.parametrize("m,k", [(1, 16), (4, 256), (8, 16), (32, 64)])
-def test_pq_adc_matches_reference(m, k):
-    cents = _codebook(50 + m, m, k)
-    x, q = _data(51, 2048), _data(52, 37)
-    cb = convert.pq_codebook_from_numpy(cents, D, device="cpu")
+@pytest.mark.parametrize("m,k,d", _PQ_REF)
+def test_pq_adc_matches_reference(m, k, d):
+    cents = _codebook(50 + m, m, k, d)
+    x, q = _data(51, 2048, d), _data(52, 37, d)
+    cb = convert.pq_codebook_from_numpy(cents, d, device="cpu")
     codes = qz_t.pq_encode(cb.centroids, _t(x))
     tj = np.asarray(qz_j.pq_adc_table(jnp.asarray(cents), jnp.asarray(q)))
     tt = qz_t.pq_adc_table(cb.centroids, _t(q))
@@ -124,6 +132,26 @@ def test_pq_adc_matches_reference(m, k):
     dec = qz_t.pq_decode(cb.centroids, codes).numpy().astype(np.float64)
     exact = ((q[:, None, :].astype(np.float64) - dec[None]) ** 2).sum(-1)
     np.testing.assert_allclose(at, exact, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,ds,offset,route", [
+    (1, 16, 48, 0, "fma"), (8, 256, 48, 0, "tf32x3"),
+    (48, 256, 4, 0, "tf32x3"), (8, 16, 4, 0, "fma"), (48, 16, 48, 0, "fma"),
+    (48, 256, 8, 0, "tf32x3"), (1, 256, 384, 0, "tf32x3"),
+    (3, 256, 128, 0, "tf32x3"), (2, 200, 130, 0, "fma"),
+    (384, 16, 1, 0, "fma"), (250, 16, 2, 0, "fma"), (24, 256, 16, 0, "tf32x3"),
+    (32, 200, 12, 0, "tf32x3"), (8, 64, 48, 0, "tf32x3"),
+    (8, 63, 48, 0, "fma"), (8, 256, 48, 1, "fma"), (48, 256, 8, 1, "fma")])
+def test_pq_encode_route(m, k, ds, offset, route):
+    """The encode's route at the card test's shapes: the tensor cores where
+    TMA copies the rows (Ds % 4 == 0, x 16-byte aligned) and a pass of 128
+    codes is worth it (K >= 64), else the FMA route; x a float (4 bytes)
+    off a 16-byte boundary takes the FMA route."""
+    x = torch.zeros(4 * m * ds + offset)[offset:].view(4, m * ds)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    assert qz_t.pq_encode_route(k, ds, x.data_ptr() % 16 == 0) == route
+    assert (qz_t.pq_encode_route(k, ds) == "tf32x3") == (
+        ds % 4 == 0 and k >= qz_t.PQ_TC_MIN_K)
 
 
 def test_pq_adc_code_past_k_adds_zero():
