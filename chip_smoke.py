@@ -21,8 +21,10 @@
    before, must show every kernel of the path.
 4. The 1M index: bench.py's 1M tier (1,000,000 x 384, 10% recent rows in
    HNSW, 90% in a 256-list IVF) built through ``HybridIndex.insert_batch``;
-   the counters must show K7's kernels in the IVF training, and K7 is held
-   against its plain version at the training shape.
+   the counters must show K7's kernels in the IVF training (the pick at l
+   = 1 and l = 409 on its one-block route), and K7 is held against its
+   plain version at the training shape (the pick beside the floor of an
+   empty launch; its radix route at 65,536 rows on the route_checks line).
 5. Pruned phase: the index served in the pruned regime (FVDB_PCA_SERVE=0,
    flat threshold 0, as bench.py forces it): single and batched k=10
    searches with recall@10 against the flat regime's exact answers,
@@ -111,7 +113,9 @@
    version at these shapes (k-means++'s picks equal to a key tie, the
    trained errors within 1%, K6's Lloyd run step by step: each step within
    1e-5 max|x| of the plain step from its centroids, rows sent apart only
-   at a float64 tie).
+   at a float64 tie; the decode torch.equal to its plain version beside
+   one indexing gather, and its "any" route at Ds = 3 on the route_checks
+   line).
 11. Parallel phase: the multi-shard layer (K15, ``parallel/``) on the same
    1M index, after the quant phase: shard meshes of 4, 1 and 2 x 2 shards
    on the card and a NCCL process group of one rank. Flat exact search (k
@@ -152,12 +156,11 @@
    counters, from 0, must show B1-B4.
 13. One JSON line with every kernel's numbers (K6 on its FMA tile, the
    flat tier's 3 lists, as ``lloyd_block_fma``), the routes the main path
-   takes only off its shapes ("route_checks"), K2's, K6's, K10's and K11's
-   launches by shape on each phase's main path ("launches_by_shape", so
-   that a cost can be ordered by each shape's launches times that shape's
-   time), the
-   card's name and power limit, then ``{"ok": true, "device": {...}}`` as
-   the last line.
+   takes only off its shapes ("route_checks"), K2's, K6's, K7's, K10's,
+   K11's and K16's encode's and decode's launches by shape on each
+   phase's main path ("launches_by_shape", so that a cost can be ordered
+   by each shape's launches times that shape's time), the card's name and
+   power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero before the last line. ``--phase kernels``
 stops after step 2, ``--phase pruned`` runs steps 1, 4 and 5 only,
@@ -461,8 +464,8 @@ def topk_check(tag, vk, rk, vp, rp, tol):
 # path's shape; printed on a line of their own ("route_checks"), since the
 # kernels line counts the main path's launches
 ROUTE_CHECKS: dict = {}
-# K2's, K6's, K7's, K10's, K11's and K16's encode's launches by shape on
-# each phase's main path
+# K2's, K6's, K7's, K10's, K11's and K16's encode's and decode's launches
+# by shape on each phase's main path
 # (read where the phase reads its counts, before any check), so that a
 # kernel's cost can be ordered by each shape's launches times that shape's
 # time
@@ -475,7 +478,8 @@ def note_shapes(phase: str, native) -> None:
         if v and k.split(" ")[0].startswith(("beam_search", "assign",
                                               "lloyd", "rerank",
                                               "greedy", "seed_",
-                                              "kmeans_pp", "pq_encode"))}
+                                              "kmeans_pp", "pq_encode",
+                                              "pq_decode"))}
 
 
 def kernels_phase(torch, tp, hn, km, dev, results):
@@ -1136,12 +1140,20 @@ def build_1m(torch, native, card: str, perf: dict, launch_of: dict):
     finally:
         km.kmeans_scalable_init, km._weighted_kmeanspp_host = (seeding,
                                                                 host_pp)
-    k7_names = ("seed_pick", "seed_min_update_fma", "seed_min_update",
-                "seed_counts")
-    for name in k7_names:
+    k7_names = ("seed_pick", "seed_pick[l=1]", "seed_min_update_fma",
+                "seed_min_update", "seed_counts")
+    for name in k7_names[2:]:
         launch_of[name] = native.launches[name]
+    # the one-block pick by l: the first pick (l = 1) and the rounds
+    first = sum(v for k, v in native.shape_launches.items()
+                if k.startswith("seed_pick ") and k.endswith(" l=1"))
+    launch_of["seed_pick[l=1]"] = first
+    launch_of["seed_pick"] = native.launches["seed_pick"] - first
+    for name in k7_names:
         if launch_of[name] <= 0:
             fail(f"IVF training: K7's {name} was launched no time")
+    if native.launches["seed_pick_radix"]:
+        fail("IVF training: the pick left the one-block route")
     ts = np.full(n, NOW - 30 * DAY)
     ts[:n_recent] = NOW - DAY
     t = time.perf_counter()
@@ -1168,22 +1180,66 @@ def build_1m(torch, native, card: str, perf: dict, launch_of: dict):
             "rng": np.random.default_rng(5)}
 
 
+def pick_entry(torch, km, native, d2, mask, u, l, weighted, floor):
+    """K7's pick against its plain version (torch.equal) at one shape:
+    back-to-back ms, the card's microseconds a call behind a sleep, the
+    host's, and the bytes' bound beside the floor of one launch."""
+    n = mask.shape[0]
+    dw = d2 if weighted else None
+    before = dict(native.launches)
+    rk = km.seed_pick(dw, mask, u, l, weighted)
+    launched = launch_delta(native, before)
+    name = "seed_pick" if km.seed_pick_route(n, l) == "block" \
+        else "seed_pick_radix"
+    if launched != {name: 1}:
+        fail(f"{name}[N={n} l={l}]: launched {launched}")
+    if not torch.equal(rk, km.seed_pick_plain(d2, mask, u, l, weighted)):
+        fail(f"{name}[N={n} l={l}]: the picked rows differ from the plain "
+             f"version's")
+
+    def run():
+        km.seed_pick(dw, mask, u, l, weighted)
+
+    return rk, dict(
+        shape=f"N={n} l={l}" + ("" if weighted else " unweighted"),
+        max_abs_err=0.0, kernel_route=km.seed_pick_route(n, l),
+        launches_one_call=launched, ms=cuda_ms(torch, run, iters=20),
+        device_us=queued_us(torch, run), host_us=host_us(torch, run),
+        plain_ms=cuda_ms(torch, lambda: km.seed_pick_plain(
+            d2, mask, u, l, weighted)), library_ms=None,
+        launch_floor_ms=floor,
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            n * (1 + 4 + (4 if weighted else 0)) + l * 4, 4.0 * n))))
+
+
 def k7_checks(torch, ctx, results: dict) -> None:
-    """K7's kmeans|| kernels against their plain versions at the IVF
-    training shape (the first 10,000 rows, l = 409, 2,046 candidates): the
-    pick, the table update and the counts on K6's tile pass, the first
-    one-candidate update on the FMA route; the counts' FMA route (C = 63)
-    on the route_checks line."""
+    """K7's kmeans|| kernels against their plain versions at the shape IVF
+    training gives them (index/ivf.py's train: the first 10,000 rows
+    zero-padded to bucket(10,000) = 16,384, the mask arange < 10,000;
+    l = 409, 2,046 candidates): the pick (l = 1 unweighted and l = 409
+    weighted, on its one-block route, beside the floor of an empty launch
+    through the same ctypes path), the table update and the counts on K6's
+    tile pass, the first one-candidate update on the FMA route; the
+    counts' FMA route (C = 63) and the pick's radix route (N = 65,536) on
+    the route_checks line."""
     from fabstir_vectordb_tpu_torch.ops import kmeans as km
+    from fabstir_vectordb_tpu_torch.utils import native
+    from fabstir_vectordb_tpu_torch.utils.padding import bucket
 
     d = ctx["d"]
     dev = ctx["h"].store.torch_device
-    x = torch.from_numpy(ctx["x"][:10_000]).to(dev)
-    n = x.shape[0]
-    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    n_in = 10_000
+    n = bucket(n_in, minimum=1024)
+    x = torch.zeros(n, d, device=dev)
+    x[:n_in] = torch.from_numpy(ctx["x"][:n_in]).to(dev)
+    mask = torch.arange(n, device=dev) < n_in
     g = torch.Generator(device=dev).manual_seed(3)
-    first = km.seed_pick_plain(None, mask, torch.rand(n, device=dev,
-                                                      generator=g), 1, False)
+    stream = native.stream_of(x)
+    floor = cuda_ms(torch, lambda: native.call(
+        "kmeans_seed", "fvdb_empty_launch", [native.P], stream), iters=20)
+    u0 = torch.rand(n, device=dev, generator=g)
+    first, results["seed_pick[l=1]"] = pick_entry(
+        torch, km, native, None, mask, u0, 1, False, floor)
     inf = torch.full((n,), float("inf"), device=dev)
     x_sq_max = float((x * x).sum(1).max())
     tol = 2e-5 * 2 * x_sq_max
@@ -1201,17 +1257,17 @@ def k7_checks(torch, ctx, results: dict) -> None:
                    bound(n * d * 4 + n * 9 + 4, 2.0 * n * d))))
     u = torch.rand(n, device=dev, generator=g)
     l, c_all = 409, 2046
-    rk = km.seed_pick(d2, mask, u, l)
-    rp = km.seed_pick_plain(d2, mask, u, l)
-    if not torch.equal(rk, rp):
-        fail("seed_pick: the picked rows differ from the plain version's")
-    results["seed_pick"] = dict(
-        shape=f"N={n} l={l}", max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: km.seed_pick(d2, mask, u, l)),
-        plain_ms=cuda_ms(torch, lambda: km.seed_pick_plain(d2, mask, u, l)),
-        library_ms=None,
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(n * (4 + 1 + 4) + l * 4, 4.0 * n))))
+    rk, results["seed_pick"] = pick_entry(torch, km, native, d2, mask, u, l,
+                                          True, floor)
+    # past one block's shared memory: the radix route
+    nr = 65_536
+    gr = torch.Generator(device=dev).manual_seed(4)
+    d2r = torch.rand(nr, device=dev, generator=gr) * 100
+    d2r[::7] = 0.0
+    mr = torch.rand(nr, device=dev, generator=gr) < 0.9
+    ur = torch.rand(nr, device=dev, generator=gr)
+    _, ROUTE_CHECKS[f"seed_pick_radix[N={nr}]"] = pick_entry(
+        torch, km, native, d2r, mr, ur, l, True, floor)
     # the tile pass: three TF32 products, as the f32 operations that take
     # as long at bound()'s f32 rate
     tc = 3 * F32_FLOPS / TF32_FLOPS
@@ -1237,7 +1293,7 @@ def k7_checks(torch, ctx, results: dict) -> None:
         cp = km.seed_counts_plain(x, mask, cand)
         agree = float((ck == cp).float().mean())
         moved = int((ck - cp).abs().sum()) // 2
-        if int(ck.sum()) != n or agree < 0.99 or moved > 0.001 * n:
+        if int(ck.sum()) != n_in or agree < 0.99 or moved > 0.001 * n_in:
             fail(f"{name}: {agree} of counts agree, {moved} rows moved, "
                  f"sum {int(ck.sum())}")
         return dict(max_abs_err=float((ck - cp).abs().max()), agree=agree,
@@ -3984,7 +4040,11 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
         (_, rows), sel_s, _ = step(tp.chunked_topk(
             lambda s: (dist[:, s:s + ADC_CHUNK].contiguous(), None), n,
             ADC_CHUNK, 10, b, device=dev))
+        shapes0 = dict(native.shape_launches)
         dec, dec_s, dec_l = step(lambda: qz.pq_decode(cb.centroids, codes))
+        dec_shapes = {k: v - shapes0.get(k, 0)
+                      for k, v in native.shape_launches.items()
+                      if v != shapes0.get(k, 0)}
         re = qz.pq_encode(cb.centroids, dec)  # the decoded rows' codes
         re_differ, _ = codes_check(torch, f"pq M={m} re-encode", dec,
                                    cb.centroids, re, codes)
@@ -3993,7 +4053,8 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
                      scan_s=scan_s, sel_s=sel_s, dec_s=dec_s,
                      re_differ=re_differ, train_l=train_l, enc_l=enc_l,
                      tab_l=tab_l, scan_l=scan_l, dec_l=dec_l,
-                     enc_shapes=enc_shapes, dec_sample=dec[sample].contiguous(),
+                     enc_shapes=enc_shapes, dec_shapes=dec_shapes,
+                     dec_sample=dec[sample].contiguous(),
                      adc_sample=dist[:, sample].contiguous())
         del dist, dec, re
     (u8c, u8m, u8s), u8q_s, u8q_l = step(lambda: qz.quantize_u8(x))
@@ -4299,23 +4360,32 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
         name = "pq_encode" if route == "tf32x3" else "pq_encode_fma"
         entry(f"{name}[M={m}]", own(r["enc_l"], name),
               shape=f"N={n} D={d} M={m} K={kc}", max_abs_err=gap,
-              codes_differing_at_ties=differ, route=route,
+              codes_differing_at_ties=differ, kernel_route=route,
               launches_by_shape={k: v for k, v in r["enc_shapes"].items()
                                  if k.startswith("pq_encode")},
               ms=cuda_ms(torch, lambda: qz.pq_encode(cents, x)),
               plain_ms=cuda_ms(torch, lambda: qz.pq_encode_plain(cents, x),
                                iters=2, warmup=1),
               library_ms=None, bound_ms=bms, bound_by=by)
-        err = float((qz.pq_decode(cents, codes)
-                     - qz.pq_decode_plain(cents, codes)).abs().max())
-        if err != 0.0:
-            fail(f"pq_decode[M={m}]: rows off the plain version's by {err}")
+        if not torch.equal(qz.pq_decode(cents, codes),
+                           qz.pq_decode_plain(cents, codes)):
+            fail(f"pq_decode[M={m}]: rows differ from the plain version's")
+        # the library yardstick: one advanced-indexing gather, its indices
+        # made beforehand (int64, clamped: the plain version's own steps)
+        sub = torch.arange(m, device=dev)[None, :]
+        idx = codes.long().clamp_max(kc - 1)
+        lib_ms = cuda_ms(torch, lambda: cents[sub, idx])
+        del idx
         bms, by = bound(n * m + m * kc * ds * 4 + n * d * 4, 0.0)
-        entry(f"pq_decode[M={m}]", own(r["dec_l"], "pq_decode"),
-              shape=f"N={n} D={d} M={m}", max_abs_err=err,
+        route = qz.pq_decode_route(m, kc, ds)
+        name = "pq_decode" if route == "tile" else "pq_decode_any"
+        entry(f"{name}[M={m}]", own(r["dec_l"], name),
+              shape=f"N={n} D={d} M={m} K={kc}", max_abs_err=0.0,
+              kernel_route=route, launches_by_shape=r["dec_shapes"],
               ms=cuda_ms(torch, lambda: qz.pq_decode(cents, codes)),
               plain_ms=cuda_ms(torch, lambda: qz.pq_decode_plain(
-                  cents, codes)), library_ms=None, bound_ms=bms, bound_by=by)
+                  cents, codes)), library_ms=lib_ms, bound_ms=bms,
+              bound_by=by)
         tp_ = qz.pq_adc_table_plain(cents, q)
         err = float((table - tp_).abs().max())
         tol = 1e-5 * float(tp_.abs().max())
@@ -4342,6 +4412,26 @@ def quant_phase(torch, native, card: str, perf: dict, results: dict,
               ms=cuda_ms(torch, lambda: qz.pq_adc_distances(table, codes)),
               plain_ms=cuda_ms(torch, lambda: qz.pq_adc_distances_plain(
                   table, codes)), library_ms=None, bound_ms=bms, bound_by=by)
+    # the decode's "any" route (Ds = 3: M = 128 of 384 dims) on every row
+    g3 = torch.Generator(device=dev).manual_seed(13)
+    c3 = torch.randn(128, kc, 3, device=dev, generator=g3)
+    k3 = torch.randint(0, 256, (n, 128), device=dev, generator=g3,
+                       dtype=torch.uint8)
+    before = dict(native.launches)
+    d3 = qz.pq_decode(c3, k3)
+    launched = launch_delta(native, before)
+    if launched != {"pq_decode_any": 1}:
+        fail(f"pq_decode_any[Ds=3]: launched {launched}")
+    if not torch.equal(d3, qz.pq_decode_plain(c3, k3)):
+        fail("pq_decode_any[Ds=3]: rows differ from the plain version's")
+    del d3
+    ROUTE_CHECKS["pq_decode_any[Ds=3]"] = dict(
+        shape=f"N={n} D={d} M=128 K={kc}", launches_in_check=launched,
+        max_abs_err=0.0, ms=cuda_ms(torch, lambda: qz.pq_decode(c3, k3)),
+        plain_ms=cuda_ms(torch, lambda: qz.pq_decode_plain(c3, k3)),
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(n * 128 + 128 * kc * 3 * 4 + n * d * 4, 0.0))))
+    del c3, k3
     for m in pq:  # warm kernel times (the path's lines: first calls)
         perf.update({
             f"pq_encode_ms_m{m}": next(
@@ -5436,6 +5526,8 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "ivf_scan": "fabstir_vectordb_tpu/index/ivf.py:79",
     "l2_topk[bf16]": "fabstir_vectordb_tpu/index/fused.py:206",
     "seed_pick": "fabstir_vectordb_tpu/ops/kmeans.py:150",
+    "seed_pick[l=1]": "fabstir_vectordb_tpu/ops/kmeans.py:130",
+    "seed_pick_radix": "fabstir_vectordb_tpu/ops/kmeans.py:150",
     "seed_min_update": "fabstir_vectordb_tpu/ops/kmeans.py:130",
     "seed_counts": "fabstir_vectordb_tpu/ops/kmeans.py:140",
     "seed_min_update_fma": "fabstir_vectordb_tpu/ops/kmeans.py:130",
@@ -5466,6 +5558,7 @@ REPLACES = {  # the JAX function each kernel (entry) takes the place of
     "pq_encode": "fabstir_vectordb_tpu/ops/quantization.py:87",
     "pq_encode_fma": "fabstir_vectordb_tpu/ops/quantization.py:87",
     "pq_decode": "fabstir_vectordb_tpu/ops/quantization.py:106",
+    "pq_decode_any": "fabstir_vectordb_tpu/ops/quantization.py:106",
     "pq_adc_table": "fabstir_vectordb_tpu/ops/quantization.py:114",
     "pq_adc_distances": "fabstir_vectordb_tpu/ops/quantization.py:131",
     "shard_merge": "fabstir_vectordb_tpu/parallel/sharded.py:89",
@@ -5496,6 +5589,7 @@ SOURCES = {
     "beam_search": "fabstir_vectordb_tpu_torch/csrc/beam_search.cu",
     "ivf_scan": "fabstir_vectordb_tpu_torch/csrc/ivf_scan.cu",
     "seed_pick": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
+    "seed_pick_radix": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
     "seed_min_update": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
     "seed_counts": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
     "seed_min_update_fma": "fabstir_vectordb_tpu_torch/csrc/kmeans_seed.cu",
@@ -5528,6 +5622,7 @@ SOURCES = {
     "pq_encode": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_encode_fma": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_decode": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
+    "pq_decode_any": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_adc_table": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "pq_adc_distances": "fabstir_vectordb_tpu_torch/csrc/pq.cu",
     "shard_merge": "fabstir_vectordb_tpu_torch/csrc/shard_merge.cu",
@@ -5579,7 +5674,9 @@ TIE_KEYS = ("first_tie_pick", "rows_differing_at_ties",
 # K9's pass (tile_pass: ops.topk.tile_route's name), K4's
 # (index.hnsw.heuristic_route's), the bound on f32 FMA beside a
 # tensor-core route's (bound_fma_ms) and a bf16 torch.matmul of the same
-# product (gemm_ms)
+# product (gemm_ms); K16's encode's and decode's and K7's pick's routes
+# (kernel_route; the entry's "route" is the contract's "cuda") and the pick's
+# floor of one launch (launch_floor_ms)
 DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
                "seeding_ms", "lloyd_ms", "rows_moved",
                "last_centroids_apart", "parted_at", "parting_gap",
@@ -5588,7 +5685,7 @@ DETAIL_KEYS = ("stage_us", "host_us", "library_host_us", "device_us",
                "library_device_us", "tile_pass", "gemm_ms", "bound_fma_ms",
                "stage1_select_fma_launches",
                "stage1_select_overflow_launches", "launches_one_call",
-               "route", "launches_by_shape")
+               "kernel_route", "launches_by_shape", "launch_floor_ms")
 
 
 def main() -> None:
@@ -5663,9 +5760,15 @@ def main() -> None:
                       "parallel", "cold"):
         t = time.perf_counter()
         ctx = build_1m(torch, native, card, perf, launch_of)
+        # the checks' launches are not the main path's: the pruned phase
+        # reads the build's counts and shapes with its own
+        counts0, shapes0 = dict(native.launches), dict(native.shape_launches)
         k7_checks(torch, ctx, results)
-        for name in ("seed_pick", "seed_min_update_fma", "seed_min_update",
-                     "seed_counts"):
+        native.launches.update(counts0)
+        native.shape_launches.clear()
+        native.shape_launches.update(shapes0)
+        for name in ("seed_pick[l=1]", "seed_pick", "seed_min_update_fma",
+                     "seed_min_update", "seed_counts"):
             print_kernel(name, results[name], launch_of[name])
         print(f"1M build: {time.perf_counter() - t:.1f} s", flush=True)
         for name, phase in (("pruned", pruned_phase),
@@ -5733,7 +5836,8 @@ def main() -> None:
     if ROUTE_CHECKS:
         print("route_checks " + json.dumps(ROUTE_CHECKS), flush=True)
     if SHAPE_LAUNCHES:
-        print("launches_by_shape (K2, K6, K7, K10, K11, K16's encode) "
+        print("launches_by_shape (K2, K6, K7, K10, K11, K16's encode and "
+              "decode) "
               + json.dumps(SHAPE_LAUNCHES),
               flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

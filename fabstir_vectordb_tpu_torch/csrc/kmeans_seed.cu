@@ -53,10 +53,27 @@
 //    the one the next step uses, which no block reads any more.
 //  * There is no update after the last pick.
 //
-// kmeans|| (the pick, fvdb_seed_pick; the table update, fvdb_seed_min_update;
-// the counts, fvdb_seed_counts):
-//  * pick: the l rows of least key through topk_select.cuh's radix select;
-//    fewer eligible rows than l leave -1 at the end.
+// kmeans|| (the pick, fvdb_seed_pick_block / fvdb_seed_pick; the table
+// update, fvdb_seed_min_update; the counts, fvdb_seed_counts):
+//  * pick: the l rows of least key, in key order; fewer eligible rows than l
+//    leave -1 at the end. Its bytes are N d2, mask and u (90 KB at N =
+//    10,000), so one launch's latency bounds it. Two routes
+//    (ops/kmeans.py seed_pick_route):
+//    - "block" (N keys and 2 pow2(l) candidates, 8 bytes each, within
+//      PICK_SMEM: 27,648 rows at l = 409): one launch of one block of
+//      1,024 threads. It computes every row's key (eight rows a thread in
+//      flight), packs (key bits << 32 | row) into shared memory (an
+//      ineligible row: all ones) and counts the keys by their top float
+//      bits (exponent and three mantissa bits: 2,048 bins) as it goes; one
+//      block scan finds the bin of the l-th key, one pass gathers every key
+//      up to that bin (about l plus a bin's worth), and a bitonic sort
+//      orders them (steps within a warp by shuffles), of which the first l
+//      are the pick. Where a bin holds more than the candidates' room
+//      (repeated keys), filtered_select.cuh's block_select_keys takes the
+//      l least instead. At l = 1 a block minimum. No memset, no scratch,
+//      no second kernel.
+//    - "radix" (past it): seed_key_kernel, then topk_select.cuh's radix
+//      select over the grid (a memset, eight passes, a compact, a sort).
 //  * The table update over the candidate rows c_j = x[cand_j] (cand_j < 0
 //    skipped) and the counts (how many masked rows have each candidate as
 //    their nearest, the first of least max(|x|^2 - 2 x.c + |c|^2, 0)) run
@@ -84,11 +101,22 @@
 //    each row's running minimum (or (distance, index) argmin) in
 //    registers, then a shuffle tree finishes the row.
 #include "common.cuh"
+#include "filtered_select.cuh"
 #include "grid_barrier.cuh"
 #include "lloyd_tile.cuh"
 #include "topk_select.cuh"
 
 namespace fvdb {
+
+constexpr int PICK_T = 1024;  // threads of the one-block pick
+constexpr int PICK_U = 8;     // rows a thread of it loads at once
+constexpr int PICK_BINS = 2048;  // its histogram of the keys' float bits
+constexpr int PICK_SHIFT = 20;   // 30 .. 20: the exponent, 3 mantissa bits
+// The one-block pick's limit: its N keys and its candidates (pick_cand:
+// 2 pow2(min(l, N)), at least 1,024), 8 bytes each, in 224 KB of shared
+// memory (27,648 rows at l = 409; ops/kmeans.py PICK_SMEM_BYTES is the
+// same number)
+constexpr int PICK_SMEM = 229376;
 
 constexpr int SQ = 32;   // rows a block
 constexpr int SC = 128;  // candidates a tile
@@ -120,6 +148,195 @@ __global__ void __launch_bounds__(NT) seed_key_kernel(
   }
   key[i] = k;
 }
+
+// The one-block pick's candidate buffer, in keys: at least twice the l
+// least (so a histogram bin's worth of keys past the l-th fits) and 1,024
+// (the histogram, PICK_BINS ints, lies there first).
+__host__ __device__ inline int pick_cand(int N, int l) {
+  const int c = 2 * pow2_at_least(l < N ? l : N);
+  return c > PICK_BINS / 2 ? c : PICK_BINS / 2;
+}
+
+// Bytes of the one-block pick's keys: N of them and the candidates.
+inline long long pick_smem(int N, int l) {
+  return 8LL * (N + pick_cand(N, l));
+}
+
+__device__ __forceinline__ unsigned long long min_key(unsigned long long a,
+                                                      unsigned long long b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ unsigned long long max_key(unsigned long long a,
+                                                      unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// Bitonic sort of a[0 .. sz) ascending (sz a power of two <= PICK_T), one
+// key a thread: the steps across fewer than 32 keys by shuffles in a
+// warp's registers, the others through a (two barriers each).
+__device__ void pick_sort(unsigned long long* a, int sz) {
+  const int t = threadIdx.x;
+  unsigned long long v = t < sz ? a[t] : NO_KEY;
+  for (int len = 2; len <= sz; len <<= 1)
+    for (int j = len >> 1; j > 0; j >>= 1) {
+      unsigned long long y;
+      if (j >= 32) {  // uniform across the block
+        __syncthreads();  // the last such step's reads are done
+        if (t < sz) a[t] = v;
+        __syncthreads();
+        y = t < sz ? a[t ^ j] : NO_KEY;
+      } else {
+        y = __shfl_xor_sync(FULL, v, j);
+      }
+      v = ((t & j) == 0) == ((t & len) == 0) ? min_key(v, y) : max_key(v, y);
+    }
+  __syncthreads();
+  if (t < sz) a[t] = v;
+  __syncthreads();
+}
+
+// The "block" route of the pick (the head comment): out_r [l].
+__global__ void __launch_bounds__(PICK_T) seed_pick_block_kernel(
+    const float* __restrict__ d2, const uint8_t* __restrict__ mask,
+    const float* __restrict__ u, int N, int l, int weighted,
+    int* __restrict__ out_r) {
+  extern __shared__ __align__(16) unsigned long long pk[];  // keys [N], then
+                                                            // candidates
+  __shared__ int h[256];
+  __shared__ unsigned long long s_state[2], s_min[PICK_T / 32];
+  __shared__ int s_cnt, s_bin, s_sum[PICK_T / 32];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5, m = min(l, N);
+  const int cap = pick_cand(N, l);
+  unsigned long long* cand = pk + N;
+  int* hist = reinterpret_cast<int*>(cand);  // [PICK_BINS], until the scan
+  if (m > 1) {
+    for (int i = t; i < PICK_BINS; i += PICK_T) hist[i] = 0;
+    if (t == 0) s_cnt = 0;
+    __syncthreads();
+  }
+  unsigned long long best = NO_KEY;
+  for (int i0 = 0; i0 < N; i0 += PICK_T * PICK_U) {
+    uint8_t in[PICK_U];
+    float uv[PICK_U], dv[PICK_U];
+#pragma unroll
+    for (int q = 0; q < PICK_U; ++q) {  // every load out before any key
+      const int i = i0 + q * PICK_T + t;
+      const bool ok = i < N;
+      in[q] = ok ? mask[i] : 0;
+      uv[q] = ok ? u[i] : 1.f;
+      dv[q] = ok && weighted ? d2[i] : 1.f;
+    }
+#pragma unroll
+    for (int q = 0; q < PICK_U; ++q) {
+      const int i = i0 + q * PICK_T + t;
+      float k = INFINITY;  // seed_key_kernel's key, the same operations
+      if (in[q] && (!weighted || dv[q] > 0.f)) {
+        const float e = seed_exp(uv[q]);
+        k = weighted ? e / fmaxf(dv[q], 1e-30f) : e;
+      }
+      const bool fin = k < INFINITY;
+      const unsigned long long key =
+          fin ? ((unsigned long long)__float_as_uint(k) << 32) | (unsigned)i
+              : NO_KEY;
+      if (i < N) {
+        if (m > 1) {
+          pk[i] = key;
+          if (fin) atomicAdd(hist + (__float_as_uint(k) >> PICK_SHIFT), 1);
+        }
+        best = min_key(best, key);
+      }
+    }
+  }
+  if (m == 1) {  // a block minimum
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      best = min_key(best, __shfl_xor_sync(FULL, best, off));
+    if (lane == 0) s_min[w] = best;
+    __syncthreads();
+    if (t < 32) {
+      best = s_min[t];
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        best = min_key(best, __shfl_xor_sync(FULL, best, off));
+      if (t == 0) out_r[0] = best == NO_KEY ? -1 : (int)(unsigned)best;
+    }
+    for (int j = 1 + t; j < l; j += PICK_T) out_r[j] = -1;
+    return;
+  }
+  __syncthreads();
+  // the bin of the m-th finite key (the last bin where fewer are finite):
+  // a block scan of the histogram, PICK_BINS / PICK_T bins a thread
+  constexpr int BPT = PICK_BINS / PICK_T;
+  int own[BPT], sum = 0;
+#pragma unroll
+  for (int q = 0; q < BPT; ++q) sum += own[q] = hist[t * BPT + q];
+  int inc = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL, inc, off);
+    if (lane >= off) inc += y;
+  }
+  if (lane == 31) s_sum[w] = inc;
+  __syncthreads();
+  if (t < 32) {
+    int x = s_sum[t];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (t >= off) x += y;
+    }
+    s_sum[t] = x;  // inclusive, by warp
+    if (t == 31 && x < m) s_bin = PICK_BINS;  // every finite key enters
+  }
+  __syncthreads();
+  inc += w > 0 ? s_sum[w - 1] : 0;  // this thread's bins, inclusive
+  if (inc >= m && inc - sum < m) {
+    int cum = inc - sum, b = 0;  // bins before the m-th key's
+#pragma unroll
+    for (int q = 0; q < BPT - 1; ++q) {
+      cum += own[q];
+      b += cum < m;
+    }
+    s_bin = t * BPT + b;
+  }
+  __syncthreads();
+  // the candidates: every key in a bin up to the m-th's (one atomic a warp)
+  const unsigned top = (unsigned)s_bin;
+  __syncthreads();  // the histogram is overwritten by candidates below
+  for (int i0 = 0; i0 < N; i0 += PICK_T) {  // the same trip count in a block
+    const int i = i0 + t;
+    const unsigned long long key = i < N ? pk[i] : NO_KEY;
+    const bool take = key != NO_KEY && (unsigned)(key >> (32 + PICK_SHIFT))
+                                           <= top;
+    const unsigned mk = __ballot_sync(FULL, take);
+    int base = 0;
+    if (lane == 0 && mk) base = atomicAdd(&s_cnt, __popc(mk));
+    base = __shfl_sync(FULL, base, 0);
+    const int pos = base + __popc(mk & ((1u << lane) - 1));
+    if (take && pos < cap) cand[pos] = key;
+  }
+  __syncthreads();
+  const int c = s_cnt;  // >= m unless fewer keys are finite
+  int sz;
+  if (c <= cap) {
+    sz = pow2_at_least(c > 1 ? c : 1);
+    for (int i = c + t; i < sz; i += PICK_T) cand[i] = NO_KEY;
+  } else {  // a bin past the room: the radix select over every key
+    __syncthreads();  // every thread has read s_cnt
+    block_select_keys(pk, N, m, cand, h, s_state, &s_cnt);
+    sz = pow2_at_least(m);
+    for (int i = m + t; i < sz; i += PICK_T) cand[i] = NO_KEY;
+  }
+  __syncthreads();
+  if (sz <= PICK_T) pick_sort(cand, sz);
+  else block_sort(cand, sz);
+  for (int j = t; j < l; j += PICK_T) {
+    const unsigned long long key = j < m && j < c ? cand[j] : NO_KEY;
+    out_r[j] = key == NO_KEY ? -1 : (int)(unsigned)key;
+  }
+}
+
+__global__ void empty_kernel() {}
 
 // acc[i][j] = x[n0 + ty*4 + i] . x[s.b_row[tx + 32 j]]; s.b_row holds the
 // tile's candidate rows (-1: none). All NT threads call it.
@@ -600,8 +817,35 @@ inline int seed_splits(int C) { return (C + LT_CENTS - 1) / LT_CENTS; }
 }  // namespace fvdb
 
 // The l rows of least key (see above) -> out_r [l] (-1 past the eligible
-// rows). d2 [N] (ignored unless weighted), mask [N], u [N]; key [N] and
-// out_d [l] scratch; work: fvdb_select_scratch_bytes(1, l) bytes.
+// rows), the "block" route: one launch, no scratch. d2 [N] (ignored unless
+// weighted), mask [N], u [N]; pick_smem(N, l) <= PICK_SMEM.
+FVDB_EXPORT int fvdb_seed_pick_block(const float* d2, const uint8_t* mask,
+                                     const float* u, int N, int l,
+                                     int weighted, int* out_r,
+                                     cudaStream_t stream) {
+  using namespace fvdb;
+  if (N < 1 || l < 1 || pick_smem(N, l) > PICK_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int cap[64];
+  const int smem = (l < N ? l : N) > 1 ? static_cast<int>(pick_smem(N, l))
+                                       : 0;
+  cudaError_t e = raise_smem_cap(
+      reinterpret_cast<const void*>(seed_pick_block_kernel), PICK_SMEM, cap);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  seed_pick_block_kernel<<<1, PICK_T, smem, stream>>>(d2, mask, u, N, l,
+                                                      weighted, out_r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel through the same path: the floor of one launch, which the
+// checks set beside the pick's byte bound.
+FVDB_EXPORT int fvdb_empty_launch(cudaStream_t stream) {
+  fvdb::empty_kernel<<<1, 32, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same, the "radix" route: key [N] and out_d [l] scratch; work:
+// fvdb_select_scratch_bytes(1, l) bytes.
 FVDB_EXPORT int fvdb_seed_pick(const float* d2, const uint8_t* mask,
                                const float* u, int N, int l, int weighted,
                                float* key, void* work, float* out_d,

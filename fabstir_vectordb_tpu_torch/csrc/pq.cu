@@ -55,8 +55,33 @@
 //    registers. A subspace too wide for that (Ds > 113 at K = 256) takes
 //    the same walk with each tile of 32 codes and the rows staged 32 dims
 //    at a time (the same sums, so the same codes).
-// Decode: one thread an output element. Table: a block a (query,
-// subspace), one thread a code.
+// Decode, two routes (ops/quantization.py pq_decode_route): a gather that
+// writes N D f32 and reads little (the codes, N M bytes; the codebook, K D
+// f32), so the stores bound it.
+//  * "tile" (Ds % 4 == 0, codes, codebook and output 16-byte aligned, a
+//    subspace's codebook within DEC_CB, M <= DEC_MAX_M): a persistent grid
+//    of (subspace group, row range) blocks, one an SM. A block holds its
+//    group's codebook in shared memory, loaded once (G subspaces, G K Ds
+//    f32 <= 192 KB: Ds = 48 four, Ds = 8 24, so two blocks read a tile's
+//    codes at M = 8 and 48; 5-7% faster than 96 KB and two blocks an SM.
+//    Through L1 instead, the codewords took as long at M = 8 and 26%
+//    longer at M = 48: scripts/pq_decode_variants.py). It walks its rows in
+//    tiles whose codes (whole rows, R M bytes) it stages by 16-byte
+//    cp.async, the next tile's while it writes this one's, so a code is
+//    read from global memory once a tile. A thread owns one float4 of a
+//    group's row segment (its subspace and offset set once, no division
+//    after) and takes every RP-th row of the tile, four at a time: four
+//    code bytes and four 16-byte codeword reads from shared memory, then
+//    four 16-byte streaming stores (st.global.cs, so the 1.5 GB of rows does not push the codes
+//    out of L2). The blocks of one row range run together, so a tile's
+//    codes come from HBM once and from L2 for the other groups. Ds = 8, 16
+//    and 48 are compile-time; other Ds % 4 == 0 take the same kernel with
+//    Ds at run time.
+//  * "any" (other Ds, or a pointer off 16 bytes): a block stages a tile's
+//    codes byte by byte, each thread owns columns (their subspace and
+//    offset found once a tile) and walks the tile's rows with 4-byte
+//    streaming stores, the codebook read through L1.
+// Table: a block a (query, subspace), one thread a code.
 //
 // Scan: a persistent grid of (query group, row range) blocks, about one
 // a resident slot, each staging its group's tables once into shared
@@ -88,6 +113,12 @@ constexpr int MAX_SMEM = 232448;  // a block's shared memory on Hopper
 constexpr int LUT_K = 256;     // codes a table row in shared memory
 constexpr int DC = 32;         // dims a slice of the wide encode
 constexpr int SCAN_MC = 96;    // subspaces a launch of a chunked scan
+constexpr int DEC_T = 768;     // threads of a decode block (one an SM)
+constexpr int DEC_CB = 196608;  // bytes of codebook a decode block holds
+constexpr int DEC_CODES = 8192;  // bytes of codes a staged tile at most
+constexpr int DEC_MAX_M = 512;   // subspaces the tile route takes (16 rows)
+constexpr int DEC_U = 4;       // rows a thread writes at once
+constexpr int DEC_ANY_CODES = 32768;  // bytes of codes an "any" tile
 
 __host__ __device__ inline int pad32(int k) {
   return (k + KT - 1) / KT * KT;
@@ -638,17 +669,168 @@ cudaError_t launch_encode_tc(const LloydMaps& maps, const float* x,
   return cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(NT) pq_decode_kernel(
+// 16 bytes from global to shared memory, asynchronously; the bytes past
+// src_bytes (< 16 at a tile's end) are zero-filled, none read.
+__device__ __forceinline__ void dec_copy16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void dec_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void dec_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The tile route (the head comment). Block b: subspaces [m0, m0 + gn) with
+// m0 = (b % groups) G, the row tiles [(b / groups) per, + per) of R rows.
+// Shared memory: the group's codebook [gn][K][Ds] f32, then two tiles of
+// codes [R][M] u8. DS: Ds at compile time (0: ds at run time).
+template <int DS>
+__global__ void __launch_bounds__(DEC_T, 1) pq_decode_tile_kernel(
     const uint8_t* __restrict__ codes, const float* __restrict__ cents,
-    long long total, int M, int K, int Ds, float* __restrict__ out) {
-  const long long D = (long long)M * Ds;
-  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < total;
-       i += (long long)gridDim.x * NT) {
-    const long long n = i / D;
-    const int col = (int)(i - n * D), m = col / Ds, j = col - m * Ds;
-    const int code = min((int)__ldg(codes + n * M + m), K - 1);
-    out[i] = __ldg(cents + ((size_t)m * K + code) * Ds + j);
+    int N, int M, int K, int ds, int G, int groups, int R, int per,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  const int Ds = DS ? DS : ds;
+  const int V = Ds / 4;  // float4s a codeword
+  const int t = threadIdx.x;
+  const int m0 = blockIdx.x % groups * G, gn = min(G, M - m0);
+  const int W = G * V;       // float4s of a row segment (a full group)
+  const int RP = DEC_T / W;  // rows a pass of the block
+  const int col = t % W, rl = t / W;  // once a thread
+  const int sub = col / V, j = col - sub * V;
+  const bool on = rl < RP && sub < gn;
+  float4* cb = reinterpret_cast<float4*>(dsm);
+  unsigned char* cs = dsm + sizeof(float) * (size_t)G * K * Ds;
+  const float4* src =
+      reinterpret_cast<const float4*>(cents + (size_t)m0 * K * Ds);
+  for (int i = t; i < gn * K * V; i += DEC_T) cb[i] = __ldg(src + i);
+  const int tiles = (N + R - 1) / R;
+  const int tile0 = blockIdx.x / groups * per;
+  const int tile1 = min(tiles, tile0 + per);
+  const int tb = R * M;  // bytes of a staged tile (a multiple of 16)
+  const uint32_t cs_addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(cs));
+  auto stage = [&](int tile, int buf) {
+    const long long r0 = (long long)tile * R;
+    const int bytes = (int)(min((long long)R, N - r0) * M);
+    const unsigned char* s = codes + r0 * M;
+    for (int c = t * 16; c < bytes; c += DEC_T * 16)
+      dec_copy16(cs_addr + buf * tb + c, s + c, min(16, bytes - c));
+  };
+  if (tile0 < tile1) stage(tile0, 0);
+  dec_commit();
+  const int MV = M * V;  // float4s of an output row
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int buf = (tile - tile0) & 1;
+    if (tile + 1 < tile1) stage(tile + 1, buf ^ 1);
+    dec_commit();
+    dec_wait<1>();  // this tile's codes are in
+    __syncthreads();
+    if (on) {
+      const long long r0 = (long long)tile * R;
+      const int rows = (int)min((long long)R, N - r0);
+      const unsigned char* cr = cs + buf * tb + m0 + sub;
+      const float4* cw = cb + (size_t)sub * K * V + j;
+      float4* o = reinterpret_cast<float4*>(out) + r0 * MV + m0 * V + col;
+      for (int r = rl; r < rows; r += DEC_U * RP) {
+        int code[DEC_U];
+        float4 v[DEC_U];
+#pragma unroll
+        for (int u = 0; u < DEC_U; ++u) {
+          const int rr = r + u * RP;
+          code[u] = rr < rows ? min((int)cr[rr * M], K - 1) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < DEC_U; ++u) v[u] = cw[code[u] * V];
+#pragma unroll
+        for (int u = 0; u < DEC_U; ++u) {
+          const int rr = r + u * RP;
+          if (rr < rows) __stcs(o + rr * MV, v[u]);
+        }
+      }
+    }
+    __syncthreads();  // the buffer is staged again two tiles on
   }
+  dec_wait<0>();
+}
+
+// The "any" route: block tiles of R rows (grid-stride), the tile's codes
+// [R][M] in shared memory; CW = min(D, NT) threads across the columns, NT /
+// CW rows a pass.
+__global__ void __launch_bounds__(NT) pq_decode_any_kernel(
+    const uint8_t* __restrict__ codes, const float* __restrict__ cents,
+    int N, int M, int K, int Ds, int R, float* __restrict__ out) {
+  extern __shared__ unsigned char ca[];
+  const int t = threadIdx.x, D = M * Ds;
+  const int CW = min(D, NT), RP = NT / CW;
+  const int c0 = t % CW, rl = t / CW;
+  const int tiles = (N + R - 1) / R;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = (long long)tile * R;
+    const int rows = (int)min((long long)R, N - r0);
+    const uint8_t* src = codes + r0 * M;
+    for (int i = t; i < rows * M; i += NT) ca[i] = src[i];
+    __syncthreads();
+    if (rl < RP)
+      for (int col = c0; col < D; col += CW) {
+        const int m = col / Ds, j = col - m * Ds;
+        const float* cw = cents + (size_t)m * K * Ds + j;
+        float* o = out + r0 * D + col;
+        for (int r = rl; r < rows; r += RP)
+          __stcs(o + (size_t)r * D,
+                 __ldg(cw + (size_t)min((int)ca[r * M + m], K - 1) * Ds));
+      }
+    __syncthreads();
+  }
+}
+
+template <int DS>
+cudaError_t launch_decode_tile(const uint8_t* codes, const float* cents,
+                               int N, int M, int K, int Ds, float* out,
+                               cudaStream_t stream) {
+  static int cap[64], sms[64];
+  const int V = Ds / 4;
+  int G = DEC_CB / (K * Ds * 4);  // subspaces a block: its codebook fits
+  if (G > M) G = M;
+  if (G > DEC_T / V) G = DEC_T / V;  // and a row segment its threads
+  const int groups = (M + G - 1) / G;
+  const int RP = DEC_T / (G * V);
+  // a tile: at least RP and 128 rows, at most DEC_CODES bytes of codes, a
+  // multiple of 16 rows (so every tile's codes start 16-byte aligned)
+  int R = (RP + 15) / 16 * 16;
+  if (R < 128) R = 128;
+  if (R > DEC_CODES / M / 16 * 16) R = DEC_CODES / M / 16 * 16;
+  const int smem = (int)(sizeof(float) * (size_t)G * K * Ds) + 2 * R * M;
+  const void* fn = reinterpret_cast<const void*>(pq_decode_tile_kernel<DS>);
+  cudaError_t e = raise_smem_cap(fn, smem, cap);
+  if (e != cudaSuccess) return e;
+  int dev = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, DEC_T,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  const int slots = sms[dev] * (per_sm > 0 ? per_sm : 1);
+  const int tiles = (N + R - 1) / R;
+  int ranges = slots / groups;  // row ranges: the groups of one run together
+  if (ranges > tiles) ranges = tiles;
+  if (ranges < 1) ranges = 1;
+  const int per = (tiles + ranges - 1) / ranges;
+  ranges = (tiles + per - 1) / per;
+  pq_decode_tile_kernel<DS><<<(unsigned)(groups * ranges), DEC_T, smem,
+                              stream>>>(codes, cents, N, M, K, Ds, G, groups,
+                                        R, per, out);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(NT) pq_table_kernel(
@@ -898,18 +1080,47 @@ FVDB_EXPORT int fvdb_pq_encode(const float* x, const float* cents, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// codes [N, M] u8, cents [M, K, Ds] -> out [N, M Ds] f32.
+// codes [N, M] u8, cents [M, K, Ds] -> out [N, M Ds] f32. tile 1: the
+// tile route (Ds % 4 == 0, Ds <= 4 DEC_T, K Ds f32 <= DEC_CB, M <=
+// DEC_MAX_M, the three pointers 16-byte aligned), 0: the "any" route.
 FVDB_EXPORT int fvdb_pq_decode(const uint8_t* codes, const float* cents,
-                               int N, int M, int K, int Ds, float* out,
-                               cudaStream_t stream) {
+                               int N, int M, int K, int Ds, int tile,
+                               float* out, cudaStream_t stream) {
   using namespace fvdb;
-  if (N < 1 || M < 1 || K < 1 || Ds < 1)
+  if (N < 1 || M < 1 || K < 1 || Ds < 1 || (long long)M * Ds > (1 << 30))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = (long long)N * M * Ds;
-  const long long blocks = (total + NT - 1) / NT;
-  const unsigned grid = (unsigned)(blocks < (1 << 20) ? blocks : (1 << 20));
-  pq_decode_kernel<<<grid, NT, 0, stream>>>(codes, cents, total, M, K, Ds,
-                                            out);
+  if (tile) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(codes) |
+                        reinterpret_cast<uintptr_t>(cents) |
+                        reinterpret_cast<uintptr_t>(out);
+    if (Ds % 4 != 0 || Ds / 4 > DEC_T || 4LL * K * Ds > DEC_CB ||
+        M > DEC_MAX_M || a % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e =
+        Ds == 8    ? launch_decode_tile<8>(codes, cents, N, M, K, Ds, out,
+                                           stream)
+        : Ds == 16 ? launch_decode_tile<16>(codes, cents, N, M, K, Ds, out,
+                                            stream)
+        : Ds == 48 ? launch_decode_tile<48>(codes, cents, N, M, K, Ds, out,
+                                            stream)
+                   : launch_decode_tile<0>(codes, cents, N, M, K, Ds, out,
+                                           stream);
+    return static_cast<int>(e);
+  }
+  int R = DEC_ANY_CODES / M;  // rows a tile: their codes in shared memory
+  if (R > 64) R = 64;
+  if (R < 1) R = 1;
+  if ((long long)R * M > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (N + R - 1) / R;
+  const int grid = tiles < 8 * sms ? tiles : 8 * sms;
+  pq_decode_any_kernel<<<grid, NT, R * M, stream>>>(codes, cents, N, M, K,
+                                                    Ds, R, out);
   return static_cast<int>(cudaGetLastError());
 }
 

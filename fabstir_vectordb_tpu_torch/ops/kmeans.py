@@ -12,12 +12,13 @@ training at once (:func:`kmeans_pp_rows`), drawing its uniforms from a
 counter-based generator (Philox4x32-10, :func:`pp_uniforms`) keyed by one
 draw from the caller's ``torch.Generator``; kmeans||'s device steps (the
 weighted pick, the min-distance table, the candidates' populations) are a
-kernel each, the last two on K6's tile pass where :func:`lloyd_route` sends
-their shape. Each has a plain version here, which the wrappers take on CPU
-tensors. The draws differ from the reference's ``jax.random`` ones;
-kmeans||'s weighted k-means++ over the candidates runs on the host, as
-there. Lloyd stops by the reference's rule, decided on the host after each
-block of iterations.
+kernel each: the pick one launch of one block where its keys fit shared
+memory (:func:`seed_pick_route`), the other two on K6's tile pass where
+:func:`lloyd_route` sends their shape. Each has a plain version here,
+which the wrappers take on CPU tensors. The draws differ from the
+reference's ``jax.random`` ones; kmeans||'s weighted k-means++ over the
+candidates runs on the host, as there. Lloyd stops by the reference's
+rule, decided on the host after each block of iterations.
 """
 from __future__ import annotations
 
@@ -319,24 +320,46 @@ def seed_pick_plain(d2, mask, u, l: int, weighted: bool = True,
                     unweighted_if_empty: bool = False):
     """Plain version of the kmeans|| pick: the ``l`` rows of least key
     (ties to the lower row), -1 past the eligible rows. Picking the least
-    E / w is the exponential race, the same draw as the reference's top-l of
-    log w + Gumbel noise. ``unweighted_if_empty``: where no row is eligible
-    for a weighted pick, the unweighted keys over the mask (k-means++'s
-    fallback)."""
+    E / w is the exponential race, the same draw as the reference's top-l
+    of log w + Gumbel noise. Where l exceeds the rows it still gives l, -1
+    past them: the port's own contract (its kernels write l rows), which
+    the reference's top-l, asked for no more than its rows, has no case
+    for.
+    ``unweighted_if_empty``: where no row is eligible for a weighted pick,
+    the unweighted keys over the mask (k-means++'s fallback)."""
     key = _seed_key(d2, mask, u, weighted)
     if weighted and unweighted_if_empty:
         key = torch.where(torch.isfinite(key).any(), key,
                           _seed_key(d2, mask, u, False))
     vals, rows = torch.sort(key, stable=True)
     vals, rows = vals[:l], rows[:l].to(torch.int32)
-    return torch.where(torch.isfinite(vals), rows, torch.full_like(rows, -1))
+    rows = torch.where(torch.isfinite(vals), rows, torch.full_like(rows, -1))
+    if rows.shape[0] < l:  # l past the rows: -1 past them too
+        rows = torch.cat([rows, rows.new_full((l - rows.shape[0],), -1)])
+    return rows
+
+
+# csrc/kmeans_seed.cu's PICK_SMEM: the bytes of shared memory that the
+# one-block pick's keys may take (N keys and its candidates, 8 bytes each)
+PICK_SMEM_BYTES = 229_376
+
+
+def seed_pick_route(n: int, l: int) -> str:
+    """The pick's route for n rows at l: "block" (csrc/kmeans_seed.cu's
+    one-block kernel: every key and its candidates, max(2 pow2(min(l, n)),
+    1,024) of them, in one block's shared memory, one launch) where their 8
+    bytes each fit PICK_SMEM_BYTES (27,648 rows at l = 409), else "radix"
+    (the key kernel and topk_select.cuh's radix select over the grid)."""
+    cand = max(2 << (min(l, n) - 1).bit_length(), 1024)
+    return "block" if 8 * (n + cand) <= PICK_SMEM_BYTES else "radix"
 
 
 def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None):
     """K7's kmeans|| pick (``_scalable_first`` / ``_scalable_round``): rows
     [l] int32, written into ``out`` when given. d2 [N] f32 (unused
     unweighted), mask [N] bool, u [N] uniform f32 from the caller's
-    generator."""
+    generator. On the card by the route :func:`seed_pick_route` picks
+    (counted as "seed_pick" in one block, "seed_pick_radix" past it)."""
     if mask.device.type == "cpu":
         rows = seed_pick_plain(d2, mask, u, l, weighted)
         if out is None:
@@ -354,17 +377,28 @@ def seed_pick(d2, mask, u, l: int, weighted: bool = True, out=None):
     if out is None:
         out = torch.empty(l, dtype=torch.int32, device=dev)
     native.check(out, "out", torch.int32, 1, dev)
-    scratch = torch.empty(n + l, dtype=torch.float32, device=dev)  # key, d
-    work = select_scratch("kmeans_seed", 1, l, dev)
+    if out.shape[0] != l:
+        raise ValueError(f"seed_pick: out holds {out.shape[0]} rows, not {l}")
     P, I = native.P, native.I
-    native.call("kmeans_seed", "fvdb_seed_pick", [P, P, P, I, I, I, P, P, P,
-                                                  P, P],
-                d2.data_ptr() if weighted else 0, mask.data_ptr(),
-                u.data_ptr(), n, l, int(weighted), scratch.data_ptr(),
-                work.data_ptr(), scratch[n:].data_ptr(), out.data_ptr(),
-                native.stream_of(mask))
-    native.launches["seed_pick"] += 1
-    native.count_shape("seed_pick", f"N={n} l={l}")
+    d2_ptr = d2.data_ptr() if weighted else 0
+    if seed_pick_route(n, l) == "block":
+        native.call("kmeans_seed", "fvdb_seed_pick_block",
+                    [P, P, P, I, I, I, P, P], d2_ptr, mask.data_ptr(),
+                    u.data_ptr(), n, l, int(weighted), out.data_ptr(),
+                    native.stream_of(mask))
+        name = "seed_pick"
+    else:
+        scratch = torch.empty(n + l, dtype=torch.float32, device=dev)
+        work = select_scratch("kmeans_seed", 1, l, dev)
+        native.call("kmeans_seed", "fvdb_seed_pick",
+                    [P, P, P, I, I, I, P, P, P, P, P], d2_ptr,
+                    mask.data_ptr(), u.data_ptr(), n, l, int(weighted),
+                    scratch.data_ptr(), work.data_ptr(),
+                    scratch[n:].data_ptr(), out.data_ptr(),
+                    native.stream_of(mask))
+        name = "seed_pick_radix"
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} l={l}")
     return out
 
 

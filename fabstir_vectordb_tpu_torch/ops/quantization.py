@@ -248,8 +248,30 @@ def pq_decode_plain(cents, codes):
     return cents[sub, idx].reshape(codes.shape[0], m * ds)
 
 
+# csrc/pq.cu's decode tile route: a block's codebook bytes (DEC_CB), its
+# threads (DEC_T; a thread a float4 of a row segment) and the subspaces
+# whose codes it stages (DEC_MAX_M)
+PQ_DECODE_CB_BYTES = 196_608
+PQ_DECODE_THREADS = 768
+PQ_DECODE_MAX_M = 512
+
+
+def pq_decode_route(m: int, k: int, ds: int, aligned: bool = True) -> str:
+    """The decode's route for M = m subspaces of K = k codes of ds dims:
+    "tile" (csrc/pq.cu: each block's group of subspaces' codebook in
+    shared memory, 16-byte streaming stores) at ds % 4 == 0, a subspace's
+    codebook within PQ_DECODE_CB_BYTES, ds / 4 <= PQ_DECODE_THREADS, m <=
+    PQ_DECODE_MAX_M and codes and codebook 16-byte aligned, else
+    "any" (4-byte stores, any shape)."""
+    return "tile" if (ds % 4 == 0 and aligned and m <= PQ_DECODE_MAX_M
+                      and 4 * k * ds <= PQ_DECODE_CB_BYTES
+                      and ds // 4 <= PQ_DECODE_THREADS) else "any"
+
+
 def pq_decode(codebook_centroids, codes):
-    """Decode codes u8 [N, M] -> approximate rows f32 [N, D]."""
+    """Decode codes u8 [N, M] -> approximate rows f32 [N, D]. On the card
+    by the route :func:`pq_decode_route` picks (counted as "pq_decode" on
+    the tile route, "pq_decode_any" on the other)."""
     if codes.device.type == "cpu":
         return pq_decode_plain(codebook_centroids, codes)
     if codes.device.type != "cuda":
@@ -262,12 +284,17 @@ def pq_decode(codebook_centroids, codes):
     n = codes.shape[0]
     if codes.shape[1] != m or n == 0:
         raise ValueError("shape mismatch in pq_decode")
+    # a fresh output is 16-byte aligned: the route reads the inputs'
+    aligned = (codes.data_ptr() | codebook_centroids.data_ptr()) % 16 == 0
     out = torch.empty((n, m * ds), dtype=torch.float32, device=dev)
+    tile = pq_decode_route(m, k, ds, aligned) == "tile"
     P, I = native.P, native.I
-    native.call("pq", "fvdb_pq_decode", [P, P, I, I, I, I, P, P],
+    native.call("pq", "fvdb_pq_decode", [P, P, I, I, I, I, I, P, P],
                 codes.data_ptr(), codebook_centroids.data_ptr(), n, m, k, ds,
-                out.data_ptr(), native.stream_of(codes))
-    native.launches["pq_decode"] += 1
+                int(tile), out.data_ptr(), native.stream_of(codes))
+    name = "pq_decode" if tile else "pq_decode_any"
+    native.launches[name] += 1
+    native.count_shape(name, f"N={n} M={m} K={k} Ds={ds}")
     return out
 
 

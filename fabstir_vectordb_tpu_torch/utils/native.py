@@ -73,6 +73,12 @@ launches["seed_counts_fma"] = 0
 # not take (ops/quantization.py pq_encode_route; "pq_encode" counts the
 # tensor cores)
 launches["pq_encode_fma"] = 0
+# K16's decode on its "any" route (4-byte stores: Ds % 4 != 0 or a pointer
+# off 16 bytes; ops/quantization.py pq_decode_route), and K7's kmeans||
+# pick past one block's shared memory (the radix select; ops/kmeans.py
+# seed_pick_route): "pq_decode" and "seed_pick" count the main routes
+launches["pq_decode_any"] = 0
+launches["seed_pick_radix"] = 0
 # K9 on f32 rows on the tensor cores (three TF32 products; "approx_topk_f32"
 # counts the FMA pass)
 launches["approx_topk_tf32"] = 0
@@ -98,8 +104,8 @@ for _base in ("l2_topk", "l2_topk_large", "l2_topk_bf16_rq",
         launches[f"{_base}_{_metric}"] = 0
 
 
-# launches of K2, K6, K7, K10, K11 and K16's encode by shape ("<counter>
-# <shape>"): the wrappers add one beside their counter's, and
+# launches of K2, K6, K7, K10, K11 and K16's encode and decode by shape
+# ("<counter> <shape>"): the wrappers add one beside their counter's, and
 # reset_launches clears them with it
 shape_launches: dict[str, int] = {}
 

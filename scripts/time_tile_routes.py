@@ -81,6 +81,12 @@ whole, and kmeans||'s table update (10,000 x 384, l = 409) and counts
 microseconds a call, beside its bounds: bytes, three TF32 products, and
 for k-means++ C grid barriers, whose nanoseconds a cooperative launch of
 csrc/grid_barrier.cuh's barrier across one block an SM measures here.
+First, kmeans||'s pick (``seed_pick``) at N = 10,000 (l = 409 weighted,
+l = 1 unweighted), the sharded trainer's N = 10,240 and IVF training's
+16,384 padded rows (l = 409): the same
+figures, torch.equal to the plain version, and beside the bytes' bound
+the back-to-back ms of an empty kernel through the same ctypes path
+(where the tree has csrc/kmeans_seed.cu's ``fvdb_empty_launch``).
 Where the tree has them, each is held to its plain version (k-means++
 pick for pick up to key ties, the table within 1e-6 of the largest
 |x|^2, the counts with at most 0.1% of the rows moved).
@@ -88,12 +94,15 @@ pick for pick up to key ties, the table within 1e-6 of the largest
 K16 (``ops.quantization``, ``--only k16``): the quant phase's rows
 (bench.py's 1M tier, 1,000,000 x 384: 1,024 centers, noise 0.35, seed 0),
 a PQ codebook trained on its first 65,536 at M = 8 and 48 (K = 256), the
-encode of all 1M rows and the ADC scan of 128 queries drawn as bench.py
-draws them ([128, 1M]); each shape's ms by CUDA events, device
-microseconds by kernel (torch.profiler) and launches, the encode's codes
-against its plain version (differing only at float64 ties within 1e-6),
-the scan against its plain version bit for bit (reported); where the tree
-has two encode routes, the FMA route at the same shapes (a direct call).
+encode of all 1M rows, the ADC scan of 128 queries drawn as bench.py
+draws them ([128, 1M]) and the decode of the codes; each shape's ms by
+CUDA events, device microseconds by kernel (torch.profiler) and launches,
+the encode's codes against its plain version (differing only at float64
+ties within 1e-6), the scan against its plain version bit for bit, the
+decode torch.equal to its plain version beside one advanced-indexing
+gather (``cents[sub, idx]``, the indices int64 and clamped beforehand);
+where the tree has two encode routes, the FMA route at the same shapes (a
+direct call).
 
 K2 (``index.fused.rerank_f32``, ``--only k2``): seeded bf16 rows
 (1,048,576 x 384, and 10,485,760 x 384 for the 10M tier's OV = 2,048) and
@@ -916,11 +925,78 @@ def k7_agree(torch, km, native, data) -> dict:
     return out
 
 
+def launch_floor_ms(torch, native, it: int = 50):
+    """Back-to-back ms of an empty kernel launched through the kernels'
+    ctypes path (csrc/kmeans_seed.cu's fvdb_empty_launch), or None where
+    the tree has none."""
+    try:
+        native.fn("kmeans_seed", "fvdb_empty_launch", [native.P])
+    except AttributeError:
+        return None
+    stream = torch.cuda.current_stream().cuda_stream
+    return cuda_ms(torch, lambda: native.call(
+        "kmeans_seed", "fvdb_empty_launch", [native.P], stream), it)
+
+
+def k7_picks(torch, km, native, data, res, it) -> None:
+    """kmeans||'s pick through ops.kmeans.seed_pick at N = 10,000 (l = 409
+    weighted on its d2, l = 1 unweighted), the sharded trainer's N = 10,240
+    and IVF training's 16,384 padded rows, 10,000 in the mask (l = 409):
+    ms back to back, the card's
+    microseconds by kernel (profiler) and behind a sleep, the host's,
+    launches (and by shape), torch.equal to the plain version; the bytes'
+    bound beside the floor of one launch."""
+    x, mask, x10, m10, d2, l409, cand = data
+    dev = x.device
+    g = torch.Generator(device=dev).manual_seed(25)
+    n2, n3 = 10_240, 16_384
+    d2b = km.seed_min_update_plain(x[:n2], mask[:n2], torch.full(
+        (n2,), float("inf"), device=dev), cand[:1])
+    m3 = torch.arange(n3, device=dev) < 10_000  # IVF training's padded rows
+    d2c = km.seed_min_update_plain(x[:n3], m3, torch.full(
+        (n3,), float("inf"), device=dev), cand[:1])
+    floor = launch_floor_ms(torch, native)
+    res["launch_floor_ms"] = floor
+    for n, l, weighted, dd, mm in ((10_000, 409, True, d2, m10),
+                                   (10_000, 1, False, d2, m10),
+                                   (n2, 409, True, d2b, mask[:n2]),
+                                   (n3, 409, True, d2c, m3)):
+        u = torch.rand(n, device=dev, generator=g)
+        dw = dd if weighted else None
+
+        def run(dw=dw, mm=mm, u=u, l=l, weighted=weighted):
+            return km.seed_pick(dw, mm, u, l, weighted)
+
+        native.shape_launches.clear()
+        before = dict(native.launches)
+        got = run()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in native.launches.items()
+                    if v != before[k]}
+        shapes = dict(native.shape_launches)
+        us = kernel_us(torch, run, 5)
+        key = (f"k7 seed_pick N={n} l={l}"
+               + ("" if weighted else " unweighted"))
+        nbytes = n * (1 + 4 + (4 if weighted else 0)) + l * 4
+        res[key] = {
+            "ms": cuda_ms(torch, run, 5 * it),
+            "device_us": sum(us.values()), "kernel_us": us,
+            "queued_us": queued_us(torch, run),
+            "host_us": host_us(torch, run),
+            "launches_a_call": launched, "launches_by_shape": shapes,
+            "equal_to_plain": bool(torch.equal(got, km.seed_pick_plain(
+                dd, mm, u, l, weighted))),
+            "bound_bytes_ms": nbytes / 3.35e12 * 1e3,
+            "launch_floor_ms": floor}
+        print(f"{key} {res[key]}", flush=True)
+
+
 def k7(torch, km, qz, native, root, res, it) -> None:
+    cases, data = k7_cases(torch, km, qz)
+    k7_picks(torch, km, native, data, res, it)
     bar = grid_barrier_ns(torch, native, root)
     res["grid_barrier"] = bar
     print(f"grid barrier {bar}", flush=True)
-    cases, data = k7_cases(torch, km, qz)
     res["k7 agree"] = k7_agree(torch, km, native, data)
     print(f"k7 agree {res['k7 agree']}", flush=True)
     for key, run, (nbytes, f32_ops, tf32_ops, barriers) in cases:
@@ -1043,8 +1119,40 @@ def k16(torch, native, res, it) -> None:
             "bound_bytes_ms": (b * n * 4 + n * m + b * m * kc * 4)
             / 3.35e12 * 1e3}
         print(f"{key} {res[key]}", flush=True)
+        k16_decode(torch, qz, native, cents, codes, m, res, it)
         del codes, table
         torch.cuda.empty_cache()
+
+
+def k16_decode(torch, qz, native, cents, codes, m, res, it) -> None:
+    """K16's decode of the quant phase's codes through
+    ops.quantization.pq_decode: ms by CUDA events, device microseconds by
+    kernel, launches (and by shape), torch.equal to the plain version, and
+    one advanced-indexing gather of the same rows (its int64, clamped
+    indices made beforehand) as the library's time."""
+    n, kc = codes.shape[0], cents.shape[1]
+    native.shape_launches.clear()
+    before = dict(native.launches)
+    dec = qz.pq_decode(cents, codes)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in native.launches.items()
+                if v != before[k]}
+    shapes = dict(native.shape_launches)
+    equal = bool(torch.equal(dec, qz.pq_decode_plain(cents, codes)))
+    del dec
+    sub = torch.arange(m, device=codes.device)[None, :]
+    idx = codes.long().clamp_max(kc - 1)
+    key = f"k16 decode M={m} N={n} D={D} K={kc}"
+    res[key] = {
+        "ms": cuda_ms(torch, lambda: qz.pq_decode(cents, codes), it),
+        "kernel_us": kernel_us(torch, lambda: qz.pq_decode(cents, codes)),
+        "library_ms": cuda_ms(torch, lambda: cents[sub, idx], it),
+        "launches_a_call": launched, "launches_by_shape": shapes,
+        "equal_to_plain": equal,
+        "bound_bytes_ms": (n * D * 4 + n * m + m * kc * (D // m) * 4)
+        / 3.35e12 * 1e3}
+    del idx
+    print(f"{key} {res[key]}", flush=True)
 
 
 def k11_graph(torch):

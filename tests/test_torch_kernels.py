@@ -1629,6 +1629,141 @@ def test_pq_encode_near_ties_on_card(m, k, ds):
         _codes_equal_up_to_ties(x, cents, ck, cp, rel=1e-6)
 
 
+def _launched(native, before, shapes0):
+    """The launches, and the launches by shape, since ``before`` and
+    ``shapes0`` (copies of the counters)."""
+    return ({c: v - before[c] for c, v in native.launches.items()
+             if v != before[c]},
+            {c: v - shapes0.get(c, 0) for c, v in native.shape_launches.items()
+             if v != shapes0.get(c, 0)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,ds,n,off,route", [
+    (8, 256, 48, 65_537, None, "tile"),  # the main path's widths, N off a tile
+    (48, 256, 8, 65_537, None, "tile"),
+    (24, 256, 16, 5_001, None, "tile"),
+    (32, 200, 12, 5_001, None, "tile"),  # Ds at run time
+    (1, 256, 192, 2_000, None, "tile"),  # one subspace, 192 KB of codebook
+    (128, 256, 3, 5_001, None, "any"),   # Ds % 4 != 0
+    (3, 256, 130, 5_001, None, "any"),
+    (8, 256, 48, 5_001, "codes", "any"),     # codes a byte off 16 bytes
+    (48, 256, 8, 5_001, "codebook", "any"),  # codebook a float off 16 bytes
+    (8, 100, 48, 5_001, None, "tile"),   # codes >= K: the clamp
+    (3, 100, 130, 777, None, "any"),
+    (520, 16, 4, 300, None, "any"),      # past the tile route's subspaces
+    (8, 256, 48, 1, None, "tile"),       # N = 1
+    (48, 256, 8, 1, None, "tile"),
+    (3, 256, 130, 1, None, "any")])
+def test_pq_decode_routes_match_plain_on_card(m, k, ds, n, off, route):
+    """K16's decode by route (ops/quantization.py pq_decode_route) equal to
+    the plain version's rows, codes over all 256 values (past K they read
+    code K - 1); ``off`` names the input that lies off a 16-byte boundary
+    (codes a byte, the codebook a float). One launch, counted (and by
+    shape) under its route."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(36)
+    cents = torch.randn(m, k, ds, device=dev, generator=g)
+    codes = torch.randint(0, 256, (n, m), device=dev, generator=g,
+                          dtype=torch.uint8)
+    if off == "codes":
+        codes = torch.empty(n * m + 1, device=dev, dtype=torch.uint8)[1:] \
+            .view(n, m).copy_(codes)
+    elif off == "codebook":
+        cents = torch.empty(m * k * ds + 1, device=dev)[1:] \
+            .view(m, k, ds).copy_(cents)
+    aligned = (codes.data_ptr() | cents.data_ptr()) % 16 == 0
+    assert aligned == (off is None)
+    assert qz_t.pq_decode_route(m, k, ds, aligned) == route
+    name = "pq_decode" if route == "tile" else "pq_decode_any"
+    before, shapes0 = dict(native.launches), dict(native.shape_launches)
+    got = qz_t.pq_decode(cents, codes)
+    launched, by_shape = _launched(native, before, shapes0)
+    assert launched == {name: 1}
+    assert by_shape == {f"{name} N={n} M={m} K={k} Ds={ds}": 1}
+    assert torch.equal(got, qz_t.pq_decode_plain(cents, codes))
+
+
+def _pick_inputs(g, dev, n, case):
+    """(d2, mask, u) of a pick: "random"; "few" (37 rows in the mask: -1
+    padding); "no_mask" (none); "zero_d2" (d2 all 0: none eligible when
+    weighted); "dups" (u and d2 from four values each, so keys repeat and
+    ties go to the lower row); "same" (every key equal: one histogram bin
+    holds them all, past the one-block route's candidates)."""
+    d2 = torch.rand(n, device=dev, generator=g) * 100
+    u = torch.rand(n, device=dev, generator=g)
+    mask = torch.rand(n, device=dev, generator=g) < 0.9
+    if case == "few":
+        mask[:] = False
+        mask[torch.randperm(n, device=dev, generator=g)[:37]] = True
+    elif case == "no_mask":
+        mask[:] = False
+    elif case == "zero_d2":
+        d2.zero_()
+    elif case == "dups":
+        vals = torch.tensor([0.125, 0.25, 0.5, 0.75], device=dev)
+        u = vals[torch.randint(0, 4, (n,), device=dev, generator=g)]
+        d2 = 4 * vals[torch.randint(0, 4, (n,), device=dev, generator=g)]
+    elif case == "same":
+        u.fill_(0.5)
+        d2.fill_(2.0)
+    return d2, mask, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l,weighted,case,route", [
+    (10_000, 409, True, "random", "block"),   # IVF training's rounds
+    (10_000, 1, False, "random", "block"),    # its first pick
+    (10_240, 409, True, "random", "block"),   # the sharded trainer's
+    (27_648, 409, True, "random", "block"),   # the limit
+    (27_649, 409, True, "random", "radix"),
+    (60_000, 409, True, "random", "radix"),
+    (60_000, 1, False, "random", "radix"),
+    (10_000, 409, True, "few", "block"),
+    (60_000, 409, True, "few", "radix"),
+    (10_000, 409, True, "no_mask", "block"),
+    (10_000, 1, False, "no_mask", "block"),
+    (10_000, 409, True, "zero_d2", "block"),
+    (10_000, 1, True, "zero_d2", "block"),
+    (10_000, 409, True, "dups", "block"),
+    (10_000, 409, False, "dups", "block"),
+    (10_000, 1, True, "dups", "block"),
+    (60_000, 409, True, "dups", "radix"),
+    (10_000, 409, True, "same", "block"),     # one bin past the candidates
+    (10_000, 409, False, "same", "block"),
+    (5_000, 2_000, True, "random", "block"),  # past a block's 1,024 keys
+    (300, 409, True, "random", "block"),      # l past N
+    (1, 1, True, "random", "block"),
+    (1, 409, False, "random", "block")])
+def test_seed_pick_routes_match_plain_on_card(n, l, weighted, case, route):
+    """K7's kmeans|| pick by route (ops/kmeans.py seed_pick_route) equal to
+    the plain version (the l rows of least key, ties to the lower row, -1
+    past the eligible rows), written into a slice of a larger buffer as
+    kmeans_scalable_init does; one launch, counted (and by shape) under its
+    route."""
+    from fabstir_vectordb_tpu_torch.utils import native
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(37)
+    d2, mask, u = _pick_inputs(g, dev, n, case)
+    assert km_t.seed_pick_route(n, l) == route
+    name = "seed_pick" if route == "block" else "seed_pick_radix"
+    buf = torch.full((l + 2,), -7, dtype=torch.int32, device=dev)
+    before, shapes0 = dict(native.launches), dict(native.shape_launches)
+    got = km_t.seed_pick(d2 if weighted else None, mask, u, l, weighted,
+                         out=buf[1:l + 1])
+    launched, by_shape = _launched(native, before, shapes0)
+    assert launched == {name: 1}
+    assert by_shape == {f"{name} N={n} l={l}": 1}
+    want = km_t.seed_pick_plain(d2, mask, u, l, weighted)
+    assert torch.equal(got, want)
+    assert int(buf[0]) == -7 and int(buf[-1]) == -7  # nothing written past
+    if case in ("no_mask",) or (case == "zero_d2" and weighted):
+        assert bool((got == -1).all())
+
+
 def _shard_lists(g, dev, s, b, ks, signed=True):
     """Each of s shards' partial top-ks lists of b queries, sorted, with
     signed distances, a few ties and a (+inf, -1) padded tail."""

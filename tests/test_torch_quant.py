@@ -83,10 +83,12 @@ def _codebook(seed, m, k, d=D):
 
 # (M, K, D): the D = 32 cases, then the main path's two widths at D = 384
 # (Ds = 48 and 8) and the tensor-core route's other unit sizes (Ds = 16,
-# two subspaces a stage; Ds = 12, its A columns past Ds zeroed)
+# two subspaces a stage; Ds = 12, its A columns past Ds zeroed), then the
+# decode's "any" route on the card (Ds = 3 and 130, Ds % 4 != 0)
 _PQ_REF = [pytest.param(m, k, D, id=f"{m}-{k}")
            for m, k in ((1, 16), (4, 256), (8, 16), (32, 64))] + [
-    (8, 256, 384), (48, 256, 384), (2, 64, 32), (8, 64, 96)]
+    (8, 256, 384), (48, 256, 384), (2, 64, 32), (8, 64, 96),
+    (128, 256, 384), (3, 256, 390)]
 
 
 @pytest.mark.parametrize("m,k,d", _PQ_REF)
@@ -152,6 +154,25 @@ def test_pq_encode_route(m, k, ds, offset, route):
     assert qz_t.pq_encode_route(k, ds, x.data_ptr() % 16 == 0) == route
     assert (qz_t.pq_encode_route(k, ds) == "tf32x3") == (
         ds % 4 == 0 and k >= qz_t.PQ_TC_MIN_K)
+
+
+@pytest.mark.parametrize("m,k,ds,aligned,route", [
+    (8, 256, 48, True, "tile"), (48, 256, 8, True, "tile"),
+    (24, 256, 16, True, "tile"), (32, 200, 12, True, "tile"),
+    (128, 256, 3, True, "any"), (3, 256, 130, True, "any"),
+    (8, 256, 48, False, "any"), (48, 256, 8, False, "any"),
+    (512, 256, 4, True, "tile"), (513, 256, 4, True, "any"),
+    (1, 256, 192, True, "tile"), (1, 256, 196, True, "any"),
+    (1, 1, 3072, True, "tile"), (1, 1, 3076, True, "any"),
+    (8, 100, 48, True, "tile")])
+def test_pq_decode_route(m, k, ds, aligned, route):
+    """The decode's route at its edges: the tile route where a float4 of a
+    codeword is a store (Ds % 4 == 0, codes and codebook 16-byte aligned), a
+    subspace's codebook fits a block's 192 KB, a codeword's float4s its 768
+    threads and a tile's codes 512 subspaces; else the "any" route."""
+    assert qz_t.pq_decode_route(m, k, ds, aligned) == route
+    if aligned:
+        assert qz_t.pq_decode_route(m, k, ds) == route
 
 
 def test_pq_adc_code_past_k_adds_zero():
@@ -341,6 +362,48 @@ def test_seed_pick_fallback_leaves_eligible_draws_alone():
     want = km_t.seed_pick(None, mask, u, 1, weighted=False)
     got = km_t.seed_pick_plain(zero, mask, u, 1, unweighted_if_empty=True)
     assert torch.equal(got, want) and bool(mask[int(got)])
+
+
+@pytest.mark.parametrize("n,l,route", [
+    (10_000, 409, "block"), (10_000, 1, "block"), (10_240, 409, "block"),
+    (1, 1, "block"), (1, 409, "block"), (300, 409, "block"),
+    (27_648, 409, "block"), (27_649, 409, "radix"), (27_648, 1, "block"),
+    (27_649, 1, "radix"), (20_480, 4_096, "block"), (20_481, 4_096, "radix"),
+    (8_192, 8_192, "block"), (8_193, 8_193, "radix"),
+    (100_000, 409, "radix")])
+def test_seed_pick_route(n, l, route):
+    """The pick's route at its edges: one block while its n keys and its
+    candidates (twice the power of two at or above min(l, n), at least
+    1,024), 8 bytes each, fit 224 KB (27,648 rows at l = 409 and at l = 1),
+    else the radix select."""
+    assert km_t.seed_pick_route(n, l) == route
+    m = min(l, n)
+    need = 8 * (n + max(2 * (1 << (m - 1).bit_length()), 1024))
+    assert (need <= km_t.PICK_SMEM_BYTES) == (route == "block")
+
+
+@pytest.mark.parametrize("n,l,weighted", [(5, 9, True), (1, 4, False),
+                                          (40, 40, True)])
+def test_seed_pick_plain_pads_past_the_rows(n, l, weighted):
+    """l past the rows: the plain pick gives l rows, -1 past the eligible
+    ones, as the card's kernels do; on the CPU the entry point writes them
+    into an ``out`` of l. The port's own contract (the reference's top-l
+    has no l past the rows), so held to a stable argsort, not to JAX."""
+    rng = np.random.default_rng(59)
+    d2 = _t(rng.random(n).astype(np.float32))
+    d2[0] = 0.0
+    mask = _t(rng.random(n) < 0.8)
+    u = _t(rng.random(n).astype(np.float32))
+    got = km_t.seed_pick_plain(d2, mask, u, l, weighted)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (l,)
+    key = km_t._seed_key(d2, mask, u, weighted).numpy()
+    fin = np.isfinite(key)
+    want = np.full(l, -1, np.int32)
+    want[:fin.sum()] = np.argsort(key, kind="stable")[:fin.sum()]
+    np.testing.assert_array_equal(got.numpy(), want)
+    out = torch.full((l,), 7, dtype=torch.int32)
+    assert km_t.seed_pick(d2, mask, u, l, weighted, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
 
 
 def test_pq_codebook_from_numpy_checks_the_dim():
